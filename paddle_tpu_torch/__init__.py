@@ -1,0 +1,17 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu for one NVIDIA
+H100.
+
+The JAX package `paddle_tpu` is the reference this package is held
+against; this package imports neither it nor JAX. Entry points take an
+explicit `device` (default "cuda", which raises without a card); every
+TPU kernel on a ported path is a hand-written Hopper kernel under
+`ops_cuda/`, with a plain PyTorch version beside it for CPU tensors.
+"""
+from . import models, ops_cuda, serving
+from .core import default_device, resolve_device, resolve_dtype
+from .models import GPT, GPTConfig, gpt_small, gpt_tiny
+from .serving import LLMEngine, SamplingParams
+
+__all__ = ["models", "ops_cuda", "serving", "default_device",
+           "resolve_device", "resolve_dtype", "GPT", "GPTConfig",
+           "gpt_small", "gpt_tiny", "LLMEngine", "SamplingParams"]

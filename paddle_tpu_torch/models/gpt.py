@@ -1,0 +1,374 @@
+"""GPT decoder-only transformer and its serving decode wiring, in PyTorch.
+
+The counterpart of `paddle_tpu/models/gpt.py` (config, presets and the
+functional decode path the serving engine runs). Layout choices that
+keep the two packages comparable name for name:
+
+- parameter names equal the JAX `raw_parameters()` keys
+  (`wte.weight`, `blocks.{i}.attn.qkv.weight`, ..., `ln_f.bias`);
+- linear weights keep the JAX (in, out) layout, so `_apply_linear` is
+  `x @ w` with no transposes;
+- the decode functions take a flat `{name: tensor}` parameter dict
+  (`GPT.raw_parameters()`), like the JAX functions take the raw pytree.
+
+Numerics follow the reference: LayerNorm statistics in fp32, GELU with
+the tanh approximation, attention scores in fp32 with a -1e30 mask.
+Cache slabs are written IN PLACE (the JAX code returns updated arrays
+and donates the old ones instead).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..core import DeviceLike, make_generator, resolve_device, resolve_dtype
+
+__all__ = ["GPTConfig", "GPT", "gpt_tiny", "gpt_small", "gpt_medium",
+           "gpt_1p3b", "param_shapes", "generate_greedy"]
+
+NEG_INF = -1e30
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    max_seq_len: int = 1024
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: Optional[int] = None
+    layer_norm_eps: float = 1e-5
+    initializer_range: float = 0.02
+    tie_embeddings: bool = True
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_heads:
+            raise ValueError(f"hidden_size {self.hidden_size} not divisible "
+                             f"by num_heads {self.num_heads}")
+
+    @property
+    def ffn_size(self) -> int:
+        return self.intermediate_size or 4 * self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+def param_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
+    """{name: shape} of every GPT parameter, in construction order."""
+    h, f = cfg.hidden_size, cfg.ffn_size
+    out = {"wte.weight": (cfg.vocab_size, h),
+           "wpe.weight": (cfg.max_seq_len, h)}
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}."
+        out.update({
+            pre + "ln1.weight": (h,), pre + "ln1.bias": (h,),
+            pre + "attn.qkv.weight": (h, 3 * h),
+            pre + "attn.qkv.bias": (3 * h,),
+            pre + "attn.out.weight": (h, h), pre + "attn.out.bias": (h,),
+            pre + "ln2.weight": (h,), pre + "ln2.bias": (h,),
+            pre + "mlp.fc1.weight": (h, f), pre + "mlp.fc1.bias": (f,),
+            pre + "mlp.fc2.weight": (f, h), pre + "mlp.fc2.bias": (h,),
+        })
+    out.update({"ln_f.weight": (h,), "ln_f.bias": (h,)})
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = (h, cfg.vocab_size)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# modules: parameter containers with the reference's names and init laws
+# --------------------------------------------------------------------------- #
+
+def _normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape).normal_(0.0, std, generator=gen))
+
+
+class _Linear(nn.Module):
+    """y = x @ weight + bias with weight (in, out), the JAX layout."""
+
+    def __init__(self, fin: int, fout: int, std: float,
+                 gen: torch.Generator, bias: bool = True):
+        super().__init__()
+        self.weight = _normal((fin, fout), std, gen)
+        self.bias = nn.Parameter(torch.zeros(fout)) if bias else None
+
+
+class _LayerNorm(nn.Module):
+    def __init__(self, h: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(h))
+        self.bias = nn.Parameter(torch.zeros(h))
+
+
+class _Embedding(nn.Module):
+    def __init__(self, n: int, h: int, std: float, gen: torch.Generator):
+        super().__init__()
+        self.weight = _normal((n, h), std, gen)
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig, gen: torch.Generator):
+        super().__init__()
+        h, std = cfg.hidden_size, cfg.initializer_range
+        self.qkv = _Linear(h, 3 * h, std, gen)
+        self.out = _Linear(h, h, std / math.sqrt(2 * cfg.num_layers), gen)
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg: GPTConfig, gen: torch.Generator):
+        super().__init__()
+        std = cfg.initializer_range
+        self.fc1 = _Linear(cfg.hidden_size, cfg.ffn_size, std, gen)
+        self.fc2 = _Linear(cfg.ffn_size, cfg.hidden_size,
+                           std / math.sqrt(2 * cfg.num_layers), gen)
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg: GPTConfig, gen: torch.Generator):
+        super().__init__()
+        self.ln1 = _LayerNorm(cfg.hidden_size)
+        self.attn = GPTAttention(cfg, gen)
+        self.ln2 = _LayerNorm(cfg.hidden_size)
+        self.mlp = GPTMLP(cfg, gen)
+
+
+class GPT(nn.Module):
+    """Decoder-only LM with the reference's parameter names and init
+    laws: N(0, initializer_range) for embeddings, qkv and fc1; std
+    initializer_range / sqrt(2 L) for the residual projections out and
+    fc2; LayerNorm weights 1 and biases 0; linear biases 0. The weights
+    come from `seed` through an explicit generator (drawn in fp32 on
+    the CPU, then moved to `device` in `dtype`), so a seed gives the
+    same model on every device."""
+
+    def __init__(self, cfg: GPTConfig, seed: int = 0,
+                 device: DeviceLike = None, dtype=None):
+        super().__init__()
+        dev = resolve_device(device)         # fail fast, before the init
+        self.cfg = cfg
+        gen = make_generator(seed)
+        std = cfg.initializer_range
+        self.wte = _Embedding(cfg.vocab_size, cfg.hidden_size, std, gen)
+        self.wpe = _Embedding(cfg.max_seq_len, cfg.hidden_size, std, gen)
+        self.blocks = nn.ModuleList(GPTBlock(cfg, gen)
+                                    for _ in range(cfg.num_layers))
+        self.ln_f = _LayerNorm(cfg.hidden_size)
+        self.lm_head = None if cfg.tie_embeddings else \
+            _Linear(cfg.hidden_size, cfg.vocab_size, std, gen, bias=False)
+        self.to(device=dev, dtype=resolve_dtype(dtype))
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.wte.weight.dtype
+
+    def raw_parameters(self) -> Params:
+        """Flat {name: tensor} view of the weights (detached, storage
+        shared) — what the functional decode path consumes."""
+        return {k: p.detach() for k, p in self.named_parameters()}
+
+    @torch.no_grad()
+    def logits(self, input_ids) -> torch.Tensor:
+        """Inference logits (b, s, vocab) of a causal forward over
+        `input_ids` (b, s), through the serving decode wiring."""
+        ids = torch.as_tensor(input_ids, device=self.device)
+        b, s = ids.shape
+        cfg = self.cfg
+        k = torch.zeros((cfg.num_layers, b, s, cfg.num_heads, cfg.head_dim),
+                        dtype=self.dtype, device=self.device)
+        v = torch.zeros_like(k)
+        return _decode_forward(cfg, self.raw_parameters(), ids, 0, k, v)[0]
+
+
+def gpt_tiny(seed: int = 0, device: DeviceLike = None, dtype=None, **kw):
+    """4L/128h config for tests."""
+    return GPT(GPTConfig(vocab_size=1024, max_seq_len=256, hidden_size=128,
+                         num_layers=4, num_heads=4, **kw),
+               seed=seed, device=device, dtype=dtype)
+
+
+def gpt_small(seed: int = 0, device: DeviceLike = None, dtype=None, **kw):
+    return GPT(GPTConfig(hidden_size=768, num_layers=12, num_heads=12, **kw),
+               seed=seed, device=device, dtype=dtype)
+
+
+def gpt_medium(seed: int = 0, device: DeviceLike = None, dtype=None, **kw):
+    return GPT(GPTConfig(hidden_size=1024, num_layers=24, num_heads=16, **kw),
+               seed=seed, device=device, dtype=dtype)
+
+
+def gpt_1p3b(seed: int = 0, device: DeviceLike = None, dtype=None, **kw):
+    """GPT-3 1.3B-ish: 24L, 2048h, 16 heads."""
+    return GPT(GPTConfig(hidden_size=2048, num_layers=24, num_heads=16,
+                         max_seq_len=2048, **kw),
+               seed=seed, device=device, dtype=dtype)
+
+
+# --------------------------------------------------------------------------- #
+# functional decode wiring (the serving path)
+# --------------------------------------------------------------------------- #
+
+def _apply_linear(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
+    """Serving-path linear over the fp `<prefix>.weight` (in, out)."""
+    w = p.get(prefix + ".weight")
+    if w is None:
+        if prefix + ".qweight" in p:
+            raise NotImplementedError(
+                f"{prefix}.qweight: int8 PTQ weights are not ported yet "
+                f"(ROADMAP Queue 1 item 10, kernel K7)")
+        raise KeyError(f"{prefix}.weight")
+    out = torch.matmul(x, w)
+    b = p.get(prefix + ".bias")
+    return out if b is None else out + b
+
+
+def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+        eps: float) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w + b).to(x.dtype)
+
+
+def _block_params(params: Params, i: int) -> Params:
+    pre = f"blocks.{i}."
+    return {k[len(pre):]: v for k, v in params.items()
+            if k.startswith(pre)}
+
+
+def _body_layers(cfg: GPTConfig, params: Params, x: torch.Tensor,
+                 per_layer_attn: Callable, num_layers: Optional[int] = None
+                 ) -> torch.Tensor:
+    """The transformer block wiring shared by `_decode_forward` and the
+    serving engine: ln1 → fused qkv → per-layer cache-attention
+    callback → out proj → residual → ln2 → gelu(tanh) MLP → residual;
+    final ln_f."""
+    eps = cfg.layer_norm_eps
+    for i in range(num_layers if num_layers is not None
+                   else cfg.num_layers):
+        p = _block_params(params, i)
+        h = _ln(x, p["ln1.weight"], p["ln1.bias"], eps)
+        qkv = _apply_linear(p, "attn.qkv", h).reshape(
+            x.shape[0], x.shape[1], 3, cfg.num_heads, cfg.head_dim)
+        a = per_layer_attn(i, qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        x = x + _apply_linear(p, "attn.out", a.reshape(x.shape))
+        h = _ln(x, p["ln2.weight"], p["ln2.bias"], eps)
+        m = torch.nn.functional.gelu(_apply_linear(p, "mlp.fc1", h),
+                                     approximate="tanh")
+        x = x + _apply_linear(p, "mlp.fc2", m)
+    return _ln(x, params["ln_f.weight"], params["ln_f.bias"], eps)
+
+
+def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """LM head: explicit weight or tied embeddings."""
+    if "lm_head.weight" in params or "lm_head.qweight" in params:
+        return _apply_linear(params, "lm_head", x)
+    return torch.matmul(x, params["wte.weight"].t())
+
+
+def _masked_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                   keep: torch.Tensor) -> torch.Tensor:
+    """THE fixed-cache attention numerics (fp32 scores, -1e30 mask):
+    q (b, s, nh, hd) against cache rows kc/vc (b, T, nh, hd) with a
+    boolean keep mask broadcastable to (b, nh, s, T)."""
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), kc.float())
+    scores = scores / math.sqrt(q.shape[-1])
+    scores = torch.where(keep, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(vc.dtype)
+    return torch.einsum("bnqk,bknd->bqnd", w, vc)
+
+
+def _slot_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                 pos: torch.Tensor, impl: str = "masked") -> torch.Tensor:
+    """Decode-step attention over a SLOTTED cache: q (S, 1, nh, hd)
+    against kc/vc (S, T, nh, hd), slot `s` attending rows
+    `[0, pos[s]]` inclusive (the row at `pos` was written this step).
+
+    - impl="masked": the `_masked_attend` full-slab path — compute
+      proportional to T; the engine's bitwise numerics reference and
+      its CPU path.
+    - impl="ragged": the hand-written flash-decode kernel
+      (`ops_cuda/decode_attention.py`), which reads only the live rows;
+      blockwise online-softmax order makes it approximately (not
+      bit-) equal to the masked path.
+    """
+    if impl == "ragged":
+        from ..ops_cuda.decode_attention import ragged_decode_attention
+        return ragged_decode_attention(q.contiguous(), kc, vc,
+                                       (pos + 1).to(torch.int32))
+    if impl != "masked":
+        raise ValueError(f"impl must be 'masked' or 'ragged', got {impl!r}")
+    T = kc.shape[1]
+    keep = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
+    return _masked_attend(q, kc, vc, keep[:, None, None])
+
+
+def _decode_forward(cfg: GPTConfig, params: Params, ids: torch.Tensor,
+                    pos: int, k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """Cache-writing forward over `ids` (b, s) starting at absolute
+    `pos`; k_cache/v_cache (L, b, T, nh, hd) are written in place.
+    Returns (logits (b, s, vocab), k_cache, v_cache)."""
+    b, s = ids.shape
+    dev = ids.device
+    positions = pos + torch.arange(s, device=dev)
+    x = params["wte.weight"][ids] + params["wpe.weight"][positions][None]
+    T = k_cache.shape[2]
+    keep = (torch.arange(T, device=dev)[None, :]
+            <= positions[:, None])[None, None]               # causal
+
+    def attn(i, q, kn, vn):
+        k_cache[i, :, pos:pos + s] = kn.to(k_cache.dtype)
+        v_cache[i, :, pos:pos + s] = vn.to(v_cache.dtype)
+        return _masked_attend(q, k_cache[i], v_cache[i], keep)
+
+    x = _body_layers(cfg, params, x, attn)
+    return _head(params, x), k_cache, v_cache
+
+
+def _decode_dims(cfg: GPTConfig, ids: torch.Tensor, max_new_tokens: int):
+    """Shared decode-shape validation: (batch, prompt_len, total_len)."""
+    b, prompt = ids.shape
+    total = prompt + max_new_tokens
+    if total > cfg.max_seq_len:
+        raise ValueError(f"prompt+new = {total} exceeds max_seq_len "
+                         f"{cfg.max_seq_len}")
+    return b, prompt, total
+
+
+@torch.no_grad()
+def generate_greedy(model: GPT, input_ids,
+                    max_new_tokens: int = 32) -> torch.Tensor:
+    """Greedy decoding over a preallocated fixed-shape KV cache — the
+    `generate_compiled(temperature=0)` counterpart: prefill the prompt,
+    then one cache-writing step per token. Returns (b, prompt + new)."""
+    cfg = model.cfg
+    params = model.raw_parameters()
+    ids = torch.as_tensor(input_ids, device=model.device)
+    if max_new_tokens < 1:
+        return ids
+    b, prompt, total = _decode_dims(cfg, ids, max_new_tokens)
+    k_cache = torch.zeros((cfg.num_layers, b, total, cfg.num_heads,
+                           cfg.head_dim), dtype=model.dtype,
+                          device=model.device)
+    v_cache = torch.zeros_like(k_cache)
+    logits, _, _ = _decode_forward(cfg, params, ids, 0, k_cache, v_cache)
+    buf = torch.zeros((b, total), dtype=ids.dtype, device=ids.device)
+    buf[:, :prompt] = ids
+    buf[:, prompt] = torch.argmax(logits[:, -1].float(), dim=-1)
+    for t in range(max_new_tokens - 1):
+        pos = prompt + t
+        logits, _, _ = _decode_forward(cfg, params, buf[:, pos:pos + 1], pos,
+                                       k_cache, v_cache)
+        buf[:, pos + 1] = torch.argmax(logits[:, -1].float(), dim=-1)
+    return buf

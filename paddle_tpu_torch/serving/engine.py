@@ -1,0 +1,654 @@
+"""`LLMEngine`: continuous batching over a slotted KV cache, in PyTorch.
+
+The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
+
+- ONE decode shape. All `max_slots` lanes step together; per-request
+  state (current token, position, sampling knobs, EOS id, remaining
+  budget, live flag) is DATA in `[slots]` tensors, so admitting or
+  retiring a request never changes a shape.
+- FUSED DECODE BLOCKS. A dispatch runs `decode_block_size` decode steps
+  back to back on the device: sampling, cache writes, position advance
+  and the per-lane EOS / budget / cache-full FREEZE masks all stay on
+  the device, and the lane state (cur/pos/rem/act) is handed from one
+  block to the next without leaving it. The host syncs ONCE per block
+  (`metrics.host_syncs`), to read the block's token and emit matrix,
+  and admits/retires at block boundaries. Frozen lanes park their
+  (discarded) K/V writes at row max_seq - 1, which no live lane ever
+  attends.
+- MONOLITHIC BUCKETED PREFILL. A prompt is padded to the smallest
+  length bucket (powers of two up to `max_seq`) and written into its
+  slot's rows in one forward; the last real position's logits give the
+  first token.
+- Attention goes through `models.gpt._slot_attend`: `attend_impl`
+  "ragged" runs the hand-written flash-decode kernel (K1), "masked" the
+  full-slab `_masked_attend`; "auto" picks "ragged" on a CUDA device
+  and "masked" on the CPU.
+
+Numerics: under "masked", a request decoded beside others is bitwise
+identical to the same request decoded alone, for any
+`decode_block_size` (lanes are row-independent). Sampled streams
+depend only on (engine seed, the request's salt, position) — see
+`serving/sampler.py` — so they too are invariant to block size and lane
+assignment; the salt is assigned when a request leaves the queue.
+
+The KV slabs are updated in place (the JAX engine donates them into
+each compiled step instead). Features of the JAX engine that are not
+ported yet raise `NotImplementedError` when their knob is passed with
+any value other than "off"; they are listed in ROADMAP.md.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..core import DeviceLike, resolve_device
+from ..models.gpt import _body_layers, _head, _masked_attend, _slot_attend
+from .kv_cache import KVCacheManager
+from .metrics import ServingMetrics
+from .sampler import DOMAIN_FIRST, sample_tokens, sample_tokens_per_lane
+
+__all__ = ["SamplingParams", "GenerationResult", "EngineOverloadError",
+           "LLMEngine"]
+
+# JAX-engine knobs of features the port does not have yet: the values
+# that mean "feature off" (what the port does) are accepted, any other
+# value raises. Each feature is an open item of ROADMAP.md.
+_UNSUPPORTED_KNOBS = {
+    "prefill_chunk": ((None,), "chunked prefill"),
+    "prefill_budget": ((None,), "prefill_budget interleaving"),
+    "overlap": ((False,), "overlapped block dispatch"),
+    "max_retries": ((0,), "dispatch retries"),
+    "retry_backoff_s": ((), "dispatch retries"),
+    "retry_backoff_max_s": ((), "dispatch retries"),
+    "prefix_cache": ((False,), "the prefix cache"),
+    "prefix_block": ((), "the prefix cache"),
+    "prefix_pool_pages": ((None, 0), "the prefix cache"),
+    "kv_layout": (("slotted",), "the paged KV layout"),
+    "page_size": ((None,), "the paged KV layout"),
+    "kv_pages": ((None,), "the paged KV layout"),
+    "kv_dtype": ((None,), "int8 KV (kv_dtype)"),
+    "speculate_k": ((0,), "speculative decoding"),
+    "draft": ((), "speculative decoding"),
+    "draft_layers": ((None,), "speculative decoding"),
+    "mesh": ((None,), "TP-sharded serving"),
+    "tp": ((1,), "TP-sharded serving"),
+    "trace": ((False,), "the lifecycle tracer"),
+    "trace_capacity": ((), "the lifecycle tracer"),
+    "flight_dir": ((None,), "the flight recorder"),
+    "name": ((None,), "the profiler stats registry"),
+    "register_stats": ((False,), "the profiler stats registry"),
+    "kv_tier": ((None,), "the fleet KV tier"),
+}
+
+
+class EngineOverloadError(RuntimeError):
+    """Admission rejected: the bounded request queue is full."""
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    """Per-request generation knobs (turned into data rows of the one
+    decode shape)."""
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    eos_token_id: Optional[int] = None
+    # TTL from submit, checked at block boundaries: on expiry the
+    # request finishes with reason "deadline" and keeps its tokens
+    deadline_s: Optional[float] = None
+    # admission order: highest priority first, FIFO within a level
+    priority: int = 0
+    # best-of-n continuations; only n = 1 is served by the port yet
+    n: int = 1
+
+    def __post_init__(self):
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, "
+                             f"got {self.deadline_s}")
+        if not isinstance(self.priority, int) \
+                or isinstance(self.priority, bool):
+            raise ValueError(f"priority must be an int, "
+                             f"got {self.priority!r}")
+        if not isinstance(self.n, int) or isinstance(self.n, bool) \
+                or self.n < 1:
+            raise ValueError(f"n must be an int >= 1, got {self.n!r}")
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    request_id: int
+    prompt: np.ndarray            # (P,) int32
+    token_ids: List[int]          # generated tokens (incl. eos if hit)
+    finish_reason: str            # "stop" | "length" | "cancelled" |
+    #   "deadline"
+    ttft_s: float                 # submit → first token wall time
+    queue_wait_s: float = 0.0     # submit → prefill start
+
+    @property
+    def text_ids(self) -> np.ndarray:
+        """prompt + generated, one array."""
+        return np.concatenate([self.prompt,
+                               np.asarray(self.token_ids, np.int32)])
+
+
+@dataclasses.dataclass
+class _Request:
+    rid: int
+    prompt: np.ndarray
+    params: SamplingParams
+    submit_t: float
+    generated: List[int] = dataclasses.field(default_factory=list)
+    slot: int = -1
+    ttft_s: float = 0.0
+    finish_reason: Optional[str] = None
+    deadline_t: Optional[float] = None
+    # per-request sampling salt, assigned when the request leaves the
+    # queue (see sampler.py); None until then
+    salt: Optional[int] = None
+    queue_wait_s: float = 0.0
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """A dispatched, not yet processed decode block."""
+    packed: torch.Tensor          # (2, block, slots): tokens, emit flags
+    t0: float                     # dispatch wall time
+    steps: int                    # in-program steps (== block size)
+
+
+def _default_buckets(max_seq: int) -> List[int]:
+    out, b = [], 16
+    while b < max_seq:
+        out.append(b)
+        b *= 2
+    out.append(max_seq)
+    return out
+
+
+def _embed(params, ids: torch.Tensor, positions: torch.Tensor):
+    pos = torch.clamp(positions, 0, params["wpe.weight"].shape[0] - 1)
+    return params["wte.weight"][ids] + params["wpe.weight"][pos]
+
+
+def _prefill_forward(cfg, params, k_list, v_list, ids: torch.Tensor,
+                     slot: int, pos0: int, length: int) -> torch.Tensor:
+    """Prefill of `ids` (1, L) (a padded bucket) into rows
+    [pos0, pos0 + L) of `slot`, in place; returns the fp32 logits of
+    the last REAL token (position pos0 + length - 1). Padded rows past
+    `length` are written too and rewritten before they can be
+    attended."""
+    L = ids.shape[1]
+    T = k_list[0].shape[1]
+    dev = ids.device
+    q_pos = pos0 + torch.arange(L, device=dev)
+    x = _embed(params, ids, q_pos[None])                      # (1, L, h)
+    keep = (torch.arange(T, device=dev)[None, :]
+            <= q_pos[:, None])[None, None]                    # (1,1,L,T)
+
+    def attn(i, q, kn, vn):
+        k_list[i][slot, pos0:pos0 + L] = kn[0].to(k_list[i].dtype)
+        v_list[i][slot, pos0:pos0 + L] = vn[0].to(v_list[i].dtype)
+        return _masked_attend(q, k_list[i][slot:slot + 1],
+                              v_list[i][slot:slot + 1], keep)
+
+    x = _body_layers(cfg, params, x, attn)
+    return _head(params, x[:, length - 1:length])[0, 0].float()
+
+
+def _decode_block(cfg, params, k_list, v_list, cur, pos, rem, act, salt,
+                  temp, topk, topp, eos, *, block: int, attend_impl: str,
+                  seed: int):
+    """`block` fused decode steps over every lane, all on the device.
+    Per step and lane: embed cur@pos → write K/V at pos (frozen lanes
+    park at row T-1) → attention over the slot's rows → sample with the
+    lane's (seed, salt, pos) key → freeze-mask update (EOS / budget /
+    cache full). Returns (tokens (block, S), emits (block, S), cur, pos,
+    rem, act); the lane state stays on the device."""
+    S, T = k_list[0].shape[0], k_list[0].shape[1]
+    lanes = torch.arange(S, device=cur.device)
+    toks, emits = [], []
+    for _ in range(block):
+        x = _embed(params, cur, pos)[:, None, :]              # (S, 1, h)
+        wpos = torch.where(act, pos, T - 1)
+
+        def attn(i, q, kn, vn, wpos=wpos, pos=pos):
+            k_list[i][lanes, wpos] = kn[:, 0].to(k_list[i].dtype)
+            v_list[i][lanes, wpos] = vn[:, 0].to(v_list[i].dtype)
+            return _slot_attend(q, k_list[i], v_list[i], pos, attend_impl)
+
+        x = _body_layers(cfg, params, x, attn)
+        logits = _head(params, x)[:, 0].float()
+        nxt = sample_tokens_per_lane(logits, seed, salt, pos, temp, topk,
+                                     topp)
+        emit = act
+        toks.append(torch.where(emit, nxt, 0))
+        emits.append(emit)
+        hit_eos = emit & (eos >= 0) & (nxt == eos)
+        stepped = emit.to(pos.dtype)
+        pos = pos + stepped
+        rem = rem - stepped
+        cur = torch.where(emit, nxt, cur)
+        # the freeze predicate _check_finished applies on the host
+        act = act & ~hit_eos & (rem > 0) & (pos < T - 1)
+    return torch.stack(toks), torch.stack(emits), cur, pos, rem, act
+
+
+class LLMEngine:
+    """Continuous-batching generation engine over a `GPT` model.
+
+    >>> eng = LLMEngine(model, max_slots=8, device="cuda")
+    >>> rid = eng.submit(prompt_tokens, SamplingParams(max_new_tokens=64))
+    >>> while eng.has_work():
+    ...     eng.step()
+    >>> out = eng.result(rid)
+
+    or the batch convenience `eng.generate([p1, p2, ...], params)`.
+    `device` defaults to "cuda" and raises without a card; the model's
+    weights are used on that device (copied there if they live
+    elsewhere).
+    """
+
+    def __init__(self, model, max_slots: int = 8, max_queue: int = 64,
+                 max_seq: Optional[int] = None,
+                 prefill_buckets: Optional[Sequence[int]] = None,
+                 seed: int = 0, decode_block_size: int = 8,
+                 attend_impl: str = "auto", device: DeviceLike = None,
+                 **knobs):
+        for knob, value in knobs.items():
+            if knob not in _UNSUPPORTED_KNOBS:
+                raise TypeError(f"LLMEngine got an unexpected keyword "
+                                f"argument {knob!r}")
+            off, feature = _UNSUPPORTED_KNOBS[knob]
+            if not any(value is o or value == o for o in off):
+                raise NotImplementedError(
+                    f"{knob}={value!r}: {feature} is not ported to the "
+                    f"PyTorch engine yet (see ROADMAP.md)")
+        cfg = model.cfg
+        self.model = model
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_seq = int(max_seq or cfg.max_seq_len)
+        if not 1 <= self.max_seq <= cfg.max_seq_len:
+            raise ValueError(f"max_seq {self.max_seq} outside [1, "
+                             f"{cfg.max_seq_len}] (model max_seq_len)")
+        self.max_slots = int(max_slots)
+        self.max_queue = int(max_queue)
+        if decode_block_size < 1:
+            raise ValueError("decode_block_size must be >= 1")
+        self.decode_block_size = int(decode_block_size)
+        if attend_impl not in ("auto", "masked", "ragged"):
+            raise ValueError(f"attend_impl must be 'auto', 'masked' or "
+                             f"'ragged', got {attend_impl!r}")
+        if attend_impl == "auto":
+            attend_impl = "ragged" if self.device.type == "cuda" \
+                else "masked"
+        self.attend_impl = attend_impl
+        self.seed = int(seed)
+        self._params = {k: v.to(self.device)
+                        for k, v in model.raw_parameters().items()}
+        dtype = self._params["wte.weight"].dtype
+        self.cache = KVCacheManager(cfg.num_layers, self.max_slots,
+                                    self.max_seq, cfg.num_heads,
+                                    cfg.head_dim, dtype, self.device)
+        self.metrics = ServingMetrics(self.max_slots)
+        self.metrics.kv_cache_bytes = self.cache.nbytes()
+        self._queue: collections.deque = collections.deque()
+        self._active: Dict[int, _Request] = {}      # slot -> request
+        self._results: Dict[int, GenerationResult] = {}
+        self._next_id = 0
+        self._next_salt = 0
+        bk = sorted({int(b) for b in prefill_buckets}) if prefill_buckets \
+            else _default_buckets(self.max_seq)
+        self._buckets = [min(b, self.max_seq) for b in bk]
+        if self._buckets[-1] < self.max_seq:
+            self._buckets.append(self.max_seq)
+        # per-slot scheduler state. The HOST MIRRORS are authoritative
+        # at admission; between blocks the decode block hands its lane
+        # state straight to the next dispatch on the device, and the
+        # mirrors are refreshed from each block's token/emit matrix.
+        # `_dirty` marks mirror edits that must be uploaded first.
+        S = self.max_slots
+        self._cur = np.zeros(S, np.int64)
+        self._pos = np.zeros(S, np.int64)
+        self._salt = np.zeros(S, np.int64)
+        self._temp = np.zeros(S, np.float32)
+        self._topk = np.zeros(S, np.int64)
+        self._topp = np.ones(S, np.float32)
+        self._eos = np.full(S, -1, np.int64)     # -1 = no eos id
+        self._rem = np.zeros(S, np.int64)        # decode budget left
+        self._act = np.zeros(S, bool)            # lane live (not frozen)
+        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self._dirty = True
+
+    # ------------------------------------------------------------------ #
+    # submission / results
+    # ------------------------------------------------------------------ #
+    def _validate(self, prompt, params: SamplingParams) -> np.ndarray:
+        """Raises `ValueError` (an INVALID reject) for a request that
+        can never be served; returns the normalised prompt."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            self.metrics.on_reject("invalid")
+            raise ValueError("empty prompt")
+        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
+            self.metrics.on_reject("invalid")
+            raise ValueError(f"prompt token ids outside [0, "
+                             f"{self.cfg.vocab_size})")
+        total = prompt.size + params.max_new_tokens
+        if total > self.max_seq:
+            self.metrics.on_reject("invalid")
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens "
+                f"({params.max_new_tokens}) = {total} exceeds the engine "
+                f"max_seq {self.max_seq}")
+        if params.n != 1:
+            raise NotImplementedError(
+                f"n={params.n}: best-of-n forking is not ported to the "
+                f"PyTorch engine yet (see ROADMAP.md)")
+        return prompt
+
+    def submit(self, prompt, params: Optional[SamplingParams] = None) -> int:
+        """Enqueue a request; returns its id. Raises `ValueError` for a
+        request that can never be served and `EngineOverloadError` when
+        the bounded queue is full."""
+        params = params or SamplingParams()
+        return self._enqueue(self._validate(prompt, params), params)
+
+    def _enqueue(self, prompt: np.ndarray, params: SamplingParams) -> int:
+        if len(self._queue) >= self.max_queue:
+            self.metrics.on_reject("overload")
+            raise EngineOverloadError(
+                f"request queue full ({self.max_queue} pending, "
+                f"{self.cache.num_active}/{self.max_slots} slots busy) — "
+                f"retry after in-flight requests drain")
+        rid = self._next_id
+        self._next_id += 1
+        now = time.perf_counter()
+        req = _Request(rid, prompt, params, now)
+        if params.deadline_s is not None:
+            req.deadline_t = now + params.deadline_s
+        self._queue.append(req)
+        self.metrics.on_submit()
+        return rid
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a queued or generating request. Returns True iff it
+        was live. A generating request keeps its emitted tokens; its
+        lane freezes at the next dispatch and its slot frees at the
+        next block boundary. Other lanes are unaffected."""
+        for req in self._queue:
+            if req.rid == rid:
+                self._queue.remove(req)
+                self._finish_early(req, "cancelled")
+                self.metrics.on_cancel()
+                return True
+        for slot, req in self._active.items():
+            if req.rid == rid and req.finish_reason is None:
+                req.finish_reason = "cancelled"
+                self._freeze_slot(slot)
+                self.metrics.on_cancel()
+                return True
+        return False
+
+    def result(self, rid: int) -> GenerationResult:
+        """Fetch-and-evict a finished request's result."""
+        if rid not in self._results:
+            raise KeyError(f"request {rid} not finished (or unknown, "
+                           f"or already collected)")
+        return self._results.pop(rid)
+
+    def has_work(self) -> bool:
+        return bool(self._queue or self._active)
+
+    def stats(self) -> Dict[str, float]:
+        return self.metrics.snapshot()
+
+    # ------------------------------------------------------------------ #
+    # scheduler
+    # ------------------------------------------------------------------ #
+    @torch.no_grad()
+    def step(self) -> int:
+        """One scheduler iteration: expire deadlines, admit queued
+        requests into free slots (prefill + first token), run one
+        decode block, retire finished requests. Returns the number of
+        requests completed."""
+        self._expire_deadlines()
+        while self._queue and self.cache.num_free > 0:
+            self._admit_next()
+        if any(r.finish_reason is None for r in self._active.values()):
+            self._process_block(self._dispatch_block())
+        done = self._retire_finished()
+        self.metrics.set_gauges(len(self._queue), self.cache.num_active)
+        return done
+
+    def run_until_complete(self, max_steps: Optional[int] = None):
+        steps = 0
+        while self.has_work():
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"engine not drained after {steps} steps "
+                    f"({len(self._queue)} queued, {len(self._active)} "
+                    f"active)")
+
+    def generate(self, prompts: Sequence,
+                 params: Union[SamplingParams, Sequence[SamplingParams],
+                               None] = None) -> List[GenerationResult]:
+        """Submit a batch and run to completion; results in input
+        order. Every request is validated before any is enqueued."""
+        if isinstance(params, SamplingParams) or params is None:
+            params = [params] * len(prompts)
+        if len(params) != len(prompts):
+            raise ValueError(f"got {len(prompts)} prompts but "
+                             f"{len(params)} SamplingParams")
+        params = [sp or SamplingParams() for sp in params]
+        prompts = [self._validate(p, sp) for p, sp in zip(prompts, params)]
+        rids = []
+        for p, sp in zip(prompts, params):
+            # a batch larger than max_queue drains with scheduler steps
+            while len(self._queue) >= self.max_queue and self.has_work():
+                self.step()
+            rids.append(self._enqueue(p, sp))
+        self.run_until_complete()
+        return [self.result(r) for r in rids]
+
+    # ------------------------------------------------------------------ #
+    # admission
+    # ------------------------------------------------------------------ #
+    def _pop_highest_priority(self) -> _Request:
+        """Highest `priority` first, FIFO within a level. The sampling
+        salt is assigned here, when the request leaves the queue."""
+        best = self._queue[0]
+        for req in self._queue:
+            if req.params.priority > best.params.priority:
+                best = req
+        self._queue.remove(best)
+        if best.salt is None:
+            best.salt = self._next_salt
+            self._next_salt = (self._next_salt + 1) & 0x7FFFFFFF
+        return best
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self._buckets:
+            if b >= n:
+                return b
+        return self.max_seq
+
+    def _admit_next(self):
+        req = self._pop_highest_priority()
+        slot = self.cache.allocate()
+        try:
+            self._admit_one(req, slot)
+        except BaseException:
+            # leave the engine consistent: the slot frees and the
+            # request returns to the head of the queue (salt kept)
+            self.cache.release(slot)
+            self._queue.appendleft(req)
+            raise
+
+    def _admit_one(self, req: _Request, slot: int):
+        t0 = time.perf_counter()
+        logits = self._prefill_tokens(slot, req.prompt)
+        self.cache.advance(slot, int(req.prompt.size))
+        p = req.params
+        first = int(sample_tokens(
+            logits[None], self.seed, req.salt, int(req.prompt.size) - 1,
+            p.temperature, p.top_k, p.top_p, DOMAIN_FIRST)[0])
+        t1 = time.perf_counter()
+        req.queue_wait_s = t0 - req.submit_t
+        self.metrics.on_admit(int(req.prompt.size), t1 - t0,
+                              queue_wait_s=req.queue_wait_s)
+        req.ttft_s = t1 - req.submit_t
+        self.metrics.on_first_token(req.ttft_s)
+        req.generated.append(first)
+        self._install_slot(req, slot, pos=int(req.prompt.size))
+
+    def _prefill_tokens(self, slot: int, tokens: np.ndarray) -> torch.Tensor:
+        """Bucketed prefill of `tokens` into rows [0, len) of `slot`;
+        returns the last real token's fp32 logits."""
+        n = int(tokens.size)
+        bucket = min(self._bucket_for(n), self.max_seq)
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :n] = tokens
+        return _prefill_forward(self.cfg, self._params, self.cache.k,
+                                self.cache.v,
+                                torch.from_numpy(ids).to(self.device),
+                                slot, 0, n)
+
+    def _install_slot(self, req: _Request, slot: int, pos: int):
+        """Wire a request into its lane's mirrors."""
+        req.slot = slot
+        self._active[slot] = req
+        p = req.params
+        self._cur[slot] = req.generated[-1]
+        self._pos[slot] = pos
+        self._salt[slot] = req.salt or 0
+        self._temp[slot] = p.temperature
+        self._topk[slot] = p.top_k
+        self._topp[slot] = p.top_p
+        self._eos[slot] = -1 if p.eos_token_id is None else p.eos_token_id
+        self._rem[slot] = p.max_new_tokens - len(req.generated)
+        self._check_finished(req, req.generated[-1])
+        self._act[slot] = req.finish_reason is None
+        self._dirty = True
+
+    # ------------------------------------------------------------------ #
+    # request lifecycle
+    # ------------------------------------------------------------------ #
+    def _freeze_slot(self, slot: int):
+        self._act[slot] = False
+        self._dirty = True
+
+    def _finish_early(self, req: _Request, reason: str):
+        req.finish_reason = reason
+        self._record_result(req)
+
+    def _record_result(self, req: _Request):
+        self._results[req.rid] = GenerationResult(
+            req.rid, req.prompt, req.generated, req.finish_reason,
+            req.ttft_s, queue_wait_s=req.queue_wait_s)
+        if req.finish_reason in ("stop", "length"):
+            self.metrics.on_complete()
+
+    def _expire_deadlines(self):
+        now = time.perf_counter()
+        for req in [r for r in self._queue
+                    if r.deadline_t is not None and now >= r.deadline_t]:
+            self._queue.remove(req)
+            req.queue_wait_s = now - req.submit_t
+            self.metrics.queue_wait.observe(req.queue_wait_s)
+            self._finish_early(req, "deadline")
+            self.metrics.on_deadline()
+        for slot, req in self._active.items():
+            if (req.finish_reason is None and req.deadline_t is not None
+                    and now >= req.deadline_t):
+                req.finish_reason = "deadline"
+                self._freeze_slot(slot)
+                self.metrics.on_deadline()
+
+    def _check_finished(self, req: _Request, tok: int):
+        p = req.params
+        if p.eos_token_id is not None and tok == p.eos_token_id:
+            req.finish_reason = "stop"
+        elif len(req.generated) >= p.max_new_tokens:
+            req.finish_reason = "length"
+        elif int(self._pos[req.slot]) >= self.max_seq - 1:
+            req.finish_reason = "length"  # cache exhausted
+
+    def _retire_finished(self) -> int:
+        done = 0
+        for slot in [s for s, r in self._active.items()
+                     if r.finish_reason is not None]:
+            req = self._active.pop(slot)
+            self.cache.release(slot)
+            self._record_result(req)
+            done += 1
+        return done
+
+    # ------------------------------------------------------------------ #
+    # decode
+    # ------------------------------------------------------------------ #
+    def _upload_mirrors(self) -> Dict[str, torch.Tensor]:
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+        return {"cur": dev(self._cur), "pos": dev(self._pos),
+                "rem": dev(self._rem), "act": dev(self._act),
+                "salt": dev(self._salt), "temp": dev(self._temp),
+                "topk": dev(self._topk), "topp": dev(self._topp),
+                "eos": dev(self._eos)}
+
+    def _dispatch_block(self) -> _Inflight:
+        if self._dirty or self._dev is None:
+            self._dev = self._upload_mirrors()
+            self._dirty = False
+        d = self._dev
+        t0 = time.perf_counter()
+        toks, emits, cur, pos, rem, act = _decode_block(
+            self.cfg, self._params, self.cache.k, self.cache.v, d["cur"],
+            d["pos"], d["rem"], d["act"], d["salt"], d["temp"], d["topk"],
+            d["topp"], d["eos"], block=self.decode_block_size,
+            attend_impl=self.attend_impl, seed=self.seed)
+        self._dev = {**d, "cur": cur, "pos": pos, "rem": rem, "act": act}
+        return _Inflight(torch.stack([toks, emits.to(toks.dtype)]), t0,
+                         self.decode_block_size)
+
+    def _process_block(self, blk: _Inflight):
+        """Distribute one block's tokens to their requests. The copy to
+        the host is the block's single sync (counted)."""
+        packed = blk.packed.cpu().numpy()       # host sync (the only one)
+        toks, emits = packed[0], packed[1].astype(bool)
+        produced = 0
+        for slot, req in self._active.items():
+            if req.finish_reason is not None:
+                continue  # finished at admission or an earlier block
+            emitted = 0
+            for j in range(blk.steps):
+                if not emits[j, slot]:
+                    break  # the device froze the lane at step j
+                tok = int(toks[j, slot])
+                req.generated.append(tok)
+                self.cache.advance(slot)
+                self._cur[slot] = tok
+                self._pos[slot] += 1
+                self._rem[slot] -= 1
+                emitted += 1
+                self._check_finished(req, tok)
+                if req.finish_reason is not None:
+                    break
+            produced += emitted
+            self._act[slot] = req.finish_reason is None
+        now = time.perf_counter()
+        self.metrics.on_decode_step(now - blk.t0, produced, steps=blk.steps)
