@@ -14,7 +14,7 @@ from typing import Optional, Union
 import torch
 
 __all__ = ["default_device", "resolve_device", "resolve_dtype",
-           "make_generator"]
+           "make_generator", "cast_floating"]
 
 _DTYPES = {
     "float32": torch.float32, "fp32": torch.float32,
@@ -64,3 +64,17 @@ def make_generator(seed: int, device: Optional[DeviceLike] = "cpu"
     g = torch.Generator(device=torch.device(device))
     g.manual_seed(int(seed))
     return g
+
+
+def cast_floating(tree, dtype):
+    """Cast every floating-point tensor of a nest of dicts, lists and
+    tuples to `dtype`, passing everything else (token ids, masks)
+    through. The single home of the AMP cast policy."""
+    dtype = resolve_dtype(dtype)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: cast_floating(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floating(v, dtype) for v in tree)
+    return tree

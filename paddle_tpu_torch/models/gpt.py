@@ -1,8 +1,10 @@
-"""GPT decoder-only transformer and its serving decode wiring, in PyTorch.
+"""GPT decoder-only transformer in PyTorch: the training forward and
+loss, and the serving decode wiring.
 
-The counterpart of `paddle_tpu/models/gpt.py` (config, presets and the
-functional decode path the serving engine runs). Layout choices that
-keep the two packages comparable name for name:
+The counterpart of `paddle_tpu/models/gpt.py` (config, presets, the
+`GPT` Layer's forward and fused cross-entropy loss, and the functional
+decode path the serving engine runs). Layout choices that keep the two
+packages comparable name for name:
 
 - parameter names equal the JAX `raw_parameters()` keys
   (`wte.weight`, `blocks.{i}.attn.qkv.weight`, ..., `ln_f.bias`);
@@ -12,7 +14,9 @@ keep the two packages comparable name for name:
   (`GPT.raw_parameters()`), like the JAX functions take the raw pytree.
 
 Numerics follow the reference: LayerNorm statistics in fp32, GELU with
-the tanh approximation, attention scores in fp32 with a -1e30 mask.
+the tanh approximation, attention scores in fp32 with a -1e30 mask;
+training attention runs through the flash kernels K2/K3
+(`ops_cuda/flash_attention.py`), decode attention through K1.
 Cache slabs are written IN PLACE (the JAX code returns updated arrays
 and donates the old ones instead).
 """
@@ -26,9 +30,11 @@ import torch
 from torch import nn
 
 from ..core import DeviceLike, make_generator, resolve_device, resolve_dtype
+from ..nn import functional as F
+from ..nn.layers import GELU, Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ["GPTConfig", "GPT", "gpt_tiny", "gpt_small", "gpt_medium",
-           "gpt_1p3b", "param_shapes", "generate_greedy"]
+__all__ = ["GPTConfig", "GPT", "GPTBlock", "gpt_tiny", "gpt_small",
+           "gpt_medium", "gpt_1p3b", "param_shapes", "generate_greedy"]
 
 NEG_INF = -1e30
 Params = Dict[str, torch.Tensor]
@@ -42,14 +48,24 @@ class GPTConfig:
     num_layers: int = 12
     num_heads: int = 12
     intermediate_size: Optional[int] = None
+    dropout: float = 0.0
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     tie_embeddings: bool = True
+    sequence_parallel: str = "none"
 
     def __post_init__(self):
         if self.hidden_size % self.num_heads:
             raise ValueError(f"hidden_size {self.hidden_size} not divisible "
                              f"by num_heads {self.num_heads}")
+        if self.sequence_parallel not in ("none", "ring", "ulysses"):
+            raise ValueError(
+                f"sequence_parallel must be 'none', 'ring' or 'ulysses', "
+                f"got {self.sequence_parallel!r}")
+        if self.sequence_parallel != "none":
+            raise NotImplementedError(
+                f"sequence_parallel={self.sequence_parallel!r} is not "
+                f"ported yet (ROADMAP Queue 1, after item 6)")
 
     @property
     def ffn_size(self) -> int:
@@ -83,60 +99,112 @@ def param_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
 
 
 # --------------------------------------------------------------------------- #
-# modules: parameter containers with the reference's names and init laws
+# fused next-token cross-entropy
+# --------------------------------------------------------------------------- #
+#
+# The counterpart of the JAX custom VJP `_masked_softmax_ce`: the
+# backward recomputes p = exp(lg - lse) from the saved (bf16) logits and
+# the (b, s) fp32 logsumexp, so no fp32 copy of the (b, s, vocab) logits
+# outlives the call. Plain torch, as XLA computed it in JAX; the fp32
+# temporaries are updated in place so one of them exists at a time.
+
+def _ce_fwd_impl(logits, labels, ignore_index: int):
+    # max and gather in the logits' dtype (exact), the exp-sum in fp32
+    m = logits.amax(dim=-1, keepdim=True)
+    mf = m.float()
+    e = logits.to(torch.float32, copy=True)
+    e.sub_(mf).exp_()
+    lse = torch.log(e.sum(dim=-1)) + mf[..., 0]
+    del e
+    idx = labels.clamp(min=0).long()
+    tgt = logits.gather(-1, idx[..., None])[..., 0].float()
+    mask = (labels != ignore_index).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = ((lse - tgt) * mask).sum() / denom
+    return loss, lse, mask, denom
+
+
+class _MaskedSoftmaxCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, ignore_index: int):
+        loss, lse, mask, denom = _ce_fwd_impl(logits, labels, ignore_index)
+        ctx.save_for_backward(logits, labels, lse, mask, denom)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse, mask, denom = ctx.saved_tensors
+        coef = (g * mask / denom)[..., None]               # (b, s, 1) f32
+        p = logits.to(torch.float32, copy=True)
+        p.sub_(lse[..., None]).exp_()
+        idx = labels.clamp(min=0).long()[..., None]
+        p.scatter_add_(-1, idx, torch.full(idx.shape, -1.0,
+                                           device=p.device))  # p - onehot
+        p.mul_(coef)
+        return p.to(logits.dtype), None, None
+
+
+def _masked_softmax_ce(logits, labels, ignore_index: int = -100):
+    """Mean next-token cross-entropy over the labels that are not
+    `ignore_index` (a label of ignore_index contributes nothing; an
+    all-ignored batch gives 0)."""
+    return _MaskedSoftmaxCE.apply(logits, labels, ignore_index)
+
+
+# --------------------------------------------------------------------------- #
+# modules: the reference's names, init laws and training forward
 # --------------------------------------------------------------------------- #
 
-def _normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape).normal_(0.0, std, generator=gen))
-
-
-class _Linear(nn.Module):
-    """y = x @ weight + bias with weight (in, out), the JAX layout."""
-
-    def __init__(self, fin: int, fout: int, std: float,
-                 gen: torch.Generator, bias: bool = True):
-        super().__init__()
-        self.weight = _normal((fin, fout), std, gen)
-        self.bias = nn.Parameter(torch.zeros(fout)) if bias else None
-
-
-class _LayerNorm(nn.Module):
-    def __init__(self, h: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(h))
-        self.bias = nn.Parameter(torch.zeros(h))
-
-
-class _Embedding(nn.Module):
-    def __init__(self, n: int, h: int, std: float, gen: torch.Generator):
-        super().__init__()
-        self.weight = _normal((n, h), std, gen)
-
-
 class GPTAttention(nn.Module):
+    """Fused-QKV causal self-attention; the flash kernels K2/K3 attend
+    the q, k, v slices of the projection in place."""
+
     def __init__(self, cfg: GPTConfig, gen: torch.Generator):
         super().__init__()
         h, std = cfg.hidden_size, cfg.initializer_range
-        self.qkv = _Linear(h, 3 * h, std, gen)
-        self.out = _Linear(h, h, std / math.sqrt(2 * cfg.num_layers), gen)
+        self.cfg = cfg
+        self.qkv = Linear(h, 3 * h, std, gen)
+        self.out = Linear(h, h, std / math.sqrt(2 * cfg.num_layers), gen)
+        self.dropout = cfg.dropout
+
+    def forward(self, x):
+        b, s, h = x.shape
+        cfg = self.cfg
+        qkv = self.qkv(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
+        out = F.scaled_dot_product_attention(
+            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True,
+            dropout_p=self.dropout, training=self.training)
+        return self.out(out.reshape(b, s, h))
 
 
 class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig, gen: torch.Generator):
         super().__init__()
         std = cfg.initializer_range
-        self.fc1 = _Linear(cfg.hidden_size, cfg.ffn_size, std, gen)
-        self.fc2 = _Linear(cfg.ffn_size, cfg.hidden_size,
-                           std / math.sqrt(2 * cfg.num_layers), gen)
+        self.fc1 = Linear(cfg.hidden_size, cfg.ffn_size, std, gen)
+        self.fc2 = Linear(cfg.ffn_size, cfg.hidden_size,
+                          std / math.sqrt(2 * cfg.num_layers), gen)
+        self.act = GELU(True)
+
+    def forward(self, x):
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class GPTBlock(nn.Module):
+    """Pre-norm block: x + attn(ln1(x)), then x + mlp(ln2(x))."""
+
     def __init__(self, cfg: GPTConfig, gen: torch.Generator):
         super().__init__()
-        self.ln1 = _LayerNorm(cfg.hidden_size)
+        eps = cfg.layer_norm_eps
+        self.ln1 = LayerNorm(cfg.hidden_size, epsilon=eps)
         self.attn = GPTAttention(cfg, gen)
-        self.ln2 = _LayerNorm(cfg.hidden_size)
+        self.ln2 = LayerNorm(cfg.hidden_size, epsilon=eps)
         self.mlp = GPTMLP(cfg, gen)
+        self.dropout = Dropout(cfg.dropout)
+
+    def forward(self, x):
+        x = x + self.dropout(self.attn(self.ln1(x)))
+        return x + self.dropout(self.mlp(self.ln2(x)))
 
 
 class GPT(nn.Module):
@@ -155,14 +223,35 @@ class GPT(nn.Module):
         self.cfg = cfg
         gen = make_generator(seed)
         std = cfg.initializer_range
-        self.wte = _Embedding(cfg.vocab_size, cfg.hidden_size, std, gen)
-        self.wpe = _Embedding(cfg.max_seq_len, cfg.hidden_size, std, gen)
+        self.wte = Embedding(cfg.vocab_size, cfg.hidden_size, std, gen)
+        self.wpe = Embedding(cfg.max_seq_len, cfg.hidden_size, std, gen)
+        self.drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList(GPTBlock(cfg, gen)
                                     for _ in range(cfg.num_layers))
-        self.ln_f = _LayerNorm(cfg.hidden_size)
+        self.ln_f = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
         self.lm_head = None if cfg.tie_embeddings else \
-            _Linear(cfg.hidden_size, cfg.vocab_size, std, gen, bias=False)
+            Linear(cfg.hidden_size, cfg.vocab_size, std, gen, bias=False)
         self.to(device=dev, dtype=resolve_dtype(dtype))
+
+    def forward(self, input_ids, position_ids=None) -> torch.Tensor:
+        """Training forward: logits (b, s, vocab) of a causal pass over
+        `input_ids` (b, s), attention through the flash kernels."""
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)[None]
+        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.ln_f(x)
+        if self.lm_head is not None:
+            return self.lm_head(x)
+        return torch.matmul(x, self.wte.weight.t())
+
+    def loss(self, logits, labels, ignore_index: int = -100):
+        """Next-token cross-entropy: logits[:, :-1] against
+        labels[:, 1:], labels equal to `ignore_index` left out."""
+        return _masked_softmax_ce(logits[:, :-1], labels[:, 1:],
+                                  ignore_index)
 
     @property
     def device(self) -> torch.device:
@@ -234,6 +323,11 @@ def _apply_linear(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
 
 def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         eps: float) -> torch.Tensor:
+    """The decode wiring's LayerNorm: statistics AND affine in fp32,
+    one cast at the end, as the JAX `_ln`. Training goes through
+    `nn.functional.layer_norm` instead, which casts to the activation
+    dtype before the affine, as the JAX `F.layer_norm`; each mirrors
+    its own JAX counterpart, so the two round differently in bf16."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)

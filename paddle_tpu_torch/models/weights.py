@@ -1,4 +1,5 @@
-"""Weight bridge: JAX GPT parameters (as numpy arrays) → the port.
+"""Weight bridge: JAX GPT parameters and train states (as numpy
+arrays) → the port.
 
 The JAX package's `GPT.raw_parameters()` is a flat {dotted name:
 array} dict whose names and (in, out) linear layout the port's `GPT`
@@ -16,9 +17,13 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ..framework.trainer import TrainState
 from .gpt import GPT, GPTConfig, param_shapes
 
-__all__ = ["from_jax_params", "load_jax_params", "infer_config"]
+__all__ = ["from_jax_params", "load_jax_params", "infer_config",
+           "from_jax_train_state"]
+
+_SLOTS = ("moment1", "moment2", "master_weight")
 
 _BLOCK = re.compile(r"^blocks\.(\d+)\.")
 
@@ -93,3 +98,35 @@ def load_jax_params(model: GPT,
     for k, v in np_params.items():
         own[k].copy_(_to_tensor(k, v))
     return model
+
+
+def from_jax_train_state(state_tree: Mapping, cfg: Optional[GPTConfig] = None):
+    """A port `TrainState` (CPU tensors) from a JAX `TrainState.tree()`
+    of a GPT trained with Adam/AdamW: the parameters (names and shapes
+    checked as in `from_jax_params`), the optimizer's step and every
+    parameter's `moment1` / `moment2` / `master_weight` slots (the slot
+    names per parameter and each slot's shape checked against the
+    parameter), and the train step. `Trainer.load_state` then resumes
+    the run on the model's device."""
+    np_params = state_tree["params"]
+    params = from_jax_params(np_params, cfg)
+    opt = state_tree["opt_state"]
+    jax_slots = opt["slots"]
+    if set(jax_slots) != set(params):
+        raise KeyError(f"optimizer slots and parameters differ: "
+                       f"{sorted(set(jax_slots) ^ set(params))[:8]}")
+    slots = {}
+    for k, sl in jax_slots.items():
+        bad = sorted(set(sl) - set(_SLOTS))
+        if bad or not {"moment1", "moment2"} <= set(sl):
+            raise KeyError(f"{k}: slots {sorted(sl)}, expected moment1, "
+                           f"moment2 and optionally master_weight")
+        shape = tuple(params[k].shape)
+        for sk, v in sl.items():
+            if tuple(np.shape(v)) != shape:
+                raise ValueError(f"{k}.{sk}: shape {tuple(np.shape(v))} "
+                                 f"!= parameter shape {shape}")
+        slots[k] = {sk: _to_tensor(f"{k}.{sk}", v) for sk, v in sl.items()}
+    return TrainState(params, {}, {"step": int(np.asarray(opt["step"])),
+                                   "slots": slots},
+                      {}, 0, int(np.asarray(state_tree["step"])))

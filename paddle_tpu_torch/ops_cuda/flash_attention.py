@@ -1,0 +1,293 @@
+"""Flash attention for training: forward (kernel K2) and backward (K3).
+
+The counterpart of `paddle_tpu/ops_pallas/flash_attention.py`: the
+forward `_fwd_kernel` (launched by `_flash_forward_flat`), the merged
+backward `_bwd_merged_kernel` (launched by `_flash_backward_flat`), the
+`_flash_attention` custom VJP that joins them, the
+`dot_product_attention` dispatcher and the `_attention_reference` the
+kernels are held against. Layout (batch, seq, heads, head_dim), as in
+the JAX package.
+
+On a CUDA tensor `FlashAttentionFunction` launches the hand-written
+Hopper kernels (`csrc/flash_attention_fwd.cu`,
+`csrc/flash_attention_bwd.cu`, built on first use by `_build.py`) or
+raises on what they do not take; on CPU tensors it runs
+`flash_forward_plain` / `flash_backward_plain`, the same functions in
+plain torch. There is no fallback from one to the other. Each CUDA
+launch adds one to `FWD_LAUNCHES` or `BWD_LAUNCHES` (one backward call
+launches two kernels, dk/dv and dq, and counts once).
+
+The kernels read q, k, v through their (batch, seq, head) strides with a
+contiguous head dim, so the slices of the fused qkv projection go in
+without copies. The logsumexp is (batch, heads, seq_q) fp32; the JAX
+kernels keep it as (batch * heads, 1, seq_q).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from .decode_attention import _LaunchCounter
+
+__all__ = ["dot_product_attention", "FlashAttentionFunction",
+           "flash_forward_plain", "flash_backward_plain",
+           "attention_reference", "FWD_LAUNCHES", "BWD_LAUNCHES"]
+
+NEG_INF = -1e30
+_SUPPORTED_HD = (64, 128)
+
+FWD_LAUNCHES = _LaunchCounter()
+BWD_LAUNCHES = _LaunchCounter()
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1, after item 6)")
+
+
+# --------------------------------------------------------------------------- #
+# plain versions (the CPU path, and what the kernels are held against)
+# --------------------------------------------------------------------------- #
+
+def attention_reference(q, k, v, causal: bool = False,
+                        scale: Optional[float] = None):
+    """`_attention_reference` in torch (no mask, no dropout): q (b, sq,
+    h, d), k/v (b, sk, h, d); scores in the input dtype, times `scale`,
+    then fp32; the causal mask is tril(k = sk - sq) (bottom-right
+    aligned); softmax in fp32, weights cast to v's dtype."""
+    sq, d = q.shape[1], q.shape[-1]
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).float()
+    if causal:
+        keep = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits = torch.where(keep, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def _scores(q, k, causal: bool, scale: float):
+    """fp32 scores (b, h, sq, sk) of bf16-exact products with fp32
+    sums, scaled in fp32, -1e30 where the causal rule hides a key."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        keep = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        s = torch.where(keep, s, NEG_INF)
+    return s
+
+
+def flash_forward_plain(q, k, v, causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's function in plain torch: (out (b, sq, h, d) in q's dtype,
+    lse (b, h, sq) fp32). Products take the operands' values exactly and
+    sum in fp32; p = exp(s - m) is cast to v's dtype before p.v; a row
+    with l == 0 divides by 1. One softmax pass over all keys where the
+    kernel goes tile by tile: equal up to fp32 summation order and the
+    point where p is rounded."""
+    s = _scores(q, k, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l_ = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l_ == 0, 1.0, l_)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = acc / l_safe.permute(0, 2, 1, 3)
+    lse = (m + torch.log(l_safe))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def flash_backward_plain(q, k, v, out, lse, g, causal: bool, scale: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """K3's function in plain torch: (dq, dk, dv) in the inputs' dtypes,
+    with p = exp(s - lse), dv = (p in g's dtype)^T g, dp = g v^T,
+    delta = rowsum(out * g) in fp32, ds = p (dp - delta) scale in q's
+    dtype, dq = ds k, dk = ds^T q; products of exact operand values
+    summed in fp32."""
+    f32 = torch.float32
+    s = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    gf = g.to(f32)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).to(f32), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.to(f32))
+    delta = (out.to(f32) * gf).sum(-1).permute(0, 2, 1)[..., None]
+    ds = (p * (dp - delta) * scale).to(q.dtype).to(f32)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(f32))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(f32))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA path
+# --------------------------------------------------------------------------- #
+
+def _check_cuda_args(q, k, v, causal: bool):
+    """What K2/K3 take; raises on anything else (the wrapper never runs
+    the plain version on the card)."""
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"q/{name} dtypes differ: {q.dtype}, {t.dtype}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"dtype {q.dtype} not supported by the flash "
+                        f"kernels (bfloat16 only)")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} must be (b, s, h, d), k and v "
+                         f"alike")
+    b, sq, h, d = q.shape
+    if k.shape[0] != b or k.shape[2:] != (h, d):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch, heads or head_dim")
+    if d not in _SUPPORTED_HD:
+        raise ValueError(f"head_dim {d} not supported by the flash kernels "
+                         f"(one of {_SUPPORTED_HD})")
+    sk = k.shape[1]
+    if causal and sq > sk:
+        raise ValueError(f"causal attention with sq {sq} > sk {sk} leaves "
+                         f"rows with no visible key; the kernels do not "
+                         f"take it")
+    if b * h > 65535:
+        raise ValueError(f"batch * heads {b * h} out of range")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous head dim (layout "
+                             f"strides {t.stride()})")
+        if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{name} rows must be 16-byte aligned (layout "
+                             f"strides {t.stride()})")
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
+_FWD_SIGNATURES = {
+    # q, k, v, out, lse; b, h, sq, sk, d; 12 strides; causal; scale; stream
+    "flash_fwd_launch": (_I, [_P] * 5 + [_I] * 5 + [_LL] * 12
+                         + [_I, _F, _P]),
+    "error_string": (ctypes.c_char_p, [_I]),
+}
+_BWD_SIGNATURES = {
+    # q, k, v, g, lse, delta, dq, dk, dv; b, h, sq, sk, d; strides*;
+    # causal; scale; stream
+    "flash_bwd_launch": (_I, [_P] * 9 + [_I] * 5 + [_P, _I, _F, _P]),
+    "error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def _bsh(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_fwd(q, k, v, causal: bool, scale: float):
+    from ._build import load_library
+    _check_cuda_args(q, k, v, causal)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    lib = load_library("flash_attention_fwd", _FWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, sq, sk, d, *_bsh(q), *_bsh(k), *_bsh(v),
+            *_bsh(out), int(causal), scale, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash forward kernel launch failed: "
+                           f"{lib.error_string(err).decode()} ({err})")
+    FWD_LAUNCHES.count += 1
+    return out, lse
+
+
+def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float):
+    from ._build import load_library
+    _check_cuda_args(q, k, v, causal)
+    g = g.contiguous()          # autograd may hand in an expanded tensor
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq, dk, dv
+    # delta = rowsum(out * g) in fp32, outside the kernels as in JAX
+    delta = (out.float() * g.float()).sum(-1).permute(0, 2, 1).contiguous()
+    strides = (_LL * 21)(*_bsh(q), *_bsh(k), *_bsh(v), *_bsh(g), *_bsh(dq),
+                         *_bsh(dk), *_bsh(dv))
+    lib = load_library("flash_attention_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, sq, sk, d,
+            ctypes.cast(strides, ctypes.c_void_p), int(causal), scale,
+            _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash backward kernel launch failed: "
+                           f"{lib.error_string(err).decode()} ({err})")
+    BWD_LAUNCHES.count += 1
+    return dq, dk, dv
+
+
+def flash_forward(q, k, v, causal: bool, scale: float):
+    """(out, lse): K2 on CUDA tensors, the plain version on CPU ones."""
+    if q.device.type == "cuda":
+        return _launch_fwd(q, k, v, causal, scale)
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v, causal, scale)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+def flash_backward(q, k, v, out, lse, g, causal: bool, scale: float):
+    """(dq, dk, dv): K3 on CUDA tensors, the plain version on CPU ones."""
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, out, lse, g, causal, scale)
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, out, lse, g, causal, scale)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """`_flash_attention`'s custom VJP: the forward saves q, k, v, the
+    output and the logsumexp; the backward recomputes p from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = flash_forward(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.causal,
+                                    ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def dot_product_attention(q, k, v, mask=None, causal: bool = False,
+                          scale: Optional[float] = None,
+                          dropout_p: float = 0.0):
+    """The dispatcher under `nn.functional.scaled_dot_product_attention`:
+    q (b, sq, h, d), k/v (b, sk, h, d) → (b, sq, h, d), differentiable
+    through `FlashAttentionFunction`. A mask or dropout > 0 raises (not
+    ported; every GPT preset has dropout 0). On CUDA tensors the
+    kernels' own limits raise too (`_check_cuda_args`)."""
+    if mask is not None:
+        raise _not_ported("an attention mask")
+    if dropout_p > 0.0:
+        raise _not_ported("attention dropout > 0")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttentionFunction.apply(q, k, v, causal, float(scale))

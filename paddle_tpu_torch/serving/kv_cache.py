@@ -10,9 +10,11 @@ allocation never touches the device.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List
 
 import torch
+
+from ..core import DeviceLike, resolve_device
 
 __all__ = ["KVCacheManager", "NoFreeSlot"]
 
@@ -30,7 +32,7 @@ class KVCacheManager:
     def __init__(self, num_layers: int, max_slots: int, max_seq: int,
                  num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[torch.device] = None):
+                 device: DeviceLike = None):
         if max_slots < 1 or max_seq < 1:
             raise ValueError(f"need max_slots >= 1 and max_seq >= 1, got "
                              f"{max_slots}, {max_seq}")
@@ -40,7 +42,7 @@ class KVCacheManager:
         self.num_heads = num_heads
         self.head_dim = head_dim
         self.dtype = dtype
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         shape = (max_slots, max_seq, num_heads, head_dim)
         self.k: List[torch.Tensor] = [
             torch.zeros(shape, dtype=dtype, device=self.device)

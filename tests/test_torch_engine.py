@@ -209,7 +209,7 @@ def test_cancel_and_deadline(model):
 
 
 def test_kv_cache_manager_lifecycle():
-    c = KVCacheManager(2, 3, 16, 4, 8)
+    c = KVCacheManager(2, 3, 16, 4, 8, device="cpu")
     s0, s1, s2 = c.allocate(), c.allocate(), c.allocate()
     assert sorted([s0, s1, s2]) == [0, 1, 2] and c.occupancy == 1.0
     with pytest.raises(NoFreeSlot):

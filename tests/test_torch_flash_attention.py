@@ -1,0 +1,176 @@
+"""Port flash attention (`paddle_tpu_torch/ops_cuda/flash_attention.py`)
+against the JAX package.
+
+The plain versions of K2 and K3 (`flash_forward_plain`,
+`flash_backward_plain`) are held against the TPU kernels themselves:
+`_flash_forward_flat` and `_flash_backward_flat` run in Pallas TPU
+interpret mode (`pltpu.force_tpu_interpret_mode()`) on the CPU, in bf16,
+at block sizes that cover the write-once and the accumulating dq
+branch, block_q != block_k both ways, and sq < sk bottom-right causal
+alignment. The port's autograd Function is held against
+`_attention_reference` with `jax.grad` in fp32. The CUDA argument
+checks run on CPU tensors (they look at shapes, dtypes and layout only);
+the kernels themselves run in `chip_smoke.py` on the card.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from paddle_tpu.ops_pallas import flash_attention as jfa
+from paddle_tpu_torch.models.weights import _to_tensor
+from paddle_tpu_torch.ops_cuda import flash_attention as port
+
+D = 64
+SCALE = 1.0 / math.sqrt(D)
+
+
+def _bf16(shape, seed):
+    return jnp.asarray(np.random.RandomState(seed).randn(*shape),
+                       jnp.bfloat16)
+
+
+def _t(a):
+    """A JAX array as a torch tensor, bf16 carried bit for bit."""
+    return _to_tensor("x", np.asarray(a))
+
+
+def _port_layout(flat):
+    """(bh, s, d) → (b = bh, s, h = 1, d): the port's layout with the
+    same memory order as the JAX flat operand."""
+    return _t(flat)[:, :, None, :]
+
+
+# (sq, sk, block_q, block_k): both dq branches (sk / block_k <= 2 is
+# write-once), block_q != block_k both ways, sq < sk
+CASES = [(256, 256, 128, 128), (128, 256, 128, 128), (256, 384, 256, 128),
+         (256, 256, 128, 256)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk,bq,bk", CASES)
+def test_plain_k2_k3_match_pallas_kernels(sq, sk, bq, bk, causal):
+    """Both compute bf16 products with fp32 accumulation and an fp32
+    softmax, in different orders: the TPU kernel goes block by block
+    with an online max (p rounded to bf16 against a running max), the
+    plain version in one pass against the row max. Tolerances (about
+    5x the largest error seen over these cases): the logsumexp (fp32,
+    |lse| ~ 6) within 1e-5 absolute; bf16 outputs within 1e-2 absolute
+    and relative (one bf16 ulp at |x| in [1, 2) is 7.8e-3); each bf16
+    gradient within 5e-3 x its largest magnitude (the two backwards
+    recompute p from the same lse and round ds at the same point, but
+    exp and the fp32 sums differ by an ulp, which can flip a bf16
+    rounding)."""
+    bh = 2
+    qr, kr, vr = _bf16((bh, sq, D), 0), _bf16((bh, sk, D), 1), \
+        _bf16((bh, sk, D), 2)
+    gr = _bf16((bh, sq, D), 3)
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = jfa._flash_forward_flat(qr, kr, vr, causal, SCALE, bq, bk)
+        dq, dk, dv = jfa._flash_backward_flat(qr, kr, vr, out, lse, gr,
+                                              causal, SCALE, bq, bk)
+    q, k, v, g = (_port_layout(a) for a in (qr, kr, vr, gr))
+    p_out, p_lse = port.flash_forward_plain(q, k, v, causal, SCALE)
+    torch.testing.assert_close(p_lse, _t(lse), atol=1e-5, rtol=0)
+    torch.testing.assert_close(p_out[:, :, 0].float(), _t(out).float(),
+                               atol=1e-2, rtol=1e-2)
+    # the backward alone: both sides get the Pallas forward's out and lse
+    grads = port.flash_backward_plain(q, k, v, _port_layout(out), _t(lse),
+                                      g, causal, SCALE)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, (dq, dk, dv)):
+        assert got.dtype == torch.bfloat16, name
+        want = _t(want).float()
+        err = (got[:, :, 0].float() - want).abs().max().item()
+        assert err <= 5e-3 * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(False, 48, 48), (True, 48, 48),
+                                          (True, 32, 80), (False, 40, 24)])
+def test_autograd_function_matches_jax_reference_fp32(causal, sq, sk):
+    """The algorithm in fp32: `dot_product_attention` (the port's
+    autograd Function, plain versions on CPU tensors) against
+    `_attention_reference` and `jax.grad` of it; outputs and gradients
+    within 1e-5 (fp32, different summation orders)."""
+    rng = np.random.RandomState(7)
+    b, h = 2, 3
+    qn = rng.randn(b, sq, h, D).astype(np.float32)
+    kn = rng.randn(b, sk, h, D).astype(np.float32)
+    vn = rng.randn(b, sk, h, D).astype(np.float32)
+    gn = rng.randn(b, sq, h, D).astype(np.float32)
+
+    def f(q, k, v):
+        return jfa._attention_reference(q, k, v, None, causal, SCALE)
+
+    ref, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (qn, kn, vn)))
+    jgrads = vjp(jnp.asarray(gn))
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in (qn, kn, vn))
+    out = port.dot_product_attention(q, k, v, causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=1e-5, rtol=1e-5)
+    grads = torch.autograd.grad(out, (q, k, v), torch.from_numpy(gn))
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_plain_forward_and_reference_agree_in_bf16():
+    """`attention_reference` (the `_attention_reference` counterpart:
+    scores rounded to bf16 before the fp32 softmax) and the plain K2
+    (scores in fp32) differ only by that rounding."""
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.randn(1, 64, 2, D).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    ref = port.attention_reference(q, k, v, causal=True)
+    out, _ = port.flash_forward_plain(q, k, v, True, SCALE)
+    torch.testing.assert_close(out.float(), ref.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+def test_cpu_path_counts_no_launch():
+    port.FWD_LAUNCHES.reset()
+    port.BWD_LAUNCHES.reset()
+    q = torch.randn(1, 16, 2, D, requires_grad=True)
+    out = port.dot_product_attention(q, q.detach(), q.detach(), causal=True)
+    out.sum().backward()
+    assert port.FWD_LAUNCHES.count == 0 and port.BWD_LAUNCHES.count == 0
+
+
+def test_cuda_argument_checks_raise():
+    """The checks the wrapper runs before a CUDA launch, exercised on
+    CPU tensors: what K2/K3 do not take raises, never a plain run."""
+    bf = torch.bfloat16
+    qkv = torch.zeros(2, 128, 3, 4, D, dtype=bf)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    port._check_cuda_args(q, k, v, causal=True)         # strided: taken
+    short_k = torch.zeros(2, 64, 4, D, dtype=bf)
+    with pytest.raises(ValueError, match="no visible key"):
+        port._check_cuda_args(q, short_k, short_k, causal=True)
+    port._check_cuda_args(q, short_k, short_k, causal=False)
+    small = torch.zeros(2, 128, 4, 32, dtype=bf)
+    with pytest.raises(ValueError, match="head_dim"):
+        port._check_cuda_args(small, small, small, causal=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        port._check_cuda_args(q.float(), k.float(), v.float(), causal=True)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        port._check_cuda_args(q, k.float(), v, causal=True)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        port._check_cuda_args(q.transpose(2, 3).contiguous().transpose(2, 3),
+                              k, v, causal=True)
+    odd = torch.zeros(2, 128, 4 * D + 4, dtype=bf)[..., :4 * D].reshape(
+        2, 128, 4, D)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        port._check_cuda_args(odd, k, v, causal=True)
+    with pytest.raises(ValueError, match="differ in batch"):
+        port._check_cuda_args(q, k[:1], v[:1], causal=True)
+
+
+def test_mask_and_dropout_raise_on_every_device():
+    q = torch.zeros(1, 8, 2, D)
+    with pytest.raises(NotImplementedError, match="mask"):
+        port.dot_product_attention(q, q, q, mask=torch.ones(8, 8, dtype=bool))
+    with pytest.raises(NotImplementedError, match="dropout"):
+        port.dot_product_attention(q, q, q, dropout_p=0.1)

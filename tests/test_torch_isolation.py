@@ -28,6 +28,9 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch, paddle_tpu_torch.serving\n"
         "import paddle_tpu_torch.ops_cuda._build\n"
         "import paddle_tpu_torch.models.weights\n"
+        "import paddle_tpu_torch.nn, paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.framework\n"
+        "import paddle_tpu_torch.ops_cuda.flash_attention\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -55,6 +58,7 @@ def test_no_jax_or_reference_import_in_source(path):
 def test_resolve_device_raises_without_a_card(monkeypatch):
     from paddle_tpu_torch import core
     from paddle_tpu_torch.models import gpt_small
+    from paddle_tpu_torch.serving import KVCacheManager
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         core.resolve_device("cuda")
@@ -62,6 +66,8 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
         core.resolve_device(None)                # the default is cuda
     with pytest.raises(RuntimeError, match="cuda"):
         gpt_small()                              # fails before the init
+    with pytest.raises(RuntimeError, match="cuda"):
+        KVCacheManager(2, 3, 16, 4, 8)           # slabs default to the card
     assert core.resolve_device("cpu").type == "cpu"
 
 
