@@ -17,6 +17,13 @@ every phase passed):
    of `ragged_decode_reference`, visit counts exactly the live-chunk
    arithmetic, and dead cache rows never read (NaN-filled dead rows
    leave the output bitwise unchanged).
+2a. kernels K4 (paged), K5 (int8) and K6 (paged int8) against their
+   plain versions at the same shapes, fp32 and bf16, pages of 64 rows
+   at shuffled ids, the phase-2 edge lengths and the phase-4 lengths:
+   outputs within atol = rtol = 1e-5 (fp32) / 2e-2 (bf16), visit counts
+   exact, NaN in dead rows, unbound pages and the trash page (in the
+   scales, for int8) leaves the output bitwise unchanged; K4 == K1 and
+   K6 == K5 bitwise on the same rows.
 3. kernels K2 (flash-attention forward) and K3 (backward) against their
    plain versions in bf16: the training shape (b 18, s 1024, h 12,
    d 64, causal, q/k/v strided slices of one fused qkv tensor as the
@@ -32,8 +39,17 @@ every phase passed):
    sampled). Every request finishes; K1 launched exactly num_layers x
    decode steps times; one host sync per dispatch; two greedy requests
    served alone reproduce their batched streams bitwise.
+4b. the same load through `kv_layout="paged"` (K4), `kv_dtype="int8"`
+   (K5) and both (K6): each run launches its kernel exactly num_layers
+   x decode steps times and the other decode kernels never; paged
+   streams equal slotted ones token for token.
+4c. paged int8 with `kv_pages=49`: admission waits on pages while lanes
+   are free, all 16 requests finish with (b)'s streams, 0 pages leak.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
+   logged).
+5d. paged against slotted greedy streams with fp32 weights: K4 against
+   K1 and K6 against K5, equal token for token (smallest top-2 margin
    logged).
 6. training at full width: GPT-small from seed 0 under
    `Trainer(AdamW(1e-4), amp_level="O2", amp_dtype="bfloat16")` on one
@@ -48,7 +64,8 @@ every phase passed):
 8. numbers: K1's median time at phase-4 shapes and lengths beside its
    byte bound, the plain version's time and one
    `scaled_dot_product_attention` call over the full slab with the keep
-   mask; K2 and K3 at the training shape beside their bounds, plain
+   mask; K4, K5 and K6 the same way (their yardstick gathers pages
+   and/or dequantises first); the engine through each of them; K2 and K3 at the training shape beside their bounds, plain
    versions and `scaled_dot_product_attention` (causal) forward and
    backward (yardsticks only; the port never calls it); engine
    tokens/s, decode ms/token, TTFT p50/p99 — each beside the card and
@@ -161,6 +178,161 @@ def phase_kernel(torch, dec):
 
 
 # --------------------------------------------------------------------------- #
+# phase 2a: K4, K5, K6 against their plain versions
+# --------------------------------------------------------------------------- #
+
+PAGE = 64                       # the engine's default page at max_seq 1024
+PLAIN_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+             "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+def serving_lengths(np, T: int):
+    """The first 8 phase-4 requests' lengths halfway through their 64
+    new tokens (the rows a decode step of that run attends)."""
+    return [min(int(p.size) + 32, T)
+            for p in make_prompts(np, 16, 16, 700, 50304, seed=1)[:8]]
+
+
+def page_tables(torch, gen, S, T, lengths, page):
+    """Shuffled block tables for S lanes of T rows: each lane's bound
+    pages (enough for its length) at random page ids, 0 (the trash page)
+    past them, and spare pages left unbound. Returns (tables, number of
+    pages, live mask (num_pages, page) of the rows below each length)."""
+    maxp = T // page
+    num_pages = 1 + S * maxp + 7
+    ids = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    tables = ids[:S * maxp].reshape(S, maxp).to(torch.int32)
+    live = torch.zeros(num_pages, page, dtype=torch.bool, device="cuda")
+    for s, n in enumerate(lengths):
+        nb = -(-n // page)
+        tables[s, nb:] = 0
+        for j in range(nb):
+            live[int(tables[s, j]), :min(page, n - j * page)] = True
+    return tables, num_pages, live
+
+
+def to_pages(torch, x, tables, num_pages, page):
+    """Slotted rows x (S, T, ...) scattered into a (num_pages, page,
+    ...) pool through `tables` (bound pages only; the rest stay 0)."""
+    pool = torch.zeros((num_pages, page) + tuple(x.shape[2:]),
+                       dtype=x.dtype, device="cuda")
+    S, maxp = tables.shape
+    for s in range(S):
+        for j in range(maxp):
+            pid = int(tables[s, j])
+            if pid:
+                pool[pid] = x[s, j * page:(j + 1) * page]
+    return pool
+
+
+def phase_paged_quant_kernels(torch, np, dec):
+    """K4 (paged), K5 (int8) and K6 (paged int8) at the serving shapes
+    against their plain versions on the same CUDA tensors; visit counts;
+    NaN in dead rows and on the trash page leaves the output bitwise
+    unchanged; K4 ≡ K1 and K6 ≡ K5 bitwise on the same rows."""
+    from paddle_tpu_torch.quantization.kv import kv_quantize
+    S, T, nh, hd = 8, 1024, 12, 64
+    scale = 1 / math.sqrt(hd)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
+    length_sets = {"edges": [0, 1, PAGE - 1, PAGE, PAGE + 1, 513, T - 1, T],
+                   "serving": serving_lengths(np, T)}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype)[6:]
+        tol = PLAIN_TOL[tname]
+        for lname, lengths in length_sets.items():
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            q = torch.randn(S, nh, hd, device="cuda", generator=gen).to(dtype)
+            kc = torch.randn(S, T, nh, hd, device="cuda",
+                             generator=gen).to(dtype)
+            vc = torch.randn(S, T, nh, hd, device="cuda",
+                             generator=gen).to(dtype)
+            kq, ks = kv_quantize(kc)
+            vq, vs = kv_quantize(vc)
+            sm = torch.arange(S, dtype=torch.int32, device="cuda")
+            keep = (torch.arange(T, device="cuda")[None, :]
+                    < lens[:, None].long())                  # (S, T)
+            tables, npages, live = page_tables(torch, gen, S, T, lengths,
+                                               PAGE)
+            kp, vp, kqp, vqp, ksp, vsp = (
+                to_pages(torch, x, tables, npages, PAGE)
+                for x in (kc, vc, kq, vq, ks, vs))
+            cases = {
+                "K4": (dict(paged=True), (kp, vp, None, None)),
+                "K5": (dict(paged=False), (kq, vq, ks, vs)),
+                "K6": (dict(paged=True), (kqp, vqp, ksp, vsp))}
+            outs = {}
+            for kname, (how, (k_, v_, ks_, vs_)) in cases.items():
+                if how["paged"]:
+                    bk, ns = dec.pick_paged_decode_blocks(T, PAGE, hd,
+                                                          k_.dtype)
+                    run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
+                        dec.paged_ragged_decode_attention(
+                            q, k_, v_, tables, lens, block_k=bk,
+                            num_splits=ns, with_stats=True, k_scale=ks_,
+                            v_scale=vs_)
+                    plain = dec.paged_decode_split_plain(
+                        q, k_, v_, tables, lens, scale, bk, ns, ks_, vs_)
+                else:
+                    bk, ns = dec.pick_decode_blocks(T, hd, k_.dtype)
+                    run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
+                        dec.ragged_decode_attention(
+                            q, k_, v_, lens, block_k=bk, num_splits=ns,
+                            with_stats=True, k_scale=ks_, v_scale=vs_)
+                    plain = dec.ragged_decode_split_plain(
+                        q, k_, v_, lens, sm, scale, bk, ns, ks_, vs_)
+                out, visits = run(k_, v_, ks_, vs_)
+                torch.cuda.synchronize()
+                want = dec._merge_splits(*plain[:3], q.dtype)
+                check(bool(torch.isfinite(out).all()),
+                      f"{kname} {tname} {lname}: non-finite output")
+                torch.testing.assert_close(out.float(), want.float(), **tol)
+                err = (out.float() - want.float()).abs().max().item()
+                rows = T // ns
+                exp = [[min(max(-(-(n - p * rows) // bk), 0), rows // bk)
+                        for p in range(ns)] for n in lengths]
+                check(visits.cpu().tolist() == exp == plain[3].tolist(),
+                      f"{kname} {tname} {lname}: visits "
+                      f"{visits.cpu().tolist()} != {exp}")
+                # dead rows and the trash page never read: NaN there (in
+                # the scales, for int8 codes) leaves the output unchanged
+                nan = float("nan")
+                if how["paged"]:
+                    dead = ~live
+                    if ks_ is None:
+                        out_nan, _ = run(k_.masked_fill(dead[..., None, None],
+                                                        nan),
+                                         v_.masked_fill(dead[..., None, None],
+                                                        nan), None, None)
+                    else:
+                        out_nan, _ = run(k_, v_,
+                                         ks_.masked_fill(dead[..., None], nan),
+                                         vs_.masked_fill(dead[..., None], nan))
+                else:
+                    out_nan, _ = run(k_, v_,
+                                     ks_.masked_fill(~keep[..., None], nan),
+                                     vs_.masked_fill(~keep[..., None], nan))
+                torch.cuda.synchronize()
+                check(torch.equal(out_nan, out),
+                      f"{kname} {tname} {lname}: a dead row was read")
+                outs[kname] = out
+                worst[kname] = max(worst[kname], err)
+                log(f"  {kname} {tname} {lname} (block_k {bk}, splits {ns}):"
+                    f" max|kernel - plain| = {err:.3e} (atol=rtol="
+                    f"{tol['atol']:g}), visits exact, dead rows and trash "
+                    f"page unread")
+            # the addressing seam does not change the arithmetic
+            k1 = dec.ragged_decode_attention(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            check(torch.equal(outs["K4"], k1),
+                  f"K4 != K1 bitwise ({tname} {lname})")
+            check(torch.equal(outs["K6"], outs["K5"]),
+                  f"K6 != K5 bitwise ({tname} {lname})")
+            log(f"  {tname} {lname}: K4 == K1 and K6 == K5 bitwise")
+    return worst
+
+
+# --------------------------------------------------------------------------- #
 # phase 3: K2 and K3 against their plain versions
 # --------------------------------------------------------------------------- #
 
@@ -244,17 +416,23 @@ def make_prompts(np, n, lo, hi, vocab, seed):
             for k in lengths]
 
 
-def phase_engine(torch, np, P):
-    from paddle_tpu_torch.ops_cuda.decode_attention import LAUNCHES
-    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
-    t0 = time.perf_counter()
-    model = P.models.gpt_small(seed=0, device="cuda", dtype="bf16")
-    cfg = model.cfg
-    check((cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.vocab_size)
-          == (768, 12, 12, 50304), f"not GPT-small: {cfg}")
-    log(f"  GPT-small bf16 built from seed 0 in "
-        f"{time.perf_counter() - t0:.1f} s")
-    prompts = make_prompts(np, 16, 16, 700, cfg.vocab_size, seed=1)
+SERVE_KW = dict(max_slots=8, max_seq=1024, decode_block_size=8, seed=0,
+                device="cuda")
+# the four decode kernels and the engine knobs that select them
+DECODE_VARIANTS = (("K1", {}), ("K4", dict(kv_layout="paged")),
+                   ("K5", dict(kv_dtype="int8")),
+                   ("K6", dict(kv_layout="paged", kv_dtype="int8")))
+
+
+def decode_counters(dec):
+    return {"K1": dec.LAUNCHES, "K4": dec.PAGED_LAUNCHES,
+            "K5": dec.QUANT_LAUNCHES, "K6": dec.PAGED_QUANT_LAUNCHES}
+
+
+def serving_load(np, SamplingParams, vocab):
+    """The 16 requests of phase 4: prompts 16..700 tokens, 64 new
+    tokens, 12 greedy and 4 sampled."""
+    prompts = make_prompts(np, 16, 16, 700, vocab, seed=1)
     params = [SamplingParams(max_new_tokens=64) for _ in prompts]
     params[3] = SamplingParams(max_new_tokens=64, temperature=0.8)
     params[7] = SamplingParams(max_new_tokens=64, temperature=1.0, top_k=50)
@@ -262,53 +440,185 @@ def phase_engine(torch, np, P):
                                 top_p=0.9)
     params[14] = SamplingParams(max_new_tokens=64, temperature=0.7,
                                 top_k=40, top_p=0.95)
-    kw = dict(max_slots=8, max_seq=1024, decode_block_size=8, seed=0,
-              device="cuda")
-    # warm-up (cuBLAS handles, allocator) outside the measured run
-    LLMEngine(model, **kw).generate(prompts[:2],
-                                    SamplingParams(max_new_tokens=8))
-    torch.cuda.synchronize()
+    return prompts, params
 
-    eng = LLMEngine(model, **kw)
+
+def serve(torch, dec, model, prompts, params, name, **knobs):
+    """Serve the load through one engine with every decode counter set
+    to 0 just before and read just after. Checks: every request
+    finishes with 64 in-range tokens; the variant's kernel launched
+    num_layers x decode steps times and no other decode kernel at all;
+    one host sync per dispatch."""
+    from paddle_tpu_torch.serving import LLMEngine
+    counters = decode_counters(dec)
+    eng = LLMEngine(model, **{**SERVE_KW, **knobs})
     check(eng.attend_impl == "ragged", f"auto gave {eng.attend_impl}")
-    LAUNCHES.reset()
+    for c in counters.values():
+        c.reset()
     t0 = time.perf_counter()
     results = eng.generate(prompts, params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = LAUNCHES.count
+    counts = {k: c.count for k, c in counters.items()}
     st = eng.stats()
-    for r, p in zip(results, prompts):
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    for r in results:
         check(r.finish_reason == "length" and len(r.token_ids) == 64,
-              f"request {r.request_id}: {r.finish_reason}, "
+              f"{name} request {r.request_id}: {r.finish_reason}, "
               f"{len(r.token_ids)} tokens")
-        check(all(0 <= t < cfg.vocab_size for t in r.token_ids),
-              f"request {r.request_id}: token id out of range")
-    check(launches == cfg.num_layers * st["decode_steps"],
-          f"K1 launches {launches} != {cfg.num_layers} x "
-          f"{st['decode_steps']} decode steps")
+        check(all(0 <= t < vocab for t in r.token_ids),
+              f"{name} request {r.request_id}: token id out of range")
+    want = {k: layers * st["decode_steps"] if k == name else 0
+            for k in counters}
+    check(counts == want, f"{name}: decode kernel launches {counts} != "
+                          f"{want} ({layers} layers x {st['decode_steps']} "
+                          f"decode steps)")
     check(st["host_syncs"] == st["decode_dispatches"],
-          f"host_syncs {st['host_syncs']} != dispatches "
+          f"{name}: host_syncs {st['host_syncs']} != dispatches "
           f"{st['decode_dispatches']}")
-    log(f"  served {len(results)} requests ({st['prompt_tokens']} prompt, "
-        f"{st['generated_tokens']} generated tokens) in {wall:.2f} s; "
-        f"K1 launches {launches} = {cfg.num_layers} layers x "
-        f"{st['decode_steps']} decode steps; host_syncs {st['host_syncs']}"
-        f" = dispatches {st['decode_dispatches']}")
+    if eng.paged:
+        check(eng.cache.pool.leaked() == 0, f"{name}: leaked pages")
+    log(f"  {name} {knobs or 'slotted'}: {len(results)} requests "
+        f"({st['prompt_tokens']} prompt, {st['generated_tokens']} generated"
+        f" tokens) in {wall:.2f} s; {name} launches {counts[name]} = "
+        f"{layers} layers x {st['decode_steps']} decode steps, other "
+        f"decode kernels 0; host_syncs = dispatches "
+        f"{st['decode_dispatches']}; kv_bytes_per_token "
+        f"{st['kv_bytes_per_token']:.0f}")
+    return eng, results, {
+        "launches": counts[name], "tokens_per_s": st["tokens_per_sec"],
+        "decode_ms_per_token": st["decode_ms_per_token"],
+        "ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
+        "decode_steps": st["decode_steps"],
+        "dispatches": st["decode_dispatches"], "wall_s": wall,
+        "kv_bytes_per_token": st["kv_bytes_per_token"],
+        "kv_pages_peak": st["kv_pages_peak"],
+        "streams": [r.token_ids for r in results]}
+
+
+def gpt_small_bf16(torch, P):
+    t0 = time.perf_counter()
+    model = P.models.gpt_small(seed=0, device="cuda", dtype="bf16")
+    cfg = model.cfg
+    check((cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.vocab_size)
+          == (768, 12, 12, 50304), f"not GPT-small: {cfg}")
+    log(f"  GPT-small bf16 built from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def phase_engine(torch, np, P):
+    from paddle_tpu_torch.ops_cuda import decode_attention as dec
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    model = gpt_small_bf16(torch, P)
+    prompts, params = serving_load(np, SamplingParams, model.cfg.vocab_size)
+    # warm-up (cuBLAS handles, allocator) outside the measured run
+    LLMEngine(model, **SERVE_KW).generate(prompts[:2],
+                                          SamplingParams(max_new_tokens=8))
+    torch.cuda.synchronize()
+    _, results, run = serve(torch, dec, model, prompts, params, "K1")
     # the engine's own invariant: a request served alone gives the same
     # stream as in the batch (lanes are row-independent)
     for i in (0, 1):
-        solo = LLMEngine(model, **kw).generate([prompts[i]], params[i])[0]
+        solo = LLMEngine(model, **SERVE_KW).generate([prompts[i]],
+                                                     params[i])[0]
         check(solo.token_ids == results[i].token_ids,
               f"request {i}: alone {solo.token_ids[:8]}... != batched "
               f"{results[i].token_ids[:8]}...")
     log("  greedy requests 0 and 1 served alone: streams bitwise equal")
-    return {"launches": launches, "prompts": prompts,
-            "tokens_per_s": st["tokens_per_sec"],
-            "decode_ms_per_token": st["decode_ms_per_token"],
-            "ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
-            "decode_steps": st["decode_steps"],
-            "dispatches": st["decode_dispatches"], "wall_s": wall}
+    return {**run, "prompts": prompts, "model": model, "params": params}
+
+
+def phase_engine_variants(torch, np, dec, engine_run):
+    """(b) the phase-4 load served through K4, K5 and K6; paged streams
+    equal the slotted ones token for token (bf16: K4 against phase 4's
+    K1, int8: K6 against K5), sampled requests included."""
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    model, prompts, params = (engine_run[k] for k in
+                              ("model", "prompts", "params"))
+    runs = {"K1": engine_run}
+    for name, knobs in DECODE_VARIANTS[1:]:
+        LLMEngine(model, **SERVE_KW, **knobs).generate(
+            prompts[:2], SamplingParams(max_new_tokens=8))     # warm-up
+        torch.cuda.synchronize()
+        runs[name] = serve(torch, dec, model, prompts, params, name,
+                           **knobs)[2]
+    for paged, slotted in (("K4", "K1"), ("K6", "K5")):
+        check(runs[paged]["streams"] == runs[slotted]["streams"],
+              f"{paged} streams != {slotted} streams")
+        log(f"  {paged} (paged) and {slotted} (slotted): all 16 streams "
+            f"equal token for token")
+    return runs
+
+
+def phase_page_pressure(torch, dec, engine_run, int8_streams):
+    """(c) paged int8 with kv_pages = 49 (48 usable pages of 64 rows;
+    a request's span takes 2-12): admission waits on pages while lanes
+    are free, every request finishes with K6's streams of (b), and no
+    page leaks."""
+    from paddle_tpu_torch.serving import LLMEngine
+    model, prompts, params = (engine_run[k] for k in
+                              ("model", "prompts", "params"))
+    eng = LLMEngine(model, **SERVE_KW, kv_layout="paged", kv_dtype="int8",
+                    kv_pages=49)
+    rids = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+    waited = 0
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        if eng._queue and eng.cache.num_free > 0:
+            waited += 1            # lanes free, the head waits on pages
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    results = [eng.result(r) for r in rids]
+    st = eng.stats()
+    check(all(r.finish_reason == "length" and len(r.token_ids) == 64
+              for r in results), "a request under page pressure failed")
+    check(waited > 0, "admission never waited on pages")
+    check(eng.cache.pool.leaked() == 0,
+          f"{eng.cache.pool.leaked()} pages leaked")
+    check(st["kv_pages_peak"] <= 49, f"peak {st['kv_pages_peak']} > 49")
+    check([r.token_ids for r in results] == int8_streams,
+          "streams under page pressure != K6 streams of (b)")
+    log(f"  paged int8, kv_pages 49: 16/16 requests finished in {wall:.2f}"
+        f" s, admission waited on pages at {waited} steps with lanes free,"
+        f" peak {st['kv_pages_peak']} pages, 0 leaked; streams equal (b)'s")
+    return {"waited_steps": waited, "kv_pages_peak": st["kv_pages_peak"],
+            "wall_s": wall}
+
+
+def phase_paged_vs_slotted(torch, np, P):
+    """(d) paged ≡ slotted greedy streams in fp32 (K4 against K1) and in
+    int8 over fp32 weights (K6 against K5), token for token; the
+    smallest top-2 margin of the fp32 model's logits along the streams
+    is logged."""
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 products
+    torch.backends.cudnn.allow_tf32 = False
+    model = P.models.gpt_small(seed=0, device="cuda", dtype="float32")
+    prompts = make_prompts(np, 8, 16, 700, model.cfg.vocab_size, seed=2)
+    sp = SamplingParams(max_new_tokens=32)
+    streams = {name: [r.token_ids for r in LLMEngine(
+        model, **SERVE_KW, **knobs).generate(prompts, sp)]
+        for name, knobs in DECODE_VARIANTS}
+    out = {}
+    for paged, slotted in (("K4", "K1"), ("K6", "K5")):
+        margin = float("inf")
+        for p, toks in zip(prompts, streams[slotted]):
+            seq = np.concatenate([p, np.asarray(toks[:-1], np.int32)])
+            lg = model.logits(torch.from_numpy(seq[None]).long().cuda())[0]
+            top2 = torch.topk(lg[len(p) - 1:].float(), 2, dim=-1).values
+            margin = min(margin, (top2[:, 0] - top2[:, 1]).min().item())
+        same = sum(a == b for a, b in zip(streams[paged], streams[slotted]))
+        check(same == len(prompts), f"fp32 weights: {paged} != {slotted} "
+                                    f"in {len(prompts) - same} streams")
+        log(f"  fp32 weights, {paged} vs {slotted}: {same}/{len(prompts)} "
+            f"greedy streams equal token for token; smallest top-2 margin "
+            f"of the fp32 model along them {margin:.3e}")
+        out[f"{paged}_vs_{slotted}_min_margin"] = margin
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_ragged_vs_masked(torch, np, P):
@@ -613,6 +923,116 @@ def phase_numbers(torch, dec, engine_run, card: str):
             "bytes": nbytes, "lengths": lengths}
 
 
+def phase_paged_quant_numbers(torch, np, dec, card: str):
+    """(e) K4, K5 and K6 at the phase-4 shapes and lengths (bf16 queries;
+    K4 over bf16 pages, K5/K6 over int8 codes with f32 scales; pages of
+    64 rows at shuffled ids): the wrapper's median (kernel + split
+    merge), the kernel alone, the plain version (the full-slab
+    reference), the library yardstick (gather and/or dequantise, then
+    one `scaled_dot_product_attention` with the keep mask; timed only,
+    never on the path), and the bound from this run's lengths."""
+    from paddle_tpu_torch.quantization.kv import kv_dequant, kv_quantize
+    F = torch.nn.functional
+    S, T, nh, hd = 8, 1024, 12, 64
+    scale = 1 / math.sqrt(hd)
+    lengths = serving_lengths(np, T)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(S, nh, hd, device="cuda", generator=gen).bfloat16()
+    kc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).bfloat16()
+    vc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).bfloat16()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    sm = torch.arange(S, dtype=torch.int32, device="cuda")
+    kq, ks = kv_quantize(kc)
+    vq, vs = kv_quantize(vc)
+    tables, npages, _ = page_tables(torch, gen, S, T, lengths, PAGE)
+    kp, vp, kqp, vqp, ksp, vsp = (to_pages(torch, x, tables, npages, PAGE)
+                                  for x in (kc, vc, kq, vq, ks, vs))
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    keep = (torch.arange(T, device="cuda")[None, :]
+            < lens[:, None].long())[:, None, None]           # (B,1,1,T)
+
+    def gather(pool):
+        return pool[tables.long()].reshape(S, T, *pool.shape[2:])
+
+    def sdpa(k_, v_):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k_.permute(0, 2, 1, 3), v_.permute(0, 2, 1, 3),
+            attn_mask=keep)[:, :, 0]
+
+    bf = torch.bfloat16
+    cases = {
+        "K4": dict(
+            run=lambda: dec.paged_ragged_decode_attention(q, kp, vp, tables,
+                                                          lens),
+            kernel=lambda bk, ns: dec._launch_cuda(
+                q, kp, vp, lens, tables, scale, bk, ns, page_size=PAGE),
+            blocks=dec.pick_paged_decode_blocks(T, PAGE, hd, bf),
+            plain=lambda: dec.paged_decode_reference(q, kp, vp, tables,
+                                                     lens),
+            library=lambda: sdpa(gather(kp), gather(vp)),
+            library_what="gather pages + scaled_dot_product_attention",
+            row_bytes=hd * 2, ops_per_elem=4, tables=True),
+        "K5": dict(
+            run=lambda: dec.ragged_decode_attention(q, kq, vq, lens,
+                                                    k_scale=ks, v_scale=vs),
+            kernel=lambda bk, ns: dec._launch_cuda(
+                q, kq, vq, lens, sm, scale, bk, ns, ks, vs),
+            blocks=dec.pick_decode_blocks(T, hd, torch.int8),
+            plain=lambda: dec.ragged_decode_reference(
+                q, kq, vq, lens, k_scale=ks, v_scale=vs),
+            library=lambda: sdpa(kv_dequant(kq, ks, bf),
+                                 kv_dequant(vq, vs, bf)),
+            library_what="dequantise + scaled_dot_product_attention",
+            row_bytes=hd + 4, ops_per_elem=6, tables=False),
+        "K6": dict(
+            run=lambda: dec.paged_ragged_decode_attention(
+                q, kqp, vqp, tables, lens, k_scale=ksp, v_scale=vsp),
+            kernel=lambda bk, ns: dec._launch_cuda(
+                q, kqp, vqp, lens, tables, scale, bk, ns, ksp, vsp,
+                page_size=PAGE),
+            blocks=dec.pick_paged_decode_blocks(T, PAGE, hd, torch.int8),
+            plain=lambda: dec.paged_decode_reference(
+                q, kqp, vqp, tables, lens, k_scale=ksp, v_scale=vsp),
+            library=lambda: sdpa(kv_dequant(gather(kqp), gather(ksp), bf),
+                                 kv_dequant(gather(vqp), gather(vsp), bf)),
+            library_what="gather + dequantise + "
+                         "scaled_dot_product_attention",
+            row_bytes=hd + 4, ops_per_elem=6, tables=True)}
+    live = sum(min(n, T) for n in lengths)
+    log(f"  K4/K5/K6 at phase-4 shapes (B=S={S}, T={T}, nh={nh}, hd={hd}, "
+        f"bf16 queries, page {PAGE}, lengths {lengths}) [card: {card}]")
+    out = {}
+    for name, c in cases.items():
+        bk, ns = c["blocks"]
+        ms = time_ms(torch, c["run"], flush)
+        kernel_ms = time_ms(torch, lambda: c["kernel"](bk, ns), flush)
+        plain_ms = time_ms(torch, c["plain"], flush)
+        library_ms = time_ms(torch, c["library"], flush)
+        torch.testing.assert_close(c["library"]().float(), c["run"]().float(),
+                                   **TOL["bfloat16"])
+        # K and V of the live rows (int8: codes + one f32 scale per row
+        # and head), q in, output out, lengths, the page tables
+        nbytes = (2 * live * nh * c["row_bytes"] + 2 * S * nh * hd * 2
+                  + 4 * S + (4 * tables.numel() if c["tables"] else 0))
+        flops = c["ops_per_elem"] * live * nh * hd
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / FP32_FLOPS * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"    {name} (block_k {bk}, splits {ns}, {ns * nh * S} CTAs): "
+            f"wrapper median {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms; "
+            f"bound {bound_ms:.5f} ms ({nbytes} B at 3.35 TB/s; "
+            f"{flops} fp32 ops = {ops_ms:.6f} ms); plain {plain_ms:.4f} ms; "
+            f"library ({c['library_what']}) {library_ms:.4f} ms")
+        out[name] = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations", "bytes": nbytes,
+                     "block_k": bk, "num_splits": ns}
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_bound(b, sq, sk, h, d, causal, n_products, n_q, n_k):
     """(bound ms, "bytes" | "operations", bytes, flops) of a flash call:
     `n_q` bf16 (b, sq, h, d) and `n_k` bf16 (b, sk, h, d) tensors each
@@ -715,18 +1135,37 @@ def main(argv=None) -> int:
 
     log("phase 2: K1 against its plain version")
     max_err = phase_kernel(torch, dec)
+    log("phase 2a: K4, K5 and K6 against their plain versions")
+    pq_err = phase_paged_quant_kernels(torch, np, dec)
     log("phase 3: K2 and K3 against their plain versions")
     flash_err = phase_flash_kernels(torch, fa)
     log("phase 4: GPT-small served at full width through K1")
     engine_run = phase_engine(torch, np, P)
+    log("phase 4b: the same load through K4 (paged), K5 (int8), K6 "
+        "(paged int8)")
+    variants = phase_engine_variants(torch, np, dec, engine_run)
+    log("phase 4c: paged int8 starved of pages (kv_pages = 49)")
+    pressure = phase_page_pressure(torch, dec, engine_run,
+                                   variants["K6"]["streams"])
+    del engine_run["model"], variants["K1"]
+    torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
     rvm = phase_ragged_vs_masked(torch, np, P)
+    log("phase 5d: paged vs slotted greedy streams, fp32 weights")
+    pvs = phase_paged_vs_slotted(torch, np, P)
     log("phase 6: GPT-small trained at full width through K2 and K3")
     train = phase_train(torch, np, P, profile=args.profile)
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = phase_grad_check(torch, np, P)
     log("phase 8: numbers")
     nums = phase_numbers(torch, dec, engine_run, card)
+    pqnums = phase_paged_quant_numbers(torch, np, dec, card)
+    for name, run in variants.items():
+        log(f"  engine through {name}, phase 4b [card: {card}]: "
+            f"{run['tokens_per_s']:.1f} tokens/s, decode "
+            f"{run['decode_ms_per_token']:.3f} ms/token (per decode step), "
+            f"TTFT p50 {run['ttft_p50_s'] * 1e3:.1f} ms, kv_bytes_per_token"
+            f" {run['kv_bytes_per_token']:.0f}")
     fnums = phase_flash_numbers(torch, fa, card)
     log(f"  training, phase 6 [card: {card}]: {train['step_ms']:.2f} ms per "
         f"step, {train['tokens_per_s']:.1f} tokens/s, peak memory "
@@ -750,15 +1189,33 @@ def main(argv=None) -> int:
         "source": "paddle_tpu_torch/ops_cuda/csrc/flash_attention_bwd.cu",
         "replaces": f"{flash}:205", "launches": train["bwd_launches"],
         "max_abs_err": flash_err["bwd"], **fnums["bwd"]}]
+    dpy = "paddle_tpu/ops_pallas/decode_attention.py"
+    for name, line, what in (("K4", 258, "paged_decode"),
+                             ("K5", 242, "ragged_decode_int8"),
+                             ("K6", 279, "paged_decode_int8")):
+        kernels.append({
+            "name": what, "route": "cuda",
+            "source": "paddle_tpu_torch/ops_cuda/csrc/decode_attention.cu",
+            "replaces": f"{dpy}:{line}",
+            "launches": variants[name]["launches"],
+            "max_abs_err": pq_err[name],
+            **{k: pqnums[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}})
     if args.out:
+        def drop(run):
+            return {k: v for k, v in run.items()
+                    if k not in ("prompts", "params", "streams")}
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels,
                        "kernel_only_ms": nums["kernel_ms"],
                        "timing_lengths": nums["lengths"],
-                       "engine": {k: v for k, v in engine_run.items()
-                                  if k != "prompts"},
-                       "ragged_vs_masked": rvm, "train": train,
-                       "grad_check": grad,
+                       "engine": drop(engine_run),
+                       "engine_variants": {k: drop(v)
+                                           for k, v in variants.items()},
+                       "page_pressure": pressure,
+                       "paged_quant_numbers": pqnums,
+                       "ragged_vs_masked": rvm, "paged_vs_slotted": pvs,
+                       "train": train, "grad_check": grad,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

@@ -16,7 +16,8 @@ packages comparable name for name:
 Numerics follow the reference: LayerNorm statistics in fp32, GELU with
 the tanh approximation, attention scores in fp32 with a -1e30 mask;
 training attention runs through the flash kernels K2/K3
-(`ops_cuda/flash_attention.py`), decode attention through K1.
+(`ops_cuda/flash_attention.py`), decode attention through K1 (K4, K5,
+K6 for paged and int8 caches).
 Cache slabs are written IN PLACE (the JAX code returns updated arrays
 and donates the old ones instead).
 """
@@ -32,6 +33,8 @@ from torch import nn
 from ..core import DeviceLike, make_generator, resolve_device, resolve_dtype
 from ..nn import functional as F
 from ..nn.layers import GELU, Dropout, Embedding, LayerNorm, Linear
+from ..quantization.kv import (dequant_slab, is_quantized, slab_data,
+                               slab_shape, take_rows)
 
 __all__ = ["GPTConfig", "GPT", "GPTBlock", "gpt_tiny", "gpt_small",
            "gpt_medium", "gpt_1p3b", "param_shapes", "generate_greedy"]
@@ -383,8 +386,20 @@ def _masked_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     return torch.einsum("bnqk,bknd->bqnd", w, vc)
 
 
-def _slot_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                 pos: torch.Tensor, impl: str = "masked") -> torch.Tensor:
+def _kernel_scales(kc, vc) -> dict:
+    """The scale arguments a decode kernel takes beside the slabs' data:
+    a quantized {"q", "s"} slab's scales, none for an fp slab."""
+    return dict(k_scale=kc["s"], v_scale=vc["s"]) if is_quantized(kc) \
+        else {}
+
+
+def _check_impl(impl: str):
+    if impl not in ("masked", "ragged"):
+        raise ValueError(f"impl must be 'masked' or 'ragged', got {impl!r}")
+
+
+def _slot_attend(q: torch.Tensor, kc, vc, pos: torch.Tensor,
+                 impl: str = "masked") -> torch.Tensor:
     """Decode-step attention over a SLOTTED cache: q (S, 1, nh, hd)
     against kc/vc (S, T, nh, hd), slot `s` attending rows
     `[0, pos[s]]` inclusive (the row at `pos` was written this step).
@@ -393,17 +408,54 @@ def _slot_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
       proportional to T; the engine's bitwise numerics reference and
       its CPU path.
     - impl="ragged": the hand-written flash-decode kernel
-      (`ops_cuda/decode_attention.py`), which reads only the live rows;
-      blockwise online-softmax order makes it approximately (not
-      bit-) equal to the masked path.
+      (`ops_cuda/decode_attention.py`: K1, or K5 for int8 slabs), which
+      reads only the live rows; blockwise online-softmax order makes it
+      approximately (not bit-) equal to the masked path.
+
+    kc/vc may be quantized {"q", "s"} slabs: the kernel takes codes and
+    scales and widens in fp32; the masked path widens the slab to q's
+    dtype first (as the reference's `dequant_slab(kc, q.dtype)`, which
+    rounds to bf16 under bf16 weights) and runs the same math.
     """
+    _check_impl(impl)
     if impl == "ragged":
         from ..ops_cuda.decode_attention import ragged_decode_attention
-        return ragged_decode_attention(q.contiguous(), kc, vc,
-                                       (pos + 1).to(torch.int32))
-    if impl != "masked":
-        raise ValueError(f"impl must be 'masked' or 'ragged', got {impl!r}")
+        return ragged_decode_attention(
+            q.contiguous(), slab_data(kc), slab_data(vc),
+            (pos + 1).to(torch.int32), **_kernel_scales(kc, vc))
+    kc, vc = dequant_slab(kc, q.dtype), dequant_slab(vc, q.dtype)
     T = kc.shape[1]
+    keep = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
+    return _masked_attend(q, kc, vc, keep[:, None, None])
+
+
+def _paged_attend(q: torch.Tensor, kp, vp, tables: torch.Tensor,
+                  pos: torch.Tensor, impl: str = "masked") -> torch.Tensor:
+    """Decode-step attention over a PAGED cache: q (S, 1, nh, hd)
+    against the shared page pools kp/vp (num_pages, page, nh, hd), lane
+    `s` reading rows through its block-table row `tables[s]` (row r
+    lives at (tables[s, r // page], r % page)) and attending rows
+    `[0, pos[s]]`. The paged twin of `_slot_attend`, same contract:
+
+    - impl="masked": gather the lane's pages into the exact
+      (S, max_seq, nh, hd) view `_slot_attend` reads (pages_per_seq *
+      page == max_seq is enforced by `serving.paged_kv.PagedKVCache`),
+      then the same `_masked_attend` math — bitwise equal to the slotted
+      path on identical rows;
+    - impl="ragged": the block-table flash-decode kernel (K4, or K6 for
+      int8 pools), which reads only the live rows through the table.
+    """
+    _check_impl(impl)
+    if impl == "ragged":
+        from ..ops_cuda.decode_attention import paged_ragged_decode_attention
+        return paged_ragged_decode_attention(
+            q.contiguous(), slab_data(kp), slab_data(vp), tables,
+            (pos + 1).to(torch.int32), **_kernel_scales(kp, vp))
+    S, maxp = tables.shape
+    _, page, nh, hd = slab_shape(kp)
+    T = maxp * page
+    kc = take_rows(kp, tables, q.dtype).reshape(S, T, nh, hd)
+    vc = take_rows(vp, tables, q.dtype).reshape(S, T, nh, hd)
     keep = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
     return _masked_attend(q, kc, vc, keep[:, None, None])
 

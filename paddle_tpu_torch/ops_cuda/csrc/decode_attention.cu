@@ -1,45 +1,75 @@
-// Ragged split-K flash-decode for Hopper (sm_90a): kernel K1 of the port.
+// Ragged split-K flash-decode for Hopper (sm_90a): kernels K1, K4, K5
+// and K6 of the port, one body with two seams.
 //
-// Replaces the TPU kernel `_decode_kernel` (body `_decode_inner`) in
-// paddle_tpu/ops_pallas/decode_attention.py, launched there through
-// pl.pallas_call by `_ragged_decode_call`. Same function: grid row b
-// holds one query q[b] (nh heads of hd) and attends rows [0, len_b) of
-// cache row slot_map[b] of kc/vc (S, T, nh, hd); the T rows are cut
-// into num_splits splits of split_blocks chunks of block_k rows. Per
-// (b, split) it emits the UNNORMALISED fp32 accumulator (B, ns, nh, hd),
-// the fp32 running max m and sum-exp l (B, ns, 1, nh), and the visited
-// chunk count clip(ceil((len - split_start) / block_k), 0, split_blocks)
-// as int32 (B, ns). fp32 math throughout; a split with no live row gives
+// Replaces the TPU kernels of paddle_tpu/ops_pallas/decode_attention.py,
+// which share the body `_decode_inner` and differ in the same two seams:
+//   K1 `_decode_kernel`              slotted addressing, fp32/bf16 rows
+//   K4 `_paged_decode_kernel`        paged addressing,   fp32/bf16 rows
+//   K5 `_decode_kernel_quant`        slotted addressing, int8 rows + scales
+//   K6 `_paged_decode_kernel_quant`  paged addressing,   int8 rows + scales
+// (launched there through pl.pallas_call by `_ragged_decode_call` and
+// `_paged_ragged_call`).
+//
+// Function: grid row b holds one query q[b] (nh heads of hd) and attends
+// sequence rows [0, len_b). The T = t_rows rows are cut into num_splits
+// splits of split_blocks chunks of block_k rows. Per (b, split) the
+// kernel emits the UNNORMALISED fp32 accumulator (B, ns, nh, hd), the
+// fp32 running max m and sum-exp l (B, ns, 1, nh), and the visited chunk
+// count clip(ceil((len - split_start) / block_k), 0, split_blocks) as
+// int32 (B, ns). fp32 math throughout; a split with no live row gives
 // m = -1e30, l = 0, acc = 0. The wrapper merges the splits.
 //
+// Addressing seam (the JAX `dma_src`), a template parameter:
+// - slotted: sequence row r of grid row b is row r of cache row
+//   slot_map[b] of kc/vc (S, T, nh, hd);
+// - paged: it is row r % page of page tables[b, r / page] of the pools
+//   kp/vp (num_pages, page, nh, hd). Rows are addressed one by one, so a
+//   chunk never needs to sit in one page; the wrapper still requires
+//   block_k | page, as the reference does.
+// Storage seam: fp32/bf16 rows widen exactly to fp32. int8 rows carry 16
+// codes per 16-byte load, and each (row, head) has its own f32 scale in
+// a (..., nh) array laid out like the rows' leading axes; a code widens
+// as float(code) * scale, in fp32, before any softmax math (the TPU
+// kernel's widen point). Nothing is rounded to bf16 there.
+//
 // Bound on an H100 SXM: the bytes that must move, sum_b 2 * len_b * nh *
-// hd * itemsize (K and V of the live rows, read once; q and the outputs
-// are < 1% of that at serving shapes), over 3.35 TB/s. The arithmetic is
-// 4 fp32 operations per cached element, so the kernel is bandwidth-bound
-// by two orders of magnitude.
+// (hd * itemsize [+ 4 for an int8 row's scale]) (K and V of the live
+// rows, read once; q, the outputs and the page tables are < 1% of that
+// at serving shapes), over 3.35 TB/s. The arithmetic is 4 fp32
+// operations per (row, head, d) of K and V (6 with the two dequantising
+// multiplies), so the kernel is bandwidth-bound by two orders of
+// magnitude.
 //
 // What the design does about that bound:
 // - It reads only live rows. A CTA loops over the rows of its split
 //   below len_b and never touches a dead row (the TPU kernel copies the
-//   whole last chunk and masks it; here the row mask costs nothing).
+//   whole last chunk and masks it; here the row mask costs nothing), so
+//   a NaN in a dead row or on the paged layout's trash page cannot reach
+//   the output.
 // - It fills the card. The TPU program runs one (lane, split) over all
 //   heads; at GPT-small decode (B = 8, nh = 12, T = 1024, 2 splits) that
 //   would be 16 CTAs on 132 SMs. Here the grid is (split, head, lane),
-//   192 CTAs at that shape, and each CTA reads its own len_b and
-//   slot_map[b] instead of a scalar prefetch.
+//   192 CTAs at that shape, and each CTA reads its own len_b and its
+//   slot or page-table row instead of a scalar prefetch.
 // - Loads are 16 bytes a thread and coalesced: a group of G threads
-//   covers one cache row (bf16 hd = 64: 128 B = 8 threads x 16 B), the
-//   128 threads of a CTA cover 128 / G rows at once, and each thread
-//   starts the K and V loads of kUnroll rows before it uses any of them,
-//   so several loads are in flight per thread instead of a copy/compute
-//   double buffer.
+//   covers one cache row (bf16 hd = 64: 128 B = 8 threads x 16 B; int8
+//   hd = 64: 64 B = 4 threads), the 128 threads of a CTA cover 128 / G
+//   rows at once, and each thread starts the K and V loads (and scales)
+//   of kUnroll rows before it uses any of them, so several loads are in
+//   flight per thread instead of a copy/compute double buffer.
 // - The online softmax (m, l, acc) lives in registers, one state per
 //   row group; the groups merge once through shared memory at the end.
 // No TMA and no wgmma: q_len = 1 gives one dot product per row and head,
 // which tensor cores would not speed up.
+//
+// The rows a CTA visits, and their order, do not depend on block_k or
+// on the addressing: a paged and a slotted launch over the same rows
+// with the same number of splits give bitwise equal partials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -47,7 +77,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kUnroll = 4;
 
-// 16 bytes of T widened to fp32 (both conversions are exact).
+// 16 bytes of T widened to fp32 (exact for every T).
 template <typename T>
 struct Widen;
 
@@ -77,17 +107,40 @@ struct Widen<__nv_bfloat16> {
   }
 };
 
-template <typename T, int HD>
+template <>
+struct Widen<int8_t> {
+  static constexpr int kElems = 16;
+  __device__ __forceinline__ static void apply(const uint4& raw, float* out) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)   // the lowest address in the low byte
+        out[4 * i + j] = static_cast<float>(
+            static_cast<int8_t>((w[i] >> (8 * j)) & 0xffu));
+  }
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// TQ: the query's type (fp32 or bf16). TKV: the cache's storage (TQ
+// itself, or int8 codes with f32 scales). kPaged: the addressing seam.
+template <typename TQ, typename TKV, int HD, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                     const T* __restrict__ vc,
-                     const int* __restrict__ lengths,
-                     const int* __restrict__ slot_map,
-                     float* __restrict__ acc_out, float* __restrict__ m_out,
-                     float* __restrict__ l_out, int* __restrict__ visits,
-                     int t_rows, int nh, int block_k, int split_blocks,
-                     float scale) {
-  constexpr int kVec = Widen<T>::kElems;            // elements per 16 B
+decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
+              const TKV* __restrict__ vc, const float* __restrict__ k_scale,
+              const float* __restrict__ v_scale,
+              const int* __restrict__ lengths,
+              const int* __restrict__ index,  // slot_map (B,) or tables (B, P)
+              float* __restrict__ acc_out, float* __restrict__ m_out,
+              float* __restrict__ l_out, int* __restrict__ visits,
+              int t_rows, int nh, int block_k, int split_blocks,
+              int page_size, int max_pages, float scale) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
+  constexpr int kVec = Widen<TKV>::kElems;          // elements per 16 B
   constexpr int kVecsPerRow = HD / kVec;
   constexpr int kGroup = kVecsPerRow < 32 ? kVecsPerRow : 32;
   constexpr int kVecsPerThread = kVecsPerRow / kGroup;
@@ -107,20 +160,46 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   // rows past T never exist: clamping len to T changes neither the
   // attended rows nor the visit count (T is a multiple of the split)
   const int len = min(lengths[b], t_rows);
-  const long long slot = slot_map[b];
+  // the lane's stripe (slotted), read beside its length: both gate the
+  // first row loads, so neither waits on the other
+  const size_t lane_row0 = kPaged ? 0 : (size_t)index[b] * t_rows;
   const int split_start = split * split_blocks * block_k;
   int nblk = (len - split_start + block_k - 1) / block_k;  // trunc, lax.div
   nblk = max(0, min(nblk, split_blocks));
   if (head == 0 && tid == 0) visits[b * num_splits + split] = nblk;
   const int row_end = min(len, split_start + nblk * block_k);
 
+  // the addressing seam: sequence row r -> row of the slab or pool,
+  // counted from `kbase` (slotted: the lane's stripe, paged: the pool)
+  const int* table = index + (size_t)b * max_pages;
+  const size_t row_stride = (size_t)nh * HD;
+  const TKV* kbase = kc + (lane_row0 * nh + head) * HD;
+  const TKV* vbase = vc + (lane_row0 * nh + head) * HD;
+  const float* ksbase = kQuant ? k_scale + lane_row0 * nh + head : nullptr;
+  const float* vsbase = kQuant ? v_scale + lane_row0 * nh + head : nullptr;
+  auto seq_row = [&](int r) -> size_t {
+    if constexpr (kPaged)
+      return (size_t)__ldg(table + r / page_size) * page_size +
+             r % page_size;
+    else
+      return r;
+  };
+
   float qf[kElemsPerThread];
-  const T* qrow = q + ((size_t)b * nh + head) * HD;
+  const TQ* qrow = q + ((size_t)b * nh + head) * HD;
+  if constexpr (std::is_same<TQ, TKV>::value) {
 #pragma unroll
-  for (int j = 0; j < kVecsPerThread; ++j)
-    Widen<T>::apply(
-        __ldg(reinterpret_cast<const uint4*>(qrow + (sub + j * kGroup) * kVec)),
-        qf + j * kVec);
+    for (int j = 0; j < kVecsPerThread; ++j)
+      Widen<TKV>::apply(__ldg(reinterpret_cast<const uint4*>(
+                            qrow + (sub + j * kGroup) * kVec)),
+                        qf + j * kVec);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kVecsPerThread; ++j)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e)
+        qf[j * kVec + e] = to_float(qrow[(sub + j * kGroup) * kVec + e]);
+  }
 
   float m = kNegInf;
   float l = 0.f;
@@ -128,30 +207,33 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int e = 0; e < kElemsPerThread; ++e) acc[e] = 0.f;
 
-  const size_t row_stride = (size_t)nh * HD;
-  const size_t lane_ofs = ((size_t)slot * t_rows * nh + head) * HD;
-  const T* kbase = kc + lane_ofs;
-  const T* vbase = vc + lane_ofs;
-
   // the trip count is uniform over the CTA (the warp shuffles below need
   // every lane); each group masks its own rows
   for (int base = split_start; base < row_end;
        base += kRowsPerPass * kUnroll) {
     uint4 kr[kUnroll][kVecsPerThread];
     uint4 vr[kUnroll][kVecsPerThread];
+    float ks[kUnroll], vs[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int row = base + u * kRowsPerPass + grp;
+      // the row offset is formed inside the guard, as K1 always did: a
+      // select hoisted above it cost K1 6% alone (measured on the card)
 #pragma unroll
       for (int j = 0; j < kVecsPerThread; ++j) {
         if (row < row_end) {
-          const size_t ofs = row * row_stride + (sub + j * kGroup) * kVec;
+          const size_t ofs =
+              seq_row(row) * row_stride + (sub + j * kGroup) * kVec;
           kr[u][j] = __ldg(reinterpret_cast<const uint4*>(kbase + ofs));
           vr[u][j] = __ldg(reinterpret_cast<const uint4*>(vbase + ofs));
         } else {
           kr[u][j] = make_uint4(0u, 0u, 0u, 0u);
           vr[u][j] = make_uint4(0u, 0u, 0u, 0u);
         }
+      }
+      if constexpr (kQuant) {
+        ks[u] = row < row_end ? __ldg(ksbase + seq_row(row) * nh) : 0.f;
+        vs[u] = row < row_end ? __ldg(vsbase + seq_row(row) * nh) : 0.f;
       }
     }
 #pragma unroll
@@ -160,7 +242,11 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       float kf[kElemsPerThread];
 #pragma unroll
       for (int j = 0; j < kVecsPerThread; ++j)
-        Widen<T>::apply(kr[u][j], kf + j * kVec);
+        Widen<TKV>::apply(kr[u][j], kf + j * kVec);
+      if constexpr (kQuant) {
+#pragma unroll
+        for (int e = 0; e < kElemsPerThread; ++e) kf[e] *= ks[u];
+      }
       float s = 0.f;
 #pragma unroll
       for (int e = 0; e < kElemsPerThread; ++e) s = fmaf(qf[e], kf[e], s);
@@ -176,7 +262,11 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         float vf[kElemsPerThread];
 #pragma unroll
         for (int j = 0; j < kVecsPerThread; ++j)
-          Widen<T>::apply(vr[u][j], vf + j * kVec);
+          Widen<TKV>::apply(vr[u][j], vf + j * kVec);
+        if constexpr (kQuant) {
+#pragma unroll
+          for (int e = 0; e < kElemsPerThread; ++e) vf[e] *= vs[u];
+        }
 #pragma unroll
         for (int e = 0; e < kElemsPerThread; ++e)
           acc[e] = fmaf(pe, vf[e], acc[e] * alpha);
@@ -218,74 +308,83 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* lengths, const void* slot_map, void* acc,
-                   void* m, void* l, void* visits, dim3 grid, int t_rows,
-                   int nh, int block_k, int split_blocks, float scale,
-                   cudaStream_t stream) {
-  ragged_decode_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const int*>(lengths),
-      static_cast<const int*>(slot_map), static_cast<float*>(acc),
-      static_cast<float*>(m), static_cast<float*>(l),
-      static_cast<int*>(visits), t_rows, nh, block_k, split_blocks, scale);
+struct Args {
+  const void *q, *kc, *vc, *k_scale, *v_scale, *lengths, *index;
+  void *acc, *m, *l, *visits;
+  int t_rows, nh, block_k, split_blocks, page_size, max_pages;
+  float scale;
+};
+
+template <typename TQ, typename TKV, int HD, bool kPaged>
+cudaError_t launch(const Args& a, dim3 grid, cudaStream_t stream) {
+  decode_kernel<TQ, TKV, HD, kPaged><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kc),
+      static_cast<const TKV*>(a.vc), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale),
+      static_cast<const int*>(a.lengths), static_cast<const int*>(a.index),
+      static_cast<float*>(a.acc), static_cast<float*>(a.m),
+      static_cast<float*>(a.l), static_cast<int*>(a.visits), a.t_rows, a.nh,
+      a.block_k, a.split_blocks, a.page_size, a.max_pages, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
-                      const void* lengths, const void* slot_map, void* acc,
-                      void* m, void* l, void* visits, dim3 grid, int t_rows,
-                      int nh, int block_k, int split_blocks, float scale,
-                      cudaStream_t stream) {
-#define PTT_HD_CASE(HD)                                                      \
-  case HD:                                                                   \
-    return launch<T, HD>(q, kc, vc, lengths, slot_map, acc, m, l, visits,    \
-                         grid, t_rows, nh, block_k, split_blocks, scale,     \
-                         stream);
+template <typename TQ, typename TKV, bool kPaged>
+cudaError_t launch_hd(int hd, const Args& a, dim3 grid, cudaStream_t s) {
   switch (hd) {
-    PTT_HD_CASE(16)
-    PTT_HD_CASE(32)
-    PTT_HD_CASE(64)
-    PTT_HD_CASE(128)
-    PTT_HD_CASE(256)
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch<TQ, TKV, 16, kPaged>(a, grid, s);
+    case 32: return launch<TQ, TKV, 32, kPaged>(a, grid, s);
+    case 64: return launch<TQ, TKV, 64, kPaged>(a, grid, s);
+    case 128: return launch<TQ, TKV, 128, kPaged>(a, grid, s);
+    case 256: return launch<TQ, TKV, 256, kPaged>(a, grid, s);
+    default: return cudaErrorInvalidValue;
   }
-#undef PTT_HD_CASE
+}
+
+template <bool kPaged>
+cudaError_t launch_types(int q_dtype, int kv_dtype, int hd, const Args& a,
+                         dim3 grid, cudaStream_t s) {
+  if (q_dtype == 0 && kv_dtype == 0)
+    return launch_hd<float, float, kPaged>(hd, a, grid, s);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch_hd<__nv_bfloat16, __nv_bfloat16, kPaged>(hd, a, grid, s);
+  if (q_dtype == 0 && kv_dtype == 2)
+    return launch_hd<float, int8_t, kPaged>(hd, a, grid, s);
+  if (q_dtype == 1 && kv_dtype == 2)
+    return launch_hd<__nv_bfloat16, int8_t, kPaged>(hd, a, grid, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C entry for ctypes. dtype: 0 = float32, 1 = bfloat16. Launches on
-// `stream` without synchronising; returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape the kernel does not take).
-extern "C" int ragged_decode_launch(const void* q, const void* kc,
-                                    const void* vc, const void* lengths,
-                                    const void* slot_map, void* acc, void* m,
-                                    void* l, void* visits, int batch,
-                                    int slots, int t_rows, int nh, int hd,
-                                    int dtype, int block_k, int num_splits,
-                                    float scale, void* stream) {
-  if (batch < 1 || slots < 1 || t_rows < 1 || nh < 1 || block_k < 1 ||
-      num_splits < 1 || t_rows % (block_k * num_splits) != 0 ||
-      batch > 65535 || nh > 65535)
+// C entry for ctypes. Types: 0 = float32, 1 = bfloat16, 2 = int8 (the
+// cache only; then k_scale/v_scale are its f32 scales). page_size = 0
+// selects the slotted layout (index = slot_map (B,), kc/vc (S, t_rows,
+// nh, hd)); page_size > 0 the paged one (index = tables (B, max_pages),
+// kc/vc (num_pages, page_size, nh, hd), t_rows = max_pages * page_size).
+// Launches on `stream` without synchronising; returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for a shape or type the kernel
+// does not take).
+extern "C" int decode_attention_launch(
+    const void* q, const void* kc, const void* vc, const void* k_scale,
+    const void* v_scale, const void* lengths, const void* index, void* acc,
+    void* m, void* l, void* visits, int batch, int t_rows, int nh, int hd,
+    int q_dtype, int kv_dtype, int block_k, int num_splits, int page_size,
+    int max_pages, float scale, void* stream) {
+  const bool paged = page_size > 0;
+  if (batch < 1 || t_rows < 1 || nh < 1 || block_k < 1 || num_splits < 1 ||
+      t_rows % (block_k * num_splits) != 0 || batch > 65535 || nh > 65535 ||
+      (kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr) ||
+      (paged && (page_size % block_k != 0 || max_pages < 1 ||
+                 t_rows != max_pages * page_size)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int split_blocks = t_rows / (block_k * num_splits);
+  const Args a{q, kc, vc, k_scale, v_scale, lengths, index, acc, m, l,
+               visits, t_rows, nh, block_k, t_rows / (block_k * num_splits),
+               page_size, paged ? max_pages : 0, scale};
   const dim3 grid(num_splits, nh, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch_hd<float>(hd, q, kc, vc, lengths, slot_map, acc, m, l,
-                           visits, grid, t_rows, nh, block_k, split_blocks,
-                           scale, s);
-  else if (dtype == 1)
-    err = launch_hd<__nv_bfloat16>(hd, q, kc, vc, lengths, slot_map, acc, m,
-                                   l, visits, grid, t_rows, nh, block_k,
-                                   split_blocks, scale, s);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err =
+      paged ? launch_types<true>(q_dtype, kv_dtype, hd, a, grid, s)
+            : launch_types<false>(q_dtype, kv_dtype, hd, a, grid, s);
   return static_cast<int>(err);
 }
 

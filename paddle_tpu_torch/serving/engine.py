@@ -19,14 +19,24 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   length bucket (powers of two up to `max_seq`) and written into its
   slot's rows in one forward; the last real position's logits give the
   first token.
-- Attention goes through `models.gpt._slot_attend`: `attend_impl`
-  "ragged" runs the hand-written flash-decode kernel (K1), "masked" the
+- Two KV layouts (`kv_layout`). "slotted": one `max_seq` stripe per
+  lane (`kv_cache.KVCacheManager`). "paged": one refcounted page pool
+  with per-lane block tables (`paged_kv.PagedKVCache`); admission
+  reserves a request's whole span (prompt + budget) in real pages up
+  front and WAITS, FIFO, when the pool cannot cover the next request —
+  page pressure never fails a request — and frozen lanes park their
+  writes on the trash page. `kv_dtype="int8"` stores either layout as
+  per-row int8 codes with f32 scales (`quantization/kv.py`).
+- Attention goes through `models.gpt._slot_attend` / `_paged_attend`:
+  `attend_impl` "ragged" runs the hand-written flash-decode kernels
+  (K1 slotted, K4 paged, K5 / K6 their int8 forms), "masked" the
   full-slab `_masked_attend`; "auto" picks "ragged" on a CUDA device
   and "masked" on the CPU.
 
 Numerics: under "masked", a request decoded beside others is bitwise
 identical to the same request decoded alone, for any
-`decode_block_size` (lanes are row-independent). Sampled streams
+`decode_block_size` (lanes are row-independent), and the paged layout
+gives the slotted layout's streams bitwise (for a fixed kv_dtype). Sampled streams
 depend only on (engine seed, the request's salt, position) — see
 `serving/sampler.py` — so they too are invariant to block size and lane
 assignment; the salt is assigned when a request leaves the queue.
@@ -47,9 +57,13 @@ import numpy as np
 import torch
 
 from ..core import DeviceLike, resolve_device
-from ..models.gpt import _body_layers, _head, _masked_attend, _slot_attend
+from ..models.gpt import (_body_layers, _head, _masked_attend,
+                          _paged_attend, _slot_attend)
+from ..quantization.kv import (dequant_slab, kv_update, map_slab,
+                               slab_shape, take_rows)
 from .kv_cache import KVCacheManager
 from .metrics import ServingMetrics
+from .paged_kv import NoFreePages, PagedKVCache, paged_rows
 from .sampler import DOMAIN_FIRST, sample_tokens, sample_tokens_per_lane
 
 __all__ = ["SamplingParams", "GenerationResult", "EngineOverloadError",
@@ -57,32 +71,30 @@ __all__ = ["SamplingParams", "GenerationResult", "EngineOverloadError",
 
 # JAX-engine knobs of features the port does not have yet: the values
 # that mean "feature off" (what the port does) are accepted, any other
-# value raises. Each feature is an open item of ROADMAP.md.
+# value raises, naming the feature's open item of ROADMAP.md.
 _UNSUPPORTED_KNOBS = {
-    "prefill_chunk": ((None,), "chunked prefill"),
-    "prefill_budget": ((None,), "prefill_budget interleaving"),
-    "overlap": ((False,), "overlapped block dispatch"),
-    "max_retries": ((0,), "dispatch retries"),
-    "retry_backoff_s": ((), "dispatch retries"),
-    "retry_backoff_max_s": ((), "dispatch retries"),
-    "prefix_cache": ((False,), "the prefix cache"),
-    "prefix_block": ((), "the prefix cache"),
-    "prefix_pool_pages": ((None, 0), "the prefix cache"),
-    "kv_layout": (("slotted",), "the paged KV layout"),
-    "page_size": ((None,), "the paged KV layout"),
-    "kv_pages": ((None,), "the paged KV layout"),
-    "kv_dtype": ((None,), "int8 KV (kv_dtype)"),
-    "speculate_k": ((0,), "speculative decoding"),
-    "draft": ((), "speculative decoding"),
-    "draft_layers": ((None,), "speculative decoding"),
-    "mesh": ((None,), "TP-sharded serving"),
-    "tp": ((1,), "TP-sharded serving"),
-    "trace": ((False,), "the lifecycle tracer"),
-    "trace_capacity": ((), "the lifecycle tracer"),
-    "flight_dir": ((None,), "the flight recorder"),
-    "name": ((None,), "the profiler stats registry"),
-    "register_stats": ((False,), "the profiler stats registry"),
-    "kv_tier": ((None,), "the fleet KV tier"),
+    "prefill_chunk": ((None,), "chunked prefill", "Queue 1 item 7"),
+    "prefill_budget": ((None,), "prefill_budget interleaving",
+                       "Queue 1 item 7"),
+    "overlap": ((False,), "overlapped block dispatch", "Queue 1 item 7"),
+    "max_retries": ((0,), "dispatch retries", "Queue 1 item 7"),
+    "retry_backoff_s": ((), "dispatch retries", "Queue 1 item 7"),
+    "retry_backoff_max_s": ((), "dispatch retries", "Queue 1 item 7"),
+    "prefix_cache": ((False,), "the prefix cache", "Queue 1 item 7"),
+    "prefix_block": ((), "the prefix cache", "Queue 1 item 7"),
+    "prefix_pool_pages": ((None, 0), "the prefix cache", "Queue 1 item 7"),
+    "speculate_k": ((0,), "speculative decoding", "Queue 1 item 10"),
+    "draft": ((), "speculative decoding", "Queue 1 item 10"),
+    "draft_layers": ((None,), "speculative decoding", "Queue 1 item 10"),
+    "mesh": ((None,), "TP-sharded serving", "Queue 1 item 12"),
+    "tp": ((1,), "TP-sharded serving", "Queue 1 item 12"),
+    "trace": ((False,), "the lifecycle tracer", "Queue 1 item 11"),
+    "trace_capacity": ((), "the lifecycle tracer", "Queue 1 item 11"),
+    "flight_dir": ((None,), "the flight recorder", "Queue 1 item 11"),
+    "name": ((None,), "the profiler stats registry", "Queue 1 item 11"),
+    "register_stats": ((False,), "the profiler stats registry",
+                       "Queue 1 item 11"),
+    "kv_tier": ((None,), "the fleet KV tier", "Queue 1 item 11"),
 }
 
 
@@ -183,25 +195,43 @@ def _embed(params, ids: torch.Tensor, positions: torch.Tensor):
 
 
 def _prefill_forward(cfg, params, k_list, v_list, ids: torch.Tensor,
-                     slot: int, pos0: int, length: int) -> torch.Tensor:
+                     slot: int, pos0: int, length: int,
+                     table: Optional[torch.Tensor] = None,
+                     page_size: int = 0) -> torch.Tensor:
     """Prefill of `ids` (1, L) (a padded bucket) into rows
-    [pos0, pos0 + L) of `slot`, in place; returns the fp32 logits of
-    the last REAL token (position pos0 + length - 1). Padded rows past
-    `length` are written too and rewritten before they can be
-    attended."""
+    [pos0, pos0 + L) of `slot` — of its slab stripe, or through its
+    block-table row `table` (device, (pages_per_seq,)) under the paged
+    layout — in place; returns the fp32 logits of the last REAL token
+    (position pos0 + length - 1). Padded rows past `length` are written
+    too and rewritten before they can be attended (paged: those past
+    the lane's bound pages land on the trash page). Attention reads the
+    CACHE's view of the rows (dequantized for int8), the view later
+    decode steps see."""
     L = ids.shape[1]
-    T = k_list[0].shape[1]
+    T = table.shape[0] * page_size if table is not None \
+        else slab_shape(k_list[0])[1]
     dev = ids.device
     q_pos = pos0 + torch.arange(L, device=dev)
     x = _embed(params, ids, q_pos[None])                      # (1, L, h)
     keep = (torch.arange(T, device=dev)[None, :]
             <= q_pos[:, None])[None, None]                    # (1,1,L,T)
+    if table is None:
+        rows = (slot, slice(pos0, pos0 + L))
+    else:
+        rows = paged_rows(table, q_pos, page_size)
+
+    def lane_view(slab, dtype):
+        if table is None:
+            return dequant_slab(map_slab(slab, lambda a: a[slot:slot + 1]),
+                                dtype)
+        return take_rows(slab, table, dtype).reshape(
+            1, T, *slab_shape(slab)[2:])
 
     def attn(i, q, kn, vn):
-        k_list[i][slot, pos0:pos0 + L] = kn[0].to(k_list[i].dtype)
-        v_list[i][slot, pos0:pos0 + L] = vn[0].to(v_list[i].dtype)
-        return _masked_attend(q, k_list[i][slot:slot + 1],
-                              v_list[i][slot:slot + 1], keep)
+        kv_update(k_list[i], rows, kn[0])
+        kv_update(v_list[i], rows, vn[0])
+        return _masked_attend(q, lane_view(k_list[i], q.dtype),
+                              lane_view(v_list[i], q.dtype), keep)
 
     x = _body_layers(cfg, params, x, attn)
     return _head(params, x[:, length - 1:length])[0, 0].float()
@@ -209,24 +239,35 @@ def _prefill_forward(cfg, params, k_list, v_list, ids: torch.Tensor,
 
 def _decode_block(cfg, params, k_list, v_list, cur, pos, rem, act, salt,
                   temp, topk, topp, eos, *, block: int, attend_impl: str,
-                  seed: int):
+                  seed: int, max_seq: int,
+                  tables: Optional[torch.Tensor] = None,
+                  page_size: int = 0):
     """`block` fused decode steps over every lane, all on the device.
-    Per step and lane: embed cur@pos → write K/V at pos (frozen lanes
-    park at row T-1) → attention over the slot's rows → sample with the
+    Per step and lane: embed cur@pos → write K/V at pos (slotted:
+    frozen lanes park at row T-1; paged, with `tables` (S,
+    pages_per_seq): through the lane's table, frozen lanes park on the
+    trash page) → attention over the lane's rows → sample with the
     lane's (seed, salt, pos) key → freeze-mask update (EOS / budget /
     cache full). Returns (tokens (block, S), emits (block, S), cur, pos,
     rem, act); the lane state stays on the device."""
-    S, T = k_list[0].shape[0], k_list[0].shape[1]
+    S, T = cur.shape[0], max_seq
     lanes = torch.arange(S, device=cur.device)
     toks, emits = [], []
     for _ in range(block):
         x = _embed(params, cur, pos)[:, None, :]              # (S, 1, h)
-        wpos = torch.where(act, pos, T - 1)
+        if tables is None:
+            rows = (lanes, torch.where(act, pos, T - 1))
+        else:
+            rows = paged_rows(tables, pos, page_size, live=act)
 
-        def attn(i, q, kn, vn, wpos=wpos, pos=pos):
-            k_list[i][lanes, wpos] = kn[:, 0].to(k_list[i].dtype)
-            v_list[i][lanes, wpos] = vn[:, 0].to(v_list[i].dtype)
-            return _slot_attend(q, k_list[i], v_list[i], pos, attend_impl)
+        def attn(i, q, kn, vn, rows=rows, pos=pos):
+            kv_update(k_list[i], rows, kn[:, 0])
+            kv_update(v_list[i], rows, vn[:, 0])
+            if tables is None:
+                return _slot_attend(q, k_list[i], v_list[i], pos,
+                                    attend_impl)
+            return _paged_attend(q, k_list[i], v_list[i], tables, pos,
+                                 attend_impl)
 
         x = _body_layers(cfg, params, x, attn)
         logits = _head(params, x)[:, 0].float()
@@ -258,6 +299,12 @@ class LLMEngine:
     `device` defaults to "cuda" and raises without a card; the model's
     weights are used on that device (copied there if they live
     elsewhere).
+
+    KV memory: `kv_layout` "slotted" (default) or "paged"; under
+    "paged", `page_size` (default the largest power of two <= 64 that
+    divides `max_seq`) and `kv_pages` (default `2 * max_slots *
+    pages_per_seq + 1`, the trash page included). `kv_dtype` None keeps
+    the weights' dtype; "int8" stores per-row int8 codes and f32 scales.
     """
 
     def __init__(self, model, max_slots: int = 8, max_queue: int = 64,
@@ -265,16 +312,18 @@ class LLMEngine:
                  prefill_buckets: Optional[Sequence[int]] = None,
                  seed: int = 0, decode_block_size: int = 8,
                  attend_impl: str = "auto", device: DeviceLike = None,
-                 **knobs):
+                 kv_layout: str = "slotted", page_size: Optional[int] = None,
+                 kv_pages: Optional[int] = None,
+                 kv_dtype: Optional[str] = None, **knobs):
         for knob, value in knobs.items():
             if knob not in _UNSUPPORTED_KNOBS:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
                                 f"argument {knob!r}")
-            off, feature = _UNSUPPORTED_KNOBS[knob]
+            off, feature, item = _UNSUPPORTED_KNOBS[knob]
             if not any(value is o or value == o for o in off):
                 raise NotImplementedError(
                     f"{knob}={value!r}: {feature} is not ported to the "
-                    f"PyTorch engine yet (see ROADMAP.md)")
+                    f"PyTorch engine yet (ROADMAP.md, {item})")
         cfg = model.cfg
         self.model = model
         self.cfg = cfg
@@ -299,11 +348,39 @@ class LLMEngine:
         self._params = {k: v.to(self.device)
                         for k, v in model.raw_parameters().items()}
         dtype = self._params["wte.weight"].dtype
-        self.cache = KVCacheManager(cfg.num_layers, self.max_slots,
-                                    self.max_seq, cfg.num_heads,
-                                    cfg.head_dim, dtype, self.device)
+        if kv_layout not in ("slotted", "paged"):
+            raise ValueError(f"kv_layout must be 'slotted' or 'paged', "
+                             f"got {kv_layout!r}")
+        self.paged = kv_layout == "paged"
+        dims = (cfg.num_layers, self.max_slots, self.max_seq,
+                cfg.num_heads, cfg.head_dim, dtype, self.device)
+        if self.paged:
+            if page_size is None:
+                page_size = 64
+                while page_size > 1 and self.max_seq % page_size:
+                    page_size //= 2
+            self.cache = PagedKVCache(*dims, page_size=int(page_size),
+                                      num_pages=kv_pages,
+                                      kv_dtype=kv_dtype)
+            self.page_size = self.cache.page_size
+            self.kv_pages = self.cache.num_pages
+        else:
+            if page_size is not None or kv_pages is not None:
+                raise ValueError("page_size/kv_pages need "
+                                 "kv_layout='paged'")
+            self.cache = KVCacheManager(*dims, kv_dtype=kv_dtype)
+            self.page_size = self.kv_pages = 0
+        self.kv_dtype = self.cache.kv_dtype
+        if attend_impl == "ragged" and not self.cache.quantized \
+                and self.cache.slab_dtype != dtype:
+            raise ValueError(f"attend_impl='ragged' needs the cache in the "
+                             f"weights' dtype ({dtype}) or int8, got "
+                             f"kv_dtype={self.kv_dtype!r}")
         self.metrics = ServingMetrics(self.max_slots)
         self.metrics.kv_cache_bytes = self.cache.nbytes()
+        self.metrics.kv_bytes_per_token = self.cache.bytes_per_token()
+        self.metrics.kv_dtype = self.kv_dtype
+        self._set_page_gauges()
         self._queue: collections.deque = collections.deque()
         self._active: Dict[int, _Request] = {}      # slot -> request
         self._results: Dict[int, GenerationResult] = {}
@@ -425,13 +502,22 @@ class LLMEngine:
         decode block, retire finished requests. Returns the number of
         requests completed."""
         self._expire_deadlines()
-        while self._queue and self.cache.num_free > 0:
-            self._admit_next()
+        while self._queue and self.cache.num_free > 0 \
+                and self._pages_admit_ok():
+            if not self._admit_next():
+                break            # page pressure: the head waits
         if any(r.finish_reason is None for r in self._active.values()):
             self._process_block(self._dispatch_block())
         done = self._retire_finished()
         self.metrics.set_gauges(len(self._queue), self.cache.num_active)
+        self._set_page_gauges()
         return done
+
+    def _set_page_gauges(self):
+        if self.paged:
+            pool = self.cache.pool
+            self.metrics.set_page_gauges(pool.pages_used, self.kv_pages,
+                                         pool.peak_used)
 
     def run_until_complete(self, max_steps: Optional[int] = None):
         steps = 0
@@ -468,13 +554,20 @@ class LLMEngine:
     # ------------------------------------------------------------------ #
     # admission
     # ------------------------------------------------------------------ #
-    def _pop_highest_priority(self) -> _Request:
-        """Highest `priority` first, FIFO within a level. The sampling
-        salt is assigned here, when the request leaves the queue."""
+    def _select_next(self) -> _Request:
+        """The request the next pop takes (no mutation): highest
+        `priority`, FIFO within a level. Shared by the pop and the paged
+        admission gate, so the gate prices exactly what would admit."""
         best = self._queue[0]
         for req in self._queue:
             if req.params.priority > best.params.priority:
                 best = req
+        return best
+
+    def _pop_highest_priority(self) -> _Request:
+        """Pop `_select_next()`. The sampling salt is assigned here,
+        when the request leaves the queue."""
+        best = self._select_next()
         self._queue.remove(best)
         if best.salt is None:
             best.salt = self._next_salt
@@ -487,20 +580,55 @@ class LLMEngine:
                 return b
         return self.max_seq
 
-    def _admit_next(self):
+    # --- the paged admission gate: a request is priced in real pages ---- #
+    def _span_rows(self, req: _Request) -> int:
+        """Worst-case resident rows of a request: prompt + decode budget.
+        Admission reserves this many rows' pages up front, so decode
+        never runs out of pages mid-stream."""
+        return int(req.prompt.size) + req.params.max_new_tokens
+
+    def _pages_needed(self, req: _Request) -> int:
+        return self.cache.span_pages(self._span_rows(req))
+
+    def _pages_admit_ok(self) -> bool:
+        """True when the pool can cover the NEXT request's pages (always
+        under the slotted layout). When it cannot, admission waits: no
+        skipping to a smaller request behind it."""
+        if not self.paged or not self._queue:
+            return True
+        return self._pages_needed(self._select_next()) \
+            <= self.cache.pool.num_free
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """`n` fresh pages; raises `NoFreePages` past the pool (the gate
+        prices the need first)."""
+        return self.cache.pool.alloc(n)
+
+    def _admit_next(self) -> bool:
+        """Pop the next request and prefill it into a free slot. Returns
+        False when page pressure sent it back to the queue head (stop
+        admitting this round); any other failure leaves the engine
+        consistent the same way and re-raises."""
         req = self._pop_highest_priority()
         slot = self.cache.allocate()
         try:
             self._admit_one(req, slot)
-        except BaseException:
-            # leave the engine consistent: the slot frees and the
-            # request returns to the head of the queue (salt kept)
+        except BaseException as err:
+            # the slot (and any pages bound to it) frees and the request
+            # returns to the head of the queue, salt kept
             self.cache.release(slot)
             self._queue.appendleft(req)
+            if isinstance(err, NoFreePages):
+                return False
             raise
+        return True
 
     def _admit_one(self, req: _Request, slot: int):
+        self.cache.reset_length(slot)      # an attempt starts from row 0
         t0 = time.perf_counter()
+        if self.paged:
+            self.cache.bind_owned(slot, self._alloc_pages(
+                self._pages_needed(req)))
         logits = self._prefill_tokens(slot, req.prompt)
         self.cache.advance(slot, int(req.prompt.size))
         p = req.params
@@ -523,10 +651,13 @@ class LLMEngine:
         bucket = min(self._bucket_for(n), self.max_seq)
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :n] = tokens
+        table = torch.from_numpy(self.cache.block_tables[slot]).to(
+            self.device) if self.paged else None
         return _prefill_forward(self.cfg, self._params, self.cache.k,
                                 self.cache.v,
                                 torch.from_numpy(ids).to(self.device),
-                                slot, 0, n)
+                                slot, 0, n, table=table,
+                                page_size=self.page_size)
 
     def _install_slot(self, req: _Request, slot: int, pos: int):
         """Wire a request into its lane's mirrors."""
@@ -604,11 +735,17 @@ class LLMEngine:
     def _upload_mirrors(self) -> Dict[str, torch.Tensor]:
         def dev(a):
             return torch.from_numpy(a).to(self.device)
-        return {"cur": dev(self._cur), "pos": dev(self._pos),
-                "rem": dev(self._rem), "act": dev(self._act),
-                "salt": dev(self._salt), "temp": dev(self._temp),
-                "topk": dev(self._topk), "topp": dev(self._topp),
-                "eos": dev(self._eos)}
+        out = {"cur": dev(self._cur), "pos": dev(self._pos),
+               "rem": dev(self._rem), "act": dev(self._act),
+               "salt": dev(self._salt), "temp": dev(self._temp),
+               "topk": dev(self._topk), "topp": dev(self._topp),
+               "eos": dev(self._eos)}
+        if self.paged:
+            # admission changes the tables and always marks the mirrors
+            # dirty; a retired lane is frozen, so its stale row only
+            # parks writes on the trash page until the next upload
+            out["tables"] = dev(self.cache.block_tables)
+        return out
 
     def _dispatch_block(self) -> _Inflight:
         if self._dirty or self._dev is None:
@@ -620,7 +757,9 @@ class LLMEngine:
             self.cfg, self._params, self.cache.k, self.cache.v, d["cur"],
             d["pos"], d["rem"], d["act"], d["salt"], d["temp"], d["topk"],
             d["topp"], d["eos"], block=self.decode_block_size,
-            attend_impl=self.attend_impl, seed=self.seed)
+            attend_impl=self.attend_impl, seed=self.seed,
+            max_seq=self.max_seq, tables=d.get("tables"),
+            page_size=self.page_size)
         self._dev = {**d, "cur": cur, "pos": pos, "rem": rem, "act": act}
         return _Inflight(torch.stack([toks, emits.to(toks.dtype)]), t0,
                          self.decode_block_size)

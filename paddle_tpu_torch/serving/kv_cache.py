@@ -4,17 +4,20 @@ The counterpart of `paddle_tpu/serving/kv_cache.py` without the prefix
 pool. Per-layer K and V slabs `[max_slots, max_seq, heads, head_dim]`
 live on the device and are written IN PLACE by the engine's prefill and
 decode steps (the JAX manager swaps in the arrays each jitted step
-returns, donating the old ones). The manager itself is host
-bookkeeping: a LIFO free list of slot ids and per-slot lengths —
-allocation never touches the device.
+returns, donating the old ones). `kv_dtype` picks the slabs' storage
+independently of the compute dtype: "int8" makes every slab the
+quantized `{"q": int8, "s": f32}` form of `quantization/kv.py`. The
+manager itself is host bookkeeping: a LIFO free list of slot ids and
+per-slot lengths — allocation never touches the device.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
-from ..core import DeviceLike, resolve_device
+from ..core import DeviceLike, resolve_device, resolve_dtype
+from ..quantization.kv import make_slab, normalize_kv_dtype, slab_nbytes
 
 __all__ = ["KVCacheManager", "NoFreeSlot"]
 
@@ -32,7 +35,8 @@ class KVCacheManager:
     def __init__(self, num_layers: int, max_slots: int, max_seq: int,
                  num_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 kv_dtype: Optional[str] = None):
         if max_slots < 1 or max_seq < 1:
             raise ValueError(f"need max_slots >= 1 and max_seq >= 1, got "
                              f"{max_slots}, {max_seq}")
@@ -43,15 +47,25 @@ class KVCacheManager:
         self.head_dim = head_dim
         self.dtype = dtype
         self.device = resolve_device(device)
-        shape = (max_slots, max_seq, num_heads, head_dim)
-        self.k: List[torch.Tensor] = [
-            torch.zeros(shape, dtype=dtype, device=self.device)
-            for _ in range(num_layers)]
-        self.v: List[torch.Tensor] = [
-            torch.zeros(shape, dtype=dtype, device=self.device)
-            for _ in range(num_layers)]
+        self.kv_dtype = normalize_kv_dtype(kv_dtype, dtype)
+        self.quantized = self.kv_dtype == "int8"
+        self.slab_dtype = dtype if self.quantized \
+            else resolve_dtype(self.kv_dtype)
+        self._alloc_slabs()
         self._free: List[int] = list(range(max_slots - 1, -1, -1))
         self._lengths: List[int] = [0] * max_slots
+
+    def _new_slab(self, shape):
+        """One zeroed per-layer slab in the configured kv_dtype (a plain
+        tensor, or the quantized {"q", "s"} pair)."""
+        return make_slab(shape, self.slab_dtype, self.quantized,
+                         self.device)
+
+    def _alloc_slabs(self):
+        shape = (self.max_slots, self.max_seq, self.num_heads,
+                 self.head_dim)
+        self.k = [self._new_slab(shape) for _ in range(self.num_layers)]
+        self.v = [self._new_slab(shape) for _ in range(self.num_layers)]
 
     # --- slot bookkeeping (host-side, O(1)) ------------------------------- #
     @property
@@ -74,6 +88,14 @@ class KVCacheManager:
         slot = self._free.pop()
         self._lengths[slot] = 0
         return slot
+
+    def reset_length(self, slot: int):
+        """Zero a LIVE slot's length without releasing it: an admission
+        attempt starts over from row 0 (rows a failed attempt left are
+        simply rewritten)."""
+        if slot in self._free or not 0 <= slot < self.max_slots:
+            raise ValueError(f"reset_length of unallocated slot {slot}")
+        self._lengths[slot] = 0
 
     def release(self, slot: int):
         """Recycle a slot. Its slab rows keep their stale K/V: the next
@@ -98,6 +120,11 @@ class KVCacheManager:
 
     # --- footprint ---------------------------------------------------------- #
     def nbytes(self) -> int:
-        """Total preallocated slab bytes (all layers, K+V) — a constant
-        per configuration."""
-        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+        """Total preallocated slab bytes (all layers, K+V, scales
+        included) — a constant per configuration."""
+        return sum(slab_nbytes(a) for a in self.k + self.v)
+
+    def bytes_per_token(self) -> float:
+        """K+V slab bytes per cache row (all layers; scales included
+        for quantized slabs) — the `kv_bytes_per_token` gauge."""
+        return self.nbytes() / (self.max_slots * self.max_seq)

@@ -1,5 +1,5 @@
 """Serving metrics: TTFT, queue wait, decode time per token, tokens/s,
-host syncs and dispatches.
+host syncs and dispatches, and the KV memory gauges.
 
 A copy of the subset of `paddle_tpu/serving/metrics.py` that the port's
 engine feeds. Aggregates are O(1) online (count/total/min/max); TTFT
@@ -101,6 +101,14 @@ class ServingMetrics:
         self.decode_tokens = 0       # decode-emitted (excl. first token)
         self.host_syncs = 0          # device→host barriers, decode path
         self.kv_cache_bytes = 0      # preallocated slab footprint (gauge)
+        # K+V bytes per cache row, all layers (scales included): what
+        # the storage dtype buys, a constant per configuration
+        self.kv_bytes_per_token = 0.0
+        self.kv_dtype = ""
+        # paged layout: what admission prices (0 under the slotted one)
+        self.kv_pages_total = 0      # pool size in pages
+        self.kv_pages_used = 0       # pages held, the trash page included
+        self.kv_pages_peak = 0       # high-water mark
         self.ttft = OnlineStat()
         self.queue_wait = OnlineStat()
         self.decode_step_time = OnlineStat(reservoir=0)
@@ -168,6 +176,11 @@ class ServingMetrics:
         self.queue_depth = queue_depth
         self.slots_active = slots_active
 
+    def set_page_gauges(self, used: int, total: int, peak: int = 0):
+        self.kv_pages_used = used
+        self.kv_pages_total = total
+        self.kv_pages_peak = peak
+
     # --- read side ---------------------------------------------------------- #
     @property
     def slot_occupancy(self) -> float:
@@ -202,6 +215,13 @@ class ServingMetrics:
             "decode_tokens": self.decode_tokens,
             "host_syncs": self.host_syncs,
             "kv_cache_bytes": self.kv_cache_bytes,
+            "kv_bytes_per_token": self.kv_bytes_per_token,
+            "kv_quantized": 1.0 if self.kv_dtype == "int8" else 0.0,
+            "kv_pages_total": self.kv_pages_total,
+            "kv_pages_used": self.kv_pages_used,
+            "kv_pages_peak": self.kv_pages_peak,
+            "kv_page_occupancy": (self.kv_pages_used / self.kv_pages_total
+                                  if self.kv_pages_total else 0.0),
             "queue_depth": self.queue_depth,
             "slots_active": self.slots_active,
             "slots_total": self.slots_total,

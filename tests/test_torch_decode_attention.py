@@ -157,3 +157,208 @@ def test_bad_split_raises_on_cpu_too():
     with pytest.raises(ValueError, match="divisible"):
         port.ragged_decode_attention(q, k, v, lens, block_k=24,
                                      num_splits=1)
+
+
+# ---------------------------------------------------------------------- #
+# K4 (paged), K5 (int8) and K6 (paged int8): plain versions against the
+# JAX Pallas kernels in interpret mode
+# ---------------------------------------------------------------------- #
+
+def _quant_case(k, v):
+    """int8 codes and f32 scales of k and v, made by the JAX
+    `kv_quantize` (the port's equals it bitwise, test_torch_kv_quant)."""
+    from paddle_tpu.quantization.kv import kv_quantize
+    kq, ks = kv_quantize(jnp.asarray(k))
+    vq, vs = kv_quantize(jnp.asarray(v))
+    return tuple(np.array(a) for a in (kq, vq, ks, vs))
+
+
+def _paged_case(S=4, T=64, page=16, seed=7, lengths=(1, 17, 40, 64)):
+    """Pools with shuffled page ids: lane s's bound pages (enough for
+    its length) at random ids, 0 (the trash page) past them."""
+    rng = np.random.RandomState(seed)
+    q, k, v = _case(S=S, T=T, seed=seed)
+    maxp = T // page
+    num_pages = 1 + S * maxp + 3
+    ids = rng.permutation(np.arange(1, num_pages))[:S * maxp]
+    tables = ids.reshape(S, maxp).astype(np.int32)
+    for s, n in enumerate(lengths):
+        tables[s, -(-n // page):] = 0
+    shape = (num_pages, page) + k.shape[2:]
+    kp = rng.randn(*shape).astype(np.float32)    # unbound pages: noise
+    vp = rng.randn(*shape).astype(np.float32)
+    for s in range(S):
+        for j in range(maxp):
+            if tables[s, j]:
+                kp[tables[s, j]] = k[s, j * page:(j + 1) * page]
+                vp[tables[s, j]] = v[s, j * page:(j + 1) * page]
+    return q, kp, vp, tables, np.asarray(lengths, np.int32)
+
+
+def _paged_both(q, kp, vp, tables, lens, block_k, num_splits, quant):
+    from paddle_tpu.ops_pallas.decode_attention import (
+        paged_ragged_decode_attention as jax_paged)
+    if quant:
+        kq, vq, ks, vs = _quant_case(kp, vp)
+        jargs = (jnp.asarray(kq), jnp.asarray(vq))
+        jkw = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        pargs = (torch.from_numpy(kq), torch.from_numpy(vq))
+        pkw = dict(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    else:
+        jargs, jkw = (jnp.asarray(kp), jnp.asarray(vp)), {}
+        pargs, pkw = (torch.from_numpy(kp), torch.from_numpy(vp)), {}
+    j_out, j_vis = jax_paged(jnp.asarray(q), *jargs, jnp.asarray(tables),
+                             jnp.asarray(lens), block_k=block_k,
+                             num_splits=num_splits, interpret=True,
+                             with_stats=True, **jkw)
+    p_out, p_vis = port.paged_ragged_decode_attention(
+        torch.from_numpy(q), *pargs, torch.from_numpy(tables),
+        torch.from_numpy(lens), block_k=block_k, num_splits=num_splits,
+        with_stats=True, **pkw)
+    return (np.asarray(j_out), np.asarray(j_vis), p_out.numpy(),
+            p_vis.numpy())
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K6"])
+@pytest.mark.parametrize("block_k,num_splits", [(8, 1), (8, 2), (16, 4)])
+def test_paged_matches_jax_kernel(quant, block_k, num_splits):
+    q, kp, vp, tables, lens = _paged_case()
+    j_out, j_vis, p_out, p_vis = _paged_both(q, kp, vp, tables, lens,
+                                             block_k, num_splits, quant)
+    np.testing.assert_allclose(p_out, j_out, **TOL)
+    np.testing.assert_array_equal(p_vis, j_vis)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["K4", "K6"])
+def test_paged_empty_lane_and_default_blocks_match_jax(quant):
+    q, kp, vp, tables, lens = _paged_case(seed=8, lengths=(0, 16, 33, 5))
+    j_out, j_vis, p_out, p_vis = _paged_both(q, kp, vp, tables, lens,
+                                             None, None, quant)
+    np.testing.assert_allclose(p_out, j_out, **TOL)
+    np.testing.assert_array_equal(p_vis, j_vis)
+    assert not p_out[0].any()
+
+
+@pytest.mark.parametrize("num_splits", [1, 2])
+@pytest.mark.parametrize("slot_map", [None, [1, 1, 0, 3, 3, 2]],
+                         ids=["plain", "verify"])
+def test_quant_matches_jax_kernel(num_splits, slot_map):
+    """K5: int8 codes + scales through the slotted addressing (the
+    verify layout's repeated slots included)."""
+    B = 4 if slot_map is None else len(slot_map)
+    q, k, v = _case(B=B, seed=9)
+    kq, vq, ks, vs = _quant_case(k, v)
+    lengths = (1, 17, 40, 64, 0, 9)[:B]
+    lens = np.asarray(lengths, np.int32)
+    jkw = {} if slot_map is None else {
+        "slot_map": jnp.asarray(np.asarray(slot_map, np.int32))}
+    j_out, j_vis = jax_ragged(jnp.asarray(q), jnp.asarray(kq),
+                              jnp.asarray(vq), jnp.asarray(lens), block_k=8,
+                              num_splits=num_splits, interpret=True,
+                              with_stats=True, k_scale=jnp.asarray(ks),
+                              v_scale=jnp.asarray(vs), **jkw)
+    sm = None if slot_map is None else torch.tensor(slot_map,
+                                                   dtype=torch.int32)
+    p_out, p_vis = port.ragged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kq), torch.from_numpy(vq),
+        torch.from_numpy(lens), slot_map=sm, block_k=8,
+        num_splits=num_splits, with_stats=True,
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    np.testing.assert_allclose(p_out.numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_array_equal(p_vis.numpy(), np.asarray(j_vis))
+
+
+def test_paged_and_quant_plain_match_their_references():
+    """Inside the port: the plain split-K versions + merge ≡ the
+    full-slab references (paged: gathered through the tables; int8:
+    widened in fp32)."""
+    q, kp, vp, tables, lens = _paged_case(seed=10)
+    qt, kt, vt, tt, lt = map(torch.from_numpy, (q, kp, vp, tables, lens))
+    out = port.paged_ragged_decode_attention(qt, kt, vt, tt, lt, block_k=8,
+                                             num_splits=2)
+    ref = port.paged_decode_reference(qt, kt, vt, tt, lt)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    kq, vq, ks, vs = map(torch.from_numpy, _quant_case(kp, vp))
+    out = port.paged_ragged_decode_attention(qt, kq, vq, tt, lt,
+                                             k_scale=ks, v_scale=vs)
+    ref = port.paged_decode_reference(qt, kq, vq, tt, lt, k_scale=ks,
+                                      v_scale=vs)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    # a bf16 query over int8 codes returns bf16
+    out16 = port.paged_ragged_decode_attention(
+        qt.bfloat16()[:, None], kq, vq, tt, lt, k_scale=ks, v_scale=vs)
+    assert out16.dtype == torch.bfloat16 and out16.shape == (4, 1, 4, 32)
+    np.testing.assert_allclose(out16[:, 0].float().numpy(), ref.numpy(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_paged_equals_slotted_on_the_same_rows():
+    """The addressing seam does not change the arithmetic: the paged
+    plain version over pages holding a slab's rows equals the slotted
+    one bitwise (same splits)."""
+    q, kp, vp, tables, lens = _paged_case(seed=11)
+    S, maxp = tables.shape
+    page = kp.shape[1]
+    kc = kp[tables].reshape(S, maxp * page, *kp.shape[2:])
+    vc = vp[tables].reshape(S, maxp * page, *vp.shape[2:])
+    a = port.paged_ragged_decode_attention(
+        *map(torch.from_numpy, (q, kp, vp, tables, lens)), block_k=16,
+        num_splits=2)
+    b = port.ragged_decode_attention(
+        *map(torch.from_numpy, (q, kc, vc, lens)), block_k=32, num_splits=2)
+    assert torch.equal(a, b)
+
+
+def test_pick_paged_decode_blocks_follows_the_reference():
+    from paddle_tpu.ops_pallas.decode_attention import (
+        pick_paged_decode_blocks as jax_pick)
+    for T, page, dtype in ((1024, 64, "bfloat16"), (1024, 64, "int8"),
+                           (1024, 64, "float32"), (64, 16, "float32"),
+                           (64, 8, "int8"), (96, 32, "float32")):
+        want = jax_pick(T, page, 64, jnp.dtype(dtype))
+        assert port.pick_paged_decode_blocks(
+            T, page, 64, getattr(torch, dtype)) == tuple(want)
+    assert port.pick_paged_decode_blocks(1024, 64, 64, torch.bfloat16) \
+        == (64, 2)
+    assert port.pick_paged_decode_blocks(1024, 64, 64, torch.int8) == (64, 1)
+
+
+def test_cuda_argument_checks_for_paged_and_quant():
+    q, kp, vp, tables, lens = (torch.from_numpy(a) for a in _paged_case())
+    port._check_cuda_args(q, kp, vp, lens, tables, 8, 2, page_size=16)
+    with pytest.raises(ValueError, match="divide the page"):
+        port._check_cuda_args(q, kp, vp, lens, tables, 32, 1, page_size=16)
+    with pytest.raises(ValueError, match="tables"):
+        port._check_cuda_args(q, kp, vp, lens, tables[0], 8, 2,
+                              page_size=16)
+    kq, vq, ks, vs = map(torch.from_numpy, _quant_case(kp.numpy(),
+                                                       vp.numpy()))
+    port._check_cuda_args(q, kq, vq, lens, tables, 8, 2, ks, vs,
+                          page_size=16)
+    with pytest.raises(ValueError, match="together"):
+        port._check_cuda_args(q, kq, vq, lens, tables, 8, 2, ks, None,
+                              page_size=16)
+    with pytest.raises(TypeError, match="int8 kc/vc need"):
+        port._check_cuda_args(q, kq, vq, lens, tables, 8, 2, page_size=16)
+    with pytest.raises(ValueError, match="scales"):
+        port._check_cuda_args(q, kq, vq, lens, tables, 8, 2, ks[:, :8],
+                              vs[:, :8], page_size=16)
+    with pytest.raises(TypeError, match="need int8"):
+        port._check_cuda_args(q, kp, vp, lens, tables, 8, 2, ks, vs,
+                              page_size=16)
+    with pytest.raises(ValueError, match="together"):
+        port.ragged_decode_attention(q, kq[:4], vq[:4], lens,
+                                     k_scale=ks[:4])
+
+
+def test_each_variant_has_its_own_counter():
+    counters = {port.launch_counter(p, qz) for p in (False, True)
+                for qz in (False, True)}
+    assert len(counters) == 4
+    assert port.launch_counter(False, False) is port.LAUNCHES
+    assert port.launch_counter(True, True) is port.PAGED_QUANT_LAUNCHES
+    # CPU tensors run the plain versions and launch nothing
+    q, kp, vp, tables, lens = (torch.from_numpy(a) for a in _paged_case())
+    port.PAGED_LAUNCHES.reset()
+    port.paged_ragged_decode_attention(q, kp, vp, tables, lens)
+    assert port.PAGED_LAUNCHES.count == 0
