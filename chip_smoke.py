@@ -24,6 +24,12 @@ every phase passed):
    exact, NaN in dead rows, unbound pages and the trash page (in the
    scales, for int8) leaves the output bitwise unchanged; K4 == K1 and
    K6 == K5 bitwise on the same rows.
+2b. kernel K7 (fused int8 GEMV) against its plain version, bitwise, at
+   GPT-small's five (k, n) (768 x 2304 / 768 / 3072, 3072 x 768 and the
+   int8 draft's head 768 x 50304), 1-4 rows, x in bf16 and fp32 (the
+   weight scales in x's dtype), without a bias and with an fp32 and a
+   bf16 one; inputs include x on code half-points ((c + 0.5) * sx) and
+   on +-127.5 * sx.
 3. kernels K2 (flash-attention forward) and K3 (backward) against their
    plain versions in bf16: the training shape (b 18, s 1024, h 12,
    d 64, causal, q/k/v strided slices of one fused qkv tensor as the
@@ -45,6 +51,21 @@ every phase passed):
    streams equal slotted ones token for token.
 4c. paged int8 with `kv_pages=49`: admission waits on pages while lanes
    are free, all 16 requests finish with (b)'s streams, 0 pages leak.
+4d. an int8-PTQ GPT-small (the port's `PTQ` over the bf16 model,
+   calibrated on two fixed batches from numpy seed 0) served with
+   `max_slots=4` on 8 of phase 4's requests: K7 launched exactly 4 x 12
+   times per decode step (prefill rows exceed 4 and take the unfused
+   product), K1 12 times; the same load with K7's plain version swapped
+   in gives the same streams.
+4e. speculation on == off at GPT-small bf16: `max_slots=4`,
+   `decode_block_size=8`, `speculate_k=3`, 8 of phase 4's requests
+   (greedy and sampled, one stopping at an EOS, 32 new tokens): draft
+   trunc and int8 on the slotted layout, int8 on the paged layout, int8
+   with `kv_dtype="int8"`; every stream equals the spec-off engine's
+   token for token. K7 launches = (4 x draft_layers + 1) x k x
+   spec_rounds x decode blocks (int8 draft), 0 (trunc); the decode
+   kernel's = (k x draft_layers + 12) x spec_rounds x decode blocks.
+   Acceptance rate and tokens/s, off against on, are logged.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
    logged).
@@ -69,12 +90,16 @@ every phase passed):
    versions and `scaled_dot_product_attention` (causal) forward and
    backward (yardsticks only; the port never calls it); engine
    tokens/s, decode ms/token, TTFT p50/p99 — each beside the card and
-   its power limit.
+   its power limit. K7 at each (k, n) with 4 bf16 rows: median after an
+   L2 flush, byte bound, plain version, and two yardsticks never called
+   by the port (bf16 `torch.matmul` with the fp weights, and
+   `torch._int_mm` on rows padded to 32).
 Then one JSON line of kernel records and, last, the device line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -85,6 +110,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, device memory
 FP32_FLOPS = 67e12               # H100 SXM data sheet, fp32 non-tensor
 BF16_FLOPS = 989e12              # H100 SXM data sheet, bf16 dense tensor
+INT8_OPS = 1979e12               # H100 SXM data sheet, int8 dense tensor
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 
@@ -330,6 +356,62 @@ def phase_paged_quant_kernels(torch, np, dec):
                   f"K6 != K5 bitwise ({tname} {lname})")
             log(f"  {tname} {lname}: K4 == K1 and K6 == K5 bitwise")
     return worst
+
+
+# --------------------------------------------------------------------------- #
+# phase 2b: K7 against its plain version
+# --------------------------------------------------------------------------- #
+
+# (k, n) of GPT-small's block linears (qkv, out, fc1, fc2) and of the
+# int8 draft's tied head
+INT8_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768),
+               (768, 50304))
+HALF_SX = 1.0 / 64      # a power of two: (c + 0.5) * sx is exact in bf16
+
+
+def int8_inputs(torch, gen, m, k, n, dtype):
+    """x (m, k) in `dtype` whose first row holds exact code half-points
+    ((c + 0.5) * sx for c in -3..3, and +-127.5 * sx) at sx = 1/64,
+    int8 weights (k, n), weight scales (n,) in `dtype`, sx, and fp32
+    and bf16 biases."""
+    x = torch.randn(m, k, device="cuda", generator=gen) * 0.5
+    halves = torch.tensor([-3.5, -2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 3.5,
+                           127.5, -127.5], device="cuda") * HALF_SX
+    x[0, :halves.numel()] = halves
+    qw = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    ws = (torch.rand(n, device="cuda", generator=gen) * 0.01).to(dtype)
+    b = torch.randn(n, device="cuda", generator=gen)
+    sx = torch.tensor(HALF_SX, device="cuda")
+    return x.to(dtype), qw, ws, sx, {"no bias": None, "fp32 bias": b,
+                                     "bf16 bias": b.bfloat16()}
+
+
+def phase_int8_kernel(torch, k7):
+    """K7 against its plain version on the same CUDA tensors: equal bit
+    for bit at every shape, row count, dtype and bias."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = 0
+    for k, n in INT8_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for m in (1, 2, 3, 4):
+                x, qw, ws, sx, biases = int8_inputs(torch, gen, m, k, n,
+                                                    dtype)
+                for bname, b in biases.items():
+                    out = k7.int8_linear_fused(x, qw, ws, sx, b)
+                    want = k7.int8_linear_plain(x, qw, ws, sx, b)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(out).all()),
+                          f"K7 {k}x{n} m={m} {dtype} {bname}: non-finite")
+                    err = (out.float() - want.float()).abs().max().item()
+                    check(torch.equal(out, want),
+                          f"K7 {k}x{n} m={m} {dtype} {bname}: max|kernel "
+                          f"- plain| = {err:.3e}, not bitwise")
+                    cases += 1
+        log(f"  K7 {k}x{n}: rows 1-4, fp32 and bf16 x, no / fp32 / bf16 "
+            f"bias, half-point codes: kernel == plain bitwise")
+    log(f"  K7: {cases} cases bitwise equal; max|kernel - plain| = 0")
+    return 0.0
 
 
 # --------------------------------------------------------------------------- #
@@ -585,6 +667,176 @@ def phase_page_pressure(torch, dec, engine_run, int8_streams):
         f" peak {st['kv_pages_peak']} pages, 0 leaked; streams equal (b)'s")
     return {"waited_steps": waited, "kv_pages_peak": st["kv_pages_peak"],
             "wall_s": wall}
+
+
+SPEC_KW = dict(max_slots=4, max_seq=1024, decode_block_size=8, seed=0,
+               device="cuda")
+SPEC_K = 3
+
+
+def ptq_gpt_small(torch, np, P):
+    """The port's PTQ over GPT-small bf16 from seed 0, calibrated on two
+    fixed (4, 128) batches of token ids from numpy seed 0."""
+    from paddle_tpu_torch.quantization import PTQ, Int8Linear
+    model = P.models.gpt_small(seed=0, device="cuda", dtype="bf16")
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, model.cfg.vocab_size, (4, 128))
+               for _ in range(2)]
+    ptq = PTQ()
+    ptq.quantize(model)
+    ptq.sample(model, batches)
+    ptq.convert(model)
+    n = sum(isinstance(m, Int8Linear) for m in model.modules())
+    check(n == 4 * model.cfg.num_layers, f"{n} Int8Linear layers")
+    return model
+
+
+class _PlainInt8:
+    """Swaps K7's plain version in for the kernel on CUDA tensors, for
+    the control run only (restored on exit)."""
+
+    def __init__(self, k7):
+        self.k7 = k7
+
+    def __enter__(self):
+        self.saved = self.k7.int8_linear_fused
+        self.k7.int8_linear_fused = self.k7.int8_linear_plain
+
+    def __exit__(self, *exc):
+        self.k7.int8_linear_fused = self.saved
+
+
+def phase_int8_serving(torch, np, P, dec, k7, engine_run):
+    """(4d) an int8-PTQ GPT-small served through K7 with max_slots = 4:
+    48 K7 launches and 12 K1 launches per decode step; the plain version
+    swapped in for K7 gives the same streams."""
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    model = ptq_gpt_small(torch, np, P)
+    prompts, params = engine_run["prompts"][:8], engine_run["params"][:8]
+    kw = dict(SPEC_KW)
+    LLMEngine(model, **kw).generate(prompts[:2],
+                                    SamplingParams(max_new_tokens=8))
+    torch.cuda.synchronize()
+    k7.INT8_LAUNCHES.reset()
+    dec.LAUNCHES.reset()
+    eng = LLMEngine(model, **kw)
+    t0 = time.perf_counter()
+    results = eng.generate(prompts, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    launches, k1 = k7.INT8_LAUNCHES.count, dec.LAUNCHES.count
+    layers = model.cfg.num_layers
+    check(all(r.finish_reason == "length" and len(r.token_ids) == 64
+              for r in results), "an int8 request did not finish")
+    check(launches == 4 * layers * st["decode_steps"],
+          f"K7 launches {launches} != 4 x {layers} x "
+          f"{st['decode_steps']} decode steps")
+    check(k1 == layers * st["decode_steps"], f"K1 launches {k1}")
+    check(st["host_syncs"] == st["decode_dispatches"], "host syncs")
+    streams = [r.token_ids for r in results]
+    with _PlainInt8(k7):
+        k7.INT8_LAUNCHES.reset()
+        plain = [r.token_ids for r in LLMEngine(model, **kw).generate(
+            prompts, params)]
+        check(k7.INT8_LAUNCHES.count == 0, "the plain run launched K7")
+    check(plain == streams, "K7 streams != plain-version streams")
+    log(f"  int8-PTQ GPT-small, max_slots 4: 8 requests in {wall:.2f} s, "
+        f"{st['tokens_per_sec']:.1f} tokens/s, decode "
+        f"{st['decode_ms_per_token']:.3f} ms/step; K7 launches {launches} "
+        f"= 4 x {layers} x {st['decode_steps']} decode steps, K1 {k1}; "
+        f"streams with K7's plain version swapped in: equal, 8/8")
+    del model, eng
+    torch.cuda.empty_cache()
+    return {"launches": launches, "decode_steps": st["decode_steps"],
+            "tokens_per_s": st["tokens_per_sec"],
+            "decode_ms_per_token": st["decode_ms_per_token"],
+            "wall_s": wall}
+
+
+def phase_speculative(torch, np, dec, k7, engine_run):
+    """(4e) speculation on == off at GPT-small bf16, token for token:
+    trunc and int8 drafts on the slotted layout, int8 on the paged
+    layout, int8 with an int8 KV cache; launch counts of K7 and of the
+    decode kernel against their formulas."""
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    model = engine_run["model"]
+    layers = model.cfg.num_layers
+    prompts = engine_run["prompts"][:8]
+    params = [dataclasses.replace(p, max_new_tokens=32)
+              for p in engine_run["params"][:8]]
+    counters = decode_counters(dec)
+
+    def run(name, **knobs):
+        eng = LLMEngine(model, **SPEC_KW, **knobs)
+        for c in list(counters.values()) + [k7.INT8_LAUNCHES]:
+            c.reset()
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        check(st["host_syncs"] == st["decode_dispatches"],
+              f"{name}: host syncs {st['host_syncs']} != dispatches")
+        return eng, res, st, wall, {k: c.count for k, c in counters.items()}
+
+    # the EOS: request 0's 7th token in a first spec-off run (the runs
+    # with the EOS set are identical to it up to that token)
+    _, first, _, _, _ = run("off, no EOS")
+    params[0] = dataclasses.replace(params[0],
+                                    eos_token_id=first[0].token_ids[6])
+    out, refs = {}, {}
+    for kv in ("bf16", "int8"):
+        kvk = {} if kv == "bf16" else dict(kv_dtype="int8")
+        _, res, st, wall, _ = run(f"off {kv}", **kvk)
+        refs[kv] = [r.token_ids for r in res]
+        out[f"off_{kv}"] = {"tokens_per_s": st["tokens_per_sec"],
+                            "wall_s": wall}
+        log(f"  spec off, KV {kv}: {st['tokens_per_sec']:.1f} tokens/s, "
+            f"{st['decode_dispatches']} blocks, {wall:.2f} s")
+        if kv == "bf16":
+            check(res[0].finish_reason == "stop" and len(res[0].token_ids)
+                  <= 7, "request 0 did not stop at its EOS")
+    for name, knobs, kv, kernel in (
+            ("trunc slotted", dict(draft="trunc"), "bf16", "K1"),
+            ("int8 slotted", dict(draft="int8"), "bf16", "K1"),
+            ("int8 paged", dict(draft="int8", kv_layout="paged"), "bf16",
+             "K4"),
+            ("int8 slotted, int8 KV", dict(draft="int8", kv_dtype="int8"),
+             "int8", "K5")):
+        eng, res, st, wall, counts = run(name, speculate_k=SPEC_K, **knobs)
+        streams = [r.token_ids for r in res]
+        same = sum(a == b for a, b in zip(streams, refs[kv]))
+        check(same == len(prompts), f"spec {name}: {len(prompts) - same} "
+                                    f"streams differ from spec off")
+        blocks, rounds, dl = (st["decode_dispatches"], eng.spec_rounds,
+                              eng.draft_layers)
+        k7_want = (4 * dl + 1) * SPEC_K * rounds * blocks             if knobs["draft"] == "int8" else 0
+        check(k7.INT8_LAUNCHES.count == k7_want,
+              f"spec {name}: K7 launches {k7.INT8_LAUNCHES.count} != "
+              f"(4 x {dl} + 1) x {SPEC_K} x {rounds} x {blocks} = {k7_want}")
+        dec_want = {k: (SPEC_K * dl + layers) * rounds * blocks
+                    if k == kernel else 0 for k in counters}
+        check(counts == dec_want, f"spec {name}: decode launches {counts} "
+                                  f"!= {dec_want}")
+        check(st["spec_proposed"] > 0 and st["spec_blocks"] == blocks,
+              f"spec {name}: spec counters {st['spec_proposed']}, "
+              f"{st['spec_blocks']}")
+        log(f"  spec on, {name} (k {SPEC_K}, draft_layers {dl}, rounds "
+            f"{rounds}): 8/8 streams equal spec off; {blocks} blocks; K7 "
+            f"launches {k7.INT8_LAUNCHES.count} = (4 x {dl} + 1) x {SPEC_K}"
+            f" x {rounds} x {blocks}; {kernel} launches {counts[kernel]} = "
+            f"({SPEC_K} x {dl} + {layers}) x {rounds} x {blocks}; "
+            f"acceptance {st['spec_acceptance_rate']:.3f}; "
+            f"{st['tokens_per_sec']:.1f} tokens/s (off, KV {kv}: "
+            f"{out['off_' + kv]['tokens_per_s']:.1f})")
+        out[name] = {"k7_launches": k7.INT8_LAUNCHES.count,
+                     "decode_launches": counts[kernel], "blocks": blocks,
+                     "acceptance": st["spec_acceptance_rate"],
+                     "tokens_per_s": st["tokens_per_sec"], "wall_s": wall}
+    log(f"  EOS: request 0 stopped after {len(refs['bf16'][0])} tokens "
+        f"with KV bf16, spec off and on")
+    return out
 
 
 def phase_paged_vs_slotted(torch, np, P):
@@ -1033,6 +1285,52 @@ def phase_paged_quant_numbers(torch, np, dec, card: str):
     return out
 
 
+def phase_int8_numbers(torch, k7, card: str):
+    """K7 at each GPT-small (k, n) with 4 bf16 rows (bf16 weight scales
+    and bias, as the PTQ model holds them): the median after an L2
+    flush, the byte bound (weights, scales, bias and x read once, the
+    output written once), the plain version, and two yardsticks that
+    the port never calls: the bf16 `torch.matmul` with the fp weights
+    (what int8 replaces) and `torch._int_mm` on rows padded to 32."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    m, bf = 4, torch.bfloat16
+    log(f"  K7 at 4 bf16 rows, bf16 scales and bias [card: {card}]")
+    out = {}
+    for k, n in INT8_SHAPES:
+        x, qw, ws, sx, biases = int8_inputs(torch, gen, m, k, n, bf)
+        b = biases["bf16 bias"]
+        w = torch.randn(k, n, device="cuda", generator=gen).to(bf)
+        q32 = torch.randint(-127, 128, (32, k), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        ms = time_ms(torch, lambda: k7.int8_linear_fused(x, qw, ws, sx, b),
+                     flush)
+        plain_ms = time_ms(torch, lambda: k7.int8_linear_plain(
+            x, qw, ws, sx, b), flush)
+        matmul_ms = time_ms(torch, lambda: torch.matmul(x, w), flush)
+        try:
+            int_mm_ms = time_ms(torch, lambda: torch._int_mm(q32, qw), flush)
+        except RuntimeError as err:        # a yardstick only: log why not
+            int_mm_ms = None
+            log(f"    torch._int_mm {k}x{n} does not run: {err}")
+        # weights, bf16 scales and bias, the fp32 sx, x in, out out
+        nbytes = k * n + 2 * n + 2 * n + 4 + 2 * m * k + 2 * m * n
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * k * n / INT8_OPS * 1e3
+        log(f"    {k}x{n} ({n // 16} CTAs): median {ms:.4f} ms; bound "
+            f"{bound:.5f} ms (bytes: {nbytes} B; {2 * m * k * n} int8 ops "
+            f"= {ops_ms:.6f} ms); plain {plain_ms:.4f} ms; bf16 "
+            f"torch.matmul {matmul_ms:.4f} ms; torch._int_mm (32 rows) "
+            f"{'-' if int_mm_ms is None else f'{int_mm_ms:.4f}'} ms")
+        out[f"{k}x{n}"] = {"ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": max(bound, ops_ms), "bytes": nbytes,
+                           "bf16_matmul_ms": matmul_ms,
+                           "int_mm_ms": int_mm_ms}
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_bound(b, sq, sk, h, d, causal, n_products, n_q, n_k):
     """(bound ms, "bytes" | "operations", bytes, flops) of a flash call:
     `n_q` bf16 (b, sq, h, d) and `n_k` bf16 (b, sk, h, d) tensors each
@@ -1123,6 +1421,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.ops_cuda import _build
     from paddle_tpu_torch.ops_cuda import decode_attention as dec
     from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    from paddle_tpu_torch.ops_cuda import int8_linear as k7
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1137,6 +1436,8 @@ def main(argv=None) -> int:
     max_err = phase_kernel(torch, dec)
     log("phase 2a: K4, K5 and K6 against their plain versions")
     pq_err = phase_paged_quant_kernels(torch, np, dec)
+    log("phase 2b: K7 against its plain version, bitwise")
+    k7_err = phase_int8_kernel(torch, k7)
     log("phase 3: K2 and K3 against their plain versions")
     flash_err = phase_flash_kernels(torch, fa)
     log("phase 4: GPT-small served at full width through K1")
@@ -1147,6 +1448,10 @@ def main(argv=None) -> int:
     log("phase 4c: paged int8 starved of pages (kv_pages = 49)")
     pressure = phase_page_pressure(torch, dec, engine_run,
                                    variants["K6"]["streams"])
+    log("phase 4d: an int8-PTQ GPT-small served through K7")
+    int8_run = phase_int8_serving(torch, np, P, dec, k7, engine_run)
+    log("phase 4e: speculation on == off, GPT-small bf16")
+    spec = phase_speculative(torch, np, dec, k7, engine_run)
     del engine_run["model"], variants["K1"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
@@ -1167,6 +1472,10 @@ def main(argv=None) -> int:
             f"TTFT p50 {run['ttft_p50_s'] * 1e3:.1f} ms, kv_bytes_per_token"
             f" {run['kv_bytes_per_token']:.0f}")
     fnums = phase_flash_numbers(torch, fa, card)
+    k7nums = phase_int8_numbers(torch, k7, card)
+    log(f"  engine, int8-PTQ GPT-small through K7, phase 4d [card: {card}]: "
+        f"{int8_run['tokens_per_s']:.1f} tokens/s, decode "
+        f"{int8_run['decode_ms_per_token']:.3f} ms/token (per decode step)")
     log(f"  training, phase 6 [card: {card}]: {train['step_ms']:.2f} ms per "
         f"step, {train['tokens_per_s']:.1f} tokens/s, peak memory "
         f"{train['peak_bytes'] / 2**30:.2f} GiB "
@@ -1201,6 +1510,21 @@ def main(argv=None) -> int:
             "max_abs_err": pq_err[name],
             **{k: pqnums[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}})
+    # K7's record: one GPT-small block's four linears at 4 bf16 rows
+    # (the decode step's K7 work per layer); each shape is in --out. No
+    # one PyTorch call computes the fused function (the bf16 matmul and
+    # torch._int_mm yardsticks are logged beside it), so library_ms is
+    # null
+    block = [k7nums[f"{k}x{n}"] for k, n in INT8_SHAPES[:4]]
+    kernels.append({
+        "name": "int8_linear_fused", "route": "cuda",
+        "source": "paddle_tpu_torch/ops_cuda/csrc/int8_linear.cu",
+        "replaces": "paddle_tpu/quantization/__init__.py:92",
+        "launches": int8_run["launches"], "max_abs_err": k7_err,
+        "ms": sum(r["ms"] for r in block),
+        "plain_ms": sum(r["plain_ms"] for r in block),
+        "bound_ms": sum(r["bound_ms"] for r in block), "bound_by": "bytes",
+        "library_ms": None})
     if args.out:
         def drop(run):
             return {k: v for k, v in run.items()
@@ -1216,6 +1540,8 @@ def main(argv=None) -> int:
                        "paged_quant_numbers": pqnums,
                        "ragged_vs_masked": rvm, "paged_vs_slotted": pvs,
                        "train": train, "grad_check": grad,
+                       "int8_serving": int8_run, "speculative": spec,
+                       "int8_numbers": k7nums,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

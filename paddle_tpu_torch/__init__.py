@@ -7,8 +7,9 @@ explicit `device` (default "cuda", which raises without a card); every
 TPU kernel on a ported path is a hand-written Hopper kernel under
 `ops_cuda/`, with a plain PyTorch version beside it for CPU tensors.
 Ported paths: GPT served by `LLMEngine` from a slotted or paged, fp or
-int8 KV cache (kernels K1, K4, K5, K6) and GPT trained by `Trainer`
-with `AdamW` (kernels K2 and K3).
+int8 KV cache (kernels K1, K4, K5, K6), with int8-PTQ weights and
+speculative decoding (kernel K7, the fused int8 GEMV), and GPT trained
+by `Trainer` with `AdamW` (kernels K2 and K3).
 """
 from . import (framework, models, nn, ops_cuda, optimizer, quantization,
                serving)

@@ -17,7 +17,8 @@ Numerics follow the reference: LayerNorm statistics in fp32, GELU with
 the tanh approximation, attention scores in fp32 with a -1e30 mask;
 training attention runs through the flash kernels K2/K3
 (`ops_cuda/flash_attention.py`), decode attention through K1 (K4, K5,
-K6 for paged and int8 caches).
+K6 for paged and int8 caches), int8 PTQ linears of at most 4 rows
+through K7 (`ops_cuda/int8_linear.py`).
 Cache slabs are written IN PLACE (the JAX code returns updated arrays
 and donates the old ones instead).
 """
@@ -33,14 +34,16 @@ from torch import nn
 from ..core import DeviceLike, make_generator, resolve_device, resolve_dtype
 from ..nn import functional as F
 from ..nn.layers import GELU, Dropout, Embedding, LayerNorm, Linear
-from ..quantization.kv import (dequant_slab, is_quantized, slab_data,
-                               slab_shape, take_rows)
+from ..quantization.kv import (dequant_slab, is_quantized, map_slab,
+                               slab_data, slab_shape, take_rows)
 
 __all__ = ["GPTConfig", "GPT", "GPTBlock", "gpt_tiny", "gpt_small",
            "gpt_medium", "gpt_1p3b", "param_shapes", "generate_greedy"]
 
 NEG_INF = -1e30
 Params = Dict[str, torch.Tensor]
+# the Linears of a block, by their names under `blocks.{i}.`
+BLOCK_LINEARS = ("attn.qkv", "attn.out", "mlp.fc1", "mlp.fc2")
 
 
 @dataclasses.dataclass
@@ -266,8 +269,21 @@ class GPT(nn.Module):
 
     def raw_parameters(self) -> Params:
         """Flat {name: tensor} view of the weights (detached, storage
-        shared) — what the functional decode path consumes."""
+        shared)."""
         return {k: p.detach() for k, p in self.named_parameters()}
+
+    def raw_buffers(self) -> Params:
+        """Flat {name: tensor} view of the buffers: the int8 codes and
+        scales of `quantization.Int8Linear` layers (`<prefix>.qweight`,
+        `.w_scale`, `.act_scale`, `.bias`) after a PTQ or QAT
+        conversion; empty for a float model."""
+        return dict(self.named_buffers())
+
+    def serving_params(self) -> Params:
+        """Parameters and buffers in one dict — what the functional
+        decode path consumes (`_apply_linear` dispatches on
+        `.weight` / `.qweight`)."""
+        return {**self.raw_parameters(), **self.raw_buffers()}
 
     @torch.no_grad()
     def logits(self, input_ids) -> torch.Tensor:
@@ -279,7 +295,7 @@ class GPT(nn.Module):
         k = torch.zeros((cfg.num_layers, b, s, cfg.num_heads, cfg.head_dim),
                         dtype=self.dtype, device=self.device)
         v = torch.zeros_like(k)
-        return _decode_forward(cfg, self.raw_parameters(), ids, 0, k, v)[0]
+        return _decode_forward(cfg, self.serving_params(), ids, 0, k, v)[0]
 
 
 def gpt_tiny(seed: int = 0, device: DeviceLike = None, dtype=None, **kw):
@@ -311,17 +327,18 @@ def gpt_1p3b(seed: int = 0, device: DeviceLike = None, dtype=None, **kw):
 # --------------------------------------------------------------------------- #
 
 def _apply_linear(p: Params, prefix: str, x: torch.Tensor) -> torch.Tensor:
-    """Serving-path linear over the fp `<prefix>.weight` (in, out)."""
+    """Serving-path linear over either weight format: the fp
+    `<prefix>.weight` (in, out), or the `<prefix>.qweight` + scales an
+    int8 PTQ conversion leaves (`quantization.Int8Linear`), which go to
+    `int8_linear` — the fused GEMV K7 for at most 4 rows."""
     w = p.get(prefix + ".weight")
-    if w is None:
-        if prefix + ".qweight" in p:
-            raise NotImplementedError(
-                f"{prefix}.qweight: int8 PTQ weights are not ported yet "
-                f"(ROADMAP Queue 1 item 10, kernel K7)")
-        raise KeyError(f"{prefix}.weight")
-    out = torch.matmul(x, w)
-    b = p.get(prefix + ".bias")
-    return out if b is None else out + b
+    if w is not None:
+        out = torch.matmul(x, w)
+        b = p.get(prefix + ".bias")
+        return out if b is None else out + b
+    from ..quantization import int8_linear
+    return int8_linear(x, p[prefix + ".qweight"], p[prefix + ".w_scale"],
+                       p[prefix + ".act_scale"], p.get(prefix + ".bias"))
 
 
 def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -344,27 +361,48 @@ def _block_params(params: Params, i: int) -> Params:
             if k.startswith(pre)}
 
 
+def _by_groups(fn: Callable, x: torch.Tensor, groups: int) -> torch.Tensor:
+    """`fn` over `groups` equal slices of x's rows, one call each, the
+    results stacked back. A row-wise op then sees the row count of one
+    group: GEMMs and reductions may pick their kernel (and so their
+    summation order) by shape, so this keeps a row's bits those of a
+    call with one group's rows."""
+    if groups == 1:
+        return fn(x)
+    return torch.cat([fn(c) for c in x.chunk(groups)])
+
+
 def _body_layers(cfg: GPTConfig, params: Params, x: torch.Tensor,
-                 per_layer_attn: Callable, num_layers: Optional[int] = None
-                 ) -> torch.Tensor:
+                 per_layer_attn: Callable, num_layers: Optional[int] = None,
+                 row_groups: int = 1) -> torch.Tensor:
     """The transformer block wiring shared by `_decode_forward` and the
     serving engine: ln1 → fused qkv → per-layer cache-attention
     callback → out proj → residual → ln2 → gelu(tanh) MLP → residual;
-    final ln_f."""
+    final ln_f. `num_layers` caps the stack at the first N blocks (ln_f
+    still applies): the truncated-layer draft of speculative decoding.
+    `row_groups` > 1 runs every row-wise op once per group of
+    `rows / row_groups` rows (`_by_groups`) while the attention callback
+    sees all rows at once: the speculative verify pass, whose k+1
+    positions ride the batch axis position-major, so each group is one
+    plain decode step's shape."""
     eps = cfg.layer_norm_eps
+    g = row_groups
     for i in range(num_layers if num_layers is not None
                    else cfg.num_layers):
         p = _block_params(params, i)
-        h = _ln(x, p["ln1.weight"], p["ln1.bias"], eps)
-        qkv = _apply_linear(p, "attn.qkv", h).reshape(
-            x.shape[0], x.shape[1], 3, cfg.num_heads, cfg.head_dim)
+        qkv = _by_groups(lambda t: _apply_linear(
+            p, "attn.qkv", _ln(t, p["ln1.weight"], p["ln1.bias"], eps)),
+            x, g).reshape(x.shape[0], x.shape[1], 3, cfg.num_heads,
+                          cfg.head_dim)
         a = per_layer_attn(i, qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-        x = x + _apply_linear(p, "attn.out", a.reshape(x.shape))
-        h = _ln(x, p["ln2.weight"], p["ln2.bias"], eps)
-        m = torch.nn.functional.gelu(_apply_linear(p, "mlp.fc1", h),
-                                     approximate="tanh")
-        x = x + _apply_linear(p, "mlp.fc2", m)
-    return _ln(x, params["ln_f.weight"], params["ln_f.bias"], eps)
+        x = x + _by_groups(lambda t: _apply_linear(p, "attn.out", t),
+                           a.reshape(x.shape), g)
+        x = x + _by_groups(lambda t: _apply_linear(
+            p, "mlp.fc2", torch.nn.functional.gelu(_apply_linear(
+                p, "mlp.fc1", _ln(t, p["ln2.weight"], p["ln2.bias"], eps)),
+                approximate="tanh")), x, g)
+    return _by_groups(lambda t: _ln(t, params["ln_f.weight"],
+                                    params["ln_f.bias"], eps), x, g)
 
 
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -427,6 +465,49 @@ def _slot_attend(q: torch.Tensor, kc, vc, pos: torch.Tensor,
     T = kc.shape[1]
     keep = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
     return _masked_attend(q, kc, vc, keep[:, None, None])
+
+
+def _slot_verify_attend(q: torch.Tensor, kc, vc, slot_of: torch.Tensor,
+                        q_pos: torch.Tensor, impl: str = "masked"
+                        ) -> torch.Tensor:
+    """Multi-token VERIFY attention over a slotted cache, the
+    speculative-decoding seam beside `_slot_attend`: the k+1 verify
+    queries of every lane ride the batch axis as VIRTUAL LANES — q is
+    (B, 1, nh, hd), virtual lane b reads slot `slot_of[b]`'s rows and
+    attends rows `[0, q_pos[b]]`. Each virtual lane is one plain decode
+    step's query, so the result is that step's, row for row.
+
+    - impl="masked": gather each virtual lane's slot view, then the
+      `_masked_attend` math of `_slot_attend`;
+    - impl="ragged": the flash-decode kernel addressing the cache
+      through `slot_map` (K1, or K5 for int8 slabs); each (lane, head)
+      runs in its own CTAs with block picks that depend only on the
+      cache shape, so a virtual lane gets the plain step's bits.
+    """
+    _check_impl(impl)
+    if impl == "ragged":
+        from ..ops_cuda.decode_attention import ragged_decode_attention
+        return ragged_decode_attention(
+            q.contiguous(), slab_data(kc), slab_data(vc),
+            (q_pos + 1).to(torch.int32), slot_map=slot_of.to(torch.int32),
+            **_kernel_scales(kc, vc))
+    idx = slot_of.long()
+    kv = dequant_slab(map_slab(kc, lambda a: a[idx]), q.dtype)
+    vv = dequant_slab(map_slab(vc, lambda a: a[idx]), q.dtype)
+    T = kv.shape[1]
+    keep = torch.arange(T, device=q_pos.device)[None, :] <= q_pos[:, None]
+    return _masked_attend(q, kv, vv, keep[:, None, None])
+
+
+def _paged_verify_attend(q: torch.Tensor, kp, vp, tables: torch.Tensor,
+                         q_pos: torch.Tensor, impl: str = "masked"
+                         ) -> torch.Tensor:
+    """Multi-token VERIFY attention over a paged cache: `_paged_attend`
+    on the virtual-lane grid, with `tables` the per-VIRTUAL-lane block
+    tables (each lane's row repeated once per verify position) and
+    `q_pos` the per-virtual-lane query position. "ragged" is K4 (K6 for
+    int8 pools) over the repeated tables."""
+    return _paged_attend(q, kp, vp, tables, q_pos, impl)
 
 
 def _paged_attend(q: torch.Tensor, kp, vp, tables: torch.Tensor,
@@ -499,7 +580,7 @@ def generate_greedy(model: GPT, input_ids,
     `generate_compiled(temperature=0)` counterpart: prefill the prompt,
     then one cache-writing step per token. Returns (b, prompt + new)."""
     cfg = model.cfg
-    params = model.raw_parameters()
+    params = model.serving_params()
     ids = torch.as_tensor(input_ids, device=model.device)
     if max_new_tokens < 1:
         return ids

@@ -7,7 +7,10 @@ keeps verbatim, so the bridge is a checked copy: names and shapes must
 match exactly, and any mismatch raises instead of loading a partial or
 transposed model. Arrays travel as numpy (`np.asarray(jax_array)`);
 bfloat16 arrays (numpy's `bfloat16` extension dtype) are carried over
-bit for bit.
+bit for bit. An int8 model (PTQ- or QAT-converted) crosses with
+`load_jax_int8_params`: its `raw_buffers()` carry each `Int8Linear`'s
+codes and scales, and the port model's Linears there become
+`Int8Linear`s.
 """
 from __future__ import annotations
 
@@ -18,10 +21,10 @@ import numpy as np
 import torch
 
 from ..framework.trainer import TrainState
-from .gpt import GPT, GPTConfig, param_shapes
+from .gpt import BLOCK_LINEARS, GPT, GPTConfig, param_shapes
 
-__all__ = ["from_jax_params", "load_jax_params", "infer_config",
-           "from_jax_train_state"]
+__all__ = ["from_jax_params", "load_jax_params", "load_jax_int8_params",
+           "infer_config", "from_jax_train_state"]
 
 _SLOTS = ("moment1", "moment2", "master_weight")
 
@@ -98,6 +101,62 @@ def load_jax_params(model: GPT,
     for k, v in np_params.items():
         own[k].copy_(_to_tensor(k, v))
     return model
+
+
+def _linear_prefixes(cfg: GPTConfig):
+    out = [f"blocks.{i}.{t}" for i in range(cfg.num_layers)
+           for t in BLOCK_LINEARS]
+    return out if cfg.tie_embeddings else out + ["lm_head"]
+
+
+@torch.no_grad()
+def load_jax_int8_params(model: GPT, np_params: Mapping[str, np.ndarray],
+                         np_buffers: Mapping[str, np.ndarray]) -> GPT:
+    """Carry a PTQ- or QAT-converted JAX GPT into `model` in place: the
+    JAX `raw_parameters()` (embeddings and LayerNorms, and any Linear
+    left in float) and `raw_buffers()` (each `Int8Linear`'s `qweight`,
+    `w_scale`, `act_scale` and `bias`). Every Linear whose `qweight` the
+    buffers carry becomes a `quantization.Int8Linear` in the same place;
+    its buffers are carried bit for bit in their own dtypes (int8 codes,
+    the scales' dtype as saved). Names and shapes are checked against
+    the model's config, and any mismatch raises before anything is
+    copied."""
+    from ..quantization import Int8Linear
+    shapes = param_shapes(model.cfg)
+    quant = sorted(k[:-len(".qweight")] for k in np_buffers
+                   if k.endswith(".qweight"))
+    if not quant:
+        raise KeyError("no <prefix>.qweight buffer: not an int8 model "
+                       "(use load_jax_params)")
+    unknown = sorted(set(quant) - set(_linear_prefixes(model.cfg)))
+    if unknown:
+        raise KeyError(f"qweight for layers that are no Linear of this "
+                       f"model: {unknown[:8]}")
+    want_params = {k: v for k, v in shapes.items()
+                   if k.rsplit(".", 1)[0] not in quant}
+    want_bufs = {}
+    for pre in quant:
+        k_in, n = shapes[pre + ".weight"]
+        want_bufs.update({pre + ".qweight": (k_in, n),
+                          pre + ".w_scale": (n,), pre + ".act_scale": ()})
+        if pre + ".bias" in shapes:
+            want_bufs[pre + ".bias"] = (n,)
+    _check(np_params, want_params)
+    _check(np_buffers, want_bufs)
+    bad = [k for k in quant if np.asarray(np_buffers[k + ".qweight"]).dtype
+           != np.int8]
+    if bad:
+        raise TypeError(f"qweight must be int8: {bad[:8]}")
+    dev = model.device
+    for pre in quant:
+        parent, _, name = pre.rpartition(".")
+        bufs = {t: _to_tensor(f"{pre}.{t}", np_buffers[f"{pre}.{t}"]).to(dev)
+                for t in ("qweight", "w_scale", "act_scale", "bias")
+                if f"{pre}.{t}" in np_buffers}
+        setattr(model.get_submodule(parent) if parent else model, name,
+                Int8Linear(bufs["qweight"], bufs["w_scale"],
+                           bufs["act_scale"], bufs.get("bias")))
+    return load_jax_params(model, np_params)
 
 
 def from_jax_train_state(state_tree: Mapping, cfg: Optional[GPTConfig] = None):

@@ -27,6 +27,12 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   page pressure never fails a request — and frozen lanes park their
   writes on the trash page. `kv_dtype="int8"` stores either layout as
   per-row int8 codes with f32 scales (`quantization/kv.py`).
+- SPECULATIVE DECODING (`speculate_k` > 0): each block runs
+  `spec_rounds` rounds of k draft steps (the target's first
+  `draft_layers` blocks, or an int8 copy of its weights) and one verify
+  pass over the k+1 positions as virtual lanes; the accept rule emits
+  only the target's own tokens, so streams equal the spec-off engine's
+  token for token, with the same one host sync per block.
 - Attention goes through `models.gpt._slot_attend` / `_paged_attend`:
   `attend_impl` "ragged" runs the hand-written flash-decode kernels
   (K1 slotted, K4 paged, K5 / K6 their int8 forms), "masked" the
@@ -57,14 +63,19 @@ import numpy as np
 import torch
 
 from ..core import DeviceLike, resolve_device
-from ..models.gpt import (_body_layers, _head, _masked_attend,
-                          _paged_attend, _slot_attend)
+from ..models.gpt import (BLOCK_LINEARS, _block_params, _body_layers,
+                          _by_groups, _head, _ln, _masked_attend,
+                          _paged_attend, _paged_verify_attend, _slot_attend,
+                          _slot_verify_attend)
+from ..quantization import abs_max_scale, quantize_tensor
 from ..quantization.kv import (dequant_slab, kv_update, map_slab,
                                slab_shape, take_rows)
 from .kv_cache import KVCacheManager
 from .metrics import ServingMetrics
 from .paged_kv import NoFreePages, PagedKVCache, paged_rows
-from .sampler import DOMAIN_FIRST, sample_tokens, sample_tokens_per_lane
+from .sampler import (DOMAIN_FIRST, compact_block, sample_tokens,
+                      sample_tokens_per_lane, sample_verify_tokens,
+                      speculative_accept)
 
 __all__ = ["SamplingParams", "GenerationResult", "EngineOverloadError",
            "LLMEngine"]
@@ -83,9 +94,6 @@ _UNSUPPORTED_KNOBS = {
     "prefix_cache": ((False,), "the prefix cache", "Queue 1 item 7"),
     "prefix_block": ((), "the prefix cache", "Queue 1 item 7"),
     "prefix_pool_pages": ((None, 0), "the prefix cache", "Queue 1 item 7"),
-    "speculate_k": ((0,), "speculative decoding", "Queue 1 item 10"),
-    "draft": ((), "speculative decoding", "Queue 1 item 10"),
-    "draft_layers": ((None,), "speculative decoding", "Queue 1 item 10"),
     "mesh": ((None,), "TP-sharded serving", "Queue 1 item 12"),
     "tp": ((1,), "TP-sharded serving", "Queue 1 item 12"),
     "trace": ((False,), "the lifecycle tracer", "Queue 1 item 11"),
@@ -175,9 +183,11 @@ class _Request:
 @dataclasses.dataclass
 class _Inflight:
     """A dispatched, not yet processed decode block."""
-    packed: torch.Tensor          # (2, block, slots): tokens, emit flags
+    packed: torch.Tensor          # (2, steps, slots): tokens, emit flags
     t0: float                     # dispatch wall time
-    steps: int                    # in-program steps (== block size)
+    steps: int                    # in-program steps (the block capacity)
+    # speculative blocks: the (proposed, accepted) tally on the device
+    spec: Optional[torch.Tensor] = None
 
 
 def _default_buckets(max_seq: int) -> List[int]:
@@ -286,6 +296,191 @@ def _decode_block(cfg, params, k_list, v_list, cur, pos, rem, act, salt,
     return torch.stack(toks), torch.stack(emits), cur, pos, rem, act
 
 
+# --------------------------------------------------------------------------- #
+# speculative decoding: the int8 draft and the draft-and-verify block
+# --------------------------------------------------------------------------- #
+
+@torch.no_grad()
+def _int8_draft_params(cfg, params, num_layers: int):
+    """The INT8 DRAFT's parameter dict, derived from the target's own
+    weights: every block linear of the first `num_layers` blocks, and
+    the LM head (the tied head quantizes `wte.T`), gets symmetric
+    per-output-channel int8 weights (`w_scale` computed in the weight's
+    dtype, then stored fp32), with activation scales from ONE fixed
+    calibration forward over deterministic tokens (the PTQ abs-max rule:
+    each observed max a host float, `max(m, 1e-8) / 127` in Python
+    double, stored fp32). The forward runs in the target's dtype with
+    `_masked_attend` and the tanh GELU. Embeddings, LayerNorms and
+    biases are shared. A pure function of the checkpoint, so every
+    engine derives the same draft.
+
+    Raises for an int8 target: it has no fp weights to quantize (use
+    draft='trunc')."""
+    L = min(32, cfg.max_seq_len)
+    ids = ((np.arange(L, dtype=np.int64) * 2654435761)
+           % cfg.vocab_size).astype(np.int64)[None]
+    prefixes = [f"blocks.{i}.{t}" for i in range(num_layers)
+                for t in BLOCK_LINEARS]
+    for p in prefixes:
+        if p + ".weight" not in params:
+            raise ValueError(
+                f"draft='int8' needs an fp-weight target ({p}.weight "
+                f"missing — an int8-PTQ target is already its own cheap "
+                f"path; use draft='trunc')")
+    nh, hd, eps = cfg.num_heads, cfg.head_dim, cfg.layer_norm_eps
+    scales: Dict[str, float] = {}
+
+    def observe(prefix, x):
+        scales[prefix] = max(scales.get(prefix, 0.0),
+                             float(x.abs().max()))
+
+    dev = params["wte.weight"].device
+    x = params["wte.weight"][torch.from_numpy(ids).to(dev)] \
+        + params["wpe.weight"][torch.arange(L, device=dev)][None]
+    ar = torch.arange(L, device=dev)
+    keep = (ar[None, :] <= ar[:, None])[None, None]
+    for i in range(num_layers):
+        p = _block_params(params, i)
+        h = _ln(x, p["ln1.weight"], p["ln1.bias"], eps)
+        observe(f"blocks.{i}.attn.qkv", h)
+        qkv = (h @ p["attn.qkv.weight"] + p["attn.qkv.bias"]).reshape(
+            1, L, 3, nh, hd)
+        a = _masked_attend(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                           keep).reshape(1, L, -1)
+        observe(f"blocks.{i}.attn.out", a)
+        x = x + a @ p["attn.out.weight"] + p["attn.out.bias"]
+        h = _ln(x, p["ln2.weight"], p["ln2.bias"], eps)
+        observe(f"blocks.{i}.mlp.fc1", h)
+        m = torch.nn.functional.gelu(
+            h @ p["mlp.fc1.weight"] + p["mlp.fc1.bias"], approximate="tanh")
+        observe(f"blocks.{i}.mlp.fc2", m)
+        x = x + m @ p["mlp.fc2.weight"] + p["mlp.fc2.bias"]
+    observe("lm_head", _ln(x, params["ln_f.weight"], params["ln_f.bias"],
+                           eps))
+    out = dict(params)
+    head_w = params.get("lm_head.weight")
+    if head_w is None:
+        head_w = params["wte.weight"].t()                  # tied head
+    for prefix in prefixes + ["lm_head"]:
+        w = head_w if prefix == "lm_head" else params[prefix + ".weight"]
+        ws = abs_max_scale(w, dim=0)                      # per out channel
+        out[prefix + ".qweight"] = quantize_tensor(w, ws).contiguous()
+        out[prefix + ".w_scale"] = ws.float()
+        out[prefix + ".act_scale"] = torch.tensor(
+            max(scales[prefix], 1e-8) / 127.0, dtype=torch.float32,
+            device=dev)
+        out.pop(prefix + ".weight", None)      # force the int8 dispatch
+    return out
+
+
+def _spec_decode_block(cfg, params, draft_params, k_list, v_list, cur, pos,
+                       rem, act, salt, temp, topk, topp, eos, *,
+                       rounds: int, k: int, draft_layers: int,
+                       attend_impl: str, seed: int, max_seq: int,
+                       tables: Optional[torch.Tensor] = None,
+                       page_size: int = 0):
+    """`rounds` draft-and-verify rounds over every lane, all on the
+    device, emitting up to rounds * (k+1) tokens per lane.
+
+    Draft: k sequential steps of the cheap model — the target's first
+    `draft_layers` blocks (trunc: `draft_params` None; its K/V for those
+    layers are the target's own rows) or the int8 dict. Proposals draw
+    with the keys the target uses at the same positions.
+
+    Verify: the k+1 positions of every lane run as VIRTUAL LANES on the
+    batch axis, position-major (row j*S + s is lane s at position
+    pos[s] + j). Every row-wise op runs once per position on exactly S
+    rows (`_body_layers(row_groups=k+1)`, the head, the draws), the
+    plain step's shapes, while the K/V writes and the attention kernel
+    run once over all rows; so the verify logits, rows and draws are the
+    plain steps' bitwise. `speculative_accept` then emits the longest
+    matching drafted prefix plus the target's token at the first
+    mismatch.
+
+    Writes: frozen lanes park every draft and verify write at row T-1
+    (slotted) or on the trash page (paged, with `tables`), and so do
+    verify rows past the lane's reservation (paged: past the table's
+    bound pages, whose filler is the trash page). A write at a rejected
+    position lands in the lane's own rows past its new `pos`, and is
+    rewritten (by the next round or block) before any length reaches it.
+
+    Returns (tokens (steps, S), emits (steps, S) compacted to a prefix
+    per lane, cur, pos, rem, act, tally (2,) = proposed, accepted)."""
+    S, T, W = cur.shape[0], max_seq, k + 1
+    dev = cur.device
+    lanes = torch.arange(S, device=dev)
+    dp = params if draft_params is None else draft_params
+    # virtual lane j*S + s is lane s at position pos[s] + j: its slot,
+    # or its lane's block-table row
+    slot_of = lanes.repeat(W)
+    vtab = None if tables is None else tables.repeat(W, 1)
+    toks_all, emits_all = [], []
+    tally = torch.zeros(2, dtype=torch.int64, device=dev)
+    for _ in range(rounds):
+        # --- draft: k cheap sequential proposal steps ------------------ #
+        dcur, dpos, drafted = cur, pos, []
+        for _j in range(k):
+            apos = torch.clamp(dpos, max=T - 1)
+            ok = act & (dpos < T - 1)
+            if tables is None:
+                rows = (lanes, torch.where(ok, dpos, T - 1))
+            else:
+                rows = paged_rows(tables, apos, page_size, live=ok)
+
+            def dattn(i, q, kn, vn, rows=rows, apos=apos):
+                kv_update(k_list[i], rows, kn[:, 0])
+                kv_update(v_list[i], rows, vn[:, 0])
+                if tables is None:
+                    return _slot_attend(q, k_list[i], v_list[i], apos,
+                                        attend_impl)
+                return _paged_attend(q, k_list[i], v_list[i], tables, apos,
+                                     attend_impl)
+
+            h = _body_layers(cfg, dp, _embed(dp, dcur, apos)[:, None],
+                             dattn, num_layers=draft_layers)
+            nxt = sample_tokens_per_lane(_head(dp, h)[:, 0].float(), seed,
+                                         salt, apos, temp, topk, topp)
+            drafted.append(nxt)
+            dcur = torch.where(act, nxt, dcur)
+            dpos = dpos + act.to(dpos.dtype)
+        # --- verify: k+1 positions as virtual lanes -------------------- #
+        drafted_m = torch.stack(drafted, dim=1)                   # (S, k)
+        ins = torch.cat([cur[:, None], drafted_m], dim=1)         # (S, W)
+        q_pos = pos[:, None] + torch.arange(W, device=dev)[None]  # (S, W)
+        q_flat = q_pos.t().reshape(-1)                  # position-major
+        a_flat = torch.clamp(q_flat, max=T - 1)
+        act_flat = act.repeat(W)
+        if tables is None:
+            vrows = (slot_of, torch.where(act_flat, a_flat, T - 1))
+        else:
+            vrows = paged_rows(vtab, a_flat, page_size,
+                               live=act_flat & (q_flat < T))
+
+        def vattn(i, q, kn, vn):
+            kv_update(k_list[i], vrows, kn[:, 0])
+            kv_update(v_list[i], vrows, vn[:, 0])
+            if tables is None:
+                return _slot_verify_attend(q, k_list[i], v_list[i],
+                                           slot_of, a_flat, attend_impl)
+            return _paged_verify_attend(q, k_list[i], v_list[i], vtab,
+                                        a_flat, attend_impl)
+
+        x = _embed(params, ins.t().reshape(-1), a_flat)[:, None]
+        h = _body_layers(cfg, params, x, vattn, row_groups=W)
+        logits = _by_groups(lambda t: _head(params, t)[:, 0].float(), h, W)
+        tgt = sample_verify_tokens(logits.reshape(W, S, -1).transpose(0, 1),
+                                   seed, salt, q_pos, temp, topk, topp)
+        emit, toks, cur, pos, rem, act2, accepted = speculative_accept(
+            drafted_m, tgt, cur, act, pos, rem, eos, T)
+        tally += torch.stack([torch.where(act, k, 0).sum(),
+                              accepted.sum()])
+        act = act2
+        toks_all.append(toks.t())
+        emits_all.append(emit.t())
+    toks, emits = compact_block(torch.cat(toks_all), torch.cat(emits_all))
+    return toks, emits, cur, pos, rem, act, tally
+
+
 class LLMEngine:
     """Continuous-batching generation engine over a `GPT` model.
 
@@ -305,6 +500,18 @@ class LLMEngine:
     divides `max_seq`) and `kv_pages` (default `2 * max_slots *
     pages_per_seq + 1`, the trash page included). `kv_dtype` None keeps
     the weights' dtype; "int8" stores per-row int8 codes and f32 scales.
+
+    Int8 weights: a model converted by `quantization.PTQ` / `QAT` (its
+    Linears `Int8Linear`s) serves as it is; the engine takes the
+    model's parameters and buffers, and each quantized linear of at most
+    4 rows runs the fused GEMV K7.
+
+    Speculative decoding: `speculate_k` = k > 0 runs each decode block
+    as `spec_rounds = max(1, decode_block_size // (k+1))` rounds of k
+    draft steps and one verify pass; `draft` "trunc" (the target's first
+    `draft_layers` blocks, default max(1, L // 6)) or "int8" (an int8
+    copy of the target's weights, default depth L). Streams equal the
+    spec-off engine's token for token.
     """
 
     def __init__(self, model, max_slots: int = 8, max_queue: int = 64,
@@ -314,7 +521,9 @@ class LLMEngine:
                  attend_impl: str = "auto", device: DeviceLike = None,
                  kv_layout: str = "slotted", page_size: Optional[int] = None,
                  kv_pages: Optional[int] = None,
-                 kv_dtype: Optional[str] = None, **knobs):
+                 kv_dtype: Optional[str] = None, speculate_k: int = 0,
+                 draft: str = "trunc", draft_layers: Optional[int] = None,
+                 **knobs):
         for knob, value in knobs.items():
             if knob not in _UNSUPPORTED_KNOBS:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
@@ -345,9 +554,40 @@ class LLMEngine:
                 else "masked"
         self.attend_impl = attend_impl
         self.seed = int(seed)
+        # parameters AND buffers: an int8-converted model keeps its codes
+        # and scales in buffers; _apply_linear dispatches on the keys
         self._params = {k: v.to(self.device)
-                        for k, v in model.raw_parameters().items()}
+                        for k, v in model.serving_params().items()}
         dtype = self._params["wte.weight"].dtype
+        if speculate_k < 0:
+            raise ValueError("speculate_k must be >= 0")
+        self.speculate_k = int(speculate_k)
+        self.draft = str(draft)
+        self.draft_layers = 0
+        self.spec_rounds = 0
+        self._draft_params = None
+        if self.speculate_k:
+            if self.draft not in ("trunc", "int8"):
+                raise ValueError(f"draft must be 'trunc' or 'int8', "
+                                 f"got {draft!r}")
+            if draft_layers is None:
+                # trunc: a ~6x cheaper draft; int8: full depth, its
+                # cheapness is the weight bytes
+                dl = max(1, cfg.num_layers // 6) \
+                    if self.draft == "trunc" else cfg.num_layers
+            else:
+                dl = int(draft_layers)
+            if not 1 <= dl <= cfg.num_layers:
+                raise ValueError(f"draft_layers {dl} outside [1, "
+                                 f"{cfg.num_layers}]")
+            self.draft_layers = dl
+            self.spec_rounds = max(
+                1, self.decode_block_size // (self.speculate_k + 1))
+            if self.draft == "int8":
+                self._draft_params = _int8_draft_params(cfg, self._params,
+                                                        dl)
+        elif draft_layers is not None:
+            raise ValueError("draft_layers needs speculate_k > 0")
         if kv_layout not in ("slotted", "paged"):
             raise ValueError(f"kv_layout must be 'slotted' or 'paged', "
                              f"got {kv_layout!r}")
@@ -747,28 +987,51 @@ class LLMEngine:
             out["tables"] = dev(self.cache.block_tables)
         return out
 
+    @property
+    def _block_capacity(self) -> int:
+        """Most tokens one dispatched block can emit per lane: the block
+        size plain, rounds * (k+1) speculative."""
+        return self.spec_rounds * (self.speculate_k + 1) \
+            if self.speculate_k else self.decode_block_size
+
     def _dispatch_block(self) -> _Inflight:
         if self._dirty or self._dev is None:
             self._dev = self._upload_mirrors()
             self._dirty = False
         d = self._dev
         t0 = time.perf_counter()
-        toks, emits, cur, pos, rem, act = _decode_block(
-            self.cfg, self._params, self.cache.k, self.cache.v, d["cur"],
-            d["pos"], d["rem"], d["act"], d["salt"], d["temp"], d["topk"],
-            d["topp"], d["eos"], block=self.decode_block_size,
-            attend_impl=self.attend_impl, seed=self.seed,
-            max_seq=self.max_seq, tables=d.get("tables"),
-            page_size=self.page_size)
+        lane_state = (self.cache.k, self.cache.v, d["cur"], d["pos"],
+                      d["rem"], d["act"], d["salt"], d["temp"], d["topk"],
+                      d["topp"], d["eos"])
+        common = dict(attend_impl=self.attend_impl, seed=self.seed,
+                      max_seq=self.max_seq, tables=d.get("tables"),
+                      page_size=self.page_size)
+        spec = None
+        if self.speculate_k:
+            toks, emits, cur, pos, rem, act, spec = _spec_decode_block(
+                self.cfg, self._params, self._draft_params, *lane_state,
+                rounds=self.spec_rounds, k=self.speculate_k,
+                draft_layers=self.draft_layers, **common)
+        else:
+            toks, emits, cur, pos, rem, act = _decode_block(
+                self.cfg, self._params, *lane_state,
+                block=self.decode_block_size, **common)
         self._dev = {**d, "cur": cur, "pos": pos, "rem": rem, "act": act}
         return _Inflight(torch.stack([toks, emits.to(toks.dtype)]), t0,
-                         self.decode_block_size)
+                         self._block_capacity, spec)
 
     def _process_block(self, blk: _Inflight):
         """Distribute one block's tokens to their requests. The copy to
-        the host is the block's single sync (counted)."""
-        packed = blk.packed.cpu().numpy()       # host sync (the only one)
+        the host is the block's single sync (counted); a speculative
+        block's (proposed, accepted) tally rides the same copy."""
+        flat = blk.packed.reshape(-1)
+        if blk.spec is not None:
+            flat = torch.cat([flat, blk.spec])
+        flat = flat.cpu().numpy()               # host sync (the only one)
+        packed = flat[:blk.packed.numel()].reshape(blk.packed.shape)
         toks, emits = packed[0], packed[1].astype(bool)
+        if blk.spec is not None:
+            self.metrics.on_spec(int(flat[-2]), int(flat[-1]))
         produced = 0
         for slot, req in self._active.items():
             if req.finish_reason is not None:

@@ -1,5 +1,6 @@
 """Serving metrics: TTFT, queue wait, decode time per token, tokens/s,
-host syncs and dispatches, and the KV memory gauges.
+host syncs and dispatches, the KV memory gauges and the speculative
+decoding counters.
 
 A copy of the subset of `paddle_tpu/serving/metrics.py` that the port's
 engine feeds. Aggregates are O(1) online (count/total/min/max); TTFT
@@ -109,6 +110,16 @@ class ServingMetrics:
         self.kv_pages_total = 0      # pool size in pages
         self.kv_pages_used = 0       # pages held, the trash page included
         self.kv_pages_peak = 0       # high-water mark
+        # speculative decoding (all 0 with speculate_k=0): proposed
+        # counts every drafted token offered to a verify pass, accepted
+        # the ones that matched the target's own draw. Correction and
+        # bonus tokens are decode_tokens like any other. spec_fallbacks
+        # counts blocks degraded to plain decode by a failing draft; the
+        # port has no such fault point yet, so it stays 0.
+        self.spec_blocks = 0         # speculative blocks processed
+        self.spec_proposed = 0       # drafted tokens verified
+        self.spec_accepted = 0       # drafted tokens accepted
+        self.spec_fallbacks = 0      # blocks degraded to plain decode
         self.ttft = OnlineStat()
         self.queue_wait = OnlineStat()
         self.decode_step_time = OnlineStat(reservoir=0)
@@ -172,6 +183,14 @@ class ServingMetrics:
         self.requests_completed += 1
         self._touch()
 
+    def on_spec(self, proposed: int, accepted: int):
+        """One processed speculative block: `proposed` drafted tokens
+        went through the verify pass, `accepted` matched the target's
+        own draws (read with the block's one host sync)."""
+        self.spec_blocks += 1
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+
     def set_gauges(self, queue_depth: int, slots_active: int):
         self.queue_depth = queue_depth
         self.slots_active = slots_active
@@ -191,6 +210,13 @@ class ServingMetrics:
     def tokens_per_sec(self) -> float:
         span = self._t_last - self._t_first
         return self.generated_tokens / span if span > 0 else 0.0
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Accepted over proposed drafted tokens: whether speculation
+        pays (the emitted stream never depends on it)."""
+        return self.spec_accepted / self.spec_proposed \
+            if self.spec_proposed else 0.0
 
     @property
     def decode_ms_per_token(self) -> float:
@@ -228,6 +254,11 @@ class ServingMetrics:
             "slot_occupancy": self.slot_occupancy,
             "tokens_per_sec": self.tokens_per_sec,
             "decode_ms_per_token": self.decode_ms_per_token,
+            "spec_blocks": self.spec_blocks,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_fallbacks": self.spec_fallbacks,
+            "spec_acceptance_rate": self.spec_acceptance_rate,
         }
         out.update(self.ttft.as_dict("ttft", quantiles=True))
         out.update(self.queue_wait.as_dict("queue_wait", quantiles=True))

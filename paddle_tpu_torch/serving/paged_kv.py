@@ -11,6 +11,11 @@ tree's allocator, copy-on-write forks, host swap and page transfer
   `[pages_per_seq]`; sequence row `r` lives at
   `(table[r // page_size], r % page_size)`. The tables are a small host
   array the engine uploads with its scheduler mirrors.
+- SPECULATIVE blocks (`engine._spec_decode_block`, one block for both
+  layouts, as the plain decode block is) address the verify pass's
+  virtual lanes through their lanes' table rows repeated once per
+  position; draft and verify writes of frozen lanes, and verify rows
+  past a lane's reservation, land on the trash page.
 - REFCOUNTED pages (`PagePool`): a page frees when its last reference
   drops. Page 0 is a reserved TRASH page: table filler past a lane's
   bound pages, and where frozen lanes park their discarded writes (the
@@ -219,3 +224,4 @@ def paged_rows(tables: torch.Tensor, pos: torch.Tensor,
     if live is not None:
         pids = torch.where(live, pids, 0)
     return pids.long(), pos % page_size
+

@@ -32,7 +32,8 @@ import torch
 
 __all__ = ["DOMAIN_DECODE", "DOMAIN_FIRST", "filtered_logits",
            "lane_keys", "lane_uniforms", "sample_tokens",
-           "sample_tokens_per_lane"]
+           "sample_tokens_per_lane", "sample_verify_tokens",
+           "speculative_accept", "compact_block"]
 
 DOMAIN_DECODE = 0x1D
 DOMAIN_FIRST = 0x2F
@@ -152,3 +153,95 @@ def sample_tokens(logits: torch.Tensor, seed: int, salt: TensorLike,
         logits, seed, _knob(salt, S, torch.int64, dev),
         _knob(position, S, torch.int64, dev), temperature, top_k, top_p,
         domain)
+
+
+# --------------------------------------------------------------------------- #
+# speculative decoding: the verify draws, the accept rule, the compaction
+# --------------------------------------------------------------------------- #
+#
+# Draft-and-verify speculation emits, per round, the longest prefix of the
+# k drafted tokens that EQUALS what the target would have emitted
+# un-speculated, plus the target's own token at the first mismatch (or at
+# the bonus position when all k match). Position t of a request is always
+# drawn with the key (seed, salt, t) from the target's logits at t, with
+# speculation on or off, so the emitted stream is the un-speculated one
+# token for token, greedy and sampled; the draft only decides how many of
+# those tokens land per verify pass.
+
+
+def sample_verify_tokens(logits: torch.Tensor, seed: int,
+                         salts: torch.Tensor, positions: torch.Tensor,
+                         temperature: torch.Tensor, top_k: torch.Tensor,
+                         top_p: torch.Tensor) -> torch.Tensor:
+    """The target's would-be tokens for a verify pass: `logits`
+    (S, W, V) at query positions `positions` (S, W) of lanes with salts
+    and knobs (S,). Column j is drawn by one `sample_tokens_per_lane`
+    call over exactly S rows, the plain decode step's call, with the
+    key of (seed, salt, position): each draw is the un-speculated
+    step's draw, bitwise. Returns (S, W) int64."""
+    W = logits.shape[1]
+    return torch.stack([
+        sample_tokens_per_lane(logits[:, j], seed, salts, positions[:, j],
+                               temperature, top_k, top_p)
+        for j in range(W)], dim=1)
+
+
+def _cumand(x: torch.Tensor) -> torch.Tensor:
+    """Running AND along axis 1 of a bool (S, n) tensor."""
+    return torch.cumprod(x.to(torch.int32), dim=1) > 0
+
+
+def speculative_accept(drafted: torch.Tensor, target: torch.Tensor,
+                       cur: torch.Tensor, act: torch.Tensor,
+                       pos: torch.Tensor, rem: torch.Tensor,
+                       eos: torch.Tensor, max_seq: int):
+    """The accept decision of one verify round over every lane:
+    `drafted` (S, k) are the draft's proposals, `target` (S, k+1) the
+    target's own tokens for positions pos .. pos+k.
+
+    Token j emits iff every earlier token emitted AND (j == 0 or
+    drafted[j-1] == target[j-1]) AND no earlier emitted token was EOS
+    AND the plain step's caps still hold at step j ((rem - j) > 0,
+    (pos + j) < max_seq - 1). Every factor is non-increasing in j, so
+    the emit mask is a prefix per lane, and an active lane always emits
+    at least one token.
+
+    Returns (emit (S, W) bool, toks (S, W) — the target tokens, 0 where
+    not emitted, cur2, pos2, rem2, act2 — the lane state after the
+    round, accepted (S,) — drafted tokens that matched)."""
+    S, W = target.shape
+    k = W - 1
+    dev = target.device
+    j_idx = torch.arange(W, device=dev)
+    ones = torch.ones((S, 1), dtype=torch.bool, device=dev)
+    accept_chain = _cumand(torch.cat([ones, drafted == target[:, :k]],
+                                     dim=1))
+    stop = (eos >= 0)[:, None] & (target == eos[:, None])
+    # exclusive: token j is gated by EOS among the tokens before it (an
+    # emitted EOS itself still emits, as in the plain step)
+    nostop = torch.cat([ones, _cumand(~stop[:, :k])], dim=1)
+    rem_ok = (rem[:, None] - j_idx[None, :]) > 0
+    pos_ok = (pos[:, None] + j_idx[None, :]) < (max_seq - 1)
+    emit = act[:, None] & accept_chain & nostop & rem_ok & pos_ok
+    e = emit.to(pos.dtype).sum(dim=1)
+    last = torch.clamp(e - 1, 0, k)[:, None]
+    last_tok = target.gather(1, last)[:, 0]
+    stop_last = stop.gather(1, last)[:, 0]
+    cur2 = torch.where(e > 0, last_tok.to(cur.dtype), cur)
+    pos2 = pos + e
+    rem2 = rem - e
+    act2 = act & (e > 0) & ~stop_last & (rem2 > 0) & (pos2 < max_seq - 1)
+    toks = torch.where(emit, target, 0)
+    accepted = (accept_chain[:, 1:] & act[:, None]).to(torch.int64).sum(1)
+    return emit, toks, cur2, pos2, rem2, act2, accepted
+
+
+def compact_block(toks: torch.Tensor, emits: torch.Tensor):
+    """Pack each lane's emitted tokens to the front of the block's step
+    axis: a multi-round speculative block emits a prefix per round, which
+    flattened is no prefix of the block. A stable sort on ~emit per lane
+    restores the prefix shape (emitted rows first, in order), so the host
+    processes a speculative block as it does a plain one. toks / emits
+    are (steps, S)."""
+    order = torch.argsort((~emits).to(torch.int8), dim=0, stable=True)
+    return toks.gather(0, order), emits.gather(0, order)

@@ -17,6 +17,8 @@ import torch
 from paddle_tpu.ops_pallas.decode_attention import (
     ragged_decode_attention as jax_ragged)
 from paddle_tpu_torch.ops_cuda import decode_attention as port
+from port_threads import one_torch_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

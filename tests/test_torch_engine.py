@@ -21,6 +21,8 @@ from paddle_tpu.serving import SamplingParams as JaxParams
 from paddle_tpu_torch.models import gpt_tiny, load_jax_params
 from paddle_tpu_torch.serving import (EngineOverloadError, KVCacheManager,
                                       LLMEngine, NoFreeSlot, SamplingParams)
+from port_threads import one_torch_thread  # noqa: F401
+
 
 LENGTHS = (5, 13, 9, 21)
 
@@ -174,10 +176,10 @@ def test_overload_and_invalid_requests(model):
     ("overlap", True), ("prefill_chunk", 8)])
 def test_unported_knob_raises(model, knob, value):
     """Unported features raise and name their ROADMAP item. The paged
-    layout and int8 KV are ported: with them, the prefix cache still
-    raises."""
+    layout, int8 KV and speculative decoding are ported: with them, the
+    prefix cache still raises."""
     knobs = {knob: value}
-    if knob in ("kv_layout", "kv_dtype"):
+    if knob in ("kv_layout", "kv_dtype", "speculate_k"):
         knobs["prefix_cache"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 1"):
         _engine(model, **knobs)

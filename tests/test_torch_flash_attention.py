@@ -24,6 +24,8 @@ from jax.experimental.pallas import tpu as pltpu
 from paddle_tpu.ops_pallas import flash_attention as jfa
 from paddle_tpu_torch.models.weights import _to_tensor
 from paddle_tpu_torch.ops_cuda import flash_attention as port
+from port_threads import one_torch_thread  # noqa: F401
+
 
 D = 64
 SCALE = 1.0 / math.sqrt(D)

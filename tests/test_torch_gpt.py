@@ -22,6 +22,8 @@ from paddle_tpu_torch.models import gpt as port_gpt
 from paddle_tpu_torch.models import (from_jax_params, gpt_tiny,
                                      load_jax_params)
 from paddle_tpu_torch.models.weights import infer_config
+from port_threads import one_torch_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -168,6 +170,19 @@ class TestDecodeWiring:
                                    atol=1e-5)
 
     def test_int8_weights_name_the_roadmap_item(self, port_model):
-        p = {"x.qweight": torch.zeros(4, 4, dtype=torch.int8)}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_gpt._apply_linear(p, "x", torch.zeros(1, 1, 4))
+        """int8 PTQ weights are ported (ROADMAP Queue 1 item 10): a
+        `.qweight` dispatches to `int8_linear`; a layer with neither
+        weight format raises naming the missing weight."""
+        from paddle_tpu_torch.quantization import int8_linear
+        rng = np.random.RandomState(2)
+        p = {"x.qweight": torch.from_numpy(
+                rng.randint(-127, 128, (128, 256)).astype(np.int8)),
+             "x.w_scale": torch.full((256,), 0.01),
+             "x.act_scale": torch.tensor(0.02),
+             "x.bias": torch.ones(256)}
+        x = torch.from_numpy(rng.randn(2, 1, 128).astype(np.float32))
+        assert torch.equal(port_gpt._apply_linear(p, "x", x),
+                           int8_linear(x, *(p["x." + k] for k in (
+                               "qweight", "w_scale", "act_scale", "bias"))))
+        with pytest.raises(KeyError, match="y.qweight"):
+            port_gpt._apply_linear(p, "y", x)

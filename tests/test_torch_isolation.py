@@ -33,6 +33,8 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.ops_cuda.flash_attention\n"
         "import paddle_tpu_torch.quantization.kv\n"
         "import paddle_tpu_torch.serving.paged_kv\n"
+        "import paddle_tpu_torch.ops_cuda.int8_linear\n"
+        "import paddle_tpu_torch.quantization\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -28,6 +28,8 @@ from paddle_tpu_torch.models import gpt_tiny, load_jax_params
 from paddle_tpu_torch.serving import (LLMEngine, NoFreePages, PagedKVCache,
                                       PagePool, SamplingParams)
 from paddle_tpu_torch.serving.paged_kv import paged_rows
+from port_threads import one_torch_thread  # noqa: F401
+
 
 LENGTHS = (5, 13, 9, 21)
 

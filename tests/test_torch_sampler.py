@@ -15,6 +15,7 @@ import torch
 
 from paddle_tpu.serving.sampler import filtered_logits as jax_filtered
 from paddle_tpu_torch.serving import sampler as port
+from port_threads import one_torch_thread  # noqa: F401
 
 
 def _knobs():

@@ -28,6 +28,8 @@ from paddle_tpu_torch.models import (from_jax_train_state, gpt_tiny,
 from paddle_tpu_torch.models.weights import _to_tensor
 from paddle_tpu_torch.ops_cuda import flash_attention as port_fa
 from paddle_tpu_torch.optimizer import AdamW
+from port_threads import one_torch_thread  # noqa: F401
+
 
 LR = 1e-3
 STEPS = 5
