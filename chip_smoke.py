@@ -30,14 +30,19 @@ every phase passed):
    weight scales in x's dtype), without a bias and with an fp32 and a
    bf16 one; inputs include x on code half-points ((c + 0.5) * sx) and
    on +-127.5 * sx.
-3. kernels K2 (flash-attention forward) and K3 (backward) against their
-   plain versions in bf16: the training shape (b 18, s 1024, h 12,
-   d 64, causal, q/k/v strided slices of one fused qkv tensor as the
-   model passes them), sq < sk (256 vs 1024) causal, a length that is
-   no tile multiple (1000) non-causal and causal, d = 128. The output
-   within atol = rtol = 2e-2, the logsumexp within atol = 1e-3, each
-   gradient within max|kernel - plain| <= 2e-2 * max|plain|; two
-   backward runs bitwise equal.
+3. kernels K2 (flash-attention forward) and K3 (backward: delta, dk/dv
+   and dq kernels) against their plain versions in bf16: the training
+   shape (b 18, s 1024, h 12, d 64, causal, q/k/v strided slices of one
+   fused qkv tensor as the model passes them), sq < sk (256 vs 1024)
+   causal, a length that is no tile multiple (1000) non-causal and
+   causal, d = 128, and the edges of the TMA tiles: d = 128 on a packed
+   qkv (two 64-column boxes per row tile, strided), causal sq 200 against
+   sk 1000 (sq no multiple of 128, sk - sq a multiple of neither 64 nor
+   128), causal sq 1 against sk 333 (one query under one tile), and
+   b x h = 1024 heads (far more work items than SMs). The output within
+   atol = rtol = 2e-2, the logsumexp within atol = 1e-3, each gradient
+   within max|kernel - plain| <= 2e-2 * max|plain|; two backward runs
+   bitwise equal.
 4. serving at full width: GPT-small (768 hidden, 12 layers, 12 heads,
    vocab 50304, random weights from a seed) in bf16 served by
    `LLMEngine(max_slots=8, max_seq=1024, decode_block_size=8)` on 16
@@ -90,7 +95,10 @@ every phase passed):
    versions and `scaled_dot_product_attention` (causal) forward and
    backward (yardsticks only; the port never calls it); engine
    tokens/s, decode ms/token, TTFT p50/p99 — each beside the card and
-   its power limit. K7 at each (k, n) with 4 bf16 rows: median after an
+   its power limit. K3's parts (delta, dk/dv, dq) are timed one at a
+   time, and each flash source's nvcc time and each flash kernel's
+   registers, local (spill) bytes and dynamic shared memory are
+   printed. K7 at each (k, n) with 4 bf16 rows: median after an
    L2 flush, byte bound, plain version, and two yardsticks never called
    by the port (bf16 `torch.matmul` with the fp weights, and
    `torch._int_mm` on rows padded to 32).
@@ -442,6 +450,11 @@ def flash_cases():
     yield "s 1000", 4, 1000, 1000, 12, 64, False, False
     yield "s 1000 causal", 4, 1000, 1000, 12, 64, True, False
     yield "d 128", 4, 512, 512, 8, 128, True, False
+    # the edges of the TMA tiles
+    yield "d 128 packed", 4, 512, 512, 8, 128, True, True
+    yield "sq 200, sk 1000", 2, 200, 1000, 12, 64, True, False
+    yield "sq 1, sk 333", 2, 1, 333, 12, 64, True, False
+    yield "b x h 1024", 32, 128, 128, 32, 64, False, False
 
 
 def phase_flash_kernels(torch, fa):
@@ -1351,7 +1364,7 @@ def flash_bound(b, sq, sk, h, d, causal, n_products, n_q, n_k):
                                    else "operations"), nbytes, flops
 
 
-def phase_flash_numbers(torch, fa, card: str):
+def phase_flash_numbers(torch, fa, card: str, built):
     F = torch.nn.functional
     f = FLASH_SHAPE
     b, s_, h, d = f["b"], f["s"], f["h"], f["d"]
@@ -1365,6 +1378,14 @@ def phase_flash_numbers(torch, fa, card: str):
     bwd_ms = time_ms(torch, lambda: fa._launch_bwd(q, k, v, out, lse, g,
                                                    True, scale), flush,
                      reps=20)
+    # K3's three kernels one at a time (dk/dv and dq read the rows the
+    # delta kernel wrote)
+    rows = fa._bwd_rows(b, h, s_, "cuda")
+    parts = {name: time_ms(torch, lambda: fa._launch_bwd(
+        q, k, v, out, lse, g, True, scale, parts=part, rows=rows), flush,
+        reps=20) for name, part in (("delta", fa.BWD_DELTA),
+                                    ("dk/dv", fa.BWD_DKDV),
+                                    ("dq", fa.BWD_DQ))}
     fwd_plain = time_ms(torch, lambda: fa.flash_forward_plain(
         q, k, v, True, scale), flush, reps=5)
     bwd_plain = time_ms(torch, lambda: fa.flash_backward_plain(
@@ -1393,14 +1414,30 @@ def phase_flash_numbers(torch, fa, card: str):
         log(f"    {name}: median {ms:.4f} ms; bound {bound:.4f} ms "
             f"({by}: {nbytes} B, {flops / 1e9:.2f} GFLOP); plain "
             f"{plain:.3f} ms; scaled_dot_product_attention {lib:.4f} ms")
-    del q, k, v, g, out, lse, qt, kt, vt, lib_out, flush
+    log("    K3 parts, each kernel alone: " + ", ".join(
+        f"{name} {ms:.4f} ms" for name, ms in parts.items()))
+    info = {dd: fa.kernel_info(dd) for dd in (64, 128)}
+    for dd, kernels in info.items():
+        log(f"    d {dd}: " + "; ".join(
+            f"{name} {regs} registers, {local} local (spill) bytes, "
+            f"{smem} B dynamic shared memory, {threads} threads"
+            for name, (regs, local, smem, threads) in kernels.items()))
+    log("    nvcc: " + (", ".join(
+        f"{name} {sec:.1f} s" for name, sec in sorted(built.items())
+        if name.startswith("flash")) or "cached, not built in this run"))
+    del q, k, v, g, out, lse, qt, kt, vt, lib_out, flush, rows
     torch.cuda.empty_cache()
     return {"fwd": {"ms": fwd_ms, "plain_ms": fwd_plain,
                     "library_ms": fwd_lib, "bound_ms": fwd_bound[0],
                     "bound_by": fwd_bound[1]},
             "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain,
                     "library_ms": bwd_lib, "bound_ms": bwd_bound[0],
-                    "bound_by": bwd_bound[1]}}
+                    "bound_by": bwd_bound[1]},
+            "bwd_parts_ms": parts,
+            "kernel_info": {str(dd): {n: list(v) for n, v in kernels.items()}
+                            for dd, kernels in info.items()},
+            "nvcc_s": {n: t for n, t in built.items()
+                       if n.startswith("flash")}}
 
 
 def main(argv=None) -> int:
@@ -1471,7 +1508,7 @@ def main(argv=None) -> int:
             f"{run['decode_ms_per_token']:.3f} ms/token (per decode step), "
             f"TTFT p50 {run['ttft_p50_s'] * 1e3:.1f} ms, kv_bytes_per_token"
             f" {run['kv_bytes_per_token']:.0f}")
-    fnums = phase_flash_numbers(torch, fa, card)
+    fnums = phase_flash_numbers(torch, fa, card, built)
     k7nums = phase_int8_numbers(torch, k7, card)
     log(f"  engine, int8-PTQ GPT-small through K7, phase 4d [card: {card}]: "
         f"{int8_run['tokens_per_s']:.1f} tokens/s, decode "
@@ -1493,11 +1530,11 @@ def main(argv=None) -> int:
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/ops_cuda/csrc/flash_attention_fwd.cu",
         "replaces": f"{flash}:90", "launches": train["fwd_launches"],
-        "max_abs_err": flash_err["fwd"], **fnums["fwd"]}, {
+        "max_abs_err": flash_err["fwd"], **fnums.pop("fwd")}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "paddle_tpu_torch/ops_cuda/csrc/flash_attention_bwd.cu",
         "replaces": f"{flash}:205", "launches": train["bwd_launches"],
-        "max_abs_err": flash_err["bwd"], **fnums["bwd"]}]
+        "max_abs_err": flash_err["bwd"], **fnums.pop("bwd")}]
     dpy = "paddle_tpu/ops_pallas/decode_attention.py"
     for name, line, what in (("K4", 258, "paged_decode"),
                              ("K5", 242, "ragged_decode_int8"),
@@ -1541,7 +1578,7 @@ def main(argv=None) -> int:
                        "ragged_vs_masked": rvm, "paged_vs_slotted": pvs,
                        "train": train, "grad_check": grad,
                        "int8_serving": int8_run, "speculative": spec,
-                       "int8_numbers": k7nums,
+                       "int8_numbers": k7nums, "flash_numbers": fnums,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

@@ -2,442 +2,636 @@
 //
 // Replaces the TPU kernel `_bwd_merged_kernel` in
 // paddle_tpu/ops_pallas/flash_attention.py, launched there through
-// pl.pallas_call by `_flash_backward_flat`. Same function: with the
-// forward's fp32 logsumexp it recomputes p = exp(s - lse) (s scaled in
-// fp32, -1e30 where the bottom-right causal rule hides a key) and emits
+// pl.pallas_call by `_flash_backward_flat`, together with the fp32
+// delta = rowsum(out * g) pass that `_flash_backward_flat` runs before
+// it. Same function: with the forward's fp32 logsumexp it recomputes
+// p = exp(s - lse) (s scaled in fp32, masked where the bottom-right
+// causal rule hides a key) and emits
 //   dv = bf16(p)^T g,   dp = g v^T,   ds = bf16(p * (dp - delta) * scale),
 //   dk = ds^T q,        dq = ds k,
 // every product on bf16 operands with fp32 accumulation, every gradient
-// stored in bf16. delta = rowsum(out * g) in fp32 comes from the caller,
-// as in the TPU version.
+// stored in bf16.
 //
-// The design choice. The TPU kernel walks key tiles in order on one core
-// and keeps one fp32 dq block resident across the sweep. CTAs on an H100
-// run concurrently in no order, so that cannot carry over. Of the two
-// ways out, fp32 atomicAdd of dq partials into a zeroed buffer, or a
-// second kernel that recomputes p for dq, this file takes the second:
-//   - `flash_bwd_dkdv_kernel`, one CTA per (key tile, batch * head),
-//     sweeps the query tiles that can see its keys and keeps dk and dv
-//     in registers;
-//   - `flash_bwd_dq_kernel`, one CTA per (query tile, batch * head),
-//     sweeps the key tiles its rows can see and keeps dq in registers.
-// Both are deterministic: every gradient element is summed by one thread
-// in one order, so two runs give the same bits. The price is the second
-// recomputation of s and p and the second dp product: 7 products per
-// live tile pair instead of 5, and K, V, q, g read twice.
+// Three kernels, launched in order on one stream:
+//   - `flash_bwd_delta_kernel`: delta = rowsum(out * g) in fp32, out and
+//     g read once in bf16 with 16-byte loads, d / 8 lanes per row; it
+//     also writes lse log2 e beside delta for the other two;
+//   - `flash_bwd_dkdv_kernel`: work items of (128 keys, batch * head);
+//     an item sweeps the query tiles that can see its keys and keeps dk
+//     and dv in registers;
+//   - `flash_bwd_dq_kernel`: work items of (128 queries, batch * head);
+//     an item sweeps the key tiles its rows can see and keeps dq in
+//     registers.
+// The TPU kernel keeps one fp32 dq block resident across a sequential
+// sweep of key tiles; CTAs on an H100 run concurrently in no order, so
+// dq gets its own kernel instead of atomics. Every gradient element is
+// summed by one thread in one fixed order, so two runs give the same
+// bits. The price is the second recomputation of s and p and the second
+// dp product: 7 products per live tile pair instead of 5.
 //
 // Bound on an H100 SXM at the training shape (b 18, h 12, s 1024, d 64,
 // causal): the 5 products of the merged function, 5 x 2 s^2 d flops per
-// head halved by the mask, 72.5 GFLOP over 989 TFLOP/s = 0.073 ms;
-// q, k, v, out, g read and dq, dk, dv written once, 227 MB over
-// 3.35 TB/s = 0.068 ms. The bound is the operations.
+// head halved by the mask, 72.5 GFLOP over 989 TFLOP/s = 0.073 ms
+// (the 7 products run here: 0.103 ms); q, k, v, out, g read and dq, dk,
+// dv written once, 227 MB over 3.35 TB/s = 0.068 ms. The bound is the
+// operations.
 //
-// What the design does about it: each warp owns 16 rows (keys in the
-// dk/dv kernel, queries in the dq kernel) for the whole sweep, so all
-// accumulators stay in registers and the warps never exchange data; all
-// products run on the tensor cores through mma.sync; the tiles that the
-// sweep reads are double-buffered in shared memory with 16-byte
-// cp.async; p and ds go from the score accumulators straight into A
-// fragments without touching shared memory. Under the causal rule each
-// sweep visits only the live tiles:
-//   dk/dv: the first query tile that sees any key of key tile [k0, k0+BK)
-//          is floor((k0 - off) / BQ), a FLOOR: its later rows see the
-//          tile's first keys even when its first row does not (a ceiling
-//          here would drop those gradients when BQ != BK);
+// What the design does about it: every product is a wgmma. Both sweep
+// kernels are persistent (one CTA per SM walking its work items, the
+// longest first) with two consumer warpgroups of 64 rows (keys in dk/dv,
+// queries in dq) and a producer warp; `setmaxnreg` moves the producer's
+// registers to the consumers. The tiles an item owns (K and V, or Q and
+// G) come once by TMA into one of two resident slots, so the next item's
+// load overlaps this one's sweep; the swept tiles stream through TMA
+// into a ring of kStages buffers with full/empty mbarriers.
+//   dk/dv: S^T = K Q^T and dP^T = V G^T shared x shared; P^T and dS^T
+//          repack in registers into bf16 A fragments; dV += P^T G and
+//          dK += dS^T Q register x shared, G and Q through MN-major
+//          descriptors. The tile's delta and lse log2 e rows come by
+//          bulk copy on the same barrier as its Q and G tiles.
+//   dq:    S = Q K^T and dP = G V^T shared x shared; dQ += dS K register
+//          x shared, K through an MN-major descriptor.
+// The products of tile i - 1 that write dk, dv or dq run while tile i's
+// S and dP are issued, and p is computed while dP is in flight.
+// p = exp2(s * scale log2 e - lse log2 e), one FFMA into exp2, and ds is
+// stored as p (dp - delta) with the scale applied to dk and dq once at
+// the end (for d = 64 the scale is 1/8, so the bf16 ds is the same
+// number). Under the causal rule each warpgroup visits only its live
+// tiles:
+//   dk/dv: the first query tile that sees any key of [k0, k0 + 64) is
+//          floor((k0 - off) / BQ), a FLOOR: its later rows see the
+//          tile's first keys even when its first row does not;
 //   dq:    the last key tile is the one holding key q_last + off.
-// Inputs are read through (batch, seq, head) strides, so the fused qkv
-// projection needs no flatten copies.
+// Only tiles that cross the diagonal or a ragged end are masked, and a
+// masked p and ds are exactly 0 (TMA zero-fills rows past sq and sk).
+// Inputs are read through (batch, seq, head) byte strides in the tensor
+// maps, so the fused qkv projection needs no flatten copies.
 #include "flash_attention_common.cuh"
 
 namespace {
 
 using namespace flash;
 
-struct Strides {
-  long long b, s, h;  // element strides; the head dim is contiguous
-};
+constexpr int kRows = 64 * kConsumers;  // rows a work item owns
+constexpr int kStages = 4;
 
-struct Args {
-  const bf16 *q, *k, *v, *g;
-  const float *lse, *delta;  // (b, h, sq) fp32, contiguous
-  bf16 *dq, *dk, *dv;
-  int nh, sq, sk, causal;
-  float scale;
-  Strides qs, ks, vs, gs, dqs, dks, dvs;
-};
-
-// Tile sizes. The warp dimension is always 4 x 16 rows; the swept tile
-// shrinks for d = 128 to keep the accumulators in registers.
+// The swept tile shrinks for d = 128 to keep the accumulators in
+// registers.
 template <int D>
 struct Tiles {
-  static constexpr int kRows = 64;                // rows a CTA owns
-  static constexpr int kSweep = D <= 64 ? 64 : 32;  // rows a step reads
+  static constexpr int kSweep = D <= 64 ? 64 : 32;
+};
+
+struct Params {
+  const float* lse;  // (b, h, lse_rows(sq)) fp32, 0 past sq
+  // (b, h, 2, lse_rows(sq)) fp32: delta, then lse log2 e, both written
+  // by the delta kernel (0 past sq) for the other two to read
+  float* rows;
+  bf16 *dq, *dk, *dv;
+  int nh, sq, sk, causal;
+  int nbh;        // batch * heads
+  int* counters;  // the next work item of dk/dv and of dq, zeroed first
+  float scale;
+  Strides dqs, dks, dvs;
 };
 
 // ---------------------------------------------------------------------------
-// dk, dv: one CTA per (key tile, batch * head)
+// delta = rowsum(out * g) in fp32
+// ---------------------------------------------------------------------------
+constexpr int kDeltaThreads = 256;
+
+template <int D>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta_kernel(const bf16* __restrict__ out,
+                       const bf16* __restrict__ g,
+                       const float* __restrict__ lse, float* __restrict__ rows,
+                       int nh, int sq, int n, Strides os, Strides gs) {
+  constexpr int L = D / 8;  // lanes per row, 8 values each
+  const int r = blockIdx.x * (kDeltaThreads / L) + threadIdx.x / L;
+  const int c = (threadIdx.x % L) * 8;
+  const int pad = lse_rows(sq);
+  // r = (b * nh + h) * pad + s: the writes coalesce along s
+  const int s = r % pad, bh = r / pad;
+  float acc = 0.f;
+  if (r < n && s < sq) {
+    const int b = bh / nh, h = bh % nh;
+    const uint4 ov = *reinterpret_cast<const uint4*>(
+        out + b * os.b + s * os.s + h * os.h + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(
+        g + b * gs.b + s * gs.s + h * gs.h + c);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]);
+      const float2 gf = __bfloat1622float2(g2[i]);
+      acc = fmaf(of.x, gf.x, acc);
+      acc = fmaf(of.y, gf.y, acc);
+    }
+  }
+#pragma unroll
+  for (int m = L / 2; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (r < n && threadIdx.x % L == 0) {  // both 0 past sq
+    float* row = rows + (long long)bh * 2 * pad + s;
+    row[0] = acc;
+    row[pad] = s < sq ? lse[r] * kLog2e : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk, dv: work item (128 keys, batch * head), the first keys (which the
+// most queries see under the causal rule) of every head first
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(Args a) {
-  constexpr int BK = Tiles<D>::kRows;
+struct SmemKV {
+  static constexpr int BQ = Tiles<D>::kSweep;
+  bf16 k[2][kRows * D];  // this item's K and V tiles and the next one's
+  bf16 v[2][kRows * D];
+  bf16 q[kStages][BQ * D];
+  bf16 g[kStages][BQ * D];
+  float delta[kStages][BQ];
+  float lse2[kStages][BQ];  // lse log2 e
+  Ring<kStages> ring;
+  Ring<2> kv_ring;
+  int item[2];  // the work item in each K/V slot (-1: done)
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mg,
+                      const Params p) {
   constexpr int BQ = Tiles<D>::kSweep;
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // BK x LD
-  bf16* sV = sK + BK * LD;                       // BK x LD
-  bf16* sQ = sV + BK * LD;                       // 2 stages x BQ x LD
-  bf16* sG = sQ + 2 * BQ * LD;                   // 2 stages x BQ x LD
-  float* sL = reinterpret_cast<float*>(sG + 2 * BQ * LD);  // 2 x BQ
-  float* sD = sL + 2 * BQ;                                 // 2 x BQ
-
-  const int k0 = blockIdx.x * BK;
-  const int bh = blockIdx.y;
-  const int b = bh / a.nh, h = bh % a.nh;
-  const int sq = a.sq, sk = a.sk, off = sk - sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  const bf16* qb = a.q + b * a.qs.b + h * a.qs.h;
-  const bf16* gb = a.g + b * a.gs.b + h * a.gs.h;
-  const float* lb = a.lse + (long long)bh * sq;
-  const float* db = a.delta + (long long)bh * sq;
-
+  extern __shared__ unsigned char smem_raw[];
+  SmemKV<D>& sm = smem_layout<SmemKV<D>>(smem_raw);
+  const int sq = p.sq, sk = p.sk, off = sk - sq;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
   const int nqt = (sq + BQ - 1) / BQ;
-  // first query tile with any row that sees key k0 (floor; see the note).
-  // qt0 < nqt: k0 < sk, so k0 - off < sq (the last query sees every key)
-  const int qt0 = a.causal ? max(k0 - off, 0) / BQ : 0;
+  const int nkt = (sk + kRows - 1) / kRows;  // key tiles of a head
+  const int items = nkt * p.nbh;
+  // first query tile with any row that sees key `key` (floor; see the
+  // note); < nqt while key < sk, since the last query sees every key
+  auto first_tile = [&](int key) {
+    return p.causal ? max(key - off, 0) / BQ : 0;
+  };
 
-  load_tile<BK, D>(sK, a.k + b * a.ks.b + h * a.ks.h, a.ks.s, k0, sk);
-  load_tile<BK, D>(sV, a.v + b * a.vs.b + h * a.vs.h, a.vs.s, k0, sk);
-  load_tile<BQ, D>(sQ, qb, a.qs.s, qt0 * BQ, sq);
-  load_tile<BQ, D>(sG, gb, a.gs.s, qt0 * BQ, sq);
-  load_vec(sL, lb, qt0 * BQ, BQ, sq);
-  load_vec(sD, db, qt0 * BQ, BQ, sq);
-  cp_async_commit();
+  if (threadIdx.x == 0) {
+    sm.ring.init();
+    sm.kv_ring.init();
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
-  const int key_a = k0 + warp * 16 + g;  // this thread's keys: +0 and +8
-
-  for (int qt = qt0; qt < nqt; ++qt) {
-    const int stage = (qt - qt0) & 1;
-    if (qt + 1 < nqt) {
-      const int n0 = (qt + 1) * BQ;
-      load_tile<BQ, D>(sQ + (stage ^ 1) * BQ * LD, qb, a.qs.s, n0, sq);
-      load_tile<BQ, D>(sG + (stage ^ 1) * BQ * LD, gb, a.gs.s, n0, sq);
-      load_vec(sL + (stage ^ 1) * BQ, lb, n0, BQ, sq);
-      load_vec(sD + (stage ^ 1) * BQ, db, n0, BQ, sq);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sQs = sQ + stage * BQ * LD;
-    const bf16* sGs = sG + stage * BQ * LD;
-    const float* sLs = sL + stage * BQ;
-    const float* sDs = sD + stage * BQ;
-    const int q0 = qt * BQ;
-
-    // s^T = k q^T and dp^T = v g^T for this warp's 16 keys
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int i = 0; i < BQ / 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      load_a(ka, sK, LD, warp * 16, kk * 16, lane);
-      load_a(va, sV, LD, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int n2 = 0; n2 < BQ / 16; ++n2) {
-        uint32_t bq[4], bg[4];
-        load_b_rows(bq, sQs, LD, n2 * 16, kk * 16, lane);
-        load_b_rows(bg, sGs, LD, n2 * 16, kk * 16, lane);
-        mma16816(st[2 * n2], ka, bq[0], bq[1]);
-        mma16816(st[2 * n2 + 1], ka, bq[2], bq[3]);
-        mma16816(dpt[2 * n2], va, bg[0], bg[1]);
-        mma16816(dpt[2 * n2 + 1], va, bg[2], bg[3]);
+  if (wg == kConsumers) {
+    // ---- producer: one thread runs ahead over this CTA's work items ----
+    producer_regs();
+    if (threadIdx.x != 128 * kConsumers) return;
+    int it = 0;  // ring tile counter
+    for (int j = 0;; ++j) {  // work items of this CTA
+      const int i = take_item(p.counters, items, sm.item, sm.kv_ring, j);
+      if (i < 0) break;
+      int bh, rank;
+      schedule(i, p.nbh, nkt, bh, rank);
+      const int k0 = rank * kRows, b = bh / p.nh, h = bh % p.nh;
+      uint64_t* kvbar = &sm.kv_ring.full[j & 1];
+      mbar_expect_tx(kvbar, 2 * tile_bytes<kRows, D>());
+      tma_tile<kRows, D>(sm.k[j & 1], &mk, kvbar, h, k0, b);
+      tma_tile<kRows, D>(sm.v[j & 1], &mv, kvbar, h, k0, b);
+      const float* row = p.rows + (long long)bh * 2 * lse_rows(sq);
+      for (int qt = first_tile(k0); qt < nqt; ++qt, ++it) {
+        sm.ring.wait_empty(it);
+        const int s = it % kStages, q0 = qt * BQ;
+        uint64_t* bar = &sm.ring.full[s];
+        mbar_expect_tx(bar, 2 * tile_bytes<BQ, D>() + 2 * BQ * 4);
+        tma_tile<BQ, D>(sm.q[s], &mq, bar, h, q0, b);
+        tma_tile<BQ, D>(sm.g[s], &mg, bar, h, q0, b);
+        bulk_load(sm.delta[s], row + q0, BQ * 4, bar);
+        bulk_load(sm.lse2[s], row + lse_rows(sq) + q0, BQ * 4, bar);
       }
     }
-
-    // p^T = exp(s^T * scale - lse), ds^T = p^T (dp^T - delta) scale
-    const bool need_mask = q0 + BQ > sq ||
-                           (a.causal && q0 + off < k0 + BK - 1);
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qc = n * 8 + 2 * t + (i & 1);  // query column in tile
-        float x = st[n][i] * a.scale;
-        if (need_mask) {
-          const int key = key_a + (i >> 1) * 8;
-          if (q0 + qc >= sq || (a.causal && !causal_keep(q0 + qc, key, off)))
-            x = kNegInf;
-        }
-        const float p = expf(x - sLs[qc]);
-        st[n][i] = p;
-        dpt[n][i] = p * (dpt[n][i] - sDs[qc]) * a.scale;
-      }
-    }
-
-    // dv += bf16(p)^T g and dk += bf16(ds)^T q
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(st[2 * kk][0], st[2 * kk][1]);
-      pa[1] = pack_bf16(st[2 * kk][2], st[2 * kk][3]);
-      pa[2] = pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]);
-      pa[3] = pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3]);
-      sa[0] = pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]);
-      sa[1] = pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]);
-      sa[2] = pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]);
-      sa[3] = pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3]);
-#pragma unroll
-      for (int d2 = 0; d2 < D / 16; ++d2) {
-        uint32_t bg[4], bq[4];
-        load_b_cols(bg, sGs, LD, kk * 16, d2 * 16, lane);
-        load_b_cols(bq, sQs, LD, kk * 16, d2 * 16, lane);
-        mma16816(dv[2 * d2], pa, bg[0], bg[1]);
-        mma16816(dv[2 * d2 + 1], pa, bg[2], bg[3]);
-        mma16816(dk[2 * d2], sa, bq[0], bq[1]);
-        mma16816(dk[2 * d2 + 1], sa, bq[2], bq[3]);
-      }
-    }
-    __syncthreads();  // the next iteration refills the other stage
+    return;
   }
 
+  // ---- consumers: warpgroup wg owns keys [kw, kw + 64) of each item ----
+  consumer_regs();
+  const int w4 = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const float sl2 = p.scale * kLog2e;
+  int it0 = 0;
+  for (int j = 0;; ++j) {
+    const int i = wait_item(sm.item, sm.kv_ring, j);
+    if (i < 0) break;
+    int bh, rank;
+    schedule(i, p.nbh, nkt, bh, rank);
+    const int k0 = rank * kRows, b = bh / p.nh, h = bh % p.nh;
+    const int qt0 = first_tile(k0);
+    const int n = nqt - qt0;  // tiles the item sweeps
+    const int kw = k0 + 64 * wg;
+    const int skip = kw < sk ? first_tile(kw) - qt0 : n;  // dead tiles
+    const int key_a = kw + 16 * w4 + g;  // this thread's keys: +0 and +8
+    const bf16* sk_tile = sm.k[j & 1];
+    const bf16* sv_tile = sm.v[j & 1];
+
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key_a + r * 8;
-    if (key < sk) {
-      bf16* dkr = a.dk + b * a.dks.b + (long long)key * a.dks.s + h * a.dks.h;
-      bf16* dvr = a.dv + b * a.dvs.b + (long long)key * a.dvs.s + h * a.dvs.h;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<uint32_t*>(dkr + n * 8 + 2 * t) =
-            pack_bf16(dk[n][2 * r], dk[n][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dvr + n * 8 + 2 * t) =
-            pack_bf16(dv[n][2 * r], dv[n][2 * r + 1]);
-      }
+    for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+    for (int x = 0; x < skip; ++x) {  // tiles none of its keys see
+      sm.ring.wait_full(it0 + x);
+      sm.ring.release(it0 + x, lane);
     }
+    // dV and dK of tile it - 1 run on the tensor cores while S^T and dP^T
+    // of tile it are issued; p is computed while dP^T is in flight
+    float st[BQ / 2], dpt[BQ / 2];
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+    for (int x = skip; x < n; ++x) {
+      const int it = it0 + x;
+      sm.ring.wait_full(it);
+      const int s = it % kStages;
+      const int q0 = (qt0 + x) * BQ;
+      wgmma_fence();
+      gemm_ss<BQ, D / 16, kRows, BQ>(st, sk_tile, 64 * wg, sm.q[s]);
+      wgmma_commit();
+      gemm_ss<BQ, D / 16, kRows, BQ>(dpt, sv_tile, 64 * wg, sm.g[s]);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T, and the previous tile's dV and dK
+      fence_regs<BQ / 2>(st);
+      fence_regs<BQ / 16>(pa);
+      fence_regs<BQ / 16>(sa);
+      if (x > skip) sm.ring.release(it - 1, lane);
+
+      // p^T = exp2(s^T sl2 - lse log2 e), masked p exactly 0; only a tile
+      // that crosses the diagonal or the ragged end takes the mask
+      auto exp_tile = [&](auto masked) {
+#pragma unroll
+        for (int c = 0; c < BQ / 8; ++c) {
+          const int qc = 8 * c + 2 * t;  // this thread's queries: +0, +1
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(&sm.lse2[s][qc]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pv =
+                ex2(fmaf(st[4 * c + e], sl2, (e & 1) ? -l2.y : -l2.x));
+            if constexpr (decltype(masked)::value) {
+              const int q = q0 + qc + (e & 1), key = key_a + 8 * (e >> 1);
+              const bool keep =
+                  (q < sq) & (!p.causal | causal_keep(q, key, off));
+              pv = keep ? pv : 0.f;
+            }
+            st[4 * c + e] = pv;
+          }
+        }
+      };
+      if (q0 + BQ > sq || (p.causal && q0 + off < kw + 63))
+        exp_tile(std::true_type{});
+      else
+        exp_tile(std::false_type{});
+      to_a_frags<BQ>(pa, st);
+      wgmma_wait<0>();
+      fence_regs<BQ / 2>(dpt);
+      // ds^T / scale = p^T (dp^T - delta); dk takes the scale at the end
+#pragma unroll
+      for (int c = 0; c < BQ / 8; ++c) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(&sm.delta[s][8 * c + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpt[4 * c + e] =
+              st[4 * c + e] * (dpt[4 * c + e] - ((e & 1) ? dl.y : dl.x));
+      }
+      to_a_frags<BQ>(sa, dpt);
+
+      // dv += bf16(p)^T g and dk += bf16(ds)^T q
+      wgmma_fence();
+      gemm_rs<D, BQ / 16, BQ>(dv, pa, sm.g[s]);
+      gemm_rs<D, BQ / 16, BQ>(dk, sa, sm.q[s]);
+      wgmma_commit();
+    }
+    wgmma_wait();
+    fence_regs<D / 2>(dv);
+    fence_regs<D / 2>(dk);
+    fence_regs<BQ / 16>(pa);
+    fence_regs<BQ / 16>(sa);
+    if (n > skip) sm.ring.release(it0 + n - 1, lane);
+    sm.kv_ring.release(j, lane);
+    it0 += n;
+    store_rows<D>(p.dk + b * p.dks.b + h * p.dks.h, p.dks.s, dk, kw, sk,
+                  p.scale);
+    store_rows<D>(p.dv + b * p.dvs.b + h * p.dvs.h, p.dvs.s, dv, kw, sk, 1.f);
   }
 }
 
 // ---------------------------------------------------------------------------
-// dq: one CTA per (query tile, batch * head)
+// dq: work item (128 queries, batch * head), the last queries (which see
+// the most keys under the causal rule) of every head first
 // ---------------------------------------------------------------------------
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
-  constexpr int BQ = Tiles<D>::kRows;
+struct SmemQ {
+  static constexpr int BK = Tiles<D>::kSweep;
+  bf16 q[2][kRows * D];  // this item's Q and G tiles and the next one's
+  bf16 g[2][kRows * D];
+  bf16 k[kStages][BK * D];
+  bf16 v[kStages][BK * D];
+  Ring<kStages> ring;
+  Ring<2> qg_ring;
+  int item[2];  // the work item in each Q/G slot (-1: done)
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv,
+                    const __grid_constant__ CUtensorMap mg, const Params p) {
   constexpr int BK = Tiles<D>::kSweep;
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
-  bf16* sG = sQ + BQ * LD;                       // BQ x LD
-  bf16* sK = sG + BQ * LD;                       // 2 stages x BK x LD
-  bf16* sV = sK + 2 * BK * LD;                   // 2 stages x BK x LD
+  extern __shared__ unsigned char smem_raw[];
+  SmemQ<D>& sm = smem_layout<SmemQ<D>>(smem_raw);
+  const int sq = p.sq, sk = p.sk, off = sk - sq;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int nqt = (sq + kRows - 1) / kRows;
+  const int items = nqt * p.nbh;
+  const int nkt_all = (sk + BK - 1) / BK;
+  auto live_tiles = [&](int last_row) {
+    return p.causal ? min(nkt_all, (last_row + off) / BK + 1) : nkt_all;
+  };
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / a.nh, h = bh % a.nh;
-  const int sq = a.sq, sk = a.sk, off = sk - sq;
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  const bf16* kb = a.k + b * a.ks.b + h * a.ks.h;
-  const bf16* vb = a.v + b * a.vs.b + h * a.vs.h;
-
-  int nkt = (sk + BK - 1) / BK;
-  if (a.causal) {
-    const int last_q = min(q0 + BQ, sq) - 1 + off;
-    nkt = min(nkt, last_q / BK + 1);
+  if (threadIdx.x == 0) {
+    sm.ring.init();
+    sm.qg_ring.init();
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  load_tile<BQ, D>(sQ, a.q + b * a.qs.b + h * a.qs.h, a.qs.s, q0, sq);
-  load_tile<BQ, D>(sG, a.g + b * a.gs.b + h * a.gs.h, a.gs.s, q0, sq);
-  load_tile<BK, D>(sK, kb, a.ks.s, 0, sk);
-  load_tile<BK, D>(sV, vb, a.vs.s, 0, sk);
-  cp_async_commit();
-
-  const int row_a = q0 + warp * 16 + g;  // this thread's rows: +0 and +8
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = min(row_a + r * 8, sq - 1);
-    lse_r[r] = a.lse[(long long)bh * sq + row];
-    delta_r[r] = a.delta[(long long)bh * sq + row];
-  }
-
-  uint32_t qf[D / 16][4], gf[D / 16][4];
-  float dq[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < nkt) {
-      load_tile<BK, D>(sK + (stage ^ 1) * BK * LD, kb, a.ks.s,
-                       (kt + 1) * BK, sk);
-      load_tile<BK, D>(sV + (stage ^ 1) * BK * LD, vb, a.vs.s,
-                       (kt + 1) * BK, sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        load_a(qf[kk], sQ, LD, warp * 16, kk * 16, lane);
-        load_a(gf[kk], sG, LD, warp * 16, kk * 16, lane);
+  if (wg == kConsumers) {
+    // ---- producer: one thread runs ahead over this CTA's work items ----
+    producer_regs();
+    if (threadIdx.x != 128 * kConsumers) return;
+    int it = 0;  // ring tile counter
+    for (int j = 0;; ++j) {  // work items of this CTA
+      const int i =
+          take_item(p.counters + 1, items, sm.item, sm.qg_ring, j);
+      if (i < 0) break;
+      int bh, rank;
+      schedule(i, p.nbh, nqt, bh, rank);
+      const int q0 = (nqt - 1 - rank) * kRows, b = bh / p.nh, h = bh % p.nh;
+      uint64_t* qbar = &sm.qg_ring.full[j & 1];
+      mbar_expect_tx(qbar, 2 * tile_bytes<kRows, D>());
+      tma_tile<kRows, D>(sm.q[j & 1], &mq, qbar, h, q0, b);
+      tma_tile<kRows, D>(sm.g[j & 1], &mg, qbar, h, q0, b);
+      const int nkt = live_tiles(min(q0 + kRows, sq) - 1);
+      for (int kt = 0; kt < nkt; ++kt, ++it) {
+        sm.ring.wait_empty(it);
+        const int s = it % kStages;
+        uint64_t* bar = &sm.ring.full[s];
+        mbar_expect_tx(bar, 2 * tile_bytes<BK, D>());
+        tma_tile<BK, D>(sm.k[s], &mk, bar, h, kt * BK, b);
+        tma_tile<BK, D>(sm.v[s], &mv, bar, h, kt * BK, b);
       }
     }
-    const bf16* sKs = sK + stage * BK * LD;
-    const bf16* sVs = sV + stage * BK * LD;
+    return;
+  }
 
-    // s = q k^T and dp = g v^T over this key tile
-    float s[BK / 8][4], dp[BK / 8][4];
+  // ---- consumers: warpgroup wg owns rows [qw, qw + 64) of each item ----
+  consumer_regs();
+  const int w4 = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const float sl2 = p.scale * kLog2e;
+  int it0 = 0;
+  for (int j = 0;; ++j) {
+    const int i = wait_item(sm.item, sm.qg_ring, j);
+    if (i < 0) break;
+    int bh, rank;
+    schedule(i, p.nbh, nqt, bh, rank);
+    const int q0 = (nqt - 1 - rank) * kRows, b = bh / p.nh, h = bh % p.nh;
+    const int nkt = live_tiles(min(q0 + kRows, sq) - 1);
+    const int qw = q0 + 64 * wg;
+    const int nkt_w = qw < sq ? live_tiles(min(qw + 64, sq) - 1) : 0;
+    const int row_a = qw + 16 * w4 + g;  // this thread's rows: +0 and +8
+    const bf16* sq_tile = sm.q[j & 1];
+    const bf16* sg_tile = sm.g[j & 1];
+    float lse2[2], delta[2];
 #pragma unroll
-    for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n2 = 0; n2 < BK / 16; ++n2) {
-        uint32_t bk[4], bv[4];
-        load_b_rows(bk, sKs, LD, n2 * 16, kk * 16, lane);
-        load_b_rows(bv, sVs, LD, n2 * 16, kk * 16, lane);
-        mma16816(s[2 * n2], qf[kk], bk[0], bk[1]);
-        mma16816(s[2 * n2 + 1], qf[kk], bk[2], bk[3]);
-        mma16816(dp[2 * n2], gf[kk], bv[0], bv[1]);
-        mma16816(dp[2 * n2 + 1], gf[kk], bv[2], bv[3]);
-      }
+    for (int r = 0; r < 2; ++r) {  // rows < lse_rows(sq)
+      const float* row = p.rows + (long long)bh * 2 * lse_rows(sq) + row_a +
+                         8 * r;
+      delta[r] = row[0];
+      lse2[r] = row[lse_rows(sq)];
     }
 
-    // ds = exp(s * scale - lse) (dp - delta) scale
-    const int k0 = kt * BK;
-    const bool need_mask =
-        k0 + BK > sk || (a.causal && k0 + BK - 1 > q0 + off);
+    float dq[D / 2];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+    for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+
+    // dQ of tile kt - 1 runs on the tensor cores while S and dP of tile
+    // kt are issued; p is computed while dP is in flight
+    float sc[BK / 2], dp[BK / 2];
+    uint32_t sa[BK / 16][4];
+    for (int kt = 0; kt < nkt_w; ++kt) {
+      const int it = it0 + kt;
+      sm.ring.wait_full(it);
+      const int s = it % kStages;
+      wgmma_fence();
+      gemm_ss<BK, D / 16, kRows, BK>(sc, sq_tile, 64 * wg, sm.k[s]);
+      wgmma_commit();
+      gemm_ss<BK, D / 16, kRows, BK>(dp, sg_tile, 64 * wg, sm.v[s]);
+      wgmma_commit();
+      wgmma_wait<1>();  // S, and the previous tile's dQ
+      fence_regs<BK / 2>(sc);
+      fence_regs<BK / 16>(sa);
+      if (kt > 0) sm.ring.release(it - 1, lane);
+
+      // p = exp2(s sl2 - lse2), masked p exactly 0; only a tile that
+      // crosses the diagonal or the ragged end takes the mask
+      const int k0 = kt * BK;
+      auto exp_tile = [&](auto masked) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[n][i] * a.scale;
-        if (need_mask) {
-          const int row = row_a + (i >> 1) * 8;
-          const int col = k0 + n * 8 + 2 * t + (i & 1);
-          if (col >= sk || (a.causal && !causal_keep(row, col, off)))
-            x = kNegInf;
+        for (int e = 0; e < BK / 2; ++e) {
+          const int r = (e >> 1) & 1;
+          float pv = ex2(fmaf(sc[e], sl2, -lse2[r]));
+          if constexpr (decltype(masked)::value) {
+            const int col = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+            const bool keep = (col < sk) &
+                              (!p.causal | causal_keep(row_a + 8 * r, col,
+                                                       off));
+            pv = keep ? pv : 0.f;
+          }
+          sc[e] = pv;
         }
-        const float p = expf(x - lse_r[i >> 1]);
-        s[n][i] = p * (dp[n][i] - delta_r[i >> 1]) * a.scale;
-      }
-    }
+      };
+      if (k0 + BK > sk || (p.causal && k0 + BK - 1 > qw + off))
+        exp_tile(std::true_type{});
+      else
+        exp_tile(std::false_type{});
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(dp);
+      // ds / scale = p (dp - delta); dq takes the scale at the end
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e)
+        sc[e] = sc[e] * (dp[e] - delta[(e >> 1) & 1]);
+      to_a_frags<BK>(sa, sc);
 
-    // dq += bf16(ds) k
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t sa[4];
-      sa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      sa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      sa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      sa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int d2 = 0; d2 < D / 16; ++d2) {
-        uint32_t bk[4];
-        load_b_cols(bk, sKs, LD, kk * 16, d2 * 16, lane);
-        mma16816(dq[2 * d2], sa, bk[0], bk[1]);
-        mma16816(dq[2 * d2 + 1], sa, bk[2], bk[3]);
-      }
+      // dq += bf16(ds) k
+      wgmma_fence();
+      gemm_rs<D, BK / 16, BK>(dq, sa, sm.k[s]);
+      wgmma_commit();
     }
-    __syncthreads();  // the next iteration refills the other stage
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + r * 8;
-    if (row < sq) {
-      bf16* dqr = a.dq + b * a.dqs.b + (long long)row * a.dqs.s + h * a.dqs.h;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dqr + n * 8 + 2 * t) =
-            pack_bf16(dq[n][2 * r], dq[n][2 * r + 1]);
+    wgmma_wait();
+    fence_regs<D / 2>(dq);
+    fence_regs<BK / 16>(sa);
+    if (nkt_w > 0) sm.ring.release(it0 + nkt_w - 1, lane);
+    sm.qg_ring.release(j, lane);
+    for (int kt = nkt_w; kt < nkt; ++kt) {  // tiles only the other rows see
+      sm.ring.wait_full(it0 + kt);
+      sm.ring.release(it0 + kt, lane);
     }
+    it0 += nkt;
+    store_rows<D>(p.dq + b * p.dqs.b + h * p.dqs.h, p.dqs.s, dq, qw, sq,
+                  p.scale);
   }
 }
 
 template <int D>
-cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
-  constexpr int LD = D + kPad;
-  constexpr int R = Tiles<D>::kRows, S = Tiles<D>::kSweep;
-  constexpr int smem_dkdv =
-      (2 * R + 4 * S) * LD * sizeof(bf16) + 4 * S * sizeof(float);
-  constexpr int smem_dq = (2 * R + 4 * S) * LD * sizeof(bf16);
+constexpr int smem_kv() {
+  return sizeof(SmemKV<D>) + 1024;  // + alignment slack
+}
+template <int D>
+constexpr int smem_q() {
+  return sizeof(SmemQ<D>) + 1024;
+}
+
+// parts of the backward a launch runs (the wrapper runs all three; the
+// timing in chip_smoke.py runs them one at a time)
+enum : int { kDelta = 1, kDkDv = 2, kDq = 4 };
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* out, const void* g, const Strides st[8],
+                   const Params& p, int batch, int parts,
+                   cudaStream_t stream) {
+  cudaError_t err0 = cudaMemsetAsync(p.counters, 0, 2 * sizeof(int), stream);
+  if (err0 != cudaSuccess) return err0;
+  constexpr int S = Tiles<D>::kSweep;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_dkdv);
+        smem_kv<D>());
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_dq);
+                               smem_q<D>());
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid_k((a.sk + R - 1) / R, batch * a.nh);
-  flash_bwd_dkdv_kernel<D><<<grid_k, kThreads, smem_dkdv, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((a.sq + R - 1) / R, batch * a.nh);
-  flash_bwd_dq_kernel<D><<<grid_q, kThreads, smem_dq, stream>>>(a);
-  return cudaGetLastError();
+  // st: q, k, v, out, g, dq, dk, dv
+  if (parts & kDelta) {
+    const int n = batch * p.nh * lse_rows(p.sq);
+    const int per_block = kDeltaThreads / (D / 8);
+    flash_bwd_delta_kernel<D>
+        <<<(n + per_block - 1) / per_block, kDeltaThreads, 0, stream>>>(
+            static_cast<const bf16*>(out), static_cast<const bf16*>(g), p.lse,
+            p.rows, p.nh, p.sq, n, st[3], st[4]);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int bh = batch * p.nh;
+  if (parts & kDkDv) {
+    CUtensorMap mq, mk, mv, mg;
+    if (!make_map(&mq, q, batch, p.sq, p.nh, D, st[0], S) ||
+        !make_map(&mk, k, batch, p.sk, p.nh, D, st[1], kRows) ||
+        !make_map(&mv, v, batch, p.sk, p.nh, D, st[2], kRows) ||
+        !make_map(&mg, g, batch, p.sq, p.nh, D, st[4], S))
+      return cudaErrorInvalidValue;
+    const int items = (p.sk + kRows - 1) / kRows * bh;
+    const int grid = items < sm_count() ? items : sm_count();
+    flash_bwd_dkdv_kernel<D>
+        <<<grid, kThreads, smem_kv<D>(), stream>>>(mq, mk, mv, mg, p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (parts & kDq) {
+    CUtensorMap mq, mk, mv, mg;
+      if (!make_map(&mq, q, batch, p.sq, p.nh, D, st[0], kRows) ||
+        !make_map(&mk, k, batch, p.sk, p.nh, D, st[1], S) ||
+        !make_map(&mv, v, batch, p.sk, p.nh, D, st[2], S) ||
+        !make_map(&mg, g, batch, p.sq, p.nh, D, st[4], kRows))
+      return cudaErrorInvalidValue;
+    const int items = (p.sq + kRows - 1) / kRows * bh;
+    const int grid = items < sm_count() ? items : sm_count();
+    flash_bwd_dq_kernel<D>
+        <<<grid, kThreads, smem_q<D>(), stream>>>(mq, mk, mv, mg, p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+void info(int kernel, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  if (kernel == 0)
+    err = cudaFuncGetAttributes(&a, flash_bwd_delta_kernel<D>);
+  else if (kernel == 1)
+    err = cudaFuncGetAttributes(&a, flash_bwd_dkdv_kernel<D>);
+  else
+    err = cudaFuncGetAttributes(&a, flash_bwd_dq_kernel<D>);
+  if (err != cudaSuccess) return;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = kernel == 0 ? 0 : kernel == 1 ? smem_kv<D>() : smem_q<D>();
+  out[3] = kernel == 0 ? kDeltaThreads : kThreads;
 }
 
 }  // namespace
 
-// C entry for ctypes. q, g, dq (b, sq, h, d), k, v, dk, dv (b, sk, h, d),
-// all bf16 with a contiguous head dim and the given element strides;
-// lse and delta (b, h, sq) fp32 contiguous. Launches both kernels on
-// `stream` without synchronising; returns cudaGetLastError() after the
-// launches (cudaErrorInvalidValue for a shape the kernels do not take).
+// C entry for ctypes. q, g, out, dq (b, sq, h, d), k, v, dk, dv
+// (b, sk, h, d), all bf16 with a contiguous head dim, 16-byte aligned
+// bases and element strides that are multiples of 8; lse
+// (b, h, lse_rows(sq)) fp32 contiguous as the forward writes it; `rows`
+// (b, h, 2, lse_rows(sq)) fp32 scratch, which the delta kernel fills
+// (delta, and lse log2 e) for the other two to read; `counters` two int32
+// of scratch (zeroed here, then the work queues). `parts` selects the
+// kernels (1 delta, 2 dk/dv, 4 dq; 7 for the whole backward). Launches on
+// `stream` without
+// synchronising; returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for a shape or layout the kernels do not take).
 extern "C" int flash_bwd_launch(
-    const void* q, const void* k, const void* v, const void* g,
-    const void* lse, const void* delta, void* dq, void* dk, void* dv,
-    int batch, int nh, int sq, int sk, int d, const long long* strides,
-    int causal, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* out,
+    const void* g, const void* lse, void* rows, void* counters, void* dq,
+    void* dk, void* dv, int batch, int nh, int sq, int sk, int d,
+    const long long* strides, int causal, float scale, int parts,
+    void* stream) {
   if (batch < 1 || nh < 1 || sq < 1 || sk < 1 || batch * nh > 65535 ||
       (causal && sq > sk))
     return static_cast<int>(cudaErrorInvalidValue);
-  // strides: (b, s, h) for q, k, v, g, dq, dk, dv in that order
-  const long long* st = strides;
-  Args a{static_cast<const bf16*>(q),   static_cast<const bf16*>(k),
-         static_cast<const bf16*>(v),   static_cast<const bf16*>(g),
-         static_cast<const float*>(lse), static_cast<const float*>(delta),
-         static_cast<bf16*>(dq),        static_cast<bf16*>(dk),
-         static_cast<bf16*>(dv),        nh, sq, sk, causal, scale,
-         {st[0], st[1], st[2]},         {st[3], st[4], st[5]},
-         {st[6], st[7], st[8]},         {st[9], st[10], st[11]},
-         {st[12], st[13], st[14]},      {st[15], st[16], st[17]},
-         {st[18], st[19], st[20]}};
+  // strides: (b, s, h) for q, k, v, out, g, dq, dk, dv in that order
+  Strides st[8];
+  for (int i = 0; i < 8; ++i)
+    st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const Params p{static_cast<const float*>(lse),
+                 static_cast<float*>(rows),
+                 static_cast<bf16*>(dq),
+                 static_cast<bf16*>(dk),
+                 static_cast<bf16*>(dv),
+                 nh, sq, sk, causal, batch * nh,
+                 static_cast<int*>(counters), scale, st[5], st[6], st[7]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (d == 64)
-    err = launch<64>(a, batch, s);
+    err = launch<64>(q, k, v, out, g, st, p, batch, parts, s);
   else if (d == 128)
-    err = launch<128>(a, batch, s);
+    err = launch<128>(q, k, v, out, g, st, p, batch, parts, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// {registers, local (spill) bytes, dynamic shared bytes, threads} of
+// kernel 0 (delta), 1 (dk/dv) or 2 (dq) for head dim d.
+extern "C" void flash_bwd_info(int d, int kernel, int* out) {
+  if (d == 64) info<64>(kernel, out);
+  if (d == 128) info<128>(kernel, out);
 }
 
 extern "C" const char* error_string(int err) {

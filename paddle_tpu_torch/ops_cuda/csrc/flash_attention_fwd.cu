@@ -7,247 +7,339 @@
 // bf16 q.k and p.v products accumulated in fp32, scores scaled in fp32,
 // the bottom-right-aligned causal rule q + (sk - sq) >= j with -1e30
 // for masked scores, p cast to bf16 before p.v, and an `l == 0` guard.
-// It writes out (b, sq, h, d) in bf16 and the fp32 logsumexp m + log(l)
-// as (b, h, sq), which the backward (K3) reads.
+// It writes out (b, sq, h, d) in bf16 and the fp32 natural-log
+// logsumexp m + log(l) as the (b, h, sq) rows of a (b, h, lse_rows(sq))
+// buffer, which the backward (K3) reads.
 //
 // Bound on an H100 SXM at the training shape (b 18, h 12, s 1024,
 // d 64, causal): 2 products of 2 s^2 d flops per head, halved by the
 // causal mask, 29 GFLOP over 989 TFLOP/s = 0.029 ms; q, k, v read once
-// and out written once, 113 MB over 3.35 TB/s = 0.034 ms. The bound is
-// the bytes, by a little; a tile-based kernel rereads K and V once per
-// query tile (from L2), so in practice the tensor cores and the exp
-// units set the pace.
+// and out and lse written once, 114 MB over 3.35 TB/s = 0.034 ms. The
+// bound is the bytes, by a little; at d = 64 the exponentials cost the
+// special-function units as much time as the two products cost the
+// tensor cores (64 x 128 exp2 per 64 x 128 x 64 x 2 products), so the
+// two have to overlap.
 //
 // What the design does about it:
-// - One CTA of four warps per (query tile of 64 rows, batch * head);
-//   each warp owns 16 query rows for the whole key sweep, so the online
-//   softmax state (m, l and the 16 x d accumulator) stays in registers
-//   and no warp waits on another.
-// - Products run on the tensor cores (mma.sync m16n8k16, bf16 -> fp32).
-//   Q is loaded once into registers as A fragments; K and V tiles of 64
-//   rows are double-buffered in shared memory with 16-byte cp.async, so
-//   the copy of tile j + 1 overlaps the products of tile j. P never
-//   leaves registers: the score accumulators are repacked as the A
-//   fragments of the p.v product.
-// - Under the causal rule a CTA visits only the key tiles its last row
-//   can see (the TPU kernel's `num_live`), and masks only the tiles that
-//   cross the diagonal or the ragged end of the keys; query tiles are
-//   issued longest first so the short ones fill the tail of the grid.
-// - It reads q, k, v through (batch, seq, head) strides, so the fused
-//   qkv projection (b, s, 3, h, d) is attended in place: the TPU path's
-//   (b, s, h, d) -> (b*h, s, d) flatten copies (forced there by Mosaic's
-//   (8, 128) block tiling) do not exist here.
-// No TMA, no wgmma and no warp specialisation yet.
+// - The grid is persistent: one CTA per SM walks the work items (a query
+//   tile of 128 rows of one (batch, head)), the tiles that see the most
+//   keys first. A CTA is two consumer warpgroups of 64 rows each and a
+//   producer warp (one warpgroup; `setmaxnreg` moves its registers to
+//   the consumers). The producer loads an item's Q tile by TMA into one
+//   of two slots, so the next item's Q lands while this one runs, and
+//   streams K and V tiles into a ring of kStages buffers with full/empty
+//   mbarriers; no consumer thread spends instructions on addresses.
+// - Every product is a wgmma: S = Q K^T shared x shared (m64 nBK k16),
+//   O += P V register x shared with V through an MN-major descriptor.
+//   P goes from the S accumulator into bf16 A fragments without
+//   touching shared memory. S of tile j + 1 is issued ahead of P V of
+//   tile j, and the softmax of tile j + 1 runs while P V is in flight.
+// - The softmax runs in the exp2 domain: p = exp2(s * scale log2 e - m)
+//   with the scale folded into one FFMA; the logsumexp is converted back
+//   to the natural log once per row.
+// - Under the causal rule each warpgroup visits only the key tiles its
+//   last row can see and masks only the tiles that cross the diagonal or
+//   the ragged end. TMA's zero fill covers the ragged ends of q, k, v.
+// - q, k, v are read through (batch, seq, head) byte strides in the
+//   tensor maps, so the fused qkv projection (b, s, 3, h, d) is attended
+//   in place.
 #include "flash_attention_common.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kBlockQ = 64;  // 4 warps x 16 rows
-constexpr int kBlockK = 64;
+constexpr int kBlockQ = 64 * kConsumers;  // query rows per CTA
+constexpr int kStages = 3;
 
-struct Strides {
-  long long b, s, h;  // element strides; the head dim is contiguous
+template <int D>
+struct Tiles {
+  static constexpr int kBlockK = D <= 64 ? 128 : 64;  // keys per tile
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, int nh, int sq, int sk,
-                 Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                 float scale) {
-  constexpr int LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBlockQ x LD
-  bf16* sK = sQ + kBlockQ * LD;                  // 2 stages x kBlockK x LD
-  bf16* sV = sK + 2 * kBlockK * LD;              // 2 stages x kBlockK x LD
+struct Smem {
+  static constexpr int BK = Tiles<D>::kBlockK;
+  bf16 q[2][kBlockQ * D];  // this work item's Q tile and the next one's
+  bf16 k[kStages][BK * D];
+  bf16 v[kStages][BK * D];
+  Ring<kStages> ring;
+  Ring<2> q_ring;
+  int item[2];  // the work item in each Q slot (-1: done)
+};
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / nh, h = bh % nh;
-  const int q0 = qt * kBlockQ;
-  const int off = sk - sq;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+struct Params {
+  bf16* out;
+  float* lse;
+  int nh, sq, sk, causal;
+  int items;     // query tiles x batch x heads
+  int* counter;  // the next work item, zeroed before the launch
+  float scale;
+  Strides os;
+};
 
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
+// Work item i: a query tile of head bh in `schedule`'s order; rank 0 is
+// the last tile, which sees the most keys under the causal rule.
+struct Item {
+  int b, h, bh, q0, nkt;
+  __device__ Item(const Params& p, int i, int bk) {
+    const int ntq = (p.sq + kBlockQ - 1) / kBlockQ;
+    int rank;
+    schedule(i, p.items / ntq, ntq, bh, rank);
+    b = bh / p.nh;
+    h = bh % p.nh;
+    q0 = (ntq - 1 - rank) * kBlockQ;
+    nkt = live_tiles(p, min(q0 + kBlockQ, p.sq) - 1, bk);
+  }
+  // key tiles of `bk` keys that row `last_row` sees
+  static __device__ int live_tiles(const Params& p, int last_row, int bk) {
+    const int all = (p.sk + bk - 1) / bk;
+    return p.causal ? min(all, (last_row + p.sk - p.sq) / bk + 1) : all;
+  }
+};
 
-  int nkt = (sk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    const int last_q = min(q0 + kBlockQ, sq) - 1 + off;
-    nkt = min(nkt, last_q / kBlockK + 1);
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, const Params p) {
+  constexpr int BK = Tiles<D>::kBlockK;
+  extern __shared__ unsigned char smem_raw[];
+  Smem<D>& sm = smem_layout<Smem<D>>(smem_raw);
+  const int off = p.sk - p.sq;
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    sm.ring.init();
+    sm.q_ring.init();
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread runs ahead over this CTA's work items ----
+    producer_regs();
+    if (threadIdx.x != 128 * kConsumers) return;
+    int it = 0;  // ring tile counter
+    for (int j = 0;; ++j) {  // work items of this CTA
+      const int i = take_item(p.counter, p.items, sm.item, sm.q_ring, j);
+      if (i < 0) break;
+      const Item w(p, i, BK);
+      uint64_t* qbar = &sm.q_ring.full[j & 1];
+      mbar_expect_tx(qbar, tile_bytes<kBlockQ, D>());
+      tma_tile<kBlockQ, D>(sm.q[j & 1], &mq, qbar, w.h, w.q0, w.b);
+      for (int kt = 0; kt < w.nkt; ++kt, ++it) {
+        sm.ring.wait_empty(it);
+        const int s = it % kStages;
+        uint64_t* bar = &sm.ring.full[s];
+        mbar_expect_tx(bar, 2 * tile_bytes<BK, D>());
+        tma_tile<BK, D>(sm.k[s], &mk, bar, w.h, kt * BK, w.b);
+        tma_tile<BK, D>(sm.v[s], &mv, bar, w.h, kt * BK, w.b);
+      }
+    }
+    return;
   }
 
-  load_tile<kBlockQ, D>(sQ, qb, qs.s, q0, sq);
-  load_tile<kBlockK, D>(sK, kb, ks.s, 0, sk);
-  load_tile<kBlockK, D>(sV, vb, vs.s, 0, sk);
-  cp_async_commit();
+  // ---- consumers: warpgroup wg owns rows [qw, qw + 64) of each item ----
+  consumer_regs();
+  const int w4 = (threadIdx.x >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const float sl2 = p.scale * kLog2e;
+  int it0 = 0;
+  for (int j = 0;; ++j) {
+    const int i = wait_item(sm.item, sm.q_ring, j);
+    if (i < 0) break;
+    const Item w(p, i, BK);
+    const int qw = w.q0 + 64 * wg;
+    const int nkt_w =
+        qw < p.sq ? Item::live_tiles(p, min(qw + 64, p.sq) - 1, BK) : 0;
+    const int row_a = qw + 16 * w4 + g;  // this thread's rows: +0 and +8
+    const bf16* sq_tile = sm.q[j & 1];
 
-  uint32_t qf[D / 16][4];
-  float o[D / 8][4];
+    float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};  // rows g and g + 8 of this warp
-  float l_r[2] = {0.f, 0.f};          // this thread's share of the row sum
-  const int row_a = q0 + warp * 16 + g;
+    for (int i2 = 0; i2 < D / 2; ++i2) o[i2] = 0.f;
+    float m_r[2] = {kNegInf * sl2, kNegInf * sl2};  // max of s * sl2
+    float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
 
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < nkt) {
-      load_tile<kBlockK, D>(sK + (stage ^ 1) * kBlockK * LD, kb, ks.s,
-                            (kt + 1) * kBlockK, sk);
-      load_tile<kBlockK, D>(sV + (stage ^ 1) * kBlockK * LD, vb, vs.s,
-                            (kt + 1) * kBlockK, sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
+    // scores of key tile kt -> p in place (exp2 domain); the factor that
+    // rescales the rows' earlier sums goes to `alpha`. Only a tile that
+    // crosses the diagonal or the ragged end takes the masked variant.
+    auto softmax = [&](float* sc, int kt, float* alpha) {
+      const int k0 = kt * BK;
+      auto body = [&](auto masked) {
+        float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        load_a(qf[kk], sQ, LD, warp * 16, kk * 16, lane);
-    }
-    const bf16* sKs = sK + stage * kBlockK * LD;
-    const bf16* sVs = sV + stage * kBlockK * LD;
-
-    // s = q k^T over this key tile
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int i = 0; i < kBlockK / 8; ++i)
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n2 = 0; n2 < kBlockK / 16; ++n2) {
-        uint32_t bfr[4];
-        load_b_rows(bfr, sKs, LD, n2 * 16, kk * 16, lane);
-        mma16816(s[2 * n2], qf[kk], bfr[0], bfr[1]);
-        mma16816(s[2 * n2 + 1], qf[kk], bfr[2], bfr[3]);
-      }
-    }
-
-    // scale in fp32, mask, online softmax
-    const int k0 = kt * kBlockK;
-    const bool need_mask =
-        k0 + kBlockK > sk || (causal && k0 + kBlockK - 1 > q0 + off);
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float x = s[n][i] * scale;
-        if (need_mask) {
-          const int row = row_a + (i >> 1) * 8;
-          const int col = k0 + n * 8 + 2 * t + (i & 1);
-          if (col >= sk || (causal && !causal_keep(row, col, off)))
-            x = kNegInf;
+        for (int x = 0; x < BK / 2; ++x) {
+          const int r = (x >> 1) & 1;
+          if constexpr (decltype(masked)::value) {
+            const int col = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+            const bool keep = (col < p.sk) &
+                              (!p.causal | causal_keep(row_a + 8 * r, col,
+                                                       off));
+            sc[x] = keep ? sc[x] : kNegInf;
+          }
+          mx[r] = fmaxf(mx[r], sc[x]);  // the raw scores: the scale is > 0
         }
-        s[n][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m_r[r], mx[r] * sl2);
+          alpha[r] = ex2(m_r[r] - m_new);
+          m_r[r] = m_new;
+          l_r[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int x = 0; x < BK / 2; ++x) {
+          const int r = (x >> 1) & 1;
+          sc[x] = ex2(fmaf(sc[x], sl2, -m_r[r]));
+          l_r[r] += sc[x];
+        }
+      };
+      if (k0 + BK > p.sk || (p.causal && k0 + BK - 1 > qw + off))
+        body(std::true_type{});
+      else
+        body(std::false_type{});
+    };
+
+    if (nkt_w > 0) {
+      // S of tile kt + 1 runs on the tensor cores while P V of tile kt is
+      // issued behind it, and the softmax of kt + 1 runs beside P V
+      float sc[BK / 2], alpha[2];
+      uint32_t pa[BK / 16][4];
+      sm.ring.wait_full(it0);
+      wgmma_fence();
+      gemm_ss<BK, D / 16, kBlockQ, BK>(sc, sq_tile, 64 * wg,
+                                       sm.k[it0 % kStages]);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs<BK / 2>(sc);
+      softmax(sc, 0, alpha);
+      to_a_frags<BK>(pa, sc);
+      for (int kt = 1; kt < nkt_w; ++kt) {
+        const int it = it0 + kt;
+        sm.ring.wait_full(it);
+        wgmma_fence();
+        gemm_ss<BK, D / 16, kBlockQ, BK>(sc, sq_tile, 64 * wg,
+                                         sm.k[it % kStages]);
+        wgmma_commit();
+        gemm_rs<D, BK / 16, BK>(o, pa, sm.v[(it - 1) % kStages]);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs<BK / 2>(sc);
+        softmax(sc, kt, alpha);
+        wgmma_wait<0>();
+        fence_regs<D / 2>(o);
+        fence_regs<BK / 16>(pa);
+        sm.ring.release(it - 1, lane);
+#pragma unroll
+        for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+        to_a_frags<BK>(pa, sc);
       }
+      wgmma_fence();
+      gemm_rs<D, BK / 16, BK>(o, pa, sm.v[(it0 + nkt_w - 1) % kStages]);
+      wgmma_commit();
+      wgmma_wait();
+      fence_regs<D / 2>(o);
+      fence_regs<BK / 16>(pa);
+      sm.ring.release(it0 + nkt_w - 1, lane);
     }
+    sm.q_ring.release(j, lane);  // every product on this Q has completed
+    // tiles only the other warpgroup's rows see
+    for (int kt = nkt_w; kt < w.nkt; ++kt) {
+      sm.ring.wait_full(it0 + kt);
+      sm.ring.release(it0 + kt, lane);
+    }
+    it0 += w.nkt;
+
+    // normalise, write out and the natural-log logsumexp
+    float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float alpha = expf(m_r[r] - mx[r]);
-      m_r[r] = mx[r];
-      l_r[r] *= alpha;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        o[n][2 * r] *= alpha;
-        o[n][2 * r + 1] *= alpha;
-      }
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float l_safe = l == 0.f ? 1.f : l;
+      inv[r] = 1.f / l_safe;
+      const int row = row_a + 8 * r;  // < lse_rows(sq): 0 past sq
+      if (t == 0)
+        p.lse[(long long)w.bh * lse_rows(p.sq) + row] =
+            row < p.sq ? (m_r[r] + log2f(l_safe)) * kLn2 : 0.f;
     }
+    bf16* ob = p.out + w.b * p.os.b + w.h * p.os.h;
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row >= p.sq) continue;
+      bf16* orow = ob + row * p.os.s + 2 * t;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = expf(s[n][i] - m_r[i >> 1]);
-        s[n][i] = p;
-        l_r[i >> 1] += p;
-      }
-    }
-
-    // o += bf16(p) v
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int d2 = 0; d2 < D / 16; ++d2) {
-        uint32_t bfr[4];
-        load_b_cols(bfr, sVs, LD, kk * 16, d2 * 16, lane);
-        mma16816(o[2 * d2], a, bfr[0], bfr[1]);
-        mma16816(o[2 * d2 + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();  // the next iteration refills the other stage
-  }
-
-  // normalise, write out and the logsumexp
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float l_safe = l == 0.f ? 1.f : l;
-    const float inv = 1.f / l_safe;
-    const int row = row_a + r * 8;
-    if (row < sq) {
-      bf16* orow = out + b * os.b + (long long)row * os.s + h * os.h;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-            pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-      if (t == 0) lse[(long long)bh * sq + row] = m_r[r] + logf(l_safe);
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c) = pack_bf16(
+            o[4 * c + 2 * r] * inv[r], o[4 * c + 2 * r + 1] * inv[r]);
     }
   }
+}
+
+template <int D>
+constexpr int smem_bytes() {
+  return sizeof(Smem<D>) + 1024;  // + alignment slack
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int batch, int nh, int sq, int sk, Strides qs,
-                   Strides ks, Strides vs, Strides os, int causal,
-                   float scale, cudaStream_t stream) {
-  constexpr int LD = D + kPad;
-  constexpr int smem = (kBlockQ + 4 * kBlockK) * LD * sizeof(bf16);
+                   void* lse, void* counter, int batch, int nh, int sq,
+                   int sk, Strides qs, Strides ks, Strides vs, Strides os,
+                   int causal, float scale, cudaStream_t stream) {
+  constexpr int BK = Tiles<D>::kBlockK;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        smem_bytes<D>());
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * nh);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), nh, sq, sk, qs, ks, vs, os, causal, scale);
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, batch, sq, nh, D, qs, kBlockQ) ||
+      !make_map(&mk, k, batch, sk, nh, D, ks, BK) ||
+      !make_map(&mv, v, batch, sk, nh, D, vs, BK))
+    return cudaErrorInvalidValue;
+  const int items = (sq + kBlockQ - 1) / kBlockQ * batch * nh;
+  const Params p{static_cast<bf16*>(out), static_cast<float*>(lse), nh, sq,
+                 sk, causal, items, static_cast<int*>(counter), scale, os};
+  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const int grid = items < sm_count() ? items : sm_count();
+  flash_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(mq, mk, mv,
+                                                                   p);
   return cudaGetLastError();
+}
+
+template <int D>
+void info(int* out) {
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, flash_fwd_kernel<D>) != cudaSuccess) return;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = smem_bytes<D>();
+  out[3] = kThreads;
 }
 
 }  // namespace
 
-// C entry for ctypes. q (b, sq, h, d), k and v (b, sk, h, d), out
-// (b, sq, h, d), all bf16 with a contiguous head dim and the given
-// element strides; lse (b, h, sq) fp32 contiguous. Launches on `stream`
-// without synchronising; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for a shape the kernel does not take).
+// C entry for ctypes. `counter`: one int32 of device scratch (zeroed here,
+// then the work queue). q (b, sq, h, d), k and v (b, sk, h, d), out
+// (b, sq, h, d), all bf16 with a contiguous head dim, 16-byte aligned
+// bases and the given element strides (multiples of 8); lse
+// (b, h, lse_rows(sq)) fp32 contiguous, written 0 past sq. Launches on
+// `stream` without synchronising; returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a shape or layout the kernel does not
+// take).
 extern "C" int flash_fwd_launch(
     const void* q, const void* k, const void* v, void* out, void* lse,
-    int batch, int nh, int sq, int sk, int d, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    void* counter, int batch, int nh, int sq, int sk, int d, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, float scale, void* stream) {
   if (batch < 1 || nh < 1 || sq < 1 || sk < 1 || batch * nh > 65535 ||
@@ -258,14 +350,21 @@ extern "C" int flash_fwd_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (d == 64)
-    err = launch<64>(q, k, v, out, lse, batch, nh, sq, sk, qs, ks, vs, os,
-                     causal, scale, s);
+    err = launch<64>(q, k, v, out, lse, counter, batch, nh, sq, sk, qs, ks,
+                     vs, os, causal, scale, s);
   else if (d == 128)
-    err = launch<128>(q, k, v, out, lse, batch, nh, sq, sk, qs, ks, vs, os,
-                      causal, scale, s);
+    err = launch<128>(q, k, v, out, lse, counter, batch, nh, sq, sk, qs, ks,
+                      vs, os, causal, scale, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// {registers, local (spill) bytes, dynamic shared bytes, threads} of the
+// kernel for head dim d.
+extern "C" void flash_fwd_info(int d, int* out) {
+  if (d == 64) info<64>(out);
+  if (d == 128) info<128>(out);
 }
 
 extern "C" const char* error_string(int err) {

@@ -10,17 +10,20 @@ the JAX package.
 
 On a CUDA tensor `FlashAttentionFunction` launches the hand-written
 Hopper kernels (`csrc/flash_attention_fwd.cu`,
-`csrc/flash_attention_bwd.cu`, built on first use by `_build.py`) or
-raises on what they do not take; on CPU tensors it runs
-`flash_forward_plain` / `flash_backward_plain`, the same functions in
-plain torch. There is no fallback from one to the other. Each CUDA
-launch adds one to `FWD_LAUNCHES` or `BWD_LAUNCHES` (one backward call
-launches two kernels, dk/dv and dq, and counts once).
+`csrc/flash_attention_bwd.cu`: TMA loads and wgmma products, built on
+first use by `_build.py`) or raises on what they do not take; on CPU
+tensors it runs `flash_forward_plain` / `flash_backward_plain`, the same
+functions in plain torch. There is no fallback from one to the other.
+Each CUDA launch adds one to `FWD_LAUNCHES` or `BWD_LAUNCHES` (one
+backward call launches three kernels, delta, dk/dv and dq, and counts
+once).
 
-The kernels read q, k, v through their (batch, seq, head) strides with a
-contiguous head dim, so the slices of the fused qkv projection go in
-without copies. The logsumexp is (batch, heads, seq_q) fp32; the JAX
-kernels keep it as (batch * heads, 1, seq_q).
+The kernels read q, k, v through TMA tensor maps over their (batch,
+seq, head) strides, so the slices of the fused qkv projection go in
+without copies; TMA needs a contiguous head dim, a 16-byte aligned base
+and strides that are multiples of 16 bytes (`_check_cuda_args`). The
+logsumexp is (batch, heads, seq_q) fp32; the JAX kernels keep it as
+(batch * heads, 1, seq_q).
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ from .decode_attention import _LaunchCounter
 
 __all__ = ["dot_product_attention", "FlashAttentionFunction",
            "flash_forward_plain", "flash_backward_plain",
-           "attention_reference", "FWD_LAUNCHES", "BWD_LAUNCHES"]
+           "flash_delta_plain", "attention_reference", "FWD_LAUNCHES",
+           "BWD_LAUNCHES"]
 
 NEG_INF = -1e30
 _SUPPORTED_HD = (64, 128)
@@ -101,6 +105,14 @@ def flash_forward_plain(q, k, v, causal: bool, scale: float
     return out.to(q.dtype), lse
 
 
+def flash_delta_plain(out, g):
+    """The backward's delta = rowsum(out * g) in fp32, as
+    `_flash_backward_flat` computes it, as (b, h, sq) fp32 (the delta
+    kernel's function)."""
+    f32 = torch.float32
+    return (out.to(f32) * g.to(f32)).sum(-1).permute(0, 2, 1)
+
+
 def flash_backward_plain(q, k, v, out, lse, g, causal: bool, scale: float
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
@@ -115,7 +127,7 @@ def flash_backward_plain(q, k, v, out, lse, g, causal: bool, scale: float
     gf = g.to(f32)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).to(f32), gf)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.to(f32))
-    delta = (out.to(f32) * gf).sum(-1).permute(0, 2, 1)[..., None]
+    delta = flash_delta_plain(out, g)[..., None]
     ds = (p * (dp - delta) * scale).to(q.dtype).to(f32)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(f32))
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(f32))
@@ -156,32 +168,72 @@ def _check_cuda_args(q, k, v, causal: bool):
     if b * h > 65535:
         raise ValueError(f"batch * heads {b * h} out of range")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} needs a contiguous head dim (layout "
-                             f"strides {t.stride()})")
-        if any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} rows must be 16-byte aligned (layout "
-                             f"strides {t.stride()})")
+        _check_tma_layout(name, t)
+
+
+def _check_tma_layout(name, t):
+    """What a TMA tensor map takes: a contiguous head dim, a 16-byte
+    aligned base, and (batch, seq, head) strides that are multiples of
+    16 bytes (8 bf16 elements)."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} needs a contiguous head dim (layout "
+                         f"strides {t.stride()})")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} base address {t.data_ptr():#x} is not "
+                         f"16-byte aligned (TMA)")
+    if any(st % 8 for st in t.stride()[:3]):
+        raise ValueError(f"{name} strides {t.stride()} must be multiples "
+                         f"of 8 elements: TMA needs 16-byte aligned rows")
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _FWD_SIGNATURES = {
-    # q, k, v, out, lse; b, h, sq, sk, d; 12 strides; causal; scale; stream
-    "flash_fwd_launch": (_I, [_P] * 5 + [_I] * 5 + [_LL] * 12
+    # q, k, v, out, lse, counter; b, h, sq, sk, d; 12 strides; causal;
+    # scale; stream
+    "flash_fwd_launch": (_I, [_P] * 6 + [_I] * 5 + [_LL] * 12
                          + [_I, _F, _P]),
+    "flash_fwd_info": (None, [_I, _P]),
     "error_string": (ctypes.c_char_p, [_I]),
 }
 _BWD_SIGNATURES = {
-    # q, k, v, g, lse, delta, dq, dk, dv; b, h, sq, sk, d; strides*;
-    # causal; scale; stream
-    "flash_bwd_launch": (_I, [_P] * 9 + [_I] * 5 + [_P, _I, _F, _P]),
+    # q, k, v, out, g, lse, rows, counters, dq, dk, dv; b, h, sq, sk, d;
+    # strides*; causal; scale; parts; stream
+    "flash_bwd_launch": (_I, [_P] * 11 + [_I] * 5 + [_P, _I, _F, _I, _P]),
+    "flash_bwd_info": (None, [_I, _I, _P]),
     "error_string": (ctypes.c_char_p, [_I]),
 }
+# the parts of the backward (`flash_bwd_launch`'s `parts` bits)
+BWD_DELTA, BWD_DKDV, BWD_DQ = 1, 2, 4
+BWD_ALL = BWD_DELTA | BWD_DKDV | BWD_DQ
 
 
 def _bsh(t):
     return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _lse_rows(sq: int) -> int:
+    """Row length of the fp32 lse and delta buffers: sq rounded up to
+    128, the kernels' row block (`lse_rows` in
+    csrc/flash_attention_common.cuh), so the backward's bulk copies of
+    32- or 64-row slices start 16-byte aligned and stay inside their
+    row."""
+    return -(-sq // 128) * 128
+
+
+def _row_buffer(b, h, sq, device, zero=False):
+    """A (b, h, sq) fp32 view of a (b, h, _lse_rows(sq)) buffer: the
+    layout the kernels write lse and delta in."""
+    alloc = torch.zeros if zero else torch.empty
+    return alloc((b, h, _lse_rows(sq)), dtype=torch.float32,
+                 device=device)[..., :sq]
+
+
+def _in_row_buffer(t) -> bool:
+    b, h, sq = t.shape
+    rows = _lse_rows(sq)
+    return (t.dtype == torch.float32 and t.stride() == (h * rows, rows, 1)
+            and t.data_ptr() % 16 == 0)
 
 
 def _stream(t):
@@ -194,15 +246,16 @@ def _launch_fwd(q, k, v, causal: bool, scale: float):
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lse = _row_buffer(b, h, sq, q.device)
     if out.numel() == 0:
         return out, lse
+    counter = torch.empty(1, dtype=torch.int32, device=q.device)
     lib = load_library("flash_attention_fwd", _FWD_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, sq, sk, d, *_bsh(q), *_bsh(k), *_bsh(v),
-            *_bsh(out), int(causal), scale, _stream(q))
+            lse.data_ptr(), counter.data_ptr(), b, h, sq, sk, d, *_bsh(q),
+            *_bsh(k), *_bsh(v), *_bsh(out), int(causal), scale, _stream(q))
     if err != 0:
         raise RuntimeError(f"flash forward kernel launch failed: "
                            f"{lib.error_string(err).decode()} ({err})")
@@ -210,10 +263,26 @@ def _launch_fwd(q, k, v, causal: bool, scale: float):
     return out, lse
 
 
-def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float):
+def _bwd_rows(b, h, sq, device):
+    """The backward's fp32 scratch (b, h, 2, _lse_rows(sq)): delta, then
+    lse * log2(e), row by row; the delta kernel fills both (0 past sq)
+    and the dk/dv and dq kernels read them."""
+    return torch.empty((b, h, 2, _lse_rows(sq)), dtype=torch.float32,
+                       device=device)
+
+
+def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float,
+                parts: int = BWD_ALL, rows=None):
+    """(dq, dk, dv) through the three backward kernels. `parts` and
+    `rows` (from `_bwd_rows`) let a timing run launch one kernel at a
+    time (dk/dv and dq read `rows`, which the delta kernel writes); the
+    autograd path runs them all. `lse` is the forward's; one in another
+    layout is copied into a row buffer first."""
     from ._build import load_library
     _check_cuda_args(q, k, v, causal)
     g = g.contiguous()          # autograd may hand in an expanded tensor
+    for name, t in (("out", out), ("g", g)):
+        _check_tma_layout(name, t)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -221,23 +290,50 @@ def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float):
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
     if dq.numel() == 0:
         return dq, dk, dv
-    # delta = rowsum(out * g) in fp32, outside the kernels as in JAX
-    delta = (out.float() * g.float()).sum(-1).permute(0, 2, 1).contiguous()
-    strides = (_LL * 21)(*_bsh(q), *_bsh(k), *_bsh(v), *_bsh(g), *_bsh(dq),
-                         *_bsh(dk), *_bsh(dv))
+    if not _in_row_buffer(lse):
+        lse = _row_buffer(b, h, sq, q.device, zero=True).copy_(lse)
+    if rows is None:
+        rows = _bwd_rows(b, h, sq, q.device)
+    elif rows.shape != (b, h, 2, _lse_rows(sq)) or not rows.is_contiguous():
+        raise ValueError("rows must come from _bwd_rows")
+    strides = (_LL * 24)(*_bsh(q), *_bsh(k), *_bsh(v), *_bsh(out), *_bsh(g),
+                         *_bsh(dq), *_bsh(dk), *_bsh(dv))
+    counters = torch.empty(2, dtype=torch.int32, device=q.device)
     lib = load_library("flash_attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, sq, sk, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            g.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+            counters.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
             ctypes.cast(strides, ctypes.c_void_p), int(causal), scale,
-            _stream(q))
+            parts, _stream(q))
     if err != 0:
         raise RuntimeError(f"flash backward kernel launch failed: "
                            f"{lib.error_string(err).decode()} ({err})")
     BWD_LAUNCHES.count += 1
     return dq, dk, dv
+
+
+def kernel_info(d: int):
+    """{kernel: (registers, local bytes, dynamic shared bytes, threads)}
+    of the flash kernels for head dim `d`, from cudaFuncGetAttributes
+    (local bytes are spills and stack)."""
+    from ._build import load_library
+    out = {}
+    fwd = load_library("flash_attention_fwd", _FWD_SIGNATURES)
+    bwd = load_library("flash_attention_bwd", _BWD_SIGNATURES)
+    for name, call in (("flash_fwd", lambda a: fwd.flash_fwd_info(d, a)),
+                       ("flash_bwd_delta",
+                        lambda a: bwd.flash_bwd_info(d, 0, a)),
+                       ("flash_bwd_dkdv",
+                        lambda a: bwd.flash_bwd_info(d, 1, a)),
+                       ("flash_bwd_dq",
+                        lambda a: bwd.flash_bwd_info(d, 2, a))):
+        arr = (_I * 4)(-1, -1, -1, -1)
+        call(ctypes.cast(arr, ctypes.c_void_p))
+        out[name] = tuple(arr)
+    return out
 
 
 def flash_forward(q, k, v, causal: bool, scale: float):

@@ -170,6 +170,79 @@ def test_cuda_argument_checks_raise():
         port._check_cuda_args(q, k[:1], v[:1], causal=True)
 
 
+def test_tma_layout_checks_raise():
+    """What a TMA tensor map cannot take raises before any launch, on
+    CPU tensors: a base that is not 16-byte aligned, a (batch, seq,
+    head) stride that is not a multiple of 8 elements, a head dim that
+    is not contiguous. The packed qkv (s-stride 3 h d) is taken, and so
+    are `out` and `g` in the backward's layout check."""
+    bf = torch.bfloat16
+    qkv = torch.zeros(2, 64, 3, 4, D, dtype=bf)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    port._check_cuda_args(q, k, v, causal=False)
+    port._check_tma_layout("out", torch.zeros(2, 64, 4, D, dtype=bf))
+    # base 8 bytes past a 16-byte boundary, strides still multiples of 8
+    flat = torch.zeros(2 * 64 * 4 * D + 4, dtype=bf)
+    shifted = flat[4:].view(2, 64, 4, D)
+    assert shifted.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        port._check_cuda_args(shifted, k, v, causal=False)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        port._check_tma_layout("g", shifted)
+    # a head stride of D + 4 elements (not a multiple of 8), base aligned
+    wide = torch.zeros(2, 64, 4, D + 4, dtype=bf)[..., :D]
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        port._check_cuda_args(q, wide, v, causal=False)
+    # a seq stride that is not a multiple of 8 (4 heads x D + 4)
+    rows = torch.zeros(2, 64, 4 * D + 4, dtype=bf)[..., :4 * D].unflatten(
+        -1, (4, D))
+    assert rows.stride()[1] % 8 == 4
+    with pytest.raises(ValueError, match="multiples of 8 elements"):
+        port._check_cuda_args(q, k, rows, causal=False)
+    # the head dim strided (every other element)
+    strided = torch.zeros(2, 64, 4, 2 * D, dtype=bf)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        port._check_cuda_args(q, k, strided, causal=False)
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        port._check_tma_layout("out", strided)
+
+
+def test_lse_row_buffers_match_the_kernels_padding():
+    """lse and the backward's delta rows live in rows padded to 128
+    (`lse_rows` in csrc/flash_attention_common.cuh): the wrapper's
+    buffers have that layout, and an lse in any other layout is not
+    taken for one (the backward copies it first)."""
+    for sq, rows in ((1, 128), (128, 128), (200, 256), (1024, 1024)):
+        assert port._lse_rows(sq) == rows
+        buf = port._row_buffer(2, 3, sq, "cpu")
+        assert buf.shape == (2, 3, sq) and buf.stride() == (3 * rows, rows, 1)
+        assert port._in_row_buffer(buf)
+        assert port._bwd_rows(2, 3, sq, "cpu").shape == (2, 3, 2, rows)
+    assert not port._in_row_buffer(torch.zeros(2, 3, 200))
+    assert port._row_buffer(1, 1, 5, "cpu", zero=True).sum() == 0
+
+
+@pytest.mark.parametrize("seed,b,s,h,d", [(0, 2, 48, 3, 64),
+                                          (1, 1, 33, 2, 128)])
+def test_delta_plain_matches_jax_rowsum(seed, b, s, h, d):
+    """The delta kernel's plain version against the JAX computation in
+    `_flash_backward_flat` (rowsum(out * g) in fp32 over the flattened
+    (b * h, s, d) operands, reshaped to (b * h, 1, s)): bf16 inputs,
+    fp32 on the CPU, within 1e-5 relative (summation order)."""
+    rng = np.random.RandomState(seed)
+    out = rng.randn(b, s, h, d).astype(np.float32)
+    g = rng.randn(b, s, h, d).astype(np.float32)
+    flat = [jnp.asarray(x, jnp.bfloat16).transpose(0, 2, 1, 3)
+            .reshape(b * h, s, d) for x in (out, g)]
+    want = jnp.sum(flat[0].astype(jnp.float32) * flat[1].astype(jnp.float32),
+                   axis=-1).reshape(b * h, 1, s)
+    got = port.flash_delta_plain(_t(jnp.asarray(out, jnp.bfloat16)),
+                                 _t(jnp.asarray(g, jnp.bfloat16)))
+    assert got.dtype == torch.float32 and got.shape == (b, h, s)
+    np.testing.assert_allclose(got.reshape(b * h, 1, s).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 def test_mask_and_dropout_raise_on_every_device():
     q = torch.zeros(1, 8, 2, D)
     with pytest.raises(NotImplementedError, match="mask"):
