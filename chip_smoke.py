@@ -9,21 +9,26 @@ Phases (any failure exits non-zero; the last line is printed only when
 every phase passed):
 1. card name and power limit (nvidia-smi); build every kernel with nvcc,
    one process per source, all at once.
-2. kernel K1 (ragged split-K flash-decode) against its plain version on
-   the card at GPT-small decode shapes (B = S = 8, T = 1024, nh = 12,
-   hd = 64), fp32 and bf16, 1 and 2 splits, a repeated-slot verify
-   layout, lengths 0, 1, block_k - 1, block_k, block_k + 1, 513, T - 1,
-   T; outputs within fp32 atol = rtol = 1e-4 / bf16 atol = rtol = 2e-2
-   of `ragged_decode_reference`, visit counts exactly the live-chunk
-   arithmetic, and dead cache rows never read (NaN-filled dead rows
-   leave the output bitwise unchanged).
+2. kernel K1 (ragged flash-decode; each lane and head cut into C(T) =
+   min(8, max(1, T / 128)) CTAs of one thread-block cluster, merged
+   inside the launch) against its plain version (split-K + merge) and
+   the full-slab reference on the card at GPT-small decode shapes
+   (B = S = 8, nh = 12, hd = 64) at T = 1024 (C = 8), 256 (C = 2) and 64
+   (C = 1), fp32 and bf16, the reference's 1 and 2 splits, a
+   repeated-slot verify layout, lengths 0, 1, block_k - 1, block_k,
+   block_k + 1, 513, T - 1, T; outputs within fp32 atol = rtol = 1e-4 /
+   bf16 2e-2 of `ragged_decode_reference` and within 1e-5 / 2e-2 of the
+   plain split + merge, one launch per call, visit counts exactly the
+   reference's live-chunk arithmetic, and dead cache rows never read
+   (NaN-filled dead rows leave the output bitwise unchanged).
 2a. kernels K4 (paged), K5 (int8) and K6 (paged int8) against their
-   plain versions at the same shapes, fp32 and bf16, pages of 64 rows
-   at shuffled ids, the phase-2 edge lengths and the phase-4 lengths:
-   outputs within atol = rtol = 1e-5 (fp32) / 2e-2 (bf16), visit counts
-   exact, NaN in dead rows, unbound pages and the trash page (in the
-   scales, for int8) leaves the output bitwise unchanged; K4 == K1 and
-   K6 == K5 bitwise on the same rows.
+   plain versions (split + merge) at the same shapes and the same three
+   T, fp32 and bf16, pages of 64 rows at shuffled ids, the phase-2 edge
+   lengths and the phase-4 lengths (clipped to T): outputs within
+   atol = rtol = 1e-5 (fp32) / 2e-2 (bf16), visit counts exact, NaN in
+   dead rows, unbound pages and the trash page (in the scales, for
+   int8) leaves the output bitwise unchanged; K4 == K1 and K6 == K5
+   bitwise on the same rows.
 2b. kernel K7 (fused int8 GEMV) against its plain version, bitwise, at
    GPT-small's five (k, n) (768 x 2304 / 768 / 3072, 3072 x 768 and the
    int8 draft's head 768 x 50304), 1-4 rows, x in bf16 and fp32 (the
@@ -31,18 +36,30 @@ every phase passed):
    bf16 one; inputs include x on code half-points ((c + 0.5) * sx) and
    on +-127.5 * sx.
 3. kernels K2 (flash-attention forward) and K3 (backward: delta, dk/dv
-   and dq kernels) against their plain versions in bf16: the training
-   shape (b 18, s 1024, h 12, d 64, causal, q/k/v strided slices of one
-   fused qkv tensor as the model passes them), sq < sk (256 vs 1024)
-   causal, a length that is no tile multiple (1000) non-causal and
-   causal, d = 128, and the edges of the TMA tiles: d = 128 on a packed
-   qkv (two 64-column boxes per row tile, strided), causal sq 200 against
+   and dq kernels), the wgmma route, and the generic flash kernels
+   (fp32 at head dim 32, 64, 128 and bf16 at 32) against their plain
+   versions (fp32 products exact, TF32 off): the training shape (b 18,
+   s 1024, h 12, d 64, causal, q/k/v strided slices of one fused qkv
+   tensor as the model passes them), sq < sk (256 vs 1024) causal, a
+   length that is no tile multiple (1000) non-causal and causal,
+   d = 128, and the edges of the TMA tiles: d = 128 on a packed qkv
+   (two 64-column boxes per row tile, strided), causal sq 200 against
    sk 1000 (sq no multiple of 128, sk - sq a multiple of neither 64 nor
    128), causal sq 1 against sk 333 (one query under one tile), and
-   b x h = 1024 heads (far more work items than SMs). The output within
-   atol = rtol = 2e-2, the logsumexp within atol = 1e-3, each gradient
-   within max|kernel - plain| <= 2e-2 * max|plain|; two backward runs
-   bitwise equal.
+   b x h = 1024 heads (far more work items than SMs); then causal sq
+   1024 against sk 256 (768 rows with no visible key: the reference's
+   uniform softmax), causal sq 300 / sk 200, d 128 sq 1000 / sk 900
+   (the last empty row inside a K2 warpgroup and a K3 query tile) and
+   sq 1000 / sk 936 (the edge between K2's two warpgroups of a tile),
+   b x h = 66000 at s 128, and on the generic route
+   fp32 at d 64 (packed), 32 and 128, fp32 sq 200 / sk 333, fp32
+   causal sq 300 / sk 200 and bf16 d 32 (packed). bf16: the output
+   within atol = rtol = 2e-2, the logsumexp within atol = 1e-3, each
+   gradient within max|kernel - plain| <= 2e-2 * max|plain|; fp32: the
+   output and each gradient within 1e-5 * max|plain|, the logsumexp
+   within 1e-5 * max|plain|; rows with no visible key have lse -1e30
+   and dq 0; two backward runs bitwise equal; each call launches on
+   its route only.
 4. serving at full width: GPT-small (768 hidden, 12 layers, 12 heads,
    vocab 50304, random weights from a seed) in bf16 served by
    `LLMEngine(max_slots=8, max_seq=1024, decode_block_size=8)` on 16
@@ -83,12 +100,18 @@ every phase passed):
    trains; one warm-up step, then 10 steps. Every loss finite, the last
    below the first, K2 and K3 each launched exactly 12 x 10 times; step
    ms, tokens/s and peak memory.
+6b. fp32 training at `Trainer`'s default amp_level=None through the
+   generic flash kernels: gpt_tiny (head dim 32, bs 8 x 256, AdamW
+   1e-3) takes 3 steps on the card and the same 3 on the CPU (plain
+   attention), losses within 1e-4 relative; GPT-small in fp32 takes 2
+   steps at bs 18 x 1024. Both count 12 / 24 generic launches each way
+   and no wgmma launch.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters) through the kernels against the same step
    with the plain versions swapped in on the same CUDA tensors:
    ||g_kernel - g_plain|| / ||g_plain|| <= 3e-2 for every parameter.
-8. numbers: K1's median time at phase-4 shapes and lengths beside its
-   byte bound, the plain version's time and one
+8. numbers: K1's median time (one launch, merge included) at phase-4
+   shapes and lengths beside its byte bound, the plain version's time and one
    `scaled_dot_product_attention` call over the full slab with the keep
    mask; K4, K5 and K6 the same way (their yardstick gathers pages
    and/or dequantises first); the engine through each of them; K2 and K3 at the training shape beside their bounds, plain
@@ -101,7 +124,10 @@ every phase passed):
    printed. K7 at each (k, n) with 4 bf16 rows: median after an
    L2 flush, byte bound, plain version, and two yardsticks never called
    by the port (bf16 `torch.matmul` with the fp weights, and
-   `torch._int_mm` on rows padded to 32).
+   `torch._int_mm` on rows padded to 32). The generic flash kernels'
+   forward and backward at GPT-small's fp32 training shape and at
+   phase 3's bf16 d 32 shape, beside their bounds (fp32 over 67
+   TFLOP/s), plain versions and `scaled_dot_product_attention`.
 Then one JSON line of kernel records and, last, the device line.
 """
 from __future__ import annotations
@@ -143,6 +169,11 @@ def check(cond: bool, msg: str):
 # phase 2: the kernel against its plain version
 # --------------------------------------------------------------------------- #
 
+# T = 1024 (GPT-small's max_seq: 8 CTAs per lane and head), 256 (2) and
+# 64 (1), the fused kernel's cluster sizes C(T)
+DECODE_T = (1024, 256, 64)
+
+
 def kernel_cases(torch, T: int, block_k: int):
     full = [0, 1, block_k - 1, block_k, block_k + 1, 513, T - 1, T]
     verify_lengths = [100, 101, 102, 700, 701, 702, 5, 6]
@@ -155,59 +186,80 @@ def kernel_cases(torch, T: int, block_k: int):
 
 
 def phase_kernel(torch, dec):
-    S, T, nh, hd = 8, 1024, 12, 64
-    block_k, _ = dec.pick_decode_blocks(T, hd, torch.bfloat16)
+    """K1 (fused: its split ranges merged inside the launch through a
+    thread-block cluster) against the full-slab reference and against
+    the plain split-K version + merge, at each T of DECODE_T; visit
+    counts exact; NaN in dead rows leaves the output bitwise unchanged.
+    Lengths past T are clipped to T by every version."""
+    S, nh, hd = 8, 12, 64
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
-    for name, dtype, ns, lengths, slots in kernel_cases(torch, T, block_k):
-        B = len(lengths)
-        q = torch.randn(B, nh, hd, device="cuda", generator=gen).to(dtype)
-        kc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).to(dtype)
-        vc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).to(dtype)
-        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        smap = None if slots is None else torch.tensor(
-            slots, dtype=torch.int32, device="cuda")
-        out, visits = dec.ragged_decode_attention(
-            q, kc, vc, lens, slot_map=smap, block_k=block_k, num_splits=ns,
-            with_stats=True)
-        torch.cuda.synchronize()
-        ref = dec.ragged_decode_reference(q, kc, vc, lens, slot_map=smap)
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL[str(dtype)[6:]]
-        check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-        torch.testing.assert_close(out.float(), ref.float(), **tol)
-        # visit counts: clip(ceil((len - split_start) / block_k), 0, blocks)
-        rows = T // ns
-        want = [[min(max(-(-(n - p * rows) // block_k), 0), rows // block_k)
-                 for p in range(ns)] for n in lengths]
-        check(visits.cpu().tolist() == want,
-              f"{name}: visits {visits.cpu().tolist()} != {want}")
-        # raw split outputs against the plain split-K version
-        sm = smap if smap is not None else torch.arange(
-            B, dtype=torch.int32, device="cuda")
-        acc, m, l_, _ = dec._launch_cuda(q, kc, vc, lens, sm,
-                                         1 / math.sqrt(hd), block_k, ns)
-        pacc, pm, pl, _ = dec.ragged_decode_split_plain(
-            q, kc, vc, lens, sm, 1 / math.sqrt(hd), block_k, ns)
-        torch.testing.assert_close(m, pm, atol=1e-4, rtol=1e-4)
-        torch.testing.assert_close(l_, pl, atol=1e-4, rtol=1e-4)
-        torch.testing.assert_close(acc, pacc, atol=1e-3, rtol=1e-4)
-        # dead rows are never read: NaN there leaves the output unchanged
-        keep = (torch.arange(T, device="cuda")[None, :]
-                < lens[:, None].long())
-        kn, vn = kc.clone(), vc.clone()
-        live = torch.zeros(S, T, dtype=torch.bool, device="cuda")
-        for b, s in enumerate(sm.tolist()):
-            live[s] |= keep[b]
-        kn[~live] = float("nan")
-        vn[~live] = float("nan")
-        out_nan = dec.ragged_decode_attention(
-            q, kn, vn, lens, slot_map=smap, block_k=block_k, num_splits=ns)
-        torch.cuda.synchronize()
-        check(torch.equal(out_nan, out), f"{name}: a dead row was read")
-        worst = max(worst, err)
-        log(f"  K1 {name}: max|kernel - reference| = {err:.3e} "
-            f"(atol=rtol={tol['atol']:g}), visits exact, dead rows unread")
+    for T in DECODE_T:
+        block_k, _ = dec.pick_decode_blocks(T, hd, torch.bfloat16)
+        for name, dtype, ns, lengths, slots in kernel_cases(torch, T,
+                                                            block_k):
+            if T % (block_k * ns):
+                continue
+            name = f"T {T} (C {dec.cluster_size(T)}) {name}"
+            B = len(lengths)
+            q = torch.randn(B, nh, hd, device="cuda", generator=gen).to(dtype)
+            kc = torch.randn(S, T, nh, hd, device="cuda",
+                             generator=gen).to(dtype)
+            vc = torch.randn(S, T, nh, hd, device="cuda",
+                             generator=gen).to(dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            smap = None if slots is None else torch.tensor(
+                slots, dtype=torch.int32, device="cuda")
+            dec.LAUNCHES.reset()
+            out, visits = dec.ragged_decode_attention(
+                q, kc, vc, lens, slot_map=smap, block_k=block_k,
+                num_splits=ns, with_stats=True)
+            torch.cuda.synchronize()
+            check(dec.LAUNCHES.count == 1, f"{name}: {dec.LAUNCHES.count} "
+                                           f"launches for one call")
+            ref = dec.ragged_decode_reference(q, kc, vc, lens, slot_map=smap)
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL[str(dtype)[6:]]
+            check(bool(torch.isfinite(out).all()),
+                  f"{name}: non-finite output")
+            torch.testing.assert_close(out.float(), ref.float(), **tol)
+            # visit counts: clip(ceil((len - split_start) / block_k), 0,
+            # blocks), the reference's arithmetic for its (block_k, ns)
+            rows = T // ns
+            want = [[min(max(-(-(n - p * rows) // block_k), 0),
+                         rows // block_k) for p in range(ns)]
+                    for n in lengths]
+            check(visits.cpu().tolist() == want,
+                  f"{name}: visits {visits.cpu().tolist()} != {want}")
+            # against the plain split-K version and its merge
+            sm = smap if smap is not None else torch.arange(
+                B, dtype=torch.int32, device="cuda")
+            plain = dec.ragged_decode_split_plain(
+                q, kc, vc, lens, sm, 1 / math.sqrt(hd), block_k, ns)
+            want_out = dec._merge_splits(*plain[:3], q.dtype)
+            torch.testing.assert_close(out.float(), want_out.float(),
+                                       **PLAIN_TOL[str(dtype)[6:]])
+            check(plain[3].tolist() == want, f"{name}: plain visits")
+            # dead rows are never read: NaN there leaves the output
+            # unchanged
+            keep = (torch.arange(T, device="cuda")[None, :]
+                    < lens[:, None].long())
+            kn, vn = kc.clone(), vc.clone()
+            live = torch.zeros(S, T, dtype=torch.bool, device="cuda")
+            for b, s in enumerate(sm.tolist()):
+                live[s] |= keep[b]
+            kn[~live] = float("nan")
+            vn[~live] = float("nan")
+            out_nan = dec.ragged_decode_attention(
+                q, kn, vn, lens, slot_map=smap, block_k=block_k,
+                num_splits=ns)
+            torch.cuda.synchronize()
+            check(torch.equal(out_nan, out), f"{name}: a dead row was read")
+            worst = max(worst, err)
+            log(f"  K1 {name}: max|kernel - reference| = {err:.3e} "
+                f"(atol=rtol={tol['atol']:g}), within "
+                f"{PLAIN_TOL[str(dtype)[6:]]['atol']:g} of plain split + "
+                f"merge, visits exact, dead rows unread, one launch")
     return worst
 
 
@@ -259,110 +311,119 @@ def to_pages(torch, x, tables, num_pages, page):
     return pool
 
 
+def paged_cases(torch, np):
+    """(T, dtype, name, lengths) of phase 2a: each T of DECODE_T, fp32
+    and bf16, the edge lengths and the serving lengths, clipped to T."""
+    for T in DECODE_T:
+        for dtype in (torch.float32, torch.bfloat16):
+            yield T, dtype, "edges", [min(n, T) for n in (
+                0, 1, PAGE - 1, PAGE, PAGE + 1, 513, T - 1, T)]
+            yield T, dtype, "serving", [min(n, T) for n in
+                                        serving_lengths(np, 1024)]
+
+
 def phase_paged_quant_kernels(torch, np, dec):
     """K4 (paged), K5 (int8) and K6 (paged int8) at the serving shapes
-    against their plain versions on the same CUDA tensors; visit counts;
-    NaN in dead rows and on the trash page leaves the output bitwise
-    unchanged; K4 ≡ K1 and K6 ≡ K5 bitwise on the same rows."""
+    and each T of DECODE_T against their plain versions (split + merge)
+    on the same CUDA tensors; visit counts; NaN in dead rows and on the
+    trash page leaves the output bitwise unchanged; K4 ≡ K1 and K6 ≡ K5
+    bitwise on the same rows. Lengths are clipped to T."""
     from paddle_tpu_torch.quantization.kv import kv_quantize
-    S, T, nh, hd = 8, 1024, 12, 64
+    S, nh, hd = 8, 12, 64
     scale = 1 / math.sqrt(hd)
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
-    length_sets = {"edges": [0, 1, PAGE - 1, PAGE, PAGE + 1, 513, T - 1, T],
-                   "serving": serving_lengths(np, T)}
-    for dtype in (torch.float32, torch.bfloat16):
-        tname = str(dtype)[6:]
-        tol = PLAIN_TOL[tname]
-        for lname, lengths in length_sets.items():
-            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-            q = torch.randn(S, nh, hd, device="cuda", generator=gen).to(dtype)
-            kc = torch.randn(S, T, nh, hd, device="cuda",
-                             generator=gen).to(dtype)
-            vc = torch.randn(S, T, nh, hd, device="cuda",
-                             generator=gen).to(dtype)
-            kq, ks = kv_quantize(kc)
-            vq, vs = kv_quantize(vc)
-            sm = torch.arange(S, dtype=torch.int32, device="cuda")
-            keep = (torch.arange(T, device="cuda")[None, :]
-                    < lens[:, None].long())                  # (S, T)
-            tables, npages, live = page_tables(torch, gen, S, T, lengths,
-                                               PAGE)
-            kp, vp, kqp, vqp, ksp, vsp = (
-                to_pages(torch, x, tables, npages, PAGE)
-                for x in (kc, vc, kq, vq, ks, vs))
-            cases = {
-                "K4": (dict(paged=True), (kp, vp, None, None)),
-                "K5": (dict(paged=False), (kq, vq, ks, vs)),
-                "K6": (dict(paged=True), (kqp, vqp, ksp, vsp))}
-            outs = {}
-            for kname, (how, (k_, v_, ks_, vs_)) in cases.items():
-                if how["paged"]:
-                    bk, ns = dec.pick_paged_decode_blocks(T, PAGE, hd,
-                                                          k_.dtype)
-                    run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
-                        dec.paged_ragged_decode_attention(
-                            q, k_, v_, tables, lens, block_k=bk,
-                            num_splits=ns, with_stats=True, k_scale=ks_,
-                            v_scale=vs_)
-                    plain = dec.paged_decode_split_plain(
-                        q, k_, v_, tables, lens, scale, bk, ns, ks_, vs_)
-                else:
-                    bk, ns = dec.pick_decode_blocks(T, hd, k_.dtype)
-                    run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
-                        dec.ragged_decode_attention(
-                            q, k_, v_, lens, block_k=bk, num_splits=ns,
-                            with_stats=True, k_scale=ks_, v_scale=vs_)
-                    plain = dec.ragged_decode_split_plain(
-                        q, k_, v_, lens, sm, scale, bk, ns, ks_, vs_)
-                out, visits = run(k_, v_, ks_, vs_)
-                torch.cuda.synchronize()
-                want = dec._merge_splits(*plain[:3], q.dtype)
-                check(bool(torch.isfinite(out).all()),
-                      f"{kname} {tname} {lname}: non-finite output")
-                torch.testing.assert_close(out.float(), want.float(), **tol)
-                err = (out.float() - want.float()).abs().max().item()
-                rows = T // ns
-                exp = [[min(max(-(-(n - p * rows) // bk), 0), rows // bk)
-                        for p in range(ns)] for n in lengths]
-                check(visits.cpu().tolist() == exp == plain[3].tolist(),
-                      f"{kname} {tname} {lname}: visits "
-                      f"{visits.cpu().tolist()} != {exp}")
-                # dead rows and the trash page never read: NaN there (in
-                # the scales, for int8 codes) leaves the output unchanged
-                nan = float("nan")
-                if how["paged"]:
-                    dead = ~live
-                    if ks_ is None:
-                        out_nan, _ = run(k_.masked_fill(dead[..., None, None],
-                                                        nan),
-                                         v_.masked_fill(dead[..., None, None],
-                                                        nan), None, None)
-                    else:
-                        out_nan, _ = run(k_, v_,
-                                         ks_.masked_fill(dead[..., None], nan),
-                                         vs_.masked_fill(dead[..., None], nan))
+    for T, dtype, lname, lengths in paged_cases(torch, np):
+        tname = f"T {T} {str(dtype)[6:]}"
+        tol = PLAIN_TOL[str(dtype)[6:]]
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        q = torch.randn(S, nh, hd, device="cuda", generator=gen).to(dtype)
+        kc = torch.randn(S, T, nh, hd, device="cuda",
+                         generator=gen).to(dtype)
+        vc = torch.randn(S, T, nh, hd, device="cuda",
+                         generator=gen).to(dtype)
+        kq, ks = kv_quantize(kc)
+        vq, vs = kv_quantize(vc)
+        sm = torch.arange(S, dtype=torch.int32, device="cuda")
+        keep = (torch.arange(T, device="cuda")[None, :]
+                < lens[:, None].long())                  # (S, T)
+        tables, npages, live = page_tables(torch, gen, S, T, lengths,
+                                           PAGE)
+        kp, vp, kqp, vqp, ksp, vsp = (
+            to_pages(torch, x, tables, npages, PAGE)
+            for x in (kc, vc, kq, vq, ks, vs))
+        cases = {
+            "K4": (dict(paged=True), (kp, vp, None, None)),
+            "K5": (dict(paged=False), (kq, vq, ks, vs)),
+            "K6": (dict(paged=True), (kqp, vqp, ksp, vsp))}
+        outs = {}
+        for kname, (how, (k_, v_, ks_, vs_)) in cases.items():
+            if how["paged"]:
+                bk, ns = dec.pick_paged_decode_blocks(T, PAGE, hd,
+                                                      k_.dtype)
+                run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
+                    dec.paged_ragged_decode_attention(
+                        q, k_, v_, tables, lens, block_k=bk,
+                        num_splits=ns, with_stats=True, k_scale=ks_,
+                        v_scale=vs_)
+                plain = dec.paged_decode_split_plain(
+                    q, k_, v_, tables, lens, scale, bk, ns, ks_, vs_)
+            else:
+                bk, ns = dec.pick_decode_blocks(T, hd, k_.dtype)
+                run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
+                    dec.ragged_decode_attention(
+                        q, k_, v_, lens, block_k=bk, num_splits=ns,
+                        with_stats=True, k_scale=ks_, v_scale=vs_)
+                plain = dec.ragged_decode_split_plain(
+                    q, k_, v_, lens, sm, scale, bk, ns, ks_, vs_)
+            out, visits = run(k_, v_, ks_, vs_)
+            torch.cuda.synchronize()
+            want = dec._merge_splits(*plain[:3], q.dtype)
+            check(bool(torch.isfinite(out).all()),
+                  f"{kname} {tname} {lname}: non-finite output")
+            torch.testing.assert_close(out.float(), want.float(), **tol)
+            err = (out.float() - want.float()).abs().max().item()
+            rows = T // ns
+            exp = [[min(max(-(-(n - p * rows) // bk), 0), rows // bk)
+                    for p in range(ns)] for n in lengths]
+            check(visits.cpu().tolist() == exp == plain[3].tolist(),
+                  f"{kname} {tname} {lname}: visits "
+                  f"{visits.cpu().tolist()} != {exp}")
+            # dead rows and the trash page never read: NaN there (in
+            # the scales, for int8 codes) leaves the output unchanged
+            nan = float("nan")
+            if how["paged"]:
+                dead = ~live
+                if ks_ is None:
+                    out_nan, _ = run(k_.masked_fill(dead[..., None, None],
+                                                    nan),
+                                     v_.masked_fill(dead[..., None, None],
+                                                    nan), None, None)
                 else:
                     out_nan, _ = run(k_, v_,
-                                     ks_.masked_fill(~keep[..., None], nan),
-                                     vs_.masked_fill(~keep[..., None], nan))
-                torch.cuda.synchronize()
-                check(torch.equal(out_nan, out),
-                      f"{kname} {tname} {lname}: a dead row was read")
-                outs[kname] = out
-                worst[kname] = max(worst[kname], err)
-                log(f"  {kname} {tname} {lname} (block_k {bk}, splits {ns}):"
-                    f" max|kernel - plain| = {err:.3e} (atol=rtol="
-                    f"{tol['atol']:g}), visits exact, dead rows and trash "
-                    f"page unread")
-            # the addressing seam does not change the arithmetic
-            k1 = dec.ragged_decode_attention(q, kc, vc, lens)
+                                     ks_.masked_fill(dead[..., None], nan),
+                                     vs_.masked_fill(dead[..., None], nan))
+            else:
+                out_nan, _ = run(k_, v_,
+                                 ks_.masked_fill(~keep[..., None], nan),
+                                 vs_.masked_fill(~keep[..., None], nan))
             torch.cuda.synchronize()
-            check(torch.equal(outs["K4"], k1),
-                  f"K4 != K1 bitwise ({tname} {lname})")
-            check(torch.equal(outs["K6"], outs["K5"]),
-                  f"K6 != K5 bitwise ({tname} {lname})")
-            log(f"  {tname} {lname}: K4 == K1 and K6 == K5 bitwise")
+            check(torch.equal(out_nan, out),
+                  f"{kname} {tname} {lname}: a dead row was read")
+            outs[kname] = out
+            worst[kname] = max(worst[kname], err)
+            log(f"  {kname} {tname} {lname} (block_k {bk}, splits {ns}):"
+                f" max|kernel - plain| = {err:.3e} (atol=rtol="
+                f"{tol['atol']:g}), visits exact, dead rows and trash "
+                f"page unread")
+        # the addressing seam does not change the arithmetic
+        k1 = dec.ragged_decode_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        check(torch.equal(outs["K4"], k1),
+              f"K4 != K1 bitwise ({tname} {lname})")
+        check(torch.equal(outs["K6"], outs["K5"]),
+              f"K6 != K5 bitwise ({tname} {lname})")
+        log(f"  {tname} {lname}: K4 == K1 and K6 == K5 bitwise")
     return worst
 
 
@@ -429,12 +490,15 @@ def phase_int8_kernel(torch, k7):
 FLASH_SHAPE = dict(b=18, s=1024, h=12, d=64)     # GPT-small, bench.py bs
 
 
-def flash_inputs(torch, gen, b, sq, sk, h, d, packed):
-    """bf16 q, k, v (b, s, h, d) and a cotangent g; `packed` gives q, k,
-    v as the strided slices of one (b, s, 3, h, d) tensor, the layout
-    the model's fused qkv projection hands the kernels."""
+def flash_inputs(torch, gen, b, sq, sk, h, d, packed, dtype=None):
+    """q, k, v (b, s, h, d) and a cotangent g in `dtype` (bf16 by
+    default); `packed` gives q, k, v as the strided slices of one
+    (b, s, 3, h, d) tensor, the layout the model's fused qkv projection
+    hands the kernels."""
+    dtype = dtype or torch.bfloat16
+
     def rnd(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen).bfloat16()
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
     if packed:
         qkv = rnd(b, sq, 3, h, d)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -443,59 +507,118 @@ def flash_inputs(torch, gen, b, sq, sk, h, d, packed):
     return q, k, v, rnd(b, sq, h, d)
 
 
-def flash_cases():
-    f = FLASH_SHAPE
-    yield "training shape", f["b"], f["s"], f["s"], f["h"], f["d"], True, True
-    yield "sq < sk", 4, 256, 1024, 12, 64, True, False
-    yield "s 1000", 4, 1000, 1000, 12, 64, False, False
-    yield "s 1000 causal", 4, 1000, 1000, 12, 64, True, False
-    yield "d 128", 4, 512, 512, 8, 128, True, False
+def flash_cases(torch):
+    """(name, b, sq, sk, h, d, causal, packed, dtype): the wgmma route's
+    cases, then the generic route's and the repaired ones."""
+    f, bf, f32 = FLASH_SHAPE, torch.bfloat16, torch.float32
+    yield ("training shape", f["b"], f["s"], f["s"], f["h"], f["d"], True,
+           True, bf)
+    yield "sq < sk", 4, 256, 1024, 12, 64, True, False, bf
+    yield "s 1000", 4, 1000, 1000, 12, 64, False, False, bf
+    yield "s 1000 causal", 4, 1000, 1000, 12, 64, True, False, bf
+    yield "d 128", 4, 512, 512, 8, 128, True, False, bf
     # the edges of the TMA tiles
-    yield "d 128 packed", 4, 512, 512, 8, 128, True, True
-    yield "sq 200, sk 1000", 2, 200, 1000, 12, 64, True, False
-    yield "sq 1, sk 333", 2, 1, 333, 12, 64, True, False
-    yield "b x h 1024", 32, 128, 128, 32, 64, False, False
+    yield "d 128 packed", 4, 512, 512, 8, 128, True, True, bf
+    yield "sq 200, sk 1000", 2, 200, 1000, 12, 64, True, False, bf
+    yield "sq 1, sk 333", 2, 1, 333, 12, 64, True, False, bf
+    yield "b x h 1024", 32, 128, 128, 32, 64, False, False, bf
+    # rows with no visible key (causal sq > sk) and b x h past 65535
+    yield "causal sq 1024, sk 256", 4, 1024, 256, 12, 64, True, False, bf
+    # the edge between empty and live rows inside a K2 warpgroup and a K3
+    # query tile (row 100), and between K2's two warpgroups (row 64)
+    yield "causal sq 300, sk 200", 2, 300, 200, 12, 64, True, False, bf
+    yield "d 128 sq 1000, sk 900", 2, 1000, 900, 8, 128, True, False, bf
+    yield "causal sq 1000, sk 936", 2, 1000, 936, 12, 64, True, False, bf
+    yield "b x h 66000", 5500, 128, 128, 12, 64, False, False, bf
+    # the generic route: fp32 at d 32, 64, 128 and bf16 at d 32
+    yield "fp32 d 64 packed", 4, 1024, 1024, 12, 64, True, True, f32
+    yield "fp32 d 32", 4, 512, 512, 8, 32, True, False, f32
+    yield "fp32 d 128", 2, 512, 512, 8, 128, True, False, f32
+    yield "fp32 sq 200, sk 333", 2, 200, 333, 12, 64, False, False, f32
+    yield "fp32 causal sq 300, sk 200", 2, 300, 200, 12, 64, True, False, f32
+    yield "bf16 d 32 packed", 4, 512, 512, 24, 32, True, True, bf
+
+
+def flash_route_counters(fa):
+    """{route: (forward counter, backward counter)} of the flash
+    kernels."""
+    return {fa.WGMMA: (fa.WGMMA_FWD_LAUNCHES, fa.WGMMA_BWD_LAUNCHES),
+            fa.GENERIC: (fa.GENERIC_FWD_LAUNCHES, fa.GENERIC_BWD_LAUNCHES)}
 
 
 def phase_flash_kernels(torch, fa):
+    """K2/K3 (wgmma route) and the generic flash kernels against their
+    plain versions, with fp32 products exact (TF32 off). bf16: out
+    within atol = rtol = 2e-2, lse within 1e-3, gradients within 2e-2 x
+    max|plain|. fp32: out and gradients within 1e-5 x max|plain|, lse
+    within 1e-5 x max|plain lse| on rows that see a key. Rows with no
+    visible key: lse -1e30 exactly, dq 0. Two backward runs bitwise
+    equal; each case counts one launch on its route and none on the
+    other."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    for name, b, sq, sk, h, d, causal, packed in flash_cases():
-        q, k, v, g = flash_inputs(torch, gen, b, sq, sk, h, d, packed)
+    worst = {"fwd": 0.0, "bwd": 0.0, "generic_fwd": 0.0, "generic_bwd": 0.0}
+    for name, b, sq, sk, h, d, causal, packed, dtype in flash_cases(torch):
+        q, k, v, g = flash_inputs(torch, gen, b, sq, sk, h, d, packed,
+                                  dtype)
         scale = 1 / math.sqrt(d)
+        route = fa._check_cuda_args(q, k, v, causal)
+        counters = flash_route_counters(fa)
+        for c in (*counters[fa.WGMMA], *counters[fa.GENERIC]):
+            c.reset()
         out, lse = fa._launch_fwd(q, k, v, causal, scale)
         dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, g, causal, scale)
         torch.cuda.synchronize()
+        counts = {r: (f.count, bw.count) for r, (f, bw) in counters.items()}
+        check(counts == {r: (1, 1) if r == route else (0, 0)
+                         for r in counters},
+              f"{name}: launches by route {counts}, expected {route}")
         pout, plse = fa.flash_forward_plain(q, k, v, causal, scale)
-        torch.testing.assert_close(out.float(), pout.float(),
-                                   **TOL["bfloat16"])
-        torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
+        empty = fa.empty_rows(sq, sk, causal, q.device)
+        fp32 = dtype == torch.float32
+        if fp32:
+            tol_o = 1e-5 * pout.abs().max().item()
+            torch.testing.assert_close(out, pout, atol=tol_o, rtol=0)
+        else:
+            torch.testing.assert_close(out.float(), pout.float(),
+                                       **TOL["bfloat16"])
+        live_lse, live_plse = lse[:, :, ~empty], plse[:, :, ~empty]
+        tol_l = 1e-5 * live_plse.abs().max().item() if fp32 else 1e-3
+        torch.testing.assert_close(live_lse, live_plse, atol=tol_l, rtol=0)
+        check(bool((lse[:, :, empty] == -1e30).all()),
+              f"{name}: an empty row's lse is not -1e30")
         err_o = (out.float() - pout.float()).abs().max().item()
         # the backward held against its plain version on the kernel's
         # own forward (the residuals the autograd Function saves)
         plain = fa.flash_backward_plain(q, k, v, out, lse, g, causal, scale)
+        check(bool((dq[:, empty] == 0).all()), f"{name}: empty rows' dq")
         rel = []
+        lim = 1e-5 if fp32 else 2e-2
         for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
             check(bool(torch.isfinite(got).all()), f"{name}: {gname} "
                                                    f"not finite")
             e = (got.float() - want.float()).abs().max().item()
             ref = want.float().abs().max().item()
-            check(e <= 2e-2 * ref, f"{name}: {gname} max err {e:.3e} > "
-                                   f"2e-2 x max|plain| {ref:.3e}")
-            worst["bwd"] = max(worst["bwd"], e)
+            check(e <= lim * ref, f"{name}: {gname} max err {e:.3e} > "
+                                  f"{lim:g} x max|plain| {ref:.3e}")
+            key = "bwd" if route == fa.WGMMA else "generic_bwd"
+            worst[key] = max(worst[key], e)
             rel.append(e / ref)
         again = fa._launch_bwd(q, k, v, out, lse, g, causal, scale)
         check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
               f"{name}: two backward runs differ")
-        worst["fwd"] = max(worst["fwd"], err_o)
-        log(f"  K2/K3 {name} (b {b}, sq {sq}, sk {sk}, h {h}, d {d}, "
-            f"causal {causal}{', packed qkv' if packed else ''}): "
-            f"max|out err| {err_o:.3e}, max|lse err| "
-            f"{(lse - plse).abs().max().item():.3e}, dq/dk/dv max err / "
-            f"max|plain| {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e}; backward "
-            f"bitwise deterministic")
+        key = "fwd" if route == fa.WGMMA else "generic_fwd"
+        worst[key] = max(worst[key], err_o)
+        log(f"  {route} {name} (b {b}, sq {sq}, sk {sk}, h {h}, d {d}, "
+            f"{str(dtype)[6:]}, causal {causal}"
+            f"{', packed qkv' if packed else ''}"
+            f"{f', {int(empty.sum())} empty rows' if empty.any() else ''}"
+            f"): max|out err| {err_o:.3e}, max|lse err| "
+            f"{(live_lse - live_plse).abs().max().item():.3e}, dq/dk/dv "
+            f"max err / max|plain| {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} "
+            f"(limit {lim:g}); backward bitwise deterministic")
         del q, k, v, g, out, lse, dq, dk, dv, pout, plse, plain, again
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1000,13 +1123,16 @@ def phase_train(torch, np, P, profile: bool = False):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    fa.FWD_LAUNCHES.reset()
-    fa.BWD_LAUNCHES.reset()
+    for c in (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES, fa.WGMMA_FWD_LAUNCHES,
+              fa.WGMMA_BWD_LAUNCHES):
+        c.reset()
     t0 = time.perf_counter()
     _, losses = trainer.train_steps(ids, ids, steps=TRAIN_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = fa.FWD_LAUNCHES.count, fa.BWD_LAUNCHES.count
+    check((fa.WGMMA_FWD_LAUNCHES.count, fa.WGMMA_BWD_LAUNCHES.count)
+          == (fwd, bwd), "bf16 training left the wgmma route")
     peak = torch.cuda.max_memory_allocated()
     losses = [float(warm)] + losses.cpu().tolist()
     check(all(math.isfinite(x) for x in losses), f"non-finite loss: "
@@ -1031,6 +1157,91 @@ def phase_train(torch, np, P, profile: bool = False):
             "step_ms": step_ms, "tokens_per_s": tok_s,
             "peak_bytes": peak, "wall_s": wall, "warmup_s": warm_s,
             "profile": prof}
+
+
+FP32_TINY_STEPS = 3
+FP32_SMALL_STEPS = 2
+
+
+def phase_train_fp32(torch, np, P):
+    """(6b) fp32 models at `Trainer`'s default amp_level=None, which the
+    generic flash kernels carry (fp32 at any supported head dim):
+    gpt_tiny (head dim 32) takes 3 AdamW steps on the card and the same
+    3 steps on the CPU (plain attention), losses within 1e-4 relative
+    (fp32 both sides, TF32 off; the sums run in other orders); then
+    GPT-small in fp32 takes 2 steps at bs 18 x 1024, every flash launch
+    on the generic route (12 per step each way), none on the wgmma
+    route."""
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = flash_route_counters(fa)
+    ids = np.random.RandomState(2).randint(0, 1024, (8, 256))
+    losses, counts = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = P.models.gpt_tiny(seed=0, device=dev)
+        tr = Trainer(model, AdamW(learning_rate=1e-3),
+                     lambda logits, y, m=model: m.loss(logits, y))
+        t = torch.from_numpy(ids).to(dev)
+        for c in (*counters["wgmma"], *counters["generic"]):
+            c.reset()
+        _, ls = tr.train_steps(t, t, steps=FP32_TINY_STEPS)
+        losses[dev] = ls.cpu().tolist()
+        counts[dev] = {r: (f.count, b.count) for r, (f, b) in
+                       counters.items()}
+    layers = 4
+    n = layers * FP32_TINY_STEPS
+    check(counts["cuda"] == {"wgmma": (0, 0), "generic": (n, n)},
+          f"gpt_tiny fp32 launches by route {counts['cuda']}, want generic "
+          f"{n} = {layers} layers x {FP32_TINY_STEPS} steps")
+    check(counts["cpu"] == {"wgmma": (0, 0), "generic": (0, 0)},
+          "the CPU run launched a kernel")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                 losses["cpu"]))
+    check(all(math.isfinite(x) for x in losses["cuda"]) and rel <= 1e-4,
+          f"gpt_tiny fp32: card losses {losses['cuda']} vs CPU "
+          f"{losses['cpu']}: max relative difference {rel:.3e} > 1e-4")
+    log(f"  gpt_tiny fp32, amp_level=None, AdamW(1e-3), bs 8 x 256: card "
+        f"losses {[round(x, 6) for x in losses['cuda']]}, CPU "
+        f"{[round(x, 6) for x in losses['cpu']]}, max relative difference "
+        f"{rel:.2e} (limit 1e-4); generic launches {n}/{n}, wgmma 0")
+
+    model = P.models.gpt_small(seed=0, device="cuda")
+    cfg = model.cfg
+    check(cfg.num_heads == 12 and cfg.hidden_size == 768,
+          f"not GPT-small: {cfg}")
+    bs, seq = FLASH_SHAPE["b"], FLASH_SHAPE["s"]
+    tr = Trainer(model, AdamW(learning_rate=1e-4),
+                 lambda logits, y: model.loss(logits, y))
+    big = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (bs, seq))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    for c in (*counters["wgmma"], *counters["generic"]):
+        c.reset()
+    t0 = time.perf_counter()
+    _, ls = tr.train_steps(big, big, steps=FP32_SMALL_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    small_counts = {r: (f.count, b.count) for r, (f, b) in counters.items()}
+    n = cfg.num_layers * FP32_SMALL_STEPS
+    check(small_counts == {"wgmma": (0, 0), "generic": (n, n)},
+          f"GPT-small fp32 launches by route {small_counts}, want generic "
+          f"{n}")
+    small_losses = ls.cpu().tolist()
+    check(all(math.isfinite(x) for x in small_losses),
+          f"GPT-small fp32 losses {small_losses}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  GPT-small fp32, amp_level=None, bs {bs} x {seq}: "
+        f"{FP32_SMALL_STEPS} steps in {wall:.2f} s (first step included), "
+        f"losses {[round(x, 4) for x in small_losses]}, peak "
+        f"{peak / 2**30:.2f} GiB; generic launches {n}/{n} = "
+        f"{cfg.num_layers} layers x {FP32_SMALL_STEPS} steps, wgmma 0")
+    del tr, model, big
+    torch.cuda.empty_cache()
+    return {"tiny_losses": losses, "tiny_rel": rel,
+            "small_losses": small_losses, "small_wall_s": wall,
+            "small_peak_bytes": peak, "fwd_launches": n, "bwd_launches": n}
 
 
 class _PlainFlash:
@@ -1141,8 +1352,6 @@ def phase_numbers(torch, dec, engine_run, card: str):
     kc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).to(dtype)
     vc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    sm = torch.arange(S, dtype=torch.int32, device="cuda")
-    block_k, ns = dec.pick_decode_blocks(T, hd, dtype)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     keep = (torch.arange(T, device="cuda")[None, :]
             < lens[:, None].long())[:, None, None]           # (B,1,1,T)
@@ -1150,8 +1359,6 @@ def phase_numbers(torch, dec, engine_run, card: str):
 
     ms = time_ms(torch, lambda: dec.ragged_decode_attention(q, kc, vc, lens),
                  flush)
-    kernel_ms = time_ms(torch, lambda: dec._launch_cuda(
-        q, kc, vc, lens, sm, 1 / math.sqrt(hd), block_k, ns), flush)
     plain_ms = time_ms(torch, lambda: dec.ragged_decode_reference(
         q, kc, vc, lens), flush)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1168,10 +1375,12 @@ def phase_numbers(torch, dec, engine_run, card: str):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    C = dec.cluster_size(T)
     log(f"  K1 at phase-4 shapes (B=S={S}, T={T}, nh={nh}, hd={hd}, bf16, "
-        f"block_k={block_k}, splits={ns}, lengths {lengths}) [card: {card}]")
-    log(f"    wrapper (kernel + split merge) median {ms:.4f} ms; kernel "
-        f"alone {kernel_ms:.4f} ms")
+        f"{C} CTAs per lane and head in one cluster, {C * nh * S} CTAs; "
+        f"lengths {lengths}) [card: {card}]")
+    log(f"    wrapper median {ms:.4f} ms (one launch: the kernel and its "
+        f"cluster merge)")
     log(f"    byte bound {bytes_ms:.5f} ms ({nbytes} B at 3.35 TB/s), op "
         f"bound {ops_ms:.6f} ms -> bound {bound_ms:.5f} ms (bytes)")
     log(f"    plain version (ragged_decode_reference) {plain_ms:.4f} ms; "
@@ -1182,7 +1391,7 @@ def phase_numbers(torch, dec, engine_run, card: str):
         f"{engine_run['decode_ms_per_token']:.3f} ms/token (per decode "
         f"step), TTFT p50 {engine_run['ttft_p50_s'] * 1e3:.1f} ms, p99 "
         f"{engine_run['ttft_p99_s'] * 1e3:.1f} ms")
-    return {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+    return {"ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "lengths": lengths}
@@ -1191,22 +1400,20 @@ def phase_numbers(torch, dec, engine_run, card: str):
 def phase_paged_quant_numbers(torch, np, dec, card: str):
     """(e) K4, K5 and K6 at the phase-4 shapes and lengths (bf16 queries;
     K4 over bf16 pages, K5/K6 over int8 codes with f32 scales; pages of
-    64 rows at shuffled ids): the wrapper's median (kernel + split
-    merge), the kernel alone, the plain version (the full-slab
-    reference), the library yardstick (gather and/or dequantise, then
-    one `scaled_dot_product_attention` with the keep mask; timed only,
-    never on the path), and the bound from this run's lengths."""
+    64 rows at shuffled ids): the wrapper's median (one launch, the
+    merge inside it), the plain version (the full-slab reference), the
+    library yardstick (gather and/or dequantise, then one
+    `scaled_dot_product_attention` with the keep mask; timed only, never
+    on the path), and the bound from this run's lengths."""
     from paddle_tpu_torch.quantization.kv import kv_dequant, kv_quantize
     F = torch.nn.functional
     S, T, nh, hd = 8, 1024, 12, 64
-    scale = 1 / math.sqrt(hd)
     lengths = serving_lengths(np, T)
     gen = torch.Generator(device="cuda").manual_seed(5)
     q = torch.randn(S, nh, hd, device="cuda", generator=gen).bfloat16()
     kc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).bfloat16()
     vc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).bfloat16()
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    sm = torch.arange(S, dtype=torch.int32, device="cuda")
     kq, ks = kv_quantize(kc)
     vq, vs = kv_quantize(vc)
     tables, npages, _ = page_tables(torch, gen, S, T, lengths, PAGE)
@@ -1229,8 +1436,6 @@ def phase_paged_quant_numbers(torch, np, dec, card: str):
         "K4": dict(
             run=lambda: dec.paged_ragged_decode_attention(q, kp, vp, tables,
                                                           lens),
-            kernel=lambda bk, ns: dec._launch_cuda(
-                q, kp, vp, lens, tables, scale, bk, ns, page_size=PAGE),
             blocks=dec.pick_paged_decode_blocks(T, PAGE, hd, bf),
             plain=lambda: dec.paged_decode_reference(q, kp, vp, tables,
                                                      lens),
@@ -1240,8 +1445,6 @@ def phase_paged_quant_numbers(torch, np, dec, card: str):
         "K5": dict(
             run=lambda: dec.ragged_decode_attention(q, kq, vq, lens,
                                                     k_scale=ks, v_scale=vs),
-            kernel=lambda bk, ns: dec._launch_cuda(
-                q, kq, vq, lens, sm, scale, bk, ns, ks, vs),
             blocks=dec.pick_decode_blocks(T, hd, torch.int8),
             plain=lambda: dec.ragged_decode_reference(
                 q, kq, vq, lens, k_scale=ks, v_scale=vs),
@@ -1252,9 +1455,6 @@ def phase_paged_quant_numbers(torch, np, dec, card: str):
         "K6": dict(
             run=lambda: dec.paged_ragged_decode_attention(
                 q, kqp, vqp, tables, lens, k_scale=ksp, v_scale=vsp),
-            kernel=lambda bk, ns: dec._launch_cuda(
-                q, kqp, vqp, lens, tables, scale, bk, ns, ksp, vsp,
-                page_size=PAGE),
             blocks=dec.pick_paged_decode_blocks(T, PAGE, hd, torch.int8),
             plain=lambda: dec.paged_decode_reference(
                 q, kqp, vqp, tables, lens, k_scale=ksp, v_scale=vsp),
@@ -1270,7 +1470,6 @@ def phase_paged_quant_numbers(torch, np, dec, card: str):
     for name, c in cases.items():
         bk, ns = c["blocks"]
         ms = time_ms(torch, c["run"], flush)
-        kernel_ms = time_ms(torch, lambda: c["kernel"](bk, ns), flush)
         plain_ms = time_ms(torch, c["plain"], flush)
         library_ms = time_ms(torch, c["library"], flush)
         torch.testing.assert_close(c["library"]().float(), c["run"]().float(),
@@ -1283,12 +1482,14 @@ def phase_paged_quant_numbers(torch, np, dec, card: str):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / FP32_FLOPS * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        log(f"    {name} (block_k {bk}, splits {ns}, {ns * nh * S} CTAs): "
-            f"wrapper median {ms:.4f} ms, kernel alone {kernel_ms:.4f} ms; "
+        C = dec.cluster_size(T)
+        log(f"    {name} (reference picks block_k {bk}, splits {ns}; "
+            f"{C} CTAs per lane and head, {C * nh * S} CTAs): "
+            f"wrapper median {ms:.4f} ms (one launch); "
             f"bound {bound_ms:.5f} ms ({nbytes} B at 3.35 TB/s; "
             f"{flops} fp32 ops = {ops_ms:.6f} ms); plain {plain_ms:.4f} ms; "
             f"library ({c['library_what']}) {library_ms:.4f} ms")
-        out[name] = {"ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        out[name] = {"ms": ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations", "bytes": nbytes,
@@ -1344,22 +1545,24 @@ def phase_int8_numbers(torch, k7, card: str):
     return out
 
 
-def flash_bound(b, sq, sk, h, d, causal, n_products, n_q, n_k):
+def flash_bound(b, sq, sk, h, d, causal, n_products, n_q, n_k,
+                itemsize=2, peak=BF16_FLOPS):
     """(bound ms, "bytes" | "operations", bytes, flops) of a flash call:
-    `n_q` bf16 (b, sq, h, d) and `n_k` bf16 (b, sk, h, d) tensors each
-    read or written once, plus the fp32 (b, h, sq) logsumexp, over 3.35
-    TB/s; 2 d flops per product per visible (query, key) pair (under
-    the causal rule only the pairs this shape keeps: q + sk - sq >= j),
-    over the bf16 tensor-core peak."""
+    `n_q` (b, sq, h, d) and `n_k` (b, sk, h, d) tensors of `itemsize`
+    bytes each read or written once, plus the fp32 (b, h, sq)
+    logsumexp, over 3.35 TB/s; 2 d flops per product per visible
+    (query, key) pair (under the causal rule only the pairs this shape
+    keeps: q + sk - sq >= j), over the peak of the inputs' type (bf16
+    tensor cores; fp32 67 TFLOP/s)."""
     if causal:
         off = sk - sq
         pairs = sum(min(q + off + 1, sk) for q in range(sq))
     else:
         pairs = sq * sk
     flops = n_products * 2 * d * pairs * b * h
-    nbytes = 2 * b * h * d * (n_q * sq + n_k * sk) + 4 * b * h * sq
+    nbytes = itemsize * b * h * d * (n_q * sq + n_k * sk) + 4 * b * h * sq
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / BF16_FLOPS * 1e3
+    ops_ms = flops / peak * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations"), nbytes, flops
 
@@ -1440,6 +1643,72 @@ def phase_flash_numbers(torch, fa, card: str, built):
                        if n.startswith("flash")}}
 
 
+# the generic route's timing shapes: GPT-small fp32 training (phase 6b)
+# and phase 3's bf16 head dim 32 case
+GENERIC_TIMING = (("fp32 d 64, GPT-small training shape", FLASH_SHAPE["b"],
+                   FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float32"),
+                  ("bf16 d 32", 4, 512, 24, 32, "bfloat16"))
+
+
+def phase_flash_generic_numbers(torch, fa, card: str):
+    """The generic flash kernels at GENERIC_TIMING's shapes (causal,
+    packed qkv): forward and backward medians after an L2 flush beside
+    their bounds (fp32 operations over 67 TFLOP/s, bf16 over the tensor
+    cores' peak), the plain versions and `scaled_dot_product_attention`
+    (a yardstick only, with TF32 off)."""
+    F = torch.nn.functional
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    log(f"  generic flash route [card: {card}]")
+    for name, b, s_, h, d, tname in GENERIC_TIMING:
+        dtype = getattr(torch, tname)
+        q, k, v, g = flash_inputs(torch, gen, b, s_, s_, h, d, True, dtype)
+        scale = 1 / math.sqrt(d)
+        check(fa._check_cuda_args(q, k, v, True) == fa.GENERIC,
+              f"{name}: not the generic route")
+        o, lse = fa._launch_fwd(q, k, v, True, scale)
+        fwd_ms = time_ms(torch, lambda: fa._launch_fwd(q, k, v, True, scale),
+                         flush, reps=10)
+        bwd_ms = time_ms(torch, lambda: fa._launch_bwd(q, k, v, o, lse, g,
+                                                       True, scale),
+                         flush, reps=10)
+        fwd_plain = time_ms(torch, lambda: fa.flash_forward_plain(
+            q, k, v, True, scale), flush, reps=3)
+        bwd_plain = time_ms(torch, lambda: fa.flash_backward_plain(
+            q, k, v, o, lse, g, True, scale), flush, reps=3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush, reps=10)
+        bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True),
+            flush, reps=10)
+        isz = 4 if dtype == torch.float32 else 2
+        peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        bounds = (flash_bound(b, s_, s_, h, d, True, 2, 2, 2, isz, peak),
+                  flash_bound(b, s_, s_, h, d, True, 5, 4, 4, isz, peak))
+        log(f"    {name} (b {b}, s {s_}, h {h}, d {d}, causal, packed "
+            f"qkv):")
+        rec = {}
+        for part, ms, plain, lib, (bound, by, nbytes, flops) in (
+                ("forward", fwd_ms, fwd_plain, fwd_lib, bounds[0]),
+                ("backward", bwd_ms, bwd_plain, bwd_lib, bounds[1])):
+            log(f"      {part}: median {ms:.4f} ms; bound {bound:.4f} ms "
+                f"({by}: {nbytes} B, {flops / 1e9:.2f} GFLOP); plain "
+                f"{plain:.3f} ms; scaled_dot_product_attention "
+                f"{lib:.4f} ms")
+            rec[part] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": bound, "bound_by": by}
+        out[name] = rec
+        del q, k, v, g, o, lse, qt, kt, vt, lib_out
+        torch.cuda.empty_cache()
+    del flush
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON "
@@ -1497,6 +1766,9 @@ def main(argv=None) -> int:
     pvs = phase_paged_vs_slotted(torch, np, P)
     log("phase 6: GPT-small trained at full width through K2 and K3")
     train = phase_train(torch, np, P, profile=args.profile)
+    log("phase 6b: fp32 training at amp_level=None through the generic "
+        "flash kernels (gpt_tiny against the CPU, GPT-small 2 steps)")
+    train32 = phase_train_fp32(torch, np, P)
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = phase_grad_check(torch, np, P)
     log("phase 8: numbers")
@@ -1509,6 +1781,7 @@ def main(argv=None) -> int:
             f"TTFT p50 {run['ttft_p50_s'] * 1e3:.1f} ms, kv_bytes_per_token"
             f" {run['kv_bytes_per_token']:.0f}")
     fnums = phase_flash_numbers(torch, fa, card, built)
+    gnums = phase_flash_generic_numbers(torch, fa, card)
     k7nums = phase_int8_numbers(torch, k7, card)
     log(f"  engine, int8-PTQ GPT-small through K7, phase 4d [card: {card}]: "
         f"{int8_run['tokens_per_s']:.1f} tokens/s, decode "
@@ -1535,6 +1808,16 @@ def main(argv=None) -> int:
         "source": "paddle_tpu_torch/ops_cuda/csrc/flash_attention_bwd.cu",
         "replaces": f"{flash}:205", "launches": train["bwd_launches"],
         "max_abs_err": flash_err["bwd"], **fnums.pop("bwd")}]
+    gen_main = gnums[GENERIC_TIMING[0][0]]
+    for part, line, key in (("fwd", 90, "forward"), ("bwd", 205,
+                                                     "backward")):
+        kernels.append({
+            "name": f"flash_attention_generic_{part}", "route": "cuda",
+            "source": "paddle_tpu_torch/ops_cuda/csrc/"
+                      "flash_attention_generic.cu",
+            "replaces": f"{flash}:{line}",
+            "launches": train32[f"{part}_launches"],
+            "max_abs_err": flash_err[f"generic_{part}"], **gen_main[key]})
     dpy = "paddle_tpu/ops_pallas/decode_attention.py"
     for name, line, what in (("K4", 258, "paged_decode"),
                              ("K5", 242, "ragged_decode_int8"),
@@ -1568,7 +1851,6 @@ def main(argv=None) -> int:
                     if k not in ("prompts", "params", "streams")}
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels,
-                       "kernel_only_ms": nums["kernel_ms"],
                        "timing_lengths": nums["lengths"],
                        "engine": drop(engine_run),
                        "engine_variants": {k: drop(v)
@@ -1579,6 +1861,8 @@ def main(argv=None) -> int:
                        "train": train, "grad_check": grad,
                        "int8_serving": int8_run, "speculative": spec,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
+                       "flash_generic_numbers": gnums,
+                       "train_fp32": train32,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

@@ -64,6 +64,10 @@
 //   dq:    the last key tile is the one holding key q_last + off.
 // Only tiles that cross the diagonal or a ragged end are masked, and a
 // masked p and ds are exactly 0 (TMA zero-fills rows past sq and sk).
+// Causal sq > sk leaves the first sq - sk query rows with no visible key;
+// as in the reference (`jax.grad` of its uniform softmax) such a row has
+// p = 1 / sk on every key and ds = 0: the dk/dv kernel then sweeps every
+// query tile, and the dq kernel writes 0 for the row.
 // Inputs are read through (batch, seq, head) byte strides in the tensor
 // maps, so the fused qkv projection needs no flatten copies.
 #include "flash_attention_common.cuh"
@@ -92,6 +96,7 @@ struct Params {
   int nbh;        // batch * heads
   int* counters;  // the next work item of dk/dv and of dq, zeroed first
   float scale;
+  float inv_sk;   // 1 / sk: an empty row's p (causal sq > sk)
   Strides dqs, dks, dvs;
 };
 
@@ -173,9 +178,10 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
   const int nkt = (sk + kRows - 1) / kRows;  // key tiles of a head
   const int items = nkt * p.nbh;
   // first query tile with any row that sees key `key` (floor; see the
-  // note); < nqt while key < sk, since the last query sees every key
+  // note); < nqt while key < sk, since the last query sees every key.
+  // With causal sq > sk every tile: the empty rows add g / sk to dv.
   auto first_tile = [&](int key) {
-    return p.causal ? max(key - off, 0) / BQ : 0;
+    return p.causal && off >= 0 ? max(key - off, 0) / BQ : 0;
   };
 
   if (threadIdx.x == 0) {
@@ -277,7 +283,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
               const int q = q0 + qc + (e & 1), key = key_a + 8 * (e >> 1);
               const bool keep =
                   (q < sq) & (!p.causal | causal_keep(q, key, off));
-              pv = keep ? pv : 0.f;
+              const bool empty = p.causal & (q + off < 0);
+              pv = empty ? (key < sk ? p.inv_sk : 0.f) : (keep ? pv : 0.f);
             }
             st[4 * c + e] = pv;
           }
@@ -299,6 +306,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
         for (int e = 0; e < 4; ++e)
           dpt[4 * c + e] =
               st[4 * c + e] * (dpt[4 * c + e] - ((e & 1) ? dl.y : dl.x));
+      }
+      if (p.causal && q0 + off < 0) {  // an empty row's ds is 0
+#pragma unroll
+        for (int c = 0; c < BQ / 8; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (q0 + 8 * c + 2 * t + (e & 1) + off < 0) dpt[4 * c + e] = 0.f;
       }
       to_a_frags<BQ>(sa, dpt);
 
@@ -352,8 +366,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
   const int nqt = (sq + kRows - 1) / kRows;
   const int items = nqt * p.nbh;
   const int nkt_all = (sk + BK - 1) / BK;
+  // key tiles rows up to `last_row` see; 0 when even the last row sees
+  // no key (causal sq > sk: the empty rows' p and dq are 0)
   auto live_tiles = [&](int last_row) {
-    return p.causal ? min(nkt_all, (last_row + off) / BK + 1) : nkt_all;
+    if (!p.causal) return nkt_all;
+    return last_row + off < 0 ? 0 : min(nkt_all, (last_row + off) / BK + 1);
   };
 
   if (threadIdx.x == 0) {
@@ -602,8 +619,8 @@ extern "C" int flash_bwd_launch(
     void* dk, void* dv, int batch, int nh, int sq, int sk, int d,
     const long long* strides, int causal, float scale, int parts,
     void* stream) {
-  if (batch < 1 || nh < 1 || sq < 1 || sk < 1 || batch * nh > 65535 ||
-      (causal && sq > sk))
+  if (batch < 1 || nh < 1 || sq < 1 || sk < 1 ||
+      !indices_fit(batch, nh, sq, sk))
     return static_cast<int>(cudaErrorInvalidValue);
   // strides: (b, s, h) for q, k, v, out, g, dq, dk, dv in that order
   Strides st[8];
@@ -615,7 +632,8 @@ extern "C" int flash_bwd_launch(
                  static_cast<bf16*>(dk),
                  static_cast<bf16*>(dv),
                  nh, sq, sk, causal, batch * nh,
-                 static_cast<int*>(counters), scale, st[5], st[6], st[7]};
+                 static_cast<int*>(counters), scale, 1.f / sk, st[5], st[6],
+                 st[7]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (d == 64)

@@ -186,6 +186,15 @@ __host__ __device__ constexpr int lse_rows(int sq) {
   return (sq + 127) / 128 * 128;
 }
 
+// The kernels index work items, lse and delta rows with 32-bit ints:
+// batch * heads * lse_rows(max(sq, sk)) must stay below 2^31. Neither
+// grid dimension of K2/K3 depends on batch * heads (the grids are
+// persistent); the generic kernels' grid x, 64-row tiles x batch x
+// heads, stays below the same bound.
+inline bool indices_fit(int batch, int nh, int sq, int sk) {
+  return (long long)batch * nh * lse_rows(sq > sk ? sq : sk) < (1ll << 31);
+}
+
 template <int ROWS, int D>
 __host__ __device__ constexpr uint32_t tile_bytes() {
   return ROWS * D * sizeof(bf16);
@@ -239,6 +248,10 @@ __device__ __forceinline__ void fence_regs(uint32_t (*a)[4]) {
   for (int i = 0; i < KSTEPS; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
 }
 
 // 2^x on the special-function unit (flushes denormal results to 0)

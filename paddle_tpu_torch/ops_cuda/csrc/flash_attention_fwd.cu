@@ -40,6 +40,10 @@
 // - Under the causal rule each warpgroup visits only the key tiles its
 //   last row can see and masks only the tiles that cross the diagonal or
 //   the ragged end. TMA's zero fill covers the ragged ends of q, k, v.
+// - Causal sq > sk leaves the first sq - sk rows with no visible key.
+//   The reference gives them a uniform softmax over all sk keys (the
+//   mean of v). A warpgroup holding such a row visits every key tile,
+//   scores the row 0 on each key (-inf past sk) and writes lse -1e30.
 // - q, k, v are read through (batch, seq, head) byte strides in the
 //   tensor maps, so the fused qkv projection (b, s, 3, h, d) is attended
 //   in place.
@@ -89,12 +93,17 @@ struct Item {
     b = bh / p.nh;
     h = bh % p.nh;
     q0 = (ntq - 1 - rank) * kBlockQ;
-    nkt = live_tiles(p, min(q0 + kBlockQ, p.sq) - 1, bk);
+    nkt = live_tiles(p, q0, min(q0 + kBlockQ, p.sq) - 1, bk);
   }
-  // key tiles of `bk` keys that row `last_row` sees
-  static __device__ int live_tiles(const Params& p, int last_row, int bk) {
+  // key tiles of `bk` keys that rows [first_row, last_row] see. A row
+  // with no visible key (first_row + sk - sq < 0, causal sq > sk) takes
+  // the mean of every key's v, so a block holding one visits every tile.
+  static __device__ int live_tiles(const Params& p, int first_row,
+                                   int last_row, int bk) {
     const int all = (p.sk + bk - 1) / bk;
-    return p.causal ? min(all, (last_row + p.sk - p.sq) / bk + 1) : all;
+    const int off = p.sk - p.sq;
+    if (!p.causal || first_row + off < 0) return all;
+    return min(all, (last_row + off) / bk + 1);
   }
 };
 
@@ -151,7 +160,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
     const Item w(p, i, BK);
     const int qw = w.q0 + 64 * wg;
     const int nkt_w =
-        qw < p.sq ? Item::live_tiles(p, min(qw + 64, p.sq) - 1, BK) : 0;
+        qw < p.sq ? Item::live_tiles(p, qw, min(qw + 64, p.sq) - 1, BK) : 0;
     const int row_a = qw + 16 * w4 + g;  // this thread's rows: +0 and +8
     const bf16* sq_tile = sm.q[j & 1];
 
@@ -166,17 +175,25 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
     // crosses the diagonal or the ragged end takes the masked variant.
     auto softmax = [&](float* sc, int kt, float* alpha) {
       const int k0 = kt * BK;
-      auto body = [&](auto masked) {
+      // mask: 0 none, 1 the causal rule and the ragged end, 2 that and
+      // rows with no visible key (only a warpgroup that holds one)
+      auto body = [&](auto mask) {
+        constexpr int kMask = decltype(mask)::value;
         float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
         for (int x = 0; x < BK / 2; ++x) {
           const int r = (x >> 1) & 1;
-          if constexpr (decltype(masked)::value) {
+          if constexpr (kMask > 0) {
             const int col = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+            const int row = row_a + 8 * r;
             const bool keep = (col < p.sk) &
-                              (!p.causal | causal_keep(row_a + 8 * r, col,
-                                                       off));
+                              (!p.causal | causal_keep(row, col, off));
             sc[x] = keep ? sc[x] : kNegInf;
+            if constexpr (kMask == 2) {
+              // an empty row scores 0 on every key and -inf past sk: p =
+              // 1 on each of the sk keys (its -1e30 scores are all equal)
+              if (row + off < 0) sc[x] = col < p.sk ? 0.f : neg_inf();
+            }
           }
           mx[r] = fmaxf(mx[r], sc[x]);  // the raw scores: the scale is > 0
         }
@@ -196,10 +213,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
           l_r[r] += sc[x];
         }
       };
-      if (k0 + BK > p.sk || (p.causal && k0 + BK - 1 > qw + off))
-        body(std::true_type{});
+      if (p.causal && qw + off < 0)
+        body(std::integral_constant<int, 2>{});
+      else if (k0 + BK > p.sk || (p.causal && k0 + BK - 1 > qw + off))
+        body(std::integral_constant<int, 1>{});
       else
-        body(std::false_type{});
+        body(std::integral_constant<int, 0>{});
     };
 
     if (nkt_w > 0) {
@@ -262,9 +281,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
       const float l_safe = l == 0.f ? 1.f : l;
       inv[r] = 1.f / l_safe;
       const int row = row_a + 8 * r;  // < lse_rows(sq): 0 past sq
+      // an empty row's lse is -1e30 + log sk = -1e30 in fp32, as the
+      // plain version gives it; the backward treats the row explicitly
+      const float lse = p.causal && row + off < 0
+                            ? kNegInf
+                            : (m_r[r] + log2f(l_safe)) * kLn2;
       if (t == 0)
         p.lse[(long long)w.bh * lse_rows(p.sq) + row] =
-            row < p.sq ? (m_r[r] + log2f(l_safe)) * kLn2 : 0.f;
+            row < p.sq ? lse : 0.f;
     }
     bf16* ob = p.out + w.b * p.os.b + w.h * p.os.h;
 #pragma unroll
@@ -342,8 +366,8 @@ extern "C" int flash_fwd_launch(
     long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, int causal, float scale, void* stream) {
-  if (batch < 1 || nh < 1 || sq < 1 || sk < 1 || batch * nh > 65535 ||
-      (causal && sq > sk))
+  if (batch < 1 || nh < 1 || sq < 1 || sk < 1 ||
+      !indices_fit(batch, nh, sq, sk))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};

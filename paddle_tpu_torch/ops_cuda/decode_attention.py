@@ -7,8 +7,12 @@ sequence, with the row range of each lane cut into `num_splits`
 independent partials. Each partial emits an UNNORMALISED fp32
 accumulator plus its (max, sum-exp) pair and the count of `block_k`-row
 chunks it visited; `_merge_splits` combines the partials (plain torch,
-as it is plain jnp in JAX). Four variants share one body and differ in
-two seams, as the Pallas kernels do:
+as it is plain jnp in JAX). That is the plain version the CPU runs.
+The CUDA kernel cuts each lane into `cluster_size(T)` ranges instead,
+a function of T alone, and merges them inside the launch through a
+thread-block cluster: one launch and one output per call. Four
+variants share one body and differ in two seams, as the Pallas kernels
+do:
 
 | kernel | entry | addressing | storage |
 |---|---|---|---|
@@ -43,7 +47,8 @@ from ..quantization.kv import kv_dequant
 __all__ = ["ragged_decode_attention", "paged_ragged_decode_attention",
            "ragged_decode_reference", "paged_decode_reference",
            "ragged_decode_split_plain", "paged_decode_split_plain",
-           "pick_decode_blocks", "pick_paged_decode_blocks", "LAUNCHES",
+           "pick_decode_blocks", "pick_paged_decode_blocks",
+           "cluster_size", "LAUNCHES",
            "PAGED_LAUNCHES", "QUANT_LAUNCHES", "PAGED_QUANT_LAUNCHES",
            "launch_counter"]
 
@@ -162,6 +167,18 @@ def pick_paged_decode_blocks(max_seq: int, page_size: int, head_dim: int,
     if max_seq % (bk * ns) != 0:
         ns = 1
     return bk, ns
+
+
+def cluster_size(max_seq: int) -> int:
+    """C(T), the CUDA kernel's CTAs per (lane, head): min(8, max(1,
+    T // 128)), each over a fixed range of ceil(T / C) rows. A function
+    of T alone, never of the lengths (they live on the device) nor of
+    the addressing or block_k, so K1 and K4 give the same bits on the
+    same rows, a speculative virtual lane the plain step's, and a lane
+    served alone its batched bits. 8 is the portable cluster size.
+    Separate from `pick_decode_blocks`, which keeps the reference's
+    (block_k, num_splits) for the visit counts."""
+    return min(8, max(1, max_seq // 128))
 
 
 def ragged_decode_split_plain(q, kc, vc, lengths, slot_map, scale: float,
@@ -299,32 +316,30 @@ def _check_cuda_args(q, kc, vc, lengths, index, block_k, num_splits,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # q, kc, vc, k_scale, v_scale, lengths, index, acc, m, l, visits;
-    # batch, t_rows, nh, hd, q_dtype, kv_dtype, block_k, num_splits,
-    # page_size, max_pages; scale; stream
-    "decode_attention_launch": (ctypes.c_int, [_P] * 11 + [_I] * 10
+    # q, kc, vc, k_scale, v_scale, lengths, index, out, visits; batch,
+    # t_rows, nh, hd, q_dtype, kv_dtype, block_k, num_splits, page_size,
+    # max_pages, cluster; scale; stream
+    "decode_attention_launch": (ctypes.c_int, [_P] * 9 + [_I] * 11
                                 + [ctypes.c_float, _P]),
     "error_string": (ctypes.c_char_p, [_I]),
 }
 
 
 def _launch_cuda(q, kc, vc, lengths, index, scale, block_k, num_splits,
-                 k_scale=None, v_scale=None, page_size: int = 0):
+                 k_scale=None, v_scale=None, page_size: int = 0,
+                 with_stats: bool = False):
     """One launch of the variant the arguments select (slotted or
-    paged by `page_size`, fp or int8 by the scales); returns the raw
-    split outputs (acc, m, l, visits) and counts the launch."""
+    paged by `page_size`, fp or int8 by the scales): the merged output
+    (B, nh, hd) in q's dtype, and the (B, num_splits) visit counts when
+    `with_stats` (else None). Counts the launch."""
     from ._build import load_library
     T = _check_cuda_args(q, kc, vc, lengths, index, block_k, num_splits,
                          k_scale, v_scale, page_size)
     quant = k_scale is not None
     B, nh, hd = q.shape
-    acc = torch.empty((B, num_splits, nh, hd), dtype=torch.float32,
-                      device=q.device)
-    m = torch.empty((B, num_splits, 1, nh), dtype=torch.float32,
-                    device=q.device)
-    l_ = torch.empty_like(m)
+    out = torch.empty_like(q)
     visits = torch.empty((B, num_splits), dtype=torch.int32,
-                         device=q.device)
+                         device=q.device) if with_stats else None
     lib = load_library("decode_attention", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -332,25 +347,26 @@ def _launch_cuda(q, kc, vc, lengths, index, scale, block_k, num_splits,
             q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None, lengths.data_ptr(),
-            index.data_ptr(), acc.data_ptr(), m.data_ptr(), l_.data_ptr(),
-            visits.data_ptr(), B, T, nh, hd, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[kc.dtype], block_k, num_splits, page_size,
-            index.shape[1] if page_size else 0, scale, stream)
+            index.data_ptr(), out.data_ptr(),
+            visits.data_ptr() if with_stats else None, B, T, nh, hd,
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[kc.dtype], block_k, num_splits,
+            page_size, index.shape[1] if page_size else 0, cluster_size(T),
+            scale, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"{lib.error_string(err).decode()} ({err})")
     launch_counter(page_size > 0, quant).count += 1
-    return acc, m, l_, visits
+    return out, visits
 
 
 def _run(q, squeeze, with_stats, cuda_fn, plain_fn):
     if q.device.type == "cuda":
-        o, m, l_, visits = cuda_fn()
+        out, visits = cuda_fn()
     elif q.device.type == "cpu":
         o, m, l_, visits = plain_fn()
+        out = _merge_splits(o, m, l_, q.dtype)
     else:
         raise ValueError(f"unsupported device {q.device}")
-    out = _merge_splits(o, m, l_, q.dtype)
     if squeeze:
         out = out[:, None]
     return (out, visits) if with_stats else out
@@ -393,7 +409,8 @@ def ragged_decode_attention(q, kc, vc, lengths,
     return _run(
         q, squeeze, with_stats,
         lambda: _launch_cuda(q, kc, vc, lengths, slot_map, scale, block_k,
-                             num_splits, k_scale, v_scale),
+                             num_splits, k_scale, v_scale,
+                             with_stats=with_stats),
         lambda: ragged_decode_split_plain(q, kc, vc, lengths, slot_map,
                                           scale, block_k, num_splits,
                                           k_scale, v_scale))
@@ -433,7 +450,8 @@ def paged_ragged_decode_attention(q, kp, vp, tables, lengths,
     return _run(
         q, squeeze, with_stats,
         lambda: _launch_cuda(q, kp, vp, lengths, tables, scale, block_k,
-                             num_splits, k_scale, v_scale, page_size=page),
+                             num_splits, k_scale, v_scale, page_size=page,
+                             with_stats=with_stats),
         lambda: paged_decode_split_plain(q, kp, vp, tables, lengths, scale,
                                          block_k, num_splits, k_scale,
                                          v_scale))

@@ -8,21 +8,29 @@ backward `_bwd_merged_kernel` (launched by `_flash_backward_flat`), the
 kernels are held against. Layout (batch, seq, heads, head_dim), as in
 the JAX package.
 
-On a CUDA tensor `FlashAttentionFunction` launches the hand-written
-Hopper kernels (`csrc/flash_attention_fwd.cu`,
-`csrc/flash_attention_bwd.cu`: TMA loads and wgmma products, built on
-first use by `_build.py`) or raises on what they do not take; on CPU
-tensors it runs `flash_forward_plain` / `flash_backward_plain`, the same
-functions in plain torch. There is no fallback from one to the other.
-Each CUDA launch adds one to `FWD_LAUNCHES` or `BWD_LAUNCHES` (one
-backward call launches three kernels, delta, dk/dv and dq, and counts
-once).
+On a CUDA tensor `FlashAttentionFunction` launches hand-written Hopper
+kernels, built on first use by `_build.py`, on one of two routes fixed
+by dtype and head dim (`_check_cuda_args`, which raises on anything
+else): bf16 at head dim 64 or 128 goes to the wgmma kernels
+(`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`: TMA
+loads and wgmma products), fp32 at 32, 64 or 128 and bf16 at 32 to the
+generic ones (`csrc/flash_attention_generic.cu`: fp32 FFMA products).
+On CPU tensors it runs `flash_forward_plain` / `flash_backward_plain`,
+the same functions in plain torch. There is no fallback from one to
+the other. Each CUDA launch adds one to `FWD_LAUNCHES` or
+`BWD_LAUNCHES` and to its route's own counter (one backward call
+launches three kernels, delta, dk/dv and dq, and counts once).
 
-The kernels read q, k, v through TMA tensor maps over their (batch,
-seq, head) strides, so the slices of the fused qkv projection go in
-without copies; TMA needs a contiguous head dim, a 16-byte aligned base
-and strides that are multiples of 16 bytes (`_check_cuda_args`). The
-logsumexp is (batch, heads, seq_q) fp32; the JAX kernels keep it as
+Causal attention with sq > sk leaves the first sq - sk query rows with
+no visible key; every version gives them the reference's uniform
+softmax over all sk keys (`empty_rows`).
+
+The wgmma kernels read q, k, v through TMA tensor maps over their
+(batch, seq, head) strides, so the slices of the fused qkv projection
+go in without copies; TMA needs a contiguous head dim, a 16-byte
+aligned base and strides that are multiples of 16 bytes. The generic
+kernels read the same strides with plain loads. The logsumexp is
+(batch, heads, seq_q) fp32; the JAX kernels keep it as
 (batch * heads, 1, seq_q).
 """
 from __future__ import annotations
@@ -37,14 +45,30 @@ from .decode_attention import _LaunchCounter
 
 __all__ = ["dot_product_attention", "FlashAttentionFunction",
            "flash_forward_plain", "flash_backward_plain",
-           "flash_delta_plain", "attention_reference", "FWD_LAUNCHES",
-           "BWD_LAUNCHES"]
+           "flash_delta_plain", "attention_reference", "empty_rows",
+           "FWD_LAUNCHES", "BWD_LAUNCHES", "WGMMA_FWD_LAUNCHES",
+           "WGMMA_BWD_LAUNCHES", "GENERIC_FWD_LAUNCHES",
+           "GENERIC_BWD_LAUNCHES"]
 
 NEG_INF = -1e30
-_SUPPORTED_HD = (64, 128)
+# (dtype, head dims) each route takes: the wgmma K2/K3 (bf16 at d 64 and
+# 128) and the generic kernels (csrc/flash_attention_generic.cu) for the
+# rest: fp32 at d 32, 64, 128 and bf16 at d 32
+WGMMA, GENERIC = "wgmma", "generic"
+_ROUTES = {(torch.bfloat16, 64): WGMMA, (torch.bfloat16, 128): WGMMA,
+           (torch.bfloat16, 32): GENERIC, (torch.float32, 32): GENERIC,
+           (torch.float32, 64): GENERIC, (torch.float32, 128): GENERIC}
+_SUPPORTED_HD = tuple(sorted({d for _, d in _ROUTES}))
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# every launch of either route (one per forward or backward call)...
 FWD_LAUNCHES = _LaunchCounter()
 BWD_LAUNCHES = _LaunchCounter()
+# ...and each route's own share, so a run can show which route it took
+WGMMA_FWD_LAUNCHES = _LaunchCounter()
+WGMMA_BWD_LAUNCHES = _LaunchCounter()
+GENERIC_FWD_LAUNCHES = _LaunchCounter()
+GENERIC_BWD_LAUNCHES = _LaunchCounter()
 
 
 def _not_ported(what: str):
@@ -113,6 +137,18 @@ def flash_delta_plain(out, g):
     return (out.to(f32) * g.to(f32)).sum(-1).permute(0, 2, 1)
 
 
+def empty_rows(sq: int, sk: int, causal: bool, device=None):
+    """(sq,) bool: the query rows that see no key. Under the bottom-right
+    causal rule row q sees keys j <= q + sk - sq, so with sq > sk the
+    first sq - sk rows see none. The reference gives such a row a
+    uniform softmax over all sk keys (its -1e30 scores are all equal):
+    out = the mean of v, and under `jax.grad` dq = 0, no dk from it and
+    dv += g / sk."""
+    rows = torch.arange(sq, device=device)
+    return rows + (sk - sq) < 0 if causal else torch.zeros_like(
+        rows, dtype=torch.bool)
+
+
 def flash_backward_plain(q, k, v, out, lse, g, causal: bool, scale: float
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
@@ -120,15 +156,21 @@ def flash_backward_plain(q, k, v, out, lse, g, causal: bool, scale: float
     with p = exp(s - lse), dv = (p in g's dtype)^T g, dp = g v^T,
     delta = rowsum(out * g) in fp32, ds = p (dp - delta) scale in q's
     dtype, dq = ds k, dk = ds^T q; products of exact operand values
-    summed in fp32."""
+    summed in fp32. A row with no visible key (`empty_rows`) takes
+    p = 1 / sk and ds = 0 explicitly: its lse, -1e30 + log sk, rounds to
+    -1e30 in fp32 and cannot give that p."""
     f32 = torch.float32
+    sq, sk = q.shape[1], k.shape[1]
     s = _scores(q, k, causal, scale)
     p = torch.exp(s - lse[..., None])
+    empty = empty_rows(sq, sk, causal, q.device)[:, None]      # (sq, 1)
+    p = torch.where(empty, 1.0 / sk, p)
     gf = g.to(f32)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).to(f32), gf)
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.to(f32))
     delta = flash_delta_plain(out, g)[..., None]
-    ds = (p * (dp - delta) * scale).to(q.dtype).to(f32)
+    ds = torch.where(empty, 0.0, p * (dp - delta) * scale)
+    ds = ds.to(q.dtype).to(f32)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(f32))
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(f32))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -138,17 +180,20 @@ def flash_backward_plain(q, k, v, out, lse, g, causal: bool, scale: float
 # the CUDA path
 # --------------------------------------------------------------------------- #
 
-def _check_cuda_args(q, k, v, causal: bool):
-    """What K2/K3 take; raises on anything else (the wrapper never runs
-    the plain version on the card)."""
+def _check_cuda_args(q, k, v, causal: bool) -> str:
+    """What the flash kernels take, and which of them: returns the route
+    (`WGMMA` for bf16 at head dim 64 or 128, `GENERIC` for fp32 at 32,
+    64 or 128 and bf16 at 32), a fixed choice by dtype and head dim.
+    Raises on anything else (the wrapper never runs the plain version
+    on the card)."""
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise TypeError(f"q/{name} dtypes differ: {q.dtype}, {t.dtype}")
-    if q.dtype != torch.bfloat16:
+    if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"dtype {q.dtype} not supported by the flash "
-                        f"kernels (bfloat16 only)")
+                        f"kernels (bfloat16, float32)")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} must be (b, s, h, d), k and v "
@@ -161,14 +206,26 @@ def _check_cuda_args(q, k, v, causal: bool):
         raise ValueError(f"head_dim {d} not supported by the flash kernels "
                          f"(one of {_SUPPORTED_HD})")
     sk = k.shape[1]
-    if causal and sq > sk:
-        raise ValueError(f"causal attention with sq {sq} > sk {sk} leaves "
-                         f"rows with no visible key; the kernels do not "
-                         f"take it")
-    if b * h > 65535:
-        raise ValueError(f"batch * heads {b * h} out of range")
+    rows = b * h * _lse_rows(max(sq, sk))
+    if rows >= 2 ** 31:
+        raise ValueError(f"batch * heads * round_up(max(sq, sk), 128) = "
+                         f"{rows} reaches 2^31: the kernels index work "
+                         f"items and lse rows with 32-bit ints")
+    route = _ROUTES[(q.dtype, d)]
     for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_layout(route, name, t)
+    return route
+
+
+def _check_layout(route: str, name, t):
+    """The layout a route reads: TMA's rules on the wgmma route, a
+    contiguous head dim (plain loads over any strides) on the generic
+    one."""
+    if route == WGMMA:
         _check_tma_layout(name, t)
+    elif t.stride(-1) != 1:
+        raise ValueError(f"{name} needs a contiguous head dim (layout "
+                         f"strides {t.stride()})")
 
 
 def _check_tma_layout(name, t):
@@ -194,6 +251,17 @@ _FWD_SIGNATURES = {
     "flash_fwd_launch": (_I, [_P] * 6 + [_I] * 5 + [_LL] * 12
                          + [_I, _F, _P]),
     "flash_fwd_info": (None, [_I, _P]),
+    "error_string": (ctypes.c_char_p, [_I]),
+}
+_GENERIC_SIGNATURES = {
+    # q, k, v, out, lse; b, h, sq, sk, d, dtype; strides (b, s, h of q,
+    # k, v, out); causal; scale; stream
+    "flash_generic_fwd_launch": (_I, [_P] * 5 + [_I] * 6
+                                 + [_P, _I, _F, _P]),
+    # q, k, v, out, g, lse, delta, dq, dk, dv; b, h, sq, sk, d, dtype;
+    # strides (of q, k, v, out, g, dq, dk, dv); causal; scale; stream
+    "flash_generic_bwd_launch": (_I, [_P] * 10 + [_I] * 6
+                                 + [_P, _I, _F, _P]),
     "error_string": (ctypes.c_char_p, [_I]),
 }
 _BWD_SIGNATURES = {
@@ -240,14 +308,44 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _strides(*ts):
+    """The (batch, seq, head) element strides of each tensor, as the C
+    array the generic kernels take."""
+    return (_LL * (3 * len(ts)))(*(x for t in ts for x in _bsh(t)))
+
+
+def _raise_on(err, lib, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.error_string(err).decode()} ({err})")
+
+
+def _launch_generic_fwd(q, k, v, causal: bool, scale: float, out, lse):
+    from ._build import load_library
+    b, sq, h, d = q.shape
+    lib = load_library("flash_attention_generic", _GENERIC_SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_generic_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, sq, k.shape[1], d, _DTYPE_CODE[q.dtype],
+            ctypes.cast(_strides(q, k, v, out), ctypes.c_void_p),
+            int(causal), scale, _stream(q))
+    _raise_on(err, lib, "generic flash forward")
+    GENERIC_FWD_LAUNCHES.count += 1
+
+
 def _launch_fwd(q, k, v, causal: bool, scale: float):
     from ._build import load_library
-    _check_cuda_args(q, k, v, causal)
+    route = _check_cuda_args(q, k, v, causal)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = _row_buffer(b, h, sq, q.device)
     if out.numel() == 0:
+        return out, lse
+    if route == GENERIC:
+        _launch_generic_fwd(q, k, v, causal, scale, out, lse)
+        FWD_LAUNCHES.count += 1
         return out, lse
     counter = torch.empty(1, dtype=torch.int32, device=q.device)
     lib = load_library("flash_attention_fwd", _FWD_SIGNATURES)
@@ -256,9 +354,8 @@ def _launch_fwd(q, k, v, causal: bool, scale: float):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), counter.data_ptr(), b, h, sq, sk, d, *_bsh(q),
             *_bsh(k), *_bsh(v), *_bsh(out), int(causal), scale, _stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash forward kernel launch failed: "
-                           f"{lib.error_string(err).decode()} ({err})")
+    _raise_on(err, lib, "flash forward")
+    WGMMA_FWD_LAUNCHES.count += 1
     FWD_LAUNCHES.count += 1
     return out, lse
 
@@ -273,16 +370,19 @@ def _bwd_rows(b, h, sq, device):
 
 def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float,
                 parts: int = BWD_ALL, rows=None):
-    """(dq, dk, dv) through the three backward kernels. `parts` and
-    `rows` (from `_bwd_rows`) let a timing run launch one kernel at a
-    time (dk/dv and dq read `rows`, which the delta kernel writes); the
-    autograd path runs them all. `lse` is the forward's; one in another
-    layout is copied into a row buffer first."""
+    """(dq, dk, dv) through the three backward kernels of the route.
+    On the wgmma route `parts` and `rows` (from `_bwd_rows`) let a
+    timing run launch one kernel at a time (dk/dv and dq read `rows`,
+    which the delta kernel writes); the autograd path runs them all.
+    `lse` is the forward's; one in another layout is copied into a row
+    buffer first."""
     from ._build import load_library
-    _check_cuda_args(q, k, v, causal)
+    route = _check_cuda_args(q, k, v, causal)
     g = g.contiguous()          # autograd may hand in an expanded tensor
     for name, t in (("out", out), ("g", g)):
-        _check_tma_layout(name, t)
+        _check_layout(route, name, t)
+    if route == GENERIC and (parts != BWD_ALL or rows is not None):
+        raise ValueError("parts and rows select the wgmma route's kernels")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -292,12 +392,26 @@ def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float,
         return dq, dk, dv
     if not _in_row_buffer(lse):
         lse = _row_buffer(b, h, sq, q.device, zero=True).copy_(lse)
+    if route == GENERIC:
+        delta = _row_buffer(b, h, sq, q.device)
+        lib = load_library("flash_attention_generic", _GENERIC_SIGNATURES)
+        with torch.cuda.device(q.device):
+            err = lib.flash_generic_bwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
+                _DTYPE_CODE[q.dtype],
+                ctypes.cast(_strides(q, k, v, out, g, dq, dk, dv),
+                            ctypes.c_void_p), int(causal), scale, _stream(q))
+        _raise_on(err, lib, "generic flash backward")
+        GENERIC_BWD_LAUNCHES.count += 1
+        BWD_LAUNCHES.count += 1
+        return dq, dk, dv
     if rows is None:
         rows = _bwd_rows(b, h, sq, q.device)
     elif rows.shape != (b, h, 2, _lse_rows(sq)) or not rows.is_contiguous():
         raise ValueError("rows must come from _bwd_rows")
-    strides = (_LL * 24)(*_bsh(q), *_bsh(k), *_bsh(v), *_bsh(out), *_bsh(g),
-                         *_bsh(dq), *_bsh(dk), *_bsh(dv))
+    strides = _strides(q, k, v, out, g, dq, dk, dv)
     counters = torch.empty(2, dtype=torch.int32, device=q.device)
     lib = load_library("flash_attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(q.device):
@@ -308,9 +422,8 @@ def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float,
             dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
             ctypes.cast(strides, ctypes.c_void_p), int(causal), scale,
             parts, _stream(q))
-    if err != 0:
-        raise RuntimeError(f"flash backward kernel launch failed: "
-                           f"{lib.error_string(err).decode()} ({err})")
+    _raise_on(err, lib, "flash backward")
+    WGMMA_BWD_LAUNCHES.count += 1
     BWD_LAUNCHES.count += 1
     return dq, dk, dv
 
@@ -379,8 +492,8 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
     """The dispatcher under `nn.functional.scaled_dot_product_attention`:
     q (b, sq, h, d), k/v (b, sk, h, d) → (b, sq, h, d), differentiable
     through `FlashAttentionFunction`. A mask or dropout > 0 raises (not
-    ported; every GPT preset has dropout 0). On CUDA tensors the
-    kernels' own limits raise too (`_check_cuda_args`)."""
+    ported; every GPT preset has dropout 0). On CUDA tensors what
+    neither kernel route takes raises too (`_check_cuda_args`)."""
     if mask is not None:
         raise _not_ported("an attention mask")
     if dropout_p > 0.0:

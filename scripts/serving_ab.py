@@ -8,10 +8,15 @@ Each turn of `--order` is a fresh process in that checkout's root: it
 builds the checkout's kernels (cached after its first turn), runs the
 checkout's own `chip_smoke.py` phase 4 (GPT-small bf16 served through
 the slotted engine and kernel K1: 16 requests, 64 new tokens each) and
-phase 8's K1 timing (kernel + split merge, and the kernel alone, at the
-phase-4 shapes), and reports tokens/s, decode ms per step, TTFT p50 and
-the two K1 medians. The summary gives every turn, each version's median
-and spread (max - min over median) per metric, and B's medians over A's.
+phase 8's K1 timing (the wrapper's median at the phase-4 shapes), then
+profiles one decode block of 8 lanes (torch.profiler) and reports
+tokens/s, decode ms per step, TTFT p50, the K1 median, the K1
+wrapper's host time per call and the CUDA kernels launched per decode
+step (all, and the decode kernel's). The host time is taken with the
+stream held by a device sleep, so the calls only enqueue: 50 calls at
+phase 8's shapes, the median of 7 such rounds. The summary gives every
+turn, each version's median and spread (max - min over median) per
+metric, and B's medians over A's.
 Alternating in one call keeps both versions on one card and one host.
 """
 from __future__ import annotations
@@ -24,24 +29,64 @@ import sys
 from pathlib import Path
 
 TURN = r"""
-import json, sys
+import json, statistics, sys, time
 sys.path.insert(0, ".")
 import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
 import paddle_tpu_torch as P
 from paddle_tpu_torch.ops_cuda import _build, decode_attention as dec
+from paddle_tpu_torch.serving import LLMEngine, SamplingParams
 _build.build()
 run = cs.phase_engine(torch, np, P)
 nums = cs.phase_numbers(torch, dec, run, cs.card_line())
+# the K1 wrapper's host time per call: the stream waits on a sleep of
+# ~0.1 s while the host enqueues 50 calls (a few ms), so no call waits
+gen = torch.Generator(device="cuda").manual_seed(5)
+S, T, nh, hd = 8, 1024, 12, 64
+q = torch.randn(S, nh, hd, device="cuda", generator=gen).bfloat16()
+kc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).bfloat16()
+vc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).bfloat16()
+lens = torch.tensor(nums["lengths"], dtype=torch.int32, device="cuda")
+dec.ragged_decode_attention(q, kc, vc, lens)
+torch.cuda.synchronize()
+rounds = []
+for _ in range(7):
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        dec.ragged_decode_attention(q, kc, vc, lens)
+    rounds.append((time.perf_counter() - t0) / 50 * 1e6)
+    torch.cuda.synchronize()
+# one profiled decode block: 8 lanes admitted by a first step, then one
+# step that only decodes; CUDA kernels per decode step, all and K1's
+eng = LLMEngine(run["model"], **cs.SERVE_KW)
+for p in run["prompts"][:8]:
+    eng.submit(p, SamplingParams(max_new_tokens=64))
+eng.step()
+torch.cuda.synchronize()
+before = eng.stats()["decode_steps"]
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    eng.step()
+    torch.cuda.synchronize()
+steps = eng.stats()["decode_steps"] - before
+kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not e.name.startswith("Command Buffer")]
 print("AB " + json.dumps({
     "tokens_per_s": run["tokens_per_s"],
     "decode_ms_per_token": run["decode_ms_per_token"],
     "ttft_p50_s": run["ttft_p50_s"], "k1_ms": nums["ms"],
-    "k1_kernel_ms": nums["kernel_ms"]}))
+    "k1_host_us": statistics.median(rounds),
+    "kernels_per_decode_step": len(kernels) / steps,
+    "decode_kernels_per_decode_step":
+        sum("decode_kernel" in n for n in kernels) / steps}))
 """
 
 METRICS = ("tokens_per_s", "decode_ms_per_token", "ttft_p50_s", "k1_ms",
-           "k1_kernel_ms")
+           "k1_host_us", "kernels_per_decode_step",
+           "decode_kernels_per_decode_step")
 
 
 def run_turn(root: Path, timeout: int) -> dict:

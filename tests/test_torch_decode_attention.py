@@ -132,6 +132,22 @@ def test_pick_decode_blocks_default_ladder():
     assert port.pick_decode_blocks(1024, 64, torch.int8) == (512, 1)
 
 
+@pytest.mark.parametrize("T,C", [(16, 1), (64, 1), (128, 1), (200, 1),
+                                 (256, 2), (384, 3), (1000, 7), (1024, 8),
+                                 (4096, 8)])
+def test_cluster_size_depends_on_max_seq_alone(T, C):
+    """C(T) = min(8, max(1, T // 128)): the CUDA kernel's CTAs per
+    (lane, head), each over a fixed range of ceil(T / C) rows that
+    covers [0, T) exactly once. It takes T alone: no lengths, block_k,
+    dtype or layout enter, so K1 and K4 (and K5 and K6) cut the same
+    rows the same way, and the reference's (block_k, num_splits) picks
+    stay as they were for the visit counts."""
+    assert port.cluster_size(T) == C
+    rows = -(-T // C)
+    assert (C - 1) * rows < T <= C * rows
+    assert port.pick_decode_blocks(1024, 64, torch.bfloat16) == (256, 2)
+
+
 def test_cuda_argument_checks_raise():
     """The checks the wrapper runs before a CUDA launch (exercised here
     on CPU tensors: they inspect shapes, dtypes and layout only)."""

@@ -91,12 +91,15 @@ def test_plain_k2_k3_match_pallas_kernels(sq, sk, bq, bk, causal):
 
 
 @pytest.mark.parametrize("causal,sq,sk", [(False, 48, 48), (True, 48, 48),
-                                          (True, 32, 80), (False, 40, 24)])
+                                          (True, 32, 80), (False, 40, 24),
+                                          (True, 48, 24), (True, 40, 30)])
 def test_autograd_function_matches_jax_reference_fp32(causal, sq, sk):
     """The algorithm in fp32: `dot_product_attention` (the port's
     autograd Function, plain versions on CPU tensors) against
     `_attention_reference` and `jax.grad` of it; outputs and gradients
-    within 1e-5 (fp32, different summation orders)."""
+    within 1e-5 (fp32, different summation orders). Causal sq > sk
+    leaves rows with no visible key: 24 of 48, and 10 of 40, where the
+    first 16-row block mixes them with live rows."""
     rng = np.random.RandomState(7)
     b, h = 2, 3
     qn = rng.randn(b, sq, h, D).astype(np.float32)
@@ -143,20 +146,29 @@ def test_cpu_path_counts_no_launch():
 
 def test_cuda_argument_checks_raise():
     """The checks the wrapper runs before a CUDA launch, exercised on
-    CPU tensors: what K2/K3 do not take raises, never a plain run."""
+    CPU tensors: what neither kernel route takes raises, never a plain
+    run; what they take returns its route (`test_routes`)."""
     bf = torch.bfloat16
     qkv = torch.zeros(2, 128, 3, 4, D, dtype=bf)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    port._check_cuda_args(q, k, v, causal=True)         # strided: taken
+    assert port._check_cuda_args(q, k, v, causal=True) == port.WGMMA
+    # causal sq > sk (rows with no visible key): taken, same route
     short_k = torch.zeros(2, 64, 4, D, dtype=bf)
-    with pytest.raises(ValueError, match="no visible key"):
-        port._check_cuda_args(q, short_k, short_k, causal=True)
-    port._check_cuda_args(q, short_k, short_k, causal=False)
+    assert port._check_cuda_args(q, short_k, short_k, causal=True) \
+        == port.WGMMA
+    assert port._check_cuda_args(q, short_k, short_k, causal=False) \
+        == port.WGMMA
+    # head dim 32 and fp32: taken by the generic kernels
     small = torch.zeros(2, 128, 4, 32, dtype=bf)
+    assert port._check_cuda_args(small, small, small, causal=True) \
+        == port.GENERIC
+    assert port._check_cuda_args(q.float(), k.float(), v.float(),
+                                 causal=True) == port.GENERIC
     with pytest.raises(ValueError, match="head_dim"):
-        port._check_cuda_args(small, small, small, causal=True)
-    with pytest.raises(TypeError, match="bfloat16"):
-        port._check_cuda_args(q.float(), k.float(), v.float(), causal=True)
+        wide = torch.zeros(2, 128, 4, 96, dtype=bf)
+        port._check_cuda_args(wide, wide, wide, causal=True)
+    with pytest.raises(TypeError, match="not supported"):
+        port._check_cuda_args(q.half(), k.half(), v.half(), causal=True)
     with pytest.raises(TypeError, match="dtypes differ"):
         port._check_cuda_args(q, k.float(), v, causal=True)
     with pytest.raises(ValueError, match="contiguous head dim"):
@@ -168,6 +180,75 @@ def test_cuda_argument_checks_raise():
         port._check_cuda_args(odd, k, v, causal=True)
     with pytest.raises(ValueError, match="differ in batch"):
         port._check_cuda_args(q, k[:1], v[:1], causal=True)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "generic"), (torch.float32, 32, "generic"),
+    (torch.float32, 64, "generic"), (torch.float32, 128, "generic")])
+def test_routes(dtype, d, route):
+    """The route is a fixed choice by dtype and head dim, the same for
+    every shape: the generic kernels take what the wgmma K2/K3 do not.
+    The generic route needs only a contiguous head dim (no TMA), so an
+    fp32 slice whose strides are no multiple of 16 bytes is taken."""
+    x = torch.zeros(2, 40, 3, d, dtype=dtype)
+    for causal, k in ((False, x), (True, x), (True, x[:, :24])):
+        assert port._check_cuda_args(x, k, k, causal) == route
+    odd = torch.zeros(2, 40, 3 * d + 1, dtype=dtype)[..., :3 * d].unflatten(
+        -1, (3, d))
+    if route == "generic":
+        assert port._check_cuda_args(odd, x, x, False) == route
+    else:
+        with pytest.raises(ValueError, match="multiples of 8 elements"):
+            port._check_cuda_args(odd, x, x, False)
+
+
+def test_batch_times_heads_limit_is_the_32_bit_index():
+    """b x h has no grid limit (the grids are persistent or flattened):
+    66000 heads are taken; what remains is b x h x round_up(max(sq,
+    sk), 128) < 2^31 (32-bit work items and lse rows), checked and
+    named. Expanded views: no memory is allocated."""
+    bf = torch.bfloat16
+    x = torch.zeros(1, 1, 1, D, dtype=bf).expand(66000, 128, 1, D)
+    assert port._check_cuda_args(x, x, x, causal=True) == port.WGMMA
+    big = torch.zeros(1, 1, 1, D, dtype=bf).expand(1 << 17, 128, 128, D)
+    with pytest.raises(ValueError, match="32-bit"):
+        port._check_cuda_args(big, big, big, causal=False)
+    tall = torch.zeros(1, 1, 1, D, dtype=bf).expand(1 << 10, 1 << 14, 128, D)
+    with pytest.raises(ValueError, match="32-bit"):
+        port._check_cuda_args(x[:1, :1].expand(1 << 10, 1, 128, D), tall,
+                              tall, causal=False)
+
+
+def test_plain_backward_alone_matches_jax_grad_on_empty_rows():
+    """`flash_backward_plain` alone, causal sq 40 > sk 24 in fp32, on its
+    own forward's residuals: the 16 rows with no visible key follow
+    `jax.grad` of `_attention_reference` (dq = 0, no dk from them,
+    dv += g / sk); every gradient within 1e-5. The forward gives such a
+    row the mean of v and lse -1e30."""
+    rng = np.random.RandomState(3)
+    b, sq, sk, h = 1, 40, 24, 2
+    qn, gn = (rng.randn(b, sq, h, D).astype(np.float32) for _ in range(2))
+    kn, vn = (rng.randn(b, sk, h, D).astype(np.float32) for _ in range(2))
+
+    def f(q, k, v):
+        return jfa._attention_reference(q, k, v, None, True, SCALE)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (qn, kn, vn)))
+    jgrads = vjp(jnp.asarray(gn))
+    q, k, v, g = (torch.from_numpy(a) for a in (qn, kn, vn, gn))
+    out, lse = port.flash_forward_plain(q, k, v, True, SCALE)
+    empty = port.empty_rows(sq, sk, True)
+    assert int(empty.sum()) == sq - sk and bool(empty[:sq - sk].all())
+    torch.testing.assert_close(out[:, :sq - sk],
+                               v.mean(1, keepdim=True).expand(
+                                   b, sq - sk, h, D), atol=1e-6, rtol=1e-6)
+    assert bool((lse[:, :, :sq - sk] == -1e30).all())
+    grads = port.flash_backward_plain(q, k, v, out, lse, g, True, SCALE)
+    assert bool((grads[0][:, :sq - sk] == 0).all())
+    for got, want in zip(grads, jgrads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_tma_layout_checks_raise():
