@@ -36,9 +36,10 @@ every phase passed):
    bf16 one; inputs include x on code half-points ((c + 0.5) * sx) and
    on +-127.5 * sx.
 3. kernels K2 (flash-attention forward) and K3 (backward: delta, dk/dv
-   and dq kernels), the wgmma route, and the generic flash kernels
-   (fp32 at head dim 32, 64, 128 and bf16 at 32) against their plain
-   versions (fp32 products exact, TF32 off): the training shape (b 18,
+   and dq kernels) on both routes, `wgmma` (bf16 at head dim 32, 64,
+   128) and `tf32x3` (fp32 at 32, 64, 128: the split kernel, then every
+   product as three TF32 products), against their plain versions (fp32
+   products exact, TF32 off): the training shape (b 18,
    s 1024, h 12, d 64, causal, q/k/v strided slices of one fused qkv
    tensor as the model passes them), sq < sk (256 vs 1024) causal, a
    length that is no tile multiple (1000) non-causal and causal,
@@ -51,15 +52,27 @@ every phase passed):
    uniform softmax), causal sq 300 / sk 200, d 128 sq 1000 / sk 900
    (the last empty row inside a K2 warpgroup and a K3 query tile) and
    sq 1000 / sk 936 (the edge between K2's two warpgroups of a tile),
-   b x h = 66000 at s 128, and on the generic route
-   fp32 at d 64 (packed), 32 and 128, fp32 sq 200 / sk 333, fp32
-   causal sq 300 / sk 200 and bf16 d 32 (packed). bf16: the output
+   b x h = 66000 at s 128; fp32 at d 64 (packed), 32 and 128, fp32
+   sq 200 / sk 333, fp32 causal sq 300 / sk 200, bf16 d 32 packed and
+   not, bf16 d 32 causal sq 300 / sk 200 and sq 1 / sk 333 (the 64-byte
+   swizzle on the same edges as d 64), fp32 d 128 sq 1000 / sk 900 and
+   an fp32 slice whose strides are no multiple of 16 bytes. bf16: the
+   output
    within atol = rtol = 2e-2, the logsumexp within atol = 1e-3, each
    gradient within max|kernel - plain| <= 2e-2 * max|plain|; fp32: the
    output and each gradient within 1e-5 * max|plain|, the logsumexp
    within 1e-5 * max|plain|; rows with no visible key have lse -1e30
    and dq 0; two backward runs bitwise equal; each call launches on
    its route only.
+3b. the TF32 probe (`csrc/tf32_probe.cu`): a 64 x 64 x 32 wgmma tile
+   product against an fp32 FFMA product and fp64, at the magnitudes of
+   attention scores (normal operands) and probabilities ([0, 1) times
+   normal): the largest error relative to max|fp64| of one TF32
+   product, of 3xTF32 from shared memory and of 3xTF32 with A from
+   registers (the tf32x3 route's P and dS, in its permuted fragments);
+   both 3xTF32 within 1e-5. Chosen operands show whether the card
+   truncates or rounds the 13 low bits of an fp32 operand it reads as
+   TF32.
 4. serving at full width: GPT-small (768 hidden, 12 layers, 12 heads,
    vocab 50304, random weights from a seed) in bf16 served by
    `LLMEngine(max_slots=8, max_seq=1024, decode_block_size=8)` on 16
@@ -101,11 +114,13 @@ every phase passed):
    below the first, K2 and K3 each launched exactly 12 x 10 times; step
    ms, tokens/s and peak memory.
 6b. fp32 training at `Trainer`'s default amp_level=None through the
-   generic flash kernels: gpt_tiny (head dim 32, bs 8 x 256, AdamW
-   1e-3) takes 3 steps on the card and the same 3 on the CPU (plain
-   attention), losses within 1e-4 relative; GPT-small in fp32 takes 2
-   steps at bs 18 x 1024. Both count 12 / 24 generic launches each way
-   and no wgmma launch.
+   tf32x3 route: gpt_tiny (head dim 32, bs 8 x 256, AdamW 1e-3) takes 3
+   steps on the card and the same 3 on the CPU (plain attention),
+   losses within 1e-4 relative; gpt_tiny under O2 (bf16 at head dim 32)
+   takes 3 steps on the wgmma route; GPT-small in fp32 takes 1 warm-up
+   and 3 timed steps at bs 18 x 1024 (step ms, tokens/s). Each counts
+   its launches on its route only (4 x 3 each way for gpt_tiny, 12 x 4
+   for GPT-small).
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters) through the kernels against the same step
    with the plain versions swapped in on the same CUDA tensors:
@@ -124,10 +139,13 @@ every phase passed):
    printed. K7 at each (k, n) with 4 bf16 rows: median after an
    L2 flush, byte bound, plain version, and two yardsticks never called
    by the port (bf16 `torch.matmul` with the fp weights, and
-   `torch._int_mm` on rows padded to 32). The generic flash kernels'
-   forward and backward at GPT-small's fp32 training shape and at
-   phase 3's bf16 d 32 shape, beside their bounds (fp32 over 67
-   TFLOP/s), plain versions and `scaled_dot_product_attention`.
+   `torch._int_mm` on rows padded to 32). The tf32x3 route's forward
+   and backward at GPT-small's fp32 training shape (the split kernel's
+   share timed alone) and the wgmma route at phase 3's bf16 d 32 shape,
+   beside their bounds (fp32: three TF32 products over 495 TFLOP/s, and
+   the FFMA bound over 67 TFLOP/s), plain versions,
+   `scaled_dot_product_attention` (TF32 off), and each kernel's
+   registers and spills.
 Then one JSON line of kernel records and, last, the device line.
 """
 from __future__ import annotations
@@ -143,6 +161,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet, device memory
 FP32_FLOPS = 67e12               # H100 SXM data sheet, fp32 non-tensor
+TF32_FLOPS = 495e12              # H100 SXM data sheet, TF32 dense tensor
 BF16_FLOPS = 989e12              # H100 SXM data sheet, bf16 dense tensor
 INT8_OPS = 1979e12               # H100 SXM data sheet, int8 dense tensor
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
@@ -494,12 +513,18 @@ def flash_inputs(torch, gen, b, sq, sk, h, d, packed, dtype=None):
     """q, k, v (b, s, h, d) and a cotangent g in `dtype` (bf16 by
     default); `packed` gives q, k, v as the strided slices of one
     (b, s, 3, h, d) tensor, the layout the model's fused qkv projection
-    hands the kernels."""
+    hands the kernels; "odd" the same slices of rows one element longer
+    (strides no multiple of 16 bytes: the tf32x3 route's split kernel
+    takes them, TMA would not)."""
     dtype = dtype or torch.bfloat16
 
     def rnd(*shape):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
-    if packed:
+    if packed == "odd":
+        rows = rnd(b, sq, 3 * h * d + 1)[..., :3 * h * d]
+        qkv = rows.unflatten(-1, (3, h, d))
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    elif packed:
         qkv = rnd(b, sq, 3, h, d)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     else:
@@ -508,8 +533,8 @@ def flash_inputs(torch, gen, b, sq, sk, h, d, packed, dtype=None):
 
 
 def flash_cases(torch):
-    """(name, b, sq, sk, h, d, causal, packed, dtype): the wgmma route's
-    cases, then the generic route's and the repaired ones."""
+    """(name, b, sq, sk, h, d, causal, packed, dtype): bf16 d 64 and
+    128 cases, then the fp32 (tf32x3) and bf16 d 32 ones."""
     f, bf, f32 = FLASH_SHAPE, torch.bfloat16, torch.float32
     yield ("training shape", f["b"], f["s"], f["s"], f["h"], f["d"], True,
            True, bf)
@@ -530,41 +555,104 @@ def flash_cases(torch):
     yield "d 128 sq 1000, sk 900", 2, 1000, 900, 8, 128, True, False, bf
     yield "causal sq 1000, sk 936", 2, 1000, 936, 12, 64, True, False, bf
     yield "b x h 66000", 5500, 128, 128, 12, 64, False, False, bf
-    # the generic route: fp32 at d 32, 64, 128 and bf16 at d 32
-    yield "fp32 d 64 packed", 4, 1024, 1024, 12, 64, True, True, f32
+    # fp32 (the tf32x3 route) at d 32, 64, 128, and bf16 at d 32 (the
+    # 64-byte swizzle) on the edges d 64 takes; the main paths' shapes:
+    # phase 6b's GPT-small fp32 and gpt_tiny O2
+    yield ("fp32 training shape", f["b"], f["s"], f["s"], f["h"], f["d"],
+           True, True, f32)
     yield "fp32 d 32", 4, 512, 512, 8, 32, True, False, f32
     yield "fp32 d 128", 2, 512, 512, 8, 128, True, False, f32
     yield "fp32 sq 200, sk 333", 2, 200, 333, 12, 64, False, False, f32
     yield "fp32 causal sq 300, sk 200", 2, 300, 200, 12, 64, True, False, f32
     yield "bf16 d 32 packed", 4, 512, 512, 24, 32, True, True, bf
+    yield "bf16 d 32", 4, 512, 512, 24, 32, True, False, bf
+    yield "bf16 d 32 causal sq 300, sk 200", 2, 300, 200, 12, 32, True, \
+        False, bf
+    yield "bf16 d 32 sq 1, sk 333", 2, 1, 333, 12, 32, True, False, bf
+    yield "bf16 d 32 gpt_tiny packed", 8, 256, 256, 4, 32, True, True, bf
+    yield "fp32 d 128 sq 1000, sk 900", 2, 1000, 900, 8, 128, True, False, f32
+    yield "fp32 odd strides", 2, 200, 200, 3, 64, True, "odd", f32
+    # the longest preset rows (gpt_1p3b: d 128, max_seq 2048): the
+    # forward's one running sum over every key tile
+    yield "fp32 d 128 causal s 2048", 2, 2048, 2048, 8, 128, True, False, \
+        f32
+
+
+LAYOUT_NOTE = {True: ", packed qkv", "odd": ", odd strides"}
 
 
 def flash_route_counters(fa):
     """{route: (forward counter, backward counter)} of the flash
     kernels."""
     return {fa.WGMMA: (fa.WGMMA_FWD_LAUNCHES, fa.WGMMA_BWD_LAUNCHES),
-            fa.GENERIC: (fa.GENERIC_FWD_LAUNCHES, fa.GENERIC_BWD_LAUNCHES)}
+            fa.TF32X3: (fa.TF32X3_FWD_LAUNCHES, fa.TF32X3_BWD_LAUNCHES)}
+
+
+def hold_flash(torch, fa, name, q, k, v, g, causal, scale, out, lse,
+               grads):
+    """Holds one flash call's (out, lse) and (dq, dk, dv) against the
+    plain versions (the backward on the kernel's own forward, the
+    residuals the autograd Function saves) at phase 3's tolerances.
+    Returns max|out err|, max|lse err| over rows that see a key, and
+    each gradient's max err and max err / max|plain|."""
+    sq, sk = q.shape[1], k.shape[1]
+    pout, plse = fa.flash_forward_plain(q, k, v, causal, scale)
+    empty = fa.empty_rows(sq, sk, causal, q.device)
+    fp32 = q.dtype == torch.float32
+    if fp32:
+        tol_o = 1e-5 * pout.abs().max().item()
+        torch.testing.assert_close(out, pout, atol=tol_o, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), pout.float(),
+                                   **TOL["bfloat16"])
+    live_lse, live_plse = lse[:, :, ~empty], plse[:, :, ~empty]
+    tol_l = 1e-5 * live_plse.abs().max().item() if fp32 else 1e-3
+    torch.testing.assert_close(live_lse, live_plse, atol=tol_l, rtol=0)
+    check(bool((lse[:, :, empty] == -1e30).all()),
+          f"{name}: an empty row's lse is not -1e30")
+    err_o = (out.float() - pout.float()).abs().max().item()
+    err_l = (live_lse - live_plse).abs().max().item()
+    ref_o = pout.float().abs().max().item()
+    del pout, plse
+    plain = fa.flash_backward_plain(q, k, v, out, lse, g, causal, scale)
+    check(bool((grads[0][:, empty] == 0).all()), f"{name}: empty rows' dq")
+    errs, rel = [], []
+    lim = 1e-5 if fp32 else 2e-2
+    for gname, got, want in zip(("dq", "dk", "dv"), grads, plain):
+        check(bool(torch.isfinite(got).all()), f"{name}: {gname} "
+                                               f"not finite")
+        e = (got.float() - want.float()).abs().max().item()
+        ref = want.float().abs().max().item()
+        check(e <= lim * ref, f"{name}: {gname} max err {e:.3e} > "
+                              f"{lim:g} x max|plain| {ref:.3e}")
+        errs.append(e)
+        rel.append(e / ref)
+    return {"out_err": err_o, "out_rel": err_o / ref_o, "lse_err": err_l,
+            "grad_err": errs, "grad_rel": rel, "limit": lim,
+            "empty": int(empty.sum())}
 
 
 def phase_flash_kernels(torch, fa):
-    """K2/K3 (wgmma route) and the generic flash kernels against their
-    plain versions, with fp32 products exact (TF32 off). bf16: out
+    """K2/K3 on both routes against their plain versions, with fp32
+    products exact (TF32 off). bf16: out
     within atol = rtol = 2e-2, lse within 1e-3, gradients within 2e-2 x
     max|plain|. fp32: out and gradients within 1e-5 x max|plain|, lse
     within 1e-5 x max|plain lse| on rows that see a key. Rows with no
     visible key: lse -1e30 exactly, dq 0. Two backward runs bitwise
     equal; each case counts one launch on its route and none on the
-    other."""
+    other. The fp32 odd-strided case (q, k, v, g through the split's hi
+    copies) gives the same bits as its values in contiguous tensors
+    (which TMA reads in place as their own hi parts)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = {"fwd": 0.0, "bwd": 0.0, "generic_fwd": 0.0, "generic_bwd": 0.0}
+    worst = {"fwd": 0.0, "bwd": 0.0, "tf32x3_fwd": 0.0, "tf32x3_bwd": 0.0}
     for name, b, sq, sk, h, d, causal, packed, dtype in flash_cases(torch):
         q, k, v, g = flash_inputs(torch, gen, b, sq, sk, h, d, packed,
                                   dtype)
         scale = 1 / math.sqrt(d)
         route = fa._check_cuda_args(q, k, v, causal)
         counters = flash_route_counters(fa)
-        for c in (*counters[fa.WGMMA], *counters[fa.GENERIC]):
+        for c in (*counters[fa.WGMMA], *counters[fa.TF32X3]):
             c.reset()
         out, lse = fa._launch_fwd(q, k, v, causal, scale)
         dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, g, causal, scale)
@@ -573,53 +661,102 @@ def phase_flash_kernels(torch, fa):
         check(counts == {r: (1, 1) if r == route else (0, 0)
                          for r in counters},
               f"{name}: launches by route {counts}, expected {route}")
-        pout, plse = fa.flash_forward_plain(q, k, v, causal, scale)
-        empty = fa.empty_rows(sq, sk, causal, q.device)
-        fp32 = dtype == torch.float32
-        if fp32:
-            tol_o = 1e-5 * pout.abs().max().item()
-            torch.testing.assert_close(out, pout, atol=tol_o, rtol=0)
-        else:
-            torch.testing.assert_close(out.float(), pout.float(),
-                                       **TOL["bfloat16"])
-        live_lse, live_plse = lse[:, :, ~empty], plse[:, :, ~empty]
-        tol_l = 1e-5 * live_plse.abs().max().item() if fp32 else 1e-3
-        torch.testing.assert_close(live_lse, live_plse, atol=tol_l, rtol=0)
-        check(bool((lse[:, :, empty] == -1e30).all()),
-              f"{name}: an empty row's lse is not -1e30")
-        err_o = (out.float() - pout.float()).abs().max().item()
-        # the backward held against its plain version on the kernel's
-        # own forward (the residuals the autograd Function saves)
-        plain = fa.flash_backward_plain(q, k, v, out, lse, g, causal, scale)
-        check(bool((dq[:, empty] == 0).all()), f"{name}: empty rows' dq")
-        rel = []
-        lim = 1e-5 if fp32 else 2e-2
-        for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
-            check(bool(torch.isfinite(got).all()), f"{name}: {gname} "
-                                                   f"not finite")
-            e = (got.float() - want.float()).abs().max().item()
-            ref = want.float().abs().max().item()
-            check(e <= lim * ref, f"{name}: {gname} max err {e:.3e} > "
-                                  f"{lim:g} x max|plain| {ref:.3e}")
-            key = "bwd" if route == fa.WGMMA else "generic_bwd"
-            worst[key] = max(worst[key], e)
-            rel.append(e / ref)
+        held = hold_flash(torch, fa, name, q, k, v, g, causal, scale, out,
+                          lse, (dq, dk, dv))
+        err_o, rel, lim = held["out_err"], held["grad_rel"], held["limit"]
+        key = "bwd" if route == fa.WGMMA else "tf32x3_bwd"
+        worst[key] = max(worst[key], *held["grad_err"])
         again = fa._launch_bwd(q, k, v, out, lse, g, causal, scale)
         check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
               f"{name}: two backward runs differ")
-        key = "fwd" if route == fa.WGMMA else "generic_fwd"
+        if packed == "odd":
+            same = [x.contiguous() for x in (q, k, v, g)]
+            o2, l2 = fa._launch_fwd(*same[:3], causal, scale)
+            grads = fa._launch_bwd(*same[:3], out, lse, same[3], causal,
+                                   scale)
+            check(torch.equal(o2, out) and torch.equal(l2, lse) and all(
+                torch.equal(x, y) for x, y in zip(grads, (dq, dk, dv))),
+                f"{name}: in-place hi and copied hi differ")
+            del same, o2, l2, grads
+        key = "fwd" if route == fa.WGMMA else "tf32x3_fwd"
         worst[key] = max(worst[key], err_o)
+        n_empty = held["empty"]
         log(f"  {route} {name} (b {b}, sq {sq}, sk {sk}, h {h}, d {d}, "
             f"{str(dtype)[6:]}, causal {causal}"
-            f"{', packed qkv' if packed else ''}"
-            f"{f', {int(empty.sum())} empty rows' if empty.any() else ''}"
-            f"): max|out err| {err_o:.3e}, max|lse err| "
-            f"{(live_lse - live_plse).abs().max().item():.3e}, dq/dk/dv "
+            f"{LAYOUT_NOTE.get(packed, '')}"
+            f"{f', {n_empty} empty rows' if n_empty else ''}"
+            f"): max|out err| {err_o:.3e} ({held['out_rel']:.2e} of "
+            f"max|plain|), max|lse err| {held['lse_err']:.3e}, dq/dk/dv "
             f"max err / max|plain| {rel[0]:.2e}/{rel[1]:.2e}/{rel[2]:.2e} "
-            f"(limit {lim:g}); backward bitwise deterministic")
-        del q, k, v, g, out, lse, dq, dk, dv, pout, plse, plain, again
+            f"(limit {lim:g}); backward bitwise deterministic"
+            f"{'; equal to in-place hi' if packed == 'odd' else ''}")
+        del q, k, v, g, out, lse, dq, dk, dv, again
         torch.cuda.empty_cache()
     return worst
+
+
+def tf32_bits(torch, m: int, sign: float = 1.0) -> float:
+    """1 + m 2^-23 (times `sign`): an fp32 value whose 13 low bits are m."""
+    x = torch.tensor([0x3F800000 | m], dtype=torch.int32).view(
+        torch.float32).item()
+    return sign * x
+
+
+def phase_tf32_probe(torch, fa):
+    """(3b) The tensor cores' TF32 arithmetic (`fa.tf32_probe`): a 64 x
+    64 x 32 product at the magnitudes of scores (a, b normal) and of
+    probabilities (a uniform in [0, 1), b normal): the largest error
+    over max|fp64 product| of the fp32 FFMA product (TF32 off), of one
+    TF32 product of the raw values, of 3xTF32 from shared memory and of
+    3xTF32 with a from registers; both 3xTF32 within 1e-5. Then a[:, 0]
+    = 1 + m 2^-23 for chosen low bits m (below, at and above half a
+    TF32 ulp, odd and even, both signs), b[:, 0] = 1, the rest 0: the
+    product is the card's TF32 reading of each value, compared with
+    truncation, round-to-nearest-even and round-half-away."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = {}
+    for name in ("scores", "probabilities"):
+        a = torch.randn(64, 32, device="cuda", generator=gen)
+        if name == "probabilities":
+            a = torch.rand(64, 32, device="cuda", generator=gen)
+        b = torch.randn(64, 32, device="cuda", generator=gen)
+        ref = a.double() @ b.double().T
+        den = ref.abs().max().item()
+        rec = {"fp32 FFMA": ((a @ b.T).double() - ref).abs().max().item()
+               / den}
+        for mode, what in ((0, "1xTF32"), (1, "3xTF32 shared"),
+                           (2, "3xTF32 registers")):
+            got = fa.tf32_probe(a, b, mode).double()
+            rec[what] = (got - ref).abs().max().item() / den
+        errs[name] = rec
+        check(rec["3xTF32 shared"] <= 1e-5 and rec["3xTF32 registers"]
+              <= 1e-5, f"3xTF32 probe ({name}): {rec}")
+    lows = (0, 0x0FFF, 0x1000, 0x1001, 0x1800, 0x1FFF, 0x2FFF, 0x3000)
+    vals = [tf32_bits(torch, m, s) for s in (1.0, -1.0) for m in lows] * 4
+    a = torch.zeros(64, 32, device="cuda")
+    b = torch.zeros(64, 32, device="cuda")
+    a[:, 0] = torch.tensor(vals, device="cuda")
+    b[:, 0] = 1.0
+    got = fa.tf32_probe(a, b, 0)[:, 0].cpu()
+    bits = torch.tensor(vals).view(torch.int32)
+    low, odd = bits & 8191, (bits >> 13) & 1
+    down = bits & -8192
+    rules = {"truncate": down,
+             "nearest even": down + 8192 * ((low > 4096) | ((low == 4096)
+                                                            & (odd == 1))),
+             "nearest, ties away": down + 8192 * (low >= 4096)}
+    found = [r for r, want in rules.items()
+             if torch.equal(got, want.view(torch.float32))]
+    log(f"  TF32 probe, 64 x 64 x 32, error / max|fp64|: " + "; ".join(
+        f"{name}: " + ", ".join(f"{k} {v:.2e}" for k, v in rec.items())
+        for name, rec in errs.items()))
+    log(f"  the card reads an fp32 operand as TF32 by: "
+        f"{found[0] if found else 'none of ' + str(list(rules))} (low bits "
+        f"{[hex(m) for m in lows]} of 1 + m 2^-23 read as "
+        f"{[got[i].item() for i in range(len(lows))]})")
+    check(len(found) == 1, f"TF32 reading matches {found or 'no rule'}")
+    return {"errors": errs, "rule": found[0]}
 
 
 # --------------------------------------------------------------------------- #
@@ -1159,53 +1296,66 @@ def phase_train(torch, np, P, profile: bool = False):
             "profile": prof}
 
 
-FP32_TINY_STEPS = 3
-FP32_SMALL_STEPS = 2
+TINY_STEPS = 3
+FP32_SMALL_STEPS = 3
+
+
+def route_counts(counters):
+    return {r: (f.count, b.count) for r, (f, b) in counters.items()}
 
 
 def phase_train_fp32(torch, np, P):
     """(6b) fp32 models at `Trainer`'s default amp_level=None, which the
-    generic flash kernels carry (fp32 at any supported head dim):
-    gpt_tiny (head dim 32) takes 3 AdamW steps on the card and the same
-    3 steps on the CPU (plain attention), losses within 1e-4 relative
-    (fp32 both sides, TF32 off; the sums run in other orders); then
-    GPT-small in fp32 takes 2 steps at bs 18 x 1024, every flash launch
-    on the generic route (12 per step each way), none on the wgmma
-    route."""
+    tf32x3 route carries: gpt_tiny (head dim 32) takes 3 AdamW steps on
+    the card and the same 3 steps on the CPU (plain attention), losses
+    within 1e-4 relative (fp32 both sides, TF32 off; the sums run in
+    other orders); gpt_tiny under O2 takes 3 steps through the wgmma
+    route (bf16 at head dim 32), losses finite and falling; then
+    GPT-small in fp32 takes 1 warm-up and 3 timed steps at bs 18 x
+    1024. Every flash launch of a run on its route (layers x steps each
+    way), none on the other."""
     from paddle_tpu_torch.framework import Trainer
     from paddle_tpu_torch.ops_cuda import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
     torch.backends.cuda.matmul.allow_tf32 = False
     counters = flash_route_counters(fa)
     ids = np.random.RandomState(2).randint(0, 1024, (8, 256))
+    none = {fa.WGMMA: (0, 0), fa.TF32X3: (0, 0)}
     losses, counts = {}, {}
-    for dev in ("cpu", "cuda"):
+    for run, dev, amp in (("cpu", "cpu", None), ("cuda", "cuda", None),
+                          ("O2", "cuda", "O2")):
         model = P.models.gpt_tiny(seed=0, device=dev)
+        kw = dict(amp_level="O2", amp_dtype="bfloat16") if amp else {}
         tr = Trainer(model, AdamW(learning_rate=1e-3),
-                     lambda logits, y, m=model: m.loss(logits, y))
+                     lambda logits, y, m=model: m.loss(logits, y), **kw)
         t = torch.from_numpy(ids).to(dev)
-        for c in (*counters["wgmma"], *counters["generic"]):
+        for c in (*counters[fa.WGMMA], *counters[fa.TF32X3]):
             c.reset()
-        _, ls = tr.train_steps(t, t, steps=FP32_TINY_STEPS)
-        losses[dev] = ls.cpu().tolist()
-        counts[dev] = {r: (f.count, b.count) for r, (f, b) in
-                       counters.items()}
-    layers = 4
-    n = layers * FP32_TINY_STEPS
-    check(counts["cuda"] == {"wgmma": (0, 0), "generic": (n, n)},
-          f"gpt_tiny fp32 launches by route {counts['cuda']}, want generic "
-          f"{n} = {layers} layers x {FP32_TINY_STEPS} steps")
-    check(counts["cpu"] == {"wgmma": (0, 0), "generic": (0, 0)},
-          "the CPU run launched a kernel")
+        _, ls = tr.train_steps(t, t, steps=TINY_STEPS)
+        losses[run] = ls.cpu().tolist()
+        counts[run] = route_counts(counters)
+    n = 4 * TINY_STEPS                      # gpt_tiny: 4 layers
+    check(counts["cuda"] == {**none, fa.TF32X3: (n, n)},
+          f"gpt_tiny fp32 launches by route {counts['cuda']}, want tf32x3 "
+          f"{n} = 4 layers x {TINY_STEPS} steps")
+    check(counts["O2"] == {**none, fa.WGMMA: (n, n)},
+          f"gpt_tiny O2 launches by route {counts['O2']}, want wgmma {n}")
+    check(counts["cpu"] == none, "the CPU run launched a kernel")
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                  losses["cpu"]))
     check(all(math.isfinite(x) for x in losses["cuda"]) and rel <= 1e-4,
           f"gpt_tiny fp32: card losses {losses['cuda']} vs CPU "
           f"{losses['cpu']}: max relative difference {rel:.3e} > 1e-4")
+    check(all(math.isfinite(x) for x in losses["O2"])
+          and losses["O2"][-1] < losses["O2"][0],
+          f"gpt_tiny O2 losses {losses['O2']}")
     log(f"  gpt_tiny fp32, amp_level=None, AdamW(1e-3), bs 8 x 256: card "
         f"losses {[round(x, 6) for x in losses['cuda']]}, CPU "
         f"{[round(x, 6) for x in losses['cpu']]}, max relative difference "
-        f"{rel:.2e} (limit 1e-4); generic launches {n}/{n}, wgmma 0")
+        f"{rel:.2e} (limit 1e-4); tf32x3 launches {n}/{n}, wgmma 0")
+    log(f"  gpt_tiny O2 (bf16, head dim 32): losses "
+        f"{[round(x, 4) for x in losses['O2']]}; wgmma launches {n}/{n}, "
+        f"tf32x3 0")
 
     model = P.models.gpt_small(seed=0, device="cuda")
     cfg = model.cfg
@@ -1216,32 +1366,39 @@ def phase_train_fp32(torch, np, P):
                  lambda logits, y: model.loss(logits, y))
     big = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (bs, seq))).cuda()
+    warm, _ = tr.train_step(big, big)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in (*counters["wgmma"], *counters["generic"]):
+    for c in (*counters[fa.WGMMA], *counters[fa.TF32X3]):
         c.reset()
     t0 = time.perf_counter()
     _, ls = tr.train_steps(big, big, steps=FP32_SMALL_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    small_counts = {r: (f.count, b.count) for r, (f, b) in counters.items()}
+    small_counts = route_counts(counters)
     n = cfg.num_layers * FP32_SMALL_STEPS
-    check(small_counts == {"wgmma": (0, 0), "generic": (n, n)},
-          f"GPT-small fp32 launches by route {small_counts}, want generic "
+    check(small_counts == {**none, fa.TF32X3: (n, n)},
+          f"GPT-small fp32 launches by route {small_counts}, want tf32x3 "
           f"{n}")
-    small_losses = ls.cpu().tolist()
+    small_losses = [float(warm)] + ls.cpu().tolist()
     check(all(math.isfinite(x) for x in small_losses),
           f"GPT-small fp32 losses {small_losses}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"  GPT-small fp32, amp_level=None, bs {bs} x {seq}: "
-        f"{FP32_SMALL_STEPS} steps in {wall:.2f} s (first step included), "
-        f"losses {[round(x, 4) for x in small_losses]}, peak "
-        f"{peak / 2**30:.2f} GiB; generic launches {n}/{n} = "
-        f"{cfg.num_layers} layers x {FP32_SMALL_STEPS} steps, wgmma 0")
+    step_ms = wall / FP32_SMALL_STEPS * 1e3
+    tok_s = bs * seq * FP32_SMALL_STEPS / wall
+    log(f"  GPT-small fp32, amp_level=None, bs {bs} x {seq}: 1 warm-up, "
+        f"then {FP32_SMALL_STEPS} steps at {step_ms:.2f} ms per step, "
+        f"{tok_s:.1f} tokens/s, losses "
+        f"{[round(x, 4) for x in small_losses]}, peak "
+        f"{peak / 2**30:.2f} GiB; tf32x3 launches {n}/{n} = "
+        f"{cfg.num_layers} layers x {FP32_SMALL_STEPS} steps, wgmma 0 "
+        f"[card: {card_line()}]")
     del tr, model, big
     torch.cuda.empty_cache()
     return {"tiny_losses": losses, "tiny_rel": rel,
-            "small_losses": small_losses, "small_wall_s": wall,
-            "small_peak_bytes": peak, "fwd_launches": n, "bwd_launches": n}
+            "small_losses": small_losses, "small_step_ms": step_ms,
+            "small_tokens_per_s": tok_s, "small_peak_bytes": peak,
+            "fwd_launches": n, "bwd_launches": n}
 
 
 class _PlainFlash:
@@ -1553,7 +1710,8 @@ def flash_bound(b, sq, sk, h, d, causal, n_products, n_q, n_k,
     logsumexp, over 3.35 TB/s; 2 d flops per product per visible
     (query, key) pair (under the causal rule only the pairs this shape
     keeps: q + sk - sq >= j), over the peak of the inputs' type (bf16
-    tensor cores; fp32 67 TFLOP/s)."""
+    tensor cores; fp32 67 TFLOP/s, or TF32's 495 with three products
+    per product)."""
     if causal:
         off = sk - sq
         pairs = sum(min(q + off + 1, sk) for q in range(sq))
@@ -1619,9 +1777,10 @@ def phase_flash_numbers(torch, fa, card: str, built):
             f"{plain:.3f} ms; scaled_dot_product_attention {lib:.4f} ms")
     log("    K3 parts, each kernel alone: " + ", ".join(
         f"{name} {ms:.4f} ms" for name, ms in parts.items()))
-    info = {dd: fa.kernel_info(dd) for dd in (64, 128)}
+    info = {f"{tname} d {dd}": fa.kernel_info(dd, getattr(torch, tname))
+            for tname in ("bfloat16", "float32") for dd in (32, 64, 128)}
     for dd, kernels in info.items():
-        log(f"    d {dd}: " + "; ".join(
+        log(f"    {dd}: " + "; ".join(
             f"{name} {regs} registers, {local} local (spill) bytes, "
             f"{smem} B dynamic shared memory, {threads} threads"
             for name, (regs, local, smem, threads) in kernels.items()))
@@ -1637,43 +1796,69 @@ def phase_flash_numbers(torch, fa, card: str, built):
                     "library_ms": bwd_lib, "bound_ms": bwd_bound[0],
                     "bound_by": bwd_bound[1]},
             "bwd_parts_ms": parts,
-            "kernel_info": {str(dd): {n: list(v) for n, v in kernels.items()}
+            "kernel_info": {dd: {n: list(v) for n, v in kernels.items()}
                             for dd, kernels in info.items()},
             "nvcc_s": {n: t for n, t in built.items()
                        if n.startswith("flash")}}
 
 
-# the generic route's timing shapes: GPT-small fp32 training (phase 6b)
-# and phase 3's bf16 head dim 32 case
-GENERIC_TIMING = (("fp32 d 64, GPT-small training shape", FLASH_SHAPE["b"],
-                   FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float32"),
-                  ("bf16 d 32", 4, 512, 24, 32, "bfloat16"))
+# the other timed rows: the tf32x3 route at GPT-small's fp32 training
+# shape (phase 6b) and the wgmma route at phase 3's bf16 head dim 32 case
+ROUTE_TIMING = (("fp32 d 64, GPT-small training shape", FLASH_SHAPE["b"],
+                 FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float32"),
+                ("bf16 d 32", 4, 512, 24, 32, "bfloat16"))
 
 
-def phase_flash_generic_numbers(torch, fa, card: str):
-    """The generic flash kernels at GENERIC_TIMING's shapes (causal,
-    packed qkv): forward and backward medians after an L2 flush beside
-    their bounds (fp32 operations over 67 TFLOP/s, bf16 over the tensor
-    cores' peak), the plain versions and `scaled_dot_product_attention`
-    (a yardstick only, with TF32 off)."""
+def phase_flash_route_numbers(torch, fa, card: str):
+    """K2/K3 at ROUTE_TIMING's shapes (causal, packed qkv), first held
+    against their plain versions there (`hold_flash`), then forward and
+    backward medians after an L2 flush (fp32: the split kernel's share
+    timed alone too) beside their bounds (fp32: three TF32 products per
+    product over 495 TFLOP/s, and the FFMA bound over 67 TFLOP/s; bf16
+    over the tensor cores' peak), the plain versions and
+    `scaled_dot_product_attention` (a yardstick only, with TF32 off)."""
     F = torch.nn.functional
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(9)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     out = {}
-    log(f"  generic flash route [card: {card}]")
-    for name, b, s_, h, d, tname in GENERIC_TIMING:
+    for name, b, s_, h, d, tname in ROUTE_TIMING:
         dtype = getattr(torch, tname)
+        fp32 = dtype == torch.float32
         q, k, v, g = flash_inputs(torch, gen, b, s_, s_, h, d, True, dtype)
         scale = 1 / math.sqrt(d)
-        check(fa._check_cuda_args(q, k, v, True) == fa.GENERIC,
-              f"{name}: not the generic route")
+        route = fa._check_cuda_args(q, k, v, True)
+        check(route == (fa.TF32X3 if fp32 else fa.WGMMA),
+              f"{name}: route {route}")
         o, lse = fa._launch_fwd(q, k, v, True, scale)
+        held = hold_flash(torch, fa, name, q, k, v, g, True, scale, o, lse,
+                          fa._launch_bwd(q, k, v, o, lse, g, True, scale))
         fwd_ms = time_ms(torch, lambda: fa._launch_fwd(q, k, v, True, scale),
                          flush, reps=10)
         bwd_ms = time_ms(torch, lambda: fa._launch_bwd(q, k, v, o, lse, g,
                                                        True, scale),
                          flush, reps=10)
+        split, parts = {}, {}
+        if fp32:    # the split kernel alone, and each backward kernel
+            from paddle_tpu_torch.ops_cuda._build import load_library
+            lib = load_library("flash_attention_fwd", fa._FWD_SIGNATURES)
+            sc = fa._scratch(lib, "fwd", q, k)
+            split["forward"] = time_ms(torch, lambda: fa._launch_fwd(
+                q, k, v, True, scale, parts=fa.FWD_SPLIT, scratch=sc),
+                flush, reps=10)
+            lib = load_library("flash_attention_bwd", fa._BWD_SIGNATURES)
+            sc = fa._scratch(lib, "bwd", q, k)
+            rows = fa._bwd_rows(b, h, s_, "cuda")
+            fa._launch_bwd(q, k, v, o, lse, g, True, scale, rows=rows,
+                           scratch=sc)
+            for pname, bit in (("split", fa.BWD_SPLIT),
+                               ("delta", fa.BWD_DELTA),
+                               ("dk/dv", fa.BWD_DKDV), ("dq", fa.BWD_DQ)):
+                parts[pname] = time_ms(torch, lambda: fa._launch_bwd(
+                    q, k, v, o, lse, g, True, scale, parts=bit, rows=rows,
+                    scratch=sc), flush, reps=10)
+            split["backward"] = parts["split"]
+            del sc, rows
         fwd_plain = time_ms(torch, lambda: fa.flash_forward_plain(
             q, k, v, True, scale), flush, reps=3)
         bwd_plain = time_ms(torch, lambda: fa.flash_backward_plain(
@@ -1686,22 +1871,40 @@ def phase_flash_generic_numbers(torch, fa, card: str):
         bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True),
             flush, reps=10)
-        isz = 4 if dtype == torch.float32 else 2
-        peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        bounds = (flash_bound(b, s_, s_, h, d, True, 2, 2, 2, isz, peak),
-                  flash_bound(b, s_, s_, h, d, True, 5, 4, 4, isz, peak))
-        log(f"    {name} (b {b}, s {s_}, h {h}, d {d}, causal, packed "
-            f"qkv):")
-        rec = {}
-        for part, ms, plain, lib, (bound, by, nbytes, flops) in (
-                ("forward", fwd_ms, fwd_plain, fwd_lib, bounds[0]),
-                ("backward", bwd_ms, bwd_plain, bwd_lib, bounds[1])):
-            log(f"      {part}: median {ms:.4f} ms; bound {bound:.4f} ms "
-                f"({by}: {nbytes} B, {flops / 1e9:.2f} GFLOP); plain "
+        isz = 4 if fp32 else 2
+        log(f"  {route} route, {name} (b {b}, s {s_}, h {h}, d {d}, causal, "
+            f"packed qkv) [card: {card}]: against the plain versions, out "
+            f"max err {held['out_rel']:.2e} of max|plain|, dq/dk/dv "
+            + "/".join(f"{r:.2e}" for r in held["grad_rel"])
+            + f" (limit {held['limit']:g})")
+        rec = {"held": held}
+        for part, ms, plain, lib, n_prod, n_io in (
+                ("forward", fwd_ms, fwd_plain, fwd_lib, 2, 2),
+                ("backward", bwd_ms, bwd_plain, bwd_lib, 5, 4)):
+            if fp32:
+                bound, by, nbytes, flops = flash_bound(
+                    b, s_, s_, h, d, True, 3 * n_prod, n_io, n_io, isz,
+                    TF32_FLOPS)
+                ffma = flash_bound(b, s_, s_, h, d, True, n_prod, n_io, n_io,
+                                   isz, FP32_FLOPS)[0]
+                extra = (f"; FFMA bound {ffma:.4f} ms; split kernel alone "
+                         f"{split[part]:.4f} ms ({split[part] / ms:.1%})")
+            else:
+                bound, by, nbytes, flops = flash_bound(
+                    b, s_, s_, h, d, True, n_prod, n_io, n_io, isz,
+                    BF16_FLOPS)
+                ffma, extra = None, ""
+            log(f"    {part}: median {ms:.4f} ms; bound {bound:.4f} ms "
+                f"({by}: {nbytes} B, {flops / 1e9:.2f} GFLOP){extra}; plain "
                 f"{plain:.3f} ms; scaled_dot_product_attention "
                 f"{lib:.4f} ms")
             rec[part] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": bound, "bound_by": by}
+                         "bound_ms": bound, "bound_by": by,
+                         "ffma_bound_ms": ffma, "split_ms": split.get(part)}
+        if parts:
+            log("    backward parts, each alone: " + ", ".join(
+                f"{pname} {ms:.4f} ms" for pname, ms in parts.items()))
+            rec["backward_parts_ms"] = parts
         out[name] = rec
         del q, k, v, g, o, lse, qt, kt, vt, lib_out
         torch.cuda.empty_cache()
@@ -1746,6 +1949,8 @@ def main(argv=None) -> int:
     k7_err = phase_int8_kernel(torch, k7)
     log("phase 3: K2 and K3 against their plain versions")
     flash_err = phase_flash_kernels(torch, fa)
+    log("phase 3b: the tensor cores' TF32 arithmetic")
+    probe = phase_tf32_probe(torch, fa)
     log("phase 4: GPT-small served at full width through K1")
     engine_run = phase_engine(torch, np, P)
     log("phase 4b: the same load through K4 (paged), K5 (int8), K6 "
@@ -1766,8 +1971,9 @@ def main(argv=None) -> int:
     pvs = phase_paged_vs_slotted(torch, np, P)
     log("phase 6: GPT-small trained at full width through K2 and K3")
     train = phase_train(torch, np, P, profile=args.profile)
-    log("phase 6b: fp32 training at amp_level=None through the generic "
-        "flash kernels (gpt_tiny against the CPU, GPT-small 2 steps)")
+    log("phase 6b: fp32 training at amp_level=None through the tf32x3 "
+        "route (gpt_tiny against the CPU, GPT-small timed), gpt_tiny O2 "
+        "through the wgmma route")
     train32 = phase_train_fp32(torch, np, P)
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = phase_grad_check(torch, np, P)
@@ -1781,7 +1987,7 @@ def main(argv=None) -> int:
             f"TTFT p50 {run['ttft_p50_s'] * 1e3:.1f} ms, kv_bytes_per_token"
             f" {run['kv_bytes_per_token']:.0f}")
     fnums = phase_flash_numbers(torch, fa, card, built)
-    gnums = phase_flash_generic_numbers(torch, fa, card)
+    rnums = phase_flash_route_numbers(torch, fa, card)
     k7nums = phase_int8_numbers(torch, k7, card)
     log(f"  engine, int8-PTQ GPT-small through K7, phase 4d [card: {card}]: "
         f"{int8_run['tokens_per_s']:.1f} tokens/s, decode "
@@ -1808,16 +2014,20 @@ def main(argv=None) -> int:
         "source": "paddle_tpu_torch/ops_cuda/csrc/flash_attention_bwd.cu",
         "replaces": f"{flash}:205", "launches": train["bwd_launches"],
         "max_abs_err": flash_err["bwd"], **fnums.pop("bwd")}]
-    gen_main = gnums[GENERIC_TIMING[0][0]]
+    # the tf32x3 route: the same sources, fp32 at GPT-small's training
+    # shape (phase 6b's launches); bound: three TF32 products per product
+    tf32_main = rnums[ROUTE_TIMING[0][0]]
     for part, line, key in (("fwd", 90, "forward"), ("bwd", 205,
                                                      "backward")):
         kernels.append({
-            "name": f"flash_attention_generic_{part}", "route": "cuda",
-            "source": "paddle_tpu_torch/ops_cuda/csrc/"
-                      "flash_attention_generic.cu",
+            "name": f"flash_attention_tf32x3_{part}", "route": "cuda",
+            "source": f"paddle_tpu_torch/ops_cuda/csrc/flash_attention_"
+                      f"{part}.cu",
             "replaces": f"{flash}:{line}",
             "launches": train32[f"{part}_launches"],
-            "max_abs_err": flash_err[f"generic_{part}"], **gen_main[key]})
+            "max_abs_err": flash_err[f"tf32x3_{part}"],
+            **{k: tf32_main[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")}})
     dpy = "paddle_tpu/ops_pallas/decode_attention.py"
     for name, line, what in (("K4", 258, "paged_decode"),
                              ("K5", 242, "ragged_decode_int8"),
@@ -1861,7 +2071,7 @@ def main(argv=None) -> int:
                        "train": train, "grad_check": grad,
                        "int8_serving": int8_run, "speculative": spec,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
-                       "flash_generic_numbers": gnums,
+                       "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)

@@ -4,36 +4,48 @@
 // paddle_tpu/ops_pallas/flash_attention.py, launched there through
 // pl.pallas_call by `_flash_forward_flat`. Same function: for every
 // (batch, head) and query row, an online softmax over the keys with
-// bf16 q.k and p.v products accumulated in fp32, scores scaled in fp32,
-// the bottom-right-aligned causal rule q + (sk - sq) >= j with -1e30
-// for masked scores, p cast to bf16 before p.v, and an `l == 0` guard.
-// It writes out (b, sq, h, d) in bf16 and the fp32 natural-log
-// logsumexp m + log(l) as the (b, h, sq) rows of a (b, h, lse_rows(sq))
-// buffer, which the backward (K3) reads.
+// q.k and p.v products accumulated in fp32, scores scaled in fp32, the
+// bottom-right-aligned causal rule q + (sk - sq) >= j with -1e30 for
+// masked scores, p cast to v's dtype before p.v, and an `l == 0` guard.
+// It writes out (b, sq, h, d) in the input dtype and the fp32
+// natural-log logsumexp m + log(l) as the (b, h, sq) rows of a
+// (b, h, lse_rows(sq)) buffer, which the backward (K3) reads.
+//
+// Two routes, fixed by dtype, one kernel body:
+// - bf16 at head dim 32, 64 or 128 (`wgmma`): bf16 products.
+// - fp32 at head dim 32, 64 or 128 (`tf32x3`): every product is three
+//   TF32 products (flash_attention_common.cuh), after `split_kernel` has
+//   written the lo parts of q and k as rows (and their hi parts where TMA
+//   cannot read q or k in place) and both parts of v transposed (TF32
+//   wgmma reads B K-major only, and P V's B is V^T).
 //
 // Bound on an H100 SXM at the training shape (b 18, h 12, s 1024,
 // d 64, causal): 2 products of 2 s^2 d flops per head, halved by the
-// causal mask, 29 GFLOP over 989 TFLOP/s = 0.029 ms; q, k, v read once
-// and out and lse written once, 114 MB over 3.35 TB/s = 0.034 ms. The
-// bound is the bytes, by a little; at d = 64 the exponentials cost the
+// causal mask, 29 GFLOP. bf16: over 989 TFLOP/s 0.029 ms; q, k, v read
+// once and out and lse written once, 114 MB over 3.35 TB/s = 0.034 ms:
+// the bytes, by a little; at d = 64 the exponentials cost the
 // special-function units as much time as the two products cost the
-// tensor cores (64 x 128 exp2 per 64 x 128 x 64 x 2 products), so the
-// two have to overlap.
+// tensor cores, so the two have to overlap. fp32: 3 x 29 GFLOP over the
+// 495 TFLOP/s of TF32 = 0.176 ms; 227 MB of fp32 bytes = 0.068 ms: the
+// operations.
 //
 // What the design does about it:
 // - The grid is persistent: one CTA per SM walks the work items (a query
-//   tile of 128 rows of one (batch, head)), the tiles that see the most
-//   keys first. A CTA is two consumer warpgroups of 64 rows each and a
-//   producer warp (one warpgroup; `setmaxnreg` moves its registers to
-//   the consumers). The producer loads an item's Q tile by TMA into one
-//   of two slots, so the next item's Q lands while this one runs, and
-//   streams K and V tiles into a ring of kStages buffers with full/empty
-//   mbarriers; no consumer thread spends instructions on addresses.
-// - Every product is a wgmma: S = Q K^T shared x shared (m64 nBK k16),
-//   O += P V register x shared with V through an MN-major descriptor.
-//   P goes from the S accumulator into bf16 A fragments without
-//   touching shared memory. S of tile j + 1 is issued ahead of P V of
-//   tile j, and the softmax of tile j + 1 runs while P V is in flight.
+//   tile of 64 C rows of one (batch, head)), the tiles that see the most
+//   keys first. A CTA is C consumer warpgroups of 64 rows each (2; 1 for
+//   fp32 at d 128, whose hi and lo tiles fill shared memory four times
+//   as fast as bf16's) and a producer warp (one warpgroup; `setmaxnreg`
+//   moves its registers to the consumers). The producer loads an item's
+//   Q tile by TMA into one of kSlots slots, so the next item's Q lands
+//   while this one runs, and streams K and V tiles into a ring of
+//   kStages buffers with full/empty mbarriers; no consumer thread spends
+//   instructions on addresses.
+// - Every product is a wgmma: S = Q K^T shared x shared (m64 nBK),
+//   O += P V register x shared with V through an MN-major descriptor
+//   (bf16) or V^T through a K-major one (fp32). P goes from the S
+//   accumulator into A fragments without touching shared memory. S of
+//   tile j + 1 is issued ahead of P V of tile j, and the softmax of tile
+//   j + 1 runs while P V is in flight.
 // - The softmax runs in the exp2 domain: p = exp2(s * scale log2 e - m)
 //   with the scale folded into one FFMA; the logsumexp is converted back
 //   to the natural log once per row.
@@ -46,60 +58,83 @@
 //   scores the row 0 on each key (-inf past sk) and writes lse -1e30.
 // - q, k, v are read through (batch, seq, head) byte strides in the
 //   tensor maps, so the fused qkv projection (b, s, 3, h, d) is attended
-//   in place.
+//   in place (fp32 q and k as their hi parts); fp32 ones with strides TMA
+//   does not take go through split_kernel's plain loads, so any strides
+//   with a contiguous head dim go.
 #include "flash_attention_common.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kBlockQ = 64 * kConsumers;  // query rows per CTA
-constexpr int kStages = 3;
-
+// Per (type, head dim): consumer warpgroups, keys per tile, ring stages,
+// Q slots and tile parts (hi and lo for fp32). Shared memory: bf16
+// d 128 2 x 32 + 3 x 32 KB; fp32 d 32 2 x 32 + 3 x 32, d 64 64 +
+// 2 x 64, d 128 (one consumer warpgroup) 64 + 2 x 64 KB.
+template <typename T, int D>
+struct Cfg;
 template <int D>
-struct Tiles {
-  static constexpr int kBlockK = D <= 64 ? 128 : 64;  // keys per tile
+struct Cfg<bf16, D> {
+  static constexpr int C = 2, BK = D <= 64 ? 128 : 64, kStages = 3,
+                       kSlots = 2, kParts = 1;
+};
+template <int D>
+struct Cfg<float, D> {
+  static constexpr int C = D <= 64 ? 2 : 1, BK = D <= 64 ? 64 : 32,
+                       kStages = D == 32 ? 3 : 2, kSlots = D == 32 ? 2 : 1,
+                       kParts = 2;
 };
 
-template <int D>
+template <typename T, int D>
 struct Smem {
-  static constexpr int BK = Tiles<D>::kBlockK;
-  bf16 q[2][kBlockQ * D];  // this work item's Q tile and the next one's
-  bf16 k[kStages][BK * D];
-  bf16 v[kStages][BK * D];
-  Ring<kStages> ring;
-  Ring<2> q_ring;
-  int item[2];  // the work item in each Q slot (-1: done)
+  using F = Cfg<T, D>;
+  static constexpr int BQ = 64 * F::C;  // query rows per work item
+  T q[F::kSlots][F::kParts * BQ * D];  // this item's Q tile and the next
+  T k[F::kStages][F::kParts * F::BK * D];
+  T v[F::kStages][F::kParts * F::BK * D];  // bf16 V; fp32 V^T (D x BK)
+  Ring<F::kStages, F::C> ring;
+  Ring<F::kSlots, F::C> q_ring;
+  int item[F::kSlots];  // the work item in each Q slot (-1: done)
 };
 
+// The tensor maps: q and k as rows, v as rows (bf16) or transposed
+// (fp32)
+struct Maps {
+  Op q, k, v;
+};
+
+template <typename T>
 struct Params {
-  bf16* out;
+  T* out;
   float* lse;
-  int nh, sq, sk, causal;
+  int batch, nh, sq, sk, causal;
   int items;     // query tiles x batch x heads
   int* counter;  // the next work item, zeroed before the launch
   float scale;
   Strides os;
 };
 
-// Work item i: a query tile of head bh in `schedule`'s order; rank 0 is
-// the last tile, which sees the most keys under the causal rule.
+// Work item i: a query tile of BQ rows of head bh in `schedule`'s order;
+// rank 0 is the last tile, which sees the most keys under the causal
+// rule.
 struct Item {
   int b, h, bh, q0, nkt;
-  __device__ Item(const Params& p, int i, int bk) {
-    const int ntq = (p.sq + kBlockQ - 1) / kBlockQ;
+  template <typename P>
+  __device__ Item(const P& p, int i, int bq, int bk) {
+    const int ntq = (p.sq + bq - 1) / bq;
     int rank;
     schedule(i, p.items / ntq, ntq, bh, rank);
     b = bh / p.nh;
     h = bh % p.nh;
-    q0 = (ntq - 1 - rank) * kBlockQ;
-    nkt = live_tiles(p, q0, min(q0 + kBlockQ, p.sq) - 1, bk);
+    q0 = (ntq - 1 - rank) * bq;
+    nkt = live_tiles(p, q0, min(q0 + bq, p.sq) - 1, bk);
   }
   // key tiles of `bk` keys that rows [first_row, last_row] see. A row
   // with no visible key (first_row + sk - sq < 0, causal sq > sk) takes
   // the mean of every key's v, so a block holding one visits every tile.
-  static __device__ int live_tiles(const Params& p, int first_row,
-                                   int last_row, int bk) {
+  template <typename P>
+  static __device__ int live_tiles(const P& p, int first_row, int last_row,
+                                   int bk) {
     const int all = (p.sk + bk - 1) / bk;
     const int off = p.sk - p.sq;
     if (!p.causal || first_row + off < 0) return all;
@@ -107,14 +142,19 @@ struct Item {
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
-                 const __grid_constant__ CUtensorMap mk,
-                 const __grid_constant__ CUtensorMap mv, const Params p) {
-  constexpr int BK = Tiles<D>::kBlockK;
+template <typename T, int D>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+flash_fwd_kernel(const __grid_constant__ Maps m, const Params<T> p) {
+  using F = Cfg<T, D>;
+  constexpr int C = F::C, BK = F::BK, BQ = 64 * C, P = F::kParts;
+  constexpr int kStages = F::kStages, kSlots = F::kSlots;
+  constexpr bool kF32 = is_f32<T>();
+  static_assert(kStages >= 2, "a tile is released after the next lands");
+  using LQ = Tile<T, BQ, D>;
+  using LK = Tile<T, BK, D>;
+  using LV = std::conditional_t<kF32, Tile<T, D, BK>, Tile<T, BK, D>>;
   extern __shared__ unsigned char smem_raw[];
-  Smem<D>& sm = smem_layout<Smem<D>>(smem_raw);
+  Smem<T, D>& sm = smem_layout<Smem<T, D>>(smem_raw);
   const int off = p.sk - p.sq;
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
 
@@ -125,25 +165,28 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
   }
   __syncthreads();
 
-  if (wg == kConsumers) {
+  if (wg == C) {
     // ---- producer: one thread runs ahead over this CTA's work items ----
     producer_regs();
-    if (threadIdx.x != 128 * kConsumers) return;
+    if (threadIdx.x != 128 * C) return;
     int it = 0;  // ring tile counter
     for (int j = 0;; ++j) {  // work items of this CTA
       const int i = take_item(p.counter, p.items, sm.item, sm.q_ring, j);
       if (i < 0) break;
-      const Item w(p, i, BK);
-      uint64_t* qbar = &sm.q_ring.full[j & 1];
-      mbar_expect_tx(qbar, tile_bytes<kBlockQ, D>());
-      tma_tile<kBlockQ, D>(sm.q[j & 1], &mq, qbar, w.h, w.q0, w.b);
+      const Item w(p, i, BQ, BK);
+      uint64_t* qbar = &sm.q_ring.full[j % kSlots];
+      mbar_expect_tx(qbar, P * LQ::kBytes);
+      tma_op<T, BQ, D>(sm.q[j % kSlots], m.q, qbar, 0, w.h, w.q0, w.b);
       for (int kt = 0; kt < w.nkt; ++kt, ++it) {
         sm.ring.wait_empty(it);
         const int s = it % kStages;
         uint64_t* bar = &sm.ring.full[s];
-        mbar_expect_tx(bar, 2 * tile_bytes<BK, D>());
-        tma_tile<BK, D>(sm.k[s], &mk, bar, w.h, kt * BK, w.b);
-        tma_tile<BK, D>(sm.v[s], &mv, bar, w.h, kt * BK, w.b);
+        mbar_expect_tx(bar, P * (LK::kBytes + LV::kBytes));
+        tma_op<T, BK, D>(sm.k[s], m.k, bar, 0, w.h, kt * BK, w.b);
+        if constexpr (kF32)
+          tma_op<T, D, BK>(sm.v[s], m.v, bar, kt * BK, w.h, 0, w.b);
+        else
+          tma_op<T, BK, D>(sm.v[s], m.v, bar, 0, w.h, kt * BK, w.b);
       }
     }
     return;
@@ -157,12 +200,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
   for (int j = 0;; ++j) {
     const int i = wait_item(sm.item, sm.q_ring, j);
     if (i < 0) break;
-    const Item w(p, i, BK);
+    const Item w(p, i, BQ, BK);
     const int qw = w.q0 + 64 * wg;
     const int nkt_w =
         qw < p.sq ? Item::live_tiles(p, qw, min(qw + 64, p.sq) - 1, BK) : 0;
     const int row_a = qw + 16 * w4 + g;  // this thread's rows: +0 and +8
-    const bf16* sq_tile = sm.q[j & 1];
+    const T* sq_tile = sm.q[j % kSlots];
 
     float o[D / 2];
 #pragma unroll
@@ -225,42 +268,40 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
       // S of tile kt + 1 runs on the tensor cores while P V of tile kt is
       // issued behind it, and the softmax of kt + 1 runs beside P V
       float sc[BK / 2], alpha[2];
-      uint32_t pa[BK / 16][4];
+      Frags<T, BK> pa;
       sm.ring.wait_full(it0);
       wgmma_fence();
-      gemm_ss<BK, D / 16, kBlockQ, BK>(sc, sq_tile, 64 * wg,
-                                       sm.k[it0 % kStages]);
+      gemm_ss<T, BK, D, BQ>(sc, sq_tile, 64 * wg, sm.k[it0 % kStages]);
       wgmma_commit();
       wgmma_wait();
       fence_regs<BK / 2>(sc);
       softmax(sc, 0, alpha);
-      to_a_frags<BK>(pa, sc);
+      to_a_frags(pa, sc);
       for (int kt = 1; kt < nkt_w; ++kt) {
         const int it = it0 + kt;
         sm.ring.wait_full(it);
         wgmma_fence();
-        gemm_ss<BK, D / 16, kBlockQ, BK>(sc, sq_tile, 64 * wg,
-                                         sm.k[it % kStages]);
+        gemm_ss<T, BK, D, BQ>(sc, sq_tile, 64 * wg, sm.k[it % kStages]);
         wgmma_commit();
-        gemm_rs<D, BK / 16, BK>(o, pa, sm.v[(it - 1) % kStages]);
+        gemm_rs<T, D, BK>(o, pa, sm.v[(it - 1) % kStages]);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs<BK / 2>(sc);
         softmax(sc, kt, alpha);
         wgmma_wait<0>();
         fence_regs<D / 2>(o);
-        fence_regs<BK / 16>(pa);
+        fence_frags(pa);
         sm.ring.release(it - 1, lane);
 #pragma unroll
         for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
-        to_a_frags<BK>(pa, sc);
+        to_a_frags(pa, sc);
       }
       wgmma_fence();
-      gemm_rs<D, BK / 16, BK>(o, pa, sm.v[(it0 + nkt_w - 1) % kStages]);
+      gemm_rs<T, D, BK>(o, pa, sm.v[(it0 + nkt_w - 1) % kStages]);
       wgmma_commit();
       wgmma_wait();
       fence_regs<D / 2>(o);
-      fence_regs<BK / 16>(pa);
+      fence_frags(pa);
       sm.ring.release(it0 + nkt_w - 1, lane);
     }
     sm.q_ring.release(j, lane);  // every product on this Q has completed
@@ -290,105 +331,177 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
         p.lse[(long long)w.bh * lse_rows(p.sq) + row] =
             row < p.sq ? lse : 0.f;
     }
-    bf16* ob = p.out + w.b * p.os.b + w.h * p.os.h;
+    T* ob = p.out + w.b * p.os.b + w.h * p.os.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row_a + 8 * r;
       if (row >= p.sq) continue;
-      bf16* orow = ob + row * p.os.s + 2 * t;
+      T* orow = ob + row * p.os.s + 2 * t;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
-        *reinterpret_cast<uint32_t*>(orow + 8 * c) = pack_bf16(
-            o[4 * c + 2 * r] * inv[r], o[4 * c + 2 * r + 1] * inv[r]);
+        store2(orow + 8 * c, o[4 * c + 2 * r] * inv[r],
+               o[4 * c + 2 * r + 1] * inv[r]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 constexpr int smem_bytes() {
-  return sizeof(Smem<D>) + 1024;  // + alignment slack
+  return sizeof(Smem<T, D>) + 1024;  // + alignment slack
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, void* counter, int batch, int nh, int sq,
-                   int sk, Strides qs, Strides ks, Strides vs, Strides os,
-                   int causal, float scale, cudaStream_t stream) {
-  constexpr int BK = Tiles<D>::kBlockK;
+// parts of a launch: the fp32 split (hi and lo copies) and the kernel
+enum : int { kSplit = 1, kMain = 2 };
+
+template <typename T, int D>
+cudaError_t launch_main(const Maps& m, Params<T> p, cudaStream_t stream) {
+  using F = Cfg<T, D>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<D>());
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes<T, D>());
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, batch, sq, nh, D, qs, kBlockQ) ||
-      !make_map(&mk, k, batch, sk, nh, D, ks, BK) ||
-      !make_map(&mv, v, batch, sk, nh, D, vs, BK))
-    return cudaErrorInvalidValue;
-  const int items = (sq + kBlockQ - 1) / kBlockQ * batch * nh;
-  const Params p{static_cast<bf16*>(out), static_cast<float*>(lse), nh, sq,
-                 sk, causal, items, static_cast<int*>(counter), scale, os};
-  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
+  p.items = (p.sq + 64 * F::C - 1) / (64 * F::C) * p.batch * p.nh;
+  cudaError_t err = cudaMemsetAsync(p.counter, 0, sizeof(int), stream);
   if (err != cudaSuccess) return err;
-  const int grid = items < sm_count() ? items : sm_count();
-  flash_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(mq, mk, mv,
-                                                                   p);
+  const int grid = p.items < sm_count() ? p.items : sm_count();
+  flash_fwd_kernel<T, D>
+      <<<grid, 128 * (F::C + 1), smem_bytes<T, D>(), stream>>>(m, p);
   return cudaGetLastError();
 }
 
+// bf16: tensor maps straight over q, k, v (st: q, k, v, out)
 template <int D>
+cudaError_t run_bf16(const bf16* q, const bf16* k, const bf16* v,
+                     const Strides* st, const Params<bf16>& p,
+                     cudaStream_t stream) {
+  using F = Cfg<bf16, D>;
+  Maps m{};
+  if (!bf16_op<64 * F::C, D>(&m.q, q, st[0], p.batch, p.nh, p.sq) ||
+      !bf16_op<F::BK, D>(&m.k, k, st[1], p.batch, p.nh, p.sk) ||
+      !bf16_op<F::BK, D>(&m.v, v, st[2], p.batch, p.nh, p.sk))
+    return cudaErrorInvalidValue;
+  return launch_main<bf16, D>(m, p, stream);
+}
+
+// fp32: split_kernel writes q and k as rows (lo; hi too where TMA cannot
+// read q or k in place) and v transposed, hi and lo, into `scratch`
+// (flash_fwd_scratch_floats), and the kernel reads those and q and k
+template <int D>
+cudaError_t run_f32(const float* q, const float* k, const float* v,
+                    float* scratch, const Strides* st,
+                    const Params<float>& p, int parts, cudaStream_t stream) {
+  using F = Cfg<float, D>;
+  const int nbh = p.batch * p.nh;
+  float* qn = scratch;
+  float* kn = qn + nat_floats(nbh, p.sq, D);
+  float* vt = kn + nat_floats(nbh, p.sk, D);
+  if (parts & kSplit) {
+    SplitArgs a{};
+    a.nbh = nbh;
+    a.nh = p.nh;
+    a.op[0] = SplitOp{q, qn, nullptr, st[0], p.sq, !in_place(q, st[0])};
+    a.op[1] = SplitOp{k, kn, nullptr, st[1], p.sk, !in_place(k, st[1])};
+    a.op[2] = SplitOp{v, nullptr, vt, st[2], p.sk, false};
+    cudaError_t err = launch_split<D>(a, 3, p.sq > p.sk ? p.sq : p.sk,
+                                      stream);
+    if (err != cudaSuccess) return err;
+  }
+  if (!(parts & kMain)) return cudaSuccess;
+  Maps m{};
+  if (!row_op<D, 64 * F::C>(&m.q, q, st[0], qn, p.batch, p.nh, p.sq) ||
+      !row_op<D, F::BK>(&m.k, k, st[1], kn, p.batch, p.nh, p.sk) ||
+      !tr_op<D, F::BK>(&m.v, vt, p.batch, p.nh, p.sk))
+    return cudaErrorInvalidValue;
+  return launch_main<float, D>(m, p, stream);
+}
+
+template <typename T, int D>
 void info(int* out) {
+  using F = Cfg<T, D>;
   cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, flash_fwd_kernel<D>) != cudaSuccess) return;
+  if (cudaFuncGetAttributes(&a, flash_fwd_kernel<T, D>) != cudaSuccess)
+    return;
   out[0] = a.numRegs;
   out[1] = static_cast<int>(a.localSizeBytes);
-  out[2] = smem_bytes<D>();
-  out[3] = kThreads;
+  out[2] = smem_bytes<T, D>();
+  out[3] = 128 * (F::C + 1);
 }
 
 }  // namespace
 
-// C entry for ctypes. `counter`: one int32 of device scratch (zeroed here,
-// then the work queue). q (b, sq, h, d), k and v (b, sk, h, d), out
-// (b, sq, h, d), all bf16 with a contiguous head dim, 16-byte aligned
-// bases and the given element strides (multiples of 8); lse
-// (b, h, lse_rows(sq)) fp32 contiguous, written 0 past sq. Launches on
-// `stream` without synchronising; returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a shape or layout the kernel does not
-// take).
-extern "C" int flash_fwd_launch(
-    const void* q, const void* k, const void* v, void* out, void* lse,
-    void* counter, int batch, int nh, int sq, int sk, int d, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int causal, float scale, void* stream) {
+// Floats of the fp32 forward's scratch: q and k as rows and v
+// transposed, each hi and lo (split_kernel's layouts; the hi half of an
+// operand TMA reads in place stays unwritten).
+extern "C" long long flash_fwd_scratch_floats(int batch, int nh, int sq,
+                                              int sk, int d) {
+  const int nbh = batch * nh;
+  return nat_floats(nbh, sq, d) + nat_floats(nbh, sk, d) +
+         tr_floats(nbh, sk, d);
+}
+
+// C entry for ctypes. `dtype` 0 fp32 (the tf32x3 route; `scratch` holds
+// flash_fwd_scratch_floats floats) or 1 bf16 (the wgmma route; scratch
+// unused). `counter`: one int32 of device scratch (zeroed here, then the
+// work queue). q (b, sq, h, d), k and v (b, sk, h, d), out (b, sq, h, d),
+// with a contiguous head dim and the element strides (b, s, h of q, k,
+// v, out); bf16 ones with 16-byte aligned bases and strides that are
+// multiples of 8, fp32 ones with any. lse (b, h, lse_rows(sq)) fp32
+// contiguous, written 0 past sq. `parts` (fp32): 1 the split, 2 the
+// kernel, 3 both. Launches on `stream` without synchronising; returns
+// cudaGetLastError() after the launches (cudaErrorInvalidValue for a
+// shape or layout the kernels do not take).
+extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
+                                void* out, void* lse, void* counter,
+                                void* scratch, int batch, int nh, int sq,
+                                int sk, int d, int dtype,
+                                const long long* strides, int causal,
+                                float scale, int parts, void* stream) {
   if (batch < 1 || nh < 1 || sq < 1 || sk < 1 ||
       !indices_fit(batch, nh, sq, sk))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
-      vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (d == 64)
-    err = launch<64>(q, k, v, out, lse, counter, batch, nh, sq, sk, qs, ks,
-                     vs, os, causal, scale, s);
-  else if (d == 128)
-    err = launch<128>(q, k, v, out, lse, counter, batch, nh, sq, sk, qs, ks,
-                      vs, os, causal, scale, s);
-  else
-    err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const Params<bf16> p{static_cast<bf16*>(out), static_cast<float*>(lse),
+                         batch, nh, sq, sk, causal, 0,
+                         static_cast<int*>(counter), scale, st[3]};
+    const bf16 *bq = static_cast<const bf16*>(q),
+               *bk = static_cast<const bf16*>(k),
+               *bv = static_cast<const bf16*>(v);
+    if (d == 32) err = run_bf16<32>(bq, bk, bv, st, p, s);
+    if (d == 64) err = run_bf16<64>(bq, bk, bv, st, p, s);
+    if (d == 128) err = run_bf16<128>(bq, bk, bv, st, p, s);
+  } else if (dtype == 0) {
+    const Params<float> p{static_cast<float*>(out), static_cast<float*>(lse),
+                          batch, nh, sq, sk, causal, 0,
+                          static_cast<int*>(counter), scale, st[3]};
+    const float *fq = static_cast<const float*>(q),
+                *fk = static_cast<const float*>(k),
+                *fv = static_cast<const float*>(v);
+    float* sc = static_cast<float*>(scratch);
+    if (d == 32) err = run_f32<32>(fq, fk, fv, sc, st, p, parts, s);
+    if (d == 64) err = run_f32<64>(fq, fk, fv, sc, st, p, parts, s);
+    if (d == 128) err = run_f32<128>(fq, fk, fv, sc, st, p, parts, s);
+  }
   return static_cast<int>(err);
 }
 
 // {registers, local (spill) bytes, dynamic shared bytes, threads} of the
-// kernel for head dim d.
-extern "C" void flash_fwd_info(int d, int* out) {
-  if (d == 64) info<64>(out);
-  if (d == 128) info<128>(out);
+// kernel for `dtype` (0 fp32, 1 bf16) and head dim d.
+extern "C" void flash_fwd_info(int dtype, int d, int* out) {
+  if (dtype == 1 && d == 32) info<bf16, 32>(out);
+  if (dtype == 1 && d == 64) info<bf16, 64>(out);
+  if (dtype == 1 && d == 128) info<bf16, 128>(out);
+  if (dtype == 0 && d == 32) info<float, 32>(out);
+  if (dtype == 0 && d == 64) info<float, 64>(out);
+  if (dtype == 0 && d == 128) info<float, 128>(out);
 }
 
 extern "C" const char* error_string(int err) {

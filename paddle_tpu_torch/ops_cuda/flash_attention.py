@@ -9,27 +9,32 @@ kernels are held against. Layout (batch, seq, heads, head_dim), as in
 the JAX package.
 
 On a CUDA tensor `FlashAttentionFunction` launches hand-written Hopper
-kernels, built on first use by `_build.py`, on one of two routes fixed
-by dtype and head dim (`_check_cuda_args`, which raises on anything
-else): bf16 at head dim 64 or 128 goes to the wgmma kernels
-(`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`: TMA
-loads and wgmma products), fp32 at 32, 64 or 128 and bf16 at 32 to the
-generic ones (`csrc/flash_attention_generic.cu`: fp32 FFMA products).
-On CPU tensors it runs `flash_forward_plain` / `flash_backward_plain`,
-the same functions in plain torch. There is no fallback from one to
-the other. Each CUDA launch adds one to `FWD_LAUNCHES` or
-`BWD_LAUNCHES` and to its route's own counter (one backward call
-launches three kernels, delta, dk/dv and dq, and counts once).
+kernels (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`:
+TMA loads and wgmma products), built on first use by `_build.py`, on
+one of two routes fixed by dtype (`_check_cuda_args`, which raises on
+anything else), both at head dim 32, 64 or 128: bf16 goes to the
+`wgmma` route (bf16 products), fp32 to the `tf32x3` route (each fp32
+product as three TF32 products over hi and lo parts, which a split
+kernel writes first, with the transposed copies TF32 wgmma needs;
+`tf32_split` is its arithmetic in plain torch). On CPU tensors it runs
+`flash_forward_plain` / `flash_backward_plain`, the same functions in
+plain torch. There is no fallback from one to the other. Each CUDA
+launch adds one to `FWD_LAUNCHES` or `BWD_LAUNCHES` and to its route's
+own counter (one backward call launches the split, delta, dk/dv and dq
+kernels, and counts once).
 
 Causal attention with sq > sk leaves the first sq - sk query rows with
 no visible key; every version gives them the reference's uniform
 softmax over all sk keys (`empty_rows`).
 
-The wgmma kernels read q, k, v through TMA tensor maps over their
+The wgmma route reads q, k, v through TMA tensor maps over their
 (batch, seq, head) strides, so the slices of the fused qkv projection
 go in without copies; TMA needs a contiguous head dim, a 16-byte
-aligned base and strides that are multiples of 16 bytes. The generic
-kernels read the same strides with plain loads. The logsumexp is
+aligned base and strides that are multiples of 16 bytes. The tf32x3
+route reads an input that meets those rules the same way, as its own hi
+part (the tensor cores read fp32 as TF32 by dropping the 13 low bits),
+and its split kernel writes the rest with plain loads, so it takes any
+strides with a contiguous head dim. The logsumexp is
 (batch, heads, seq_q) fp32; the JAX kernels keep it as
 (batch * heads, 1, seq_q).
 """
@@ -46,18 +51,17 @@ from .decode_attention import _LaunchCounter
 __all__ = ["dot_product_attention", "FlashAttentionFunction",
            "flash_forward_plain", "flash_backward_plain",
            "flash_delta_plain", "attention_reference", "empty_rows",
-           "FWD_LAUNCHES", "BWD_LAUNCHES", "WGMMA_FWD_LAUNCHES",
-           "WGMMA_BWD_LAUNCHES", "GENERIC_FWD_LAUNCHES",
-           "GENERIC_BWD_LAUNCHES"]
+           "tf32_split", "FWD_LAUNCHES", "BWD_LAUNCHES",
+           "WGMMA_FWD_LAUNCHES", "WGMMA_BWD_LAUNCHES",
+           "TF32X3_FWD_LAUNCHES", "TF32X3_BWD_LAUNCHES"]
 
 NEG_INF = -1e30
-# (dtype, head dims) each route takes: the wgmma K2/K3 (bf16 at d 64 and
-# 128) and the generic kernels (csrc/flash_attention_generic.cu) for the
-# rest: fp32 at d 32, 64, 128 and bf16 at d 32
-WGMMA, GENERIC = "wgmma", "generic"
-_ROUTES = {(torch.bfloat16, 64): WGMMA, (torch.bfloat16, 128): WGMMA,
-           (torch.bfloat16, 32): GENERIC, (torch.float32, 32): GENERIC,
-           (torch.float32, 64): GENERIC, (torch.float32, 128): GENERIC}
+# (dtype, head dim) -> route: K2/K3 with bf16 products (`wgmma`) and
+# with 3xTF32 products for fp32 (`tf32x3`)
+WGMMA, TF32X3 = "wgmma", "tf32x3"
+_ROUTES = {(torch.bfloat16, 32): WGMMA, (torch.bfloat16, 64): WGMMA,
+           (torch.bfloat16, 128): WGMMA, (torch.float32, 32): TF32X3,
+           (torch.float32, 64): TF32X3, (torch.float32, 128): TF32X3}
 _SUPPORTED_HD = tuple(sorted({d for _, d in _ROUTES}))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -67,8 +71,8 @@ BWD_LAUNCHES = _LaunchCounter()
 # ...and each route's own share, so a run can show which route it took
 WGMMA_FWD_LAUNCHES = _LaunchCounter()
 WGMMA_BWD_LAUNCHES = _LaunchCounter()
-GENERIC_FWD_LAUNCHES = _LaunchCounter()
-GENERIC_BWD_LAUNCHES = _LaunchCounter()
+TF32X3_FWD_LAUNCHES = _LaunchCounter()
+TF32X3_BWD_LAUNCHES = _LaunchCounter()
 
 
 def _not_ported(what: str):
@@ -176,16 +180,28 @@ def flash_backward_plain(q, k, v, out, lse, g, causal: bool, scale: float
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def tf32_split(x):
+    """The tf32x3 route's split of an fp32 tensor (`split_kernel` and
+    `to_a_frags` in csrc/flash_attention_common.cuh), in plain torch:
+    hi = x with its 13 low mantissa bits cleared, lo = x - hi rounded to
+    TF32 (nearest, ties away from zero), both exact in TF32, so the
+    tensor cores read them as they are; hi + lo is x within 2^-21 |x|.
+    A product a.b runs as lo_a.hi_b + hi_a.lo_b + hi_a.hi_b."""
+    x = x.contiguous()
+    hi = (x.view(torch.int32) & -8192).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) + 4096 & -8192).view(torch.float32)
+    return hi, lo
+
+
 # --------------------------------------------------------------------------- #
 # the CUDA path
 # --------------------------------------------------------------------------- #
 
 def _check_cuda_args(q, k, v, causal: bool) -> str:
-    """What the flash kernels take, and which of them: returns the route
-    (`WGMMA` for bf16 at head dim 64 or 128, `GENERIC` for fp32 at 32,
-    64 or 128 and bf16 at 32), a fixed choice by dtype and head dim.
-    Raises on anything else (the wrapper never runs the plain version
-    on the card)."""
+    """What the flash kernels take, and which route: `WGMMA` for bf16,
+    `TF32X3` for fp32, both at head dim 32, 64 or 128, a fixed choice by
+    dtype and head dim. Raises on anything else (the wrapper never runs
+    the plain version on the card)."""
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -219,8 +235,8 @@ def _check_cuda_args(q, k, v, causal: bool) -> str:
 
 def _check_layout(route: str, name, t):
     """The layout a route reads: TMA's rules on the wgmma route, a
-    contiguous head dim (plain loads over any strides) on the generic
-    one."""
+    contiguous head dim (the split kernel's plain loads over any
+    strides) on the tf32x3 one."""
     if route == WGMMA:
         _check_tma_layout(name, t)
     elif t.stride(-1) != 1:
@@ -246,34 +262,33 @@ def _check_tma_layout(name, t):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _FWD_SIGNATURES = {
-    # q, k, v, out, lse, counter; b, h, sq, sk, d; 12 strides; causal;
-    # scale; stream
-    "flash_fwd_launch": (_I, [_P] * 6 + [_I] * 5 + [_LL] * 12
-                         + [_I, _F, _P]),
-    "flash_fwd_info": (None, [_I, _P]),
-    "error_string": (ctypes.c_char_p, [_I]),
-}
-_GENERIC_SIGNATURES = {
-    # q, k, v, out, lse; b, h, sq, sk, d, dtype; strides (b, s, h of q,
-    # k, v, out); causal; scale; stream
-    "flash_generic_fwd_launch": (_I, [_P] * 5 + [_I] * 6
-                                 + [_P, _I, _F, _P]),
-    # q, k, v, out, g, lse, delta, dq, dk, dv; b, h, sq, sk, d, dtype;
-    # strides (of q, k, v, out, g, dq, dk, dv); causal; scale; stream
-    "flash_generic_bwd_launch": (_I, [_P] * 10 + [_I] * 6
-                                 + [_P, _I, _F, _P]),
+    # q, k, v, out, lse, counter, scratch; b, h, sq, sk, d, dtype;
+    # strides (b, s, h of q, k, v, out); causal; scale; parts; stream
+    "flash_fwd_launch": (_I, [_P] * 7 + [_I] * 6 + [_P, _I, _F, _I, _P]),
+    "flash_fwd_scratch_floats": (_LL, [_I] * 5),
+    "flash_fwd_info": (None, [_I, _I, _P]),
     "error_string": (ctypes.c_char_p, [_I]),
 }
 _BWD_SIGNATURES = {
-    # q, k, v, out, g, lse, rows, counters, dq, dk, dv; b, h, sq, sk, d;
-    # strides*; causal; scale; parts; stream
-    "flash_bwd_launch": (_I, [_P] * 11 + [_I] * 5 + [_P, _I, _F, _I, _P]),
-    "flash_bwd_info": (None, [_I, _I, _P]),
+    # q, k, v, out, g, lse, rows, counters, dq, dk, dv, scratch; b, h, sq,
+    # sk, d, dtype; strides (of q, k, v, out, g, dq, dk, dv); causal;
+    # scale; parts; stream
+    "flash_bwd_launch": (_I, [_P] * 12 + [_I] * 6 + [_P, _I, _F, _I, _P]),
+    "flash_bwd_scratch_floats": (_LL, [_I] * 5),
+    "flash_bwd_info": (None, [_I, _I, _I, _P]),
     "error_string": (ctypes.c_char_p, [_I]),
 }
-# the parts of the backward (`flash_bwd_launch`'s `parts` bits)
-BWD_DELTA, BWD_DKDV, BWD_DQ = 1, 2, 4
-BWD_ALL = BWD_DELTA | BWD_DKDV | BWD_DQ
+_PROBE_SIGNATURES = {
+    "tf32_probe_launch": (_I, [_P, _P, _P, _I, _P]),
+    "error_string": (ctypes.c_char_p, [_I]),
+}
+# the parts of a launch (the C entries' `parts` bits): the forward's
+# split (tf32x3 only) and kernel; the backward's delta, dk/dv and dq
+# kernels and its split (tf32x3 only; the wgmma route ignores the bit)
+FWD_SPLIT, FWD_MAIN = 1, 2
+FWD_ALL = FWD_SPLIT | FWD_MAIN
+BWD_DELTA, BWD_DKDV, BWD_DQ, BWD_SPLIT = 1, 2, 4, 8
+BWD_ALL = BWD_DELTA | BWD_DKDV | BWD_DQ | BWD_SPLIT
 
 
 def _bsh(t):
@@ -284,7 +299,7 @@ def _lse_rows(sq: int) -> int:
     """Row length of the fp32 lse and delta buffers: sq rounded up to
     128, the kernels' row block (`lse_rows` in
     csrc/flash_attention_common.cuh), so the backward's bulk copies of
-    32- or 64-row slices start 16-byte aligned and stay inside their
+    16- to 64-row slices start 16-byte aligned and stay inside their
     row."""
     return -(-sq // 128) * 128
 
@@ -310,8 +325,9 @@ def _stream(t):
 
 def _strides(*ts):
     """The (batch, seq, head) element strides of each tensor, as the C
-    array the generic kernels take."""
-    return (_LL * (3 * len(ts)))(*(x for t in ts for x in _bsh(t)))
+    array the kernels take."""
+    return ctypes.cast((_LL * (3 * len(ts)))(
+        *(x for t in ts for x in _bsh(t))), ctypes.c_void_p)
 
 
 def _raise_on(err, lib, what):
@@ -320,21 +336,28 @@ def _raise_on(err, lib, what):
                            f"{lib.error_string(err).decode()} ({err})")
 
 
-def _launch_generic_fwd(q, k, v, causal: bool, scale: float, out, lse):
-    from ._build import load_library
+def _scratch(lib, which: str, q, k):
+    """The tf32x3 route's fp32 scratch for `which` ("fwd" or "bwd"):
+    the split kernel's hi and lo copies (sizes from the C side; the hi
+    rows of an input read in place stay unwritten); None on the wgmma
+    route."""
+    if q.dtype != torch.float32:
+        return None
     b, sq, h, d = q.shape
-    lib = load_library("flash_attention_generic", _GENERIC_SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.flash_generic_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, h, sq, k.shape[1], d, _DTYPE_CODE[q.dtype],
-            ctypes.cast(_strides(q, k, v, out), ctypes.c_void_p),
-            int(causal), scale, _stream(q))
-    _raise_on(err, lib, "generic flash forward")
-    GENERIC_FWD_LAUNCHES.count += 1
+    n = getattr(lib, f"flash_{which}_scratch_floats")(b, h, sq, k.shape[1],
+                                                     d)
+    return torch.empty(n, dtype=torch.float32, device=q.device)
 
 
-def _launch_fwd(q, k, v, causal: bool, scale: float):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(q, k, v, causal: bool, scale: float, parts: int = FWD_ALL,
+                scratch=None):
+    """(out, lse) through the forward kernel of the route. On the tf32x3
+    route `parts` and `scratch` (from `_scratch(lib, "fwd", q, k)`) let
+    a timing run launch the split and the kernel one at a time."""
     from ._build import load_library
     route = _check_cuda_args(q, k, v, causal)
     b, sq, h, d = q.shape
@@ -343,19 +366,19 @@ def _launch_fwd(q, k, v, causal: bool, scale: float):
     lse = _row_buffer(b, h, sq, q.device)
     if out.numel() == 0:
         return out, lse
-    if route == GENERIC:
-        _launch_generic_fwd(q, k, v, causal, scale, out, lse)
-        FWD_LAUNCHES.count += 1
-        return out, lse
-    counter = torch.empty(1, dtype=torch.int32, device=q.device)
     lib = load_library("flash_attention_fwd", _FWD_SIGNATURES)
+    if scratch is None:
+        scratch = _scratch(lib, "fwd", q, k)
+    counter = torch.empty(1, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), counter.data_ptr(), b, h, sq, sk, d, *_bsh(q),
-            *_bsh(k), *_bsh(v), *_bsh(out), int(causal), scale, _stream(q))
+            lse.data_ptr(), counter.data_ptr(), _ptr(scratch), b, h, sq, sk,
+            d, _DTYPE_CODE[q.dtype], _strides(q, k, v, out), int(causal),
+            scale, parts, _stream(q))
     _raise_on(err, lib, "flash forward")
-    WGMMA_FWD_LAUNCHES.count += 1
+    (WGMMA_FWD_LAUNCHES if route == WGMMA else TF32X3_FWD_LAUNCHES
+     ).count += 1
     FWD_LAUNCHES.count += 1
     return out, lse
 
@@ -369,20 +392,19 @@ def _bwd_rows(b, h, sq, device):
 
 
 def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float,
-                parts: int = BWD_ALL, rows=None):
-    """(dq, dk, dv) through the three backward kernels of the route.
-    On the wgmma route `parts` and `rows` (from `_bwd_rows`) let a
-    timing run launch one kernel at a time (dk/dv and dq read `rows`,
-    which the delta kernel writes); the autograd path runs them all.
-    `lse` is the forward's; one in another layout is copied into a row
-    buffer first."""
+                parts: int = BWD_ALL, rows=None, scratch=None):
+    """(dq, dk, dv) through the backward kernels of the route. `parts`,
+    `rows` (from `_bwd_rows`) and, on the tf32x3 route, `scratch` (from
+    `_scratch(lib, "bwd", q, k)`) let a timing run launch one kernel at
+    a time (dk/dv and dq read `rows`, which the delta kernel writes, and
+    the split's copies); the autograd path runs them all. `lse` is the
+    forward's; one in another layout is copied into a row buffer
+    first."""
     from ._build import load_library
     route = _check_cuda_args(q, k, v, causal)
     g = g.contiguous()          # autograd may hand in an expanded tensor
     for name, t in (("out", out), ("g", g)):
         _check_layout(route, name, t)
-    if route == GENERIC and (parts != BWD_ALL or rows is not None):
-        raise ValueError("parts and rows select the wgmma route's kernels")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -392,61 +414,69 @@ def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float,
         return dq, dk, dv
     if not _in_row_buffer(lse):
         lse = _row_buffer(b, h, sq, q.device, zero=True).copy_(lse)
-    if route == GENERIC:
-        delta = _row_buffer(b, h, sq, q.device)
-        lib = load_library("flash_attention_generic", _GENERIC_SIGNATURES)
-        with torch.cuda.device(q.device):
-            err = lib.flash_generic_bwd_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
-                _DTYPE_CODE[q.dtype],
-                ctypes.cast(_strides(q, k, v, out, g, dq, dk, dv),
-                            ctypes.c_void_p), int(causal), scale, _stream(q))
-        _raise_on(err, lib, "generic flash backward")
-        GENERIC_BWD_LAUNCHES.count += 1
-        BWD_LAUNCHES.count += 1
-        return dq, dk, dv
     if rows is None:
         rows = _bwd_rows(b, h, sq, q.device)
     elif rows.shape != (b, h, 2, _lse_rows(sq)) or not rows.is_contiguous():
         raise ValueError("rows must come from _bwd_rows")
-    strides = _strides(q, k, v, out, g, dq, dk, dv)
-    counters = torch.empty(2, dtype=torch.int32, device=q.device)
     lib = load_library("flash_attention_bwd", _BWD_SIGNATURES)
+    if scratch is None:
+        scratch = _scratch(lib, "bwd", q, k)
+    counters = torch.empty(2, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             g.data_ptr(), lse.data_ptr(), rows.data_ptr(),
-            counters.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
-            ctypes.cast(strides, ctypes.c_void_p), int(causal), scale,
-            parts, _stream(q))
+            counters.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), _ptr(scratch), b, h, sq, sk, d,
+            _DTYPE_CODE[q.dtype], _strides(q, k, v, out, g, dq, dk, dv),
+            int(causal), scale, parts, _stream(q))
     _raise_on(err, lib, "flash backward")
-    WGMMA_BWD_LAUNCHES.count += 1
+    (WGMMA_BWD_LAUNCHES if route == WGMMA else TF32X3_BWD_LAUNCHES
+     ).count += 1
     BWD_LAUNCHES.count += 1
     return dq, dk, dv
 
 
-def kernel_info(d: int):
+def kernel_info(d: int, dtype=torch.bfloat16):
     """{kernel: (registers, local bytes, dynamic shared bytes, threads)}
-    of the flash kernels for head dim `d`, from cudaFuncGetAttributes
-    (local bytes are spills and stack)."""
+    of the flash kernels for head dim `d` and `dtype`'s route, from
+    cudaFuncGetAttributes (local bytes are spills and stack)."""
     from ._build import load_library
     out = {}
+    code = _DTYPE_CODE[dtype]
     fwd = load_library("flash_attention_fwd", _FWD_SIGNATURES)
     bwd = load_library("flash_attention_bwd", _BWD_SIGNATURES)
-    for name, call in (("flash_fwd", lambda a: fwd.flash_fwd_info(d, a)),
+    for name, call in (("flash_fwd", lambda a: fwd.flash_fwd_info(code, d,
+                                                                  a)),
                        ("flash_bwd_delta",
-                        lambda a: bwd.flash_bwd_info(d, 0, a)),
+                        lambda a: bwd.flash_bwd_info(code, d, 0, a)),
                        ("flash_bwd_dkdv",
-                        lambda a: bwd.flash_bwd_info(d, 1, a)),
+                        lambda a: bwd.flash_bwd_info(code, d, 1, a)),
                        ("flash_bwd_dq",
-                        lambda a: bwd.flash_bwd_info(d, 2, a))):
+                        lambda a: bwd.flash_bwd_info(code, d, 2, a))):
         arr = (_I * 4)(-1, -1, -1, -1)
         call(ctypes.cast(arr, ctypes.c_void_p))
         out[name] = tuple(arr)
     return out
+
+
+def tf32_probe(a, b, mode: int):
+    """D = a b^T (a, b (64, 32) fp32 on the card) on the tensor cores by
+    `csrc/tf32_probe.cu`: mode 0 one TF32 product of the raw values, 1
+    3xTF32 from shared memory, 2 3xTF32 with a from registers (the
+    permuted fragments the tf32x3 route's P and dS use). Card only."""
+    from ._build import load_library
+    if a.device.type != "cuda" or a.shape != (64, 32) or b.shape != (64, 32):
+        raise ValueError("tf32_probe takes (64, 32) fp32 tensors on the card")
+    a = a.float().contiguous()
+    b = b.float().contiguous()
+    d = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    lib = load_library("tf32_probe", _PROBE_SIGNATURES)
+    with torch.cuda.device(a.device):
+        err = lib.tf32_probe_launch(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                    mode, _stream(a))
+    _raise_on(err, lib, "tf32 probe")
+    return d
 
 
 def flash_forward(q, k, v, causal: bool, scale: float):

@@ -10,9 +10,14 @@ builds the checkout's kernels (cached after its first turn), runs the
 checkout's own `chip_smoke.py` phase 6 (GPT-small trained at full width,
 bs 18 x 1024, 1 warm-up + 10 steps through K2 and K3, then a
 torch.profiler breakdown of 3 more steps) and phase 8's K2/K3 timing
-(the medians at the training shape after an L2 flush), and reports the
-step ms, tokens/s, the K2 and K3 medians and the profiled device ms per
-step of the flash kernels and of the whole step. The summary gives
+(the medians at the training shape after an L2 flush), then GPT-small in
+fp32 at `Trainer`'s default amp_level=None (1 warm-up, 3 timed steps at
+the same batch) and the flash forward and backward medians in fp32 at
+that training shape and in bf16 at head dim 32 (b 4, s 512, h 24,
+causal, packed qkv), each through the checkout's own kernels. It reports
+the step ms, tokens/s, the K2 and K3 medians, the profiled device ms per
+step of the flash kernels and of the whole step, the fp32 step ms and
+the four fp32 / bf16 d 32 medians. The summary gives
 every turn, each version's median and spread (max - min over median)
 per metric, and B's medians over A's. Alternating in one call keeps
 both versions on one card and one host.
@@ -41,16 +46,54 @@ if len(inspect.signature(cs.phase_flash_numbers).parameters) > 3:
 nums = cs.phase_flash_numbers(*args)
 prof = train["profile"] or {}
 groups = prof.get("groups_ms_per_step", {})
+
+import math, time
+from paddle_tpu_torch.framework import Trainer
+from paddle_tpu_torch.optimizer import AdamW
+torch.backends.cuda.matmul.allow_tf32 = False
+model = P.models.gpt_small(seed=0, device="cuda")
+tr = Trainer(model, AdamW(learning_rate=1e-4),
+             lambda logits, y: model.loss(logits, y))
+bs, seq = cs.FLASH_SHAPE["b"], cs.FLASH_SHAPE["s"]
+ids = torch.from_numpy(np.random.RandomState(0).randint(
+    0, model.cfg.vocab_size, (bs, seq))).cuda()
+tr.train_step(ids, ids)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+tr.train_steps(ids, ids, steps=3)
+torch.cuda.synchronize()
+fp32_step_ms = (time.perf_counter() - t0) / 3 * 1e3
+del tr, model, ids
+torch.cuda.empty_cache()
+
+gen = torch.Generator(device="cuda").manual_seed(9)
+flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+medians = {}
+for key, b, s_, h, d, dtype in (("fp32", bs, seq, 12, 64, torch.float32),
+                                ("bf16_d32", 4, 512, 24, 32,
+                                 torch.bfloat16)):
+    q, k, v, g = cs.flash_inputs(torch, gen, b, s_, s_, h, d, True, dtype)
+    scale = 1 / math.sqrt(d)
+    o, lse = fa._launch_fwd(q, k, v, True, scale)
+    medians[key + "_fwd_ms"] = cs.time_ms(
+        torch, lambda: fa._launch_fwd(q, k, v, True, scale), flush, reps=10)
+    medians[key + "_bwd_ms"] = cs.time_ms(
+        torch, lambda: fa._launch_bwd(q, k, v, o, lse, g, True, scale),
+        flush, reps=10)
+    del q, k, v, g, o, lse
 print("AB " + json.dumps({
     "step_ms": train["step_ms"], "tokens_per_s": train["tokens_per_s"],
     "k2_ms": nums["fwd"]["ms"], "k3_ms": nums["bwd"]["ms"],
     "flash_device_ms_per_step": groups.get("flash K2/K3", float("nan")),
     "busy_ms_per_step": prof.get("busy_ms_per_step", float("nan")),
+    "fp32_step_ms": fp32_step_ms, **medians,
     "groups_ms_per_step": groups}))
 """
 
 METRICS = ("step_ms", "tokens_per_s", "k2_ms", "k3_ms",
-           "flash_device_ms_per_step", "busy_ms_per_step")
+           "flash_device_ms_per_step", "busy_ms_per_step", "fp32_step_ms",
+           "fp32_fwd_ms", "fp32_bwd_ms", "bf16_d32_fwd_ms",
+           "bf16_d32_bwd_ms")
 
 
 def run_turn(root: Path, timeout: int) -> dict:

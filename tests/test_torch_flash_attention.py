@@ -158,12 +158,12 @@ def test_cuda_argument_checks_raise():
         == port.WGMMA
     assert port._check_cuda_args(q, short_k, short_k, causal=False) \
         == port.WGMMA
-    # head dim 32 and fp32: taken by the generic kernels
+    # head dim 32 in bf16: the wgmma kernels; fp32: the tf32x3 route
     small = torch.zeros(2, 128, 4, 32, dtype=bf)
     assert port._check_cuda_args(small, small, small, causal=True) \
-        == port.GENERIC
+        == port.WGMMA
     assert port._check_cuda_args(q.float(), k.float(), v.float(),
-                                 causal=True) == port.GENERIC
+                                 causal=True) == port.TF32X3
     with pytest.raises(ValueError, match="head_dim"):
         wide = torch.zeros(2, 128, 4, 96, dtype=bf)
         port._check_cuda_args(wide, wide, wide, causal=True)
@@ -184,19 +184,21 @@ def test_cuda_argument_checks_raise():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 32, "generic"), (torch.float32, 32, "generic"),
-    (torch.float32, 64, "generic"), (torch.float32, 128, "generic")])
+    (torch.bfloat16, 32, "wgmma"), (torch.float32, 32, "tf32x3"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3")])
 def test_routes(dtype, d, route):
     """The route is a fixed choice by dtype and head dim, the same for
-    every shape: the generic kernels take what the wgmma K2/K3 do not.
-    The generic route needs only a contiguous head dim (no TMA), so an
-    fp32 slice whose strides are no multiple of 16 bytes is taken."""
+    every shape: bf16 to the wgmma K2/K3, fp32 to their tf32x3 route.
+    The tf32x3 route's split kernel needs only a contiguous head dim
+    (plain loads), so an fp32 slice whose strides are no multiple of 16
+    bytes is taken; the wgmma route reads through TMA and raises on it,
+    at head dim 32 as at 64 and 128."""
     x = torch.zeros(2, 40, 3, d, dtype=dtype)
     for causal, k in ((False, x), (True, x), (True, x[:, :24])):
         assert port._check_cuda_args(x, k, k, causal) == route
     odd = torch.zeros(2, 40, 3 * d + 1, dtype=dtype)[..., :3 * d].unflatten(
         -1, (3, d))
-    if route == "generic":
+    if route == "tf32x3":
         assert port._check_cuda_args(odd, x, x, False) == route
     else:
         with pytest.raises(ValueError, match="multiples of 8 elements"):
