@@ -31,10 +31,13 @@ every phase passed):
    bitwise on the same rows.
 2b. kernel K7 (fused int8 GEMV) against its plain version, bitwise, at
    GPT-small's five (k, n) (768 x 2304 / 768 / 3072, 3072 x 768 and the
-   int8 draft's head 768 x 50304), 1-4 rows, x in bf16 and fp32 (the
-   weight scales in x's dtype), without a bias and with an fp32 and a
-   bf16 one; inputs include x on code half-points ((c + 0.5) * sx) and
-   on +-127.5 * sx.
+   int8 draft's head 768 x 50304), gpt_1p3b's four block shapes (2048 x
+   6144 / 2048 / 8192, 8192 x 2048) and three edges through the wrapper
+   (k 100, no multiple of 4, at n 16 and 48; k 20, shorter than one
+   split of the launch plan, at n 768), 1-4 rows, x in bf16 and fp32
+   (the weight scales in x's dtype), without a bias and with an fp32
+   and a bf16 one; inputs include x on code half-points ((c + 0.5) *
+   sx) and on +-127.5 * sx. Each shape's launch plan is logged.
 3. kernels K2 (flash-attention forward) and K3 (backward: delta, dk/dv
    and dq kernels) on both routes, `wgmma` (bf16 at head dim 32, 64,
    128) and `tf32x3` (fp32 at 32, 64, 128: the split kernel, then every
@@ -136,10 +139,17 @@ every phase passed):
    its power limit. K3's parts (delta, dk/dv, dq) are timed one at a
    time, and each flash source's nvcc time and each flash kernel's
    registers, local (spill) bytes and dynamic shared memory are
-   printed. K7 at each (k, n) with 4 bf16 rows: median after an
-   L2 flush, byte bound, plain version, and two yardsticks never called
-   by the port (bf16 `torch.matmul` with the fp weights, and
-   `torch._int_mm` on rows padded to 32). The tf32x3 route's forward
+   printed. The timer's floor under the same `time_ms`: an empty
+   kernel (with and without the flush) and 96 empty CTAs in clusters
+   of 8 that meet at one cluster barrier. K7 at each (k, n) of 2b's
+   GPT-small and gpt_1p3b shapes with 4 bf16 rows: median after an L2
+   flush, byte bound, a read-only stream over the same weight bytes
+   (what a perfect GEMV could read under this timer), K7's timing
+   variants (without the quantize prologue, without the cluster
+   merge, without the whole reduction, without prologue and
+   reduction), plain version, and two yardsticks never called by the
+   port (bf16 `torch.matmul` with the fp weights, and `torch._int_mm`
+   on rows padded to 32). The tf32x3 route's forward
    and backward at GPT-small's fp32 training shape (the split kernel's
    share timed alone) and the wgmma route at phase 3's bf16 d 32 shape,
    beside their bounds (fp32: three TF32 products over 495 TFLOP/s, and
@@ -454,7 +464,15 @@ def phase_paged_quant_kernels(torch, np, dec):
 # int8 draft's tied head
 INT8_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768),
                (768, 50304))
+# (k, n) of gpt_1p3b's block linears (hidden 2048)
+INT8_1P3B_SHAPES = ((2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048))
 HALF_SX = 1.0 / 64      # a power of two: (c + 0.5) * sx is exact in bf16
+
+
+# (k, n) cases through the wrapper beyond the models' shapes: k no
+# multiple of 4 at n = 16 and 48 (one and three column groups), and a k
+# shorter than one split of the launch plan
+INT8_EDGE_SHAPES = ((100, 16), (100, 48), (20, 768))
 
 
 def int8_inputs(torch, gen, m, k, n, dtype):
@@ -465,7 +483,7 @@ def int8_inputs(torch, gen, m, k, n, dtype):
     x = torch.randn(m, k, device="cuda", generator=gen) * 0.5
     halves = torch.tensor([-3.5, -2.5, -1.5, -0.5, 0.5, 1.5, 2.5, 3.5,
                            127.5, -127.5], device="cuda") * HALF_SX
-    x[0, :halves.numel()] = halves
+    x[0, :halves.numel()] = halves[:k]
     qw = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                        dtype=torch.int8)
     ws = (torch.rand(n, device="cuda", generator=gen) * 0.01).to(dtype)
@@ -477,10 +495,12 @@ def int8_inputs(torch, gen, m, k, n, dtype):
 
 def phase_int8_kernel(torch, k7):
     """K7 against its plain version on the same CUDA tensors: equal bit
-    for bit at every shape, row count, dtype and bias."""
+    for bit at every shape (GPT-small's, gpt_1p3b's block linears and
+    the edge cases), row count, dtype and bias."""
     gen = torch.Generator(device="cuda").manual_seed(13)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = 0
-    for k, n in INT8_SHAPES:
+    for k, n in INT8_SHAPES + INT8_1P3B_SHAPES + INT8_EDGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for m in (1, 2, 3, 4):
                 x, qw, ws, sx, biases = int8_inputs(torch, gen, m, k, n,
@@ -496,8 +516,9 @@ def phase_int8_kernel(torch, k7):
                           f"K7 {k}x{n} m={m} {dtype} {bname}: max|kernel "
                           f"- plain| = {err:.3e}, not bitwise")
                     cases += 1
-        log(f"  K7 {k}x{n}: rows 1-4, fp32 and bf16 x, no / fp32 / bf16 "
-            f"bias, half-point codes: kernel == plain bitwise")
+        log(f"  K7 {k}x{n} ({k7.launch_plan(4, k, n, sms)} at 4 rows): "
+            f"rows 1-4, fp32 and bf16 x, no / fp32 / bf16 bias, half-point "
+            f"codes: kernel == plain bitwise")
     log(f"  K7: {cases} cases bitwise equal; max|kernel - plain| = 0")
     return 0.0
 
@@ -1657,18 +1678,39 @@ def phase_paged_quant_numbers(torch, np, dec, card: str):
 
 
 def phase_int8_numbers(torch, k7, card: str):
-    """K7 at each GPT-small (k, n) with 4 bf16 rows (bf16 weight scales
-    and bias, as the PTQ model holds them): the median after an L2
-    flush, the byte bound (weights, scales, bias and x read once, the
-    output written once), the plain version, and two yardsticks that
-    the port never calls: the bf16 `torch.matmul` with the fp weights
-    (what int8 replaces) and `torch._int_mm` on rows padded to 32."""
+    """K7 at each (k, n) of INT8_SHAPES and INT8_1P3B_SHAPES with 4 bf16
+    rows (bf16 weight scales and bias, as the PTQ model holds them): the
+    median after an L2 flush, the byte bound (weights, scales, bias and
+    x read once, the output written once), the plain version, and two
+    yardsticks that the port never calls: the bf16 `torch.matmul` with
+    the fp weights (what int8 replaces) and `torch._int_mm` on rows
+    padded to 32. Beside them, the timer's floor under the same
+    `time_ms`: an empty kernel (also without the flush), a read-only
+    stream over the shape's weight bytes, an empty launch in clusters of
+    8 with one cluster barrier, and K7's timing variants without its
+    quantize prologue, without its cluster merge, without its
+    cross-thread reduction (merge included), and without both."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    no_flush = torch.empty(16, dtype=torch.uint8, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     m, bf = 4, torch.bfloat16
+    empty_ms = time_ms(torch, lambda: k7.timer_empty("cuda"), flush)
+    empty_nf_ms = time_ms(torch, lambda: k7.timer_empty("cuda"), no_flush)
+    cluster_ms = time_ms(torch, lambda: k7.timer_empty("cuda", 96, 8), flush)
+    log(f"  the timer's floor [card: {card}]: an empty kernel reads "
+        f"{empty_ms:.4f} ms after the 128 MB flush, {empty_nf_ms:.4f} ms "
+        f"without it; 96 empty CTAs in clusters of 8 meeting at one "
+        f"cluster barrier {cluster_ms:.4f} ms")
+    out = {"floor": {"empty_ms": empty_ms, "empty_no_flush_ms": empty_nf_ms,
+                     "empty_cluster8_ms": cluster_ms}}
     log(f"  K7 at 4 bf16 rows, bf16 scales and bias [card: {card}]")
-    out = {}
-    for k, n in INT8_SHAPES:
+    variants = (("no_prologue", k7.NO_PROLOGUE),
+                ("no_merge", k7.NO_MERGE),
+                ("no_reduction", k7.NO_REDUCTION),
+                ("neither", k7.NO_PROLOGUE | k7.NO_REDUCTION))
+    for k, n in INT8_SHAPES + INT8_1P3B_SHAPES:
         x, qw, ws, sx, biases = int8_inputs(torch, gen, m, k, n, bf)
         b = biases["bf16 bias"]
         w = torch.randn(k, n, device="cuda", generator=gen).to(bf)
@@ -1684,17 +1726,27 @@ def phase_int8_numbers(torch, k7, card: str):
         except RuntimeError as err:        # a yardstick only: log why not
             int_mm_ms = None
             log(f"    torch._int_mm {k}x{n} does not run: {err}")
+        read_ms = time_ms(torch, lambda: k7.timer_stream_read(
+            qw, sink, 4 * sms), flush)
+        parts = {name: time_ms(torch, lambda: k7._launch_cuda(
+            x, qw, ws, sx, b, parts=p), flush) for name, p in variants}
         # weights, bf16 scales and bias, the fp32 sx, x in, out out
         nbytes = k * n + 2 * n + 2 * n + 4 + 2 * m * k + 2 * m * n
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2 * m * k * n / INT8_OPS * 1e3
-        log(f"    {k}x{n} ({n // 16} CTAs): median {ms:.4f} ms; bound "
-            f"{bound:.5f} ms (bytes: {nbytes} B; {2 * m * k * n} int8 ops "
-            f"= {ops_ms:.6f} ms); plain {plain_ms:.4f} ms; bf16 "
-            f"torch.matmul {matmul_ms:.4f} ms; torch._int_mm (32 rows) "
+        log(f"    {k}x{n} {k7.launch_plan(m, k, n, sms)}: median {ms:.4f} "
+            f"ms; bound {bound:.5f} ms "
+            f"(bytes: {nbytes} B; {2 * m * k * n} int8 ops = "
+            f"{ops_ms:.6f} ms); floor: empty {empty_ms:.4f}, stream read "
+            f"of the {k * n} weight bytes {read_ms:.4f} ms; variants: "
+            + ", ".join(f"{name} {t:.4f}" for name, t in parts.items())
+            + f" ms; plain {plain_ms:.4f} ms; bf16 torch.matmul "
+            f"{matmul_ms:.4f} ms; torch._int_mm (32 rows) "
             f"{'-' if int_mm_ms is None else f'{int_mm_ms:.4f}'} ms")
         out[f"{k}x{n}"] = {"ms": ms, "plain_ms": plain_ms,
                            "bound_ms": max(bound, ops_ms), "bytes": nbytes,
+                           "stream_read_ms": read_ms,
+                           **{f"{name}_ms": t for name, t in parts.items()},
                            "bf16_matmul_ms": matmul_ms,
                            "int_mm_ms": int_mm_ms}
     del flush

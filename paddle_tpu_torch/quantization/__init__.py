@@ -99,13 +99,19 @@ def fake_quant(x: torch.Tensor, scale) -> torch.Tensor:
 
 def int_product(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
     """Exact int32 product of int8 (m, K) and int8 (K, N):
-    `torch._int_mm`. On CUDA it wants more than 16 rows, so fewer rows
-    are padded with zero rows (rows are independent: the padding
-    changes no real row)."""
-    m = qx.shape[0]
-    if qx.device.type == "cuda" and m <= 16:
-        qx = torch.cat([qx, qx.new_zeros((17 - m, qx.shape[1]))])
-    return torch._int_mm(qx.contiguous(), qw.contiguous())[:m]
+    `torch._int_mm`. On CUDA it wants more than 16 rows, and cuBLASLt
+    refuses some K and N that are no multiples of 128 (K = 104 with
+    N = 48, for one), so fewer rows are padded with zero rows (rows are
+    independent: the padding changes no real row) and K and N up to
+    multiples of 128 with zero codes (they add nothing to any sum)."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    if qx.device.type == "cuda":
+        pad_k, pad_n = -k % 128, -n % 128
+        qx = torch.nn.functional.pad(qx, (0, pad_k, 0, max(0, 17 - m)))
+        if pad_k or pad_n:
+            qw = torch.nn.functional.pad(qw, (0, pad_n, 0, pad_k))
+    return torch._int_mm(qx.contiguous(), qw.contiguous())[:m, :n]
 
 
 def int8_matmul(qx: torch.Tensor, qw: torch.Tensor, sx, sw,
