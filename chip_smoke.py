@@ -104,6 +104,22 @@ every phase passed):
    spec_rounds x decode blocks (int8 draft), 0 (trunc); the decode
    kernel's = (k x draft_layers + 12) x spec_rounds x decode blocks.
    Acceptance rate and tokens/s, off against on, are logged.
+   Every decode block of phases 4-4e runs as one CUDA graph replay:
+   each engine captures each of its block programs once
+   (`graph_captures`), and the launch counts above are counted per
+   replay.
+4f. the dispatch loop: the loads of phases 4, 4b, 4d and 4e (trunc and
+   int8 drafts) served eagerly (no graph) give the graph runs' streams
+   bitwise; phase 4's load with `overlap=False` gives phase 4's streams
+   (overlap on); injected faults under overlap (`decode_dispatch` call
+   3 and `host_sync` call 6 through K1; `host_sync` calls 2 and 9 through
+   K6) and under speculation (`draft_dispatch` calls 2 and 3,
+   `host_sync` call 4, int8 draft) give the clean streams, with one
+   retry per fault, 2 speculative fallbacks and the plain graph
+   captured beside the speculative one; host syncs = dispatches, one
+   capture per runner and 0 leaked pages everywhere; the CUDA kernels
+   of one graph launch and the device's busy share of a profiled
+   decode-only step are logged.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
    logged).
@@ -852,6 +868,9 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
     check(st["host_syncs"] == st["decode_dispatches"],
           f"{name}: host_syncs {st['host_syncs']} != dispatches "
           f"{st['decode_dispatches']}")
+    check(st["graph_captures"] == len(eng._runners) == 1,
+          f"{name}: {st['graph_captures']} graph captures, runners "
+          f"{sorted(eng._runners)}")
     if eng.paged:
         check(eng.cache.pool.leaked() == 0, f"{name}: leaked pages")
     log(f"  {name} {knobs or 'slotted'}: {len(results)} requests "
@@ -859,7 +878,8 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
         f" tokens) in {wall:.2f} s; {name} launches {counts[name]} = "
         f"{layers} layers x {st['decode_steps']} decode steps, other "
         f"decode kernels 0; host_syncs = dispatches "
-        f"{st['decode_dispatches']}; kv_bytes_per_token "
+        f"{st['decode_dispatches']}; 1 graph capture "
+        f"({st['graph_capture_s']:.3f} s); kv_bytes_per_token "
         f"{st['kv_bytes_per_token']:.0f}")
     return eng, results, {
         "launches": counts[name], "tokens_per_s": st["tokens_per_sec"],
@@ -867,6 +887,7 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
         "ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
         "decode_steps": st["decode_steps"],
         "dispatches": st["decode_dispatches"], "wall_s": wall,
+        "graph_capture_s": st["graph_capture_s"],
         "kv_bytes_per_token": st["kv_bytes_per_token"],
         "kv_pages_peak": st["kv_pages_peak"],
         "streams": [r.token_ids for r in results]}
@@ -1040,12 +1061,13 @@ def phase_int8_serving(torch, np, P, dec, k7, engine_run):
         f"{st['decode_ms_per_token']:.3f} ms/step; K7 launches {launches} "
         f"= 4 x {layers} x {st['decode_steps']} decode steps, K1 {k1}; "
         f"streams with K7's plain version swapped in: equal, 8/8")
-    del model, eng
+    del eng
     torch.cuda.empty_cache()
+    # the model and streams stay for phase 4f's graph == eager check
     return {"launches": launches, "decode_steps": st["decode_steps"],
             "tokens_per_s": st["tokens_per_sec"],
             "decode_ms_per_token": st["decode_ms_per_token"],
-            "wall_s": wall}
+            "wall_s": wall, "model": model, "streams": streams}
 
 
 def phase_speculative(torch, np, dec, k7, engine_run):
@@ -1123,13 +1145,197 @@ def phase_speculative(torch, np, dec, k7, engine_run):
             f"({SPEC_K} x {dl} + {layers}) x {rounds} x {blocks}; "
             f"acceptance {st['spec_acceptance_rate']:.3f}; "
             f"{st['tokens_per_sec']:.1f} tokens/s (off, KV {kv}: "
-            f"{out['off_' + kv]['tokens_per_s']:.1f})")
+            f"{out['off_' + kv]['tokens_per_s']:.1f}); graph capture "
+            f"{st['graph_capture_s']:.3f} s")
+        check(st["graph_captures"] == len(eng._runners) == 1,
+              f"spec {name}: {st['graph_captures']} graph captures")
         out[name] = {"k7_launches": k7.INT8_LAUNCHES.count,
                      "decode_launches": counts[kernel], "blocks": blocks,
                      "acceptance": st["spec_acceptance_rate"],
-                     "tokens_per_s": st["tokens_per_sec"], "wall_s": wall}
+                     "tokens_per_s": st["tokens_per_sec"], "wall_s": wall,
+                     "streams": streams, "knobs": knobs}
     log(f"  EOS: request 0 stopped after {len(refs['bf16'][0])} tokens "
         f"with KV bf16, spec off and on")
+    out["refs"], out["prompts"], out["params"] = refs, prompts, params
+    return out
+
+
+def busy_us(kernels) -> float:
+    """The device's busy µs under profiler kernel events: the union of
+    their intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def kernels_per_block(torch, eng):
+    """CUDA kernels, and the device's busy share, of one profiled
+    scheduler step that only decodes (torch.profiler; a graph replay's
+    kernels are traced one by one). Returns (kernels per processed
+    block, busy share of the step's wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    before = eng.stats()["decode_dispatches"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    blocks = eng.stats()["decode_dispatches"] - before
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("Command Buffer")]
+    return len(kernels) / max(blocks, 1), busy_us(kernels) / wall_us
+
+
+def phase_dispatch(torch, np, dec, k7, engine_run, variants, int8_run,
+                   spec):
+    """(4f) the dispatch loop on the card: every decode block of phases
+    4-4e ran as one CUDA graph replay; here the same loads run eagerly
+    (the engine's private switch) and must give the graph runs' streams
+    bitwise (K1, K4, K5, K6, K7, speculation with the trunc and the int8
+    draft); overlap off gives overlap on's streams; injected
+    decode_dispatch / host_sync faults under overlap and draft_dispatch
+    faults under speculation recover to the clean streams with the
+    expected retries, recoveries and fallbacks, re-uploading the lane
+    state into the graphs' static buffers; counts and leaks as phase
+    4."""
+    import gc
+    from paddle_tpu_torch.serving import LLMEngine
+    from paddle_tpu_torch.testing import faults
+    model, prompts, params = (engine_run[k] for k in
+                              ("model", "prompts", "params"))
+    layers = model.cfg.num_layers
+    counters = decode_counters(dec)
+    out = {}
+
+    def run(mdl, prm, prs, graphs=True, plan=None, **knobs):
+        eng = LLMEngine(mdl, **knobs)
+        eng._use_graphs = graphs
+        for c in list(counters.values()) + [k7.INT8_LAUNCHES]:
+            c.reset()
+        rids = [eng.submit(p, sp) for p, sp in zip(prm, prs)]
+        t0 = time.perf_counter()
+        if plan is None:
+            eng.run_until_complete(max_steps=2000)
+        else:
+            with faults.inject(plan):
+                eng.run_until_complete(max_steps=2000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        res = [eng.result(r) for r in rids]
+        check(all(r.finish_reason in ("stop", "length") for r in res),
+              f"4f: finish reasons {[r.finish_reason for r in res]}")
+        check(st["host_syncs"] == st["decode_dispatches"], "4f: host syncs")
+        check(st["graph_captures"] == (len(eng._runners) if graphs else 0),
+              f"4f: {st['graph_captures']} captures, runners "
+              f"{sorted(eng._runners)}")
+        check(eng.cache.num_free == eng.max_slots and not eng.has_work(),
+              "4f: slots not drained")
+        if eng.paged:
+            check(eng.cache.pool.leaked() == 0, "4f: leaked pages")
+        counts = {k: c.count for k, c in counters.items()}
+        counts["K7"] = k7.INT8_LAUNCHES.count
+        streams = [r.token_ids for r in res]
+        del eng, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        return streams, st, counts, wall
+
+    # graph == eager, bitwise, through each decode kernel
+    for name, knobs in DECODE_VARIANTS:
+        streams, st, counts, wall = run(model, prompts, params,
+                                        graphs=False, **SERVE_KW, **knobs)
+        check(streams == variants[name]["streams"],
+              f"4f: {name} eager streams != graph streams")
+        check(counts[name] == layers * st["decode_steps"],
+              f"4f: eager {name} launches {counts[name]}")
+        out[f"eager_{name}"] = {"tokens_per_s": st["tokens_per_sec"],
+                                "decode_ms_per_token":
+                                    st["decode_ms_per_token"],
+                                "wall_s": wall}
+        log(f"  {name}: eager streams == graph streams, 16/16; eager "
+            f"{st['tokens_per_sec']:.1f} tokens/s, decode "
+            f"{st['decode_ms_per_token']:.3f} ms/step against the graph "
+            f"run's {variants[name]['tokens_per_s']:.1f} tokens/s, "
+            f"{variants[name]['decode_ms_per_token']:.3f} ms/step")
+    # K7: the int8-PTQ model of phase 4d
+    streams, st, counts, _ = run(int8_run["model"], prompts[:8],
+                                 params[:8], graphs=False, **SPEC_KW)
+    check(streams == int8_run["streams"], "4f: K7 eager != graph streams")
+    check(counts["K7"] == 4 * layers * st["decode_steps"],
+          f"4f: eager K7 launches {counts['K7']}")
+    log("  K7 (int8-PTQ, 4 slots): eager streams == graph streams, 8/8")
+    # speculation, trunc and int8 drafts
+    for name in ("trunc slotted", "int8 slotted"):
+        streams, st, counts, _ = run(model, spec["prompts"], spec["params"],
+                                     graphs=False, speculate_k=SPEC_K,
+                                     **SPEC_KW, **spec[name]["knobs"])
+        check(streams == spec[name]["streams"],
+              f"4f: spec {name} eager != graph streams")
+        log(f"  spec {name}: eager streams == graph streams, 8/8")
+    # overlap off == on (phase 4 ran with the default, on)
+    streams, st, counts, _ = run(model, prompts, params, overlap=False,
+                                 **SERVE_KW)
+    check(streams == engine_run["streams"], "4f: overlap off != on")
+    check(counts["K1"] == layers * st["decode_steps"], "4f: K1 launches")
+    log("  overlap off: streams == phase 4's (overlap on), 16/16; K1 "
+        f"launches {counts['K1']} = {layers} x {st['decode_steps']}")
+    # injected faults under overlap: decode_dispatch and host_sync
+    # (slotted K1, paged int8 K6), draft_dispatch under speculation
+    # (each injected fault costs one retry; faults in one round share
+    # its recovery)
+    for name, knobs, plan in (
+            ("K1", {}, faults.FaultPlan().fail_at("decode_dispatch", 3)
+             .fail_at("host_sync", 6)),
+            ("K6", dict(kv_layout="paged", kv_dtype="int8"),
+             faults.FaultPlan().fail_at("host_sync", 2, 9))):
+        streams, st, _, _ = run(model, prompts, params, plan=plan,
+                                retry_backoff_s=0.0, **SERVE_KW, **knobs)
+        check(streams == variants[name]["streams"],
+              f"4f: faulted {name} streams != clean streams")
+        n = sum(plan.injected.values())
+        check(n == 2 and st["retries"] == n
+              and 1 <= st["recoveries"] <= n and st["failed_requests"] == 0,
+              f"4f: faulted {name}: injected {plan.injected}, retries "
+              f"{st['retries']}, recoveries {st['recoveries']}")
+        log(f"  {name} with faults {plan.injected}: streams == clean, "
+            f"16/16; retries {st['retries']}, recoveries "
+            f"{st['recoveries']}, 0 failed")
+    plan = faults.FaultPlan().fail_at("draft_dispatch", 2, 3) \
+        .fail_at("host_sync", 4)
+    streams, st, _, _ = run(model, spec["prompts"], spec["params"],
+                            plan=plan, retry_backoff_s=0.0,
+                            speculate_k=SPEC_K, **SPEC_KW,
+                            **spec["int8 slotted"]["knobs"])
+    check(streams == spec["refs"]["bf16"], "4f: faulted spec != spec off")
+    check((st["spec_fallbacks"], st["retries"], st["recoveries"],
+           st["graph_captures"]) == (2, 1, 1, 2),
+          f"4f: faulted spec: fallbacks {st['spec_fallbacks']}, retries "
+          f"{st['retries']}, recoveries {st['recoveries']}, captures "
+          f"{st['graph_captures']}")
+    log(f"  spec int8 with faults {plan.injected}: streams == spec off, "
+        f"8/8; spec_fallbacks 2, retries 1, recoveries 1, 2 graph "
+        f"captures (speculative and plain)")
+    # CUDA kernels per graph launch: one decode-only step (overlap off)
+    eng = LLMEngine(model, overlap=False, **SERVE_KW)
+    for p in prompts[:8]:
+        eng.submit(p, params[0])
+    eng.step()
+    per_block, busy = kernels_per_block(torch, eng)
+    out["kernels_per_block"], out["busy_share"] = per_block, busy
+    log(f"  one graph launch (a decode block of {eng.decode_block_size} "
+        f"steps, 8 lanes): {per_block:.0f} CUDA kernels; device busy "
+        f"{busy:.3f} of the profiled step [card: {card_line()}]")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1229,13 +1435,7 @@ def profile_steps(torch, trainer, ids, steps: int = 3, top: int = 25):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and not e.name.startswith("Command Buffer")]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:                     # union of intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    busy = busy_us / 1e3 / steps
+    busy = busy_us(kernels) / 1e3 / steps
     if busy == 0:
         log("  profile: torch.profiler saw no device time")
         return None
@@ -2015,7 +2215,11 @@ def main(argv=None) -> int:
     int8_run = phase_int8_serving(torch, np, P, dec, k7, engine_run)
     log("phase 4e: speculation on == off, GPT-small bf16")
     spec = phase_speculative(torch, np, dec, k7, engine_run)
-    del engine_run["model"], variants["K1"]
+    log("phase 4f: the dispatch loop: graph == eager, overlap on == off, "
+        "injected faults")
+    dispatch = phase_dispatch(torch, np, dec, k7, engine_run, variants,
+                              int8_run, spec)
+    del engine_run["model"], variants["K1"], int8_run["model"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
     rvm = phase_ragged_vs_masked(torch, np, P)
@@ -2109,8 +2313,10 @@ def main(argv=None) -> int:
         "library_ms": None})
     if args.out:
         def drop(run):
-            return {k: v for k, v in run.items()
-                    if k not in ("prompts", "params", "streams")}
+            return {k: drop(v) if isinstance(v, dict) else v
+                    for k, v in run.items()
+                    if k not in ("prompts", "params", "streams", "refs",
+                                 "knobs", "model")}
         with open(args.out, "w") as f:
             json.dump({"card": card, "kernels": kernels,
                        "timing_lengths": nums["lengths"],
@@ -2121,7 +2327,8 @@ def main(argv=None) -> int:
                        "paged_quant_numbers": pqnums,
                        "ragged_vs_masked": rvm, "paged_vs_slotted": pvs,
                        "train": train, "grad_check": grad,
-                       "int8_serving": int8_run, "speculative": spec,
+                       "int8_serving": drop(int8_run),
+                       "speculative": drop(spec), "dispatch": dispatch,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32,

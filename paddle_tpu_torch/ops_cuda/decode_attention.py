@@ -60,10 +60,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 class _LaunchCounter:
     """Plain-int count of kernel launches (one per wrapper call on a
     CUDA tensor). A run resets it, drives a path, and reads it to show
-    the path really went through the kernel."""
+    the path really went through the kernel. `instances` lists every
+    counter, so that a CUDA graph's replay can add the launches its
+    capture recorded (`serving/graphs.py`)."""
+
+    instances: list = []
 
     def __init__(self):
         self.count = 0
+        _LaunchCounter.instances.append(self)
 
     def reset(self):
         self.count = 0

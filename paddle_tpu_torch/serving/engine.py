@@ -15,6 +15,25 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   and admits/retires at block boundaries. Frozen lanes park their
   (discarded) K/V writes at row max_seq - 1, which no live lane ever
   attends.
+- ONE GRAPH PER BLOCK. On a CUDA device each block program (plain, and
+  speculative) is captured once into a CUDA graph and every block is
+  one replay (`serving/graphs.py`), as the JAX engine compiles each
+  block into one executable; on the CPU the same runner calls the block
+  function directly.
+- OVERLAP (`overlap=True`, the default): block N+1 is dispatched off
+  block N's device-resident state before block N's tokens are read,
+  when no admission is pending and some lane outlives block N on
+  budget, so the host's processing of block N runs while block N+1
+  executes.
+- RECOVERY. Every dispatch, sync and prefill runs under the reference's
+  contract: a failed attempt is retried up to `max_retries` times with
+  capped exponential backoff, in-flight blocks are discarded and the
+  lane state re-uploaded from the host mirrors (so a retry replays the
+  exact key stream, and recovery is bit-invisible); on exhaustion the
+  active requests fail ("error") and the engine keeps serving, and a
+  request whose prefill is exhausted fails alone. A failing draft
+  (`draft_dispatch`) degrades its block to the plain graph. Fault
+  points: `testing/faults.py`.
 - MONOLITHIC BUCKETED PREFILL. A prompt is padded to the smallest
   length bucket (powers of two up to `max_seq`) and written into its
   slot's rows in one forward; the last real position's logits give the
@@ -48,14 +67,17 @@ depend only on (engine seed, the request's salt, position) — see
 assignment; the salt is assigned when a request leaves the queue.
 
 The KV slabs are updated in place (the JAX engine donates them into
-each compiled step instead). Features of the JAX engine that are not
-ported yet raise `NotImplementedError` when their knob is passed with
-any value other than "off"; they are listed in ROADMAP.md.
+each compiled step instead), so a failed step never loses them and the
+reference's slab healing has nothing to do here. Features of the JAX
+engine that are not ported yet raise `NotImplementedError` when their
+knob is passed with any value other than "off"; they are listed in
+ROADMAP.md.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -70,6 +92,8 @@ from ..models.gpt import (BLOCK_LINEARS, _block_params, _body_layers,
 from ..quantization import abs_max_scale, quantize_tensor
 from ..quantization.kv import (dequant_slab, kv_update, map_slab,
                                slab_shape, take_rows)
+from ..testing import faults
+from .graphs import BlockResult, BlockRunner, GraphCaptureError, LaneState
 from .kv_cache import KVCacheManager
 from .metrics import ServingMetrics
 from .paged_kv import NoFreePages, PagedKVCache, paged_rows
@@ -87,10 +111,6 @@ _UNSUPPORTED_KNOBS = {
     "prefill_chunk": ((None,), "chunked prefill", "Queue 1 item 7"),
     "prefill_budget": ((None,), "prefill_budget interleaving",
                        "Queue 1 item 7"),
-    "overlap": ((False,), "overlapped block dispatch", "Queue 1 item 7"),
-    "max_retries": ((0,), "dispatch retries", "Queue 1 item 7"),
-    "retry_backoff_s": ((), "dispatch retries", "Queue 1 item 7"),
-    "retry_backoff_max_s": ((), "dispatch retries", "Queue 1 item 7"),
     "prefix_cache": ((False,), "the prefix cache", "Queue 1 item 7"),
     "prefix_block": ((), "the prefix cache", "Queue 1 item 7"),
     "prefix_pool_pages": ((None, 0), "the prefix cache", "Queue 1 item 7"),
@@ -152,8 +172,9 @@ class GenerationResult:
     prompt: np.ndarray            # (P,) int32
     token_ids: List[int]          # generated tokens (incl. eos if hit)
     finish_reason: str            # "stop" | "length" | "cancelled" |
-    #   "deadline"
+    #   "deadline" | "error" (failed after retry exhaustion)
     ttft_s: float                 # submit → first token wall time
+    error: Optional[str] = None   # set iff finish_reason == "error"
     queue_wait_s: float = 0.0     # submit → prefill start
 
     @property
@@ -178,16 +199,16 @@ class _Request:
     # queue (see sampler.py); None until then
     salt: Optional[int] = None
     queue_wait_s: float = 0.0
+    error: Optional[str] = None
 
 
 @dataclasses.dataclass
 class _Inflight:
     """A dispatched, not yet processed decode block."""
-    packed: torch.Tensor          # (2, steps, slots): tokens, emit flags
+    result: BlockResult           # its outputs, on their way to the host
     t0: float                     # dispatch wall time
     steps: int                    # in-program steps (the block capacity)
-    # speculative blocks: the (proposed, accepted) tally on the device
-    spec: Optional[torch.Tensor] = None
+    spec: bool                    # a draft-and-verify block (with tally)
 
 
 def _default_buckets(max_seq: int) -> List[int]:
@@ -512,6 +533,13 @@ class LLMEngine:
     `draft_layers` blocks, default max(1, L // 6)) or "int8" (an int8
     copy of the target's weights, default depth L). Streams equal the
     spec-off engine's token for token.
+
+    Dispatch: `overlap` (default True) dispatches the next block before
+    reading this one's tokens; `max_retries` (default 2) retries a
+    failed dispatch, sync or prefill with a backoff of
+    `retry_backoff_s * 2^n` seconds capped at `retry_backoff_max_s`.
+    Streams are the same with overlap on or off, and with or without
+    recovered faults.
     """
 
     def __init__(self, model, max_slots: int = 8, max_queue: int = 64,
@@ -523,7 +551,9 @@ class LLMEngine:
                  kv_pages: Optional[int] = None,
                  kv_dtype: Optional[str] = None, speculate_k: int = 0,
                  draft: str = "trunc", draft_layers: Optional[int] = None,
-                 **knobs):
+                 overlap: bool = True, max_retries: int = 2,
+                 retry_backoff_s: float = 0.05,
+                 retry_backoff_max_s: float = 1.0, **knobs):
         for knob, value in knobs.items():
             if knob not in _UNSUPPORTED_KNOBS:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
@@ -546,6 +576,14 @@ class LLMEngine:
         if decode_block_size < 1:
             raise ValueError("decode_block_size must be >= 1")
         self.decode_block_size = int(decode_block_size)
+        self.overlap = bool(overlap)
+        if max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+        if retry_backoff_s < 0 or retry_backoff_max_s < 0:
+            raise ValueError("retry backoffs must be >= 0")
+        self.max_retries = int(max_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.retry_backoff_max_s = float(retry_backoff_max_s)
         if attend_impl not in ("auto", "masked", "ragged"):
             raise ValueError(f"attend_impl must be 'auto', 'masked' or "
                              f"'ragged', got {attend_impl!r}")
@@ -633,9 +671,10 @@ class LLMEngine:
             self._buckets.append(self.max_seq)
         # per-slot scheduler state. The HOST MIRRORS are authoritative
         # at admission; between blocks the decode block hands its lane
-        # state straight to the next dispatch on the device, and the
-        # mirrors are refreshed from each block's token/emit matrix.
-        # `_dirty` marks mirror edits that must be uploaded first.
+        # state straight to the next dispatch on the device (in the
+        # static buffers of `_lanes`), and the mirrors are refreshed
+        # from each block's token/emit matrix. `_dirty` marks mirror
+        # edits that must be uploaded first.
         S = self.max_slots
         self._cur = np.zeros(S, np.int64)
         self._pos = np.zeros(S, np.int64)
@@ -646,8 +685,16 @@ class LLMEngine:
         self._eos = np.full(S, -1, np.int64)     # -1 = no eos id
         self._rem = np.zeros(S, np.int64)        # decode budget left
         self._act = np.zeros(S, bool)            # lane live (not frozen)
-        self._dev: Optional[Dict[str, torch.Tensor]] = None
         self._dirty = True
+        self._lanes = LaneState(self._mirrors(), self.device)
+        # block programs by speculation on/off, built at first dispatch;
+        # graphs on a card (a private switch turns them off, for an
+        # on-card graph == eager check only)
+        self._runners: Dict[bool, BlockRunner] = {}
+        self._use_graphs = self.device.type == "cuda"
+        self._inflight: Optional[_Inflight] = None
+        self._ahead: Optional[_Inflight] = None     # the overlap lookahead
+        self._last_proc_t = 0.0   # decode-time attribution watermark
 
     # ------------------------------------------------------------------ #
     # submission / results
@@ -727,7 +774,9 @@ class LLMEngine:
         return self._results.pop(rid)
 
     def has_work(self) -> bool:
-        return bool(self._queue or self._active)
+        return bool(self._queue or self._active
+                    or self._inflight is not None
+                    or self._ahead is not None)
 
     def stats(self) -> Dict[str, float]:
         return self.metrics.snapshot()
@@ -737,17 +786,19 @@ class LLMEngine:
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def step(self) -> int:
-        """One scheduler iteration: expire deadlines, admit queued
-        requests into free slots (prefill + first token), run one
-        decode block, retire finished requests. Returns the number of
-        requests completed."""
+        """One scheduler iteration at block granularity: expire
+        deadlines, admit queued requests into free slots (prefill +
+        first token), dispatch a decode block (plus, with overlap, the
+        NEXT block before this one's host processing), process one
+        block's tokens, retire finished requests. Dispatch, sync and
+        prefill all run under the recovery contract. Returns the number
+        of requests completed."""
         self._expire_deadlines()
         while self._queue and self.cache.num_free > 0 \
                 and self._pages_admit_ok():
             if not self._admit_next():
                 break            # page pressure: the head waits
-        if any(r.finish_reason is None for r in self._active.values()):
-            self._process_block(self._dispatch_block())
+        self._decode_round()
         done = self._retire_finished()
         self.metrics.set_gauges(len(self._queue), self.cache.num_active)
         self._set_page_gauges()
@@ -845,22 +896,28 @@ class LLMEngine:
         return self.cache.pool.alloc(n)
 
     def _admit_next(self) -> bool:
-        """Pop the next request and prefill it into a free slot. Returns
-        False when page pressure sent it back to the queue head (stop
-        admitting this round); any other failure leaves the engine
-        consistent the same way and re-raises."""
+        """Pop the next request and prefill it into a free slot under
+        the recovery contract: a failed prefill re-runs the SAME slot
+        from row 0 (the first-token key was drawn once, so the retry is
+        bit-identical); after `max_retries` the request fails ALONE.
+        Returns False only when page pressure sent the request back to
+        the queue head (stop admitting this round)."""
         req = self._pop_highest_priority()
         slot = self.cache.allocate()
-        try:
-            self._admit_one(req, slot)
-        except BaseException as err:
-            # the slot (and any pages bound to it) frees and the request
-            # returns to the head of the queue, salt kept
-            self.cache.release(slot)
+        err = self._run_with_retries(lambda: self._admit_one(req, slot))
+        if err is None:
+            return True
+        self.cache.release(slot)      # drops any pages bound to it
+        if isinstance(err, NoFreePages):
+            # page pressure means WAIT, never fail: back to the queue
+            # head, salt kept
             self._queue.appendleft(req)
-            if isinstance(err, NoFreePages):
-                return False
-            raise
+            return False
+        msg = f"{type(err).__name__}: {err}"
+        self._finish_early(req, "error", error=msg)
+        self.metrics.on_failed()
+        self._postmortem("admission_failed",
+                         {"failed_rids": [req.rid], "error": msg})
         return True
 
     def _admit_one(self, req: _Request, slot: int):
@@ -886,7 +943,9 @@ class LLMEngine:
 
     def _prefill_tokens(self, slot: int, tokens: np.ndarray) -> torch.Tensor:
         """Bucketed prefill of `tokens` into rows [0, len) of `slot`;
-        returns the last real token's fp32 logits."""
+        returns the last real token's fp32 logits. One piece: the
+        `prefill` fault point fires once."""
+        faults.fire("prefill")
         n = int(tokens.size)
         bucket = min(self._bucket_for(n), self.max_seq)
         ids = np.zeros((1, bucket), np.int64)
@@ -923,14 +982,18 @@ class LLMEngine:
         self._act[slot] = False
         self._dirty = True
 
-    def _finish_early(self, req: _Request, reason: str):
+    def _finish_early(self, req: _Request, reason: str,
+                      error: Optional[str] = None):
+        """Terminal state for a request that never got (or no longer
+        holds) a slot: record its result directly."""
         req.finish_reason = reason
+        req.error = error
         self._record_result(req)
 
     def _record_result(self, req: _Request):
         self._results[req.rid] = GenerationResult(
             req.rid, req.prompt, req.generated, req.finish_reason,
-            req.ttft_s, queue_wait_s=req.queue_wait_s)
+            req.ttft_s, req.error, queue_wait_s=req.queue_wait_s)
         if req.finish_reason in ("stop", "length"):
             self.metrics.on_complete()
 
@@ -970,22 +1033,73 @@ class LLMEngine:
         return done
 
     # ------------------------------------------------------------------ #
+    # recovery
+    # ------------------------------------------------------------------ #
+    def _run_with_retries(self, attempt_fn,
+                          on_failure=None) -> Optional[BaseException]:
+        """THE recovery boundary, shared by decode and admission: run
+        `attempt_fn`, retrying up to `max_retries` times with capped
+        exponential backoff; `on_failure` runs after each failed attempt
+        (state rollback). Returns None on success, or the last exception
+        when retries are exhausted (the caller decides what fails). A
+        failed graph capture is not transient and goes straight out."""
+        last = None
+        for attempt in range(self.max_retries + 1):
+            if attempt:
+                self.metrics.on_retry()
+                self._backoff(attempt - 1)
+            try:
+                attempt_fn()
+                if attempt:
+                    self.metrics.on_recovery()
+                return None
+            except (KeyboardInterrupt, SystemExit, GraphCaptureError):
+                raise
+            except Exception as e:  # noqa: BLE001 — recovery boundary
+                last = e
+                if on_failure is not None:
+                    on_failure()
+        return last
+
+    def _backoff(self, n: int):
+        delay = min(self.retry_backoff_s * (2.0 ** n),
+                    self.retry_backoff_max_s)
+        if delay > 0:
+            time.sleep(delay)
+
+    def _engine_config(self) -> Dict:
+        return {"max_slots": self.max_slots, "max_queue": self.max_queue,
+                "max_seq": self.max_seq, "seed": self.seed,
+                "decode_block_size": self.decode_block_size,
+                "overlap": self.overlap, "attend_impl": self.attend_impl,
+                "max_retries": self.max_retries,
+                "retry_backoff_s": self.retry_backoff_s,
+                "retry_backoff_max_s": self.retry_backoff_max_s,
+                "kv_layout": "paged" if self.paged else "slotted",
+                "page_size": self.page_size if self.paged else None,
+                "kv_pages": self.kv_pages if self.paged else None,
+                "kv_dtype": self.kv_dtype, "speculate_k": self.speculate_k,
+                "draft": self.draft,
+                "draft_layers": self.draft_layers or None,
+                "device": str(self.device)}
+
+    def _postmortem(self, reason: str, detail: Optional[Dict] = None
+                    ) -> Dict:
+        """The post-mortem report of a terminal failure: reason, detail,
+        a metrics snapshot and the engine config, handed to an armed
+        fault plan (`faults.note_postmortem`). Called only on terminal
+        paths, never per block."""
+        report = {"reason": str(reason), "detail": detail,
+                  "metrics": self.metrics.snapshot(),
+                  "config": self._engine_config()}
+        faults.note_postmortem(report)
+        return report
+
+    # ------------------------------------------------------------------ #
     # decode
     # ------------------------------------------------------------------ #
-    def _upload_mirrors(self) -> Dict[str, torch.Tensor]:
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
-        out = {"cur": dev(self._cur), "pos": dev(self._pos),
-               "rem": dev(self._rem), "act": dev(self._act),
-               "salt": dev(self._salt), "temp": dev(self._temp),
-               "topk": dev(self._topk), "topp": dev(self._topp),
-               "eos": dev(self._eos)}
-        if self.paged:
-            # admission changes the tables and always marks the mirrors
-            # dirty; a retired lane is frozen, so its stale row only
-            # parks writes on the trash page until the next upload
-            out["tables"] = dev(self.cache.block_tables)
-        return out
+    def _has_live_lane(self) -> bool:
+        return any(r.finish_reason is None for r in self._active.values())
 
     @property
     def _block_capacity(self) -> int:
@@ -994,44 +1108,151 @@ class LLMEngine:
         return self.spec_rounds * (self.speculate_k + 1) \
             if self.speculate_k else self.decode_block_size
 
+    def _lookahead_worthwhile(self) -> bool:
+        """Dispatch a second block only when some lane is sure to
+        outlive the in-flight one on budget (EOS can still cut it short:
+        the lookahead then runs frozen, which wastes a block of device
+        time but never corrupts state)."""
+        return any(self._rem[s] > self._block_capacity
+                   for s, r in self._active.items()
+                   if r.finish_reason is None)
+
+    def _decode_round(self):
+        """Dispatch + process one block (and the overlap lookahead)
+        under the recovery contract: an exception out of a dispatch or
+        the device-to-host sync discards the in-flight blocks and
+        re-uploads the lane state from the host mirrors (decode keys are
+        per-lane (salt, position), both mirror-restored, so the retry
+        REPLAYS the exact key stream and recovery is bit-invisible),
+        then retries with capped exponential backoff. After
+        `max_retries` consecutive failures the active requests, which
+        cannot make progress while decode is down, fail and the engine
+        keeps serving the queue."""
+        err = self._run_with_retries(self._decode_once,
+                                     on_failure=self._discard_inflight)
+        if err is not None:
+            self._fail_active(err)
+
+    def _decode_once(self):
+        if self._inflight is None and self._has_live_lane():
+            self._inflight = self._dispatch_block()
+        if (self._inflight is not None and self._ahead is None
+                and self.overlap and not self._dirty and not self._queue
+                and self._lookahead_worthwhile()):
+            # block N+1 chains off block N's device-resident state; the
+            # host sync below then overlaps its device time. The freeze
+            # masks make this safe: if every lane finishes in block N,
+            # block N+1 just emits nothing.
+            self._ahead = self._dispatch_block()
+        if self._inflight is not None:
+            self._process_block(self._inflight)
+            self._inflight, self._ahead = self._ahead, None
+
+    def _discard_inflight(self):
+        """Drop dispatched-but-unprocessed blocks and fall back to the
+        host mirrors, which are consistent as of the last PROCESSED
+        block (mirror writes happen only after a successful sync): the
+        next dispatch re-uploads them into the static buffers. Cache
+        rows a discarded block wrote past the mirror positions are
+        rewritten by the retry before they can become attendable."""
+        self._inflight = None
+        self._ahead = None
+        self._dirty = True
+
+    def _fail_active(self, err: Optional[BaseException]):
+        """Graceful degradation after retry exhaustion: fail the
+        requests that cannot make progress (the active lanes), keep the
+        engine and its queue serving."""
+        msg = f"{type(err).__name__}: {err}" if err is not None \
+            else "decode failed"
+        failed = []
+        for slot, req in self._active.items():
+            if req.finish_reason is None:
+                req.finish_reason = "error"
+                req.error = msg
+                self._freeze_slot(slot)
+                self.metrics.on_failed()
+                failed.append(req.rid)
+        if failed:
+            self._postmortem("decode_retry_exhausted",
+                             {"failed_rids": failed, "error": msg})
+
+    def _mirrors(self) -> Dict[str, np.ndarray]:
+        out = {"cur": self._cur, "pos": self._pos, "rem": self._rem,
+               "act": self._act, "salt": self._salt, "temp": self._temp,
+               "topk": self._topk, "topp": self._topp, "eos": self._eos}
+        if self.paged:
+            # admission changes the tables and always marks the mirrors
+            # dirty; a retired lane is frozen, so its stale row only
+            # parks writes on the trash page until the next upload
+            out["tables"] = self.cache.block_tables
+        return out
+
+    def _runner(self, spec: bool) -> BlockRunner:
+        """The block program (plain or speculative), built (on a card:
+        captured) at its first dispatch."""
+        runner = self._runners.get(spec)
+        if runner is None:
+            common = dict(attend_impl=self.attend_impl, seed=self.seed,
+                          max_seq=self.max_seq, page_size=self.page_size)
+            if spec:
+                body = functools.partial(
+                    _spec_decode_block, self.cfg, self._params,
+                    self._draft_params, self.cache.k, self.cache.v,
+                    rounds=self.spec_rounds, k=self.speculate_k,
+                    draft_layers=self.draft_layers, **common)
+            else:
+                body = functools.partial(
+                    _decode_block, self.cfg, self._params, self.cache.k,
+                    self.cache.v, block=self.decode_block_size, **common)
+            steps = self._block_capacity if spec else self.decode_block_size
+            t0 = time.perf_counter()
+            runner = BlockRunner(body, self._lanes, steps, spec,
+                                 graphed=self._use_graphs)
+            if runner.graph is not None:
+                self.metrics.on_graph_capture(time.perf_counter() - t0)
+            self._runners[spec] = runner
+        return runner
+
+    def _draft_ok(self) -> bool:
+        """The `draft_dispatch` contract: a failing draft DEGRADES this
+        block to the plain graph (`metrics.spec_fallbacks`), never fails
+        a request or a lane and never consumes a retry (the
+        `decode_dispatch` point already fired, so retry coverage of
+        every decode dispatch is unchanged). The streams are identical
+        either way: the accept rule emits only the target's tokens."""
+        try:
+            faults.fire("draft_dispatch")
+        except faults.InjectedFault:
+            self.metrics.on_spec_fallback()
+            return False
+        return True
+
     def _dispatch_block(self) -> _Inflight:
-        if self._dirty or self._dev is None:
-            self._dev = self._upload_mirrors()
+        if self._dirty:
+            self._lanes.upload(self._mirrors())
             self._dirty = False
-        d = self._dev
+        faults.fire("decode_dispatch")
+        runner = self._runner(bool(self.speculate_k) and self._draft_ok())
+        # after a first dispatch's capture, a one-time cost that
+        # `metrics.graph_capture_s` books apart from the decode time
         t0 = time.perf_counter()
-        lane_state = (self.cache.k, self.cache.v, d["cur"], d["pos"],
-                      d["rem"], d["act"], d["salt"], d["temp"], d["topk"],
-                      d["topp"], d["eos"])
-        common = dict(attend_impl=self.attend_impl, seed=self.seed,
-                      max_seq=self.max_seq, tables=d.get("tables"),
-                      page_size=self.page_size)
-        spec = None
-        if self.speculate_k:
-            toks, emits, cur, pos, rem, act, spec = _spec_decode_block(
-                self.cfg, self._params, self._draft_params, *lane_state,
-                rounds=self.spec_rounds, k=self.speculate_k,
-                draft_layers=self.draft_layers, **common)
-        else:
-            toks, emits, cur, pos, rem, act = _decode_block(
-                self.cfg, self._params, *lane_state,
-                block=self.decode_block_size, **common)
-        self._dev = {**d, "cur": cur, "pos": pos, "rem": rem, "act": act}
-        return _Inflight(torch.stack([toks, emits.to(toks.dtype)]), t0,
-                         self._block_capacity, spec)
+        return _Inflight(runner.run(), t0, runner.steps, runner.spec)
 
     def _process_block(self, blk: _Inflight):
-        """Distribute one block's tokens to their requests. The copy to
-        the host is the block's single sync (counted); a speculative
-        block's (proposed, accepted) tally rides the same copy."""
-        flat = blk.packed.reshape(-1)
-        if blk.spec is not None:
-            flat = torch.cat([flat, blk.spec])
-        flat = flat.cpu().numpy()               # host sync (the only one)
-        packed = flat[:blk.packed.numel()].reshape(blk.packed.shape)
-        toks, emits = packed[0], packed[1].astype(bool)
-        if blk.spec is not None:
-            self.metrics.on_spec(int(flat[-2]), int(flat[-1]))
+        """Distribute one block's tokens to their requests. Waiting for
+        the block's outputs on the host is its single sync (counted); a
+        speculative block's (proposed, accepted) tally rides the same
+        copy. Everything after is host bookkeeping that, with overlap,
+        runs while the next block executes on the device."""
+        faults.fire("host_sync")
+        flat = blk.result.wait()                # host sync (the only one)
+        S = self.max_slots
+        n = blk.steps * S
+        toks = flat[:n].reshape(blk.steps, S)
+        emits = flat[n:2 * n].reshape(blk.steps, S).astype(bool)
+        if blk.spec:
+            self.metrics.on_spec(int(flat[2 * n]), int(flat[2 * n + 1]))
         produced = 0
         for slot, req in self._active.items():
             if req.finish_reason is not None:
@@ -1053,4 +1274,9 @@ class LLMEngine:
             produced += emitted
             self._act[slot] = req.finish_reason is None
         now = time.perf_counter()
-        self.metrics.on_decode_step(now - blk.t0, produced, steps=blk.steps)
+        # attribute only the wall time not already charged to the
+        # previous block: with overlap, block N+1's dispatch t0 lies
+        # before block N's sync completed
+        self.metrics.on_decode_step(now - max(blk.t0, self._last_proc_t),
+                                    produced, steps=blk.steps)
+        self._last_proc_t = now

@@ -1,6 +1,6 @@
 """Serving metrics: TTFT, queue wait, decode time per token, tokens/s,
-host syncs and dispatches, the KV memory gauges and the speculative
-decoding counters.
+host syncs and dispatches, the recovery counters, graph captures, the
+KV memory gauges and the speculative decoding counters.
 
 A copy of the subset of `paddle_tpu/serving/metrics.py` that the port's
 engine feeds. Aggregates are O(1) online (count/total/min/max); TTFT
@@ -75,9 +75,10 @@ class ServingMetrics:
     """Counter/gauge surface for one `LLMEngine`.
 
     Counters: requests submitted/admitted/completed/rejected (rejects
-    split `invalid` vs `overload`), cancelled and deadline-expired
-    requests, prompt and generated tokens, decode steps / dispatches /
-    host syncs. Latency: TTFT (submit → first token on host), queue
+    split `invalid` vs `overload`), cancelled, deadline-expired and
+    failed requests, retries and recoveries, prompt and generated
+    tokens, decode steps / dispatches / host syncs, CUDA graph
+    captures. Latency: TTFT (submit → first token on host), queue
     wait (submit → prefill start), per-dispatch decode wall time.
     `tokens_per_sec` is generated tokens over the busy window (first
     submit → last activity); `decode_ms_per_token` is decode wall time
@@ -95,6 +96,16 @@ class ServingMetrics:
         self.rejected_overload = 0
         self.requests_cancelled = 0
         self.deadline_expired = 0
+        self.failed_requests = 0     # failed after retry exhaustion
+        self.retries = 0             # failed attempts re-run
+        self.recoveries = 0          # retry rounds that then succeeded
+        # decode block programs captured into CUDA graphs: one per
+        # runner (plain, speculative) of an engine on a card, 0 on the
+        # CPU; the counterpart of the JAX engine's trace counter. Their
+        # wall time (warm-up included) is booked here, not as decode
+        # time
+        self.graph_captures = 0
+        self.graph_capture_s = 0.0
         self.prompt_tokens = 0
         self.generated_tokens = 0
         self.decode_steps = 0        # in-program steps, frozen lanes too
@@ -114,8 +125,8 @@ class ServingMetrics:
         # counts every drafted token offered to a verify pass, accepted
         # the ones that matched the target's own draw. Correction and
         # bonus tokens are decode_tokens like any other. spec_fallbacks
-        # counts blocks degraded to plain decode by a failing draft; the
-        # port has no such fault point yet, so it stays 0.
+        # counts blocks degraded to plain decode by a failing draft (the
+        # `draft_dispatch` fault point).
         self.spec_blocks = 0         # speculative blocks processed
         self.spec_proposed = 0       # drafted tokens verified
         self.spec_accepted = 0       # drafted tokens accepted
@@ -157,6 +168,20 @@ class ServingMetrics:
         self.deadline_expired += 1
         self._touch()
 
+    def on_failed(self):
+        self.failed_requests += 1
+        self._touch()
+
+    def on_retry(self):
+        self.retries += 1
+
+    def on_recovery(self):
+        self.recoveries += 1
+
+    def on_graph_capture(self, seconds: float):
+        self.graph_captures += 1
+        self.graph_capture_s += seconds
+
     def on_admit(self, prompt_tokens: int, prefill_s: float,
                  queue_wait_s: float = 0.0):
         self.requests_admitted += 1
@@ -190,6 +215,12 @@ class ServingMetrics:
         self.spec_blocks += 1
         self.spec_proposed += proposed
         self.spec_accepted += accepted
+
+    def on_spec_fallback(self):
+        """One block degraded to plain decode (a failing draft): the
+        request-facing contract is untouched, only the speedup is lost
+        for that block."""
+        self.spec_fallbacks += 1
 
     def set_gauges(self, queue_depth: int, slots_active: int):
         self.queue_depth = queue_depth
@@ -234,6 +265,11 @@ class ServingMetrics:
             "rejected_overload": self.rejected_overload,
             "requests_cancelled": self.requests_cancelled,
             "deadline_expired": self.deadline_expired,
+            "failed_requests": self.failed_requests,
+            "retries": self.retries,
+            "recoveries": self.recoveries,
+            "graph_captures": self.graph_captures,
+            "graph_capture_s": self.graph_capture_s,
             "prompt_tokens": self.prompt_tokens,
             "generated_tokens": self.generated_tokens,
             "decode_steps": self.decode_steps,

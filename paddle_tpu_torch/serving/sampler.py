@@ -100,7 +100,7 @@ def filtered_logits(logits: torch.Tensor, temperature: TensorLike,
     temperature = _knob(temperature, S, torch.float32, dev)
     top_k = _knob(top_k, S, torch.int64, dev)
     top_p = _knob(top_p, S, torch.float32, dev)
-    neg = torch.tensor(float("-inf"), device=dev)
+    neg = torch.full((), float("-inf"), device=dev)   # a fill: capturable
 
     scaled = lg / torch.clamp(temperature, min=1e-6)[:, None]
     order = torch.argsort(-scaled, dim=-1, stable=True)

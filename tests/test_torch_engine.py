@@ -173,7 +173,7 @@ def test_overload_and_invalid_requests(model):
 @pytest.mark.parametrize("knob,value", [
     ("prefix_cache", True), ("kv_layout", "paged"), ("kv_dtype", "int8"),
     ("speculate_k", 2), ("tp", 2), ("prefill_budget", 16),
-    ("overlap", True), ("prefill_chunk", 8)])
+    ("flight_dir", "flight"), ("prefill_chunk", 8)])
 def test_unported_knob_raises(model, knob, value):
     """Unported features raise and name their ROADMAP item. The paged
     layout, int8 KV and speculative decoding are ported: with them, the

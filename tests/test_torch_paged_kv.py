@@ -274,9 +274,11 @@ def test_admission_waits_on_pages_fifo(model):
 
 def test_no_free_pages_mid_admission_requeues(model, monkeypatch):
     """If allocation fails after the gate (the pool changed under it),
-    the request goes back to the queue head and admits later; it never
-    finishes with an error."""
-    eng = _engine(model, max_slots=2, kv_layout="paged", page_size=16)
+    the request goes back to the queue head once its admission retries
+    are spent (none here) and admits later; it never finishes with an
+    error."""
+    eng = _engine(model, max_slots=2, kv_layout="paged", page_size=16,
+                  max_retries=0)
     real = LLMEngine._alloc_pages
     blown = {"n": 0}
 
