@@ -835,6 +835,30 @@ def serving_load(np, SamplingParams, vocab):
     return prompts, params
 
 
+def leaked_pages(eng) -> int:
+    """Pages held beyond the trash page once the prefix tree's (its
+    own, legitimate) pages are let go: 0 after every load."""
+    if eng.prefix is not None:
+        eng.prefix.clear()
+    return eng.cache.pool.leaked()
+
+
+SYSTEM_PROMPT = 512              # phase 4g's shared system prompt, tokens
+
+
+def shared_prefix_load(np, SamplingParams, vocab):
+    """The 16 requests of phase 4g: one seeded 512-token shared system
+    prompt and a 16..188-token tail each, phase 4's sampling knobs (64
+    new tokens, 12 greedy and 4 sampled)."""
+    rng = np.random.RandomState(4)
+    system = rng.randint(0, vocab, (SYSTEM_PROMPT,)).astype(np.int32)
+    tails = np.linspace(16, 188, 16).astype(int)
+    rng.shuffle(tails)
+    prompts = [np.concatenate([system, rng.randint(0, vocab, (int(n),))
+                               .astype(np.int32)]) for n in tails]
+    return prompts, serving_load(np, SamplingParams, vocab)[1]
+
+
 def serve(torch, dec, model, prompts, params, name, **knobs):
     """Serve the load through one engine with every decode counter set
     to 0 just before and read just after. Checks: every request
@@ -872,7 +896,7 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
           f"{name}: {st['graph_captures']} graph captures, runners "
           f"{sorted(eng._runners)}")
     if eng.paged:
-        check(eng.cache.pool.leaked() == 0, f"{name}: leaked pages")
+        check(leaked_pages(eng) == 0, f"{name}: leaked pages")
     log(f"  {name} {knobs or 'slotted'}: {len(results)} requests "
         f"({st['prompt_tokens']} prompt, {st['generated_tokens']} generated"
         f" tokens) in {wall:.2f} s; {name} launches {counts[name]} = "
@@ -972,8 +996,8 @@ def phase_page_pressure(torch, dec, engine_run, int8_streams):
     check(all(r.finish_reason == "length" and len(r.token_ids) == 64
               for r in results), "a request under page pressure failed")
     check(waited > 0, "admission never waited on pages")
-    check(eng.cache.pool.leaked() == 0,
-          f"{eng.cache.pool.leaked()} pages leaked")
+    leaked = leaked_pages(eng)
+    check(leaked == 0, f"{leaked} pages leaked")
     check(st["kv_pages_peak"] <= 49, f"peak {st['kv_pages_peak']} > 49")
     check([r.token_ids for r in results] == int8_streams,
           "streams under page pressure != K6 streams of (b)")
@@ -1239,7 +1263,7 @@ def phase_dispatch(torch, np, dec, k7, engine_run, variants, int8_run,
         check(eng.cache.num_free == eng.max_slots and not eng.has_work(),
               "4f: slots not drained")
         if eng.paged:
-            check(eng.cache.pool.leaked() == 0, "4f: leaked pages")
+            check(leaked_pages(eng) == 0, "4f: leaked pages")
         counts = {k: c.count for k, c in counters.items()}
         counts["K7"] = k7.INT8_LAUNCHES.count
         streams = [r.token_ids for r in res]
@@ -1337,6 +1361,270 @@ def phase_dispatch(torch, np, dec, k7, engine_run, variants, int8_run,
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 4g: admission (prefix cache, interleaved chunked prefill,
+# snapshot / resume, extract / adopt)
+# --------------------------------------------------------------------------- #
+
+ADMISSION_KW = dict(prefill_budget=256, prefill_chunk=64)
+# (tag, engine knobs, the decode kernel the run launches)
+ADMISSION = (("a", dict(prefix_cache=False), "K1"),
+             ("b", {}, "K1"),
+             ("c", ADMISSION_KW, "K1"),
+             ("d", dict(ADMISSION_KW, kv_layout="paged"), "K4"),
+             ("e", dict(ADMISSION_KW, kv_layout="paged", kv_dtype="int8"),
+              "K6"),
+             ("e twin", dict(prefix_cache=False, kv_layout="paged",
+                             kv_dtype="int8"), "K6"))
+
+
+def greedy_margins(torch, np, model, prompts, streams, idx):
+    """Per request of `idx`: the model's top-2 logit margin at every
+    position that decided a token of its greedy stream (one causal
+    forward over prompt + stream)."""
+    out = {}
+    for i in idx:
+        seq = np.concatenate([prompts[i],
+                              np.asarray(streams[i][:-1], np.int32)])
+        lg = model.logits(torch.from_numpy(seq[None]).long().cuda())[0]
+        top2 = torch.topk(lg[len(prompts[i]) - 1:].float(), 2,
+                          dim=-1).values
+        out[i] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    return out
+
+
+def phase_admission(torch, np, dec, engine_run):
+    """(4g) phase 4's model on a shared-prefix load (one 512-token system
+    prompt, a 16-188-token tail each), served (a) monolithically without
+    the prefix cache, (b) with it (slotted), (c) with it and
+    `prefill_budget=256, prefill_chunk=64`, (d) as (c), paged, (e) as
+    (d) with int8 KV; (f) (c) snapshotted after its fourth step that
+    ran a decode block (before it, every lane is still prefilling),
+    pickled, resumed in a fresh engine; (g) (c) with two greedy
+    requests extracted mid-run and adopted by a second engine with
+    `keep_salt=True`. (b)-(d) give (a)'s streams bitwise, greedy and
+    sampled, and (e) those of paged int8 without the prefix cache; (b)
+    reuses 15 x 512 tokens; (f) and (g) give (c)'s streams bitwise
+    (continuations replay their emitted tokens through decode steps),
+    the top-2 margins along the moved greedy streams logged. Every run:
+    all requests finish, its decode kernel launched layers x (decode +
+    replay steps) times and the others never (counted from 0 just
+    before the run), one graph capture per runner, host syncs =
+    dispatches, 0 failed requests, 0 leaked pages."""
+    import gc
+    import pickle
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    model = engine_run["model"]
+    layers = model.cfg.num_layers
+    prompts, params = shared_prefix_load(np, SamplingParams,
+                                         model.cfg.vocab_size)
+    greedy = [i for i, sp in enumerate(params) if sp.temperature == 0]
+    counters = decode_counters(dec)
+    card = card_line()
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    def check_launches(tag, kernel, steps):
+        """`steps`: the decode and replay steps the run took."""
+        counts = {k: c.count for k, c in counters.items()}
+        want = {k: layers * steps if k == kernel else 0 for k in counters}
+        check(counts == want, f"4g {tag}: decode kernel launches {counts} "
+                              f"!= {want}")
+        return counts[kernel]
+
+    def drained(tag, eng):
+        st = eng.stats()
+        check(st["host_syncs"] == st["decode_dispatches"],
+              f"4g {tag}: host syncs {st['host_syncs']} != dispatches "
+              f"{st['decode_dispatches']}")
+        check(st["graph_captures"] == len(eng._runners),
+              f"4g {tag}: {st['graph_captures']} captures, runners "
+              f"{sorted(eng._runners)}")
+        check(st["failed_requests"] == 0, f"4g {tag}: failed requests")
+        check(eng.cache.num_free == eng.max_slots and not eng.has_work(),
+              f"4g {tag}: slots not drained")
+        if eng.paged:
+            check(leaked_pages(eng) == 0, f"4g {tag}: leaked pages")
+        return st
+
+    def finished(tag, results):
+        for r in results:
+            check(r.finish_reason == "length" and len(r.token_ids) == 64,
+                  f"4g {tag} request {r.request_id}: {r.finish_reason}, "
+                  f"{len(r.token_ids)} tokens")
+        return [r.token_ids for r in results]
+
+    def numbers(st, wall):
+        return {"ttft_p50_s": st["ttft_p50_s"], "ttft_p99_s": st["ttft_p99_s"],
+                "tokens_per_s": st["tokens_per_sec"],
+                "prefill_tokens_computed": st["prefill_tokens_computed"],
+                "prefix_tokens_reused": st["prefix_tokens_reused"],
+                "decode_steps": st["decode_steps"], "wall_s": wall,
+                "graph_capture_s": st["graph_capture_s"]}
+
+    def report(tag, knobs, run):
+        log(f"  ({tag}) {knobs or 'prefix cache on, monolithic'}: TTFT p50 "
+            f"{run['ttft_p50_s'] * 1e3:.1f} ms, p99 "
+            f"{run['ttft_p99_s'] * 1e3:.1f} ms, {run['tokens_per_s']:.1f} "
+            f"tokens/s, prefill tokens computed "
+            f"{run['prefill_tokens_computed']}, reused "
+            f"{run['prefix_tokens_reused']}, {run['launches']} decode "
+            f"launches [card: {card}]")
+
+    runs = {}
+    for tag, knobs, kernel in ADMISSION:
+        eng = LLMEngine(model, **SERVE_KW, **knobs)
+        reset()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+        eng.run_until_complete(max_steps=2000)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        streams = finished(tag, [eng.result(r) for r in rids])
+        st = drained(tag, eng)
+        runs[tag] = {**numbers(st, wall), "streams": streams,
+                     "launches": check_launches(
+                         tag, kernel, st["decode_steps"] + st["replay_steps"])}
+        report(tag, knobs, runs[tag])
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = sum(int(p.size) for p in prompts)
+    check(runs["a"]["prefill_tokens_computed"] == total,
+          f"4g (a): computed {runs['a']['prefill_tokens_computed']} != "
+          f"{total}")
+    reuse = (len(prompts) - 1) * SYSTEM_PROMPT
+    check(runs["b"]["prefix_tokens_reused"] == reuse
+          and runs["b"]["prefill_tokens_computed"] == total - reuse,
+          f"4g (b): reused {runs['b']['prefix_tokens_reused']} != "
+          f"{len(prompts) - 1} x {SYSTEM_PROMPT}")
+    for tag in ("b", "c", "d"):
+        same = sum(x == y for x, y in zip(runs[tag]["streams"],
+                                          runs["a"]["streams"]))
+        check(same == len(prompts), f"4g ({tag}): {len(prompts) - same} "
+                                    f"streams != (a)'s")
+    same = sum(x == y for x, y in zip(runs["e"]["streams"],
+                                      runs["e twin"]["streams"]))
+    check(same == len(prompts), f"4g (e): {len(prompts) - same} streams != "
+                                f"paged int8 without the prefix cache")
+    log(f"  (b), (c), (d) == (a) and (e) == paged int8 without the prefix "
+        f"cache: {len(prompts)}/{len(prompts)} streams each ({len(greedy)} "
+        f"greedy, {len(prompts) - len(greedy)} sampled), bitwise; (b) "
+        f"reused {len(prompts) - 1} x {SYSTEM_PROMPT} = "
+        f"{runs['b']['prefix_tokens_reused']} tokens")
+    ref = runs["c"]["streams"]
+    margins = greedy_margins(torch, np, model, prompts, ref, greedy)
+
+    def hold_streams(tag, streams, moved):
+        """(c)'s streams, every one; the top-2 margins along the moved
+        greedy ones."""
+        diff = [i for i in range(len(ref)) if streams[i] != ref[i]]
+        idx = [i for i in greedy if i in moved]
+        m = np.concatenate([margins[i] for i in idx])
+        near = int((m < 1e-2).sum())
+        log(f"  ({tag}) streams == (c)'s: {len(ref) - len(diff)}/{len(ref)}"
+            f" ({len(greedy)} greedy, {len(ref) - len(greedy)} sampled), "
+            f"bitwise; top-2 margins at the "
+            f"{m.size} positions of the {len(idx)} moved greedy streams: "
+            f"min {m.min():.4f}, {near} below 1e-2")
+        for i in diff:
+            k = next(j for j, (x, y) in enumerate(zip(streams[i], ref[i]))
+                     if x != y)
+            log(f"    request {i} diverges at token {k}"
+                + (f", margin {margins[i][k]:.4f}" if i in greedy else ""))
+        check(not diff, f"4g ({tag}): streams {diff} != (c)'s")
+        return {"min_margin": float(m.min()), "near_ties": near,
+                "positions": int(m.size)}
+
+    # (f) snapshot after the fourth step with decode, pickle, resume in a
+    # fresh engine
+    eng = LLMEngine(model, **SERVE_KW, **ADMISSION_KW)
+    reset()
+    rids = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+    with_decode = 0
+    for _ in range(200):
+        before = eng.metrics.decode_dispatches
+        eng.step()
+        with_decode += eng.metrics.decode_dispatches > before
+        if with_decode == 4:
+            break
+    pending = eng._inflight.steps if eng._inflight is not None else 0
+    snap = pickle.loads(pickle.dumps(eng.snapshot()))
+    check_launches("f, before the snapshot", "K1",
+                   eng.stats()["decode_steps"] + pending)
+    check(snap["active"] and snap["queued"],
+          f"4g (f): {len(snap['active'])} active, {len(snap['queued'])} "
+          f"queued at the snapshot")
+    del eng
+    gc.collect()
+    moved = [r["rid"] for r in snap["active"] + snap["queued"]]
+    reset()
+    t0 = time.perf_counter()
+    eng = LLMEngine.resume(model, snap)
+    eng.run_until_complete(max_steps=2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = finished("f", [eng.result(r) for r in rids])
+    st = drained("f", eng)
+    runs["f"] = {**numbers(st, wall), "launches": check_launches(
+        "f, after the resume", "K1",
+        st["decode_steps"] + st["replay_steps"]),
+        "active": len(snap["active"]), "queued": len(snap["queued"]),
+        "replay_steps": st["replay_steps"]}
+    report("f", f"(c) resumed from a snapshot after 4 steps with decode "
+                f"({len(snap['active'])} active, {len(snap['queued'])} "
+                f"queued or prefilling)", runs["f"])
+    runs["f"].update(hold_streams("f", streams, moved))
+    del eng
+    gc.collect()
+    # (g) two greedy requests extracted mid-run, adopted with keep_salt
+    a = LLMEngine(model, **SERVE_KW, **ADMISSION_KW)
+    b = LLMEngine(model, **SERVE_KW, **ADMISSION_KW)
+    reset()
+    rids = [a.submit(p, sp) for p, sp in zip(prompts, params)]
+    pick = []
+    for _ in range(50):
+        a.step()
+        pick = [r.rid for _, r in sorted(a._active.items())
+                if r.finish_reason is None and r.generated
+                and r.params.temperature == 0][:2]
+        if len(pick) == 2:
+            break
+    check(len(pick) == 2, "4g (g): no two greedy requests decoding")
+    moving = pickle.loads(pickle.dumps([a.extract(rid) for rid in pick]))
+    b.advance_salt_clock(a.salt_clock())
+    for d in moving:
+        b.adopt(d, keep_salt=True)
+    t0 = time.perf_counter()
+    a.run_until_complete(max_steps=2000)
+    b.run_until_complete(max_steps=2000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = finished("g", [(b if rid in pick else a).result(rid)
+                             for rid in rids])
+    sa, sb = drained("g, origin", a), drained("g, adopter", b)
+    # the origin's numbers (it took every first token); the adopter's
+    # re-ingest beside them
+    runs["g"] = {**numbers(sa, wall), "launches": check_launches(
+        "g", "K1", sa["decode_steps"] + sb["decode_steps"]
+        + sb["replay_steps"]), "replay_steps": sb["replay_steps"],
+        "moved": pick,
+        "adopter_prefill_tokens_computed": sb["prefill_tokens_computed"],
+        "adopter_prefix_tokens_reused": sb["prefix_tokens_reused"]}
+    report("g", f"(c), requests {pick} extracted after "
+                f"{[len(d['generated']) for d in moving]} tokens and "
+                f"adopted (keep_salt)", runs["g"])
+    runs["g"].update(hold_streams("g", streams, pick))
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run in runs.values():
+        run.pop("streams", None)
+    return runs
 
 
 def phase_paged_vs_slotted(torch, np, P):
@@ -2219,6 +2507,9 @@ def main(argv=None) -> int:
         "injected faults")
     dispatch = phase_dispatch(torch, np, dec, k7, engine_run, variants,
                               int8_run, spec)
+    log("phase 4g: admission: the prefix cache, interleaved chunked "
+        "prefill, snapshot / resume, extract / adopt")
+    admission = phase_admission(torch, np, dec, engine_run)
     del engine_run["model"], variants["K1"], int8_run["model"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
@@ -2329,6 +2620,7 @@ def main(argv=None) -> int:
                        "train": train, "grad_check": grad,
                        "int8_serving": drop(int8_run),
                        "speculative": drop(spec), "dispatch": dispatch,
+                       "admission": admission,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32,

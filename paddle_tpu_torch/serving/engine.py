@@ -34,10 +34,38 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   request whose prefill is exhausted fails alone. A failing draft
   (`draft_dispatch`) degrades its block to the plain graph. Fault
   points: `testing/faults.py`.
-- MONOLITHIC BUCKETED PREFILL. A prompt is padded to the smallest
-  length bucket (powers of two up to `max_seq`) and written into its
-  slot's rows in one forward; the last real position's logits give the
-  first token.
+- BUCKETED, OPTIONALLY CHUNKED PREFILL. A prompt (or its uncached
+  suffix) is split into `prefill_chunk`-sized pieces, each padded to
+  the smallest length bucket (powers of two up to `max_seq`, and at
+  least `PREFILL_MIN_ROWS` rows: rows past `max_seq` are computed and
+  not written) and written into its slot's rows in one forward; the
+  last real position's logits give the first token. The floor keeps a
+  row's bits independent of the bucket or chunk it was computed in (on
+  the card a GEMM's row bits change below it), so chunk boundaries are
+  exact and a prefix-cache hit is a cold prefill's bits.
+- CHUNKED-PREFILL INTERLEAVING (`prefill_budget`). A popped request
+  parks in the PREFILLING state (slot held, prompt partly ingested) and
+  each scheduler round computes at most `prefill_budget` tokens of
+  prefill (shortest remaining first, one chunk per lane per pass, plus
+  one aging chunk for the oldest lane) before dispatching decode, so a
+  long prompt stalls the decode lanes by a round's budget, not by its
+  whole prefill. `prefill_budget=None` keeps monolithic admission.
+- AUTOMATIC PREFIX CACHING (`prefix_cache`, on by default). A radix
+  tree over `prefix_block`-token chunks (`serving/prefix_cache.py`)
+  maps shared prompt prefixes to pages: of a prefix pool beside the
+  slot slabs (slotted: a hit COPIES the pages into the slot with index
+  copies, an insert copies the freshly computed chunks back), or of the
+  one page pool (paged: `prefix_block` is the page size, a hit binds
+  the tree's pages into the lane's table and an insert references the
+  lane's pages, no copy either way). Only the uncached suffix is
+  prefilled.
+- SNAPSHOT / RESUME / ADOPT. `snapshot()` serializes the request state
+  (no KV); `LLMEngine.resume()` re-ingests every active request into
+  its original slot: the prompt through prefill, the emitted tokens
+  through teacher-forced decode steps (`_replay`).
+  `adopt()` / `extract()` / `unqueue()` move single requests between
+  engines, and `salt_clock()` / `advance_salt_clock()` carry the
+  sampling-salt counter with them.
 - Two KV layouts (`kv_layout`). "slotted": one `max_seq` stripe per
   lane (`kv_cache.KVCacheManager`). "paged": one refcounted page pool
   with per-lane block tables (`paged_kv.PagedKVCache`); admission
@@ -61,17 +89,24 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
 Numerics: under "masked", a request decoded beside others is bitwise
 identical to the same request decoded alone, for any
 `decode_block_size` (lanes are row-independent), and the paged layout
-gives the slotted layout's streams bitwise (for a fixed kv_dtype). Sampled streams
+gives the slotted layout's streams bitwise (for a fixed kv_dtype).
+Chunked, interleaved and prefix-cached admission give monolithic
+admission's streams bitwise (the prefill's row floor). Sampled streams
 depend only on (engine seed, the request's salt, position) — see
-`serving/sampler.py` — so they too are invariant to block size and lane
-assignment; the salt is assigned when a request leaves the queue.
+`serving/sampler.py` — so they too are invariant to block size, lane
+assignment and admission schedule; the salt is assigned when a request
+leaves the queue. A resumed or adopted continuation gets its prompt
+rows from the prefill and its emitted tokens' rows from teacher-forced
+decode steps (`_replay`), the kernels that first wrote them, so it
+continues bitwise on every device.
 
-The KV slabs are updated in place (the JAX engine donates them into
-each compiled step instead), so a failed step never loses them and the
-reference's slab healing has nothing to do here. Features of the JAX
-engine that are not ported yet raise `NotImplementedError` when their
-knob is passed with any value other than "off"; they are listed in
-ROADMAP.md.
+The KV slabs and the prefix pool are updated in place (the JAX engine
+donates them into each compiled step instead), so a failed step never
+loses them and the reference's slab and pool healing
+(`_heal_cache`, `_pool_healthy`) has nothing to do here. Features of
+the JAX engine that are not ported yet raise `NotImplementedError` when
+their knob is passed with any value other than "off"; they are listed
+in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -96,7 +131,9 @@ from ..testing import faults
 from .graphs import BlockResult, BlockRunner, GraphCaptureError, LaneState
 from .kv_cache import KVCacheManager
 from .metrics import ServingMetrics
-from .paged_kv import NoFreePages, PagedKVCache, paged_rows
+from .paged_kv import (NoFreePages, PagedKVCache, TreePageAllocator,
+                       paged_rows)
+from .prefix_cache import PrefixCache
 from .sampler import (DOMAIN_FIRST, compact_block, sample_tokens,
                       sample_tokens_per_lane, sample_verify_tokens,
                       speculative_accept)
@@ -106,24 +143,35 @@ __all__ = ["SamplingParams", "GenerationResult", "EngineOverloadError",
 
 # JAX-engine knobs of features the port does not have yet: the values
 # that mean "feature off" (what the port does) are accepted, any other
-# value raises, naming the feature's open item of ROADMAP.md.
+# value raises, naming the feature's open item of ROADMAP.md. These are
+# also the keys a JAX engine's snapshot carries besides the ported
+# ones; `trace_capacity` (off values None) is inert, and accepted at any
+# value, while `trace` is off.
 _UNSUPPORTED_KNOBS = {
-    "prefill_chunk": ((None,), "chunked prefill", "Queue 1 item 7"),
-    "prefill_budget": ((None,), "prefill_budget interleaving",
-                       "Queue 1 item 7"),
-    "prefix_cache": ((False,), "the prefix cache", "Queue 1 item 7"),
-    "prefix_block": ((), "the prefix cache", "Queue 1 item 7"),
-    "prefix_pool_pages": ((None, 0), "the prefix cache", "Queue 1 item 7"),
     "mesh": ((None,), "TP-sharded serving", "Queue 1 item 12"),
     "tp": ((1,), "TP-sharded serving", "Queue 1 item 12"),
     "trace": ((False,), "the lifecycle tracer", "Queue 1 item 11"),
-    "trace_capacity": ((), "the lifecycle tracer", "Queue 1 item 11"),
+    "trace_capacity": (None, "the lifecycle tracer", "Queue 1 item 11"),
     "flight_dir": ((None,), "the flight recorder", "Queue 1 item 11"),
     "name": ((None,), "the profiler stats registry", "Queue 1 item 11"),
     "register_stats": ((False,), "the profiler stats registry",
                        "Queue 1 item 11"),
     "kv_tier": ((None,), "the fleet KV tier", "Queue 1 item 11"),
 }
+
+
+# every prefill call runs on at least this many rows (a bucket padded
+# further; rows past max_seq are computed and not written). On the card
+# a bf16 GEMM's row bits depend on the row count of its call below it:
+# `scripts/prefill_row_probe.py` measured GPT-small's 3072 x 768 GEMM
+# giving other bits at 16-64 rows than at 128-1024, and every prefill
+# op giving the same bits at every row count from 128 to 1024. With the
+# floor, a prompt row computed in a 64-token chunk or a cache-hit
+# suffix has the bits of the same row in a monolithic bucket (PERF.md,
+# the row probe)
+PREFILL_MIN_ROWS = 128
+# the sampling-salt counter wraps here (the reference's int32 lanes)
+SALT_MASK = 0x7FFFFFFF
 
 
 class EngineOverloadError(RuntimeError):
@@ -200,6 +248,18 @@ class _Request:
     salt: Optional[int] = None
     queue_wait_s: float = 0.0
     error: Optional[str] = None
+    # prefix-cache nodes the request pins while it holds its slot, and
+    # the pages the last ingestion took from the cache
+    prefix_nodes: Optional[List] = None
+    pages_copied: int = 0
+    # set when the request entered through adopt(): its queue wait runs
+    # from adoption, not from the backdated submit
+    adopted_t: Optional[float] = None
+    # the PREFILLING state of interleaved admission: the prompt rows
+    # written so far, and the wall time spent computing them (the rest
+    # of the wait books as queue wait)
+    pf_filled: int = 0
+    pf_compute_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -209,6 +269,30 @@ class _Inflight:
     t0: float                     # dispatch wall time
     steps: int                    # in-program steps (the block capacity)
     spec: bool                    # a draft-and-verify block (with tally)
+
+
+def _restore_request(r: Dict, now: float) -> _Request:
+    """Rebuild a `_Request` from its snapshot dict (the port's or the
+    JAX engine's). `submit_t` is backdated by the recorded elapsed time,
+    so TTFT, queue wait and the remaining `deadline_s` carry across.
+    The JAX dicts' `first_key` (a JAX RNG key) is read and ignored: the
+    port keys a first token by (seed, salt, position, DOMAIN_FIRST), so
+    the salt alone carries it. `kv_pages` payloads (host swap, page
+    handoff) are not ported and ignored: the request re-prefills."""
+    params = SamplingParams(**r["params"])
+    if params.n != 1:
+        raise NotImplementedError(
+            f"request {r['rid']}: n={params.n}: best-of-n forking is not "
+            f"ported to the PyTorch engine yet (see ROADMAP.md)")
+    req = _Request(int(r["rid"]), np.asarray(r["prompt"], np.int32),
+                   params, now - float(r.get("elapsed_s", 0.0)))
+    req.generated = [int(t) for t in r["generated"]]
+    req.ttft_s = float(r.get("ttft_s", 0.0))
+    if r.get("salt") is not None:
+        req.salt = int(r["salt"])
+    if params.deadline_s is not None:
+        req.deadline_t = req.submit_t + params.deadline_s
+    return req
 
 
 def _default_buckets(max_seq: int) -> List[int]:
@@ -235,21 +319,23 @@ def _prefill_forward(cfg, params, k_list, v_list, ids: torch.Tensor,
     layout — in place; returns the fp32 logits of the last REAL token
     (position pos0 + length - 1). Padded rows past `length` are written
     too and rewritten before they can be attended (paged: those past
-    the lane's bound pages land on the trash page). Attention reads the
+    the lane's bound pages land on the trash page); rows at or past the
+    cache's T rows are computed and not written. Attention reads the
     CACHE's view of the rows (dequantized for int8), the view later
     decode steps see."""
     L = ids.shape[1]
     T = table.shape[0] * page_size if table is not None \
         else slab_shape(k_list[0])[1]
+    W = min(L, T - pos0)                      # rows that land in the cache
     dev = ids.device
     q_pos = pos0 + torch.arange(L, device=dev)
     x = _embed(params, ids, q_pos[None])                      # (1, L, h)
     keep = (torch.arange(T, device=dev)[None, :]
             <= q_pos[:, None])[None, None]                    # (1,1,L,T)
     if table is None:
-        rows = (slot, slice(pos0, pos0 + L))
+        rows = (slot, slice(pos0, pos0 + W))
     else:
-        rows = paged_rows(table, q_pos, page_size)
+        rows = paged_rows(table, q_pos[:W], page_size)
 
     def lane_view(slab, dtype):
         if table is None:
@@ -259,8 +345,8 @@ def _prefill_forward(cfg, params, k_list, v_list, ids: torch.Tensor,
             1, T, *slab_shape(slab)[2:])
 
     def attn(i, q, kn, vn):
-        kv_update(k_list[i], rows, kn[0])
-        kv_update(v_list[i], rows, vn[0])
+        kv_update(k_list[i], rows, kn[0, :W])
+        kv_update(v_list[i], rows, vn[0, :W])
         return _masked_attend(q, lane_view(k_list[i], q.dtype),
                               lane_view(v_list[i], q.dtype), keep)
 
@@ -536,10 +622,20 @@ class LLMEngine:
 
     Dispatch: `overlap` (default True) dispatches the next block before
     reading this one's tokens; `max_retries` (default 2) retries a
-    failed dispatch, sync or prefill with a backoff of
+    failed dispatch, sync, prefill or prefix copy with a backoff of
     `retry_backoff_s * 2^n` seconds capped at `retry_backoff_max_s`.
     Streams are the same with overlap on or off, and with or without
     recovered faults.
+
+    Admission: `prefill_chunk` (default None: one piece) splits a
+    prefill into pieces of that many tokens; `prefill_budget` (default
+    None: monolithic admission) interleaves chunked prefill with decode,
+    at most that many prefill tokens per round while decode lanes are
+    live (the chunk defaults to the budget). `prefix_cache` (default
+    True) reuses cached prompt prefixes at a grain of `prefix_block`
+    tokens (default 64; the page size under "paged"); the slotted pool
+    holds `prefix_pool_pages` pages (default `max_slots * (max_seq //
+    prefix_block)`, 0 turns the cache off).
     """
 
     def __init__(self, model, max_slots: int = 8, max_queue: int = 64,
@@ -553,13 +649,19 @@ class LLMEngine:
                  draft: str = "trunc", draft_layers: Optional[int] = None,
                  overlap: bool = True, max_retries: int = 2,
                  retry_backoff_s: float = 0.05,
-                 retry_backoff_max_s: float = 1.0, **knobs):
+                 retry_backoff_max_s: float = 1.0,
+                 prefill_chunk: Optional[int] = None,
+                 prefill_budget: Optional[int] = None,
+                 prefix_cache: bool = True, prefix_block: int = 64,
+                 prefix_pool_pages: Optional[int] = None, **knobs):
         for knob, value in knobs.items():
             if knob not in _UNSUPPORTED_KNOBS:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
                                 f"argument {knob!r}")
             off, feature, item = _UNSUPPORTED_KNOBS[knob]
-            if not any(value is o or value == o for o in off):
+            inert = knobs.get("trace", False) is False if off is None \
+                else any(value is o or value == o for o in off)
+            if not inert:
                 raise NotImplementedError(
                     f"{knob}={value!r}: {feature} is not ported to the "
                     f"PyTorch engine yet (ROADMAP.md, {item})")
@@ -630,6 +732,8 @@ class LLMEngine:
             raise ValueError(f"kv_layout must be 'slotted' or 'paged', "
                              f"got {kv_layout!r}")
         self.paged = kv_layout == "paged"
+        if prefix_block < 1:
+            raise ValueError("prefix_block must be >= 1")
         dims = (cfg.num_layers, self.max_slots, self.max_seq,
                 cfg.num_heads, cfg.head_dim, dtype, self.device)
         if self.paged:
@@ -642,12 +746,36 @@ class LLMEngine:
                                       kv_dtype=kv_dtype)
             self.page_size = self.cache.page_size
             self.kv_pages = self.cache.num_pages
+            # the prefix chunk IS the page: a hit binds the tree's pages
+            # into the lane's table, an insert references the lane's
+            self.prefix_block = self.page_size
+            self.prefix_pool_pages = 0
+            self.prefix = PrefixCache(
+                self.page_size, self.kv_pages,
+                allocator=TreePageAllocator(self.cache.pool)) \
+                if prefix_cache and self.max_seq >= self.page_size \
+                else None
         else:
             if page_size is not None or kv_pages is not None:
                 raise ValueError("page_size/kv_pages need "
                                  "kv_layout='paged'")
-            self.cache = KVCacheManager(*dims, kv_dtype=kv_dtype)
             self.page_size = self.kv_pages = 0
+            self.prefix_block = int(prefix_block)
+            if prefix_pool_pages is None:
+                # 0 when max_seq cannot span one chunk: no dead slabs
+                prefix_pool_pages = \
+                    self.max_slots * (self.max_seq // self.prefix_block)
+            if prefix_pool_pages < 0:
+                raise ValueError("prefix_pool_pages must be >= 0")
+            self.prefix_pool_pages = int(prefix_pool_pages) \
+                if prefix_cache else 0
+            self.cache = KVCacheManager(
+                *dims, kv_dtype=kv_dtype,
+                prefix_pool_pages=self.prefix_pool_pages,
+                prefix_block=self.prefix_block)
+            self.prefix = PrefixCache(self.prefix_block,
+                                      self.prefix_pool_pages) \
+                if self.prefix_pool_pages > 0 else None
         self.kv_dtype = self.cache.kv_dtype
         if attend_impl == "ragged" and not self.cache.quantized \
                 and self.cache.slab_dtype != dtype:
@@ -658,12 +786,28 @@ class LLMEngine:
         self.metrics.kv_cache_bytes = self.cache.nbytes()
         self.metrics.kv_bytes_per_token = self.cache.bytes_per_token()
         self.metrics.kv_dtype = self.kv_dtype
+        self.metrics.prefix_pool_bytes = self.cache.pool_nbytes()
+        self.metrics.set_prefix_gauges(0, self.prefix_pool_pages)
         self._set_page_gauges()
         self._queue: collections.deque = collections.deque()
         self._active: Dict[int, _Request] = {}      # slot -> request
         self._results: Dict[int, GenerationResult] = {}
         self._next_id = 0
         self._next_salt = 0
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if prefill_budget is not None and prefill_budget < 1:
+            raise ValueError("prefill_budget must be >= 1")
+        self.prefill_budget = int(prefill_budget) \
+            if prefill_budget is not None else None
+        if self.prefill_budget is not None and prefill_chunk is None:
+            # one lane's slice per round fills the budget
+            prefill_chunk = self.prefill_budget
+        self.prefill_chunk = int(prefill_chunk) \
+            if prefill_chunk is not None else None
+        # slot -> half-prefilled request (the PREFILLING lanes); the
+        # insertion order is the prefill-start order
+        self._prefilling: Dict[int, _Request] = {}
         bk = sorted({int(b) for b in prefill_buckets}) if prefill_buckets \
             else _default_buckets(self.max_seq)
         self._buckets = [min(b, self.max_seq) for b in bk]
@@ -748,10 +892,12 @@ class LLMEngine:
         return rid
 
     def cancel(self, rid: int) -> bool:
-        """Cancel a queued or generating request. Returns True iff it
-        was live. A generating request keeps its emitted tokens; its
-        lane freezes at the next dispatch and its slot frees at the
-        next block boundary. Other lanes are unaffected."""
+        """Cancel a queued, prefilling or generating request. Returns
+        True iff it was live. A generating request keeps its emitted
+        tokens; its lane freezes at the next dispatch and its slot frees
+        at the next block boundary. A prefilling request never entered
+        the decode grid: its slot and prefix pins free at once. Other
+        lanes are unaffected."""
         for req in self._queue:
             if req.rid == rid:
                 self._queue.remove(req)
@@ -764,7 +910,104 @@ class LLMEngine:
                 self._freeze_slot(slot)
                 self.metrics.on_cancel()
                 return True
+        for slot, req in list(self._prefilling.items()):
+            if req.rid == rid:
+                self._abort_prefill(slot, req, "cancelled")
+                self.metrics.on_cancel()
+                return True
         return False
+
+    # ------------------------------------------------------------------ #
+    # moving requests between engines
+    # ------------------------------------------------------------------ #
+    def adopt(self, req: Dict, keep_salt: bool = False) -> int:
+        """Admit ONE request dict of another engine's `snapshot()`
+        (`active` or `queued` entry) or `extract()` / `unqueue()`: a
+        request with emitted tokens re-enters as a CONTINUATION
+        (admission re-ingests prompt + emitted tokens through prefill,
+        decode picks up after the last emitted token; greedy streams
+        equal an undisturbed run), a request without re-enters as a new
+        admission. It keeps its id, its recorded TTFT and its remaining
+        `deadline_s`. Raises `EngineOverloadError` when the queue is
+        full.
+
+        The request re-salts at this engine's queue pop (the origin's
+        salt could collide with one this engine assigned), unless
+        `keep_salt=True`: then the imported salt is kept and this
+        engine's salt counter moves past it, so a sampled stream
+        continues exactly as on the origin."""
+        now = time.perf_counter()
+        r = _restore_request(req, now)
+        if keep_salt:
+            if r.salt is not None:
+                self._next_salt = max(self._next_salt,
+                                      (r.salt + 1) & SALT_MASK)
+        else:
+            r.salt = None
+        self._validate(r.prompt, r.params)
+        if len(self._queue) >= self.max_queue:
+            self.metrics.on_reject("overload")
+            raise EngineOverloadError(
+                f"request queue full ({self.max_queue} pending) — adopt "
+                f"{r.rid} on another engine")
+        self._next_id = max(self._next_id, r.rid + 1)
+        r.adopted_t = now
+        self._queue.append(r)
+        self.metrics.on_submit()
+        return r.rid
+
+    def _adoption_dict(self, r: _Request, now: float) -> Dict:
+        """A request as `adopt()` takes it: the one serialization shared
+        by `snapshot()`, `extract()` and `unqueue()`."""
+        return {"rid": r.rid, "prompt": np.asarray(r.prompt, np.int32),
+                "params": dataclasses.asdict(r.params),
+                "generated": list(r.generated), "slot": r.slot,
+                "ttft_s": r.ttft_s, "salt": r.salt,
+                "elapsed_s": now - r.submit_t}
+
+    def salt_clock(self) -> int:
+        """The next salt this engine's queue pop assigns."""
+        return int(self._next_salt)
+
+    def advance_salt_clock(self, value: int) -> None:
+        """Move the salt counter to at least `value` (never back): a
+        drain carries the origin's clock to the adopter before any
+        drained request pops there, so requests without a salt yet draw
+        the salts the origin would have assigned."""
+        self._next_salt = max(self._next_salt, int(value) & SALT_MASK)
+
+    def extract(self, rid: int) -> Optional[Dict]:
+        """Take a DECODING request (active, at least one token emitted)
+        out of this engine and return its `adopt()` dict; None for any
+        other rid. No result is recorded here. The lane freezes like a
+        cancel's and its slot frees at the next block boundary, not
+        now: a block already dispatched still has the lane live, and a
+        new occupant must not be credited with its tokens."""
+        for slot, req in self._active.items():
+            if req.rid != rid:
+                continue
+            if req.finish_reason is not None or not req.generated:
+                return None
+            d = self._adoption_dict(req, time.perf_counter())
+            req.finish_reason = "handoff"
+            self._freeze_slot(slot)
+            return d
+        return None
+
+    def unqueue(self, rid: int) -> Optional[Dict]:
+        """Take a QUEUED request out of this engine and return its
+        `adopt()` dict (None if `rid` is not queued). A request that has
+        no salt yet gets the one its pop here would have drawn, so an
+        adopter with `keep_salt=True` continues the very stream this
+        engine would have produced (unqueue in pop order)."""
+        for req in self._queue:
+            if req.rid == rid:
+                self._queue.remove(req)
+                if req.salt is None:
+                    req.salt = self._next_salt
+                    self._next_salt = (self._next_salt + 1) & SALT_MASK
+                return self._adoption_dict(req, time.perf_counter())
+        return None
 
     def result(self, rid: int) -> GenerationResult:
         """Fetch-and-evict a finished request's result."""
@@ -774,9 +1017,20 @@ class LLMEngine:
         return self._results.pop(rid)
 
     def has_work(self) -> bool:
-        return bool(self._queue or self._active
+        return bool(self._queue or self._active or self._prefilling
                     or self._inflight is not None
                     or self._ahead is not None)
+
+    @property
+    def pending(self) -> int:
+        """Requests waiting in the bounded queue."""
+        return len(self._queue)
+
+    @property
+    def prefilling(self) -> int:
+        """Requests parked in the PREFILLING state (slot held, prompt
+        partly ingested, first token not sampled yet)."""
+        return len(self._prefilling)
 
     def stats(self) -> Dict[str, float]:
         return self.metrics.snapshot()
@@ -788,19 +1042,28 @@ class LLMEngine:
     def step(self) -> int:
         """One scheduler iteration at block granularity: expire
         deadlines, admit queued requests into free slots (prefill +
-        first token), dispatch a decode block (plus, with overlap, the
-        NEXT block before this one's host processing), process one
-        block's tokens, retire finished requests. Dispatch, sync and
-        prefill all run under the recovery contract. Returns the number
-        of requests completed."""
+        first token; with `prefill_budget`, one round of interleaved
+        chunks instead), dispatch a decode block (plus, with overlap,
+        the NEXT block before this one's host processing), process one
+        block's tokens, retire finished requests. Dispatch, sync,
+        prefill and prefix copies all run under the recovery contract.
+        Returns the number of requests completed."""
         self._expire_deadlines()
-        while self._queue and self.cache.num_free > 0 \
-                and self._pages_admit_ok():
-            if not self._admit_next():
-                break            # page pressure: the head waits
+        if self.prefill_budget is None:
+            while self._queue and self.cache.num_free > 0 \
+                    and self._pages_admit_ok():
+                if not self._admit_next():
+                    break        # page pressure: the head waits
+        else:
+            self._interleave_admission()
         self._decode_round()
         done = self._retire_finished()
-        self.metrics.set_gauges(len(self._queue), self.cache.num_active)
+        self.metrics.set_gauges(len(self._queue), self.cache.num_active,
+                                len(self._prefilling))
+        if self.prefix is not None:
+            self.metrics.set_prefix_gauges(self.prefix.pages_used,
+                                           self.prefix.num_pages,
+                                           self.prefix.evictions)
         self._set_page_gauges()
         return done
 
@@ -857,12 +1120,14 @@ class LLMEngine:
 
     def _pop_highest_priority(self) -> _Request:
         """Pop `_select_next()`. The sampling salt is assigned here,
-        when the request leaves the queue."""
+        when the request leaves the queue: the one point monolithic and
+        interleaved admission share, so the salts, and with them every
+        sampled stream, do not depend on the admission mode."""
         best = self._select_next()
         self._queue.remove(best)
         if best.salt is None:
             best.salt = self._next_salt
-            self._next_salt = (self._next_salt + 1) & 0x7FFFFFFF
+            self._next_salt = (self._next_salt + 1) & SALT_MASK
         return best
 
     def _bucket_for(self, n: int) -> int:
@@ -878,8 +1143,29 @@ class LLMEngine:
         never runs out of pages mid-stream."""
         return int(req.prompt.size) + req.params.max_new_tokens
 
+    def _matchable(self, req: _Request) -> np.ndarray:
+        """The part of the prompt a cache hit may cover: a fresh request
+        keeps its last token for the prefill whose logits give the
+        first token; a continuation needs no logits."""
+        p = req.prompt
+        return p if req.generated else p[:p.size - 1]
+
     def _pages_needed(self, req: _Request) -> int:
-        return self.cache.span_pages(self._span_rows(req))
+        """Fresh pages the request would allocate: its span minus the
+        pages it can share from the prefix tree."""
+        span = self.cache.span_pages(self._span_rows(req))
+        if self.prefix is None:
+            return span
+        _, pages = self.prefix.match(self._matchable(req))
+        return span - len(pages)
+
+    def _pages_available(self, need: int) -> bool:
+        """True when the pool can cover `need` fresh pages, evicting
+        unreferenced prefix pages to make room."""
+        pool = self.cache.pool
+        if need > pool.num_free and self.prefix is not None:
+            self.prefix.evict(need - pool.num_free)
+        return need <= pool.num_free
 
     def _pages_admit_ok(self) -> bool:
         """True when the pool can cover the NEXT request's pages (always
@@ -887,21 +1173,35 @@ class LLMEngine:
         skipping to a smaller request behind it."""
         if not self.paged or not self._queue:
             return True
-        return self._pages_needed(self._select_next()) \
-            <= self.cache.pool.num_free
+        return self._pages_available(self._pages_needed(self._select_next()))
 
     def _alloc_pages(self, n: int) -> List[int]:
-        """`n` fresh pages; raises `NoFreePages` past the pool (the gate
-        prices the need first)."""
-        return self.cache.pool.alloc(n)
+        """`n` fresh pages, evicting unreferenced prefix pages under
+        pressure; raises `NoFreePages` past that (the gate prices the
+        need first)."""
+        if n <= 0:
+            return []
+        pool = self.cache.pool
+        if n > pool.num_free and self.prefix is not None:
+            self.prefix.evict(n - pool.num_free)
+        return pool.alloc(n)
+
+    def _admit_failed(self, req: _Request, err: BaseException):
+        """A request whose admission exhausted its retries fails alone."""
+        msg = f"{type(err).__name__}: {err}"
+        self._finish_early(req, "error", error=msg)
+        self.metrics.on_failed()
+        self._postmortem("admission_failed",
+                         {"failed_rids": [req.rid], "error": msg})
 
     def _admit_next(self) -> bool:
         """Pop the next request and prefill it into a free slot under
-        the recovery contract: a failed prefill re-runs the SAME slot
-        from row 0 (the first-token key was drawn once, so the retry is
-        bit-identical); after `max_retries` the request fails ALONE.
-        Returns False only when page pressure sent the request back to
-        the queue head (stop admitting this round)."""
+        the recovery contract: a failed prefill or prefix copy re-runs
+        the SAME slot from row 0 (the first token's key depends only on
+        the salt and position, so the retry is bit-identical); after
+        `max_retries` the request fails ALONE. Returns False only when
+        page pressure sent the request back to the queue head (stop
+        admitting this round)."""
         req = self._pop_highest_priority()
         slot = self.cache.allocate()
         err = self._run_with_retries(lambda: self._admit_one(req, slot))
@@ -911,52 +1211,361 @@ class LLMEngine:
         if isinstance(err, NoFreePages):
             # page pressure means WAIT, never fail: back to the queue
             # head, salt kept
+            self._release_prefix(req)
             self._queue.appendleft(req)
             return False
-        msg = f"{type(err).__name__}: {err}"
-        self._finish_early(req, "error", error=msg)
-        self.metrics.on_failed()
-        self._postmortem("admission_failed",
-                         {"failed_rids": [req.rid], "error": msg})
+        self._admit_failed(req, err)
         return True
 
     def _admit_one(self, req: _Request, slot: int):
         self.cache.reset_length(slot)      # an attempt starts from row 0
         t0 = time.perf_counter()
-        if self.paged:
-            self.cache.bind_owned(slot, self._alloc_pages(
-                self._pages_needed(req)))
-        logits = self._prefill_tokens(slot, req.prompt)
+        logits = self._ingest_tokens(slot, req, req.prompt,
+                                     need_logits=not req.generated)
         self.cache.advance(slot, int(req.prompt.size))
-        p = req.params
-        first = int(sample_tokens(
-            logits[None], self.seed, req.salt, int(req.prompt.size) - 1,
-            p.temperature, p.top_k, p.top_p, DOMAIN_FIRST)[0])
+        if req.generated:
+            self._replay([(slot, req)])
+        first = None if req.generated else self._sample_first(req, logits)
         t1 = time.perf_counter()
-        req.queue_wait_s = t0 - req.submit_t
+        req.queue_wait_s = t0 - (req.adopted_t or req.submit_t)
         self.metrics.on_admit(int(req.prompt.size), t1 - t0,
                               queue_wait_s=req.queue_wait_s)
-        req.ttft_s = t1 - req.submit_t
+        if req.generated:
+            # a continuation: decode resumes after the last emitted
+            # token; its TTFT was recorded where it started
+            self._install_slot(req, slot, pos=self.cache.length(slot))
+        else:
+            self._first_token_install(req, slot, first, t1)
+
+    def _sample_first(self, req: _Request, logits: torch.Tensor) -> int:
+        """The first token, from the last prompt position's logits,
+        keyed by (seed, salt, position, DOMAIN_FIRST)."""
+        p = req.params
+        return int(sample_tokens(
+            logits[None], self.seed, req.salt, int(req.prompt.size) - 1,
+            p.temperature, p.top_k, p.top_p, DOMAIN_FIRST)[0])
+
+    def _first_token_install(self, req: _Request, slot: int, first: int,
+                             now: float):
+        """Decode entry of a FRESH request, shared by monolithic and
+        interleaved admission: record TTFT, take the first token, wire
+        the lane."""
+        req.ttft_s = now - req.submit_t
         self.metrics.on_first_token(req.ttft_s)
         req.generated.append(first)
         self._install_slot(req, slot, pos=int(req.prompt.size))
 
-    def _prefill_tokens(self, slot: int, tokens: np.ndarray) -> torch.Tensor:
-        """Bucketed prefill of `tokens` into rows [0, len) of `slot`;
-        returns the last real token's fp32 logits. One piece: the
-        `prefill` fault point fires once."""
-        faults.fire("prefill")
-        n = int(tokens.size)
-        bucket = min(self._bucket_for(n), self.max_seq)
-        ids = np.zeros((1, bucket), np.int64)
-        ids[0, :n] = tokens
+    # ------------------------------------------------------------------ #
+    # chunked-prefill interleaving (prefill_budget set)
+    # ------------------------------------------------------------------ #
+    def _interleave_admission(self):
+        """One round of schedulable prefill: (1) move queued requests
+        into free slots as PREFILLING lanes (slot, prefix-cache hit and
+        page reservation only, no prompt compute); (2) one AGING chunk
+        for the oldest lane, outside the budget, so shorter arrivals
+        cannot starve a long prompt; (3) spend `prefill_budget` tokens
+        over the lanes shortest-remaining-first, one chunk per lane per
+        pass, a lane entering decode when its last row lands. With no
+        live decode lane the stall costs nothing, and the round runs one
+        unthrottled chunk-per-lane pass instead."""
+        while self._queue and self.cache.num_free > 0 \
+                and self._pages_admit_ok():
+            if not self._begin_prefill():
+                break            # page pressure: the head waits
+        spent = 0
+        if self._prefilling:
+            head = next(iter(self._prefilling))
+            self._prefill_step(head, self._prefilling[head])
+        while self._prefilling:
+            ordered = sorted(
+                self._prefilling.items(),
+                key=lambda kv: kv[1].prompt.size - kv[1].pf_filled)
+            for slot, req in ordered:
+                if self._has_live_lane() \
+                        and spent >= self.prefill_budget:
+                    break
+                if self._prefilling.get(slot) is not req:
+                    continue     # completed or failed earlier this pass
+                spent += self._prefill_step(slot, req)
+            if not self._has_live_lane() or spent >= self.prefill_budget:
+                break
+
+    def _begin_prefill(self) -> bool:
+        """Pop the next request into a PREFILLING lane (slot, cached
+        prefix, pages) under the recovery contract; exhaustion fails
+        this request alone. Returns False only when page pressure
+        requeued it."""
+        req = self._pop_highest_priority()
+        slot = self.cache.allocate()
+        req.pf_filled = 0
+        req.pf_compute_s = 0.0
+        t0 = time.perf_counter()
+        err = self._run_with_retries(
+            lambda: self._start_prefill_lane(slot, req))
+        req.pf_compute_s += time.perf_counter() - t0
+        if err is not None:
+            self.cache.release(slot)
+            if isinstance(err, NoFreePages):
+                self._release_prefix(req)
+                self._queue.appendleft(req)
+                return False
+            self._admit_failed(req, err)
+            return True
+        self._prefilling[slot] = req
+        return True
+
+    def _start_prefill_lane(self, slot: int, req: _Request):
+        """(Re)initialize a PREFILLING lane: take the cached prefix
+        (paged: bind the tree's pages; slotted: copy them into the slot)
+        and, paged, reserve the request's whole page span, so page
+        pressure gates admission, never a half-prefilled lane."""
+        self.cache.reset_length(slot)
+        req.pf_filled = 0
+        self._release_prefix(req)
+        req.pages_copied = 0
+        if self.prefix is not None:
+            nodes, pages = self.prefix.match(self._matchable(req))
+            if pages:
+                self.prefix.acquire(nodes)
+                req.prefix_nodes = nodes
+                if self.paged:
+                    self.cache.bind_shared(slot, pages)
+                else:
+                    self._copy_prefix(slot, pages)
+                req.pages_copied = len(pages)
+                req.pf_filled = len(pages) * self.prefix_block
+                self.cache.advance(slot, req.pf_filled)
+        if self.paged:
+            span = self.cache.span_pages(self._span_rows(req))
+            self.cache.bind_owned(slot, self._alloc_pages(
+                span - self.cache.lane_page_count(slot)))
+
+    def _prefill_step(self, slot: int, req: _Request) -> int:
+        """Advance one PREFILLING lane by at most one chunk; returns the
+        tokens computed. The last chunk enters the lane into decode. A
+        chunk failure retries at the same pos0 under the recovery
+        contract; exhaustion fails this request alone."""
+        total = int(req.prompt.size)
+        piece = req.prompt[req.pf_filled:
+                              req.pf_filled + self.prefill_chunk]
+        logits = [None]
+
+        def chunk():
+            logits[0] = self._prefill_tokens(slot, piece, pos0=req.pf_filled)
+
+        if piece.size:
+            if not self._prefill_attempt(slot, req, chunk):
+                return int(piece.size)
+            req.pf_filled += int(piece.size)
+            self.cache.advance(slot, int(piece.size))
+        if req.pf_filled < total:
+            return int(piece.size)
+        # --- the last row landed: enter decode ------------------------- #
+        if req.generated and not self._prefill_attempt(
+                slot, req, lambda: self._replay([(slot, req)])):
+            return int(piece.size)
+        del self._prefilling[slot]
+        self._try_insert_prefix(slot, req.prompt)
+        ncached = req.pages_copied * self.prefix_block
+        self.metrics.on_prefix(ncached, total - ncached,
+                               lookup=self.prefix is not None)
+        now = time.perf_counter()
+        # queue wait: everything between submit and decode entry that
+        # was not this request's own prefill compute
+        wait_t0 = req.adopted_t or req.submit_t
+        req.queue_wait_s = max(0.0, (now - wait_t0) - req.pf_compute_s)
+        self.metrics.on_admit(int(req.prompt.size), req.pf_compute_s,
+                              queue_wait_s=req.queue_wait_s)
+        if req.generated:
+            self._install_slot(req, slot, pos=self.cache.length(slot))
+        else:
+            self._first_token_install(req, slot,
+                                      self._sample_first(req, logits[0]),
+                                      now)
+        return int(piece.size)
+
+    def _prefill_attempt(self, slot: int, req: _Request, fn) -> bool:
+        """Run one piece of a PREFILLING lane's work (a chunk, or a
+        continuation's replay) under the recovery contract, its time
+        booked as the request's own compute. Exhaustion fails this
+        request alone and frees its lane; returns whether it ran."""
+        t0 = time.perf_counter()
+        err = self._run_with_retries(fn)
+        req.pf_compute_s += time.perf_counter() - t0
+        if err is None:
+            return True
+        self._prefilling.pop(slot, None)
+        self.cache.release(slot)
+        self._admit_failed(req, err)
+        return False
+
+    def _abort_prefill(self, slot: int, req: _Request, reason: str):
+        """Terminal exit from the PREFILLING state (cancel, deadline):
+        the lane never entered the decode grid, so its slot and pins
+        free at once."""
+        self._prefilling.pop(slot, None)
+        self.cache.release(slot)
+        self._finish_early(req, reason)
+
+    # ------------------------------------------------------------------ #
+    # prompt ingestion: prefix-cache hit + suffix prefill + insert
+    # ------------------------------------------------------------------ #
+    def _ingest_tokens(self, slot: int, req: _Request, tokens: np.ndarray,
+                       need_logits: bool) -> Optional[torch.Tensor]:
+        """Write `tokens`' K/V rows into rows [0, len) of `slot`: take
+        the longest cached prefix from the prefix cache, prefill only
+        the uncached suffix, then insert the new full chunks into the
+        tree. `need_logits` (a fresh request) keeps at least the last
+        token out of the hit, so its logits exist to sample from.
+        Retry-safe: an attempt releases the previous attempt's pins and
+        matches again. Length bookkeeping is the caller's."""
+        self._release_prefix(req)
+        ncached = 0
+        req.pages_copied = 0
+        if self.paged:
+            self.cache.clear_lane_pages(slot)
+        if self.prefix is not None:
+            nodes, pages = self.prefix.match(
+                tokens[:tokens.size - 1] if need_logits else tokens)
+            if pages:
+                self.prefix.acquire(nodes)
+                req.prefix_nodes = nodes
+                if self.paged:
+                    self.cache.bind_shared(slot, pages)
+                else:
+                    self._copy_prefix(slot, pages)
+                ncached = len(pages) * self.prefix_block
+                req.pages_copied = len(pages)
+        if self.paged:
+            span = self.cache.span_pages(self._span_rows(req))
+            self.cache.bind_owned(slot, self._alloc_pages(
+                span - self.cache.lane_page_count(slot)))
+        logits = self._prefill_tokens(slot, tokens[ncached:], pos0=ncached)
+        self._try_insert_prefix(slot, tokens)
+        self.metrics.on_prefix(ncached, int(tokens.size) - ncached,
+                               lookup=self.prefix is not None)
+        return logits
+
+    def _replay(self, lanes: List):
+        """Rebuild the K/V rows of continuations' emitted tokens but the
+        last (which is `cur`), rows [P, P + g - 1) of each (slot,
+        request) of `lanes`, as decode wrote them: teacher-forced decode
+        steps over the whole lane grid, each feeding every listed lane
+        its next emitted token at its next position while every other
+        lane is frozen (its write parks at row T-1 or on the trash
+        page). The products run on the lane grid's rows as decode's do,
+        and the attention kernel reads each lane's own rows, so the
+        rows are decode's bits on every device; a prefill of the same
+        tokens (the reference's re-ingest) computes other bits on a
+        card. Advances each slot's length by g - 1; a retry replays
+        from the start."""
+        todo = [(slot, int(req.prompt.size), req.generated[:-1])
+                for slot, req in lanes if len(req.generated) > 1]
+        if not todo:
+            return
+        S, dev = self.max_slots, self.device
+        tables = torch.from_numpy(self.cache.block_tables).to(dev) \
+            if self.paged else None
+        knobs = (torch.zeros(S, dtype=torch.int64, device=dev),     # salt
+                 torch.zeros(S, dtype=torch.float32, device=dev),   # temp
+                 torch.zeros(S, dtype=torch.int64, device=dev),     # topk
+                 torch.ones(S, dtype=torch.float32, device=dev),    # topp
+                 torch.full((S,), -1, dtype=torch.int64, device=dev))
+        rem = torch.ones(S, dtype=torch.int64, device=dev)
+        for j in range(max(len(t) for _, _, t in todo)):
+            cur, pos = np.zeros(S, np.int64), np.zeros(S, np.int64)
+            act = np.zeros(S, bool)
+            for slot, p0, toks in todo:
+                if j < len(toks):
+                    cur[slot], pos[slot], act[slot] = toks[j], p0 + j, True
+            _decode_block(self.cfg, self._params, self.cache.k,
+                          self.cache.v, torch.from_numpy(cur).to(dev),
+                          torch.from_numpy(pos).to(dev), rem,
+                          torch.from_numpy(act).to(dev), *knobs, block=1,
+                          attend_impl=self.attend_impl, seed=self.seed,
+                          max_seq=self.max_seq, tables=tables,
+                          page_size=self.page_size)
+            self.metrics.replay_steps += 1
+        for slot, _, toks in todo:
+            self.cache.advance(slot, len(toks))
+
+    def _copy_prefix(self, slot: int, pages: List[int]):
+        """A slotted cache HIT: pool `pages` become the slot's rows
+        [0, len(pages) * prefix_block), one index copy per layer slab.
+        The exact page list is copied: an eager copy needs no padding to
+        a bucket of page counts (the reference's `_page_bucket_for`
+        bounds its number of compiled programs)."""
+        faults.fire("prefix_copy")
+        self.cache.copy_pool_to_slot(pages, slot)
+
+    def _insert_prefix(self, slot: int, tokens: np.ndarray):
+        """Insert `tokens`' not yet cached full chunks into the tree.
+        Paged: the tree references the lane's freshly prefilled pages
+        (host bookkeeping only). Slotted: allocate pool pages (LRU
+        eviction under pressure) and copy the slot's rows into them; a
+        failed copy rolls the tree back, so no node points at a page
+        that was not written."""
+        if self.paged:
+            self.prefix.insert_mapped(
+                tokens, lambda i: self.cache.lane_page(slot, i))
+            return
+        created = self.prefix.insert(tokens)
+        if not created:
+            return
+        try:
+            # one contiguous run of chunks: in a trie every chunk after
+            # a missing one is missing too
+            self.cache.copy_slot_to_pool(slot, created[0][1],
+                                         [n.page for n, _ in created])
+        except Exception:
+            self.prefix.drop(created)
+            raise
+
+    def _try_insert_prefix(self, slot: int, tokens: np.ndarray):
+        """Populate the cache, best effort: the slot's rows are complete
+        already, so a failed insert never fails the admission (it
+        degrades the hit rate; `_insert_prefix` rolled the tree back).
+        The pool is written in place, and only the dropped pages were
+        touched, so nothing else needs rebuilding."""
+        if self.prefix is None:
+            return
+        try:
+            self._insert_prefix(slot, tokens)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception:  # noqa: BLE001 — population is optional
+            pass
+
+    def _release_prefix(self, req: _Request):
+        if req.prefix_nodes is not None:
+            if self.prefix is not None:
+                self.prefix.release(req.prefix_nodes)
+            req.prefix_nodes = None
+
+    def _prefill_tokens(self, slot: int, tokens: np.ndarray,
+                        pos0: int = 0) -> Optional[torch.Tensor]:
+        """Bucketed, optionally chunked prefill of `tokens` into rows
+        [pos0, pos0 + len) of `slot` (through its block-table row when
+        paged); returns the last real token's fp32 logits (None for no
+        tokens: a fully cached re-ingest). Each piece fires the
+        `prefill` fault point once and runs on its bucket's rows, at
+        least `PREFILL_MIN_ROWS`; rows past max_seq are not written."""
+        chunk = self.prefill_chunk or max(int(tokens.size), 1)
         table = torch.from_numpy(self.cache.block_tables[slot]).to(
             self.device) if self.paged else None
-        return _prefill_forward(self.cfg, self._params, self.cache.k,
-                                self.cache.v,
-                                torch.from_numpy(ids).to(self.device),
-                                slot, 0, n, table=table,
-                                page_size=self.page_size)
+        logits = None
+        for ofs in range(0, int(tokens.size), chunk):
+            faults.fire("prefill")
+            piece = tokens[ofs:ofs + chunk]
+            p0 = pos0 + ofs
+            rows = max(self._bucket_for(piece.size), PREFILL_MIN_ROWS)
+            ids = np.zeros((1, rows), np.int64)
+            ids[0, :piece.size] = piece
+            logits = _prefill_forward(
+                self.cfg, self._params, self.cache.k, self.cache.v,
+                torch.from_numpy(ids).to(self.device), slot, p0,
+                int(piece.size), table=table, page_size=self.page_size)
+        return logits
 
     def _install_slot(self, req: _Request, slot: int, pos: int):
         """Wire a request into its lane's mirrors."""
@@ -988,6 +1597,7 @@ class LLMEngine:
         holds) a slot: record its result directly."""
         req.finish_reason = reason
         req.error = error
+        self._release_prefix(req)   # a failed admission may hold pins
         self._record_result(req)
 
     def _record_result(self, req: _Request):
@@ -998,14 +1608,27 @@ class LLMEngine:
             self.metrics.on_complete()
 
     def _expire_deadlines(self):
+        """Block-boundary deadline sweep. A request that expires queued
+        or PREFILLING books its wait into queue_wait (prefilling: minus
+        its own chunk compute) and leaves with its (empty) result at
+        once; an active one freezes and retires at the boundary,
+        keeping its tokens."""
         now = time.perf_counter()
         for req in [r for r in self._queue
                     if r.deadline_t is not None and now >= r.deadline_t]:
             self._queue.remove(req)
-            req.queue_wait_s = now - req.submit_t
+            req.queue_wait_s = now - (req.adopted_t or req.submit_t)
             self.metrics.queue_wait.observe(req.queue_wait_s)
             self._finish_early(req, "deadline")
             self.metrics.on_deadline()
+        for slot, req in list(self._prefilling.items()):
+            if req.deadline_t is not None and now >= req.deadline_t:
+                req.queue_wait_s = max(
+                    0.0, (now - (req.adopted_t or req.submit_t))
+                    - req.pf_compute_s)
+                self.metrics.queue_wait.observe(req.queue_wait_s)
+                self._abort_prefill(slot, req, "deadline")
+                self.metrics.on_deadline()
         for slot, req in self._active.items():
             if (req.finish_reason is None and req.deadline_t is not None
                     and now >= req.deadline_t):
@@ -1023,11 +1646,17 @@ class LLMEngine:
             req.finish_reason = "length"  # cache exhausted
 
     def _retire_finished(self) -> int:
+        """Free the slots of finished lanes and unpin their prefix
+        paths (every exit route retires through here). An extracted
+        ("handoff") request records no result: it goes on elsewhere."""
         done = 0
         for slot in [s for s, r in self._active.items()
                      if r.finish_reason is not None]:
             req = self._active.pop(slot)
             self.cache.release(slot)
+            self._release_prefix(req)
+            if req.finish_reason == "handoff":
+                continue
             self._record_result(req)
             done += 1
         return done
@@ -1068,8 +1697,19 @@ class LLMEngine:
             time.sleep(delay)
 
     def _engine_config(self) -> Dict:
+        """The constructor keywords `snapshot()["engine"]` records and
+        `resume()` feeds back (the prefix tree and pool, like the KV
+        slabs, are not serialized: re-ingest repopulates them)."""
         return {"max_slots": self.max_slots, "max_queue": self.max_queue,
-                "max_seq": self.max_seq, "seed": self.seed,
+                "max_seq": self.max_seq,
+                "prefill_buckets": list(self._buckets),
+                "prefill_chunk": self.prefill_chunk,
+                "prefill_budget": self.prefill_budget,
+                "prefix_cache": self.prefix is not None,
+                "prefix_block": self.prefix_block,
+                "prefix_pool_pages": None if self.paged
+                else self.prefix_pool_pages,
+                "seed": self.seed,
                 "decode_block_size": self.decode_block_size,
                 "overlap": self.overlap, "attend_impl": self.attend_impl,
                 "max_retries": self.max_retries,
@@ -1082,6 +1722,123 @@ class LLMEngine:
                 "draft": self.draft,
                 "draft_layers": self.draft_layers or None,
                 "device": str(self.device)}
+
+    # ------------------------------------------------------------------ #
+    # snapshot and resume
+    # ------------------------------------------------------------------ #
+    def snapshot(self) -> Dict:
+        """The engine's request state as a picklable dict of primitives
+        and numpy arrays: the engine config, the id and salt counters,
+        the free-slot order, every active and queued request and the
+        uncollected results. The KV slabs are not serialized:
+        `resume()` re-ingests each active request's prompt and emitted
+        tokens. Dispatched, unprocessed blocks are discarded first (they
+        replay from the mirrors), and PREFILLING requests serialize as
+        queued at the head of the queue (they have emitted nothing, so
+        nothing re-emits), their slots on top of the free stack so they
+        get their lanes back. The engine keeps serving afterwards."""
+        self._discard_inflight()
+        self._retire_finished()
+        now = time.perf_counter()
+        pf_slots = list(self._prefilling)
+        return {
+            "version": 1,
+            "engine": self._engine_config(),
+            "next_id": self._next_id,
+            "next_salt": self._next_salt,
+            "free_slots": self.cache.free_slots()
+            + list(reversed(pf_slots)),
+            "active": [self._adoption_dict(r, now)
+                       for _, r in sorted(self._active.items())],
+            "queued": [self._adoption_dict(r, now)
+                       for r in self._prefilling.values()]
+            + [self._adoption_dict(r, now) for r in self._queue],
+            "results": [{"rid": g.request_id, "prompt": g.prompt,
+                         "token_ids": list(g.token_ids),
+                         "finish_reason": g.finish_reason,
+                         "ttft_s": g.ttft_s, "error": g.error,
+                         "queue_wait_s": g.queue_wait_s}
+                        for g in self._results.values()],
+        }
+
+    @classmethod
+    @torch.no_grad()
+    def resume(cls, model, snap: Dict, **overrides) -> "LLMEngine":
+        """Rebuild an engine from a `snapshot()` (of this engine or of
+        the JAX engine) and continue every request. Active requests
+        re-enter their ORIGINAL slots with their prompt and emitted
+        tokens re-ingested through prefill (under the recovery contract;
+        exhaustion fails that request alone); the free-slot order, the
+        id and salt counters and the remaining `deadline_s` carry over;
+        queued requests re-enter the queue in order. `overrides` go to
+        the constructor (e.g. `device="cpu"`).
+
+        A JAX snapshot's `step_no` and `gen_state` (JAX RNG state) and
+        its requests' `first_key` are read and ignored: the port keys
+        sampling by (seed, salt, position), so the salts carry the
+        streams. Each continuation's prompt is re-ingested through the
+        prefill (and the prefix cache) and its emitted tokens through
+        teacher-forced decode steps (`_replay`), so the continuation is
+        bitwise that of an uninterrupted run of this engine."""
+        if snap.get("version") != 1:
+            raise ValueError(
+                f"unknown snapshot version {snap.get('version')!r}")
+        kw = dict(snap["engine"])
+        kw.update(overrides)
+        eng = cls(model, **kw)
+        eng._next_id = int(snap["next_id"])
+        eng._next_salt = int(snap.get("next_salt", 0))
+        now = time.perf_counter()
+        for g in snap.get("results", ()):
+            eng._results[g["rid"]] = GenerationResult(
+                g["rid"], np.asarray(g["prompt"], np.int32),
+                list(g["token_ids"]), g["finish_reason"],
+                float(g["ttft_s"]), g.get("error"),
+                queue_wait_s=float(g.get("queue_wait_s", 0.0)))
+        restored = []
+        for r in snap.get("active", ()):
+            req = _restore_request(r, now)
+            if not req.generated:
+                raise ValueError(f"snapshot: active request {req.rid} "
+                                 f"has no emitted tokens")
+            slot = eng.cache.allocate(int(r["slot"]))
+
+            def ingest(slot=slot, req=req):
+                eng.cache.reset_length(slot)     # a retry starts over
+                eng._ingest_tokens(slot, req, req.prompt,
+                                   need_logits=False)
+                eng.cache.advance(slot, int(req.prompt.size))
+
+            eng.metrics.on_submit()
+            t0 = time.perf_counter()
+            err = eng._run_with_retries(ingest)
+            if err is not None:
+                eng.cache.release(slot)
+                eng._admit_failed(req, err)
+                continue
+            restored.append((slot, req, time.perf_counter() - t0))
+        # the emitted tokens' rows of every restored lane, in one replay
+        # over the lane grid
+        lanes = [(slot, req) for slot, req, _ in restored]
+        t0 = time.perf_counter()
+        err = eng._run_with_retries(lambda: eng._replay(lanes))
+        replay_s = time.perf_counter() - t0
+        for slot, req, ingest_s in restored:
+            if err is not None:
+                eng.cache.release(slot)
+                eng._admit_failed(req, err)
+                continue
+            eng.metrics.on_admit(int(req.prompt.size), ingest_s + replay_s)
+            eng._install_slot(req, slot, pos=eng.cache.length(slot))
+        if "free_slots" in snap:
+            eng.cache.restore_free_order(snap["free_slots"])
+        # host-swapped requests of a JAX snapshot re-enter as queued
+        # (host swap is not ported): they re-prefill
+        for r in list(snap.get("queued", ())) + list(snap.get("swapped",
+                                                              ())):
+            eng._queue.append(_restore_request(r, now))
+            eng.metrics.on_submit()
+        return eng
 
     def _postmortem(self, reason: str, detail: Optional[Dict] = None
                     ) -> Dict:
@@ -1138,6 +1895,7 @@ class LLMEngine:
             self._inflight = self._dispatch_block()
         if (self._inflight is not None and self._ahead is None
                 and self.overlap and not self._dirty and not self._queue
+                and not self._prefilling
                 and self._lookahead_worthwhile()):
             # block N+1 chains off block N's device-resident state; the
             # host sync below then overlaps its device time. The freeze

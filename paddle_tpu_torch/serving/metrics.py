@@ -1,6 +1,7 @@
 """Serving metrics: TTFT, queue wait, decode time per token, tokens/s,
 host syncs and dispatches, the recovery counters, graph captures, the
-KV memory gauges and the speculative decoding counters.
+KV memory gauges, the prefix-cache counters and gauges, the prefilling
+gauge and the speculative decoding counters.
 
 A copy of the subset of `paddle_tpu/serving/metrics.py` that the port's
 engine feeds. Aggregates are O(1) online (count/total/min/max); TTFT
@@ -117,6 +118,22 @@ class ServingMetrics:
         # the storage dtype buys, a constant per configuration
         self.kv_bytes_per_token = 0.0
         self.kv_dtype = ""
+        # the prefix cache: every prompt ingestion splits into rows
+        # copied or shared from the cache (prefix_tokens_reused) and
+        # rows computed by prefill (prefill_tokens_computed); lookups
+        # and hits count ingestions with the cache on
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
+        self.prefill_tokens_computed = 0
+        self.prefix_pool_bytes = 0        # pool slab footprint (gauge)
+        self.prefix_pool_pages_total = 0  # gauges, pushed per step
+        self.prefix_pool_pages_used = 0
+        self.prefix_evictions = 0
+        # decode steps run to rebuild a resumed or adopted continuation's
+        # emitted-token rows (`LLMEngine._replay`): they launch the decode
+        # kernels like decode steps, and emit nothing
+        self.replay_steps = 0
         # paged layout: what admission prices (0 under the slotted one)
         self.kv_pages_total = 0      # pool size in pages
         self.kv_pages_used = 0       # pages held, the trash page included
@@ -137,6 +154,10 @@ class ServingMetrics:
         self.prefill_time = OnlineStat(reservoir=0)
         self.queue_depth = 0
         self.slots_active = 0
+        # requests parked mid chunked prefill (slot held, first token
+        # not sampled yet): the PREFILLING lanes of interleaved
+        # admission; their wait still books into queue_wait
+        self.prefilling = 0
         self._t_first = 0.0
         self._t_last = 0.0
 
@@ -222,9 +243,30 @@ class ServingMetrics:
         for that block."""
         self.spec_fallbacks += 1
 
-    def set_gauges(self, queue_depth: int, slots_active: int):
+    def on_prefix(self, tokens_reused: int, tokens_computed: int,
+                  lookup: bool = True):
+        """One prompt ingestion: `tokens_reused` rows came from the
+        prefix cache, `tokens_computed` went through prefill. With the
+        cache off the computed side is still booked (`lookup=False`),
+        so prefill volume compares across configurations."""
+        if lookup:
+            self.prefix_lookups += 1
+            if tokens_reused > 0:
+                self.prefix_hits += 1
+        self.prefix_tokens_reused += tokens_reused
+        self.prefill_tokens_computed += tokens_computed
+
+    def set_prefix_gauges(self, pages_used: int, pages_total: int,
+                          evictions: int = 0):
+        self.prefix_pool_pages_used = pages_used
+        self.prefix_pool_pages_total = pages_total
+        self.prefix_evictions = evictions
+
+    def set_gauges(self, queue_depth: int, slots_active: int,
+                   prefilling: int = 0):
         self.queue_depth = queue_depth
         self.slots_active = slots_active
+        self.prefilling = prefilling
 
     def set_page_gauges(self, used: int, total: int, peak: int = 0):
         self.kv_pages_used = used
@@ -241,6 +283,14 @@ class ServingMetrics:
     def tokens_per_sec(self) -> float:
         span = self._t_last - self._t_first
         return self.generated_tokens / span if span > 0 else 0.0
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Ingestions that reused any cached chunk over lookups (a
+        request-level rate: read prefix_tokens_reused against
+        prefill_tokens_computed for the compute saved)."""
+        return self.prefix_hits / self.prefix_lookups \
+            if self.prefix_lookups else 0.0
 
     @property
     def spec_acceptance_rate(self) -> float:
@@ -275,10 +325,23 @@ class ServingMetrics:
             "decode_steps": self.decode_steps,
             "decode_dispatches": self.decode_dispatches,
             "decode_tokens": self.decode_tokens,
+            "replay_steps": self.replay_steps,
             "host_syncs": self.host_syncs,
             "kv_cache_bytes": self.kv_cache_bytes,
             "kv_bytes_per_token": self.kv_bytes_per_token,
             "kv_quantized": 1.0 if self.kv_dtype == "int8" else 0.0,
+            "prefix_lookups": self.prefix_lookups,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": self.prefix_hit_rate,
+            "prefix_tokens_reused": self.prefix_tokens_reused,
+            "prefill_tokens_computed": self.prefill_tokens_computed,
+            "prefix_pool_bytes": self.prefix_pool_bytes,
+            "prefix_pool_pages_total": self.prefix_pool_pages_total,
+            "prefix_pool_pages_used": self.prefix_pool_pages_used,
+            "prefix_pool_occupancy": (
+                self.prefix_pool_pages_used / self.prefix_pool_pages_total
+                if self.prefix_pool_pages_total else 0.0),
+            "prefix_evictions": self.prefix_evictions,
             "kv_pages_total": self.kv_pages_total,
             "kv_pages_used": self.kv_pages_used,
             "kv_pages_peak": self.kv_pages_peak,
@@ -286,6 +349,7 @@ class ServingMetrics:
                                   if self.kv_pages_total else 0.0),
             "queue_depth": self.queue_depth,
             "slots_active": self.slots_active,
+            "prefilling": self.prefilling,
             "slots_total": self.slots_total,
             "slot_occupancy": self.slot_occupancy,
             "tokens_per_sec": self.tokens_per_sec,

@@ -1,8 +1,8 @@
 """Paged KV memory: one refcounted page pool with per-lane block tables.
 
-The counterpart of `paddle_tpu/serving/paged_kv.py` without the prefix
-tree's allocator, copy-on-write forks, host swap and page transfer
-(ROADMAP Queue 1 items 7-8):
+The counterpart of `paddle_tpu/serving/paged_kv.py` without
+copy-on-write forks, host swap and page transfer (ROADMAP Queue 1
+items 11 and 15):
 
 - ONE pool per layer: fixed-shape slabs `[num_pages, page_size, heads,
   head_dim]` (fp or the quantized {"q", "s"} form) hold every resident
@@ -22,6 +22,12 @@ tree's allocator, copy-on-write forks, host swap and page transfer
   paged analog of the slotted engine's row `max_seq - 1`). A retired
   lane's pages can be reallocated at once, so a frozen lane must never
   write through its old table row.
+- SHARED PAGES: the prefix tree (`serving/prefix_cache.py`) allocates
+  from, returns to and references pages of the same pool
+  (`TreePageAllocator`). A prefix hit binds the tree's pages into the
+  lane's table (`bind_shared`, one more reference each, no copy); an
+  insert references the lane's freshly prefilled pages. A page frees
+  when its last holder (tree or lane) lets go.
 
 Numerics: `pages_per_seq * page_size == max_seq` is enforced, so the
 masked paged attention gathers a lane's pages into exactly the
@@ -38,7 +44,8 @@ import torch
 from ..core import DeviceLike
 from .kv_cache import KVCacheManager
 
-__all__ = ["NoFreePages", "PagePool", "PagedKVCache", "paged_rows"]
+__all__ = ["NoFreePages", "PagePool", "TreePageAllocator", "PagedKVCache",
+           "paged_rows"]
 
 
 class NoFreePages(RuntimeError):
@@ -116,12 +123,43 @@ class PagePool:
         return self.pages_used - self.reserved
 
 
+class TreePageAllocator:
+    """The `PrefixCache` side of the one pool: the tree allocates from,
+    returns to and references pages of the same `PagePool` the block
+    tables use."""
+
+    def __init__(self, pool: PagePool):
+        self.pool = pool
+
+    def take(self) -> Optional[int]:
+        """One fresh page for a tree insert, or None under pressure
+        (the tree then evicts, or drops the tail of the insert)."""
+        try:
+            return self.pool.alloc(1)[0]
+        except NoFreePages:
+            return None
+
+    def give(self, page: int):
+        """Return a tree-held page (eviction, clear, rollback); it frees
+        only when no block table still references it."""
+        self.pool.unref(page)
+
+    def adopt(self, page: int):
+        """Reference an existing page into the tree (a paged insert
+        shares the freshly prefilled page, never copies it)."""
+        self.pool.ref(page)
+
+    def free_pages(self) -> int:
+        return self.pool.num_free
+
+
 class PagedKVCache(KVCacheManager):
     """Slot/lane bookkeeping of `KVCacheManager` over one paged pool:
     per-layer slabs `[num_pages, page_size, heads, head_dim]` plus
     per-lane block tables. Lanes remain the decode step's fixed grid;
     a lane's rows live in refcounted pages instead of a private
-    `max_seq` stripe. `bind_owned` installs pages fresh out of
+    `max_seq` stripe. `bind_shared` references pages someone else holds
+    (a prefix hit), `bind_owned` installs pages fresh out of
     `pool.alloc`; `reset_length` and `release` drop every reference of
     the lane, and its table row returns to trash filler.
     """
@@ -173,8 +211,18 @@ class PagedKVCache(KVCacheManager):
     def lane_pages(self, slot: int) -> List[int]:
         return list(self._lane_pages[slot])
 
+    def lane_page(self, slot: int, idx: int) -> int:
+        return self._lane_pages[slot][idx]
+
     def lane_page_count(self, slot: int) -> int:
         return len(self._lane_pages[slot])
+
+    def bind_shared(self, slot: int, pages: Sequence[int]):
+        """Reference pages someone else holds into the lane (a prefix
+        hit): each gains a reference; the table row extends."""
+        self.bind_owned(slot, pages)
+        for p in pages:
+            self.pool.ref(p)
 
     def bind_owned(self, slot: int, pages: Sequence[int]):
         """Install pages fresh out of `pool.alloc` (refcount already 1:

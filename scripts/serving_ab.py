@@ -12,16 +12,24 @@ phase 8's K1 timing (the wrapper's median at the phase-4 shapes), then
 profiles a window of 3 decode-only scheduler steps at 8 lanes
 (torch.profiler), then serves phase 4d's load (the int8-PTQ GPT-small
 through K7) twice and runs phase 4e (speculation off and on, trunc and
-int8 drafts). It reports tokens/s, decode ms per step and TTFT p50 /
-p99 of phase 4; the K1 median and the K1 wrapper's host time per call;
-of the profiled window, per decode step dispatched in it, the CUDA
-kernels (all, and the decode kernel's), the device's busy ms (the
-union of the kernels' intervals), the window's wall ms, and the busy
-share of the wall time; tokens/s and decode ms per step of phase 4d's
-load, and whether its two runs gave the same streams
-(`int8_repeat_equal`, not summarised); tokens/s of phase 4e off, trunc
-and int8. The host time is taken with the stream held by a device
-sleep, so the calls only enqueue: 50 calls at phase 8's shapes, the
+int8 drafts), then serves phase 4g's shared-prefix load (16 requests:
+one 512-token system prompt and a 16-188-token tail each, 64 new
+tokens) monolithically without the prefix cache, (a), which both
+versions accept, and, where the checkout's engine accepts the knobs,
+(b) with the prefix cache and (c) with it and `prefill_budget=256,
+prefill_chunk=64`. It reports tokens/s, decode ms per step, TTFT p50 /
+p99 and the engine's graph capture seconds of phase 4; the K1 median
+and the K1 wrapper's host time per call; of the profiled window, per
+decode step dispatched in it, the CUDA kernels (all, and the decode
+kernel's), the device's busy ms (the union of the kernels'
+intervals), the window's wall ms, and the busy share of the wall
+time; tokens/s and decode ms per step of phase 4d's load, and whether
+its two runs gave the same streams (`int8_repeat_equal`, not
+summarised); tokens/s of phase 4e off, trunc and int8; TTFT p50 /
+p99, tokens/s and prefill tokens computed of phase 4g's (a) (A/B),
+and of (b) and (c) for the versions that run them. The host time is
+taken with the stream held by a device sleep, so the calls only
+enqueue: 50 calls at phase 8's shapes, the
 median of 7 such rounds. The summary gives every turn, each version's
 median and spread (max - min over median) per metric, and B's medians
 over A's.
@@ -105,7 +113,8 @@ out = {
     "tokens_per_s": run["tokens_per_s"],
     "decode_ms_per_token": run["decode_ms_per_token"],
     "ttft_p50_s": run["ttft_p50_s"], "ttft_p99_s": run["ttft_p99_s"],
-    "k1_ms": nums["ms"], "k1_host_us": statistics.median(rounds),
+    "graph_capture_s": run["graph_capture_s"], "k1_ms": nums["ms"],
+    "k1_host_us": statistics.median(rounds),
     "kernels_per_decode_step": len(kernels) / steps,
     "decode_kernels_per_decode_step":
         sum("decode_kernel" in e.name for e in kernels) / steps,
@@ -137,15 +146,49 @@ spec = cs.phase_speculative(torch, np, dec, k7, run)
 out["spec_off_tokens_per_s"] = spec["off_bf16"]["tokens_per_s"]
 out["spec_trunc_tokens_per_s"] = spec["trunc slotted"]["tokens_per_s"]
 out["spec_int8_tokens_per_s"] = spec["int8 slotted"]["tokens_per_s"]
+# phase 4g's shared-prefix load (as chip_smoke.shared_prefix_load
+# builds it): (a) without the prefix cache in both versions; (b) and (c)
+# where the engine takes their knobs
+rng = np.random.RandomState(4)
+system = rng.randint(0, 50304, (512,)).astype(np.int32)
+tails = np.linspace(16, 188, 16).astype(int)
+rng.shuffle(tails)
+prompts = [np.concatenate([system, rng.randint(0, 50304, (int(n),))
+                           .astype(np.int32)]) for n in tails]
+params = run["params"]
+for tag, knobs in (("a", dict(prefix_cache=False)),
+                   ("b", dict(prefix_cache=True)),
+                   ("c", dict(prefix_cache=True, prefill_budget=256,
+                              prefill_chunk=64))):
+    try:
+        eng = LLMEngine(run["model"], **{**cs.SERVE_KW, **knobs})
+    except NotImplementedError:
+        continue
+    eng.generate(prompts, params)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    for key, name in (("ttft_p50_s", "ttft_p50_s"),
+                      ("ttft_p99_s", "ttft_p99_s"),
+                      ("tokens_per_sec", "tokens_per_s"),
+                      ("prefill_tokens_computed", "prefill_tokens")):
+        out[f"g4_{tag}_{name}"] = st.get(key, 0)
+    del eng
 print("AB " + json.dumps(out))
 """
 
 METRICS = ("tokens_per_s", "decode_ms_per_token", "ttft_p50_s",
-           "ttft_p99_s", "k1_ms", "k1_host_us", "kernels_per_decode_step",
+           "ttft_p99_s", "graph_capture_s", "k1_ms", "k1_host_us",
+           "kernels_per_decode_step",
            "decode_kernels_per_decode_step", "busy_ms_per_decode_step",
            "profiled_ms_per_decode_step", "busy_share", "int8_tokens_per_s",
            "int8_decode_ms_per_token", "spec_off_tokens_per_s",
-           "spec_trunc_tokens_per_s", "spec_int8_tokens_per_s")
+           "spec_trunc_tokens_per_s", "spec_int8_tokens_per_s",
+           "g4_a_ttft_p50_s", "g4_a_ttft_p99_s", "g4_a_tokens_per_s")
+# phase 4g's runs that a version may not take (a parent without the
+# prefix cache or interleaving): summarised per version where present
+OPTIONAL = tuple(f"g4_{t}_{m}" for t in "bc"
+                 for m in ("ttft_p50_s", "ttft_p99_s", "tokens_per_s",
+                           "prefill_tokens")) + ("g4_a_prefill_tokens",)
 
 
 def run_turn(root: Path, timeout: int) -> dict:
@@ -163,8 +206,10 @@ def summarise(turns):
     for v in ("A", "B"):
         runs = [t for name, t in turns if name == v]
         out[v] = {}
-        for m in METRICS:
-            xs = [r[m] for r in runs]
+        for m in METRICS + OPTIONAL:
+            xs = [r[m] for r in runs if m in r]
+            if not xs:
+                continue
             med = statistics.median(xs)
             out[v][m] = {"runs": xs, "median": med,
                          "spread": (max(xs) - min(xs)) / med if med else 0.0}
@@ -193,7 +238,8 @@ def main(argv=None) -> int:
         r = run_turn(roots[v], args.timeout)
         turns.append((v, r))
         print(f"turn {i} {v}: " + ", ".join(f"{m} {r[m]:.6g}"
-                                           for m in METRICS)
+                                           for m in METRICS + OPTIONAL
+                                           if m in r)
               + f", int8_repeat_equal {r['int8_repeat_equal']}", flush=True)
     summary = {"card": card, "order": args.order,
                "roots": {k: str(p) for k, p in roots.items()},
@@ -204,6 +250,12 @@ def main(argv=None) -> int:
         print(f"{m}: A median {a['median']:.6g} (spread {a['spread']:.3f}),"
               f" B median {b['median']:.6g} (spread {b['spread']:.3f}), "
               f"B/A {summary['B_over_A'][m]:.4f}  [{card}]", flush=True)
+    for m in OPTIONAL:
+        for v in ("A", "B"):
+            if m in summary[v]:
+                x = summary[v][m]
+                print(f"{m}: {v} median {x['median']:.6g} (spread "
+                      f"{x['spread']:.3f})  [{card}]", flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(summary, indent=1))
     return 0

@@ -65,6 +65,13 @@ def model(jax_model):
                  for k, v in jax_model.raw_parameters().items()}
     return load_jax_params(gpt_tiny(device="cpu"), np_params)
 
+def _leaked(eng) -> int:
+    """Pages held beyond the trash page once the prefix tree's
+    (legitimate) holdings are released."""
+    if eng.prefix is not None:
+        eng.prefix.clear()
+    return eng.cache.pool.leaked()
+
 
 def _prompts(lengths=(5, 13, 9, 21, 7), seed=0):
     rng = np.random.RandomState(seed)
@@ -135,7 +142,7 @@ def test_overlap_on_equals_off(model, eos, config, monkeypatch):
         assert any(ahead) == overlap      # the lookahead ran (or not)
         assert eng.cache.num_free == eng.max_slots and not eng.has_work()
         if eng.paged:
-            assert eng.cache.pool.leaked() == 0
+            assert _leaked(eng) == 0
         assert st["graph_captures"] == 0            # no graph on the CPU
     assert streams[True] == streams[False]
     assert streams[True][3][1] == "stop"

@@ -171,23 +171,24 @@ def test_overload_and_invalid_requests(model):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("prefix_cache", True), ("kv_layout", "paged"), ("kv_dtype", "int8"),
-    ("speculate_k", 2), ("tp", 2), ("prefill_budget", 16),
-    ("flight_dir", "flight"), ("prefill_chunk", 8)])
+    ("trace", True), ("name", "x"), ("register_stats", True),
+    ("kv_tier", object()), ("mesh", object()), ("tp", 2),
+    ("trace_capacity", 4096), ("flight_dir", "flight")])
 def test_unported_knob_raises(model, knob, value):
-    """Unported features raise and name their ROADMAP item. The paged
-    layout, int8 KV and speculative decoding are ported: with them, the
-    prefix cache still raises."""
+    """Unported features raise and name their ROADMAP item. The inert
+    observability values a JAX snapshot carries are accepted; a
+    tracer capacity raises once the tracer is on."""
     knobs = {knob: value}
-    if knob in ("kv_layout", "kv_dtype", "speculate_k"):
-        knobs["prefix_cache"] = True
+    if knob == "trace_capacity":
+        knobs["trace"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 1"):
         _engine(model, **knobs)
 
 
 def test_off_values_accepted_and_unknown_knob_rejected(model):
     eng = _engine(model, prefix_cache=False, overlap=False, tp=1,
-                  kv_layout="slotted", speculate_k=0)
+                  kv_layout="slotted", speculate_k=0, trace=False,
+                  trace_capacity=4096, flight_dir=None)
     assert eng.attend_impl == "masked"
     with pytest.raises(TypeError, match="unexpected"):
         _engine(model, no_such_knob=1)

@@ -76,10 +76,18 @@ def _run_clean(model, prompts, params, **kw):
                                            params)]
 
 
+def _leaked(eng) -> int:
+    """Pages held beyond the trash page once the prefix tree's
+    (legitimate) holdings are released."""
+    if eng.prefix is not None:
+        eng.prefix.clear()
+    return eng.cache.pool.leaked()
+
+
 def _drained(eng):
     assert eng.cache.num_free == eng.max_slots and not eng.has_work()
     if eng.paged:
-        assert eng.cache.pool.leaked() == 0
+        assert _leaked(eng) == 0
 
 
 # --------------------------------------------------------------------------- #

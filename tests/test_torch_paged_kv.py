@@ -60,6 +60,14 @@ def _engine(model, **kw):
     return LLMEngine(model, device="cpu", **kw)
 
 
+def _leaked(eng) -> int:
+    """Pages held beyond the trash page once the prefix tree's
+    (legitimate) holdings are released."""
+    if eng.prefix is not None:
+        eng.prefix.clear()
+    return eng.cache.pool.leaked()
+
+
 def _streams(model, prompts, sp, **kw):
     return [r.token_ids for r in _engine(model, **kw).generate(prompts, sp)]
 
@@ -210,7 +218,7 @@ def test_paged_equals_slotted_bitwise(model, slotted_streams, page_size,
     got = [r.token_ids for r in eng.generate(
         _prompts(), SamplingParams(max_new_tokens=12))]
     assert got == slotted_streams
-    assert eng.cache.pool.leaked() == 0
+    assert _leaked(eng) == 0
 
 
 def test_paged_sampled_streams_equal_slotted(model):
@@ -239,8 +247,10 @@ def test_page_size_default_and_knob_checks(model):
         _engine(model, page_size=16)
     with pytest.raises(ValueError, match="kv_layout"):
         _engine(model, kv_layout="ring")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _engine(model, kv_layout="paged", prefix_cache=True)
+    # the paged prefix cache is on by default: its chunk is the page
+    eng = _engine(model, kv_layout="paged", page_size=16)
+    assert eng.prefix is not None and eng.prefix_block == 16
+    assert eng.prefix.allocator.pool is eng.cache.pool
 
 
 # ---------------------------------------------------------------------- #
@@ -249,12 +259,13 @@ def test_page_size_default_and_knob_checks(model):
 
 def test_admission_waits_on_pages_fifo(model):
     """A pool of 6 pages (5 usable) holds one 3-page span at a time
-    while lanes are free: admission waits, in order, and every request
-    still gives its slotted stream."""
+    while lanes are free (no prefix tree holding pages beside them):
+    admission waits, in order, and every request still gives its
+    slotted stream."""
     prompts = _prompts((30, 30, 30))
     sp = SamplingParams(max_new_tokens=8)       # span 38 rows -> 3 pages
     eng = _engine(model, kv_layout="paged", page_size=16, kv_pages=6,
-                  decode_block_size=2)
+                  decode_block_size=2, prefix_cache=False)
     rids = [eng.submit(p, sp) for p in prompts]
     eng.step()
     assert eng.cache.num_active == 1 and len(eng._queue) == 2
@@ -268,7 +279,7 @@ def test_admission_waits_on_pages_fifo(model):
     assert admitted == rids                      # FIFO
     want = _streams(model, prompts, sp)
     assert [eng.result(r).token_ids for r in rids] == want
-    assert eng.cache.pool.leaked() == 0
+    assert _leaked(eng) == 0
     assert eng.stats()["kv_pages_peak"] == 4
 
 
@@ -295,7 +306,7 @@ def test_no_free_pages_mid_admission_requeues(model, monkeypatch):
     while eng.has_work():
         eng.step()
     assert eng.result(rid).finish_reason == "length"
-    assert eng.cache.pool.leaked() == 0 and eng.cache.num_free == 2
+    assert _leaked(eng) == 0 and eng.cache.num_free == 2
 
 
 @pytest.mark.parametrize("kv_dtype", [None, "int8"])
@@ -322,6 +333,7 @@ def test_zero_leaked_pages_after_cancels_and_deadlines(model, kv_dtype):
     reasons = [eng.result(r).finish_reason for r in rids]
     assert reasons.count("cancelled") == 3
     assert reasons[5] == "deadline" and reasons.count("length") == 4
-    assert eng.cache.pool.leaked() == 0
+    # only the prefix tree holds pages now, beside the trash page
+    assert eng.stats()["kv_pages_used"] == 1 + eng.prefix.pages_used
+    assert _leaked(eng) == 0
     assert eng.cache.num_free == 3
-    assert eng.stats()["kv_pages_used"] == 1
