@@ -119,7 +119,36 @@ every phase passed):
    captured beside the speculative one; host syncs = dispatches, one
    capture per runner and 0 leaked pages everywhere; the CUDA kernels
    of one graph launch and the device's busy share of a profiled
-   decode-only step are logged.
+   decode-only step are logged. Every prefill piece of phases 4-4h is
+   one CUDA graph replay of its row count's program; here phase 4's
+   load in pieces of at most 600 tokens (rows 128, 256, 512, 1024)
+   through K1, K4, K5, K6 and the int8-PTQ model, graphed and eager,
+   gives bitwise equal logits for every prefill call and equal
+   streams, one prefill capture per row count (seconds and graph pool
+   bytes logged), and the same counted launches (a prefill replay adds
+   none).
+4g. admission: phase 4's model on a shared-prefix load (one 512-token
+   system prompt, 16-188-token tails) monolithic without the prefix
+   cache (a), with it (b), interleaved (c: `prefill_budget=256,
+   prefill_chunk=64`), paged (d), paged int8 (e, against its cache-off
+   twin), (c) snapshotted and resumed (f), (c) with two requests
+   extracted and adopted by a second engine (g): all streams bitwise
+   equal as stated, 15 x 512 tokens reused in (b), decode launches =
+   layers x (decode + replay steps); TTFT, tokens/s, prefill tokens and
+   prefill captures logged.
+4h. the reference's open-loop serving bench (`bench.py`'s
+   `bench_serve_openloop`, accelerator branch): GPT-small bf16 at
+   max_seq 1024, 8 slots, `decode_block_size=2`, prefix cache off; 96
+   requests on one seeded Poisson schedule at 40 requests/s (long, 896
+   tokens, with probability 0.125, else 8/16/24/32 tokens; 16 new
+   tokens each) served in real time monolithically and with
+   `prefill_budget=32, prefill_chunk=32`, each engine warmed outside
+   its window; the interactive class's ttft_p99 and queue_wait_p99,
+   the long class's ttft_p99, the speedup and the decode-stall probe
+   (an attached stream's longest inter-token gap across a long
+   prompt's admission) in both modes, under the reference's metric
+   names; every request finishes, 0 graph captures inside a timed
+   window.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
    logged).
@@ -895,6 +924,9 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
     check(st["graph_captures"] == len(eng._runners) == 1,
           f"{name}: {st['graph_captures']} graph captures, runners "
           f"{sorted(eng._runners)}")
+    check(st["prefill_graph_captures"] == len(eng._prefill_runners),
+          f"{name}: {st['prefill_graph_captures']} prefill graph captures, "
+          f"row counts {sorted(eng._prefill_runners)}")
     if eng.paged:
         check(leaked_pages(eng) == 0, f"{name}: leaked pages")
     log(f"  {name} {knobs or 'slotted'}: {len(results)} requests "
@@ -903,8 +935,11 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
         f"{layers} layers x {st['decode_steps']} decode steps, other "
         f"decode kernels 0; host_syncs = dispatches "
         f"{st['decode_dispatches']}; 1 graph capture "
-        f"({st['graph_capture_s']:.3f} s); kv_bytes_per_token "
-        f"{st['kv_bytes_per_token']:.0f}")
+        f"({st['graph_capture_s']:.3f} s), prefill graphs of "
+        f"{sorted(eng._prefill_runners)} rows "
+        f"({st['prefill_graph_capture_s']:.3f} s, pool "
+        f"{st['prefill_graph_pool_bytes'] / 2**20:.1f} MiB); "
+        f"kv_bytes_per_token {st['kv_bytes_per_token']:.0f}")
     return eng, results, {
         "launches": counts[name], "tokens_per_s": st["tokens_per_sec"],
         "decode_ms_per_token": st["decode_ms_per_token"],
@@ -912,6 +947,9 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
         "decode_steps": st["decode_steps"],
         "dispatches": st["decode_dispatches"], "wall_s": wall,
         "graph_capture_s": st["graph_capture_s"],
+        "prefill_graph_captures": st["prefill_graph_captures"],
+        "prefill_graph_capture_s": st["prefill_graph_capture_s"],
+        "prefill_graph_pool_bytes": st["prefill_graph_pool_bytes"],
         "kv_bytes_per_token": st["kv_bytes_per_token"],
         "kv_pages_peak": st["kv_pages_peak"],
         "streams": [r.token_ids for r in results]}
@@ -1217,6 +1255,28 @@ def kernels_per_block(torch, eng):
     return len(kernels) / max(blocks, 1), busy_us(kernels) / wall_us
 
 
+# phase 4f's prefill check: pieces of at most 600 tokens over phase 4's
+# prompts (16-700 tokens) use every prefill row count of the default
+# buckets past the floor
+PREFILL_CHUNK_4F = 600
+PREFILL_ROWS_4F = [128, 256, 512, 1024]
+
+
+def record_prefills(eng):
+    """Keep every `_prefill_tokens` call's logits of `eng` on the host
+    (a host sync per call: for a check only)."""
+    out, real = [], eng._prefill_tokens
+
+    def recorded(*args, **kw):
+        logits = real(*args, **kw)
+        if logits is not None:
+            out.append(logits.cpu())
+        return logits
+
+    eng._prefill_tokens = recorded
+    return out
+
+
 def phase_dispatch(torch, np, dec, k7, engine_run, variants, int8_run,
                    spec):
     """(4f) the dispatch loop on the card: every decode block of phases
@@ -1228,7 +1288,12 @@ def phase_dispatch(torch, np, dec, k7, engine_run, variants, int8_run,
     faults under speculation recover to the clean streams with the
     expected retries, recoveries and fallbacks, re-uploading the lane
     state into the graphs' static buffers; counts and leaks as phase
-    4."""
+    4. The prefill programs: phase 4's load in pieces of at most 600
+    tokens (row counts 128, 256, 512, 1024) through K1, K4, K5, K6 and
+    the int8-PTQ model, graphed and eager: every prefill call's logits
+    and every stream bitwise equal, one prefill capture per row count,
+    capture seconds and pool bytes logged, and the graph run's counted
+    launches those of the eager run (a prefill replay adds none)."""
     import gc
     from paddle_tpu_torch.serving import LLMEngine
     from paddle_tpu_torch.testing import faults
@@ -1289,6 +1354,64 @@ def phase_dispatch(torch, np, dec, k7, engine_run, variants, int8_run,
             f"{st['decode_ms_per_token']:.3f} ms/step against the graph "
             f"run's {variants[name]['tokens_per_s']:.1f} tokens/s, "
             f"{variants[name]['decode_ms_per_token']:.3f} ms/step")
+    # the prefill programs: graph == eager, bitwise, on a chunked load
+    # that uses every row count
+    out["prefill_graphs"] = {}
+    for name, mdl, prs, prm, knobs in (
+            [(n, model, prompts, params, {**SERVE_KW, **k})
+             for n, k in DECODE_VARIANTS]
+            + [("K7", int8_run["model"], prompts, params,
+                dict(SPEC_KW))]):
+        got = {}
+        for graphs in (True, False):
+            eng = LLMEngine(mdl, prefill_chunk=PREFILL_CHUNK_4F, **knobs)
+            eng._use_graphs = graphs
+            logits = record_prefills(eng)
+            for c in list(counters.values()) + [k7.INT8_LAUNCHES]:
+                c.reset()
+            res = eng.generate(prs, prm)
+            torch.cuda.synchronize()
+            st = eng.stats()
+            counts = {k: c.count for k, c in counters.items()}
+            counts["K7"] = k7.INT8_LAUNCHES.count
+            got[graphs] = ([r.token_ids for r in res], logits, counts)
+            rows = sorted(eng._prefill_runners)
+            check(rows == PREFILL_ROWS_4F, f"4f: {name} prefill row counts "
+                                           f"{rows}")
+            if graphs:
+                runners = eng._prefill_runners.values()
+                check(st["prefill_graph_captures"] == len(rows)
+                      and all(r.graph is not None for r in runners),
+                      f"4f: {name}: {st['prefill_graph_captures']} "
+                      f"prefill captures for row counts {rows}")
+                check(all(d == 0 for r in runners for d in r.deltas),
+                      f"4f: {name}: a prefill graph counts launches "
+                      f"{[r.deltas for r in runners]}")
+                info = {"captures": st["prefill_graph_captures"],
+                        "capture_s": st["prefill_graph_capture_s"],
+                        "pool_bytes": st["prefill_graph_pool_bytes"],
+                        "prefill_calls": len(logits)}
+            else:
+                check(st["prefill_graph_captures"] == 0,
+                      f"4f: {name}: the eager engine captured a prefill")
+            del eng, res
+            gc.collect()
+            torch.cuda.empty_cache()
+        (sg, lg, cg), (se, le, ce) = got[True], got[False]
+        check(sg == se, f"4f: {name}: graphed prefill streams != eager")
+        check(len(lg) == len(le) and all(torch.equal(a, b)
+                                         for a, b in zip(lg, le)),
+              f"4f: {name}: graphed prefill logits != eager")
+        check(cg == ce, f"4f: {name}: counted launches {cg} (graphs) != "
+                        f"{ce} (eager)")
+        out["prefill_graphs"][name] = info
+        log(f"  {name} prefill: graphs == eager, bitwise: {len(lg)} "
+            f"prefill calls' logits, {len(sg)}/{len(sg)} streams; "
+            f"{info['captures']} prefill captures (rows {rows}) in "
+            f"{info['capture_s']:.3f} s, pool "
+            f"{info['pool_bytes'] / 2**20:.1f} MiB; counted launches "
+            f"{ {k: v for k, v in cg.items() if v} } == eager's "
+            f"[card: {card_line()}]")
     # K7: the int8-PTQ model of phase 4d
     streams, st, counts, _ = run(int8_run["model"], prompts[:8],
                                  params[:8], graphs=False, **SPEC_KW)
@@ -1464,7 +1587,10 @@ def phase_admission(torch, np, dec, engine_run):
                 "prefill_tokens_computed": st["prefill_tokens_computed"],
                 "prefix_tokens_reused": st["prefix_tokens_reused"],
                 "decode_steps": st["decode_steps"], "wall_s": wall,
-                "graph_capture_s": st["graph_capture_s"]}
+                "graph_capture_s": st["graph_capture_s"],
+                "prefill_graph_captures": st["prefill_graph_captures"],
+                "prefill_graph_capture_s": st["prefill_graph_capture_s"],
+                "prefill_graph_pool_bytes": st["prefill_graph_pool_bytes"]}
 
     def report(tag, knobs, run):
         log(f"  ({tag}) {knobs or 'prefix cache on, monolithic'}: TTFT p50 "
@@ -1473,7 +1599,8 @@ def phase_admission(torch, np, dec, engine_run):
             f"tokens/s, prefill tokens computed "
             f"{run['prefill_tokens_computed']}, reused "
             f"{run['prefix_tokens_reused']}, {run['launches']} decode "
-            f"launches [card: {card}]")
+            f"launches; {run['prefill_graph_captures']} prefill captures "
+            f"({run['prefill_graph_capture_s']:.3f} s) [card: {card}]")
 
     runs = {}
     for tag, knobs, kernel in ADMISSION:
@@ -1625,6 +1752,173 @@ def phase_admission(torch, np, dec, engine_run):
     for run in runs.values():
         run.pop("streams", None)
     return runs
+
+
+# --------------------------------------------------------------------------- #
+# phase 4h: the open-loop serving bench
+# --------------------------------------------------------------------------- #
+
+# the reference's `bench_serve_openloop` on an accelerator (`bench.py`):
+# GPT-small at max_seq 1024 with 8 slots; 96 requests on one seeded
+# Poisson schedule at 40 requests/s, each long (896 tokens) with
+# probability 0.125, else 8/16/24/32 tokens; 16 new tokens each
+OPENLOOP = dict(n_req=96, long_frac=0.125, long_len=896,
+                short_lens=(8, 16, 24, 32), new_toks=16, rate=40.0)
+OPENLOOP_KW = dict(max_slots=8, max_seq=1024, decode_block_size=2,
+                   prefix_cache=False, seed=0, device="cuda")
+OPENLOOP_INTERLEAVED = dict(prefill_budget=32, prefill_chunk=32)
+
+
+def all_captures(eng) -> int:
+    """Graph captures of an engine, decode and prefill programs: the
+    port's analog of the reference's `compiles_unexpected` counts the
+    ones inside a timed window."""
+    st = eng.stats()
+    return st["graph_captures"] + st["prefill_graph_captures"]
+
+
+def phase_openloop(torch, np, engine_run):
+    """(4h) the reference's open-loop serving bench: the same Poisson
+    arrival schedule of a mixed short / long population served in real
+    time, monolithic and interleaved (`prefill_budget=32,
+    prefill_chunk=32`), at equal offered load; each engine warmed
+    outside its timed window on one long and one short prompt (the row
+    counts 1024 and 128 of either mode, the decode program). Reports
+    the interactive class's ttft_p99 and queue_wait_p99, the long
+    class's ttft_p99, the speedup, and the decode-stall probe (the
+    longest inter-token gap of an attached stream across a long
+    prompt's admission) in both modes. Checks: every request finishes
+    with its 16 tokens, and no graph is captured inside a timed window
+    (0 unexpected captures)."""
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.serving.metrics import nearest_rank_p99
+    model = engine_run["model"]
+    V = model.cfg.vocab_size
+    o = OPENLOOP
+    n_req, short_lens = o["n_req"], o["short_lens"]
+    rng = np.random.RandomState(0)
+    is_long = (rng.random_sample(n_req) < o["long_frac"]).tolist()
+    prompts = [rng.randint(0, V, (o["long_len"],)) if is_long[i]
+               else rng.randint(0, V, (short_lens[i % len(short_lens)],))
+               for i in range(n_req)]
+    arrivals = np.cumsum(rng.exponential(1.0 / o["rate"], size=n_req))
+    sp = SamplingParams(max_new_tokens=o["new_toks"])
+    card = card_line()
+
+    def engine(interleaved, **kw):
+        return LLMEngine(model, **{**OPENLOOP_KW, **kw},
+                         **(OPENLOOP_INTERLEAVED if interleaved else {}))
+
+    def run(interleaved):
+        eng = engine(interleaved, max_queue=n_req + 8)
+        wrng = np.random.RandomState(123)
+        eng.generate([prompts[is_long.index(True)],
+                      wrng.randint(0, V, (short_lens[0],))], sp)
+        torch.cuda.synchronize()
+        captured = all_captures(eng)
+        t0 = time.perf_counter()
+        rids, i = [], 0
+        while i < len(prompts) or eng.has_work():
+            now = time.perf_counter() - t0
+            while i < len(prompts) and arrivals[i] <= now:
+                rids.append(eng.submit(prompts[i], sp))
+                i += 1
+            if eng.has_work():
+                eng.step()
+            elif i < len(prompts):
+                time.sleep(min(0.002, max(arrivals[i] - now, 0.0)))
+        wall = time.perf_counter() - t0
+        res = [eng.result(r) for r in rids]
+        unexpected = all_captures(eng) - captured
+        st = eng.stats()
+        eng.close()
+        check(all(r.finish_reason == "length"
+                  and len(r.token_ids) == o["new_toks"] for r in res),
+              f"4h: finish reasons {[r.finish_reason for r in res]}")
+        check(unexpected == 0, f"4h: {unexpected} graph captures inside "
+                               f"the timed window")
+        shorts = [r for r, lg in zip(res, is_long) if not lg]
+        longs = [r for r, lg in zip(res, is_long) if lg]
+        return {"ttft": nearest_rank_p99([r.ttft_s for r in shorts]) * 1e3,
+                "qw": nearest_rank_p99([r.queue_wait_s for r in shorts])
+                * 1e3,
+                "long_ttft": nearest_rank_p99([r.ttft_s for r in longs])
+                * 1e3,
+                "unexpected_captures": unexpected, "n_short": len(shorts),
+                "n_long": len(longs), "wall_s": wall,
+                "tokens_per_s": st["tokens_per_sec"],
+                "decode_ms_per_token": st["decode_ms_per_token"]}
+
+    def stall_probe(interleaved):
+        """The longest inter-token gap of one active decode stream while
+        a long prompt is admitted beside it: monolithic admission stalls
+        it for the long's whole prefill, interleaved admission for at
+        most one round's budget and aging chunk."""
+        eng = engine(interleaved, max_queue=8)
+        wrng = np.random.RandomState(7)
+        long_p = wrng.randint(0, V, (o["long_len"],))
+        act_p = wrng.randint(0, V, (8,))
+        eng.generate([long_p, act_p], sp)          # warm every program
+        act = eng.submit(act_p, SamplingParams(max_new_tokens=56))
+        gaps, last = [], [None]
+
+        def sink(kind, *payload):
+            if kind == "tokens":
+                t = time.perf_counter()
+                if last[0] is not None:
+                    gaps.append(t - last[0])
+                last[0] = t
+
+        check(eng.attach_stream(act, sink), "4h: attach_stream refused")
+        for _ in range(3):
+            eng.step()      # the stream is decoding steadily
+        gaps.clear()        # measure only across the long's admission
+        captured = all_captures(eng)
+        eng.submit(wrng.randint(0, V, (o["long_len"],)), sp)
+        eng.run_until_complete(max_steps=2000)
+        unexpected = all_captures(eng) - captured
+        eng.close()
+        check(unexpected == 0, f"4h: {unexpected} graph captures inside "
+                               f"the stall probe")
+        # the largest gap and, beside it, the stream's usual gap
+        return max(gaps) * 1e3, statistics.median(gaps) * 1e3
+
+    base = run(interleaved=False)
+    inter = run(interleaved=True)
+    stall_base, gap_base = stall_probe(interleaved=False)
+    stall_int, gap_int = stall_probe(interleaved=True)
+    ttft_x = base["ttft"] / max(inter["ttft"], 1e-9)
+    qw_x = base["qw"] / max(inter["qw"], 1e-9)
+    stall_x = stall_base / max(stall_int, 1e-9)
+    log(f"  {n_req} requests ({base['n_short']} interactive, "
+        f"{base['n_long']} long of {o['long_len']} tokens) at "
+        f"{o['rate']}/s, monolithic -> interleaved: interactive ttft_p99 "
+        f"{base['ttft']:.1f} -> {inter['ttft']:.1f} ms ({ttft_x:.2f}x), "
+        f"queue_wait_p99 {base['qw']:.1f} -> {inter['qw']:.1f} ms "
+        f"({qw_x:.2f}x), long ttft_p99 {base['long_ttft']:.1f} -> "
+        f"{inter['long_ttft']:.1f} ms, decode_stall {stall_base:.1f} -> "
+        f"{stall_int:.1f} ms ({stall_x:.2f}x; the stream's median gap "
+        f"{gap_base:.1f} -> {gap_int:.1f} ms); tokens/s "
+        f"{base['tokens_per_s']:.1f} -> {inter['tokens_per_s']:.1f}; "
+        f"unexpected graph captures {base['unexpected_captures']} + "
+        f"{inter['unexpected_captures']} [card: {card}]")
+    metrics = {
+        "gpt_small_serve_openloop_ttft_p99_ms": inter["ttft"],
+        "gpt_small_serve_openloop_queue_wait_p99_ms": inter["qw"],
+        "gpt_small_serve_openloop_ttft_p99_noninterleaved_ms": base["ttft"],
+        "gpt_small_serve_openloop_queue_wait_p99_noninterleaved_ms":
+            base["qw"],
+        "gpt_small_serve_openloop_long_ttft_p99_ms": inter["long_ttft"],
+        "gpt_small_serve_openloop_long_ttft_p99_noninterleaved_ms":
+            base["long_ttft"],
+        "gpt_small_serve_decode_stall_ms": stall_int,
+        "gpt_small_serve_decode_stall_noninterleaved_ms": stall_base,
+        "gpt_small_serve_openloop_ttft_p99_speedup": ttft_x}
+    for name, value in metrics.items():
+        log(f"  {name} {value!r} [card: {card}]")
+    return {"metrics": metrics, "monolithic": base, "interleaved": inter,
+            "stall_median_gap_ms": {"monolithic": gap_base,
+                                    "interleaved": gap_int}}
 
 
 def phase_paged_vs_slotted(torch, np, P):
@@ -2510,6 +2804,9 @@ def main(argv=None) -> int:
     log("phase 4g: admission: the prefix cache, interleaved chunked "
         "prefill, snapshot / resume, extract / adopt")
     admission = phase_admission(torch, np, dec, engine_run)
+    log("phase 4h: the open-loop serving bench, monolithic and "
+        "interleaved admission")
+    openloop = phase_openloop(torch, np, engine_run)
     del engine_run["model"], variants["K1"], int8_run["model"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
@@ -2620,7 +2917,7 @@ def main(argv=None) -> int:
                        "train": train, "grad_check": grad,
                        "int8_serving": drop(int8_run),
                        "speculative": drop(spec), "dispatch": dispatch,
-                       "admission": admission,
+                       "admission": admission, "openloop": openloop,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32,

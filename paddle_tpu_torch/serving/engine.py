@@ -15,11 +15,12 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   and admits/retires at block boundaries. Frozen lanes park their
   (discarded) K/V writes at row max_seq - 1, which no live lane ever
   attends.
-- ONE GRAPH PER BLOCK. On a CUDA device each block program (plain, and
-  speculative) is captured once into a CUDA graph and every block is
-  one replay (`serving/graphs.py`), as the JAX engine compiles each
-  block into one executable; on the CPU the same runner calls the block
-  function directly.
+- ONE GRAPH PER PROGRAM. On a CUDA device each block program (plain,
+  and speculative) and each prefill row count is captured once into a
+  CUDA graph and every block or prefill piece is one replay
+  (`serving/graphs.py`), as the JAX engine compiles each block and each
+  prefill bucket into one executable; on the CPU the same runners call
+  the functions directly.
 - OVERLAP (`overlap=True`, the default): block N+1 is dispatched off
   block N's device-resident state before block N's tokens are read,
   when no admission is pending and some lane outlives block N on
@@ -38,8 +39,10 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   suffix) is split into `prefill_chunk`-sized pieces, each padded to
   the smallest length bucket (powers of two up to `max_seq`, and at
   least `PREFILL_MIN_ROWS` rows: rows past `max_seq` are computed and
-  not written) and written into its slot's rows in one forward; the
-  last real position's logits give the first token. The floor keeps a
+  their writes parked) and written into its slot's rows in one forward; the
+  last real position's logits give the first token. Every per-call
+  value (ids, slot, first position, length, block-table row) is a
+  device value, so one program serves each row count. The floor keeps a
   row's bits independent of the bucket or chunk it was computed in (on
   the card a GEMM's row bits change below it), so chunk boundaries are
   exact and a prefix-cache hit is a cold prefill's bits.
@@ -66,6 +69,11 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   `adopt()` / `extract()` / `unqueue()` move single requests between
   engines, and `salt_clock()` / `advance_salt_clock()` carry the
   sampling-salt counter with them.
+- STREAMS. `attach_stream()` delivers a request's tokens at its first
+  token and at each block boundary, then its finish, from host data
+  the scheduler already has; `has_result()` / `peek_result()` poll
+  without collecting; `close()` (or the context manager) ends the
+  engine's intake and stepping.
 - Two KV layouts (`kv_layout`). "slotted": one `max_seq` stripe per
   lane (`kv_cache.KVCacheManager`). "paged": one refcounted page pool
   with per-lane block tables (`paged_kv.PagedKVCache`); admission
@@ -114,7 +122,7 @@ import collections
 import dataclasses
 import functools
 import time
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -128,7 +136,8 @@ from ..quantization import abs_max_scale, quantize_tensor
 from ..quantization.kv import (dequant_slab, kv_update, map_slab,
                                slab_shape, take_rows)
 from ..testing import faults
-from .graphs import BlockResult, BlockRunner, GraphCaptureError, LaneState
+from .graphs import (BlockResult, BlockRunner, GraphCaptureError,
+                     LaneState, PrefillRunner)
 from .kv_cache import KVCacheManager
 from .metrics import ServingMetrics
 from .paged_kv import (NoFreePages, PagedKVCache, TreePageAllocator,
@@ -309,49 +318,74 @@ def _embed(params, ids: torch.Tensor, positions: torch.Tensor):
     return params["wte.weight"][ids] + params["wpe.weight"][pos]
 
 
+def _prefill_rows(k0, slot: torch.Tensor, q_pos: torch.Tensor,
+                  table: Optional[torch.Tensor] = None, page_size: int = 0):
+    """The cache side of a prefill of positions `q_pos` (L,) into lane
+    `slot` ((1,) int64), all device values: (T, the index the L rows'
+    K/V are written at, `lane_view(slab, dtype)` = the lane's (1, T, nh,
+    hd) rows as later decode steps read them). Slotted: the lane's
+    stripe of the slabs; paged (`table`, the lane's (pages_per_seq,)
+    block-table row): through the table. A row at or past T parks:
+    slotted at row T-1 of its own slot, where decode parks a frozen
+    lane's write; paged on the trash page (the table index clamped).
+    `k0` is any layer's K slab (its shape gives the slotted T)."""
+    if table is None:
+        T = slab_shape(k0)[1]
+        rows = (slot.expand(q_pos.shape[0]), torch.clamp(q_pos, max=T - 1))
+
+        def lane_view(slab, dtype):
+            return dequant_slab(map_slab(
+                slab, lambda a: a.index_select(0, slot)), dtype)
+    else:
+        T = table.shape[0] * page_size
+        rows = paged_rows(table, torch.clamp(q_pos, max=T - 1), page_size,
+                          live=q_pos < T)
+
+        def lane_view(slab, dtype):
+            return take_rows(slab, table, dtype).reshape(
+                1, T, *slab_shape(slab)[2:])
+    return T, rows, lane_view
+
+
 def _prefill_forward(cfg, params, k_list, v_list, ids: torch.Tensor,
-                     slot: int, pos0: int, length: int,
+                     slot: torch.Tensor, pos0: torch.Tensor,
+                     length: torch.Tensor,
                      table: Optional[torch.Tensor] = None,
                      page_size: int = 0) -> torch.Tensor:
-    """Prefill of `ids` (1, L) (a padded bucket) into rows
-    [pos0, pos0 + L) of `slot` — of its slab stripe, or through its
-    block-table row `table` (device, (pages_per_seq,)) under the paged
-    layout — in place; returns the fp32 logits of the last REAL token
-    (position pos0 + length - 1). Padded rows past `length` are written
-    too and rewritten before they can be attended (paged: those past
-    the lane's bound pages land on the trash page); rows at or past the
-    cache's T rows are computed and not written. Attention reads the
-    CACHE's view of the rows (dequantized for int8), the view later
-    decode steps see."""
+    """Prefill of `ids` (1, L) (a padded bucket) into positions
+    [pos0, pos0 + L) of lane `slot` — its slab stripe, or through its
+    block-table row `table` (pages_per_seq,) under the paged layout — in
+    place; returns the fp32 logits (V,) of the last REAL token (position
+    pos0 + length - 1). Every per-call value is a device tensor (slot,
+    pos0, length: (1,) int64), and nothing depends on a host value but
+    L, the cache's T rows and the layout: one function serves the CPU,
+    the eager card path and the CUDA graph of `graphs.PrefillRunner`.
+
+    Padded rows past `length` are written too and rewritten before they
+    can be attended (paged: those past the lane's bound pages land on
+    the trash page); rows at or past T park (`_prefill_rows`). Slotted,
+    every parked row writes row T-1 of the slot, in no defined order:
+    `_validate` keeps prompt + max_new_tokens <= max_seq, so no real
+    prefill row is T-1 or attends it, and the order of these duplicate
+    writes cannot matter. Attention reads the CACHE's view of the rows
+    (dequantized for int8), the view later decode steps see."""
     L = ids.shape[1]
-    T = table.shape[0] * page_size if table is not None \
-        else slab_shape(k_list[0])[1]
-    W = min(L, T - pos0)                      # rows that land in the cache
     dev = ids.device
     q_pos = pos0 + torch.arange(L, device=dev)
+    T, rows, lane_view = _prefill_rows(k_list[0], slot, q_pos, table,
+                                       page_size)
     x = _embed(params, ids, q_pos[None])                      # (1, L, h)
     keep = (torch.arange(T, device=dev)[None, :]
             <= q_pos[:, None])[None, None]                    # (1,1,L,T)
-    if table is None:
-        rows = (slot, slice(pos0, pos0 + W))
-    else:
-        rows = paged_rows(table, q_pos[:W], page_size)
-
-    def lane_view(slab, dtype):
-        if table is None:
-            return dequant_slab(map_slab(slab, lambda a: a[slot:slot + 1]),
-                                dtype)
-        return take_rows(slab, table, dtype).reshape(
-            1, T, *slab_shape(slab)[2:])
 
     def attn(i, q, kn, vn):
-        kv_update(k_list[i], rows, kn[0, :W])
-        kv_update(v_list[i], rows, vn[0, :W])
+        kv_update(k_list[i], rows, kn[0])
+        kv_update(v_list[i], rows, vn[0])
         return _masked_attend(q, lane_view(k_list[i], q.dtype),
                               lane_view(v_list[i], q.dtype), keep)
 
     x = _body_layers(cfg, params, x, attn)
-    return _head(params, x[:, length - 1:length])[0, 0].float()
+    return _head(params, x.index_select(1, length - 1))[0, 0].float()
 
 
 def _decode_block(cfg, params, k_list, v_list, cur, pos, rem, act, salt,
@@ -832,10 +866,18 @@ class LLMEngine:
         self._dirty = True
         self._lanes = LaneState(self._mirrors(), self.device)
         # block programs by speculation on/off, built at first dispatch;
-        # graphs on a card (a private switch turns them off, for an
-        # on-card graph == eager check only)
+        # graphs on a card (a private switch turns them off, decode and
+        # prefill, for an on-card graph == eager check only)
         self._runners: Dict[bool, BlockRunner] = {}
         self._use_graphs = self.device.type == "cuda"
+        # prefill programs by row count, built at their first use, and
+        # the one graph memory pool their graphs share (made with the
+        # first)
+        self._prefill_runners: Dict[int, PrefillRunner] = {}
+        self._prefill_pool = None
+        # rid -> stream sink (`attach_stream`)
+        self._streams: Dict[int, Callable] = {}
+        self._closed = False
         self._inflight: Optional[_Inflight] = None
         self._ahead: Optional[_Inflight] = None     # the overlap lookahead
         self._last_proc_t = 0.0   # decode-time attribution watermark
@@ -871,6 +913,7 @@ class LLMEngine:
         """Enqueue a request; returns its id. Raises `ValueError` for a
         request that can never be served and `EngineOverloadError` when
         the bounded queue is full."""
+        self._ensure_open()
         params = params or SamplingParams()
         return self._enqueue(self._validate(prompt, params), params)
 
@@ -898,6 +941,7 @@ class LLMEngine:
         at the next block boundary. A prefilling request never entered
         the decode grid: its slot and prefix pins free at once. Other
         lanes are unaffected."""
+        self._ensure_open()
         for req in self._queue:
             if req.rid == rid:
                 self._queue.remove(req)
@@ -936,6 +980,7 @@ class LLMEngine:
         `keep_salt=True`: then the imported salt is kept and this
         engine's salt counter moves past it, so a sampled stream
         continues exactly as on the origin."""
+        self._ensure_open()
         now = time.perf_counter()
         r = _restore_request(req, now)
         if keep_salt:
@@ -982,7 +1027,9 @@ class LLMEngine:
         other rid. No result is recorded here. The lane freezes like a
         cancel's and its slot frees at the next block boundary, not
         now: a block already dispatched still has the lane live, and a
-        new occupant must not be credited with its tokens."""
+        new occupant must not be credited with its tokens. Its stream is
+        dropped silently: the adopter's attach replays from zero."""
+        self._ensure_open()
         for slot, req in self._active.items():
             if req.rid != rid:
                 continue
@@ -991,6 +1038,7 @@ class LLMEngine:
             d = self._adoption_dict(req, time.perf_counter())
             req.finish_reason = "handoff"
             self._freeze_slot(slot)
+            self._streams.pop(rid, None)
             return d
         return None
 
@@ -999,13 +1047,16 @@ class LLMEngine:
         `adopt()` dict (None if `rid` is not queued). A request that has
         no salt yet gets the one its pop here would have drawn, so an
         adopter with `keep_salt=True` continues the very stream this
-        engine would have produced (unqueue in pop order)."""
+        engine would have produced (unqueue in pop order). No stream
+        event fires: the new owner's attach replays from zero."""
+        self._ensure_open()
         for req in self._queue:
             if req.rid == rid:
                 self._queue.remove(req)
                 if req.salt is None:
                     req.salt = self._next_salt
                     self._next_salt = (self._next_salt + 1) & SALT_MASK
+                self._streams.pop(rid, None)
                 return self._adoption_dict(req, time.perf_counter())
         return None
 
@@ -1015,6 +1066,93 @@ class LLMEngine:
             raise KeyError(f"request {rid} not finished (or unknown, "
                            f"or already collected)")
         return self._results.pop(rid)
+
+    def has_result(self, rid: int) -> bool:
+        """True iff `rid` has finished and its result is still
+        uncollected (a poll that pays no KeyError per live request)."""
+        return rid in self._results
+
+    def peek_result(self, rid: int) -> Optional[GenerationResult]:
+        """A finished, uncollected result without evicting it (None when
+        unknown, unfinished or collected)."""
+        return self._results.get(rid)
+
+    # ------------------------------------------------------------------ #
+    # incremental token streaming
+    # ------------------------------------------------------------------ #
+    def attach_stream(self, rid: int, sink: Callable) -> bool:
+        """Register `sink` for incremental delivery: the engine calls
+        `sink(kind, *payload)` on the scheduling thread with
+        `("tokens", start_index, [ids...])` at the first token and at
+        every decode-block boundary that emitted for the request, then
+        once `("finished", reason, error)`. The events carry host data
+        the scheduler already has: no per-token work, no host sync. An
+        attach replays the tokens emitted so far as one `("tokens", 0,
+        ...)` event (the consumer dedups by start index); one sink per
+        rid, the latest wins. Returns False for an unknown rid, True
+        otherwise, also for a finished, uncollected request, whose
+        replay and `finished` event fire at once."""
+        g = self._results.get(rid)
+        if g is not None:
+            if g.token_ids:
+                sink("tokens", 0, list(g.token_ids))
+            sink("finished", g.finish_reason, g.error)
+            return True
+        req = self._find_request(rid)
+        if req is None:
+            return False
+        if req.generated:
+            sink("tokens", 0, list(req.generated))
+        self._streams[rid] = sink
+        return True
+
+    def detach_stream(self, rid: int):
+        """Forget a sink; the request itself is untouched (pair with
+        `cancel(rid)` to free its slot too)."""
+        self._streams.pop(rid, None)
+
+    def _find_request(self, rid: int) -> Optional[_Request]:
+        for req in self._active.values():
+            if req.rid == rid:
+                return req
+        for req in self._prefilling.values():
+            if req.rid == rid:
+                return req
+        for req in self._queue:
+            if req.rid == rid:
+                return req
+        return None
+
+    def _emit_stream(self, rid: int, kind: str, *payload):
+        sink = self._streams.get(rid)
+        if sink is None:
+            return
+        try:
+            sink(kind, *payload)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception:  # noqa: BLE001 — a broken sink must not take
+            # the scheduler down: the request goes on and its result
+            # stays collectable, only the live feed is lost
+            self._streams.pop(rid, None)
+
+    def close(self):
+        """Terminal: `submit()`, `step()`, `generate()` and the other
+        calls that feed or drive the engine raise `RuntimeError("engine
+        closed")` afterwards; `result()`, `stats()` and `snapshot()`
+        keep working, so a shutting-down server can still collect
+        results and take a resume snapshot."""
+        self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def _ensure_open(self):
+        if self._closed:
+            raise RuntimeError("engine closed")
 
     def has_work(self) -> bool:
         return bool(self._queue or self._active or self._prefilling
@@ -1048,6 +1186,7 @@ class LLMEngine:
         block's tokens, retire finished requests. Dispatch, sync,
         prefill and prefix copies all run under the recovery contract.
         Returns the number of requests completed."""
+        self._ensure_open()
         self._expire_deadlines()
         if self.prefill_budget is None:
             while self._queue and self.cache.num_free > 0 \
@@ -1074,6 +1213,7 @@ class LLMEngine:
                                          pool.peak_used)
 
     def run_until_complete(self, max_steps: Optional[int] = None):
+        self._ensure_open()
         steps = 0
         while self.has_work():
             self.step()
@@ -1089,6 +1229,7 @@ class LLMEngine:
                                None] = None) -> List[GenerationResult]:
         """Submit a batch and run to completion; results in input
         order. Every request is validated before any is enqueued."""
+        self._ensure_open()
         if isinstance(params, SamplingParams) or params is None:
             params = [params] * len(prompts)
         if len(params) != len(prompts):
@@ -1253,6 +1394,7 @@ class LLMEngine:
         req.ttft_s = now - req.submit_t
         self.metrics.on_first_token(req.ttft_s)
         req.generated.append(first)
+        self._emit_stream(req.rid, "tokens", 0, [first])
         self._install_slot(req, slot, pos=int(req.prompt.size))
 
     # ------------------------------------------------------------------ #
@@ -1548,24 +1690,46 @@ class LLMEngine:
         [pos0, pos0 + len) of `slot` (through its block-table row when
         paged); returns the last real token's fp32 logits (None for no
         tokens: a fully cached re-ingest). Each piece fires the
-        `prefill` fault point once and runs on its bucket's rows, at
-        least `PREFILL_MIN_ROWS`; rows past max_seq are not written."""
+        `prefill` fault point once, then runs as the prefill program of
+        its bucket's rows, at least `PREFILL_MIN_ROWS` (on a card one
+        CUDA graph replay); rows past max_seq park."""
         chunk = self.prefill_chunk or max(int(tokens.size), 1)
-        table = torch.from_numpy(self.cache.block_tables[slot]).to(
-            self.device) if self.paged else None
+        table = self.cache.block_tables[slot] if self.paged else None
         logits = None
         for ofs in range(0, int(tokens.size), chunk):
             faults.fire("prefill")
             piece = tokens[ofs:ofs + chunk]
-            p0 = pos0 + ofs
             rows = max(self._bucket_for(piece.size), PREFILL_MIN_ROWS)
-            ids = np.zeros((1, rows), np.int64)
-            ids[0, :piece.size] = piece
-            logits = _prefill_forward(
-                self.cfg, self._params, self.cache.k, self.cache.v,
-                torch.from_numpy(ids).to(self.device), slot, p0,
-                int(piece.size), table=table, page_size=self.page_size)
+            logits = self._prefill_runner(rows).run(piece, slot,
+                                                    pos0 + ofs, table)
         return logits
+
+    def _prefill_runner(self, rows: int) -> PrefillRunner:
+        """The prefill program of `rows` rows, built (on a card:
+        captured, into the engine's one prefill graph pool) at its
+        first use; its capture is booked apart from the decode
+        programs' (`metrics.prefill_graph_*`)."""
+        runner = self._prefill_runners.get(rows)
+        if runner is None:
+            graphed = self._use_graphs
+            if graphed and self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            body = functools.partial(_prefill_forward, self.cfg,
+                                     self._params, self.cache.k,
+                                     self.cache.v, page_size=self.page_size)
+            table_len = self.cache.block_tables.shape[1] if self.paged \
+                else 0
+            cache_rows = table_len * self.page_size if self.paged \
+                else self.max_seq
+            t0 = time.perf_counter()
+            runner = PrefillRunner(body, rows, cache_rows, table_len,
+                                   self.device, graphed=graphed,
+                                   pool=self._prefill_pool)
+            if runner.graph is not None:
+                self.metrics.on_prefill_graph_capture(
+                    time.perf_counter() - t0, runner.pool_bytes)
+            self._prefill_runners[rows] = runner
+        return runner
 
     def _install_slot(self, req: _Request, slot: int, pos: int):
         """Wire a request into its lane's mirrors."""
@@ -1601,6 +1765,8 @@ class LLMEngine:
         self._record_result(req)
 
     def _record_result(self, req: _Request):
+        self._emit_stream(req.rid, "finished", req.finish_reason, req.error)
+        self._streams.pop(req.rid, None)
         self._results[req.rid] = GenerationResult(
             req.rid, req.prompt, req.generated, req.finish_reason,
             req.ttft_s, req.error, queue_wait_s=req.queue_wait_s)
@@ -2031,6 +2197,12 @@ class LLMEngine:
                     break
             produced += emitted
             self._act[slot] = req.finish_reason is None
+            if emitted and req.rid in self._streams:
+                # one event per streamed request per block, from the
+                # tokens just distributed
+                self._emit_stream(req.rid, "tokens",
+                                  len(req.generated) - emitted,
+                                  req.generated[-emitted:])
         now = time.perf_counter()
         # attribute only the wall time not already charged to the
         # previous block: with overlap, block N+1's dispatch t0 lies

@@ -1,6 +1,8 @@
-"""Decode blocks as CUDA graphs: the counterpart of the JAX engine's
-compiled block programs (`_build_decode_block_fn`,
-`_build_spec_decode_block_fn` and its `_jits` cache).
+"""Decode blocks and prefills as CUDA graphs: the counterpart of the JAX
+engine's compiled block programs (`_build_decode_block_fn`,
+`_build_spec_decode_block_fn` and its `_jits` cache) and of its
+compiled prefill programs (`_prefill_fn`, one per bucket, built by
+`_build_prefill_fn` / `_build_paged_prefill_fn`).
 
 An engine owns one `LaneState`, the static input buffers of its decode
 blocks (cur / pos / rem / act / salt / temp / topk / topp / eos, and
@@ -32,6 +34,19 @@ plain program continues from the speculative one's lane state.
   `counted_capture` records each counter's launches over the capture
   (restoring every counter afterwards, since warm-up and capture run no
   processed block) and `count_replay` adds them on every replay.
+
+Prefill: an engine owns one `PrefillRunner` per prefill row count it
+uses, made at the first prefill of that many rows, as the JAX engine
+jits a bucket on demand. Everything a prefill call varies (the padded
+token ids, the slot, the first position, the real length and, paged,
+the lane's block-table row) lives in one static device buffer, filled
+through pinned staging behind an event as `LaneState.upload` does, so
+one captured graph serves every call of its row count. Warm-up and
+capture run with every write parked (at a position past the cache's
+rows: slotted row T-1, the paged trash page). All prefill graphs of an
+engine share one graph memory pool: they never replay at once, and
+nothing allocated in the pool outlives its capture (the logits go to a
+buffer made at warm-up), so any replay order is safe.
 """
 from __future__ import annotations
 
@@ -44,7 +59,7 @@ import torch
 from ..ops_cuda.decode_attention import _LaunchCounter
 
 __all__ = ["GraphCaptureError", "LaneState", "BlockRunner", "BlockResult",
-           "counted_capture", "count_replay"]
+           "PrefillRunner", "counted_capture", "count_replay"]
 
 # the lane-state arguments of `_decode_block` / `_spec_decode_block`,
 # in their order; `tables` (paged) rides as a keyword
@@ -55,9 +70,9 @@ CHAINED = ("cur", "pos", "rem", "act")
 
 
 class GraphCaptureError(RuntimeError):
-    """A decode block could not be captured into a CUDA graph. Raised
-    through the engine's recovery boundary: it is a fault of the
-    program or the configuration, not a transient one."""
+    """A decode block or a prefill could not be captured into a CUDA
+    graph. Raised through the engine's recovery boundary: it is a fault
+    of the program or the configuration, not a transient one."""
 
 
 def counted_capture(warm_up: Callable[[], None],
@@ -93,6 +108,34 @@ def _host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
 
 def _event(device: torch.device) -> Optional[torch.cuda.Event]:
     return torch.cuda.Event() if device.type == "cuda" else None
+
+
+def _warm_up_and_capture(graph: torch.cuda.CUDAGraph, step: Callable,
+                         pool=None) -> List[int]:
+    """Warm `step()` up, then capture it into `graph` (in the graph
+    memory pool `pool`, or a pool of its own); returns
+    `counted_capture`'s launch deltas."""
+    ctx = torch.cuda.graph(graph, pool=pool)
+    # warm up on the stream the capture runs on (PyTorch's one
+    # process-wide capture stream): cuBLAS keeps a workspace per stream
+    # for the life of the process, so a new side stream per capture
+    # would hold one more workspace per engine
+    side = ctx.capture_stream
+
+    def warm_up():
+        # off the current stream, as graph capture requires: lazy
+        # library loads, cuBLAS handles and the int8 kernel's
+        # shared-memory opt-in happen here, outside the capture
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+
+    def capture():
+        with ctx:
+            step()
+
+    return counted_capture(warm_up, capture)
 
 
 class LaneState:
@@ -198,30 +241,10 @@ class BlockRunner:
 
     def _capture(self):
         graph = torch.cuda.CUDAGraph()
-        ctx = torch.cuda.graph(graph)
-        # warm up on the stream the capture runs on (PyTorch's one
-        # process-wide capture stream): cuBLAS keeps a workspace per
-        # stream for the life of the process, so a new side stream per
-        # capture would hold one more workspace per engine
-        side = ctx.capture_stream
-
-        def warm_up():
-            # off the current stream, as graph capture requires: lazy
-            # library loads, cuBLAS handles and the int8 kernel's
-            # shared-memory opt-in happen here, outside the capture
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._step()
-            torch.cuda.current_stream().wait_stream(side)
-
-        def capture():
-            with ctx:
-                self._step()
-
         kind = "speculative" if self.spec else "plain"
         try:
             with self.frozen():
-                self.deltas = counted_capture(warm_up, capture)
+                self.deltas = _warm_up_and_capture(graph, self._step)
         except Exception as err:  # noqa: BLE001 — named and re-raised
             raise GraphCaptureError(
                 f"capturing the {kind} decode block ({self.steps} steps) "
@@ -244,3 +267,99 @@ class BlockRunner:
         if event is not None:
             event.record()
         return BlockResult(host, event)
+
+
+class PrefillRunner:
+    """One prefill program of an engine: `rows` rows.
+
+    `body(ids, slot, pos0, length, table=...)` is the engine's
+    `_prefill_forward` with the model and the cache bound: ids (1, rows)
+    and slot / pos0 / length (1,) int64, and, when `table_len` > 0 (the
+    paged layout), the lane's block-table row (table_len,), all device
+    values; it returns the last real row's fp32 logits. `cache_rows` is
+    the cache's T: warm-up and capture run at position T, where every
+    write parks. `graphed` captures the program into a CUDA graph in
+    the graph memory pool `pool` (the inputs must live on a card)."""
+
+    def __init__(self, body: Callable, rows: int, cache_rows: int,
+                 table_len: int, device: torch.device, graphed: bool,
+                 pool=None):
+        self.body = body
+        self.rows = R = int(rows)
+        self.cache_rows = int(cache_rows)
+        n = R + 3 + int(table_len)
+        # ids, slot, pos0, length, table: one buffer, one upload
+        self._inp = torch.zeros(n, dtype=torch.int64, device=device)
+        self._stage = _host_buffer((n,), torch.int64, device)
+        self._staged = _event(device)
+        self._args = (self._inp[:R].view(1, R), self._inp[R:R + 1],
+                      self._inp[R + 1:R + 2], self._inp[R + 2:R + 3])
+        self._table = self._inp[R + 3:] if table_len else None
+        self.out: Optional[torch.Tensor] = None  # made by the first run
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.deltas: List[int] = []
+        self.pool_bytes = 0       # what the capture added to the pool
+        if graphed:
+            self._capture(pool)
+
+    def _upload(self, ids: np.ndarray, slot: int, pos0: int,
+                table: Optional[np.ndarray]):
+        """Stage one call's inputs (ids zero-padded to `rows`) and copy
+        them into the static buffer, stream-ordered after every program
+        enqueued so far; the previous upload's copy is waited for before
+        the staging buffer is refilled."""
+        if self._staged is not None:
+            self._staged.synchronize()
+        st, R = self._stage.numpy(), self.rows
+        st[:R] = 0
+        st[:ids.size] = ids
+        st[R:R + 3] = (slot, pos0, ids.size)
+        if self._table is not None:
+            st[R + 3:] = 0 if table is None else table
+        self._inp.copy_(self._stage, non_blocking=True)
+        if self._staged is not None:
+            self._staged.record()
+
+    def _step(self):
+        logits = self.body(*self._args, table=self._table)
+        if self.out is None:
+            self.out = torch.empty_like(logits)
+        self.out.copy_(logits)
+
+    def _capture(self, pool):
+        graph = torch.cuda.CUDAGraph()
+        dev = self._inp.device
+
+        def step():
+            # what the capture's allocations add to the pool (warm-up
+            # allocates outside it, and makes `out` there too)
+            r0 = torch.cuda.memory_reserved(dev)
+            self._step()
+            if torch.cuda.is_current_stream_capturing():
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - r0
+
+        try:
+            # every write parks: slot 0 from position T on
+            self._upload(np.zeros(1, np.int64), 0, self.cache_rows, None)
+            self.deltas = _warm_up_and_capture(graph, step, pool)
+        except Exception as err:  # noqa: BLE001 — named and re-raised
+            raise GraphCaptureError(
+                f"capturing the {self.rows}-row prefill into a CUDA graph "
+                f"failed: {type(err).__name__}: {err}") from err
+        self.graph = graph
+
+    def run(self, ids: np.ndarray, slot: int, pos0: int,
+            table: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Prefill `ids` (at most `rows` tokens) into `slot` from
+        position `pos0` (through the lane's block-table row `table` when
+        paged): a graph replay (or, ungraphed, the function on the
+        static buffers). Returns a copy of the last real token's fp32
+        logits: the next replay may overwrite the static buffer before
+        the caller samples from them."""
+        self._upload(ids, slot, pos0, table)
+        if self.graph is not None:
+            self.graph.replay()
+            count_replay(self.deltas)
+        else:
+            self._step()
+        return self.out.clone()

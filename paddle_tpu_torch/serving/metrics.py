@@ -15,7 +15,17 @@ import random
 import time
 from typing import Dict
 
-__all__ = ["OnlineStat", "ServingMetrics"]
+__all__ = ["OnlineStat", "ServingMetrics", "nearest_rank_p99"]
+
+
+def nearest_rank_p99(values) -> float:
+    """Nearest-rank p99 over a plain list: the formula
+    `OnlineStat.quantile` applies to its reservoir, and the one the
+    open-loop serving bench reports its tail quantiles with."""
+    if not values:
+        return 0.0
+    s = sorted(values)
+    return s[min(len(s) - 1, max(0, int(0.99 * len(s) + 0.5) - 1))]
 
 
 class OnlineStat:
@@ -79,7 +89,7 @@ class ServingMetrics:
     split `invalid` vs `overload`), cancelled, deadline-expired and
     failed requests, retries and recoveries, prompt and generated
     tokens, decode steps / dispatches / host syncs, CUDA graph
-    captures. Latency: TTFT (submit → first token on host), queue
+    captures (decode programs, and prefill programs apart). Latency: TTFT (submit → first token on host), queue
     wait (submit → prefill start), per-dispatch decode wall time.
     `tokens_per_sec` is generated tokens over the busy window (first
     submit → last activity); `decode_ms_per_token` is decode wall time
@@ -107,6 +117,14 @@ class ServingMetrics:
         # time
         self.graph_captures = 0
         self.graph_capture_s = 0.0
+        # prefill programs captured into CUDA graphs: one per prefill
+        # row count an engine on a card has used (0 on the CPU), booked
+        # apart from the decode programs above and from the prefill
+        # time; the pool is the bytes the captures added to the one
+        # graph memory pool the engine's prefill graphs share
+        self.prefill_graph_captures = 0
+        self.prefill_graph_capture_s = 0.0
+        self.prefill_graph_pool_bytes = 0
         self.prompt_tokens = 0
         self.generated_tokens = 0
         self.decode_steps = 0        # in-program steps, frozen lanes too
@@ -202,6 +220,11 @@ class ServingMetrics:
     def on_graph_capture(self, seconds: float):
         self.graph_captures += 1
         self.graph_capture_s += seconds
+
+    def on_prefill_graph_capture(self, seconds: float, pool_bytes: int):
+        self.prefill_graph_captures += 1
+        self.prefill_graph_capture_s += seconds
+        self.prefill_graph_pool_bytes += pool_bytes
 
     def on_admit(self, prompt_tokens: int, prefill_s: float,
                  queue_wait_s: float = 0.0):
@@ -320,6 +343,9 @@ class ServingMetrics:
             "recoveries": self.recoveries,
             "graph_captures": self.graph_captures,
             "graph_capture_s": self.graph_capture_s,
+            "prefill_graph_captures": self.prefill_graph_captures,
+            "prefill_graph_capture_s": self.prefill_graph_capture_s,
+            "prefill_graph_pool_bytes": self.prefill_graph_pool_bytes,
             "prompt_tokens": self.prompt_tokens,
             "generated_tokens": self.generated_tokens,
             "decode_steps": self.decode_steps,

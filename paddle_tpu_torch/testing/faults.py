@@ -17,7 +17,11 @@ Points fired by the port's `serving.LLMEngine`:
   decode block's graph is replayed (a failed launch);
 - ``host_sync``       -- `_process_block`, before the block's
   device-to-host token sync (where asynchronous launch errors surface);
-- ``prefill``         -- once per prefill piece during admission;
+- ``prefill``         -- once per prefill piece during admission,
+  before the piece's prefill program runs (on a card, its graph
+  replay);
+- ``prefix_copy``     -- `_copy_prefix`, before a slotted prefix-cache
+  hit's index copy from the prefix pool into the slot;
 - ``draft_dispatch``  -- `_dispatch_block` of a speculative engine,
   after ``decode_dispatch`` and before the draft-and-verify graph is
   replayed: firing here DEGRADES that block to the plain graph
@@ -26,10 +30,10 @@ Points fired by the port's `serving.LLMEngine`:
   lane and never consumes a retry.
 
 The other points (``checkpoint_io``, ``client_disconnect``,
-``http_write``, ``page_swap``, ``prefix_copy``, ``replica_*``,
-``tier_fetch``) belong to modules the port does not have yet
-(ROADMAP.md, Queue 1 items 7 and 11); they are registered so that a
-plan written for the JAX package is accepted here unchanged.
+``http_write``, ``page_swap``, ``replica_*``, ``tier_fetch``) belong to
+modules the port does not have yet (ROADMAP.md, Queue 1 items 11 and
+13); they are registered so that a plan written for the JAX package is
+accepted here unchanged.
 
 Triggers are deterministic so a failing run replays exactly:
 

@@ -21,10 +21,13 @@ share its calls. This script measures, at GPT-small widths in bf16:
    floor (every call at least 128 rows), and a fixed row grid of G = 64
    or 128 rows (every row-wise op and attention's two products on calls
    of exactly G rows, the last padded; implemented here, not in the
-   engine): per design, the requests whose K/V rows (every layer) or
-   first-token logits are not bitwise the monolithic ones;
+   engine, on the engine's signature): per design, the requests whose
+   K/V rows (every layer) or first-token logits are not bitwise the
+   monolithic ones;
 3. cost: per design, the median time of one prefill of 700 tokens (a
-   1024-row bucket), of one 64-token chunk and of one 16-token piece,
+   1024-row bucket), of one 64-token chunk and of one 16-token piece
+   (each a replay of the engine's prefill program of its row count,
+   captured by a first call before the timing),
    and phase 4's load (16 requests, prompts 16-700 tokens, 64 new
    tokens, prefix cache off) served, with its TTFT p50 / p99 and
    tokens/s.
@@ -105,8 +108,7 @@ def grid_prefill_forward(G):
     rows and attention on G queries at a time, the last call padded
     with zero rows."""
     from paddle_tpu_torch.models import gpt as M
-    from paddle_tpu_torch.quantization.kv import (dequant_slab, kv_update,
-                                                  map_slab, slab_shape)
+    from paddle_tpu_torch.quantization.kv import kv_update
     from paddle_tpu_torch.serving import engine as E
 
     def by_rows(fn, x):
@@ -117,12 +119,14 @@ def grid_prefill_forward(G):
 
     def forward(cfg, params, k_list, v_list, ids, slot, pos0, length,
                 table=None, page_size=0):
+        # the engine's signature: slot, pos0, length (1,) device values
+        # in the prefill program's static buffer, writes and the lane
+        # view through the engine's own `_prefill_rows`
         assert table is None, "the grid probe runs the slotted layout"
         L = ids.shape[1]
-        T = slab_shape(k_list[0])[1]
-        W = min(L, T - pos0)
         dev = ids.device
         q_pos = pos0 + torch.arange(L, device=dev)
+        T, rows, lane_view = E._prefill_rows(k_list[0], slot, q_pos)
         key_pos = torch.arange(T, device=dev)
         x = E._embed(params, ids.t(), q_pos[:, None])         # (L, 1, h)
         eps = cfg.layer_norm_eps
@@ -133,12 +137,10 @@ def grid_prefill_forward(G):
                                      eps)), x).reshape(
                 L, 1, 3, cfg.num_heads, cfg.head_dim)
             q, kn, vn = qkv[:, 0, 0], qkv[:, 0, 1], qkv[:, 0, 2]
-            kv_update(k_list[i], (slot, slice(pos0, pos0 + W)), kn[:W])
-            kv_update(v_list[i], (slot, slice(pos0, pos0 + W)), vn[:W])
-            kc = dequant_slab(map_slab(k_list[i],
-                                       lambda a: a[slot:slot + 1]), q.dtype)
-            vc = dequant_slab(map_slab(v_list[i],
-                                       lambda a: a[slot:slot + 1]), q.dtype)
+            kv_update(k_list[i], rows, kn)
+            kv_update(v_list[i], rows, vn)
+            kc, vc = lane_view(k_list[i], q.dtype), lane_view(v_list[i],
+                                                               q.dtype)
             outs = []
             for r0 in range(0, L, G):
                 qc = q[r0:r0 + G]
@@ -147,7 +149,7 @@ def grid_prefill_forward(G):
                     qc = torch.cat([qc, qc.new_zeros((G - n,)
                                                      + qc.shape[1:])])
                 keep = key_pos[None, :] <= (
-                    q_pos[r0] + torch.arange(G, device=dev))[:, None]
+                    q_pos[r0:r0 + 1] + torch.arange(G, device=dev))[:, None]
                 outs.append(M._masked_attend(qc[None], kc, vc,
                                              keep[None, None])[0, :n])
             a = torch.cat(outs).reshape(L, 1, -1)
@@ -158,14 +160,16 @@ def grid_prefill_forward(G):
                                         eps)), approximate="tanh")), x)
         x = by_rows(lambda t: M._ln(t, params["ln_f.weight"],
                                     params["ln_f.bias"], eps), x)
-        return M._head(params, x[length - 1:length])[0, 0].float()
+        return M._head(params, x.index_select(0, length - 1))[0, 0].float()
 
     return forward
 
 
 @contextlib.contextmanager
 def design(name):
-    """The engine with one prefill design in place."""
+    """The engine with one prefill design in place, for the engines made
+    inside the block (an engine builds each prefill program at its first
+    use, from the design in place then)."""
     from paddle_tpu_torch.serving import engine as E
     saved = (E.PREFILL_MIN_ROWS, E._prefill_forward)
     try:
@@ -244,9 +248,6 @@ def probe_cost(model):
     """{design: {what: ms, s or tokens/s}}."""
     import chip_smoke as C
     from paddle_tpu_torch.serving import engine as E
-    eng = E.LLMEngine(model, max_slots=8, max_seq=1024, seed=0,
-                      device="cuda", prefix_cache=False)
-    slot = eng.cache.allocate()
     rng = np.random.RandomState(0)
     toks = rng.randint(0, model.cfg.vocab_size, 700).astype(np.int32)
     prompts, params = C.serving_load(np, E.SamplingParams,
@@ -254,6 +255,12 @@ def probe_cost(model):
     out = {}
     for name in DESIGNS:
         with design(name):
+            eng = E.LLMEngine(model, max_slots=8, max_seq=1024, seed=0,
+                              device="cuda", prefix_cache=False)
+            slot = eng.cache.allocate()
+            # each program's first call builds (on the card: captures) it
+            for n in (700, 64, 16):
+                eng._prefill_tokens(slot, toks[:n], 0)
             row = {"prefill 700 tokens (1024-row bucket) ms": median_ms(
                 lambda: eng._prefill_tokens(slot, toks, 0)),
                 "prefill 64-token chunk ms": median_ms(

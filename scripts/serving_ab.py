@@ -14,10 +14,20 @@ profiles a window of 3 decode-only scheduler steps at 8 lanes
 through K7) twice and runs phase 4e (speculation off and on, trunc and
 int8 drafts), then serves phase 4g's shared-prefix load (16 requests:
 one 512-token system prompt and a 16-188-token tail each, 64 new
-tokens) monolithically without the prefix cache, (a), which both
-versions accept, and, where the checkout's engine accepts the knobs,
-(b) with the prefix cache and (c) with it and `prefill_budget=256,
-prefill_chunk=64`. It reports tokens/s, decode ms per step, TTFT p50 /
+tokens) monolithically without the prefix cache, (a), which every
+version accepts, and, where the checkout's engine accepts the knobs,
+(b) with the prefix cache, (c) with it and `prefill_budget=256,
+prefill_chunk=64`, (d) as (c), paged, and (e) as (d) with int8 KV.
+Every phase 4g run, and a second run of phase 4's load, is made on an
+engine WARMED before its window: a first `generate` of four prompts
+of 100, 200, 400 and 700 tokens (every prefill row count either
+admission mode uses, and the decode program) builds the engine's
+programs (on this port, captures its CUDA graphs), its prefix tree is
+cleared and its metrics replaced by fresh ones, so that no capture
+lands in the measured window; the warm-up's capture seconds are
+reported beside. Then, on a warmed engine without the prefix cache,
+the median time of one prefill call of 700, 64 and 16 tokens (7 each).
+It reports tokens/s, decode ms per step, TTFT p50 /
 p99 and the engine's graph capture seconds of phase 4; the K1 median
 and the K1 wrapper's host time per call; of the profiled window, per
 decode step dispatched in it, the CUDA kernels (all, and the decode
@@ -25,9 +35,11 @@ kernel's), the device's busy ms (the union of the kernels'
 intervals), the window's wall ms, and the busy share of the wall
 time; tokens/s and decode ms per step of phase 4d's load, and whether
 its two runs gave the same streams (`int8_repeat_equal`, not
-summarised); tokens/s of phase 4e off, trunc and int8; TTFT p50 /
-p99, tokens/s and prefill tokens computed of phase 4g's (a) (A/B),
-and of (b) and (c) for the versions that run them. The host time is
+summarised); tokens/s of phase 4e off, trunc and int8; of the warmed
+runs, phase 4's tokens/s, decode ms per step and TTFT p50 / p99, the
+three prefill calls' ms, and phase 4g's TTFT p50 / p99, tokens/s and
+prefill tokens computed of (a) (A/B), and of (b)-(e) for the versions
+that run them. The host time is
 taken with the stream held by a device sleep, so the calls only
 enqueue: 50 calls at phase 8's shapes, the
 median of 7 such rounds. The summary gives every turn, each version's
@@ -146,8 +158,50 @@ spec = cs.phase_speculative(torch, np, dec, k7, run)
 out["spec_off_tokens_per_s"] = spec["off_bf16"]["tokens_per_s"]
 out["spec_trunc_tokens_per_s"] = spec["trunc slotted"]["tokens_per_s"]
 out["spec_int8_tokens_per_s"] = spec["int8 slotted"]["tokens_per_s"]
+# the warmed runs: each engine serves four prompts first (row counts
+# 128, 256, 512 and 1024, the decode program), then its prefix tree is
+# cleared and its metrics replaced, so the window holds no capture
+from paddle_tpu_torch.serving.metrics import ServingMetrics
+wrng = np.random.RandomState(9)
+WARM = [wrng.randint(0, 50304, (n,)).astype(np.int32)
+        for n in (100, 200, 400, 700)]
+def warmed(knobs):
+    eng = LLMEngine(run["model"], **{**cs.SERVE_KW, **knobs})
+    eng.generate(WARM, SamplingParams(max_new_tokens=4))
+    torch.cuda.synchronize()
+    st = eng.stats()
+    cap = st["graph_capture_s"] + st.get("prefill_graph_capture_s", 0.0)
+    if getattr(eng, "prefix", None) is not None:
+        eng.prefix.clear()
+    eng.metrics = ServingMetrics(eng.max_slots)
+    return eng, cap
+eng, cap = warmed({})
+eng.generate(run["prompts"], run["params"])
+torch.cuda.synchronize()
+st = eng.stats()
+out.update({"w4_tokens_per_s": st["tokens_per_sec"],
+            "w4_decode_ms_per_token": st["decode_ms_per_token"],
+            "w4_ttft_p50_s": st["ttft_p50_s"],
+            "w4_ttft_p99_s": st["ttft_p99_s"], "w4_warm_capture_s": cap,
+            "w4_window_captures": st["graph_captures"]
+            + st.get("prefill_graph_captures", 0)})
+del eng
+# one prefill call of 700, 64 and 16 tokens (the row probe's cost rows)
+eng, _ = warmed(dict(prefix_cache=False))
+slot = eng.cache.allocate()
+toks = np.random.RandomState(0).randint(0, 50304, 700).astype(np.int32)
+for n in (700, 64, 16):
+    ts = []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._prefill_tokens(slot, toks[:n])
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    out[f"prefill_{n}_ms"] = statistics.median(ts[1:])
+del eng
 # phase 4g's shared-prefix load (as chip_smoke.shared_prefix_load
-# builds it): (a) without the prefix cache in both versions; (b) and (c)
+# builds it): (a) without the prefix cache in every version; (b)-(e)
 # where the engine takes their knobs
 rng = np.random.RandomState(4)
 system = rng.randint(0, 50304, (512,)).astype(np.int32)
@@ -156,12 +210,13 @@ rng.shuffle(tails)
 prompts = [np.concatenate([system, rng.randint(0, 50304, (int(n),))
                            .astype(np.int32)]) for n in tails]
 params = run["params"]
+inter = dict(prefix_cache=True, prefill_budget=256, prefill_chunk=64)
 for tag, knobs in (("a", dict(prefix_cache=False)),
-                   ("b", dict(prefix_cache=True)),
-                   ("c", dict(prefix_cache=True, prefill_budget=256,
-                              prefill_chunk=64))):
+                   ("b", dict(prefix_cache=True)), ("c", inter),
+                   ("d", dict(inter, kv_layout="paged")),
+                   ("e", dict(inter, kv_layout="paged", kv_dtype="int8"))):
     try:
-        eng = LLMEngine(run["model"], **{**cs.SERVE_KW, **knobs})
+        eng, cap = warmed(knobs)
     except NotImplementedError:
         continue
     eng.generate(prompts, params)
@@ -171,7 +226,10 @@ for tag, knobs in (("a", dict(prefix_cache=False)),
                       ("ttft_p99_s", "ttft_p99_s"),
                       ("tokens_per_sec", "tokens_per_s"),
                       ("prefill_tokens_computed", "prefill_tokens")):
-        out[f"g4_{tag}_{name}"] = st.get(key, 0)
+        out[f"g4w_{tag}_{name}"] = st.get(key, 0)
+    out[f"g4w_{tag}_warm_capture_s"] = cap
+    out[f"g4w_{tag}_window_captures"] = st["graph_captures"] \
+        + st.get("prefill_graph_captures", 0)
     del eng
 print("AB " + json.dumps(out))
 """
@@ -183,12 +241,19 @@ METRICS = ("tokens_per_s", "decode_ms_per_token", "ttft_p50_s",
            "profiled_ms_per_decode_step", "busy_share", "int8_tokens_per_s",
            "int8_decode_ms_per_token", "spec_off_tokens_per_s",
            "spec_trunc_tokens_per_s", "spec_int8_tokens_per_s",
-           "g4_a_ttft_p50_s", "g4_a_ttft_p99_s", "g4_a_tokens_per_s")
+           "w4_tokens_per_s", "w4_decode_ms_per_token", "w4_ttft_p50_s",
+           "w4_ttft_p99_s", "w4_warm_capture_s", "prefill_700_ms",
+           "prefill_64_ms", "prefill_16_ms", "g4w_a_ttft_p50_s",
+           "g4w_a_ttft_p99_s", "g4w_a_tokens_per_s")
 # phase 4g's runs that a version may not take (a parent without the
-# prefix cache or interleaving): summarised per version where present
-OPTIONAL = tuple(f"g4_{t}_{m}" for t in "bc"
+# prefix cache or interleaving), and the captures inside the warmed
+# windows: summarised per version where present
+OPTIONAL = tuple(f"g4w_{t}_{m}" for t in "bcde"
                  for m in ("ttft_p50_s", "ttft_p99_s", "tokens_per_s",
-                           "prefill_tokens")) + ("g4_a_prefill_tokens",)
+                           "prefill_tokens", "warm_capture_s",
+                           "window_captures")) + (
+    "g4w_a_prefill_tokens", "g4w_a_warm_capture_s", "g4w_a_window_captures",
+    "w4_window_captures")
 
 
 def run_turn(root: Path, timeout: int) -> dict:
