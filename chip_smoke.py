@@ -66,7 +66,15 @@ every phase passed):
    output and each gradient within 1e-5 * max|plain|, the logsumexp
    within 1e-5 * max|plain|; rows with no visible key have lse -1e30
    and dq 0; two backward runs bitwise equal; each call launches on
-   its route only.
+   its route only. fp16 (the wgmma_f16 route) at d 32, 64 and 128: the
+   training shape, gpt_tiny's packed shape, d 128, sq 200 / sk 1000,
+   causal sq 300 / sk 200 and d 32 s 1000, out within atol = rtol =
+   2e-3 and each gradient within 2e-3 * max|plain| (ten times bf16's
+   limits; the largest errors are logged); and K3 at the training shape
+   with g = min(|N(0, 1)|, 3.9) x 2^14 (a loss scale; g finite): dv
+   overflows fp16's 65504 on both sides, the finite entries agree within 2e-3 and the
+   non-finite pattern is the same except within one fp16 ulp of the
+   overflow edge.
 3b. the TF32 probe (`csrc/tf32_probe.cu`): a 64 x 64 x 32 wgmma tile
    product against an fp32 FFMA product and fp64, at the magnitudes of
    attention scores (normal operands) and probabilities ([0, 1) times
@@ -169,10 +177,32 @@ every phase passed):
    and 3 timed steps at bs 18 x 1024 (step ms, tokens/s). Each counts
    its launches on its route only (4 x 3 each way for gpt_tiny, 12 x 4
    for GPT-small).
+6c. GPT-small from seed 0, bs 18 x 1024, under O2 fp16 with a
+   GradScaler, AdamW(LinearWarmup(CosineAnnealingDecay(1e-4,
+   T_max=10), warmup 2 from 0)) with ClipGradByGlobalNorm(1.0): one
+   warm-up and 10 timed steps; losses finite and falling, K2/K3 12 x 11
+   launches on the wgmma_f16 route only; the loss scale and the
+   rejected steps, step ms, tokens/s and peak memory beside phase 6's.
+   First `amp.nonfinite` (found_inf) finds a NaN and an inf in fp32,
+   bf16 and fp16 tensors on the card.
+6d. O1 on GPT-small (fp32 parameters, bs 8 x 1024): 3 steps in bf16
+   and 3 in fp16 with a GradScaler; 12 x 3 launches each way on the
+   matching route only; losses finite.
+6e. dropout and remat on GPT-small at bs 8 x 1024, O2 bf16: one step's
+   loss and every gradient with dropout 0.1 bitwise equal with remat
+   on and off; then 3 steps in each of four runs: dropout 0.1 (dense
+   attention, 12 calls per forward, K2/K3 0) with remat off and on
+   (24 calls per step), dropout 0 with remat on (K2 24 and K3 12
+   launches per step) and off (12 and 12); peak memory of each.
+6f. each of the 10 optimizer rules (with its decay) takes 2 steps of
+   gpt_tiny fp32 on the card (tf32x3 route, TF32 off) and on the CPU:
+   ||move_card - move_cpu|| / ||move_cpu|| <= 2e-2 over all parameters,
+   losses within 1e-4.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
-   1024, bf16 O2 parameters) through the kernels against the same step
-   with the plain versions swapped in on the same CUDA tensors:
-   ||g_kernel - g_plain|| / ||g_plain|| <= 3e-2 for every parameter.
+   1024, bf16 O2 parameters, and again in fp16) through the kernels
+   against the same step with the plain versions swapped in on the
+   same CUDA tensors: ||g_kernel - g_plain|| / ||g_plain|| <= 3e-2 for
+   every parameter.
 8. numbers: K1's median time (one launch, merge included) at phase-4
    shapes and lengths beside its byte bound, the plain version's time and one
    `scaled_dot_product_attention` call over the full slab with the keep
@@ -196,7 +226,8 @@ every phase passed):
    port (bf16 `torch.matmul` with the fp weights, and `torch._int_mm`
    on rows padded to 32). The tf32x3 route's forward
    and backward at GPT-small's fp32 training shape (the split kernel's
-   share timed alone) and the wgmma route at phase 3's bf16 d 32 shape,
+   share timed alone), the wgmma route at phase 3's bf16 d 32 shape and
+   the wgmma_f16 route at the training shape (fp16 packed qkv), each
    beside their bounds (fp32: three TF32 products over 495 TFLOP/s, and
    the FFMA bound over 67 TFLOP/s), plain versions,
    `scaled_dot_product_attention` (TF32 off), and each kernel's
@@ -220,7 +251,12 @@ TF32_FLOPS = 495e12              # H100 SXM data sheet, TF32 dense tensor
 BF16_FLOPS = 989e12              # H100 SXM data sheet, bf16 dense tensor
 INT8_OPS = 1979e12               # H100 SXM data sheet, int8 dense tensor
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
-       "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+       "bfloat16": dict(atol=2e-2, rtol=2e-2),
+       # fp16 (the wgmma_f16 route): ten times tighter than bf16's, for
+       # three more mantissa bits (largest seen at the training shape:
+       # out 9.8e-4, gradients 6e-4 of their largest magnitude)
+       "float16": dict(atol=2e-3, rtol=2e-3)}
+FP16_MAX = 65504.0
 
 
 def card_line() -> str:
@@ -642,16 +678,30 @@ def flash_cases(torch):
     # forward's one running sum over every key tile
     yield "fp32 d 128 causal s 2048", 2, 2048, 2048, 8, 128, True, False, \
         f32
+    # fp16 (the wgmma_f16 route) at d 32, 64 and 128: the training shape,
+    # gpt_tiny's packed shape, the TMA edges and rows with no visible key
+    h16 = torch.float16
+    yield ("fp16 training shape", f["b"], f["s"], f["s"], f["h"], f["d"],
+           True, True, h16)
+    yield "fp16 d 32 gpt_tiny packed", 8, 256, 256, 4, 32, True, True, h16
+    yield "fp16 d 128", 4, 512, 512, 8, 128, True, False, h16
+    yield "fp16 sq 200, sk 1000", 2, 200, 1000, 12, 64, True, False, h16
+    yield "fp16 causal sq 300, sk 200", 2, 300, 200, 12, 64, True, False, \
+        h16
+    yield "fp16 d 32 s 1000", 4, 1000, 1000, 12, 32, False, False, h16
 
 
 LAYOUT_NOTE = {True: ", packed qkv", "odd": ", odd strides"}
 
 
-def flash_route_counters(fa):
-    """{route: (forward counter, backward counter)} of the flash
-    kernels."""
-    return {fa.WGMMA: (fa.WGMMA_FWD_LAUNCHES, fa.WGMMA_BWD_LAUNCHES),
-            fa.TF32X3: (fa.TF32X3_FWD_LAUNCHES, fa.TF32X3_BWD_LAUNCHES)}
+def reset_flash_counters(fa):
+    for c in (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES,
+              *(c for pair in fa.ROUTE_COUNTERS.values() for c in pair)):
+        c.reset()
+
+
+def no_launches(fa):
+    return {r: (0, 0) for r in fa.ROUTE_COUNTERS}
 
 
 def hold_flash(torch, fa, name, q, k, v, g, causal, scale, out, lse,
@@ -665,12 +715,12 @@ def hold_flash(torch, fa, name, q, k, v, g, causal, scale, out, lse,
     pout, plse = fa.flash_forward_plain(q, k, v, causal, scale)
     empty = fa.empty_rows(sq, sk, causal, q.device)
     fp32 = q.dtype == torch.float32
+    tname = str(q.dtype)[6:]
     if fp32:
         tol_o = 1e-5 * pout.abs().max().item()
         torch.testing.assert_close(out, pout, atol=tol_o, rtol=0)
     else:
-        torch.testing.assert_close(out.float(), pout.float(),
-                                   **TOL["bfloat16"])
+        torch.testing.assert_close(out.float(), pout.float(), **TOL[tname])
     live_lse, live_plse = lse[:, :, ~empty], plse[:, :, ~empty]
     tol_l = 1e-5 * live_plse.abs().max().item() if fp32 else 1e-3
     torch.testing.assert_close(live_lse, live_plse, atol=tol_l, rtol=0)
@@ -683,7 +733,7 @@ def hold_flash(torch, fa, name, q, k, v, g, causal, scale, out, lse,
     plain = fa.flash_backward_plain(q, k, v, out, lse, g, causal, scale)
     check(bool((grads[0][:, empty] == 0).all()), f"{name}: empty rows' dq")
     errs, rel = [], []
-    lim = 1e-5 if fp32 else 2e-2
+    lim = 1e-5 if fp32 else TOL[tname]["rtol"]
     for gname, got, want in zip(("dq", "dk", "dv"), grads, plain):
         check(bool(torch.isfinite(got).all()), f"{name}: {gname} "
                                                f"not finite")
@@ -711,15 +761,16 @@ def phase_flash_kernels(torch, fa):
     (which TMA reads in place as their own hi parts)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(3)
-    worst = {"fwd": 0.0, "bwd": 0.0, "tf32x3_fwd": 0.0, "tf32x3_bwd": 0.0}
+    worst = {"fwd": 0.0, "bwd": 0.0, "tf32x3_fwd": 0.0, "tf32x3_bwd": 0.0,
+             "fp16_fwd": 0.0, "fp16_bwd": 0.0, "fp16_grad_rel": 0.0}
+    prefix = {fa.WGMMA: "", fa.TF32X3: "tf32x3_", fa.WGMMA_F16: "fp16_"}
     for name, b, sq, sk, h, d, causal, packed, dtype in flash_cases(torch):
         q, k, v, g = flash_inputs(torch, gen, b, sq, sk, h, d, packed,
                                   dtype)
         scale = 1 / math.sqrt(d)
         route = fa._check_cuda_args(q, k, v, causal)
-        counters = flash_route_counters(fa)
-        for c in (*counters[fa.WGMMA], *counters[fa.TF32X3]):
-            c.reset()
+        counters = fa.ROUTE_COUNTERS
+        reset_flash_counters(fa)
         out, lse = fa._launch_fwd(q, k, v, causal, scale)
         dq, dk, dv = fa._launch_bwd(q, k, v, out, lse, g, causal, scale)
         torch.cuda.synchronize()
@@ -730,8 +781,10 @@ def phase_flash_kernels(torch, fa):
         held = hold_flash(torch, fa, name, q, k, v, g, causal, scale, out,
                           lse, (dq, dk, dv))
         err_o, rel, lim = held["out_err"], held["grad_rel"], held["limit"]
-        key = "bwd" if route == fa.WGMMA else "tf32x3_bwd"
+        key = prefix[route] + "bwd"
         worst[key] = max(worst[key], *held["grad_err"])
+        if route == fa.WGMMA_F16:
+            worst["fp16_grad_rel"] = max(worst["fp16_grad_rel"], *rel)
         again = fa._launch_bwd(q, k, v, out, lse, g, causal, scale)
         check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
               f"{name}: two backward runs differ")
@@ -744,7 +797,7 @@ def phase_flash_kernels(torch, fa):
                 torch.equal(x, y) for x, y in zip(grads, (dq, dk, dv))),
                 f"{name}: in-place hi and copied hi differ")
             del same, o2, l2, grads
-        key = "fwd" if route == fa.WGMMA else "tf32x3_fwd"
+        key = prefix[route] + "fwd"
         worst[key] = max(worst[key], err_o)
         n_empty = held["empty"]
         log(f"  {route} {name} (b {b}, sq {sq}, sk {sk}, h {h}, d {d}, "
@@ -758,7 +811,59 @@ def phase_flash_kernels(torch, fa):
             f"{'; equal to in-place hi' if packed == 'odd' else ''}")
         del q, k, v, g, out, lse, dq, dk, dv, again
         torch.cuda.empty_cache()
+    worst["fp16_overflow"] = hold_fp16_overflow(torch, fa)
     return worst
+
+
+def hold_fp16_overflow(torch, fa):
+    """fp16 gradients past 65504 under a loss scale: K3 and its plain
+    version at the training shape with g = min(|N(0, 1)|, 3.9) x 2^14
+    (finite, up to 63,898, of one sign as a gradient under a loss scale
+    often is): dv sums many queries' g and overflows to inf on both.
+    The finite entries agree within phase 3's fp16 limit, and the
+    non-finite pattern is the same except where the finite side lies
+    within one fp16 ulp of the overflow edge (fp32 sums in another order
+    can round either way there)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    f = FLASH_SHAPE
+    q, k, v, g = flash_inputs(torch, gen, f["b"], f["s"], f["s"], f["h"],
+                              f["d"], True, torch.float16)
+    g = (g.float().abs().clamp(max=3.9) * 2.0 ** 14).half()
+    check(bool(torch.isfinite(g).all()), "scaled g not finite")
+    scale = 1 / math.sqrt(f["d"])
+    out, lse = fa._launch_fwd(q, k, v, True, scale)
+    got = fa._launch_bwd(q, k, v, out, lse, g, True, scale)
+    want = fa.flash_backward_plain(q, k, v, out, lse, g, True, scale)
+    edge = FP16_MAX * (1 - 2 ** -11)
+    res = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        fa_, fb = torch.isfinite(a), torch.isfinite(b)
+        differ = fa_ != fb
+        at_edge = torch.where(fa_, a.float().abs(), b.float().abs()) >= edge
+        check(bool((differ <= at_edge).all()),
+              f"fp16 overflow: {name} non-finite pattern differs away from "
+              f"the edge ({int((differ & ~at_edge).sum())} entries)")
+        both = fa_ & fb
+        e = (a.float() - b.float())[both].abs().max().item()
+        ref = b.float()[both].abs().max().item()
+        check(e <= TOL["float16"]["rtol"] * ref,
+              f"fp16 overflow: {name} finite entries max err {e:.3e} > "
+              f"{TOL['float16']['rtol']:g} x {ref:.3e}")
+        res[name] = {"nonfinite": int((~fa_).sum()),
+                     "nonfinite_plain": int((~fb).sum()),
+                     "edge_differences": int(differ.sum()),
+                     "max_err_rel": e / ref}
+    log("  fp16 K3 with g = min(|N(0, 1)|, 3.9) x 2^14 (training shape): "
+        "non-finite entries "
+        "kernel/plain " + ", ".join(
+            f"{n} {r['nonfinite']}/{r['nonfinite_plain']}"
+            for n, r in res.items())
+        + "; finite entries' max err / max|plain| "
+        + "/".join(f"{r['max_err_rel']:.2e}" for r in res.values())
+        + f" (limit {TOL['float16']['rtol']:g})")
+    del q, k, v, g, out, lse, got, want
+    torch.cuda.empty_cache()
+    return res
 
 
 def tf32_bits(torch, m: int, sign: float = 1.0) -> float:
@@ -2063,9 +2168,7 @@ def phase_train(torch, np, P, profile: bool = False):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    for c in (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES, fa.WGMMA_FWD_LAUNCHES,
-              fa.WGMMA_BWD_LAUNCHES):
-        c.reset()
+    reset_flash_counters(fa)
     t0 = time.perf_counter()
     _, losses = trainer.train_steps(ids, ids, steps=TRAIN_STEPS)
     torch.cuda.synchronize()
@@ -2121,9 +2224,9 @@ def phase_train_fp32(torch, np, P):
     from paddle_tpu_torch.ops_cuda import flash_attention as fa
     from paddle_tpu_torch.optimizer import AdamW
     torch.backends.cuda.matmul.allow_tf32 = False
-    counters = flash_route_counters(fa)
+    counters = fa.ROUTE_COUNTERS
     ids = np.random.RandomState(2).randint(0, 1024, (8, 256))
-    none = {fa.WGMMA: (0, 0), fa.TF32X3: (0, 0)}
+    none = no_launches(fa)
     losses, counts = {}, {}
     for run, dev, amp in (("cpu", "cpu", None), ("cuda", "cuda", None),
                           ("O2", "cuda", "O2")):
@@ -2132,8 +2235,7 @@ def phase_train_fp32(torch, np, P):
         tr = Trainer(model, AdamW(learning_rate=1e-3),
                      lambda logits, y, m=model: m.loss(logits, y), **kw)
         t = torch.from_numpy(ids).to(dev)
-        for c in (*counters[fa.WGMMA], *counters[fa.TF32X3]):
-            c.reset()
+        reset_flash_counters(fa)
         _, ls = tr.train_steps(t, t, steps=TINY_STEPS)
         losses[run] = ls.cpu().tolist()
         counts[run] = route_counts(counters)
@@ -2172,8 +2274,7 @@ def phase_train_fp32(torch, np, P):
     warm, _ = tr.train_step(big, big)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in (*counters[fa.WGMMA], *counters[fa.TF32X3]):
-        c.reset()
+    reset_flash_counters(fa)
     t0 = time.perf_counter()
     _, ls = tr.train_steps(big, big, steps=FP32_SMALL_STEPS)
     torch.cuda.synchronize()
@@ -2202,6 +2303,280 @@ def phase_train_fp32(torch, np, P):
             "small_losses": small_losses, "small_step_ms": step_ms,
             "small_tokens_per_s": tok_s, "small_peak_bytes": peak,
             "fwd_launches": n, "bwd_launches": n}
+
+
+def timed_steps(torch, trainer, ids, steps: int):
+    """One warm-up step, then `steps` timed steps with the peak memory
+    reset between: (warm-up loss, losses, wall s, peak bytes)."""
+    warm, _ = trainer.train_step(ids, ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, losses = trainer.train_steps(ids, ids, steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return float(warm), losses.cpu().tolist(), wall, \
+        torch.cuda.max_memory_allocated()
+
+
+def gpt_small_ids(torch, np, cfg, bs: int, seq: int, seed: int = 0):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (bs, seq))).cuda()
+
+
+def phase_train_fp16(torch, np, P, bf16_run):
+    """(6c) GPT-small at full width from seed 0, bs 18 x 1024, under
+    O2 fp16 with a GradScaler, AdamW on LinearWarmup(CosineAnnealingDecay)
+    with ClipGradByGlobalNorm(1.0): 1 warm-up and 10 timed steps; losses
+    finite and falling, K2/K3 launched 12 x steps on the wgmma_f16 route
+    only; the scale and the rejected steps logged; step ms, tokens/s and
+    peak memory beside phase 6's bf16 run. First, `amp.nonfinite` (the
+    scaler's found_inf) on the card: a NaN and an inf in fp32, bf16 and
+    fp16 tensors are found, finite tensors are not."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    ts = [torch.ones(1000, device="cuda", dtype=dt)
+          for _ in range(2)
+          for dt in (torch.float32, torch.bfloat16, torch.float16)]
+    ts[1][17] = float("nan")
+    ts[3][999] = float("inf")
+    ts[5][0] = float("-inf")
+    found = amp.nonfinite(ts).tolist()
+    check(found == [False, True, False, True, False, True],
+          f"amp.nonfinite on the card: {found}")
+    model = P.models.gpt_small(seed=0, device="cuda")
+    cfg = model.cfg
+    bs, seq = FLASH_SHAPE["b"], FLASH_SHAPE["s"]
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=10),
+                            warmup_steps=2, start_lr=0.0, end_lr=1e-4)
+    trainer = Trainer(model, AdamW(learning_rate=sched,
+                                   grad_clip=ClipGradByGlobalNorm(1.0)),
+                      lambda logits, y: model.loss(logits, y),
+                      amp_level="O2", amp_dtype="float16",
+                      scaler=amp.GradScaler())
+    ids = gpt_small_ids(torch, np, cfg, bs, seq)
+    reset_flash_counters(fa)
+    warm, losses, wall, peak = timed_steps(torch, trainer, ids, TRAIN_STEPS)
+    counts = route_counts(fa.ROUTE_COUNTERS)
+    n = cfg.num_layers * (TRAIN_STEPS + 1)
+    check(counts == {**no_launches(fa), fa.WGMMA_F16: (n, n)},
+          f"fp16 launches by route {counts}, want wgmma_f16 {n} = "
+          f"{cfg.num_layers} layers x {TRAIN_STEPS + 1} steps")
+    losses = [warm] + losses
+    check(all(math.isfinite(x) for x in losses), f"fp16 losses {losses}")
+    check(losses[-1] < losses[1], f"fp16 loss did not fall: {losses}")
+    st = trainer.state
+    rejected = st.step - st.opt_state["step"]
+    scale = st.scaler_state["scale"].item()
+    step_ms = wall / TRAIN_STEPS * 1e3
+    tok_s = bs * seq * TRAIN_STEPS / wall
+    log(f"  amp.nonfinite on the card: NaN and inf found in fp32, bf16 and "
+        f"fp16 tensors")
+    log(f"  GPT-small O2 fp16 + GradScaler, AdamW(LinearWarmup(Cosine"
+        f"AnnealingDecay(1e-4, T_max=10), 2 steps from 0)), "
+        f"ClipGradByGlobalNorm(1.0), bs {bs} x {seq}: 1 warm-up, then "
+        f"{TRAIN_STEPS} steps at {step_ms:.2f} ms per step, {tok_s:.1f} "
+        f"tokens/s, peak {peak / 2**30:.2f} GiB (phase 6, bf16 AdamW(1e-4): "
+        f"{bf16_run['step_ms']:.2f} ms, {bf16_run['tokens_per_s']:.1f} "
+        f"tokens/s, {bf16_run['peak_bytes'] / 2**30:.2f} GiB) "
+        f"[card: {card_line()}]")
+    log(f"  losses {[round(x, 4) for x in losses]}; loss scale {scale:g}, "
+        f"{rejected} of {st.step} steps rejected (found_inf); wgmma_f16 "
+        f"launches {n}/{n}, other routes 0")
+    del trainer, model, ids
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "tokens_per_s": tok_s,
+            "peak_bytes": peak, "scale": scale, "rejected": rejected,
+            "fwd_launches": n, "bwd_launches": n}
+
+
+O1_STEPS = 3
+O1_SHAPE = (8, 1024)
+
+
+def phase_train_o1(torch, np, P):
+    """(6d) O1 on GPT-small: fp32 parameters, the forward under
+    `amp.auto_cast` (linear casts to the compute dtype), 3 steps at
+    bs 8 x 1024 in bf16 and in fp16 with a GradScaler; K2/K3 on the
+    matching route only, 12 x 3 launches each way; losses finite, the
+    parameters still fp32."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    out = {}
+    for tname, route in (("bfloat16", fa.WGMMA), ("float16", fa.WGMMA_F16)):
+        model = P.models.gpt_small(seed=0, device="cuda")
+        cfg = model.cfg
+        kw = dict(scaler=amp.GradScaler()) if tname == "float16" else {}
+        tr = Trainer(model, AdamW(learning_rate=1e-4),
+                     lambda logits, y, m=model: m.loss(logits, y),
+                     amp_level="O1", amp_dtype=tname, **kw)
+        ids = gpt_small_ids(torch, np, cfg, *O1_SHAPE, seed=1)
+        reset_flash_counters(fa)
+        _, losses = tr.train_steps(ids, ids, steps=O1_STEPS)
+        losses = losses.cpu().tolist()
+        n = cfg.num_layers * O1_STEPS
+        counts = route_counts(fa.ROUTE_COUNTERS)
+        check(counts == {**no_launches(fa), route: (n, n)},
+              f"O1 {tname}: launches by route {counts}, want {route} {n}")
+        check(all(math.isfinite(x) for x in losses),
+              f"O1 {tname} losses {losses}")
+        check(all(v.dtype == torch.float32 for v in tr.state.params.values()),
+              f"O1 {tname}: a parameter left fp32")
+        rejected = tr.state.step - tr.state.opt_state["step"]
+        log(f"  GPT-small O1 {tname}{' + GradScaler' if kw else ''}, fp32 "
+            f"parameters, bs {O1_SHAPE[0]} x {O1_SHAPE[1]}: losses "
+            f"{[round(x, 4) for x in losses]}, {rejected} rejected; "
+            f"{route} launches {n}/{n}, other routes 0")
+        out[tname] = {"losses": losses, "route": route, "launches": n,
+                      "rejected": rejected}
+        del tr, model, ids
+        torch.cuda.empty_cache()
+    return out
+
+
+DROPOUT_STEPS = 3
+DROPOUT_SHAPE = (8, 1024)
+
+
+def phase_dropout_remat(torch, np, P):
+    """(6e) GPT-small at bs 8 x 1024, O2 bf16, AdamW(1e-4), 3 steps each
+    in four runs: dropout 0.1 with remat off and on (attention through
+    `attention_dense`: DENSE_ATTENTION_CALLS 12 per forward, one forward
+    per step without remat and two with it; K2/K3 launched 0 times), and
+    dropout 0 with remat on and off (K2 24 and K3 12 launches per step
+    with remat, 12 and 12 without). Before that, one step's loss and
+    every gradient with dropout 0.1, remat off against on, from the same
+    state: bitwise equal (the recomputed forward draws the same masks).
+    Peak memory of each run logged."""
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def make(dropout, remat):
+        model = P.models.gpt_small(seed=0, device="cuda", dropout=dropout)
+        return Trainer(model, AdamW(learning_rate=1e-4),
+                       lambda logits, y, m=model: m.loss(logits, y),
+                       amp_level="O2", amp_dtype="bfloat16", remat=remat)
+
+    cfg = P.models.GPTConfig()
+    ids = gpt_small_ids(torch, np, cfg, *DROPOUT_SHAPE, seed=2)
+    grads = {}
+    for remat in (False, True):
+        tr = make(0.1, remat)
+        loss, _, g = tr._loss_and_grads(tr.init_state(), (ids, ids))
+        grads[remat] = (loss, g)
+        del tr
+        torch.cuda.empty_cache()
+    (l0, g0), (l1, g1) = grads[False], grads[True]
+    same = torch.equal(l0, l1) and set(g0) == set(g1) and all(
+        torch.equal(g0[k], g1[k]) for k in g0)
+    check(same, "dropout 0.1: remat on and off differ after one step")
+    n_grads = len(g0)
+    del grads, g0, g1
+    log(f"  dropout 0.1, one step from the same state: loss "
+        f"{l0.item():.6f} and all {n_grads} gradients bitwise equal, "
+        f"remat on vs off")
+    runs = {}
+    L = cfg.num_layers
+    for dropout, remat, fwd_per_step, bwd_per_step, dense_per_step in (
+            (0.1, False, 0, 0, L), (0.1, True, 0, 0, 2 * L),
+            (0.0, True, 2 * L, L, 0), (0.0, False, L, L, 0)):
+        tr = make(dropout, remat)
+        reset_flash_counters(fa)
+        fa.DENSE_ATTENTION_CALLS.reset()
+        torch.cuda.reset_peak_memory_stats()
+        _, losses = tr.train_steps(ids, ids, steps=DROPOUT_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        losses = losses.cpu().tolist()
+        got = (fa.FWD_LAUNCHES.count, fa.BWD_LAUNCHES.count,
+               fa.DENSE_ATTENTION_CALLS.count)
+        want = (fwd_per_step * DROPOUT_STEPS, bwd_per_step * DROPOUT_STEPS,
+                dense_per_step * DROPOUT_STEPS)
+        name = f"dropout {dropout}, remat {'on' if remat else 'off'}"
+        check(got == want, f"{name}: K2/K3/dense counts {got}, want {want}")
+        check(all(math.isfinite(x) for x in losses), f"{name}: {losses}")
+        log(f"  {name}, bs {DROPOUT_SHAPE[0]} x {DROPOUT_SHAPE[1]}: losses "
+            f"{[round(x, 4) for x in losses]}; K2 {got[0]}, K3 {got[1]}, "
+            f"dense attention {got[2]} calls; peak {peak / 2**30:.2f} GiB "
+            f"[card: {card_line()}]")
+        runs[name] = {"losses": losses, "k2": got[0], "k3": got[1],
+                      "dense": got[2], "peak_bytes": peak}
+        del tr
+        torch.cuda.empty_cache()
+    return {"bitwise_one_step": same, "runs": runs}
+
+
+RULE_STEPS = 2
+# each rule with its decay where it has one (L2, decoupled, Lamb's and
+# LARS's); the learning rates make each rule move gpt_tiny visibly
+RULE_KW = {
+    "SGD": dict(learning_rate=0.1, weight_decay=0.01),
+    "Momentum": dict(learning_rate=0.1, use_nesterov=True,
+                     weight_decay=0.01),
+    "Adam": dict(learning_rate=1e-3, weight_decay=0.01),
+    "AdamW": dict(learning_rate=1e-3, weight_decay=0.1),
+    "Adamax": dict(learning_rate=1e-3, weight_decay=0.01),
+    "Adagrad": dict(learning_rate=1e-2, weight_decay=0.01),
+    "Adadelta": dict(learning_rate=1.0, weight_decay=0.01),
+    "RMSProp": dict(learning_rate=1e-3, momentum=0.5, centered=True,
+                    weight_decay=0.01),
+    "Lamb": dict(learning_rate=1e-3, lamb_weight_decay=0.01),
+    "LarsMomentum": dict(learning_rate=0.5, lars_weight_decay=0.001),
+}
+RULE_TOL = 2e-2
+
+
+def phase_rules(torch, np, P):
+    """(6f) each of the 10 optimizer rules: 2 steps of gpt_tiny (fp32,
+    bs 4 x 64, the tf32x3 route with TF32 off) on the card and the same
+    2 steps on the CPU (plain attention). The parameters' move agrees:
+    ||move_card - move_cpu|| / ||move_cpu|| <= 2e-2 over all parameters
+    (the two sum in other orders; where a gradient entry is near 0, the
+    Adam-type rules' step is about lr either way, so the limit is on the
+    whole move, not per entry); losses within 1e-4 relative."""
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ids = np.random.RandomState(3).randint(0, 1024, (4, 64))
+    out = {}
+    for rule, kw in RULE_KW.items():
+        moves, losses = {}, {}
+        for dev in ("cpu", "cuda"):
+            model = P.models.gpt_tiny(seed=0, device=dev)
+            p0 = {k: v.detach().float().cpu().clone()
+                  for k, v in model.named_parameters()}
+            tr = Trainer(model, getattr(popt, rule)(**kw),
+                         lambda logits, y, m=model: m.loss(logits, y))
+            t = torch.from_numpy(ids).to(dev)
+            reset_flash_counters(fa)
+            _, ls = tr.train_steps(t, t, steps=RULE_STEPS)
+            losses[dev] = ls.cpu().tolist()
+            moves[dev] = torch.cat([(tr.state.params[k].detach().float()
+                                     .cpu() - p0[k]).flatten() for k in p0])
+            if dev == "cuda":
+                n = 4 * RULE_STEPS
+                counts = route_counts(fa.ROUTE_COUNTERS)
+                check(counts == {**no_launches(fa), fa.TF32X3: (n, n)},
+                      f"{rule}: launches {counts}")
+        rel = ((moves["cuda"] - moves["cpu"]).norm()
+               / moves["cpu"].norm()).item()
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                       losses["cpu"]))
+        check(math.isfinite(rel) and rel <= RULE_TOL and lrel <= 1e-4,
+              f"{rule}: card vs CPU move {rel:.3e} (limit {RULE_TOL:g}), "
+              f"losses {lrel:.3e}")
+        out[rule] = {"move_rel": rel, "loss_rel": lrel,
+                     "move_norm": moves["cpu"].norm().item()}
+    log("  gpt_tiny fp32, 2 steps, card vs CPU, ||move diff|| / ||move|| "
+        f"(limit {RULE_TOL:g}): " + ", ".join(
+            f"{r} {v['move_rel']:.1e}" for r, v in out.items()))
+    return out
 
 
 class _PlainFlash:
@@ -2235,27 +2610,40 @@ class _PlainFlash:
         self.fa.FlashAttentionFunction = self.saved
 
 
-def phase_grad_check(torch, np, P):
+def phase_grad_check(torch, np, P, tname: str = "bfloat16"):
+    """One step's gradients of a 2-layer full-width GPT-small (bs 8 x
+    1024, O2-style `tname` parameters, norms fp32) through the kernels of
+    `tname`'s route against the same step with the plain versions
+    swapped in on the same CUDA tensors. fp16 scales the loss by 2^15,
+    GradScaler's default, as fp16 training does: unscaled, most of its
+    gradients lie below fp16's normal range (6.1e-5) and round to a
+    few bits on both sides."""
     from paddle_tpu_torch.ops_cuda import flash_attention as fa
     model = P.models.GPT(P.models.GPTConfig(hidden_size=768, num_layers=2,
                                             num_heads=12),
                          seed=0, device="cuda")
     norm = {k for k in dict(model.named_parameters())
             if ".ln" in k or k.startswith("ln_")}
-    params = {k: (p.detach() if k in norm else p.detach().bfloat16())
+    dtype = getattr(torch, tname)
+    params = {k: (p.detach() if k in norm else p.detach().to(dtype))
               .requires_grad_() for k, p in model.named_parameters()}
     ids = torch.from_numpy(np.random.RandomState(1).randint(
         0, model.cfg.vocab_size, (8, 1024))).cuda()
 
+    loss_scale = 2.0 ** 15 if tname == "float16" else 1.0
+
     def grads():
         logits = torch.func.functional_call(model, params, (ids,))
-        loss = model.loss(logits, ids)
+        loss = model.loss(logits, ids) * loss_scale
         return dict(zip(params, torch.autograd.grad(loss,
                                                     list(params.values()))))
 
-    fa.BWD_LAUNCHES.reset()
+    reset_flash_counters(fa)
     g_kernel = grads()
-    check(fa.BWD_LAUNCHES.count == 2, "kernel path did not launch K3")
+    route = fa._ROUTE_OF_DTYPE[dtype]
+    check(fa.BWD_LAUNCHES.count == 2
+          and fa.ROUTE_COUNTERS[route][1].count == 2,
+          f"kernel path did not launch K3 on the {route} route")
     with _PlainFlash(torch, fa):
         g_plain = grads()
     check(fa.BWD_LAUNCHES.count == 2, "plain path launched K3")
@@ -2267,9 +2655,10 @@ def phase_grad_check(torch, np, P):
                            f"{rel:.3e} > 3e-2")
         if rel > worst:
             worst, worst_name = rel, k
-    log(f"  2-layer full-width GPT-small, bs 8 x 1024, bf16: {len(params)} "
-        f"parameter gradients, kernel vs plain attention; worst relative "
-        f"error {worst:.3e} ({worst_name}), limit 3e-2")
+    log(f"  2-layer full-width GPT-small, bs 8 x 1024, {tname} ({route}"
+        f"{', loss x 2^15' if loss_scale != 1 else ''}): "
+        f"{len(params)} parameter gradients, kernel vs plain attention; "
+        f"worst relative error {worst:.3e} ({worst_name}), limit 3e-2")
     del model, params, g_kernel, g_plain
     torch.cuda.empty_cache()
     return {"worst_rel": worst, "worst_param": worst_name}
@@ -2612,7 +3001,8 @@ def phase_flash_numbers(torch, fa, card: str, built):
     log("    K3 parts, each kernel alone: " + ", ".join(
         f"{name} {ms:.4f} ms" for name, ms in parts.items()))
     info = {f"{tname} d {dd}": fa.kernel_info(dd, getattr(torch, tname))
-            for tname in ("bfloat16", "float32") for dd in (32, 64, 128)}
+            for tname in ("bfloat16", "float16", "float32")
+            for dd in (32, 64, 128)}
     for dd, kernels in info.items():
         log(f"    {dd}: " + "; ".join(
             f"{name} {regs} registers, {local} local (spill) bytes, "
@@ -2640,7 +3030,9 @@ def phase_flash_numbers(torch, fa, card: str, built):
 # shape (phase 6b) and the wgmma route at phase 3's bf16 head dim 32 case
 ROUTE_TIMING = (("fp32 d 64, GPT-small training shape", FLASH_SHAPE["b"],
                  FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float32"),
-                ("bf16 d 32", 4, 512, 24, 32, "bfloat16"))
+                ("bf16 d 32", 4, 512, 24, 32, "bfloat16"),
+                ("fp16 d 64, GPT-small training shape", FLASH_SHAPE["b"],
+                 FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float16"))
 
 
 def phase_flash_route_numbers(torch, fa, card: str):
@@ -2649,7 +3041,8 @@ def phase_flash_route_numbers(torch, fa, card: str):
     backward medians after an L2 flush (fp32: the split kernel's share
     timed alone too) beside their bounds (fp32: three TF32 products per
     product over 495 TFLOP/s, and the FFMA bound over 67 TFLOP/s; bf16
-    over the tensor cores' peak), the plain versions and
+    and fp16 over the tensor cores' peak, 989 TFLOP/s for either), the
+    plain versions and
     `scaled_dot_product_attention` (a yardstick only, with TF32 off)."""
     F = torch.nn.functional
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2662,8 +3055,7 @@ def phase_flash_route_numbers(torch, fa, card: str):
         q, k, v, g = flash_inputs(torch, gen, b, s_, s_, h, d, True, dtype)
         scale = 1 / math.sqrt(d)
         route = fa._check_cuda_args(q, k, v, True)
-        check(route == (fa.TF32X3 if fp32 else fa.WGMMA),
-              f"{name}: route {route}")
+        check(route == fa._ROUTE_OF_DTYPE[dtype], f"{name}: route {route}")
         o, lse = fa._launch_fwd(q, k, v, True, scale)
         held = hold_flash(torch, fa, name, q, k, v, g, True, scale, o, lse,
                           fa._launch_bwd(q, k, v, o, lse, g, True, scale))
@@ -2819,8 +3211,18 @@ def main(argv=None) -> int:
         "route (gpt_tiny against the CPU, GPT-small timed), gpt_tiny O2 "
         "through the wgmma route")
     train32 = phase_train_fp32(torch, np, P)
+    log("phase 6c: GPT-small O2 fp16 with a GradScaler, a scheduled and "
+        "clipped AdamW, through the wgmma_f16 route")
+    train16 = phase_train_fp16(torch, np, P, train)
+    log("phase 6d: O1 on GPT-small, bf16 and fp16 with a GradScaler")
+    train_o1 = phase_train_o1(torch, np, P)
+    log("phase 6e: dropout (dense attention) and remat on GPT-small")
+    dropout = phase_dropout_remat(torch, np, P)
+    log("phase 6f: the 10 optimizer rules, gpt_tiny on the card vs the CPU")
+    rules = phase_rules(torch, np, P)
     log("phase 7: gradients through the kernels vs the plain versions")
-    grad = phase_grad_check(torch, np, P)
+    grad = {tname: phase_grad_check(torch, np, P, tname)
+            for tname in ("bfloat16", "float16")}
     log("phase 8: numbers")
     nums = phase_numbers(torch, dec, engine_run, card)
     pqnums = phase_paged_quant_numbers(torch, np, dec, card)
@@ -2840,6 +3242,10 @@ def main(argv=None) -> int:
         f"step, {train['tokens_per_s']:.1f} tokens/s, peak memory "
         f"{train['peak_bytes'] / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
+    log(f"  training, phase 6c (O2 fp16, GradScaler) [card: {card}]: "
+        f"{train16['step_ms']:.2f} ms per step, "
+        f"{train16['tokens_per_s']:.1f} tokens/s, peak memory "
+        f"{train16['peak_bytes'] / 2**30:.2f} GiB")
 
     flash = "paddle_tpu/ops_pallas/flash_attention.py"
     kernels = [{
@@ -2858,6 +3264,20 @@ def main(argv=None) -> int:
         "source": "paddle_tpu_torch/ops_cuda/csrc/flash_attention_bwd.cu",
         "replaces": f"{flash}:205", "launches": train["bwd_launches"],
         "max_abs_err": flash_err["bwd"], **fnums.pop("bwd")}]
+    # the wgmma_f16 route: the same sources, fp16 at the training shape
+    # (phase 6c's launches)
+    f16_main = rnums[ROUTE_TIMING[2][0]]
+    for part, line, key in (("fwd", 90, "forward"), ("bwd", 205,
+                                                     "backward")):
+        kernels.append({
+            "name": f"flash_attention_fp16_{part}", "route": "cuda",
+            "source": f"paddle_tpu_torch/ops_cuda/csrc/flash_attention_"
+                      f"{part}.cu",
+            "replaces": f"{flash}:{line}",
+            "launches": train16[f"{part}_launches"],
+            "max_abs_err": flash_err[f"fp16_{part}"],
+            **{k: f16_main[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}})
     # the tf32x3 route: the same sources, fp32 at GPT-small's training
     # shape (phase 6b's launches); bound: three TF32 products per product
     tf32_main = rnums[ROUTE_TIMING[0][0]]
@@ -2920,7 +3340,9 @@ def main(argv=None) -> int:
                        "admission": admission, "openloop": openloop,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
-                       "train_fp32": train32,
+                       "train_fp32": train32, "train_fp16": train16,
+                       "train_o1": train_o1, "dropout_remat": dropout,
+                       "optimizer_rules": rules,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

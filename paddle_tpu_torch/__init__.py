@@ -9,17 +9,21 @@ TPU kernel on a ported path is a hand-written Hopper kernel under
 Ported paths: GPT served by `LLMEngine` from a slotted or paged, fp or
 int8 KV cache (kernels K1, K4, K5, K6), with int8-PTQ weights and
 speculative decoding (kernel K7, the fused int8 GEMV), and GPT trained
-by `Trainer` with `AdamW` (kernels K2 and K3).
+by `Trainer` (kernels K2 and K3, in bf16, fp16 and fp32) with every
+optimizer rule, LR scheduler and gradient clip of the JAX package, AMP
+O1 and O2, a GradScaler, dropout, remat and the `check_nan_inf` flag.
 """
-from . import (framework, models, nn, ops_cuda, optimizer, quantization,
-               serving)
-from .core import default_device, resolve_device, resolve_dtype
+from . import (amp, framework, models, nn, ops_cuda, optimizer,
+               quantization, serving)
+from .core import (default_device, get_flags, resolve_device,
+                   resolve_dtype, set_flags)
 from .framework import Trainer
 from .models import GPT, GPTConfig, gpt_small, gpt_tiny
 from .serving import LLMEngine, SamplingParams
 
-__all__ = ["framework", "models", "nn", "ops_cuda", "optimizer",
+__all__ = ["amp", "framework", "models", "nn", "ops_cuda", "optimizer",
            "quantization", "serving",
-           "default_device", "resolve_device", "resolve_dtype", "GPT",
+           "default_device", "resolve_device", "resolve_dtype",
+           "set_flags", "get_flags", "GPT",
            "GPTConfig", "gpt_small", "gpt_tiny", "LLMEngine",
            "SamplingParams", "Trainer"]

@@ -1,20 +1,54 @@
 """Core runtime helpers of the PyTorch/CUDA package: device resolution,
-dtype names and seeded generators.
+dtype names, seeded generators and the flags.
 
 The counterpart of `paddle_tpu/core.py`, reduced to what the port's
 entry points need. Device policy: every entry point takes an explicit
 `device`, defaulting to "cuda". Asking for "cuda" on a machine without
 a card raises — the port never drops quietly to the CPU; the CPU runs
 only when the caller names it (the tests do).
+
+Flags: `set_flags` / `get_flags` over the JAX package's flag table,
+reduced to the one flag the port reads, `check_nan_inf` (the Trainer's
+numerics check), with the same `FLAGS_<name>` environment bridge.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
 
 __all__ = ["default_device", "resolve_device", "resolve_dtype",
-           "make_generator", "cast_floating"]
+           "make_generator", "cast_floating", "set_flags", "get_flags",
+           "foreach_groups", "fp32_norms", "mul_fp32"]
+
+_FLAG_DEFAULTS = {
+    "check_nan_inf": False,
+}
+_flags = dict(_FLAG_DEFAULTS)
+for _k, _d in _FLAG_DEFAULTS.items():
+    _env = os.environ.get("FLAGS_" + _k)
+    if _env is not None:
+        _flags[_k] = _env.lower() in ("1", "true", "yes") \
+            if isinstance(_d, bool) else _env
+
+
+def set_flags(flags: dict) -> None:
+    """Set flags by name; an unknown name raises `KeyError`."""
+    for k in flags:
+        if k not in _flags:
+            raise KeyError(f"unknown flag {k!r}; known: {sorted(_flags)}")
+    _flags.update(flags)
+
+
+def get_flags(keys=None) -> dict:
+    """{name: value} of `keys` (a name or a list of names; all flags for
+    None)."""
+    if keys is None:
+        return dict(_flags)
+    if isinstance(keys, str):
+        keys = [keys]
+    return {k: _flags[k] for k in keys}
 
 _DTYPES = {
     "float32": torch.float32, "fp32": torch.float32,
@@ -78,3 +112,44 @@ def cast_floating(tree, dtype):
     if isinstance(tree, (list, tuple)):
         return type(tree)(cast_floating(v, dtype) for v in tree)
     return tree
+
+
+def foreach_groups(ts):
+    """Indices of `ts` grouped by (device, dtype), so every
+    `torch._foreach_*` call takes its fast path."""
+    out: dict = {}
+    for i, t in enumerate(ts):
+        out.setdefault((t.device, t.dtype), []).append(i)
+    return out.values()
+
+
+def fp32_norms(ts, ord: float = 2):
+    """The `ord` norm of each tensor, reduced in fp32 (0-d fp32
+    tensors), one `torch._foreach_norm` per (device, dtype) group."""
+    ts = list(ts)
+    out = [None] * len(ts)
+    for idx in foreach_groups(ts):
+        for i, n in zip(idx, torch._foreach_norm([ts[i] for i in idx], ord,
+                                                 dtype=torch.float32)):
+            out[i] = n
+    return out
+
+
+def mul_fp32(tensors, scale: torch.Tensor):
+    """Each tensor times the 0-d fp32 `scale`, the product taken in fp32
+    and rounded once to the tensor's dtype (`(g.astype(f32) * s).
+    astype(g.dtype)` in the JAX package). fp32 tensors in one
+    `torch._foreach_mul` per device; the others one at a time."""
+    tensors = list(tensors)
+    out = [None] * len(tensors)
+    f32: dict = {}
+    for i, t in enumerate(tensors):
+        if t.dtype == torch.float32:
+            f32.setdefault(t.device, []).append(i)
+        else:
+            out[i] = (t.float() * scale.to(t.device)).to(t.dtype)
+    for dev, idx in f32.items():
+        for i, r in zip(idx, torch._foreach_mul([tensors[i] for i in idx],
+                                                scale.to(dev))):
+            out[i] = r
+    return out

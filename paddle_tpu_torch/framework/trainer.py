@@ -9,25 +9,46 @@ layout (`TrainState`: params, buffers, opt_state, scaler_state, rng_key,
 step), so a JAX state can be resumed here (`models.weights.
 from_jax_train_state` + `Trainer.load_state`).
 
-AMP O2 is the JAX policy: every floating parameter except the norm
-layers' is cast to `amp_dtype` and gets an fp32 master in the
-optimizer; norm parameters stay fp32 with no master and are cast to the
-activation dtype inside `nn.functional.layer_norm`.
+AMP is the JAX policy. O2: every floating parameter except the norm
+layers' (with `keep_bn_fp32`, the default) is cast to `amp_dtype` and
+gets an fp32 master in the optimizer; norm parameters stay fp32 with no
+master and are cast to the activation dtype inside
+`nn.functional.layer_norm`. O1: the parameters stay fp32 and the
+forward runs under `amp.auto_cast`, where `nn.functional.linear` casts
+its operands to `amp_dtype`.
 
-Not ported yet (each raises `NotImplementedError`, ROADMAP Queue 1 after
-item 6): `mesh`, `remat`, `scaler` (GradScaler), `amp_level="O1"` and
-`check_nan_inf`. `loop_unroll` is an XLA scheduling hint with no eager
-meaning: only 1 is accepted. There is no `donate`: the step always
-updates the state's tensors in place.
+A `scaler` (`amp.GradScaler`) scales the loss before the gradients,
+unscales them, divides the reported loss by the scale and updates its
+state; a step whose unscaled gradients hold a NaN or an inf is
+rejected: parameters, slots, masters and the optimizer's step stay as
+they were (JAX restores them with `where`; the update here is in place,
+so a rejected step never runs it). Deciding that reads `found_inf` on
+the host: one host sync per step with a scaler. The flag
+`check_nan_inf` (`core.set_flags`) checks the loss and every gradient
+after the backward and raises `FloatingPointError` naming the first 8
+offenders, also one host sync per step; under a scaler it checks the
+unscaled gradients and keeps quiet on a step the scaler rejects.
+
+`remat=True` checkpoints the loss function
+(`torch.utils.checkpoint`, `use_reentrant=False`), as
+`jax.checkpoint(loss_for_grad)` does. Dropout draws from a key (`nn.rng`)
+of (rng_seed, step), and the microbatch under `grad_accum`; the key is
+installed inside the checkpointed function, so the recomputed forward
+draws the same masks. `loop_unroll` is an XLA scan hint: any value >= 1
+is accepted and changes nothing. There is no `donate`: the step always
+updates the state's tensors in place. `mesh` raises (sharded training,
+ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch import nn
 
-from .. import core
+from .. import amp, core
+from ..nn import rng
 from ..nn.layers import LayerNorm
 
 __all__ = ["TrainState", "Trainer"]
@@ -35,14 +56,10 @@ __all__ = ["TrainState", "Trainer"]
 _NORM_TYPES = (LayerNorm,)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"Trainer {what} is not ported yet (ROADMAP Queue 1, after item 6)")
-
-
 class TrainState:
     """Everything a step mutates: {name: tensor} params and buffers, the
-    optimizer state, the (empty) scaler state, the seed and the step."""
+    optimizer state, the scaler state ({} without a scaler), the seed
+    and the step."""
 
     def __init__(self, params, buffers, opt_state, scaler_state, rng_key,
                  step):
@@ -77,21 +94,18 @@ class Trainer:
     def __init__(self, model: nn.Module, optimizer, loss_fn: Callable,
                  num_inputs: int = 1, amp_level: Optional[str] = None,
                  amp_dtype="bfloat16", scaler=None, mesh=None,
-                 remat: bool = False, loop_unroll: int = 1,
-                 grad_accum: int = 1, check_nan_inf: bool = False):
+                 donate: bool = True, remat: bool = False,
+                 keep_bn_fp32: bool = True, loop_unroll: int = 1,
+                 grad_accum: int = 1):
         if mesh is not None:
-            raise _not_ported("mesh (sharded training)")
-        if remat:
-            raise _not_ported("remat (activation checkpointing)")
-        if scaler is not None:
-            raise _not_ported("scaler (GradScaler)")
-        if amp_level not in (None, "O2"):
-            raise _not_ported(f"amp_level={amp_level!r}")
-        if check_nan_inf:
-            raise _not_ported("check_nan_inf")
-        if loop_unroll != 1:
-            raise ValueError(f"loop_unroll={loop_unroll}: an XLA scan hint "
-                             f"with no eager meaning; only 1 is accepted")
+            raise NotImplementedError(
+                "Trainer mesh (sharded training) is not ported yet (ROADMAP "
+                "Queue 1, item 13)")
+        if amp_level not in (None, "O1", "O2"):
+            raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
+                             f"{amp_level!r}")
+        if int(loop_unroll) < 1:
+            raise ValueError(f"loop_unroll must be >= 1, got {loop_unroll}")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.model = model
@@ -100,6 +114,10 @@ class Trainer:
         self.num_inputs = num_inputs
         self.amp_level = amp_level
         self.amp_dtype = core.resolve_dtype(amp_dtype)
+        self.scaler = scaler
+        self.remat = remat
+        self.keep_bn_fp32 = keep_bn_fp32
+        self.loop_unroll = int(loop_unroll)
         self.grad_accum = grad_accum
         self.state: Optional[TrainState] = None
 
@@ -114,7 +132,7 @@ class Trainer:
                   if p.requires_grad}
         if self.amp_level == "O2":
             self.optimizer.multi_precision = True
-            keep = self._norm_param_names()
+            keep = self._norm_param_names() if self.keep_bn_fp32 else set()
             params = {k: (v if k in keep
                           else core.cast_floating(v, self.amp_dtype))
                       for k, v in params.items()}
@@ -123,7 +141,8 @@ class Trainer:
         buffers = {k: b.detach().clone()
                    for k, b in self.model.named_buffers()}
         opt_state = self.optimizer.init(params)
-        self.state = TrainState(params, buffers, opt_state, {},
+        scaler_state = self.scaler.init(self.device) if self.scaler else {}
+        self.state = TrainState(params, buffers, opt_state, scaler_state,
                                 int(rng_seed), 0)
         return self.state
 
@@ -144,10 +163,12 @@ class Trainer:
             self.optimizer.multi_precision = True
         params = {k: v.detach().to(dev).requires_grad_(v.is_floating_point())
                   for k, v in state.params.items()}
+        scaler_state = to_dev(state.scaler_state)
+        if self.scaler and not scaler_state:
+            scaler_state = self.scaler.init(dev)
         self.state = TrainState(params, to_dev(state.buffers),
-                                to_dev(state.opt_state),
-                                to_dev(state.scaler_state), state.rng_key,
-                                int(state.step))
+                                to_dev(state.opt_state), scaler_state,
+                                state.rng_key, int(state.step))
         return self.state
 
     def _norm_param_names(self):
@@ -159,32 +180,48 @@ class Trainer:
         return names
 
     # --- the step ------------------------------------------------------------
-    def _forward(self, params, buffers, batch, training: bool):
+    def _forward(self, params, buffers, batch, training: bool, key=()):
+        """(loss, out) of one forward; dropout draws from `key`."""
         inputs = batch[: self.num_inputs]
         labels = batch[self.num_inputs:]
         if self.amp_level == "O2":
             inputs = core.cast_floating(inputs, self.amp_dtype)
         self.model.train(training)
-        out = torch.func.functional_call(self.model, {**params, **buffers},
-                                         tuple(inputs))
+        cast = amp.auto_cast(True, dtype=self.amp_dtype) \
+            if self.amp_level == "O1" else contextlib.nullcontext()
+        with cast, rng.rng_context(*key):
+            out = torch.func.functional_call(
+                self.model, {**params, **buffers}, tuple(inputs))
         loss = self.loss_fn(out, *labels)
         return loss, out
 
     def _loss_and_grads(self, st: TrainState, batch):
         """(loss, out, grads): whole batch, or the mean over
-        `grad_accum` microbatches (out is None then, as in JAX)."""
+        `grad_accum` microbatches (out is None then, as in JAX). With a
+        scaler the loss and gradients are the scaled ones."""
         names = [k for k, v in st.params.items() if v.requires_grad]
         leaves = [st.params[k] for k in names]
 
-        def grad_of(b):
-            loss, out = self._forward(st.params, st.buffers, b,
-                                      training=True)
+        def grad_of(b, key):
+            def loss_for_grad():
+                loss, out = self._forward(st.params, st.buffers, b,
+                                          training=True, key=key)
+                if self.scaler:
+                    loss = self.scaler.scale_loss(loss, st.scaler_state)
+                return loss, out
+
+            if self.remat:
+                loss, out = torch.utils.checkpoint.checkpoint(
+                    loss_for_grad, use_reentrant=False)
+            else:
+                loss, out = loss_for_grad()
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             return loss.detach(), out, {
                 k: g for k, g in zip(names, grads) if g is not None}
 
+        key = (st.rng_key, st.step)
         if self.grad_accum == 1:
-            loss, out, grads = grad_of(batch)
+            loss, out, grads = grad_of(batch, key)
             return loss, out.detach(), grads
 
         k = self.grad_accum
@@ -195,7 +232,8 @@ class Trainer:
         micro = [b.chunk(k, dim=0) for b in batch]
         gsum, lsum = None, None
         for i in range(k):
-            loss, _, grads = grad_of(tuple(m[i] for m in micro))
+            # fresh dropout masks per microbatch, as JAX's fold_in(rng, i)
+            loss, _, grads = grad_of(tuple(m[i] for m in micro), key + (i,))
             if gsum is None:
                 gsum, lsum = grads, loss.float()
             else:
@@ -207,13 +245,45 @@ class Trainer:
         return lsum * inv_k, None, grads
 
     def _step_body(self, st: TrainState, batch):
-        """One optimizer step: forward, backward and the update."""
+        """One optimizer step: forward, backward, (scaler,) the update."""
         loss, out, grads = self._loss_and_grads(st, batch)
-        params, opt_state = self.optimizer.update(grads, st.opt_state,
-                                                  st.params)
-        new_state = TrainState(params, st.buffers, opt_state,
-                               st.scaler_state, st.rng_key, st.step + 1)
+        check = core.get_flags("check_nan_inf")["check_nan_inf"]
+        scaler_state = st.scaler_state
+        if self.scaler:
+            grads, found_inf = self.scaler.unscale(grads, st.scaler_state)
+            loss = loss / st.scaler_state["scale"]
+            if check:
+                # after unscale; a step the scaler rejects is its
+                # routine path, not a numerics fault
+                self._check_numerics(loss, grads, st.step, found_inf)
+            if not bool(found_inf):         # the step's one host sync
+                self.optimizer.update(grads, st.opt_state, st.params)
+            scaler_state = self.scaler.update(st.scaler_state, found_inf)
+        else:
+            if check:
+                self._check_numerics(loss, grads, st.step)
+            self.optimizer.update(grads, st.opt_state, st.params)
+        new_state = TrainState(st.params, st.buffers, st.opt_state,
+                               scaler_state, st.rng_key, st.step + 1)
         return new_state, loss, out
+
+    @staticmethod
+    def _check_numerics(loss, grads, step, suppress=None):
+        """Raise `FloatingPointError` naming the first 8 of the loss and
+        the gradients that hold a NaN or an inf (one host read of the
+        per-tensor flags); nothing when `suppress` (found_inf) is
+        True."""
+        names = ["loss"] + [f"grad:{k}" for k in grads]
+        bad = amp.nonfinite([loss.detach().float().reshape(1)]
+                            + list(grads.values()))
+        if suppress is not None:
+            bad = bad & ~suppress
+        bad = bad.tolist()
+        if any(bad):
+            hit = [n for n, b in zip(names, bad) if b]
+            raise FloatingPointError(
+                f"FLAGS_check_nan_inf: non-finite values at step {step} in: "
+                f"{', '.join(hit[:8])}" + (" …" if len(hit) > 8 else ""))
 
     def _batch(self, batch):
         dev = self.device

@@ -71,7 +71,7 @@ class GPTConfig:
         if self.sequence_parallel != "none":
             raise NotImplementedError(
                 f"sequence_parallel={self.sequence_parallel!r} is not "
-                f"ported yet (ROADMAP Queue 1, after item 6)")
+                f"ported yet (ROADMAP Queue 1, item 13)")
 
     @property
     def ffn_size(self) -> int:

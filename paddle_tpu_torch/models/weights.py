@@ -26,7 +26,18 @@ from .gpt import BLOCK_LINEARS, GPT, GPTConfig, param_shapes
 __all__ = ["from_jax_params", "load_jax_params", "load_jax_int8_params",
            "infer_config", "from_jax_train_state"]
 
-_SLOTS = ("moment1", "moment2", "master_weight")
+# the slots of each optimizer rule (JAX's names), beside the optional
+# fp32 `master_weight`
+RULE_SLOTS = {
+    "SGD": (), "Momentum": ("velocity",), "LarsMomentum": ("velocity",),
+    "Adam": ("moment1", "moment2"), "AdamW": ("moment1", "moment2"),
+    "Lamb": ("moment1", "moment2"), "Adamax": ("moment", "inf_norm"),
+    "Adagrad": ("moment",),
+    "Adadelta": ("avg_squared_grad", "avg_squared_update"),
+    "RMSProp": ("mean_square", "momentum_acc"),
+    "RMSProp(centered)": ("mean_square", "momentum_acc", "mean_grad"),
+}
+_SCALER_KEYS = ("scale", "good_steps", "bad_steps")
 
 _BLOCK = re.compile(r"^blocks\.(\d+)\.")
 
@@ -159,14 +170,31 @@ def load_jax_int8_params(model: GPT, np_params: Mapping[str, np.ndarray],
     return load_jax_params(model, np_params)
 
 
-def from_jax_train_state(state_tree: Mapping, cfg: Optional[GPTConfig] = None):
+def _expected_slots(jax_slots: Mapping, optimizer) -> tuple:
+    """The rule's slot names: those `optimizer` makes, or else the one
+    rule of RULE_SLOTS whose names the first parameter's slots carry."""
+    if optimizer is not None:
+        return tuple(optimizer.init_slots(torch.zeros(1)))
+    first = set(next(iter(jax_slots.values()))) - {"master_weight"}
+    for names in RULE_SLOTS.values():
+        if first == set(names):
+            return names
+    raise KeyError(f"slots {sorted(first)} are no optimizer rule's; known: "
+                   f"{RULE_SLOTS}")
+
+
+def from_jax_train_state(state_tree: Mapping, cfg: Optional[GPTConfig] = None,
+                         optimizer=None):
     """A port `TrainState` (CPU tensors) from a JAX `TrainState.tree()`
-    of a GPT trained with Adam/AdamW: the parameters (names and shapes
-    checked as in `from_jax_params`), the optimizer's step and every
-    parameter's `moment1` / `moment2` / `master_weight` slots (the slot
-    names per parameter and each slot's shape checked against the
-    parameter), and the train step. `Trainer.load_state` then resumes
-    the run on the model's device."""
+    of a GPT: the parameters (names and shapes checked as in
+    `from_jax_params`), the optimizer's step and every parameter's slots
+    (any rule of `optimizer/__init__.py`: the names checked against
+    `optimizer`'s rule when it is given, else against the rule the
+    slots name, the same for every parameter, plus an optional
+    `master_weight`; each slot's shape checked against the parameter),
+    the GradScaler's state (`scale`, `good_steps`, `bad_steps`, or
+    none) and the train step. `Trainer.load_state` then resumes the run
+    on the model's device."""
     np_params = state_tree["params"]
     params = from_jax_params(np_params, cfg)
     opt = state_tree["opt_state"]
@@ -174,18 +202,24 @@ def from_jax_train_state(state_tree: Mapping, cfg: Optional[GPTConfig] = None):
     if set(jax_slots) != set(params):
         raise KeyError(f"optimizer slots and parameters differ: "
                        f"{sorted(set(jax_slots) ^ set(params))[:8]}")
+    want = _expected_slots(jax_slots, optimizer)
     slots = {}
     for k, sl in jax_slots.items():
-        bad = sorted(set(sl) - set(_SLOTS))
-        if bad or not {"moment1", "moment2"} <= set(sl):
-            raise KeyError(f"{k}: slots {sorted(sl)}, expected moment1, "
-                           f"moment2 and optionally master_weight")
+        if set(sl) - {"master_weight"} != set(want):
+            raise KeyError(f"{k}: slots {sorted(sl)}, expected "
+                           f"{sorted(want)} and optionally master_weight")
         shape = tuple(params[k].shape)
         for sk, v in sl.items():
             if tuple(np.shape(v)) != shape:
                 raise ValueError(f"{k}.{sk}: shape {tuple(np.shape(v))} "
                                  f"!= parameter shape {shape}")
         slots[k] = {sk: _to_tensor(f"{k}.{sk}", v) for sk, v in sl.items()}
+    jax_scaler = state_tree.get("scaler_state") or {}
+    if jax_scaler and set(jax_scaler) != set(_SCALER_KEYS):
+        raise KeyError(f"scaler_state keys {sorted(jax_scaler)}, expected "
+                       f"{list(_SCALER_KEYS)}")
+    scaler = {sk: _to_tensor(f"scaler_state.{sk}", v).reshape(())
+              for sk, v in jax_scaler.items()}
     return TrainState(params, {}, {"step": int(np.asarray(opt["step"])),
                                    "slots": slots},
-                      {}, 0, int(np.asarray(state_tree["step"])))
+                      scaler, 0, int(np.asarray(state_tree["step"])))

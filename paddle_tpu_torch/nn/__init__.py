@@ -1,7 +1,9 @@
 """Layers and functional ops of the PyTorch/CUDA port (the subset GPT
 training uses)."""
-from . import functional
+from . import clip, functional, rng
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layers import GELU, Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ["functional", "Linear", "Embedding", "LayerNorm", "GELU",
-           "Dropout"]
+__all__ = ["clip", "functional", "rng", "Linear", "Embedding", "LayerNorm",
+           "GELU", "Dropout", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm"]

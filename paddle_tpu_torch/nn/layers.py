@@ -77,11 +77,14 @@ class GELU(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Identity at p = 0 or in eval mode; p > 0 in training raises."""
+    """`functional.dropout` with the module's training flag; identity at
+    p = 0 or in eval mode."""
 
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train"):
         super().__init__()
-        self.p = p
+        self.p, self.axis, self.mode = p, axis, mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)

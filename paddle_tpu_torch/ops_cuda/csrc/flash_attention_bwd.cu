@@ -10,10 +10,15 @@
 //   dv = T(p)^T g,   dp = g v^T,   ds = T(p * (dp - delta) * scale),
 //   dk = ds^T q,     dq = ds k,
 // every product with fp32 accumulation, every gradient stored in the
-// input type T. Two routes, fixed by dtype, one set of kernel bodies:
-// bf16 at head dim 32, 64 or 128 (`wgmma`, bf16 products) and fp32 at
-// 32, 64 or 128 (`tf32x3`, every product three TF32 products; see
-// flash_attention_common.cuh).
+// input type T. Three routes, fixed by dtype, one set of kernel bodies:
+// bf16 at head dim 32, 64 or 128 (`wgmma`, bf16 products), fp16 at the
+// same head dims (`wgmma_f16`, fp16 products; the bf16 kernels
+// instantiated for `__half`) and fp32 at 32, 64 or 128 (`tf32x3`, every
+// product three TF32 products; see flash_attention_common.cuh). fp16
+// rounds ds = p (dp - delta) scale with the scale applied, where the
+// plain version rounds it: fp16's range ends at 65504, and a gradient
+// under a loss scale of 2^15 can reach it, so the scale may not wait
+// for the end as it does for bf16 (whose range is fp32's).
 //
 // The kernels, launched in order on one stream:
 //   - fp32 only, `split_kernel`: the lo parts of q, k, v, g as rows
@@ -48,8 +53,8 @@
 // What the design does about it: every product is a wgmma. Both sweep
 // kernels are persistent (one CTA per SM walking its work items, the
 // longest first) with C consumer warpgroups of 64 rows (keys in dk/dv,
-// queries in dq; C = 2 for bf16, 1 or 2 for fp32, whose hi and lo tiles
-// fill shared memory four times as fast) and a producer warp;
+// queries in dq; C = 2 for bf16 and fp16, 1 or 2 for fp32, whose hi and
+// lo tiles fill shared memory four times as fast) and a producer warp;
 // `setmaxnreg` moves the producer's registers to the consumers. The
 // tiles an item owns (K and V, or Q and G) come once by TMA into one of
 // kSlots resident slots, so the next item's load overlaps this one's
@@ -110,6 +115,8 @@ struct CfgKV<bf16, D> {
                        kSlots = 2, kParts = 1, DV = D;
 };
 template <int D>
+struct CfgKV<f16, D> : CfgKV<bf16, D> {};
+template <int D>
 struct CfgKV<float, D> {
   static constexpr int C = D <= 64 ? 2 : 1, S = 16,
                        kStages = D == 32 ? 4 : D == 64 ? 3 : 2,
@@ -120,6 +127,8 @@ template <typename T, int D>
 struct CfgQ;
 template <int D>
 struct CfgQ<bf16, D> : CfgKV<bf16, D> {};
+template <int D>
+struct CfgQ<f16, D> : CfgKV<bf16, D> {};
 template <int D>
 struct CfgQ<float, D> {
   static constexpr int C = 1, S = D == 128 ? 16 : 32,
@@ -175,12 +184,12 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ g,
     } else {  // 16-byte loads: TMA's layout rules hold
       const uint4 ov = *reinterpret_cast<const uint4*>(orow);
       const uint4 gv = *reinterpret_cast<const uint4*>(grow);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+      const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&ov);
+      const uint32_t* g2 = reinterpret_cast<const uint32_t*>(&gv);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 of = __bfloat1622float2(o2[i]);
-        const float2 gf = __bfloat1622float2(g2[i]);
+        const float2 of = unpack2<T>(o2[i]);
+        const float2 gf = unpack2<T>(g2[i]);
         acc = fmaf(of.x, gf.x, acc);
         acc = fmaf(of.y, gf.y, acc);
       }
@@ -226,7 +235,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ Maps m, const Params<T> p) {
   constexpr int C = F::C, R = 64 * C, BQ = F::S, P = F::kParts, DV = F::DV;
   constexpr int kStages = F::kStages, kSlots = F::kSlots;
   constexpr int kSplits = D / DV;  // column blocks of dk and dv
-  constexpr bool kF32 = is_f32<T>();
+  constexpr bool kF32 = is_f32<T>(), kF16 = is_f16<T>();
   static_assert(kStages >= 2, "a tile is released after the next lands");
   using LR = Tile<T, R, D>;
   using LS = Tile<T, BQ, D>;
@@ -411,14 +420,17 @@ flash_bwd_dkdv_kernel(const __grid_constant__ Maps m, const Params<T> p) {
       wgmma_wait<0>();
       fence_regs<BQ / 2>(dpt);
       // ds^T / scale = p^T (dp^T - delta); dk takes the scale at the end
+      // (fp16: ds^T itself, see the note at the top)
 #pragma unroll
       for (int c = 0; c < BQ / 8; ++c) {
         const float2 dl =
             *reinterpret_cast<const float2*>(&sm.delta[s][8 * c + 2 * t]);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int e = 0; e < 4; ++e) {
           dpt[4 * c + e] =
               st[4 * c + e] * (dpt[4 * c + e] - ((e & 1) ? dl.y : dl.x));
+          if constexpr (kF16) dpt[4 * c + e] *= p.scale;
+        }
       }
       if (p.causal && q0 + off < 0) {  // an empty row's ds is 0
 #pragma unroll
@@ -452,7 +464,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ Maps m, const Params<T> p) {
     sm.kv_ring.release(j, lane);
     it0 += n;
     store_rows<DV>(p.dk + b * p.dks.b + h * p.dks.h + c0, p.dks.s, dk, kw,
-                   sk, p.scale);
+                   sk, kF16 ? 1.f : p.scale);
     store_rows<DV>(p.dv + b * p.dvs.b + h * p.dvs.h + c0, p.dvs.s, dv, kw,
                    sk, 1.f);
   }
@@ -483,7 +495,7 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps m, const Params<T> p) {
   using F = CfgQ<T, D>;
   constexpr int C = F::C, R = 64 * C, BK = F::S, P = F::kParts;
   constexpr int kStages = F::kStages, kSlots = F::kSlots;
-  constexpr bool kF32 = is_f32<T>();
+  constexpr bool kF32 = is_f32<T>(), kF16 = is_f16<T>();
   static_assert(kStages >= 2, "a tile is released after the next lands");
   using LR = Tile<T, R, D>;
   using LS = Tile<T, BK, D>;
@@ -639,10 +651,13 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps m, const Params<T> p) {
         exp_tile(std::false_type{});
       wgmma_wait<0>();
       fence_regs<BK / 2>(dp);
-      // ds / scale = p (dp - delta); dq takes the scale at the end
+      // ds / scale = p (dp - delta); dq takes the scale at the end (fp16:
+      // ds itself)
 #pragma unroll
-      for (int e = 0; e < BK / 2; ++e)
+      for (int e = 0; e < BK / 2; ++e) {
         sc[e] = sc[e] * (dp[e] - delta[(e >> 1) & 1]);
+        if constexpr (kF16) sc[e] *= p.scale;
+      }
       to_a_frags(sa, sc);
       if constexpr (!kF32) {
         wgmma_fence();
@@ -670,7 +685,7 @@ flash_bwd_dq_kernel(const __grid_constant__ Maps m, const Params<T> p) {
     }
     it0 += nkt;
     store_rows<D>(p.dq + b * p.dqs.b + h * p.dqs.h, p.dqs.s, dq, qw, sq,
-                  p.scale);
+                  kF16 ? 1.f : p.scale);
   }
 }
 
@@ -737,27 +752,49 @@ cudaError_t launch_kernels(const Maps& kv, const Maps& qm, const T* out,
   return cudaSuccess;
 }
 
-// bf16: tensor maps straight over the inputs (st: q, k, v, out, g, dq,
-// dk, dv)
-template <int D>
-cudaError_t run_bf16(const bf16* q, const bf16* k, const bf16* v,
-                     const bf16* out, const bf16* g, const Strides* st,
-                     const Params<bf16>& p, int parts, cudaStream_t stream) {
-  constexpr int R = 64 * CfgKV<bf16, D>::C, S = CfgKV<bf16, D>::S;
+// bf16, fp16: tensor maps straight over the inputs (st: q, k, v, out, g,
+// dq, dk, dv)
+template <typename T, int D>
+cudaError_t run_16(const T* q, const T* k, const T* v, const T* out,
+                   const T* g, const Strides* st, const Params<T>& p,
+                   int parts, cudaStream_t stream) {
+  constexpr int R = 64 * CfgKV<T, D>::C, S = CfgKV<T, D>::S;
   const int bt = p.batch, nh = p.nh, sq = p.sq, sk = p.sk;
   Maps kv{}, qm{};
-  if ((parts & kDkDv) && (!bf16_op<S, D>(&kv.q, q, st[0], bt, nh, sq) ||
-                          !bf16_op<R, D>(&kv.k, k, st[1], bt, nh, sk) ||
-                          !bf16_op<R, D>(&kv.v, v, st[2], bt, nh, sk) ||
-                          !bf16_op<S, D>(&kv.g, g, st[4], bt, nh, sq)))
+  if ((parts & kDkDv) && (!op16<S, D>(&kv.q, q, st[0], bt, nh, sq) ||
+                          !op16<R, D>(&kv.k, k, st[1], bt, nh, sk) ||
+                          !op16<R, D>(&kv.v, v, st[2], bt, nh, sk) ||
+                          !op16<S, D>(&kv.g, g, st[4], bt, nh, sq)))
     return cudaErrorInvalidValue;
-  if ((parts & kDq) && (!bf16_op<R, D>(&qm.q, q, st[0], bt, nh, sq) ||
-                        !bf16_op<S, D>(&qm.k, k, st[1], bt, nh, sk) ||
-                        !bf16_op<S, D>(&qm.v, v, st[2], bt, nh, sk) ||
-                        !bf16_op<R, D>(&qm.g, g, st[4], bt, nh, sq)))
+  if ((parts & kDq) && (!op16<R, D>(&qm.q, q, st[0], bt, nh, sq) ||
+                        !op16<S, D>(&qm.k, k, st[1], bt, nh, sk) ||
+                        !op16<S, D>(&qm.v, v, st[2], bt, nh, sk) ||
+                        !op16<R, D>(&qm.g, g, st[4], bt, nh, sq)))
     return cudaErrorInvalidValue;
-  return launch_kernels<bf16, D>(kv, qm, out, g, st[3], st[4], p, parts,
-                                 stream);
+  return launch_kernels<T, D>(kv, qm, out, g, st[3], st[4], p, parts,
+                              stream);
+}
+
+// The wgmma routes: Params and dispatch on head dim for element type T.
+template <typename T>
+cudaError_t run_16_d(const void* q, const void* k, const void* v,
+                     const void* out, const void* g, const void* lse,
+                     void* rows, void* counters, void* dq, void* dk,
+                     void* dv, int batch, int nh, int sq, int sk, int d,
+                     const Strides* st, int causal, float scale, int parts,
+                     cudaStream_t s) {
+  const Params<T> p{static_cast<const float*>(lse), static_cast<float*>(rows),
+                    static_cast<T*>(dq), static_cast<T*>(dk),
+                    static_cast<T*>(dv), batch, nh, sq, sk, causal,
+                    batch * nh, static_cast<int*>(counters), scale,
+                    1.f / sk, st[5], st[6], st[7]};
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(out),
+          *tg = static_cast<const T*>(g);
+  if (d == 32) return run_16<T, 32>(tq, tk, tv, to, tg, st, p, parts, s);
+  if (d == 64) return run_16<T, 64>(tq, tk, tv, to, tg, st, p, parts, s);
+  if (d == 128) return run_16<T, 128>(tq, tk, tv, to, tg, st, p, parts, s);
+  return cudaErrorInvalidValue;
 }
 
 // The pieces of the fp32 backward's scratch: q, k, v, g as rows, then
@@ -851,16 +888,17 @@ extern "C" long long flash_bwd_scratch_floats(int batch, int nh, int sq,
 }
 
 // C entry for ctypes. `dtype` 0 fp32 (the tf32x3 route; `scratch` holds
-// flash_bwd_scratch_floats floats) or 1 bf16 (the wgmma route; scratch
-// unused). q, g, out, dq (b, sq, h, d), k, v, dk, dv (b, sk, h, d), with
-// a contiguous head dim; bf16 ones with 16-byte aligned bases and
-// element strides that are multiples of 8, fp32 ones with any. lse
+// flash_bwd_scratch_floats floats), 1 bf16 or 2 fp16 (the wgmma routes;
+// scratch unused). q, g, out, dq (b, sq, h, d), k, v, dk, dv (b, sk, h,
+// d), with a contiguous head dim; bf16 and fp16 ones with 16-byte
+// aligned bases and element strides that are multiples of 8, fp32 ones
+// with any. lse
 // (b, h, lse_rows(sq)) fp32 contiguous as the forward writes it; `rows`
 // (b, h, 2, lse_rows(sq)) fp32 scratch, which the delta kernel fills
 // (delta, and lse log2 e) for the other two to read; `counters` two int32
 // of scratch (zeroed here, then the work queues). `parts` selects the
 // kernels (1 delta, 2 dk/dv, 4 dq, 8 the fp32 split; 7 for the whole
-// bf16 backward, 15 for fp32). Launches on `stream` without
+// bf16 or fp16 backward, 15 for fp32). Launches on `stream` without
 // synchronising; returns cudaGetLastError() after the launches
 // (cudaErrorInvalidValue for a shape or layout the kernels do not take).
 extern "C" int flash_bwd_launch(
@@ -880,21 +918,10 @@ extern "C" int flash_bwd_launch(
   cudaError_t err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const Params<bf16> p{static_cast<const float*>(lse),
-                         static_cast<float*>(rows), static_cast<bf16*>(dq),
-                         static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                         batch, nh, sq, sk, causal, batch * nh,
-                         static_cast<int*>(counters), scale, 1.f / sk,
-                         st[5], st[6], st[7]};
-    const bf16 *bq = static_cast<const bf16*>(q),
-               *bk = static_cast<const bf16*>(k),
-               *bv = static_cast<const bf16*>(v),
-               *bo = static_cast<const bf16*>(out),
-               *bg = static_cast<const bf16*>(g);
-    if (d == 32) err = run_bf16<32>(bq, bk, bv, bo, bg, st, p, parts, s);
-    if (d == 64) err = run_bf16<64>(bq, bk, bv, bo, bg, st, p, parts, s);
-    if (d == 128) err = run_bf16<128>(bq, bk, bv, bo, bg, st, p, parts, s);
+  if (dtype == 1 || dtype == 2) {
+    err = (dtype == 1 ? run_16_d<bf16> : run_16_d<f16>)(
+        q, k, v, out, g, lse, rows, counters, dq, dk, dv, batch, nh, sq, sk,
+        d, st, causal, scale, parts, s);
   } else if (dtype == 0) {
     const Params<float> p{static_cast<const float*>(lse),
                           static_cast<float*>(rows), static_cast<float*>(dq),
@@ -919,12 +946,15 @@ extern "C" int flash_bwd_launch(
 }
 
 // {registers, local (spill) bytes, dynamic shared bytes, threads} of
-// kernel 0 (delta), 1 (dk/dv) or 2 (dq) for `dtype` (0 fp32, 1 bf16) and
-// head dim d.
+// kernel 0 (delta), 1 (dk/dv) or 2 (dq) for `dtype` (0 fp32, 1 bf16, 2
+// fp16) and head dim d.
 extern "C" void flash_bwd_info(int dtype, int d, int kernel, int* out) {
   if (dtype == 1 && d == 32) info<bf16, 32>(kernel, out);
   if (dtype == 1 && d == 64) info<bf16, 64>(kernel, out);
   if (dtype == 1 && d == 128) info<bf16, 128>(kernel, out);
+  if (dtype == 2 && d == 32) info<f16, 32>(kernel, out);
+  if (dtype == 2 && d == 64) info<f16, 64>(kernel, out);
+  if (dtype == 2 && d == 128) info<f16, 128>(kernel, out);
   if (dtype == 0 && d == 32) info<float, 32>(kernel, out);
   if (dtype == 0 && d == 64) info<float, 64>(kernel, out);
   if (dtype == 0 && d == 128) info<float, 128>(kernel, out);

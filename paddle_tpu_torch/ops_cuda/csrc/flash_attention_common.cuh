@@ -4,18 +4,21 @@
 // products (wgmma.mma_async) on shared-memory descriptors, the 3xTF32
 // split of fp32 operands, and the one causal rule.
 //
-// Two element types take the same kernels: bf16 (one product per
-// product, k16 steps) and fp32 through 3xTF32 (`tf32x3`: each operand x
-// is split into hi = x with its 13 low mantissa bits cleared and lo =
-// x - hi rounded to TF32, nearest, both read by the tensor cores
-// exactly; a product is lo.hi + hi.lo + hi.hi, k8 steps, summed in the
-// fp32 accumulator; the dropped lo.lo and lo's rounding leave about
-// 2^-21 of each term, without the bias a truncated lo would add).
+// Three element types take the same kernels: bf16 and fp16 (one product
+// per product, k16 steps, `wgmma ... .f32.bf16.bf16` or `.f32.f16.f16`;
+// the two differ only in the instruction's type, the tensor maps' data
+// type and the type P and dS round to) and fp32 through 3xTF32
+// (`tf32x3`: each operand x is split into hi = x with its 13 low
+// mantissa bits cleared and lo = x - hi rounded to TF32, nearest, both
+// read by the tensor cores exactly; a product is lo.hi + hi.lo + hi.hi,
+// k8 steps, summed in the fp32 accumulator; the dropped lo.lo and lo's
+// rounding leave about 2^-21 of each term, without the bias a truncated
+// lo would add).
 //
 // Tiles in shared memory. A tile of R rows of C values is stored as
-// column panels of one swizzle row each: 128 bytes (64 bf16 or 32 fp32
-// columns), or 64 bytes where a whole row is 64 bytes (bf16 at 32
-// columns, fp32 at 16). Panel p holds R rows of its columns in TMA's
+// column panels of one swizzle row each: 128 bytes (64 bf16 or fp16, or
+// 32 fp32 columns), or 64 bytes where a whole row is 64 bytes (bf16 and
+// fp16 at 32 columns, fp32 at 16). Panel p holds R rows of its columns in TMA's
 // swizzle (the 16-byte chunk c of row r sits at chunk c ^ (r % 8) for
 // 128 bytes, c ^ ((r / 2) % 4) for 64). Every tile starts on a 1024-byte
 // boundary, so the swizzle that TMA writes and the one the wgmma
@@ -27,7 +30,7 @@
 //   K-major (the tile's columns are the product's k): 8-row groups are
 //     8 swizzle rows apart (stride offset); a k step is 32 bytes (16
 //     bf16 or 8 fp32 columns) inside a panel, then the next panel.
-//   MN-major (bf16 only; the tile's rows are the product's k, its
+//   MN-major (16-bit types only; the tile's rows are the product's k, its
 //     columns n): the k step of 16 rows moves the start by 16 swizzle
 //     rows; 8-row groups are 8 swizzle rows apart (stride offset) and
 //     the panels of n one panel apart (leading offset).
@@ -51,7 +54,7 @@
 // Accumulator layout of wgmma m64nN (f32), thread i of a warpgroup,
 // warp w = i / 32, g = (i % 32) / 4, t = i % 4: d[4c + 2j + e] is row
 // 16w + g + 8j, column 8c + 2t + e. A from registers uses the same rows:
-//   bf16 (m64 k16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
+//   bf16, fp16 (m64 k16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //     a3 (g+8, 2t+8..), so an accumulator over k columns repacks into
 //     the A fragments of a product over those columns in place;
 //   tf32 (m64 k8): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4).
@@ -63,6 +66,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,13 +75,14 @@
 namespace flash {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' mask value
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// A CTA is C consumer warpgroups (C = 2 for bf16; 1 or 2 for fp32, whose
-// hi and lo tiles take four times the shared memory) and one producer
-// warpgroup, of which one thread issues the copies and the rest exit
+// A CTA is C consumer warpgroups (C = 2 for bf16 and fp16; 1 or 2 for
+// fp32, whose hi and lo tiles take four times the shared memory) and one
+// producer warpgroup, of which one thread issues the copies and the rest exit
 // after giving up their registers. One CTA per SM: every kernel is
 // compiled for 384 threads (168 registers each at entry, 65,536 / 384
 // rounded down to 8); the producer keeps 24 and the consumers take 240,
@@ -89,6 +94,10 @@ constexpr int kConsumerRegs = 240;
 template <typename T>
 __host__ __device__ constexpr bool is_f32() {
   return std::is_same<T, float>::value;
+}
+template <typename T>
+__host__ __device__ constexpr bool is_f16() {
+  return std::is_same<T, f16>::value;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -223,7 +232,8 @@ __device__ __forceinline__ void tma_tile(T* tile, const CUtensorMap* map,
              r0, b);
 }
 
-// An operand's tensor maps: `hi` over its values (bf16: the only one),
+// An operand's tensor maps: `hi` over its values (bf16, fp16: the only
+// one),
 // `lo`, fp32 only, over split_kernel's residuals. Both take the same
 // coordinates.
 struct Op {
@@ -348,151 +358,190 @@ struct Wgmma;
 template <>
 struct Wgmma<32> {
   // d (64 x 32, fp32) (+)= A (64 x 16, smem desc) * B (16 x 32, smem desc)
-  template <int TB>
+  template <typename T, int TB>
   static __device__ __forceinline__ void ss(float* d, uint64_t da,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, %19;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+#define FLASH_WGMMA(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+        "%13, %14, %15}, " \
+        "%16, %17, p, 1, 1, 0, %19;\n}\n" \
+        : \
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+          "+f"(d[15]) \
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+    if constexpr (is_f16<T>())
+      FLASH_WGMMA("f16");
+    else
+      FLASH_WGMMA("bf16");
+#undef FLASH_WGMMA
   }
-  // d (64 x 32, fp32) (+)= A (64 x 16, bf16 registers) * B (smem desc)
-  template <int TB>
+  // d (64 x 32, fp32) (+)= A (64 x 16, bf16 or fp16 registers) *
+  // B (smem desc)
+  template <typename T, int TB>
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TB));
+#define FLASH_WGMMA(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+        "%13, %14, %15}, " \
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n" \
+        : \
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+          "+f"(d[15]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), \
+          "r"(scale_d), "n"(TB))
+    if constexpr (is_f16<T>())
+      FLASH_WGMMA("f16");
+    else
+      FLASH_WGMMA("bf16");
+#undef FLASH_WGMMA
   }
 };
 
 template <>
 struct Wgmma<64> {
   // d (64 x 64, fp32) (+)= A (64 x 16, smem desc) * B (16 x 64, smem desc)
-  template <int TB>
+  template <typename T, int TB>
   static __device__ __forceinline__ void ss(float* d, uint64_t da,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+#define FLASH_WGMMA(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+        "%32, %33, p, 1, 1, 0, %35;\n}\n" \
+        : \
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]) \
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+    if constexpr (is_f16<T>())
+      FLASH_WGMMA("f16");
+    else
+      FLASH_WGMMA("bf16");
+#undef FLASH_WGMMA
   }
-  // d (64 x 64, fp32) (+)= A (64 x 16, bf16 registers) * B (smem desc)
-  template <int TB>
+  // d (64 x 64, fp32) (+)= A (64 x 16, bf16 or fp16 registers) *
+  // B (smem desc)
+  template <typename T, int TB>
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TB));
+#define FLASH_WGMMA(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31}, " \
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+        : \
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), \
+          "r"(scale_d), "n"(TB))
+    if constexpr (is_f16<T>())
+      FLASH_WGMMA("f16");
+    else
+      FLASH_WGMMA("bf16");
+#undef FLASH_WGMMA
   }
 };
 
 template <>
 struct Wgmma<128> {
   // d (64 x 128, fp32) (+)= A (64 x 16, smem desc) * B (16 x 128, smem desc)
-  template <int TB>
+  template <typename T, int TB>
   static __device__ __forceinline__ void ss(float* d, uint64_t da,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-        "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-        "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-        "%57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+#define FLASH_WGMMA(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
+        "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+        "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+        "%57, %58, %59, %60, %61, %62, %63}, " \
+        "%64, %65, p, 1, 1, 0, %67;\n}\n" \
+        : \
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+    if constexpr (is_f16<T>())
+      FLASH_WGMMA("f16");
+    else
+      FLASH_WGMMA("bf16");
+#undef FLASH_WGMMA
   }
-  // d (64 x 128, fp32) (+)= A (64 x 16, bf16 registers) * B (smem desc)
-  template <int TB>
+  // d (64 x 128, fp32) (+)= A (64 x 16, bf16 or fp16 registers) *
+  // B (smem desc)
+  template <typename T, int TB>
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-        "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
-        "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-        "%57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-        :
-          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d), "n"(TB));
+#define FLASH_WGMMA(TY) \
+    asm volatile( \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+        "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
+        "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+        "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+        "%57, %58, %59, %60, %61, %62, %63}, " \
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+        : \
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), \
+          "r"(scale_d), "n"(TB))
+    if constexpr (is_f16<T>())
+      FLASH_WGMMA("f16");
+    else
+      FLASH_WGMMA("bf16");
+#undef FLASH_WGMMA
   }
 };
 
@@ -629,11 +678,10 @@ struct WgmmaTf32<128> {
 };
 
 
-// A fragments of a product over K columns, taken from registers
+// A fragments of a product over K columns, taken from registers: two
+// 16-bit values a register (bf16, fp16)
 template <typename T, int K>
-struct Frags;
-template <int K>
-struct Frags<bf16, K> {
+struct Frags {
   uint32_t a[K / 16][4];
 };
 template <int K>
@@ -649,8 +697,8 @@ __device__ __forceinline__ void zero_frags(Frags<T, K>& f) {
   for (int i = 0; i < (int)(sizeof(f) / 4); ++i) r[i] = 0u;
 }
 
-template <int K>
-__device__ __forceinline__ void fence_frags(Frags<bf16, K>& f) {
+template <typename T, int K>
+__device__ __forceinline__ void fence_frags(Frags<T, K>& f) {
   fence_regs<K / 16>(f.a);
 }
 template <int K>
@@ -661,7 +709,8 @@ __device__ __forceinline__ void fence_frags(Frags<float, K>& f) {
 
 // d (64 x N) (+)= A (rows [a_row0, a_row0 + 64) of a K-major tile of
 // ROWS_A rows and KC columns) * B^T (a K-major tile of N rows and KC
-// columns); the first product overwrites d. bf16: KC / 16 k steps. fp32:
+// columns); the first product overwrites d. bf16, fp16: KC / 16 k steps.
+// fp32:
 // 3xTF32, each tile's lo part right after its hi part, three passes of
 // KC / 8 k steps (lo.hi, hi.lo, hi.hi: the small terms first).
 template <typename T, int N, int KC, int ROWS_A>
@@ -673,7 +722,7 @@ __device__ __forceinline__ void gemm_ss(float* d, const T* a, int a_row0,
   if constexpr (!is_f32<T>()) {
 #pragma unroll
     for (int kk = 0; kk < KC / 16; ++kk)
-      Wgmma<N>::template ss<0>(d, da + kstep<LA>(kk), db + kstep<LB>(kk),
+      Wgmma<N>::template ss<T, 0>(d, da + kstep<LA>(kk), db + kstep<LB>(kk),
                                kk > 0);
   } else {
     const uint64_t dal = kdesc<LA>(a + LA::kElems, a_row0);
@@ -691,7 +740,7 @@ __device__ __forceinline__ void gemm_ss(float* d, const T* a, int a_row0,
 }
 
 // d (64 x N) (+)= A (registers, 64 x K) * B; with `overwrite` the first
-// product overwrites d. bf16: B is a tile of K rows and N columns read
+// product overwrites d. bf16, fp16: B is a tile of K rows and N columns read
 // MN-major. fp32: B^T, a transposed copy of N rows and K columns (keys
 // in tf32_key's order) read K-major, 3xTF32.
 template <typename T, int N, int K>
@@ -703,7 +752,7 @@ __device__ __forceinline__ void gemm_rs(float* d, const Frags<T, K>& a,
     const uint64_t db = mndesc<LB>(b);
 #pragma unroll
     for (int kk = 0; kk < K / 16; ++kk)
-      Wgmma<N>::template rs<1>(d, a.a[kk], db + mnstep<LB>(kk),
+      Wgmma<N>::template rs<T, 1>(d, a.a[kk], db + mnstep<LB>(kk),
                                kk > 0 ? 1 : first);
   } else {
     using LB = Tile<T, N, K>;
@@ -720,10 +769,25 @@ __device__ __forceinline__ void gemm_rs(float* d, const Frags<T, K>& a,
   }
 }
 
-// two fp32 values rounded to bf16 (nearest even), `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two fp32 values rounded to T, bf16 or fp16 (nearest even; fp16 past
+// 65504 gives inf), `lo` in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (is_f16<T>()) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+// the two 16-bit values of a register as fp32 (exact)
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (is_f16<T>())
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
 }
 
 // x with its 13 low mantissa bits cleared: exact in TF32, and x - hi is
@@ -744,16 +808,16 @@ __host__ __device__ constexpr int tf32_key(int slot) {
   return slot < 4 ? 2 * slot : 2 * slot - 7;
 }
 
-// The A fragments of a product over the K columns of accumulator `d`.
-template <int K>
-__device__ __forceinline__ void to_a_frags(Frags<bf16, K>& f,
-                                           const float* d) {
+// The A fragments of a product over the K columns of accumulator `d`
+// (16-bit types: the values rounded to T).
+template <typename T, int K>
+__device__ __forceinline__ void to_a_frags(Frags<T, K>& f, const float* d) {
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
-    f.a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-    f.a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-    f.a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-    f.a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+    f.a[kk][0] = pack2<T>(d[8 * kk + 0], d[8 * kk + 1]);
+    f.a[kk][1] = pack2<T>(d[8 * kk + 2], d[8 * kk + 3]);
+    f.a[kk][2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
+    f.a[kk][3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
   }
 }
 template <int K>
@@ -774,7 +838,10 @@ __device__ __forceinline__ void to_a_frags(Frags<float, K>& f,
 
 // two adjacent values of a row, stored in T
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+  *reinterpret_cast<uint32_t*>(p) = pack2<bf16>(a, b);
+}
+__device__ __forceinline__ void store2(f16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<f16>(a, b);
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -871,8 +938,9 @@ inline bool make_map(CUtensorMap* map, const T* base, int batch, int rows,
                              1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
   return enc(map,
-             is_f32<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             is_f32<T>()   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+             : is_f16<T>() ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
              4, const_cast<T*>(base), dims, strides, box, estride,
              CU_TENSOR_MAP_INTERLEAVE_NONE,
              TILE::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -1015,11 +1083,11 @@ inline bool tr_op(Op* op, const float* tr, int batch, int nh, int seq) {
   return tr_map<D, COLS, ROWS>(&op->hi, tr, batch, nh, seq, 0) &&
          tr_map<D, COLS, ROWS>(&op->lo, tr, batch, nh, seq, 1);
 }
-// The map of a bf16 operand, over the tensor itself.
-template <int ROWS, int D>
-inline bool bf16_op(Op* op, const bf16* x, Strides st, int batch, int nh,
-                    int seq) {
-  return make_map<Tile<bf16, ROWS, D>>(&op->hi, x, batch, seq, nh, D, st);
+// The map of a bf16 or fp16 operand, over the tensor itself.
+template <int ROWS, int D, typename T>
+inline bool op16(Op* op, const T* x, Strides st, int batch, int nh,
+                 int seq) {
+  return make_map<Tile<T, ROWS, D>>(&op->hi, x, batch, seq, nh, D, st);
 }
 
 // ----------------------------------------------------------------------------

@@ -11,8 +11,11 @@
 // natural-log logsumexp m + log(l) as the (b, h, sq) rows of a
 // (b, h, lse_rows(sq)) buffer, which the backward (K3) reads.
 //
-// Two routes, fixed by dtype, one kernel body:
+// Three routes, fixed by dtype, one kernel body:
 // - bf16 at head dim 32, 64 or 128 (`wgmma`): bf16 products.
+// - fp16 at head dim 32, 64 or 128 (`wgmma_f16`): fp16 products, p
+//   rounded to fp16 before p.v (the same kernel as bf16's, instantiated
+//   for `__half`).
 // - fp32 at head dim 32, 64 or 128 (`tf32x3`): every product is three
 //   TF32 products (flash_attention_common.cuh), after `split_kernel` has
 //   written the lo parts of q and k as rows (and their hi parts where TMA
@@ -68,8 +71,8 @@ namespace {
 using namespace flash;
 
 // Per (type, head dim): consumer warpgroups, keys per tile, ring stages,
-// Q slots and tile parts (hi and lo for fp32). Shared memory: bf16
-// d 128 2 x 32 + 3 x 32 KB; fp32 d 32 2 x 32 + 3 x 32, d 64 64 +
+// Q slots and tile parts (hi and lo for fp32). Shared memory: bf16 and
+// fp16 d 128 2 x 32 + 3 x 32 KB; fp32 d 32 2 x 32 + 3 x 32, d 64 64 +
 // 2 x 64, d 128 (one consumer warpgroup) 64 + 2 x 64 KB.
 template <typename T, int D>
 struct Cfg;
@@ -78,6 +81,8 @@ struct Cfg<bf16, D> {
   static constexpr int C = 2, BK = D <= 64 ? 128 : 64, kStages = 3,
                        kSlots = 2, kParts = 1;
 };
+template <int D>
+struct Cfg<f16, D> : Cfg<bf16, D> {};
 template <int D>
 struct Cfg<float, D> {
   static constexpr int C = D <= 64 ? 2 : 1, BK = D <= 64 ? 64 : 32,
@@ -91,13 +96,13 @@ struct Smem {
   static constexpr int BQ = 64 * F::C;  // query rows per work item
   T q[F::kSlots][F::kParts * BQ * D];  // this item's Q tile and the next
   T k[F::kStages][F::kParts * F::BK * D];
-  T v[F::kStages][F::kParts * F::BK * D];  // bf16 V; fp32 V^T (D x BK)
+  T v[F::kStages][F::kParts * F::BK * D];  // 16-bit V; fp32 V^T (D x BK)
   Ring<F::kStages, F::C> ring;
   Ring<F::kSlots, F::C> q_ring;
   int item[F::kSlots];  // the work item in each Q slot (-1: done)
 };
 
-// The tensor maps: q and k as rows, v as rows (bf16) or transposed
+// The tensor maps: q and k as rows, v as rows (16-bit) or transposed
 // (fp32)
 struct Maps {
   Op q, k, v;
@@ -373,18 +378,32 @@ cudaError_t launch_main(const Maps& m, Params<T> p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16: tensor maps straight over q, k, v (st: q, k, v, out)
-template <int D>
-cudaError_t run_bf16(const bf16* q, const bf16* k, const bf16* v,
-                     const Strides* st, const Params<bf16>& p,
-                     cudaStream_t stream) {
-  using F = Cfg<bf16, D>;
+// bf16, fp16: tensor maps straight over q, k, v (st: q, k, v, out)
+template <typename T, int D>
+cudaError_t run_16(const void* q, const void* k, const void* v,
+                   const Strides* st, const Params<T>& p,
+                   cudaStream_t stream) {
+  using F = Cfg<T, D>;
   Maps m{};
-  if (!bf16_op<64 * F::C, D>(&m.q, q, st[0], p.batch, p.nh, p.sq) ||
-      !bf16_op<F::BK, D>(&m.k, k, st[1], p.batch, p.nh, p.sk) ||
-      !bf16_op<F::BK, D>(&m.v, v, st[2], p.batch, p.nh, p.sk))
+  if (!op16<64 * F::C, D>(&m.q, static_cast<const T*>(q), st[0], p.batch,
+                          p.nh, p.sq) ||
+      !op16<F::BK, D>(&m.k, static_cast<const T*>(k), st[1], p.batch, p.nh,
+                      p.sk) ||
+      !op16<F::BK, D>(&m.v, static_cast<const T*>(v), st[2], p.batch, p.nh,
+                      p.sk))
     return cudaErrorInvalidValue;
-  return launch_main<bf16, D>(m, p, stream);
+  return launch_main<T, D>(m, p, stream);
+}
+
+// The wgmma routes' dispatch on head dim.
+template <typename T>
+cudaError_t run_16_d(const void* q, const void* k, const void* v,
+                     const Strides* st, const Params<T>& p, int d,
+                     cudaStream_t stream) {
+  if (d == 32) return run_16<T, 32>(q, k, v, st, p, stream);
+  if (d == 64) return run_16<T, 64>(q, k, v, st, p, stream);
+  if (d == 128) return run_16<T, 128>(q, k, v, st, p, stream);
+  return cudaErrorInvalidValue;
 }
 
 // fp32: split_kernel writes q and k as rows (lo; hi too where TMA cannot
@@ -444,16 +463,16 @@ extern "C" long long flash_fwd_scratch_floats(int batch, int nh, int sq,
 }
 
 // C entry for ctypes. `dtype` 0 fp32 (the tf32x3 route; `scratch` holds
-// flash_fwd_scratch_floats floats) or 1 bf16 (the wgmma route; scratch
-// unused). `counter`: one int32 of device scratch (zeroed here, then the
-// work queue). q (b, sq, h, d), k and v (b, sk, h, d), out (b, sq, h, d),
-// with a contiguous head dim and the element strides (b, s, h of q, k,
-// v, out); bf16 ones with 16-byte aligned bases and strides that are
-// multiples of 8, fp32 ones with any. lse (b, h, lse_rows(sq)) fp32
-// contiguous, written 0 past sq. `parts` (fp32): 1 the split, 2 the
-// kernel, 3 both. Launches on `stream` without synchronising; returns
-// cudaGetLastError() after the launches (cudaErrorInvalidValue for a
-// shape or layout the kernels do not take).
+// flash_fwd_scratch_floats floats), 1 bf16 or 2 fp16 (the wgmma routes;
+// scratch unused). `counter`: one int32 of device scratch (zeroed here,
+// then the work queue). q (b, sq, h, d), k and v (b, sk, h, d), out
+// (b, sq, h, d), with a contiguous head dim and the element strides (b,
+// s, h of q, k, v, out); bf16 and fp16 ones with 16-byte aligned bases
+// and strides that are multiples of 8, fp32 ones with any. lse
+// (b, h, lse_rows(sq)) fp32 contiguous, written 0 past sq. `parts`
+// (fp32): 1 the split, 2 the kernel, 3 both. Launches on `stream`
+// without synchronising; returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for a shape or layout the kernels do not take).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* out, void* lse, void* counter,
                                 void* scratch, int batch, int nh, int sq,
@@ -472,12 +491,12 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
     const Params<bf16> p{static_cast<bf16*>(out), static_cast<float*>(lse),
                          batch, nh, sq, sk, causal, 0,
                          static_cast<int*>(counter), scale, st[3]};
-    const bf16 *bq = static_cast<const bf16*>(q),
-               *bk = static_cast<const bf16*>(k),
-               *bv = static_cast<const bf16*>(v);
-    if (d == 32) err = run_bf16<32>(bq, bk, bv, st, p, s);
-    if (d == 64) err = run_bf16<64>(bq, bk, bv, st, p, s);
-    if (d == 128) err = run_bf16<128>(bq, bk, bv, st, p, s);
+    err = run_16_d<bf16>(q, k, v, st, p, d, s);
+  } else if (dtype == 2) {
+    const Params<f16> p{static_cast<f16*>(out), static_cast<float*>(lse),
+                        batch, nh, sq, sk, causal, 0,
+                        static_cast<int*>(counter), scale, st[3]};
+    err = run_16_d<f16>(q, k, v, st, p, d, s);
   } else if (dtype == 0) {
     const Params<float> p{static_cast<float*>(out), static_cast<float*>(lse),
                           batch, nh, sq, sk, causal, 0,
@@ -494,11 +513,14 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
 }
 
 // {registers, local (spill) bytes, dynamic shared bytes, threads} of the
-// kernel for `dtype` (0 fp32, 1 bf16) and head dim d.
+// kernel for `dtype` (0 fp32, 1 bf16, 2 fp16) and head dim d.
 extern "C" void flash_fwd_info(int dtype, int d, int* out) {
   if (dtype == 1 && d == 32) info<bf16, 32>(out);
   if (dtype == 1 && d == 64) info<bf16, 64>(out);
   if (dtype == 1 && d == 128) info<bf16, 128>(out);
+  if (dtype == 2 && d == 32) info<f16, 32>(out);
+  if (dtype == 2 && d == 64) info<f16, 64>(out);
+  if (dtype == 2 && d == 128) info<f16, 128>(out);
   if (dtype == 0 && d == 32) info<float, 32>(out);
   if (dtype == 0 && d == 64) info<float, 64>(out);
   if (dtype == 0 && d == 128) info<float, 128>(out);

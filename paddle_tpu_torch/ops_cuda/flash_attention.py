@@ -4,16 +4,29 @@ The counterpart of `paddle_tpu/ops_pallas/flash_attention.py`: the
 forward `_fwd_kernel` (launched by `_flash_forward_flat`), the merged
 backward `_bwd_merged_kernel` (launched by `_flash_backward_flat`), the
 `_flash_attention` custom VJP that joins them, the
-`dot_product_attention` dispatcher and the `_attention_reference` the
-kernels are held against. Layout (batch, seq, heads, head_dim), as in
-the JAX package.
+`dot_product_attention` dispatcher, and `_attention_reference` twice:
+without a mask or dropout as what the kernels are held against
+(`attention_reference`), and whole as `attention_dense`, which computes
+what the TPU kernels never take. Layout (batch, seq, heads, head_dim),
+as in the JAX package.
+
+The dispatcher routes as the JAX one does (`_pallas_ok`): an attention
+mask or dropout > 0 goes to `attention_dense` (plain torch on every
+device, as the JAX package computes those cases in jnp outside every
+Pallas kernel), everything else to K2/K3. That is a choice by the
+call's arguments, not a fallback: a case the kernels take never
+reaches `attention_dense`, and a kernel that fails raises.
+`DENSE_ATTENTION_CALLS` counts its calls.
 
 On a CUDA tensor `FlashAttentionFunction` launches hand-written Hopper
 kernels (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`:
 TMA loads and wgmma products), built on first use by `_build.py`, on
-one of two routes fixed by dtype (`_check_cuda_args`, which raises on
-anything else), both at head dim 32, 64 or 128: bf16 goes to the
-`wgmma` route (bf16 products), fp32 to the `tf32x3` route (each fp32
+one of three routes fixed by dtype (`_check_cuda_args`, which raises on
+anything else), each at head dim 32, 64 or 128: bf16 goes to the
+`wgmma` route (bf16 products), fp16 to `wgmma_f16` (the same kernels
+with fp16 products; p and ds round to fp16, whose range ends at 65504:
+under a large loss scale ds and dv can overflow to inf, as they do in
+the plain version), fp32 to the `tf32x3` route (each fp32
 product as three TF32 products over hi and lo parts, which a split
 kernel writes first, with the transposed copies TF32 wgmma needs;
 `tf32_split` is its arithmetic in plain torch). On CPU tensors it runs
@@ -50,34 +63,40 @@ from .decode_attention import _LaunchCounter
 
 __all__ = ["dot_product_attention", "FlashAttentionFunction",
            "flash_forward_plain", "flash_backward_plain",
-           "flash_delta_plain", "attention_reference", "empty_rows",
-           "tf32_split", "FWD_LAUNCHES", "BWD_LAUNCHES",
+           "flash_delta_plain", "attention_reference", "attention_dense",
+           "empty_rows", "tf32_split", "FWD_LAUNCHES", "BWD_LAUNCHES",
            "WGMMA_FWD_LAUNCHES", "WGMMA_BWD_LAUNCHES",
-           "TF32X3_FWD_LAUNCHES", "TF32X3_BWD_LAUNCHES"]
+           "WGMMA_F16_FWD_LAUNCHES", "WGMMA_F16_BWD_LAUNCHES",
+           "TF32X3_FWD_LAUNCHES", "TF32X3_BWD_LAUNCHES",
+           "DENSE_ATTENTION_CALLS"]
 
 NEG_INF = -1e30
-# (dtype, head dim) -> route: K2/K3 with bf16 products (`wgmma`) and
-# with 3xTF32 products for fp32 (`tf32x3`)
-WGMMA, TF32X3 = "wgmma", "tf32x3"
-_ROUTES = {(torch.bfloat16, 32): WGMMA, (torch.bfloat16, 64): WGMMA,
-           (torch.bfloat16, 128): WGMMA, (torch.float32, 32): TF32X3,
-           (torch.float32, 64): TF32X3, (torch.float32, 128): TF32X3}
-_SUPPORTED_HD = tuple(sorted({d for _, d in _ROUTES}))
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (dtype, head dim) -> route: K2/K3 with bf16 products (`wgmma`), with
+# fp16 products (`wgmma_f16`) and with 3xTF32 products for fp32
+# (`tf32x3`)
+WGMMA, WGMMA_F16, TF32X3 = "wgmma", "wgmma_f16", "tf32x3"
+_ROUTE_OF_DTYPE = {torch.bfloat16: WGMMA, torch.float16: WGMMA_F16,
+                   torch.float32: TF32X3}
+_SUPPORTED_HD = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# every launch of either route (one per forward or backward call)...
+# every launch of any route (one per forward or backward call)...
 FWD_LAUNCHES = _LaunchCounter()
 BWD_LAUNCHES = _LaunchCounter()
 # ...and each route's own share, so a run can show which route it took
 WGMMA_FWD_LAUNCHES = _LaunchCounter()
 WGMMA_BWD_LAUNCHES = _LaunchCounter()
+WGMMA_F16_FWD_LAUNCHES = _LaunchCounter()
+WGMMA_F16_BWD_LAUNCHES = _LaunchCounter()
 TF32X3_FWD_LAUNCHES = _LaunchCounter()
 TF32X3_BWD_LAUNCHES = _LaunchCounter()
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, after item 6)")
+# route -> (forward counter, backward counter)
+ROUTE_COUNTERS = {WGMMA: (WGMMA_FWD_LAUNCHES, WGMMA_BWD_LAUNCHES),
+                  WGMMA_F16: (WGMMA_F16_FWD_LAUNCHES,
+                              WGMMA_F16_BWD_LAUNCHES),
+                  TF32X3: (TF32X3_FWD_LAUNCHES, TF32X3_BWD_LAUNCHES)}
+# calls of `attention_dense` (a mask or dropout), on any device
+DENSE_ATTENTION_CALLS = _LaunchCounter()
 
 
 # --------------------------------------------------------------------------- #
@@ -100,6 +119,42 @@ def attention_reference(q, k, v, causal: bool = False,
         logits = torch.where(keep, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def attention_dense(q, k, v, mask=None, causal: bool = False,
+                    scale: Optional[float] = None, dropout_p: float = 0.0,
+                    keep=None):
+    """`_attention_reference` whole, in torch: what the dispatcher sends
+    a mask or dropout > 0 to, on every device. As `attention_reference`,
+    then the mask: a bool mask keeps where True (else the score is
+    -1e30), any other is added in fp32; both broadcast against (b, h,
+    sq, sk). With dropout_p > 0 the fp32 softmax weights are kept with
+    probability 1 - p (the mask drawn by `nn.rng.keep_mask` from the
+    training step's key, or `keep`, a bool mask of their shape, which
+    the tests pass to hold the arithmetic against JAX's draw) and the
+    kept ones divided by 1 - p, before the cast to v's dtype."""
+    from ..nn import rng
+    DENSE_ATTENTION_CALLS.count += 1
+    sq, d = q.shape[1], q.shape[-1]
+    sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).float()
+    if causal:
+        cm = torch.ones((sq, sk), dtype=torch.bool,
+                        device=q.device).tril(sk - sq)
+        logits = torch.where(cm, logits, NEG_INF)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=q.device)
+        if mask.dtype == torch.bool:
+            logits = torch.where(mask, logits, NEG_INF)
+        else:
+            logits = logits + mask.float()
+    w = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        if keep is None:
+            keep = rng.keep_mask(1.0 - dropout_p, w.shape, w.device)
+        w = torch.where(keep, w / (1.0 - dropout_p), 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 
 
 def _scores(q, k, causal: bool, scale: float):
@@ -199,8 +254,8 @@ def tf32_split(x):
 
 def _check_cuda_args(q, k, v, causal: bool) -> str:
     """What the flash kernels take, and which route: `WGMMA` for bf16,
-    `TF32X3` for fp32, both at head dim 32, 64 or 128, a fixed choice by
-    dtype and head dim. Raises on anything else (the wrapper never runs
+    `WGMMA_F16` for fp16, `TF32X3` for fp32, each at head dim 32, 64 or
+    128, a fixed choice by dtype and head dim. Raises on anything else (the wrapper never runs
     the plain version on the card)."""
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
@@ -209,7 +264,7 @@ def _check_cuda_args(q, k, v, causal: bool) -> str:
             raise TypeError(f"q/{name} dtypes differ: {q.dtype}, {t.dtype}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"dtype {q.dtype} not supported by the flash "
-                        f"kernels (bfloat16, float32)")
+                        f"kernels (bfloat16, float16, float32)")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} must be (b, s, h, d), k and v "
@@ -227,17 +282,17 @@ def _check_cuda_args(q, k, v, causal: bool) -> str:
         raise ValueError(f"batch * heads * round_up(max(sq, sk), 128) = "
                          f"{rows} reaches 2^31: the kernels index work "
                          f"items and lse rows with 32-bit ints")
-    route = _ROUTES[(q.dtype, d)]
+    route = _ROUTE_OF_DTYPE[q.dtype]
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_layout(route, name, t)
     return route
 
 
 def _check_layout(route: str, name, t):
-    """The layout a route reads: TMA's rules on the wgmma route, a
+    """The layout a route reads: TMA's rules on the wgmma routes, a
     contiguous head dim (the split kernel's plain loads over any
     strides) on the tf32x3 one."""
-    if route == WGMMA:
+    if route != TF32X3:
         _check_tma_layout(name, t)
     elif t.stride(-1) != 1:
         raise ValueError(f"{name} needs a contiguous head dim (layout "
@@ -247,7 +302,7 @@ def _check_layout(route: str, name, t):
 def _check_tma_layout(name, t):
     """What a TMA tensor map takes: a contiguous head dim, a 16-byte
     aligned base, and (batch, seq, head) strides that are multiples of
-    16 bytes (8 bf16 elements)."""
+    16 bytes (8 bf16 or fp16 elements)."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name} needs a contiguous head dim (layout "
                          f"strides {t.stride()})")
@@ -377,8 +432,7 @@ def _launch_fwd(q, k, v, causal: bool, scale: float, parts: int = FWD_ALL,
             d, _DTYPE_CODE[q.dtype], _strides(q, k, v, out), int(causal),
             scale, parts, _stream(q))
     _raise_on(err, lib, "flash forward")
-    (WGMMA_FWD_LAUNCHES if route == WGMMA else TF32X3_FWD_LAUNCHES
-     ).count += 1
+    ROUTE_COUNTERS[route][0].count += 1
     FWD_LAUNCHES.count += 1
     return out, lse
 
@@ -431,8 +485,7 @@ def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float,
             _DTYPE_CODE[q.dtype], _strides(q, k, v, out, g, dq, dk, dv),
             int(causal), scale, parts, _stream(q))
     _raise_on(err, lib, "flash backward")
-    (WGMMA_BWD_LAUNCHES if route == WGMMA else TF32X3_BWD_LAUNCHES
-     ).count += 1
+    ROUTE_COUNTERS[route][1].count += 1
     BWD_LAUNCHES.count += 1
     return dq, dk, dv
 
@@ -520,13 +573,12 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
                           scale: Optional[float] = None,
                           dropout_p: float = 0.0):
     """The dispatcher under `nn.functional.scaled_dot_product_attention`:
-    q (b, sq, h, d), k/v (b, sk, h, d) → (b, sq, h, d), differentiable
-    through `FlashAttentionFunction`. A mask or dropout > 0 raises (not
-    ported; every GPT preset has dropout 0). On CUDA tensors what
-    neither kernel route takes raises too (`_check_cuda_args`)."""
-    if mask is not None:
-        raise _not_ported("an attention mask")
-    if dropout_p > 0.0:
-        raise _not_ported("attention dropout > 0")
+    q (b, sq, h, d), k/v (b, sk, h, d) → (b, sq, h, d), differentiable.
+    A mask or dropout > 0 goes to `attention_dense` (JAX's
+    `_pallas_ok` sends both to `_attention_reference`); everything else
+    through `FlashAttentionFunction`, whose CUDA path raises on what no
+    kernel route takes (`_check_cuda_args`)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if mask is not None or dropout_p > 0.0:
+        return attention_dense(q, k, v, mask, causal, scale, dropout_p)
     return FlashAttentionFunction.apply(q, k, v, causal, float(scale))

@@ -168,7 +168,10 @@ def test_cuda_argument_checks_raise():
         wide = torch.zeros(2, 128, 4, 96, dtype=bf)
         port._check_cuda_args(wide, wide, wide, causal=True)
     with pytest.raises(TypeError, match="not supported"):
-        port._check_cuda_args(q.half(), k.half(), v.half(), causal=True)
+        port._check_cuda_args(q.double(), k.double(), v.double(),
+                              causal=True)
+    assert port._check_cuda_args(q.half(), k.half(), v.half(),
+                                 causal=True) == port.WGMMA_F16
     with pytest.raises(TypeError, match="dtypes differ"):
         port._check_cuda_args(q, k.float(), v, causal=True)
     with pytest.raises(ValueError, match="contiguous head dim"):
@@ -185,7 +188,9 @@ def test_cuda_argument_checks_raise():
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 32, "wgmma"), (torch.float32, 32, "tf32x3"),
-    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3")])
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.float16, 32, "wgmma_f16"), (torch.float16, 64, "wgmma_f16"),
+    (torch.float16, 128, "wgmma_f16")])
 def test_routes(dtype, d, route):
     """The route is a fixed choice by dtype and head dim, the same for
     every shape: bf16 to the wgmma K2/K3, fp32 to their tf32x3 route.
@@ -327,8 +332,18 @@ def test_delta_plain_matches_jax_rowsum(seed, b, s, h, d):
 
 
 def test_mask_and_dropout_raise_on_every_device():
+    """A mask or dropout no longer raises: the dispatcher sends both to
+    `attention_dense` (as JAX's `_pallas_ok` sends them to
+    `_attention_reference`), on every device, and never to K2/K3
+    (tests/test_torch_dropout.py holds its arithmetic against JAX)."""
+    from paddle_tpu_torch.nn import rng
     q = torch.zeros(1, 8, 2, D)
-    with pytest.raises(NotImplementedError, match="mask"):
-        port.dot_product_attention(q, q, q, mask=torch.ones(8, 8, dtype=bool))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port.dot_product_attention(q, q, q, dropout_p=0.1)
+    port.DENSE_ATTENTION_CALLS.reset()
+    port.FWD_LAUNCHES.reset()
+    out = port.dot_product_attention(q, q, q,
+                                     mask=torch.ones(8, 8, dtype=bool))
+    with rng.rng_context(0, 0):
+        out2 = port.dot_product_attention(q, q, q, dropout_p=0.1)
+    assert out.shape == out2.shape == q.shape
+    assert port.DENSE_ATTENTION_CALLS.count == 2
+    assert port.FWD_LAUNCHES.count == 0

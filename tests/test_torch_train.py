@@ -131,13 +131,24 @@ def test_bf16_forward_keeps_bf16_logits(np_params):
 
 
 def test_dropout_and_sequence_parallel_raise():
+    """Dropout is ported: in training the forward draws its masks from
+    the installed key (and needs one); in eval it is off. Sequence
+    parallel still raises, naming item 13."""
     from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.nn import rng
     model = gpt_tiny(seed=0, device="cpu", dropout=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 8, dtype=torch.long))
+    ids = torch.zeros(1, 8, dtype=torch.long)
+    with pytest.raises(RuntimeError, match="rng_context"):
+        model(ids)                                # no key installed
+    with rng.rng_context(0, 0):
+        a = model(ids)
+    with rng.rng_context(0, 1):
+        b = model(ids)
     model.eval()                                  # eval: dropout is off
-    assert model(torch.zeros(1, 8, dtype=torch.long)).shape == (1, 8, 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    c = model(ids)
+    assert c.shape == (1, 8, 1024) and not torch.equal(a, b)
+    assert not torch.equal(a, c)
+    with pytest.raises(NotImplementedError, match="item 13"):
         GPTConfig(sequence_parallel="ring")
 
 
@@ -193,9 +204,18 @@ def test_adamw_updates_match_jax(multi_precision):
 
 
 def test_optimizer_refuses_schedulers_and_clipping():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Schedulers and clips are ported (tests/test_torch_lr.py,
+    tests/test_torch_optim.py): an LRScheduler and a ClipGrad* are taken;
+    what is neither still raises."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import lr
+    o = AdamW(learning_rate=lr.StepDecay(1e-3, 2),
+              grad_clip=ClipGradByGlobalNorm(1.0))
+    assert o.get_lr() == np.float32(1e-3)
+    assert o._lr_value(2) == np.float32(1e-3) * np.float32(0.1)  # fp32
+    with pytest.raises(TypeError, match="learning_rate"):
         AdamW(learning_rate=lambda step: 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="grad_clip"):
         AdamW(grad_clip=object())
 
 
@@ -322,9 +342,35 @@ def test_sync_model_writes_masters_back(np_params):
 
 
 def test_trainer_refuses_what_is_not_ported(np_params):
-    for kw in (dict(mesh=object()), dict(remat=True), dict(scaler=object()),
-               dict(amp_level="O1"), dict(check_nan_inf=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port_trainer(np_params, **kw)
-    with pytest.raises(ValueError, match="loop_unroll"):
-        _port_trainer(np_params, loop_unroll=2)
+    """`mesh` still raises, naming item 13; remat, a scaler, O1,
+    loop_unroll > 1 and keep_bn_fp32 are taken (their behaviour:
+    tests/test_torch_amp.py, test_torch_dropout.py); check_nan_inf is a
+    flag (core.set_flags), not a keyword, as in JAX."""
+    from paddle_tpu_torch.amp import GradScaler
+    with pytest.raises(NotImplementedError, match="item 13"):
+        _port_trainer(np_params, mesh=object())
+    for kw in (dict(remat=True), dict(scaler=GradScaler()),
+               dict(amp_level="O1"), dict(loop_unroll=2),
+               dict(keep_bn_fp32=False), dict(donate=False)):
+        tr = _port_trainer(np_params, **kw)
+        assert all(getattr(tr, k) == v for k, v in kw.items()
+                   if k != "donate")
+    with pytest.raises(TypeError, match="check_nan_inf"):
+        _port_trainer(np_params, check_nan_inf=True)
+    with pytest.raises(ValueError, match="amp_level"):
+        _port_trainer(np_params, amp_level="O3")
+
+
+def test_bench_gpt_trainer_call_runs_in_the_port():
+    """`bench.py`'s `bench_gpt` Trainer call, word for word, against the
+    port's classes on `gpt_tiny` at its CPU size (bs 2 x 64, 2 steps)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import optimizer as opt
+    model = P.models.gpt_tiny(seed=0, device="cpu")
+    trainer = P.Trainer(model, opt.AdamW(learning_rate=1e-4),
+                        lambda logits, y: model.loss(logits, y),
+                        amp_level="O2", amp_dtype="bfloat16", loop_unroll=2)
+    ids = np.random.RandomState(0).randint(0, model.cfg.vocab_size, (2, 64))
+    last, losses = trainer.train_steps(ids, ids, steps=2)
+    assert losses.shape == (2,) and torch.isfinite(losses).all()
+    assert trainer.state.params["wte.weight"].dtype == torch.bfloat16
