@@ -157,6 +157,30 @@ every phase passed):
    prompt's admission) in both modes, under the reference's metric
    names; every request finishes, 0 graph captures inside a timed
    window.
+4i. best-of-n, the reference's `bench_serve_bestof` accelerator load
+   (`bench.py`): GPT-small bf16, `max_slots=6, max_seq=1024`, paged,
+   64-row pages, prefix cache off, one seeded 512-token prompt, 64 new
+   tokens, temperature 0.8, top_k 20: one request against n = 4, peak
+   pages 9 against 12 (ratio < 1.5), no boundary copy, 0 leaked pages,
+   continuation 0 the request served alone; a 500-token prompt (3
+   boundary copies, 9 against 15 pages, logged); the group slotted
+   (K1), interleaved (`prefill_budget=256, prefill_chunk=64`: the same
+   prefill tokens, a peak no higher) and with `speculate_k=2` (trunc)
+   gives the paged group's streams bitwise; paged int8 KV (K6) leaks no
+   page. Each run counts its decode kernel from 0: layers x decode
+   steps ((k x draft layers + layers) x rounds x blocks speculative),
+   the others 0.
+4j. the generation surface on GPT-small bf16, 4 seeded 128-token
+   prompts, 64 new tokens: eager `generate` == `generate_jit` (one CUDA
+   graph) bitwise, a second call captures nothing, sampled
+   `generate_jit` deterministic in its seed and not across seeds,
+   `beam_search(beam_size=1)` == greedy, beam 4 with an EOS keeps the
+   prompt and scores finitely; one profiled replay's kernels and busy
+   share; the int8-PTQ GPT-small's `generate_jit` launches K7 48 x 63
+   times per replay and equals eager `generate` with K7's plain version
+   swapped in, K7 == plain at its four 4-row shapes. Eager and graph ms
+   per step, capture seconds, pool bytes and beam ms per step are
+   logged beside the card.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
    logged).
@@ -2026,6 +2050,316 @@ def phase_openloop(torch, np, engine_run):
                                     "interleaved": gap_int}}
 
 
+# --------------------------------------------------------------------------- #
+# phase 4i: best-of-n fork groups
+# --------------------------------------------------------------------------- #
+
+# the reference's `bench_serve_bestof` on an accelerator (`bench.py`):
+# GPT-small at max_seq 1024, pages of 64 rows, 6 slots, prefix cache off;
+# one seeded 512-token prompt, 64 new tokens, temperature 0.8, top_k 20
+BESTOF_KW = dict(max_slots=6, max_seq=1024, kv_layout="paged", page_size=64,
+                 prefix_cache=False, seed=0, device="cuda")
+BESTOF_N = 4
+
+
+def phase_bestof(torch, np, dec, engine_run):
+    """(4i) best-of-4 against one request on the reference's bestof
+    load: peak pages (minus the trash page) 12 against 9 (8 shared
+    prompt pages and one decode page per continuation), ratio < 1.5, no
+    boundary copy, 0 leaked pages, continuation 0 = the request served
+    alone; a 500-token prompt (3 boundary copies, 15 against 9 pages,
+    logged); the group slotted (K1), interleaved (`prefill_budget=256,
+    prefill_chunk=64`: the same prefill tokens, a peak no higher) and
+    speculative (`speculate_k=2`, trunc draft) with the paged streams,
+    and paged int8 KV (K6, 0 leaked pages). Every run counts the decode
+    kernels from 0: its own kernel layers x decode steps times (the
+    speculative run (k x draft layers + layers) x rounds x blocks), the
+    others never."""
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    model = engine_run["model"]
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    prompt = np.random.RandomState(0).randint(0, vocab, (512,)).astype(
+        np.int32)
+    sp = SamplingParams(max_new_tokens=64, temperature=0.8, top_k=20)
+    group = dataclasses.replace(sp, n=BESTOF_N)
+    counters = decode_counters(dec)
+    card = card_line()
+
+    def run(tag, kernel, p, params, **knobs):
+        eng = LLMEngine(model, **{**BESTOF_KW, **knobs})
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        res = eng.generate([p], params)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        counts = {k: c.count for k, c in counters.items()}
+        if eng.speculate_k:
+            steps = (eng.speculate_k * eng.draft_layers + layers) \
+                * eng.spec_rounds * st["decode_dispatches"]
+        else:
+            steps = layers * st["decode_steps"]
+        want = {k: steps if k == kernel else 0 for k in counters}
+        check(counts == want, f"4i {tag}: decode launches {counts} != "
+                              f"{want}")
+        streams = [res.token_ids] + [g.token_ids
+                                     for g in res.siblings or ()]
+        for s_ in streams:
+            check(len(s_) == 64 and all(0 <= t < vocab for t in s_),
+                  f"4i {tag}: a stream of {len(s_)} tokens")
+        check(st["host_syncs"] == st["decode_dispatches"],
+              f"4i {tag}: host syncs")
+        check(st["failed_requests"] == 0 and not eng._fork_src,
+              f"4i {tag}: failed requests or a fork stash left")
+        peak = eng.cache.pool.peak_used - 1 if eng.paged else 0
+        if eng.paged:
+            check(leaked_pages(eng) == 0, f"4i {tag}: leaked pages")
+        log(f"  {tag}: {len(streams)} streams in {wall:.3f} s, {kernel} "
+            f"launches {counts[kernel]}, peak {peak} pages, "
+            f"{st['pages_cow_copied']} boundary copies, "
+            f"{st['prefill_tokens_computed']} prefill tokens")
+        return {"streams": streams, "peak": peak, "wall_s": wall,
+                "cow": st["pages_cow_copied"], "launches": counts[kernel],
+                "prefill_tokens": st["prefill_tokens_computed"]}
+
+    LLMEngine(model, **BESTOF_KW).generate([prompt[:64]],
+                                           SamplingParams(max_new_tokens=8))
+    torch.cuda.synchronize()
+    one = run("one request, paged (K4)", "K4", prompt, sp)
+    four = run("best-of-4, paged (K4)", "K4", prompt, group)
+    ratio = four["peak"] / one["peak"]
+    check((one["peak"], four["peak"]) == (9, 12),
+          f"4i peaks {one['peak']} / {four['peak']} pages, not 9 / 12")
+    check(ratio < 1.5 and four["cow"] == 0, f"4i ratio {ratio:.3f}, "
+                                            f"{four['cow']} copies")
+    check(four["streams"][0] == one["streams"][0],
+          "4i continuation 0 != the request served alone")
+    check(len(set(map(tuple, four["streams"]))) == BESTOF_N,
+          "4i sampled continuations collapsed")
+    log(f"  serve_bestof [card: {card}]: prompt 512, page 64: one request "
+        f"{one['peak']} pages, best-of-4 {four['peak']} pages, ratio "
+        f"{ratio:.4f} (< 1.5), 0 boundary copies; continuation 0 = the "
+        f"request alone")
+    one500 = run("one request, 500-token prompt", "K4", prompt[:500], sp)
+    odd = run("best-of-4, 500-token prompt", "K4", prompt[:500], group)
+    check(odd["cow"] == BESTOF_N - 1 and odd["streams"][0]
+          == one500["streams"][0], f"4i 500: {odd['cow']} copies")
+    log(f"  500-token prompt: {one500['peak']} against {odd['peak']} pages,"
+        f" ratio {odd['peak'] / one500['peak']:.4f} (not gated), "
+        f"{odd['cow']} boundary copies")
+    slotted = run("best-of-4, slotted (K1)", "K1", prompt, group,
+                  kv_layout="slotted", page_size=None)
+    inter = run("best-of-4, interleaved", "K4", prompt, group,
+                prefill_budget=256, prefill_chunk=64)
+    spec = run("best-of-4, speculate_k=2 trunc", "K4", prompt, group,
+               speculate_k=2, draft="trunc")
+    int8 = run("best-of-4, paged int8 KV (K6)", "K6", prompt, group,
+               kv_dtype="int8")
+    for tag, r in (("slotted", slotted), ("interleaved", inter),
+                   ("speculative", spec)):
+        check(r["streams"] == four["streams"],
+              f"4i {tag} streams != the paged group's")
+    check(inter["prefill_tokens"] == four["prefill_tokens"] == 512
+          and inter["peak"] <= four["peak"],
+          f"4i interleaved: {inter['prefill_tokens']} prefill tokens, "
+          f"peak {inter['peak']}")
+    log("  slotted, interleaved and speculative groups: the paged "
+        "group's 4 streams bitwise; int8 KV: 0 leaked pages")
+    return {"one_pages": one["peak"], "bestof4_pages": four["peak"],
+            "ratio": ratio, "cow_copies": four["cow"],
+            "pages_500": [one500["peak"], odd["peak"]],
+            "cow_copies_500": odd["cow"],
+            "launches": {"K4": four["launches"], "K1": slotted["launches"],
+                         "K6": int8["launches"], "K4_spec": spec["launches"]},
+            "wall_s": {"one": one["wall_s"], "bestof4": four["wall_s"],
+                       "slotted": slotted["wall_s"],
+                       "interleaved": inter["wall_s"],
+                       "speculative": spec["wall_s"],
+                       "int8_kv": int8["wall_s"]}}
+
+
+# --------------------------------------------------------------------------- #
+# phase 4j: the model-side generation surface
+# --------------------------------------------------------------------------- #
+
+GEN_B, GEN_PROMPT, GEN_NEW = 4, 128, 64
+
+
+def graph_entry(model, attr):
+    """The newest per-signature program of `model`'s `attr` cache."""
+    return list(model.__dict__[attr].values())[-1][1]
+
+
+def profile_call(torch, fn, top: int = 6):
+    """One profiled call of `fn` (torch.profiler; a graph replay's
+    kernels are traced one by one): (CUDA kernels, the device's busy
+    share of the call's wall time, the `top` kernel names by device
+    time with their share of it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("Command Buffer")]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    total = sum(by_name.values()) or 1.0
+    names = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (len(kernels), busy_us(kernels) / wall_us,
+            [(n[:60], round(t / total, 4)) for n, t in names])
+
+
+def phase_generation(torch, np, k7, engine_run, int8_model):
+    """(4j) GPT-small bf16, 4 seeded 128-token prompts, 64 new tokens:
+    eager `generate` (greedy) == `generate_jit` (one CUDA graph) bitwise;
+    a second call with the same signature captures nothing; sampled
+    `generate_jit` is deterministic in its seed and differs across
+    seeds; `beam_search(beam_size=1)` == greedy; `beam_search(beam_size=
+    4, eos_token_id=...)` on one prompt keeps it and scores finitely.
+    The int8-PTQ GPT-small's `generate_jit` runs K7 48 x 63 times per
+    replay (the 63 decode steps' 4 linears x 12 layers at 4 rows; the
+    prefill's 512 rows take the unfused product) and equals eager
+    `generate` with K7's plain version swapped in; K7 == plain bitwise at
+    its four (4, k, n) shapes. Timed: ms per step eager and graph, the
+    capture, beam ms per step, each beside the card."""
+    model = engine_run["model"]
+    card = card_line()
+    vocab = model.cfg.vocab_size
+    ids = torch.from_numpy(np.random.RandomState(5).randint(
+        0, vocab, (GEN_B, GEN_PROMPT))).cuda()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def captures(m):
+        return m.__dict__.get("_graph_capture_count", 0)
+
+    model.generate(ids[:, :16], max_new_tokens=2, temperature=0.0)
+    eager, eager_s = timed(lambda: model.generate(
+        ids, max_new_tokens=GEN_NEW, temperature=0.0))
+    c0 = captures(model)
+    graph, first_s = timed(lambda: model.generate_jit(
+        ids, max_new_tokens=GEN_NEW))
+    entry = graph_entry(model, "_compiled_generate")
+    check(captures(model) == c0 + 1, "4j: generate_jit captured "
+                                     f"{captures(model) - c0} graphs")
+    graph2, graph_s = timed(lambda: model.generate_jit(
+        ids, max_new_tokens=GEN_NEW))
+    check(captures(model) == c0 + 1, "4j: a second call captured again")
+    check(graph.shape == (GEN_B, GEN_PROMPT + GEN_NEW)
+          and torch.equal(graph[:, :GEN_PROMPT], ids), "4j: output shape "
+                                                       "or prompt")
+    check(torch.equal(eager, graph) and torch.equal(graph, graph2),
+          "4j: generate_jit (graph) != eager generate")
+    n_kernels, busy, top = profile_call(torch, lambda: model.generate_jit(
+        ids, max_new_tokens=GEN_NEW))
+    sk = dict(max_new_tokens=GEN_NEW, temperature=0.8, top_k=20)
+    s1 = model.generate_jit(ids, seed=1, **sk)
+    s1b = model.generate_jit(ids, seed=1, **sk)
+    s2 = model.generate_jit(ids, seed=2, **sk)
+    check(torch.equal(s1, s1b) and not torch.equal(s1, s2),
+          "4j: sampled generate_jit not deterministic in its seed")
+    check(int(s1.min()) >= 0 and int(s1.max()) < vocab, "4j: token range")
+    beam1, bscore = model.beam_search(ids, beam_size=1,
+                                      max_new_tokens=GEN_NEW)
+    check(torch.equal(beam1, graph) and bool(torch.isfinite(bscore).all()),
+          "4j: beam_search(beam_size=1) != greedy")
+    eos = int(graph[0, GEN_PROMPT + 2])
+    model.beam_search(ids[:1], beam_size=4, max_new_tokens=GEN_NEW,
+                      eos_token_id=eos)
+    (beam, score), beam_s = timed(lambda: model.beam_search(
+        ids[:1], beam_size=4, max_new_tokens=GEN_NEW, eos_token_id=eos))
+    check(torch.equal(beam[:, :GEN_PROMPT], ids[:1])
+          and bool(torch.isfinite(score).all()),
+          "4j: beam-4 lost its prompt or scored non-finitely")
+    beam_entry = graph_entry(model, "_compiled_beam")
+    log(f"  GPT-small bf16, b {GEN_B}, prompt {GEN_PROMPT}, {GEN_NEW} new "
+        f"[card: {card}]: eager generate {eager_s * 1e3 / GEN_NEW:.3f} ms "
+        f"per step ({eager_s * 1e3 / (GEN_NEW * GEN_B):.3f} per generated "
+        f"token), generate_jit (one graph replay) "
+        f"{graph_s * 1e3 / GEN_NEW:.3f} ms per step "
+        f"({graph_s * 1e3 / (GEN_NEW * GEN_B):.3f} per generated token; "
+        f"first call "
+        f"{first_s:.3f} s, capture {entry.capture_s:.3f} s, graph pool "
+        f"{entry.pool_bytes / 2**20:.1f} MiB); a profiled replay: "
+        f"{n_kernels} CUDA kernels ({n_kernels / GEN_NEW:.0f} per step), "
+        f"device busy {busy:.3f} of its wall time, by device time {top}; "
+        f"streams equal bitwise, a "
+        f"second call captures 0 graphs; sampled: seed 1 twice equal, "
+        f"seed 2 differs; beam 1 == greedy; beam 4 with EOS {eos}: "
+        f"{beam_s * 1e3 / GEN_NEW:.3f} ms per step (capture "
+        f"{beam_entry.capture_s:.3f} s, pool "
+        f"{beam_entry.pool_bytes / 2**20:.1f} MiB), score "
+        f"{float(score[0]):.4f}")
+    # the int8-PTQ model: K7 in every decode step of the graph
+    q = int8_model
+    q.generate_jit(ids, max_new_tokens=2)
+    k7.INT8_LAUNCHES.reset()
+    qg, q_first_s = timed(lambda: q.generate_jit(ids,
+                                                 max_new_tokens=GEN_NEW))
+    want = 4 * q.cfg.num_layers * (GEN_NEW - 1)
+    check(k7.INT8_LAUNCHES.count == want,
+          f"4j int8: K7 launches {k7.INT8_LAUNCHES.count} != 4 x "
+          f"{q.cfg.num_layers} x {GEN_NEW - 1} = {want}")
+    qg2, q_graph_s = timed(lambda: q.generate_jit(
+        ids, max_new_tokens=GEN_NEW))
+    check(k7.INT8_LAUNCHES.count == 2 * want and torch.equal(qg, qg2),
+          "4j int8: a replay's launches or tokens")
+    with _PlainInt8(k7):
+        k7.INT8_LAUNCHES.reset()
+        plain, q_eager_s = timed(lambda: q.generate(
+            ids, max_new_tokens=GEN_NEW, temperature=0.0))
+        check(k7.INT8_LAUNCHES.count == 0, "4j: the plain run launched K7")
+    check(torch.equal(plain, qg), "4j int8: the graph (K7) != eager "
+                                  "generate with K7's plain version")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for k, n in INT8_SHAPES[:4]:
+        x, qw, ws, sx, biases = int8_inputs(torch, gen, GEN_B, k, n,
+                                            torch.bfloat16)
+        check(torch.equal(k7.int8_linear_fused(x, qw, ws, sx,
+                                               biases["fp32 bias"]),
+                          k7.int8_linear_plain(x, qw, ws, sx,
+                                               biases["fp32 bias"])),
+              f"4j: K7 {GEN_B}x{k}x{n} != plain")
+    agree = float((qg[:, GEN_PROMPT:] == graph[:, GEN_PROMPT:]).float()
+                  .mean())
+    log(f"  int8-PTQ GPT-small generate_jit [card: {card}]: K7 launches "
+        f"{want} = 4 x {q.cfg.num_layers} x {GEN_NEW - 1} per replay; "
+        f"{q_graph_s * 1e3 / GEN_NEW:.3f} ms per step (eager with K7's "
+        f"plain version {q_eager_s * 1e3 / GEN_NEW:.3f}); tokens equal "
+        f"the plain version's; {agree:.3f} of the generated tokens equal "
+        f"the bf16 model's; K7 == plain at 4 x (768x2304, 768x768, "
+        f"768x3072, 3072x768)")
+    return {"eager_ms_per_step": eager_s * 1e3 / GEN_NEW,
+            "graph_ms_per_step": graph_s * 1e3 / GEN_NEW,
+            "eager_ms_per_token": eager_s * 1e3 / (GEN_NEW * GEN_B),
+            "graph_ms_per_token": graph_s * 1e3 / (GEN_NEW * GEN_B),
+            "first_call_s": first_s, "capture_s": entry.capture_s,
+            "pool_bytes": entry.pool_bytes,
+            "replay_kernels": n_kernels, "replay_busy_share": busy,
+            "replay_top_kernels": top,
+            "beam4_ms_per_step": beam_s * 1e3 / GEN_NEW,
+            "beam_capture_s": beam_entry.capture_s,
+            "beam_pool_bytes": beam_entry.pool_bytes,
+            "captures": captures(model),
+            "int8_k7_launches": want,
+            "int8_graph_ms_per_step": q_graph_s * 1e3 / GEN_NEW,
+            "int8_eager_plain_ms_per_step": q_eager_s * 1e3 / GEN_NEW,
+            "int8_first_call_s": q_first_s, "int8_agree_bf16": agree}
+
+
 def phase_paged_vs_slotted(torch, np, P):
     """(d) paged ≡ slotted greedy streams in fp32 (K4 against K1) and in
     int8 over fp32 weights (K6 against K5), token for token; the
@@ -3199,6 +3533,12 @@ def main(argv=None) -> int:
     log("phase 4h: the open-loop serving bench, monolithic and "
         "interleaved admission")
     openloop = phase_openloop(torch, np, engine_run)
+    log("phase 4i: best-of-n fork groups (the reference's bestof load)")
+    bestof = phase_bestof(torch, np, dec, engine_run)
+    log("phase 4j: the generation surface: generate, generate_jit and "
+        "beam_search as CUDA graphs")
+    generation = phase_generation(torch, np, k7, engine_run,
+                                  int8_run["model"])
     del engine_run["model"], variants["K1"], int8_run["model"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
@@ -3338,6 +3678,7 @@ def main(argv=None) -> int:
                        "int8_serving": drop(int8_run),
                        "speculative": drop(spec), "dispatch": dispatch,
                        "admission": admission, "openloop": openloop,
+                       "bestof": bestof, "generation": generation,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32, "train_fp16": train16,

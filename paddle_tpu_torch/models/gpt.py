@@ -1,5 +1,6 @@
 """GPT decoder-only transformer in PyTorch: the training forward and
-loss, and the serving decode wiring.
+loss, the cached forward and generation surface, and the serving decode
+wiring.
 
 The counterpart of `paddle_tpu/models/gpt.py` (config, presets, the
 `GPT` Layer's forward and fused cross-entropy loss, and the functional
@@ -21,11 +22,25 @@ K6 for paged and int8 caches), int8 PTQ linears of at most 4 rows
 through K7 (`ops_cuda/int8_linear.py`).
 Cache slabs are written IN PLACE (the JAX code returns updated arrays
 and donates the old ones instead).
+
+Generation: `GPT.forward(caches=, cache_position=)` over `init_cache`'s
+fixed caches; `generate` (eager, greedy or sampled with a
+`torch.Generator`); `generate_jit` / `generate_compiled` and
+`beam_search` / `beam_search_compiled`, the reference's one-XLA-program
+loops, each run on a card as ONE CUDA graph per signature: the prefill
+and every decode step unrolled over static buffers
+(`serving.graphs.GraphedCall`), so a step's position is a constant of
+the capture. `generate` steps through the same serving wiring
+(`_decode_forward`) the graphs capture, so eager and graph give the
+same bits; the reference's `generate` steps through its module forward,
+whose LayerNorm rounds its affine in the activation dtype (equal in
+fp32 up to rounding, other bits in bf16).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable, Dict, Optional
 
 import torch
@@ -38,7 +53,8 @@ from ..quantization.kv import (dequant_slab, is_quantized, map_slab,
                                slab_data, slab_shape, take_rows)
 
 __all__ = ["GPTConfig", "GPT", "GPTBlock", "gpt_tiny", "gpt_small",
-           "gpt_medium", "gpt_1p3b", "param_shapes", "generate_greedy"]
+           "gpt_medium", "gpt_1p3b", "param_shapes", "generate_greedy",
+           "generate_compiled", "beam_search_compiled"]
 
 NEG_INF = -1e30
 Params = Dict[str, torch.Tensor]
@@ -173,14 +189,36 @@ class GPTAttention(nn.Module):
         self.out = Linear(h, h, std / math.sqrt(2 * cfg.num_layers), gen)
         self.dropout = cfg.dropout
 
-    def forward(self, x):
+    def forward(self, x, cache=None, cache_position=None):
+        """Training: causal attention through the flash kernels. With a
+        `cache` (k, v), each (b, T, nh, hd) from `GPT.init_cache`: the
+        new rows are written in place at `cache_position` and the
+        queries attend rows [0, their position] of the cache through
+        `_masked_attend` (the reference computes this with XLA, outside
+        its kernels); returns (out, cache)."""
         b, s, h = x.shape
         cfg = self.cfg
         qkv = self.qkv(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
-        out = F.scaled_dot_product_attention(
-            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], is_causal=True,
-            dropout_p=self.dropout, training=self.training)
-        return self.out(out.reshape(b, s, h))
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cache is None:
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.dropout,
+                training=self.training)
+            return self.out(out.reshape(b, s, h))
+        if cache_position is None:
+            raise ValueError("a fixed-shape cache needs an explicit "
+                             "cache_position (see GPT.init_cache)")
+        kc, vc = cache
+        pos, T = int(cache_position), kc.shape[1]
+        if not 0 <= pos <= T - s:
+            raise ValueError(f"cache_position {pos} + {s} rows outside "
+                             f"the cache's {T} rows")
+        kc[:, pos:pos + s] = k.to(kc.dtype)
+        vc[:, pos:pos + s] = v.to(vc.dtype)
+        q_pos = pos + torch.arange(s, device=x.device)
+        keep = torch.arange(T, device=x.device)[None, :] <= q_pos[:, None]
+        out = _masked_attend(q, kc, vc, keep[None, None]).to(x.dtype)
+        return self.out(out.reshape(b, s, h)), (kc, vc)
 
 
 class GPTMLP(nn.Module):
@@ -208,7 +246,11 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(cfg, gen)
         self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x):
+    def forward(self, x, cache=None, cache_position=None):
+        if cache is not None:
+            a, cache = self.attn(self.ln1(x), cache, cache_position)
+            x = x + self.dropout(a)
+            return x + self.dropout(self.mlp(self.ln2(x))), cache
         x = x + self.dropout(self.attn(self.ln1(x)))
         return x + self.dropout(self.mlp(self.ln2(x)))
 
@@ -239,19 +281,98 @@ class GPT(nn.Module):
             Linear(cfg.hidden_size, cfg.vocab_size, std, gen, bias=False)
         self.to(device=dev, dtype=resolve_dtype(dtype))
 
-    def forward(self, input_ids, position_ids=None) -> torch.Tensor:
-        """Training forward: logits (b, s, vocab) of a causal pass over
-        `input_ids` (b, s), attention through the flash kernels."""
+    def init_cache(self, batch: int, max_len: int, dtype=None):
+        """Fixed-shape decode caches: per layer (k, v), each (batch,
+        max_len, heads, head_dim) zeros in `dtype` (default the
+        weights'), written in place by `forward(..., caches=...,
+        cache_position=...)`."""
+        cfg = self.cfg
+        if max_len > cfg.max_seq_len:
+            raise ValueError(f"cache max_len {max_len} exceeds max_seq_len "
+                             f"{cfg.max_seq_len}")
+        dtype = resolve_dtype(dtype, self.dtype)
+        shape = (batch, max_len, cfg.num_heads, cfg.head_dim)
+        return [(torch.zeros(shape, dtype=dtype, device=self.device),
+                 torch.zeros(shape, dtype=dtype, device=self.device))
+                for _ in range(cfg.num_layers)]
+
+    def forward(self, input_ids, position_ids=None, caches=None,
+                cache_position=None):
+        """Logits (b, s, vocab) of a causal pass over `input_ids` (b, s),
+        attention through the flash kernels. With `caches` (from
+        `init_cache`) the pass continues a cached sequence from
+        `cache_position` (positions default to cache_position + [0, s)),
+        writes its rows into the caches in place and returns (logits,
+        caches)."""
+        b, s = input_ids.shape
+        if caches is not None and cache_position is None:
+            raise ValueError(
+                "forward with caches needs an explicit cache_position "
+                "(fixed-shape decode protocol: see GPT.init_cache)")
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1],
-                                        device=input_ids.device)[None]
+            ofs = 0 if caches is None else int(cache_position)
+            position_ids = ofs + torch.arange(s, device=input_ids.device)[None]
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
-        for blk in self.blocks:
-            x = blk(x)
+        new_caches = []
+        for i, blk in enumerate(self.blocks):
+            if caches is None:
+                x = blk(x)
+            else:
+                x, c = blk(x, caches[i], cache_position)
+                new_caches.append(c)
         x = self.ln_f(x)
-        if self.lm_head is not None:
-            return self.lm_head(x)
-        return torch.matmul(x, self.wte.weight.t())
+        logits = self.lm_head(x) if self.lm_head is not None \
+            else torch.matmul(x, self.wte.weight.t())
+        return logits if caches is None else (logits, new_caches)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 1.0, top_k: int = 0,
+                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Eager decoding over a fixed KV cache: the prompt's prefill,
+        then one cached step per token. Greedy when `temperature` is 0
+        or `rng` is None; else each token is drawn from softmax(logits
+        / temperature) with `rng` (a `torch.Generator` on the model's
+        device), the logits below the top_k-th largest masked out (ties
+        stay in). Returns (b, prompt + max_new_tokens) token ids."""
+        cfg = self.cfg
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        b, prompt, total = _decode_dims(cfg, ids, max_new_tokens)
+        if max_new_tokens < 1:
+            return ids
+        greedy = temperature == 0.0 or rng is None
+
+        def pick(t, last):
+            if greedy:
+                # argmax of the fp32 logits: the scaled and top-k masked
+                # logits have the same largest entry
+                return torch.argmax(last, dim=-1)
+            lg = _top_k_mask(last / max(temperature, 1e-6), top_k)
+            return torch.multinomial(torch.softmax(lg, dim=-1), 1,
+                                     generator=rng)[:, 0]
+
+        k, v = _fixed_cache(cfg, self.dtype, self.device, b, total)
+        buf = torch.zeros((b, total), dtype=torch.int64, device=self.device)
+        return _generate_loop(cfg, self.serving_params(), ids, k, v, buf,
+                              pick)
+
+    def generate_jit(self, input_ids, max_new_tokens: int = 32,
+                     temperature: float = 0.0, top_k: int = 0,
+                     seed: int = 0) -> torch.Tensor:
+        """The whole decode loop as one CUDA graph per signature (see
+        `generate_compiled`)."""
+        return generate_compiled(self, input_ids, max_new_tokens,
+                                 temperature, top_k, seed)
+
+    def beam_search(self, input_ids, beam_size: int = 4,
+                    max_new_tokens: int = 32,
+                    eos_token_id: Optional[int] = None,
+                    length_penalty: float = 0.6):
+        """Beam search as one CUDA graph per signature (see
+        `beam_search_compiled`)."""
+        return beam_search_compiled(self, input_ids, beam_size,
+                                    max_new_tokens, eos_token_id,
+                                    length_penalty)
 
     def loss(self, logits, labels, ignore_index: int = -100):
         """Next-token cross-entropy: logits[:, :-1] against
@@ -573,29 +694,299 @@ def _decode_dims(cfg: GPTConfig, ids: torch.Tensor, max_new_tokens: int):
     return b, prompt, total
 
 
-@torch.no_grad()
-def generate_greedy(model: GPT, input_ids,
-                    max_new_tokens: int = 32) -> torch.Tensor:
-    """Greedy decoding over a preallocated fixed-shape KV cache — the
-    `generate_compiled(temperature=0)` counterpart: prefill the prompt,
-    then one cache-writing step per token. Returns (b, prompt + new)."""
-    cfg = model.cfg
-    params = model.serving_params()
-    ids = torch.as_tensor(input_ids, device=model.device)
-    if max_new_tokens < 1:
-        return ids
-    b, prompt, total = _decode_dims(cfg, ids, max_new_tokens)
-    k_cache = torch.zeros((cfg.num_layers, b, total, cfg.num_heads,
-                           cfg.head_dim), dtype=model.dtype,
-                          device=model.device)
-    v_cache = torch.zeros_like(k_cache)
+def _fixed_cache(cfg: GPTConfig, dtype, device, rows: int, total: int):
+    """The serving wiring's fixed K and V caches, (L, rows, total, nh,
+    hd) zeros each."""
+    k = torch.zeros((cfg.num_layers, rows, total, cfg.num_heads,
+                     cfg.head_dim), dtype=dtype, device=device)
+    return k, torch.zeros_like(k)
+
+
+def _top_k_mask(lg: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The reference's top-k rule: every entry below the top_k-th
+    largest goes to -inf; entries tied with it stay (so not
+    `torch.topk`)."""
+    if not top_k:
+        return lg
+    kth = torch.sort(lg, dim=-1).values[:, -top_k][:, None]
+    return torch.where(lg < kth, float("-inf"), lg)
+
+
+def _generate_loop(cfg: GPTConfig, params: Params, ids: torch.Tensor,
+                   k_cache, v_cache, buf: torch.Tensor,
+                   pick: Callable) -> torch.Tensor:
+    """Prefill `ids` (b, prompt) into the fixed caches, then one cached
+    step per token up to `buf`'s (b, total) width; `pick(t, logits)`
+    turns token t's fp32 logits (b, V) into ids (b,). Every position is
+    a Python int, so a capture of this loop holds each step's position
+    as a constant. Writes and returns `buf`."""
+    prompt, total = ids.shape[1], buf.shape[1]
     logits, _, _ = _decode_forward(cfg, params, ids, 0, k_cache, v_cache)
-    buf = torch.zeros((b, total), dtype=ids.dtype, device=ids.device)
     buf[:, :prompt] = ids
-    buf[:, prompt] = torch.argmax(logits[:, -1].float(), dim=-1)
-    for t in range(max_new_tokens - 1):
+    buf[:, prompt] = pick(0, logits[:, -1].float())
+    for t in range(total - prompt - 1):
         pos = prompt + t
         logits, _, _ = _decode_forward(cfg, params, buf[:, pos:pos + 1], pos,
                                        k_cache, v_cache)
-        buf[:, pos + 1] = torch.argmax(logits[:, -1].float(), dim=-1)
+        buf[:, pos + 1] = pick(t + 1, logits[:, -1].float())
     return buf
+
+
+def _graphed_call(model: GPT, attr: str, key, params: Params,
+                  build: Callable):
+    """The per-signature program cache on the model (the reference's
+    `_compiled_for`): `build(graphed, pool)` makes the program's static
+    buffers and its `GraphedCall`, returned as (call, buffers). On a
+    card it is captured once per signature into the model's one graph
+    memory pool, each capture counted in `model._graph_capture_count`
+    and timed into the call's `capture_s`; a second call with the same
+    signature captures nothing. The program holds the weights it was
+    captured over, so new weight storage (a conversion, a move)
+    recaptures. On the CPU the program is built for the one call."""
+    if model.device.type != "cuda":
+        return build(False, None)
+    cache = model.__dict__.setdefault(attr, {})
+    stamp = tuple((k, t.data_ptr()) for k, t in params.items())
+    entry = cache.get(key)
+    if entry is None or entry[0] != stamp:
+        pool = model.__dict__.get("_graph_pool")
+        if pool is None:
+            pool = model.__dict__["_graph_pool"] = \
+                torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        call, bufs = build(True, pool)
+        call.capture_s = time.perf_counter() - t0
+        model.__dict__["_graph_capture_count"] = \
+            model.__dict__.get("_graph_capture_count", 0) + 1
+        entry = cache[key] = (stamp, call, bufs)
+    return entry[1], entry[2]
+
+
+@torch.no_grad()
+def generate_compiled(model: GPT, input_ids, max_new_tokens: int = 32,
+                      temperature: float = 0.0, top_k: int = 0,
+                      seed: int = 0) -> torch.Tensor:
+    """The whole generation as one program: on a card ONE CUDA graph
+    per (b, prompt, max_new_tokens, temperature, top_k), holding the
+    prefill and the max_new_tokens - 1 decode steps over static ids,
+    cache and output buffers; a call copies the ids in, replays and
+    copies the tokens out. Greedy when temperature == 0; else the
+    logits / temperature, top-k masked as the reference masks them,
+    pick by Gumbel-max: argmax(logits + g), with g = -log(-log(u)) from
+    uniforms u drawn before the replay by `torch.Generator(device)
+    .manual_seed(seed)` into a static (b, max_new_tokens, V) buffer.
+    That is a categorical draw, and a seed always gives the same
+    tokens. On CPU tensors the same function runs eagerly. Returns (b,
+    prompt + max_new_tokens) token ids (the prompt alone for
+    max_new_tokens < 1)."""
+    cfg = model.cfg
+    params = model.serving_params()
+    ids = torch.as_tensor(input_ids, device=model.device).long()
+    if max_new_tokens < 1:
+        return ids
+    b, prompt, total = _decode_dims(cfg, ids, max_new_tokens)
+    sampled = temperature != 0.0
+    dev = model.device
+
+    def build(graphed, pool):
+        bufs = {"ids": torch.zeros((b, prompt), dtype=torch.int64,
+                                   device=dev),
+                "out": torch.zeros((b, total), dtype=torch.int64,
+                                   device=dev)}
+        k, v = _fixed_cache(cfg, model.dtype, dev, b, total)
+        if sampled:
+            bufs["u"] = torch.zeros((b, max_new_tokens, cfg.vocab_size),
+                                    dtype=torch.float32, device=dev)
+
+        def pick(t, last):
+            if not sampled:
+                return torch.argmax(last, dim=-1)
+            lg = _top_k_mask(last / max(temperature, 1e-6), top_k)
+            g = bufs["u"][:, t].log().neg().log().neg()
+            return torch.argmax(lg + g, dim=-1)
+
+        def fn():
+            return (_generate_loop(cfg, params, bufs["ids"], k, v,
+                                   bufs["out"], pick),)
+
+        if graphed:
+            bufs["ids"].copy_(ids)      # the warm-up runs on real ids
+            if sampled:
+                bufs["u"].fill_(0.5)
+        from ..serving.graphs import GraphedCall
+        return GraphedCall(fn, graphed, pool, "generation loop"), bufs
+
+    call, bufs = _graphed_call(
+        model, "_compiled_generate",
+        (b, prompt, max_new_tokens, float(temperature), int(top_k)),
+        params, build)
+    bufs["ids"].copy_(ids)
+    if sampled:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        bufs["u"].uniform_(generator=gen)
+    return call.run()[0]
+
+
+@torch.no_grad()
+def beam_search_compiled(model: GPT, input_ids, beam_size: int = 4,
+                         max_new_tokens: int = 32,
+                         eos_token_id: Optional[int] = None,
+                         length_penalty: float = 0.6):
+    """Beam search as one program (the reference's, line for line): on
+    a card ONE CUDA graph per (b, prompt, beam_size, max_new_tokens,
+    eos_token_id, length_penalty).
+
+    Per step: log-softmax in fp32, the top `beam_size` of the b x K x V
+    candidates per batch row, and the token buffer and cache reordered
+    along the beam axis (the cache `index_select`ed into a second static
+    cache; the unrolled steps alternate between the two). With an
+    `eos_token_id`, every hypothesis that finishes is banked in a
+    finished pool at its GNMT-normalised score (score / ((5 + len) /
+    6) ** length_penalty), frozen beams extend only with EOS at zero
+    cost, and the result is the best of the pool and the surviving
+    beams under the same normalisation (none without an EOS id: every
+    hypothesis has max_new_tokens tokens). Returns (tokens (b, prompt +
+    max_new_tokens), scores (b,)). Ties among candidates go to the
+    lower index, as the reference's `lax.top_k` orders them."""
+    cfg = model.cfg
+    params = model.serving_params()
+    ids = torch.as_tensor(input_ids, device=model.device).long()
+    if max_new_tokens < 1:
+        raise ValueError("beam search needs max_new_tokens >= 1")
+    b, prompt, total = _decode_dims(cfg, ids, max_new_tokens)
+    V, K, eos = cfg.vocab_size, int(beam_size), eos_token_id
+    dev = model.device
+
+    def norm_of(length):
+        return ((5.0 + length) / 6.0) ** length_penalty
+
+    def build(graphed, pool):
+        bufs = {"ids": torch.zeros((b, prompt), dtype=torch.int64,
+                                   device=dev)}
+        k0, v0 = _fixed_cache(cfg, model.dtype, dev, b, total)
+        caches = [_fixed_cache(cfg, model.dtype, dev, b * K, total)
+                  for _ in range(2)]
+
+        def fn():
+            return _beam_loop(cfg, params, bufs["ids"], k0, v0, caches,
+                              K, max_new_tokens, eos, norm_of)
+
+        if graphed:
+            bufs["ids"].copy_(ids)
+        from ..serving.graphs import GraphedCall
+        return GraphedCall(fn, graphed, pool, "beam search"), bufs
+
+    call, bufs = _graphed_call(
+        model, "_compiled_beam",
+        (b, prompt, K, max_new_tokens, eos, float(length_penalty)),
+        params, build)
+    bufs["ids"].copy_(ids)
+    return tuple(call.run())
+
+
+def _top_k_first(x: torch.Tensor, k: int):
+    """The k largest entries of each row and their indices, largest
+    first and, among equal entries, the lower index first: the order of
+    the reference's `lax.top_k` (a stable sort; `torch.topk` leaves the
+    order of ties to the device), so beam 1 is greedy's argmax."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _beam_loop(cfg: GPTConfig, params: Params, ids: torch.Tensor, k0, v0,
+               caches, K: int, max_new: int, eos: Optional[int],
+               norm_of: Callable, margins: Optional[list] = None):
+    """`beam_search_compiled`'s program: prefill into (k0, v0), the
+    beams into caches[0], each step's reorder into the other cache.
+    `margins` (a list; eager calls only) collects how decided each
+    choice was: per pruning step the gap between the K-th and the next
+    candidate score (b,), and last the gap between the chosen
+    hypothesis and the best other one (b,)."""
+    b, prompt = ids.shape
+    total = prompt + max_new
+    V = cfg.vocab_size
+    dev = ids.device
+    rows = torch.arange(b, device=dev)
+    ninf = float("-inf")
+    logits, _, _ = _decode_forward(cfg, params, ids, 0, k0, v0)
+    logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+    scores, tok = _top_k_first(logp, K)                          # (b, K)
+    (kc, vc), (kn, vn) = caches
+    L = cfg.num_layers
+    kc.view(L, b, K, *kc.shape[2:]).copy_(k0[:, :, None])
+    vc.view(L, b, K, *vc.shape[2:]).copy_(v0[:, :, None])
+    buf = torch.zeros((b, K, total), dtype=torch.int64, device=dev)
+    buf[:, :, :prompt] = ids[:, None]
+    buf[:, :, prompt] = tok
+    finished = torch.zeros((b, K), dtype=torch.bool, device=dev) \
+        if eos is None else tok == eos
+    pool_buf = buf[:, 0].clone()
+    pool_score = torch.full((b,), ninf, device=dev)
+    if eos is not None:
+        fin0 = torch.where(tok == eos, scores / norm_of(1.0), ninf)
+        bi = torch.argmax(fin0, dim=1)
+        pool_score = fin0[rows, bi]
+        pool_buf = buf[rows, bi]
+        # (no item assignment: it copies a host scalar, which a CUDA
+        # graph capture refuses)
+        freeze = torch.full((V,), ninf, device=dev).masked_fill(
+            torch.arange(V, device=dev) == eos, 0.0)
+    for t in range(max_new - 1):
+        pos = prompt + t
+        cur = buf[:, :, pos].reshape(b * K, 1)
+        logits, _, _ = _decode_forward(cfg, params, cur, pos, kc, vc)
+        logp = torch.log_softmax(logits[:, -1].float(),
+                                 dim=-1).reshape(b, K, V)
+        if eos is not None:
+            # bank the best hypothesis finishing at this step (an
+            # unfinished beam extending with EOS) before pruning
+            fin = torch.where(finished, ninf,
+                              scores + logp[:, :, eos]) / norm_of(t + 2.0)
+            bi = torch.argmax(fin, dim=1)
+            cand_score = fin[rows, bi]
+            cand_buf = buf[rows, bi]
+            cand_buf[:, pos + 1].fill_(eos)
+            better = cand_score > pool_score
+            pool_score = torch.where(better, cand_score, pool_score)
+            pool_buf = torch.where(better[:, None], cand_buf, pool_buf)
+            # frozen beams may only extend with EOS, at zero cost
+            logp = torch.where(finished[:, :, None], freeze, logp)
+        cand = scores[:, :, None] + logp                         # (b, K, V)
+        if margins is not None:
+            top = _top_k_first(cand.reshape(b, K * V), K + 1)[0]
+            margins.append(top[:, K - 1] - top[:, K])
+        scores, idx = _top_k_first(cand.reshape(b, K * V), K)
+        src = idx // V
+        tok = idx % V
+        buf = torch.gather(buf, 1, src[:, :, None].expand(b, K, total))
+        buf[:, :, pos + 1] = tok
+        flat = (rows[:, None] * K + src).reshape(-1)
+        torch.index_select(kc, 1, flat, out=kn)
+        torch.index_select(vc, 1, flat, out=vn)
+        kc, vc, kn, vn = kn, vn, kc, vc
+        if eos is not None:
+            finished = torch.gather(finished, 1, src) | (tok == eos)
+    if eos is not None:
+        is_eos = buf[:, :, prompt:] == eos
+        first = torch.argmax(is_eos.to(torch.int32), dim=-1)
+        lengths = torch.where(is_eos.any(dim=-1), first + 1, max_new)
+        scores = scores / norm_of(lengths.float())
+    best = torch.argmax(scores, dim=1)
+    out, out_score = buf[rows, best], scores[rows, best]
+    if eos is not None:
+        use_pool = pool_score > out_score
+        out = torch.where(use_pool[:, None], pool_buf, out)
+        out_score = torch.where(use_pool, pool_score, out_score)
+    if margins is not None:
+        final = torch.cat([scores, pool_score[:, None]], dim=1)
+        top2 = torch.topk(final, min(2, final.shape[1]), dim=1).values
+        margins.append(top2[:, 0] - top2[:, -1])
+    return out, out_score
+
+
+def generate_greedy(model: GPT, input_ids,
+                    max_new_tokens: int = 32) -> torch.Tensor:
+    """Greedy decoding: `generate_compiled(temperature=0)`, the port's
+    one greedy path. Returns (b, prompt + new) token ids."""
+    return generate_compiled(model, input_ids, max_new_tokens,
+                             temperature=0.0)

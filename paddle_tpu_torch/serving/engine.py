@@ -74,6 +74,14 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   the scheduler already has; `has_result()` / `peek_result()` poll
   without collecting; `close()` (or the context manager) ends the
   engine's intake and stepping.
+- BEST-OF-N (`SamplingParams.n` > 1): the group's rids are assigned at
+  submit (`fork_rids()`); the siblings materialise at the parent's
+  queue pop, each with the next salt, and go to the queue front, so a
+  group samples as n submissions of the same prompt would. Paged, a
+  sibling forks off its parent's stash (prompt pages pinned, prompt
+  logits kept): it binds the full prompt pages shared, copies the
+  partial boundary page (`metrics.pages_cow_copied`) and runs no
+  prefill. Slotted siblings prefill like independent requests.
 - Two KV layouts (`kv_layout`). "slotted": one `max_seq` stripe per
   lane (`kv_cache.KVCacheManager`). "paged": one refcounted page pool
   with per-lane block tables (`paged_kv.PagedKVCache`); admission
@@ -201,7 +209,8 @@ class SamplingParams:
     deadline_s: Optional[float] = None
     # admission order: highest priority first, FIFO within a level
     priority: int = 0
-    # best-of-n continuations; only n = 1 is served by the port yet
+    # best-of-n continuations: n - 1 siblings fork off the request at
+    # its queue pop, each sampled with its own salt
     n: int = 1
 
     def __post_init__(self):
@@ -233,6 +242,10 @@ class GenerationResult:
     ttft_s: float                 # submit → first token wall time
     error: Optional[str] = None   # set iff finish_reason == "error"
     queue_wait_s: float = 0.0     # submit → prefill start
+    # best-of-n: continuations 1..n-1 of this request's fork group, set
+    # by `LLMEngine.generate()` (the step-driven API collects each rid
+    # of `fork_rids()` itself)
+    siblings: Optional[List["GenerationResult"]] = None
 
     @property
     def text_ids(self) -> np.ndarray:
@@ -269,6 +282,14 @@ class _Request:
     # of the wait books as queue wait)
     pf_filled: int = 0
     pf_compute_s: float = 0.0
+    # best-of-n: a parent carries its group's rids ([own] + siblings,
+    # assigned at submit) and a sibling the parent's rid. Parent side,
+    # the siblings not yet admitted (they keep the fork stash alive);
+    # sibling side, parked PREFILLING while the parent is mid-prefill
+    fork_rids: Optional[List[int]] = None
+    fork_of: Optional[int] = None
+    fork_pending: Optional[set] = None
+    pf_wait_fork: bool = False
 
 
 @dataclasses.dataclass
@@ -287,18 +308,20 @@ def _restore_request(r: Dict, now: float) -> _Request:
     The JAX dicts' `first_key` (a JAX RNG key) is read and ignored: the
     port keys a first token by (seed, salt, position, DOMAIN_FIRST), so
     the salt alone carries it. `kv_pages` payloads (host swap, page
-    handoff) are not ported and ignored: the request re-prefills."""
+    handoff) are not ported and ignored: the request re-prefills. A
+    best-of-n parent's `fork_rids` and a sibling's `fork_of` carry the
+    group."""
     params = SamplingParams(**r["params"])
-    if params.n != 1:
-        raise NotImplementedError(
-            f"request {r['rid']}: n={params.n}: best-of-n forking is not "
-            f"ported to the PyTorch engine yet (see ROADMAP.md)")
     req = _Request(int(r["rid"]), np.asarray(r["prompt"], np.int32),
                    params, now - float(r.get("elapsed_s", 0.0)))
     req.generated = [int(t) for t in r["generated"]]
     req.ttft_s = float(r.get("ttft_s", 0.0))
     if r.get("salt") is not None:
         req.salt = int(r["salt"])
+    if r.get("fork_rids") is not None:
+        req.fork_rids = [int(x) for x in r["fork_rids"]]
+    if r.get("fork_of") is not None:
+        req.fork_of = int(r["fork_of"])
     if params.deadline_s is not None:
         req.deadline_t = req.submit_t + params.deadline_s
     return req
@@ -878,6 +901,11 @@ class LLMEngine:
         # rid -> stream sink (`attach_stream`)
         self._streams: Dict[int, Callable] = {}
         self._closed = False
+        # best-of-n: parent rid -> its group's rids (from submit until
+        # the parent's result is collected), and parent rid -> the fork
+        # stash (prompt logits, pinned prompt pages, pending siblings)
+        self._fork_groups: Dict[int, List[int]] = {}
+        self._fork_src: Dict[int, Dict] = {}
         self._inflight: Optional[_Inflight] = None
         self._ahead: Optional[_Inflight] = None     # the overlap lookahead
         self._last_proc_t = 0.0   # decode-time attribution watermark
@@ -903,10 +931,13 @@ class LLMEngine:
                 f"prompt ({prompt.size}) + max_new_tokens "
                 f"({params.max_new_tokens}) = {total} exceeds the engine "
                 f"max_seq {self.max_seq}")
-        if params.n != 1:
-            raise NotImplementedError(
-                f"n={params.n}: best-of-n forking is not ported to the "
-                f"PyTorch engine yet (see ROADMAP.md)")
+        if params.n > self.max_slots:
+            # every continuation holds a decode lane while it lives: a
+            # group wider than the grid could never fork whole
+            self.metrics.on_reject("invalid")
+            raise ValueError(
+                f"n ({params.n}) exceeds max_slots ({self.max_slots}): "
+                f"best-of-n continuations each hold a decode lane")
         return prompt
 
     def submit(self, prompt, params: Optional[SamplingParams] = None) -> int:
@@ -928,6 +959,14 @@ class LLMEngine:
         self._next_id += 1
         now = time.perf_counter()
         req = _Request(rid, prompt, params, now)
+        if params.n > 1:
+            # the whole group's rids now, so a caller can attach one
+            # stream per continuation before anything pops; the
+            # siblings materialise at the parent's pop (_expand_forks)
+            kids = list(range(self._next_id, self._next_id + params.n - 1))
+            self._next_id += params.n - 1
+            req.fork_rids = [rid] + kids
+            self._fork_groups[rid] = list(req.fork_rids)
         if params.deadline_s is not None:
             req.deadline_t = now + params.deadline_s
         self._queue.append(req)
@@ -995,7 +1034,10 @@ class LLMEngine:
             raise EngineOverloadError(
                 f"request queue full ({self.max_queue} pending) — adopt "
                 f"{r.rid} on another engine")
-        self._next_id = max(self._next_id, r.rid + 1)
+        self._next_id = max(self._next_id, max(r.fork_rids) + 1
+                            if r.fork_rids else r.rid + 1)
+        if r.fork_rids:
+            self._fork_groups[r.rid] = list(r.fork_rids)
         r.adopted_t = now
         self._queue.append(r)
         self.metrics.on_submit()
@@ -1004,11 +1046,16 @@ class LLMEngine:
     def _adoption_dict(self, r: _Request, now: float) -> Dict:
         """A request as `adopt()` takes it: the one serialization shared
         by `snapshot()`, `extract()` and `unqueue()`."""
-        return {"rid": r.rid, "prompt": np.asarray(r.prompt, np.int32),
-                "params": dataclasses.asdict(r.params),
-                "generated": list(r.generated), "slot": r.slot,
-                "ttft_s": r.ttft_s, "salt": r.salt,
-                "elapsed_s": now - r.submit_t}
+        d = {"rid": r.rid, "prompt": np.asarray(r.prompt, np.int32),
+             "params": dataclasses.asdict(r.params),
+             "generated": list(r.generated), "slot": r.slot,
+             "ttft_s": r.ttft_s, "salt": r.salt,
+             "elapsed_s": now - r.submit_t}
+        if r.fork_rids:
+            d["fork_rids"] = list(r.fork_rids)
+        if r.fork_of is not None:
+            d["fork_of"] = r.fork_of
+        return d
 
     def salt_clock(self) -> int:
         """The next salt this engine's queue pop assigns."""
@@ -1048,14 +1095,18 @@ class LLMEngine:
         no salt yet gets the one its pop here would have drawn, so an
         adopter with `keep_salt=True` continues the very stream this
         engine would have produced (unqueue in pop order). No stream
-        event fires: the new owner's attach replays from zero."""
+        event fires: the new owner's attach replays from zero. A fork
+        parent leaves without a salt: its group's salts are drawn at the
+        adopter's pop, where the siblings materialise. A sibling that
+        leaves lets go of its parent's fork stash here."""
         self._ensure_open()
         for req in self._queue:
             if req.rid == rid:
                 self._queue.remove(req)
-                if req.salt is None:
+                if req.salt is None and not req.fork_rids:
                     req.salt = self._next_salt
                     self._next_salt = (self._next_salt + 1) & SALT_MASK
+                self._fork_done(req)
                 self._streams.pop(rid, None)
                 return self._adoption_dict(req, time.perf_counter())
         return None
@@ -1065,7 +1116,14 @@ class LLMEngine:
         if rid not in self._results:
             raise KeyError(f"request {rid} not finished (or unknown, "
                            f"or already collected)")
+        self._fork_groups.pop(rid, None)   # dies with the parent's result
         return self._results.pop(rid)
+
+    def fork_rids(self, rid: int) -> List[int]:
+        """The best-of-n group `rid` heads: `[rid, sibling rids...]`
+        (empty for an n = 1 request, or once the parent's result was
+        collected). Every listed rid yields its own result and stream."""
+        return list(self._fork_groups.get(rid, []))
 
     def has_result(self, rid: int) -> bool:
         """True iff `rid` has finished and its result is still
@@ -1100,6 +1158,11 @@ class LLMEngine:
             return True
         req = self._find_request(rid)
         if req is None:
+            if any(rid in group[1:] for group in self._fork_groups.values()):
+                # a PROMISED fork sibling (its parent has not popped):
+                # the sink registers now and gets the first token
+                self._streams[rid] = sink
+                return True
             return False
         if req.generated:
             sink("tokens", 0, list(req.generated))
@@ -1228,7 +1291,9 @@ class LLMEngine:
                  params: Union[SamplingParams, Sequence[SamplingParams],
                                None] = None) -> List[GenerationResult]:
         """Submit a batch and run to completion; results in input
-        order. Every request is validated before any is enqueued."""
+        order (a best-of-n request's continuations 1..n-1 ride its
+        result as `siblings`). Every request is validated before any is
+        enqueued."""
         self._ensure_open()
         if isinstance(params, SamplingParams) or params is None:
             params = [params] * len(prompts)
@@ -1237,14 +1302,22 @@ class LLMEngine:
                              f"{len(params)} SamplingParams")
         params = [sp or SamplingParams() for sp in params]
         prompts = [self._validate(p, sp) for p, sp in zip(prompts, params)]
-        rids = []
+        rids, groups = [], {}
         for p, sp in zip(prompts, params):
             # a batch larger than max_queue drains with scheduler steps
             while len(self._queue) >= self.max_queue and self.has_work():
                 self.step()
-            rids.append(self._enqueue(p, sp))
+            rid = self._enqueue(p, sp)
+            rids.append(rid)
+            groups[rid] = self.fork_rids(rid)
         self.run_until_complete()
-        return [self.result(r) for r in rids]
+        out = []
+        for rid in rids:
+            g = self.result(rid)
+            if groups[rid]:
+                g.siblings = [self.result(k) for k in groups[rid][1:]]
+            out.append(g)
+        return out
 
     # ------------------------------------------------------------------ #
     # admission
@@ -1263,13 +1336,48 @@ class LLMEngine:
         """Pop `_select_next()`. The sampling salt is assigned here,
         when the request leaves the queue: the one point monolithic and
         interleaved admission share, so the salts, and with them every
-        sampled stream, do not depend on the admission mode."""
+        sampled stream, do not depend on the admission mode. A best-of-n
+        parent's siblings materialise here (`_expand_forks`)."""
         best = self._select_next()
         self._queue.remove(best)
         if best.salt is None:
             best.salt = self._next_salt
             self._next_salt = (self._next_salt + 1) & SALT_MASK
+        if best.fork_rids and best.fork_of is None \
+                and not best.generated and best.params.n > 1:
+            self._expand_forks(best)
         return best
+
+    def _expand_forks(self, parent: _Request):
+        """Materialise a best-of-n parent's siblings at its pop, the one
+        point every admission mode and layout shares: each takes the
+        next salt, right after the parent's, so a group draws the salts
+        n submissions of its prompt would, in every mode. They go to
+        the queue FRONT, where those submissions would pop next. The
+        reference also draws a first-token key per sibling here; the
+        port keys a first token by (seed, salt, position, DOMAIN_FIRST),
+        so the salt is the whole draw. A resumed parent whose siblings
+        rode the snapshot makes none."""
+        kids = []
+        for krid in parent.fork_rids[1:]:
+            if self._find_request(krid) is not None \
+                    or krid in self._results:
+                continue
+            k = _Request(krid, parent.prompt,
+                         dataclasses.replace(parent.params, n=1),
+                         parent.submit_t)
+            k.fork_of = parent.rid
+            k.deadline_t = parent.deadline_t
+            k.adopted_t = parent.adopted_t
+            k.salt = self._next_salt
+            self._next_salt = (self._next_salt + 1) & SALT_MASK
+            kids.append(k)
+            self.metrics.on_submit()
+        if not kids:
+            return
+        for k in reversed(kids):
+            self._queue.appendleft(k)
+        parent.fork_pending = {k.rid for k in kids}
 
     def _bucket_for(self, n: int) -> int:
         for b in self._buckets:
@@ -1293,8 +1401,12 @@ class LLMEngine:
 
     def _pages_needed(self, req: _Request) -> int:
         """Fresh pages the request would allocate: its span minus the
-        pages it can share from the prefix tree."""
+        pages it can share (a fork parent's full prompt pages, or the
+        prefix tree's)."""
         span = self.cache.span_pages(self._span_rows(req))
+        src = self._fork_src.get(req.fork_of)
+        if src is not None:
+            return span - src["prompt_len"] // self.page_size
         if self.prefix is None:
             return span
         _, pages = self.prefix.match(self._matchable(req))
@@ -1359,6 +1471,10 @@ class LLMEngine:
         return True
 
     def _admit_one(self, req: _Request, slot: int):
+        if self.paged and req.fork_of in self._fork_src:
+            # a COW fork: no prefill compute at all
+            self._fork_install(req, slot, self._fork_src[req.fork_of])
+            return
         self.cache.reset_length(slot)      # an attempt starts from row 0
         t0 = time.perf_counter()
         logits = self._ingest_tokens(slot, req, req.prompt,
@@ -1376,6 +1492,7 @@ class LLMEngine:
             # token; its TTFT was recorded where it started
             self._install_slot(req, slot, pos=self.cache.length(slot))
         else:
+            self._stash_fork_src(req, slot, logits)
             self._first_token_install(req, slot, first, t1)
 
     def _sample_first(self, req: _Request, logits: torch.Tensor) -> int:
@@ -1395,7 +1512,78 @@ class LLMEngine:
         self.metrics.on_first_token(req.ttft_s)
         req.generated.append(first)
         self._emit_stream(req.rid, "tokens", 0, [first])
+        self._fork_done(req)            # a no-op but for a fork sibling
         self._install_slot(req, slot, pos=int(req.prompt.size))
+
+    # ------------------------------------------------------------------ #
+    # best-of-n: copy-on-write forks (paged layout)
+    # ------------------------------------------------------------------ #
+    def _stash_fork_src(self, req: _Request, slot: int,
+                        logits: torch.Tensor):
+        """A fork parent at decode entry: pin its prompt pages (one
+        reference each, so they outlive the parent) and keep its
+        prompt's last-position logits, from which every sibling samples
+        its own first token. Released when the last pending sibling
+        leaves the group (`_fork_done`)."""
+        if not self.paged or not req.fork_pending:
+            return
+        P = int(req.prompt.size)
+        pages = self.cache.lane_pages(slot)[:self.cache.span_pages(P)]
+        for p in pages:
+            self.cache.pool.ref(p)
+        self._fork_src[req.rid] = {"logits": logits, "pages": pages,
+                                   "prompt_len": P,
+                                   "pending": set(req.fork_pending)}
+
+    def _fork_done(self, kid: _Request):
+        """A sibling left the pending set (admitted, forked or not, or
+        finished before admission): drop it from the parent's
+        bookkeeping, and release the stash's page pins after the last.
+        The port has no caller of the reference's `_drop_fork_srcs`: it
+        never heals its pool, so a stash never outlives its pages."""
+        if kid.fork_of is None:
+            return
+        parent = self._find_request(kid.fork_of)
+        if parent is not None and parent.fork_pending:
+            parent.fork_pending.discard(kid.rid)
+        src = self._fork_src.get(kid.fork_of)
+        if src is not None:
+            src["pending"].discard(kid.rid)
+            if not src["pending"]:
+                for p in src["pages"]:
+                    self.cache.pool.unref(p)
+                del self._fork_src[kid.fork_of]
+
+    def _fork_install(self, req: _Request, slot: int, src: Dict):
+        """Fork one sibling off its parent's stash: bind the parent's
+        FULL prompt pages (references, no copy), bind the owned pages of
+        the rest of its span, copy the partial boundary page (the one
+        its first decode write changes), and sample the first token
+        from the stashed logits with the sibling's own salt: the
+        group's streams are n independent admissions' (the slotted
+        path's). Owned pages are bound before the copy, so a retry's
+        `reset_length` drops them; the copy is booked after the
+        attempt's last fallible step, so a retry never counts twice."""
+        self.cache.reset_length(slot)
+        P = src["prompt_len"]
+        full = P // self.page_size
+        self.cache.bind_shared(slot, src["pages"][:full])
+        span = self.cache.span_pages(self._span_rows(req))
+        owned = self._alloc_pages(span - full)
+        self.cache.bind_owned(slot, owned)
+        copied = bool(P % self.page_size)
+        if copied:
+            self.cache.copy_page(src["pages"][full], owned[0])
+        self.cache.advance(slot, P)
+        first = self._sample_first(req, src["logits"])
+        now = time.perf_counter()
+        wait_t0 = req.adopted_t or req.submit_t
+        req.queue_wait_s = max(0.0, (now - wait_t0) - req.pf_compute_s)
+        if copied:
+            self.metrics.on_cow_copy()
+        self.metrics.on_admit(P, req.pf_compute_s,
+                              queue_wait_s=req.queue_wait_s)
+        self._first_token_install(req, slot, first, now)
 
     # ------------------------------------------------------------------ #
     # chunked-prefill interleaving (prefill_budget set)
@@ -1422,6 +1610,7 @@ class LLMEngine:
             ordered = sorted(
                 self._prefilling.items(),
                 key=lambda kv: kv[1].prompt.size - kv[1].pf_filled)
+            before = (spent, len(self._prefilling))
             for slot, req in ordered:
                 if self._has_live_lane() \
                         and spent >= self.prefill_budget:
@@ -1431,16 +1620,36 @@ class LLMEngine:
                 spent += self._prefill_step(slot, req)
             if not self._has_live_lane() or spent >= self.prefill_budget:
                 break
+            if (spent, len(self._prefilling)) == before:
+                # no token computed and no lane done: every parked lane
+                # is a fork sibling waiting for its parent's pages
+                break
 
     def _begin_prefill(self) -> bool:
         """Pop the next request into a PREFILLING lane (slot, cached
         prefix, pages) under the recovery contract; exhaustion fails
         this request alone. Returns False only when page pressure
-        requeued it."""
+        requeued it. A COW fork installs at once (it has no prompt to
+        compute); a paged sibling whose parent is mid-prefill parks
+        WAITING, with no pages, until the parent's stash exists."""
         req = self._pop_highest_priority()
         slot = self.cache.allocate()
+        if self.paged and req.fork_of in self._fork_src:
+            err = self._run_with_retries(lambda: self._admit_one(req, slot))
+            if err is not None:
+                self.cache.release(slot)
+                if isinstance(err, NoFreePages):
+                    self._queue.appendleft(req)
+                    return False
+                self._admit_failed(req, err)
+            return True
         req.pf_filled = 0
         req.pf_compute_s = 0.0
+        if self.paged and req.fork_of is not None \
+                and self._fork_parent_prefilling(req.fork_of):
+            req.pf_wait_fork = True
+            self._prefilling[slot] = req
+            return True
         t0 = time.perf_counter()
         err = self._run_with_retries(
             lambda: self._start_prefill_lane(slot, req))
@@ -1482,11 +1691,46 @@ class LLMEngine:
             self.cache.bind_owned(slot, self._alloc_pages(
                 span - self.cache.lane_page_count(slot)))
 
+    def _fork_parent_prefilling(self, rid: int) -> bool:
+        return any(r.rid == rid for r in self._prefilling.values())
+
+    def _waiting_fork_step(self, slot: int, req: _Request) -> Optional[int]:
+        """One visit to a WAITING fork sibling: fork as soon as the
+        parent's stash and the pages exist (0 tokens charged), keep
+        waiting while the parent prefills (0), or, when the parent left
+        without a stash (it failed or was cancelled before decode),
+        turn into a plain prefill lane and return None: the caller
+        goes on into its first chunk."""
+        if req.fork_of in self._fork_src:
+            if not self._pages_available(self._pages_needed(req)):
+                return 0
+            del self._prefilling[slot]
+            err = self._run_with_retries(lambda: self._admit_one(req, slot))
+            if err is not None:
+                self.cache.release(slot)
+                self._admit_failed(req, err)
+            return 0
+        if self._fork_parent_prefilling(req.fork_of):
+            return 0
+        req.pf_wait_fork = False
+        err = self._run_with_retries(
+            lambda: self._start_prefill_lane(slot, req))
+        if err is not None:
+            self._prefilling.pop(slot, None)
+            self.cache.release(slot)
+            self._admit_failed(req, err)
+            return 0
+        return None
+
     def _prefill_step(self, slot: int, req: _Request) -> int:
         """Advance one PREFILLING lane by at most one chunk; returns the
         tokens computed. The last chunk enters the lane into decode. A
         chunk failure retries at the same pos0 under the recovery
         contract; exhaustion fails this request alone."""
+        if req.pf_wait_fork:
+            charged = self._waiting_fork_step(slot, req)
+            if charged is not None:
+                return charged
         total = int(req.prompt.size)
         piece = req.prompt[req.pf_filled:
                               req.pf_filled + self.prefill_chunk]
@@ -1521,9 +1765,11 @@ class LLMEngine:
         if req.generated:
             self._install_slot(req, slot, pos=self.cache.length(slot))
         else:
-            self._first_token_install(req, slot,
-                                      self._sample_first(req, logits[0]),
-                                      now)
+            first = self._sample_first(req, logits[0])
+            # the interleaved twin of _admit_one's stash: the waiting
+            # siblings fork off it
+            self._stash_fork_src(req, slot, logits[0])
+            self._first_token_install(req, slot, first, now)
         return int(piece.size)
 
     def _prefill_attempt(self, slot: int, req: _Request, fn) -> bool:
@@ -1758,10 +2004,22 @@ class LLMEngine:
     def _finish_early(self, req: _Request, reason: str,
                       error: Optional[str] = None):
         """Terminal state for a request that never got (or no longer
-        holds) a slot: record its result directly."""
+        holds) a slot: record its result directly. A sibling dying
+        before admission leaves its group's pending set; a parent dying
+        before its pop resolves every promised sibling rid with the
+        same reason, so no stream of the group is stranded."""
         req.finish_reason = reason
         req.error = error
         self._release_prefix(req)   # a failed admission may hold pins
+        self._fork_done(req)
+        if req.fork_rids and req.fork_of is None:
+            for krid in req.fork_rids[1:]:
+                if self._find_request(krid) is None \
+                        and krid not in self._results:
+                    kid = _Request(krid, req.prompt, req.params,
+                                   req.submit_t)
+                    kid.finish_reason, kid.error = reason, error
+                    self._record_result(kid)
         self._record_result(req)
 
     def _record_result(self, req: _Request):
@@ -1964,6 +2222,8 @@ class LLMEngine:
         restored = []
         for r in snap.get("active", ()):
             req = _restore_request(r, now)
+            if req.fork_rids:
+                eng._fork_groups[req.rid] = list(req.fork_rids)
             if not req.generated:
                 raise ValueError(f"snapshot: active request {req.rid} "
                                  f"has no emitted tokens")
@@ -2002,7 +2262,10 @@ class LLMEngine:
         # (host swap is not ported): they re-prefill
         for r in list(snap.get("queued", ())) + list(snap.get("swapped",
                                                               ())):
-            eng._queue.append(_restore_request(r, now))
+            req = _restore_request(r, now)
+            if req.fork_rids:
+                eng._fork_groups[req.rid] = list(req.fork_rids)
+            eng._queue.append(req)
             eng.metrics.on_submit()
         return eng
 

@@ -47,6 +47,12 @@ rows: slotted row T-1, the paged trash page). All prefill graphs of an
 engine share one graph memory pool: they never replay at once, and
 nothing allocated in the pool outlives its capture (the logits go to a
 buffer made at warm-up), so any replay order is safe.
+
+Model-side generation (`models/gpt.py` `generate_compiled` and
+`beam_search_compiled`, the counterparts of the reference's one-XLA-
+program loops): a `GraphedCall` holds one whole generation, its every
+step unrolled over static buffers the caller owns, as one CUDA graph
+per signature; each call is one replay and its outputs are copied out.
 """
 from __future__ import annotations
 
@@ -59,7 +65,8 @@ import torch
 from ..ops_cuda.decode_attention import _LaunchCounter
 
 __all__ = ["GraphCaptureError", "LaneState", "BlockRunner", "BlockResult",
-           "PrefillRunner", "counted_capture", "count_replay"]
+           "PrefillRunner", "GraphedCall", "counted_capture",
+           "count_replay"]
 
 # the lane-state arguments of `_decode_block` / `_spec_decode_block`,
 # in their order; `tables` (paged) rides as a keyword
@@ -363,3 +370,59 @@ class PrefillRunner:
         else:
             self._step()
         return self.out.clone()
+
+
+class GraphedCall:
+    """A function of static device buffers, run as one CUDA graph.
+
+    `fn()` reads buffers its caller owns and fills between calls, and
+    returns a tuple of tensors; they are copied into output buffers made
+    at the first run, so nothing the graph allocates outlives its
+    capture and graphs may share the memory pool `pool`. `graphed`
+    captures it (after one warm-up run, whose launches are not counted);
+    otherwise, and on the CPU, `run()` calls `fn` directly."""
+
+    def __init__(self, fn: Callable, graphed: bool, pool=None,
+                 what: str = "call"):
+        self.fn = fn
+        self.outs: Optional[List[torch.Tensor]] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.deltas: List[int] = []
+        self.pool_bytes = 0       # what the capture added to the pool
+        if graphed:
+            self._capture(pool, what)
+
+    def _step(self):
+        res = self.fn()
+        if self.outs is None:
+            self.outs = [torch.empty_like(r) for r in res]
+        for o, r in zip(self.outs, res):
+            o.copy_(r)
+
+    def _capture(self, pool, what: str):
+        graph = torch.cuda.CUDAGraph()
+
+        def step():
+            dev = torch.cuda.current_device()
+            r0 = torch.cuda.memory_reserved(dev)
+            self._step()
+            if torch.cuda.is_current_stream_capturing():
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - r0
+
+        try:
+            self.deltas = _warm_up_and_capture(graph, step, pool)
+        except Exception as err:  # noqa: BLE001 — named and re-raised
+            raise GraphCaptureError(
+                f"capturing the {what} into a CUDA graph failed: "
+                f"{type(err).__name__}: {err}") from err
+        self.graph = graph
+
+    def run(self) -> List[torch.Tensor]:
+        """One call: a replay (its launches counted) or, ungraphed, the
+        function; returns copies of the outputs."""
+        if self.graph is not None:
+            self.graph.replay()
+            count_replay(self.deltas)
+        else:
+            self._step()
+        return [o.clone() for o in self.outs]

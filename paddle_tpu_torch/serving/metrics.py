@@ -156,6 +156,9 @@ class ServingMetrics:
         self.kv_pages_total = 0      # pool size in pages
         self.kv_pages_used = 0       # pages held, the trash page included
         self.kv_pages_peak = 0       # high-water mark
+        # best-of-n forks: the partial boundary page each sibling of a
+        # fork group copies when the prompt is no multiple of the page
+        self.pages_cow_copied = 0
         # speculative decoding (all 0 with speculate_k=0): proposed
         # counts every drafted token offered to a verify pass, accepted
         # the ones that matched the target's own draw. Correction and
@@ -251,6 +254,9 @@ class ServingMetrics:
     def on_complete(self):
         self.requests_completed += 1
         self._touch()
+
+    def on_cow_copy(self, pages: int = 1):
+        self.pages_cow_copied += pages
 
     def on_spec(self, proposed: int, accepted: int):
         """One processed speculative block: `proposed` drafted tokens
@@ -371,6 +377,7 @@ class ServingMetrics:
             "kv_pages_total": self.kv_pages_total,
             "kv_pages_used": self.kv_pages_used,
             "kv_pages_peak": self.kv_pages_peak,
+            "pages_cow_copied": self.pages_cow_copied,
             "kv_page_occupancy": (self.kv_pages_used / self.kv_pages_total
                                   if self.kv_pages_total else 0.0),
             "queue_depth": self.queue_depth,

@@ -1,8 +1,7 @@
 """Paged KV memory: one refcounted page pool with per-lane block tables.
 
-The counterpart of `paddle_tpu/serving/paged_kv.py` without
-copy-on-write forks, host swap and page transfer (ROADMAP Queue 1
-items 11 and 15):
+The counterpart of `paddle_tpu/serving/paged_kv.py` without host swap
+and page transfer (ROADMAP Queue 1 item 11):
 
 - ONE pool per layer: fixed-shape slabs `[num_pages, page_size, heads,
   head_dim]` (fp or the quantized {"q", "s"} form) hold every resident
@@ -28,6 +27,9 @@ items 11 and 15):
   lane's table (`bind_shared`, one more reference each, no copy); an
   insert references the lane's freshly prefilled pages. A page frees
   when its last holder (tree or lane) lets go.
+- COPY-ON-WRITE FORKS: a best-of-n sibling binds its parent's full
+  prompt pages shared and owns a copy of the partial boundary page
+  (`copy_page`), the one page its first decode write would change.
 
 Numerics: `pages_per_seq * page_size == max_seq` is enforced, so the
 masked paged attention gathers a lane's pages into exactly the
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from ..core import DeviceLike
+from ..quantization.kv import slab_leaves
 from .kv_cache import KVCacheManager
 
 __all__ = ["NoFreePages", "PagePool", "TreePageAllocator", "PagedKVCache",
@@ -243,6 +246,16 @@ class PagedKVCache(KVCacheManager):
             self.pool.unref(p)
         self._lane_pages[slot] = []
         self.block_tables[slot, :] = 0
+
+    def copy_page(self, src: int, dst: int):
+        """Copy pool page `src`'s rows into page `dst`, in every layer
+        (codes and scales alike for int8 slabs): one index copy per
+        slab, eager, as the prefix copies are."""
+        idx_s = torch.tensor([src], dtype=torch.long, device=self.device)
+        idx_d = torch.tensor([dst], dtype=torch.long, device=self.device)
+        for slab in self.k + self.v:
+            for t in slab_leaves(slab):
+                t.index_copy_(0, idx_d, t.index_select(0, idx_s))
 
     # --- KVCacheManager overrides ------------------------------------------ #
     def reset_length(self, slot: int):

@@ -164,7 +164,9 @@ def test_overload_and_invalid_requests(model):
         eng.submit(np.arange(60), SamplingParams(max_new_tokens=8))
     with pytest.raises(ValueError, match="empty"):
         eng.submit([])
-    with pytest.raises(NotImplementedError, match="best-of-n"):
+    # best-of-n: every continuation holds a lane, so n > max_slots is an
+    # INVALID reject (the reference's rule)
+    with pytest.raises(ValueError, match="max_slots"):
         eng.submit([1, 2], SamplingParams(n=2))
     eng.run_until_complete()
     assert eng.stats()["requests_completed"] == 2

@@ -330,9 +330,19 @@ def test_mid_prefill_adopt_no_reemit(model):
     assert peer.adopt(snap["queued"][0], keep_salt=True) == rid
     peer.run_until_complete(max_steps=300)
     assert peer.result(rid).token_ids == ref[0]
-    with pytest.raises(NotImplementedError, match="best-of-n"):
-        peer.adopt(dict(snap["queued"][0], params=dict(
-            snap["queued"][0]["params"], n=2)))
+    # a best-of-2 adoption dict: rejected where the group cannot hold
+    # its lanes (the reference's n > max_slots rule), served where it can
+    group = dict(snap["queued"][0], fork_rids=[rid, rid + 1],
+                 params=dict(snap["queued"][0]["params"], n=2))
+    with pytest.raises(ValueError, match="max_slots"):
+        peer.adopt(group)
+    wide = _engine(model, **{**cfg, "max_slots": 2})
+    assert wide.adopt(group) == rid and wide.fork_rids(rid) == [rid, rid + 1]
+    wide.run_until_complete(max_steps=300)
+    # re-salted at the wide engine's pop: salt 0 for the parent, as the
+    # reference run's request had
+    assert wide.result(rid).token_ids == ref[0]
+    assert len(wide.result(rid + 1).token_ids) == 5
 
 
 # ---------------------------------------------------------------------- #
