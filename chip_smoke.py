@@ -181,6 +181,24 @@ every phase passed):
    swapped in, K7 == plain at its four 4-row shapes. Eager and graph ms
    per step, capture seconds, pool bytes and beam ms per step are
    logged beside the card.
+4k. observability, host swap and the serving artifact on GPT-small
+   bf16: (a) phase 4's load, paged (`overlap=True`, block 8) with the
+   pool starved to the first 8 requests' spans: 2 of the 8 decoding
+   requests swapped out mid-run, the queue admitted into the freed
+   pages, both swapped back in; streams bitwise 4b's, pages out = in,
+   2 swap host syncs, 0 leaked, K4 = layers x decode steps; again with
+   int8 KV (K6); (b) the engine's snapshot with a parked request,
+   resumed: 0 prefill tokens for it, streams bitwise; (c) a paged
+   extract adopted by a second engine: 0 prefill tokens, bitwise; (d)
+   phase 4's load with tracing on and off (decode ms per step each,
+   their ratio; one span tree per request, one decode_block event per
+   block, a strict-parsed exposition, to_prometheus / export_trace host
+   ms); 0 unexpected captures on every engine of the phase; (e) an
+   injected decode_dispatch exhaustion writes one flight dump; (f) 4d's
+   PTQ model through `save_for_serving` / `load_engine` on the card:
+   4d's streams, 48 K7 launches per decode step. swap_out, gather and
+   scatter ms at 1, 9 and 16 pages beside the bytes and a pinned copy
+   of the same bytes are logged.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
    logged).
@@ -264,6 +282,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2360,6 +2379,361 @@ def phase_generation(torch, np, k7, engine_run, int8_model):
             "int8_first_call_s": q_first_s, "int8_agree_bf16": agree}
 
 
+# --------------------------------------------------------------------------- #
+# phase 4k: observability, host swap, page payloads, the serving artifact
+# --------------------------------------------------------------------------- #
+
+SWAP_PAGE_COUNTS = (1, 9, 16)     # pages per timed swap (64-row pages)
+
+
+def swap_timing(torch, np, model, card):
+    """swap_out / swap_in of one request at 1, 9 and 16 bf16 pages: the
+    engine's swap_out (discard, gather, one sync, release) of a first
+    request (cold: its pinned payload buffer is allocated) and, after
+    that payload was uploaded back and freed, of a second request of the
+    same size (warm: the pinned block is reused); then the cache's
+    gather (one device buffer, one pinned copy, one sync) and scatter
+    (an upload and an index copy per slab leaf, then a sync) as medians
+    of 5, beside the bytes moved and a plain pinned device-to-host copy
+    of the same bytes (the host-copy rate those bytes are held to)."""
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    out = {}
+    for n in SWAP_PAGE_COUNTS:
+        # rows P + 8 and P + 16 (after one and two blocks) both span n
+        # 64-row pages
+        prompts = [np.random.RandomState(n + i).randint(
+            0, model.cfg.vocab_size, (64 * n - 40,)).astype(np.int32)
+            for i in range(2)]
+        eng = LLMEngine(model, **SERVE_KW, kv_layout="paged")
+        rids = [eng.submit(p, SamplingParams(max_new_tokens=24))
+                for p in prompts]
+        eng.step()
+        swap_ms = []
+        for rid in rids:
+            slot = next(s for s, r in eng._active.items() if r.rid == rid)
+            check(eng.cache.span_pages(eng.cache.length(slot)) == n,
+                  f"4k timing: request {rid} does not span {n} pages")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(eng.swap_out(rid), "4k timing: swap_out failed")
+            swap_ms.append((time.perf_counter() - t0) * 1e3)
+            if rid == rids[0]:
+                kv = eng._swapped[rid].kv_host
+                nbytes = n * eng.cache.page_nbytes()
+                check(sum(t.numel() * t.element_size()
+                          for t in kv["k"] + kv["v"]) == nbytes,
+                      "4k timing: payload bytes")
+                fresh = eng.cache.pool.alloc(n)
+                gather, scatter, copy = [], [], []
+                dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+                host = torch.empty(nbytes, dtype=torch.uint8,
+                                   pin_memory=True)
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.cache.gather_pages(fresh)
+                    gather.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    eng.cache.scatter_pages(fresh, kv["k"], kv["v"])
+                    torch.cuda.synchronize()
+                    scatter.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    host.copy_(dev, non_blocking=True)
+                    torch.cuda.synchronize()
+                    copy.append((time.perf_counter() - t0) * 1e3)
+                for p in fresh:
+                    eng.cache.pool.unref(p)
+                del kv, dev, host
+                # the upload frees the first payload before the second
+                # swap
+                check(eng.swap_in(rid), "4k timing: swap_in")
+                eng.step()
+                check(rid in eng.decoding_rids(), "4k timing: re-admit")
+        for rid in rids[1:]:
+            check(eng.swap_in(rid), "4k timing: swap_in")
+        eng.run_until_complete(max_steps=200)
+        check(leaked_pages(eng) == 0, "4k timing: leaked pages")
+        rate = nbytes / (statistics.median(copy) / 1e3)
+        out[n] = {"pages": n, "bytes": nbytes,
+                  "swap_out_cold_ms": swap_ms[0],
+                  "swap_out_warm_ms": swap_ms[1],
+                  "gather_ms": statistics.median(gather),
+                  "scatter_ms": statistics.median(scatter),
+                  "host_copy_ms": statistics.median(copy),
+                  "host_copy_bytes_per_s": rate}
+        log(f"  swap [card: {card}] {n} pages ({nbytes} B): swap_out "
+            f"{swap_ms[0]:.3f} ms cold (its pinned buffer allocated), "
+            f"{swap_ms[1]:.3f} ms warm; gather {out[n]['gather_ms']:.3f} "
+            f"ms, scatter (swap_in's upload) {out[n]['scatter_ms']:.3f} "
+            f"ms; the bytes over the pinned copy rate "
+            f"{out[n]['host_copy_ms']:.3f} ms ({rate / 1e9:.2f} GB/s)")
+        del eng
+    return out
+
+
+def phase_obs_swap(torch, np, dec, k7, engine_run, variants, int8_run):
+    """(4k) GPT-small bf16, phase 4's model: (a) phase 4's load on the
+    paged layout (`decode_block_size=8`, `overlap=True`) with the pool
+    starved to the spans of the first 8 requests, so the queue waits on
+    pages; 2 of the 8 decoding requests swapped out mid-run (no block
+    in flight: the queue is not empty), the queue admitted into the
+    freed pages, both swapped back in: streams bitwise phase 4b's
+    (unswapped) K4 streams, pages out = pages in, swap host syncs = 2,
+    0 leaked pages, K4 launches = layers x decode steps; again under
+    kv_dtype="int8" (K6, against 4b's K6 streams). (b) the engine's
+    snapshot with one parked request, pickled, resumed in a fresh
+    engine: the parked request computes 0 prefill tokens and its tokens
+    are 4b's. (c) a paged `extract` then `adopt` on a second engine: 0
+    prefill tokens at the adopter, a bitwise continuation. (d) phase
+    4's load (slotted, K1) with `trace=True` and `trace=False`, twice
+    each alternating: decode ms per step of each and the ratio (no
+    gate); on a traced run one span tree per request, one decode_block
+    event per processed block, `to_prometheus()` strict-parsed,
+    `to_prometheus` / `export_trace` host ms. The capture watchdog of
+    every engine of the phase reads 0 unexpected. (e) an injected
+    `decode_dispatch` exhaustion writes one flight dump into a temporary
+    directory. (f) `save_for_serving` of phase 4d's PTQ model, then
+    `load_engine` on the card: 4d's streams bitwise, 48 K7 launches per
+    decode step."""
+    import pickle
+    import tempfile
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.serving import (LLMEngine, SamplingParams,
+                                          load_engine, save_for_serving)
+    from paddle_tpu_torch.testing import faults
+    model, prompts, params = (engine_run[k] for k in
+                              ("model", "prompts", "params"))
+    layers = model.cfg.num_layers
+    counters = decode_counters(dec)
+    card = card_line()
+    engines = []
+    res = {}
+
+    # --- (a) swap round trip under page pressure ------------------------ #
+    spans = [-(-(p.size + sp.max_new_tokens) // 64)
+             for p, sp in zip(prompts, params)]
+    kv_pages = 1 + sum(spans[:8])
+    for name, knobs in (("K4", dict(kv_layout="paged")),
+                        ("K6", dict(kv_layout="paged", kv_dtype="int8"))):
+        eng = LLMEngine(model, **SERVE_KW, **knobs, kv_pages=kv_pages)
+        engines.append(eng)
+        for c in counters.values():
+            c.reset()
+        rids = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+        moved, admitted_after = [], None
+        t0 = time.perf_counter()
+        for _ in range(400):
+            if not eng.has_work() and not eng.swapped_rids:
+                break
+            if not moved and len(eng.decoding_rids()) == 8 \
+                    and eng.pending:
+                check(eng._inflight is None, "4k (a): a block in flight")
+                pending = eng.pending
+                moved = eng.decoding_rids()[:2]
+                for rid in moved:
+                    check(eng.swap_out(rid), f"4k (a): swap_out {rid}")
+            elif moved and admitted_after is None and eng.pending < pending:
+                admitted_after = eng.pending
+            elif admitted_after is not None and eng.swapped_rids:
+                for rid in moved:
+                    check(eng.swap_in(rid), f"4k (a): swap_in {rid}")
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(len(moved) == 2 and admitted_after is not None,
+              f"4k (a) {name}: moved {moved}, queue after {admitted_after}")
+        streams = [eng.result(r).token_ids for r in rids]
+        check(streams == variants[name]["streams"],
+              f"4k (a) {name}: swapped streams != 4b's unswapped streams")
+        st = eng.stats()
+        counts = {k: c.count for k, c in counters.items()}
+        want = {k: layers * st["decode_steps"] if k == name else 0
+                for k in counters}
+        check(counts == want, f"4k (a) {name}: launches {counts} != {want}")
+        check(st["swap_outs"] == st["swap_ins"] == 2
+              and st["pages_swapped_out"] == st["pages_swapped_in"] > 0,
+              f"4k (a) {name}: swap counters {st['swap_outs']} / "
+              f"{st['swap_ins']}, pages {st['pages_swapped_out']} / "
+              f"{st['pages_swapped_in']}")
+        check(st["swap_host_syncs"] == 2, f"4k (a) {name}: swap host syncs "
+                                          f"{st['swap_host_syncs']}")
+        check(st["host_syncs"] == st["decode_dispatches"],
+              f"4k (a) {name}: host syncs")
+        check(leaked_pages(eng) == 0, f"4k (a) {name}: leaked pages")
+        res[f"a_{name}"] = {
+            "kv_pages": kv_pages, "moved": moved, "wall_s": wall,
+            "pages_swapped": st["pages_swapped_out"],
+            "launches": counts[name], "decode_steps": st["decode_steps"],
+            "tbt_p99_s": st["tbt_p99_s"]}
+        log(f"  (a) {name} kv_pages {kv_pages}: requests {moved} swapped "
+            f"out ({st['pages_swapped_out']} pages) and back in; the queue "
+            f"admitted into the freed pages; 16 streams == 4b's; {name} "
+            f"launches {counts[name]} = {layers} x {st['decode_steps']}; "
+            f"swap host syncs 2; 0 leaked; {wall:.2f} s")
+
+    # --- (b) snapshot with a parked request, resumed ---------------------- #
+    sub, sub_params = prompts[:4], params[:4]
+    ref = variants["K4"]["streams"][:4]
+    eng = LLMEngine(model, **SERVE_KW, kv_layout="paged")
+    engines.append(eng)
+    rids = [eng.submit(p, sp) for p, sp in zip(sub, sub_params)]
+    while len(eng.decoding_rids()) < 4:
+        eng.step()
+    eng.step()
+    parked = eng.decoding_rids()[0]
+    check(eng.swap_out(parked), "4k (b): swap_out")
+    snap = pickle.loads(pickle.dumps(eng.snapshot()))
+    check([d["rid"] for d in snap["swapped"]] == [parked]
+          and snap["swapped"][0]["kv_pages"]["rows"] > 0,
+          "4k (b): the snapshot's swapped entry")
+    eng2 = LLMEngine.resume(model, snap)
+    engines.append(eng2)
+    check(eng2.swapped_rids == [parked], "4k (b): not parked on resume")
+    eng2.run_until_complete(max_steps=400)
+    pf = eng2.metrics.prefill_tokens_computed
+    check(eng2.swap_in(parked), "4k (b): swap_in")
+    eng2.run_until_complete(max_steps=400)
+    check(eng2.metrics.prefill_tokens_computed == pf,
+          "4k (b): the parked request prefilled")
+    check([eng2.result(r).token_ids for r in rids] == ref,
+          "4k (b): resumed streams != 4b's")
+    check(leaked_pages(eng2) == 0, "4k (b): leaked pages")
+    res["b_resumed_prefill_tokens"] = pf
+    log(f"  (b) snapshot with request {parked} parked, pickled, resumed: "
+        f"it reactivated with 0 prefill tokens; 4 streams == 4b's")
+
+    # --- (c) paged extract -> adopt ----------------------------------------- #
+    a = LLMEngine(model, **SERVE_KW, kv_layout="paged")
+    b = LLMEngine(model, **SERVE_KW, kv_layout="paged")
+    engines += [a, b]
+    rids = [a.submit(p, sp) for p, sp in zip(sub, sub_params)]
+    while len(a.decoding_rids()) < 4:
+        a.step()
+    a.step()
+    moved = a.decoding_rids()[1]
+    d = pickle.loads(pickle.dumps(a.extract(moved)))
+    check(d["kv_pages"]["rows"] > 0, "4k (c): no pages in the handoff")
+    b.advance_salt_clock(a.salt_clock())
+    b.adopt(d, keep_salt=True)
+    a.run_until_complete(max_steps=400)
+    b.run_until_complete(max_steps=400)
+    st = b.stats()
+    check(st["prefill_tokens_computed"] == 0 and st["replay_steps"] == 0,
+          f"4k (c): the adopter computed {st['prefill_tokens_computed']} "
+          f"prefill tokens, {st['replay_steps']} replay steps")
+    got = [(b if r == moved else a).result(r).token_ids for r in rids]
+    check(got == ref, "4k (c): handoff streams != 4b's")
+    check(leaked_pages(a) == 0 and leaked_pages(b) == 0,
+          "4k (c): leaked pages")
+    log(f"  (c) request {moved} extracted with {d['kv_pages']['n_pages']} "
+        f"pages and adopted: 0 prefill tokens at the adopter, streams == "
+        f"4b's")
+
+    # --- (d) tracing on the hot path ---------------------------------------- #
+    runs = {True: [], False: []}
+    traced = None
+    for trace in (True, False, True, False):
+        eng = LLMEngine(model, **SERVE_KW, trace=trace)
+        engines.append(eng)
+        results = eng.generate(prompts, params)
+        torch.cuda.synchronize()
+        check([r.token_ids for r in results] == engine_run["streams"],
+              f"4k (d): trace={trace} streams != phase 4's")
+        runs[trace].append(eng.stats()["decode_ms_per_token"])
+        if trace:
+            traced = eng
+    st = traced.stats()
+    events = traced.tracer.events()
+    check(traced.tracer.dropped == 0, "4k (d): the ring dropped events")
+    blocks = [e for e in events if e[2] == "decode_block"]
+    check(len(blocks) == st["decode_dispatches"],
+          f"4k (d): {len(blocks)} decode_block events != "
+          f"{st['decode_dispatches']} blocks")
+    t0 = time.perf_counter()
+    trace_dict = traced.export_trace()
+    export_ms = (time.perf_counter() - t0) * 1e3
+    spans = obs.request_spans(events)
+    check(sorted(spans) == list(range(len(prompts))) and all(
+        t["finished"] is not None and t["admissions"] and t["decode_blocks"]
+        for t in spans.values()), "4k (d): a request's span tree")
+    check(trace_dict["otherData"]["requests"] == len(prompts),
+          "4k (d): the exported trace")
+    t0 = time.perf_counter()
+    text = traced.to_prometheus()
+    prom_ms = (time.perf_counter() - t0) * 1e3
+    obs.parse_exposition(text)
+    on, off = statistics.median(runs[True]), statistics.median(runs[False])
+    res["d"] = {"trace_on_ms_per_step": runs[True],
+                "trace_off_ms_per_step": runs[False], "ratio": on / off,
+                "events": len(events), "to_prometheus_ms": prom_ms,
+                "export_trace_ms": export_ms,
+                "exposition_lines": len(text.splitlines())}
+    log(f"  (d) [card: {card}] decode ms per step, trace on {runs[True]} / "
+        f"off {runs[False]}: medians {on:.4f} / {off:.4f}, ratio "
+        f"{on / off:.4f}; {len(events)} events, one decode_block per block "
+        f"({len(blocks)}); to_prometheus {prom_ms:.3f} ms "
+        f"({len(text.splitlines())} lines, strict-parsed), export_trace "
+        f"{export_ms:.3f} ms")
+
+    # --- (e) the flight recorder -------------------------------------------- #
+    with tempfile.TemporaryDirectory() as tmp:
+        plan = faults.FaultPlan().fail_at("decode_dispatch", *range(1, 9))
+        eng = LLMEngine(model, **SERVE_KW, max_retries=1,
+                        retry_backoff_s=0.0, flight_dir=tmp)
+        engines.append(eng)
+        with faults.inject(plan):
+            out = eng.generate(prompts[:2], SamplingParams(max_new_tokens=8))
+        check({r.finish_reason for r in out} == {"error"},
+              "4k (e): the requests did not fail")
+        files = os.listdir(tmp)
+        check(len(files) == 1 and len(plan.postmortems) == 1
+              and plan.postmortems[0]["reason"] == "decode_retry_exhausted",
+              f"4k (e): flight dumps {files}")
+        rep = json.load(open(os.path.join(tmp, files[0])))
+        check(sorted(rep["detail"]["failed_rids"]) == [0, 1]
+              and rep["events"], "4k (e): the dump's content")
+    log(f"  (e) decode_dispatch exhausted: one flight dump ({files[0]}, "
+        f"{len(rep['events'])} events, failed rids "
+        f"{rep['detail']['failed_rids']})")
+
+    # --- the watchdog over every engine of the phase ------------------------ #
+    for eng in engines:
+        check(eng.watchdog.compiles_unexpected == 0,
+              f"4k: {eng.name} watchdog {eng.watchdog.counts()}")
+    res["watchdog_budget"] = traced.watchdog.budget_total
+    res["watchdog_total"] = traced.watchdog.compiles_total
+    log(f"  the capture watchdog of all {len(engines)} engines: 0 "
+        f"unexpected (traced engine {traced.watchdog.snapshot()})")
+    del engines, eng, eng2, a, b, traced
+
+    # --- (f) the serving artifact ------------------------------------------- #
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        prefix = save_for_serving(int8_run["model"], os.path.join(tmp, "q"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = load_engine(prefix, **SPEC_KW)
+        load_s = time.perf_counter() - t0
+        k7.INT8_LAUNCHES.reset()
+        got = [r.token_ids for r in eng.generate(prompts[:8], params[:8])]
+        st = eng.stats()
+        check(got == int8_run["streams"], "4k (f): artifact streams != 4d's")
+        want = 4 * layers * st["decode_steps"]
+        check(k7.INT8_LAUNCHES.count == want,
+              f"4k (f): K7 launches {k7.INT8_LAUNCHES.count} != {want}")
+        check(eng.watchdog.compiles_unexpected == 0, "4k (f): watchdog")
+        nbytes = os.path.getsize(prefix + ".llm.params")
+    res["f"] = {"save_s": save_s, "load_s": load_s, "params_bytes": nbytes,
+                "k7_launches": want}
+    log(f"  (f) int8-PTQ artifact ({nbytes} B) saved in {save_s:.2f} s, "
+        f"loaded on the card in {load_s:.2f} s: 8 streams == 4d's, K7 "
+        f"launches {want} = 48 x {st['decode_steps']} decode steps")
+    del eng
+    torch.cuda.empty_cache()
+    res["swap_timing"] = swap_timing(torch, np, model, card)
+    return res
+
+
 def phase_paged_vs_slotted(torch, np, P):
     """(d) paged ≡ slotted greedy streams in fp32 (K4 against K1) and in
     int8 over fp32 weights (K6 against K5), token for token; the
@@ -3539,6 +3913,10 @@ def main(argv=None) -> int:
         "beam_search as CUDA graphs")
     generation = phase_generation(torch, np, k7, engine_run,
                                   int8_run["model"])
+    log("phase 4k: observability, host swap, page payloads and the "
+        "serving artifact")
+    obs_swap = phase_obs_swap(torch, np, dec, k7, engine_run, variants,
+                              int8_run)
     del engine_run["model"], variants["K1"], int8_run["model"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
@@ -3679,6 +4057,7 @@ def main(argv=None) -> int:
                        "speculative": drop(spec), "dispatch": dispatch,
                        "admission": admission, "openloop": openloop,
                        "bestof": bestof, "generation": generation,
+                       "obs_swap": obs_swap,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32, "train_fp16": train16,

@@ -7,6 +7,9 @@ entry points need. Device policy: every entry point takes an explicit
 a card raises — the port never drops quietly to the CPU; the CPU runs
 only when the caller names it (the tests do).
 
+`host_tensor` turns a host array (a numpy array from the JAX package,
+its `bfloat16` extension dtype included, or a tensor) into a CPU tensor.
+
 Flags: `set_flags` / `get_flags` over the JAX package's flag table,
 reduced to the one flag the port reads, `check_nan_inf` (the Trainer's
 numerics check), with the same `FLAGS_<name>` environment bridge.
@@ -16,11 +19,12 @@ from __future__ import annotations
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 __all__ = ["default_device", "resolve_device", "resolve_dtype",
-           "make_generator", "cast_floating", "set_flags", "get_flags",
-           "foreach_groups", "fp32_norms", "mul_fp32"]
+           "make_generator", "cast_floating", "host_tensor", "set_flags",
+           "get_flags", "foreach_groups", "fp32_norms", "mul_fp32"]
 
 _FLAG_DEFAULTS = {
     "check_nan_inf": False,
@@ -98,6 +102,18 @@ def make_generator(seed: int, device: Optional[DeviceLike] = "cpu"
     g = torch.Generator(device=torch.device(device))
     g.manual_seed(int(seed))
     return g
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A CPU tensor of `a`: a tensor as it is (moved to the CPU), a
+    numpy array as a writable copy, numpy's `bfloat16` extension dtype
+    carried bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def cast_floating(tree, dtype):

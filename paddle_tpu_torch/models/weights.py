@@ -7,7 +7,8 @@ keeps verbatim, so the bridge is a checked copy: names and shapes must
 match exactly, and any mismatch raises instead of loading a partial or
 transposed model. Arrays travel as numpy (`np.asarray(jax_array)`);
 bfloat16 arrays (numpy's `bfloat16` extension dtype) are carried over
-bit for bit. An int8 model (PTQ- or QAT-converted) crosses with
+bit for bit; CPU tensors (a state-dict file read by `framework.io`) are
+taken as they are. An int8 model (PTQ- or QAT-converted) crosses with
 `load_jax_int8_params`: its `raw_buffers()` carry each `Int8Linear`'s
 codes and scales, and the port model's Linears there become
 `Int8Linear`s.
@@ -20,6 +21,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ..core import host_tensor
 from ..framework.trainer import TrainState
 from .gpt import BLOCK_LINEARS, GPT, GPTConfig, param_shapes
 
@@ -43,12 +45,11 @@ _BLOCK = re.compile(r"^blocks\.(\d+)\.")
 
 
 def _to_tensor(name: str, a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    if a.dtype.kind not in "fiu":
-        raise TypeError(f"{name}: unsupported dtype {a.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+    if not isinstance(a, torch.Tensor):
+        dt = np.asarray(a).dtype
+        if dt.name != "bfloat16" and dt.kind not in "fiu":
+            raise TypeError(f"{name}: unsupported dtype {dt}")
+    return host_tensor(a)
 
 
 def infer_config(np_params: Mapping[str, np.ndarray],

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load_library",
+__all__ = ["BUILD_DIR", "BUILDS", "NVCC_FLAGS", "build", "load_library",
            "library_path", "nvcc_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -32,6 +32,9 @@ _NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc runs of this process per source that built a library (the
+# capture watchdog's `kernel_build` kind: one per source, ever)
+BUILDS: Dict[str, int] = {}
 
 Signature = Tuple[object, Sequence[object]]   # (restype, argtypes)
 
@@ -106,6 +109,7 @@ def build(names: Optional[Iterable[str]] = None,
                           f"{stdout}{stderr}")
             continue
         os.replace(tmp, out)     # atomic: a reader never sees half a file
+        BUILDS[name] = BUILDS.get(name, 0) + 1
         if verbose and (stdout or stderr):
             print(f"[nvcc {name}]\n{stdout}{stderr}", flush=True)
     if errors:

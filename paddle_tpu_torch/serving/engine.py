@@ -63,12 +63,20 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   lane's pages, no copy either way). Only the uncached suffix is
   prefilled.
 - SNAPSHOT / RESUME / ADOPT. `snapshot()` serializes the request state
-  (no KV); `LLMEngine.resume()` re-ingests every active request into
+  (no slabs); `LLMEngine.resume()` re-ingests every active request into
   its original slot: the prompt through prefill, the emitted tokens
   through teacher-forced decode steps (`_replay`).
   `adopt()` / `extract()` / `unqueue()` move single requests between
   engines, and `salt_clock()` / `advance_salt_clock()` carry the
-  sampling-salt counter with them.
+  sampling-salt counter with them. Under the paged layout `extract()`
+  carries the request's pages (`kv_pages`), which the adopter uploads
+  instead of re-ingesting.
+- HOST SWAP (paged). `swap_out(rid)` gathers a decoding request's
+  pages to host memory and frees its lane and pages; the request parks
+  outside the scheduler (`swapped_rids`) until `swap_in(rid)` re-queues
+  it at the head, where admission uploads its pages
+  (`_admit_pages`) and decode continues bitwise. Parked requests and
+  their pages ride `snapshot()` (`swapped`).
 - STREAMS. `attach_stream()` delivers a request's tokens at its first
   token and at each block boundary, then its finish, from host data
   the scheduler already has; `has_result()` / `peek_result()` poll
@@ -96,6 +104,16 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   pass over the k+1 positions as virtual lanes; the accept rule emits
   only the target's own tokens, so streams equal the spec-off engine's
   token for token, with the same one host sync per block.
+- OBSERVABILITY (`paddle_tpu_torch/obs`). A bounded ring of lifecycle
+  events (`self.tracer`; `trace=False` turns it off): one host tuple
+  per event, one per decode BLOCK, no device contact; the capture
+  watchdog (`self.watchdog`) over the engine's per-program build
+  counts; a flight recorder (`self.flight`, `flight_dir` writes JSON)
+  that dumps a redacted post-mortem at every terminal failure; the
+  engine's stats provider in `profiler.custom_stats()` under
+  `self.name` (`register_stats`). `to_prometheus()` renders the metrics
+  and watchdog as exposition text, `export_trace()` the ring as a
+  Perfetto trace.
 - Attention goes through `models.gpt._slot_attend` / `_paged_attend`:
   `attend_impl` "ragged" runs the hand-written flash-decode kernels
   (K1 slotted, K4 paged, K5 / K6 their int8 forms), "masked" the
@@ -119,27 +137,31 @@ continues bitwise on every device.
 The KV slabs and the prefix pool are updated in place (the JAX engine
 donates them into each compiled step instead), so a failed step never
 loses them and the reference's slab and pool healing
-(`_heal_cache`, `_pool_healthy`) has nothing to do here. Features of
-the JAX engine that are not ported yet raise `NotImplementedError` when
-their knob is passed with any value other than "off"; they are listed
-in ROADMAP.md.
+(`_heal_cache`, `_pool_healthy`) has nothing to do here (nor has the
+tracer's `heal` event an emitter). Features of the JAX engine that are
+not ported yet raise `NotImplementedError` when their knob is passed
+with any value other than "off"; they are listed in ROADMAP.md.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import functools
+import itertools
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..core import DeviceLike, resolve_device
+from .. import profiler
 from ..models.gpt import (BLOCK_LINEARS, _block_params, _body_layers,
                           _by_groups, _head, _ln, _masked_attend,
                           _paged_attend, _paged_verify_attend, _slot_attend,
                           _slot_verify_attend)
+from ..obs import CompileWatchdog, FlightRecorder, LifecycleTracer
 from ..quantization import abs_max_scale, quantize_tensor
 from ..quantization.kv import (dequant_slab, kv_update, map_slab,
                                slab_shape, take_rows)
@@ -160,21 +182,16 @@ __all__ = ["SamplingParams", "GenerationResult", "EngineOverloadError",
 
 # JAX-engine knobs of features the port does not have yet: the values
 # that mean "feature off" (what the port does) are accepted, any other
-# value raises, naming the feature's open item of ROADMAP.md. These are
-# also the keys a JAX engine's snapshot carries besides the ported
-# ones; `trace_capacity` (off values None) is inert, and accepted at any
-# value, while `trace` is off.
+# value raises, naming the feature's open item of ROADMAP.md. `tp` is
+# also a key a JAX engine's snapshot carries.
 _UNSUPPORTED_KNOBS = {
     "mesh": ((None,), "TP-sharded serving", "Queue 1 item 12"),
     "tp": ((1,), "TP-sharded serving", "Queue 1 item 12"),
-    "trace": ((False,), "the lifecycle tracer", "Queue 1 item 11"),
-    "trace_capacity": (None, "the lifecycle tracer", "Queue 1 item 11"),
-    "flight_dir": ((None,), "the flight recorder", "Queue 1 item 11"),
-    "name": ((None,), "the profiler stats registry", "Queue 1 item 11"),
-    "register_stats": ((False,), "the profiler stats registry",
-                       "Queue 1 item 11"),
-    "kv_tier": ((None,), "the fleet KV tier", "Queue 1 item 11"),
+    "kv_tier": ((None,), "the fleet KV tier", "Queue 1 item 11, part 2"),
 }
+# monotonic default engine names (an id() can be reused after gc, which
+# would let a new engine take a live one's stats-provider slot)
+_ENGINE_IDS = itertools.count()
 
 
 # every prefill call runs on at least this many rows (a bucket padded
@@ -290,6 +307,13 @@ class _Request:
     fork_of: Optional[int] = None
     fork_pending: Optional[set] = None
     pf_wait_fork: bool = False
+    # host pages (swap, page handoff): per-layer K/V row stacks and the
+    # row count they cover; a queued request that has them re-enters by
+    # page upload, not by re-ingest
+    kv_host: Optional[Dict] = None
+    # wall clock of the stream's last token delivery: the TBT sample's
+    # start, one gap per processed block
+    last_emit_t: float = 0.0
 
 
 @dataclasses.dataclass
@@ -307,10 +331,13 @@ def _restore_request(r: Dict, now: float) -> _Request:
     so TTFT, queue wait and the remaining `deadline_s` carry across.
     The JAX dicts' `first_key` (a JAX RNG key) is read and ignored: the
     port keys a first token by (seed, salt, position, DOMAIN_FIRST), so
-    the salt alone carries it. `kv_pages` payloads (host swap, page
-    handoff) are not ported and ignored: the request re-prefills. A
-    best-of-n parent's `fork_rids` and a sibling's `fork_of` carry the
-    group."""
+    the salt alone carries it. A `kv_pages` payload (host swap, page
+    handoff: per-layer row stacks, numpy or torch, plain or int8
+    {"q", "s"}, and the row count) becomes the request's host pages,
+    which admission uploads instead of re-ingesting; a fleet-tier stub
+    (`tier_key`: the rows live in a KV tier the port does not have) is
+    dropped, and the request re-ingests. A best-of-n parent's
+    `fork_rids` and a sibling's `fork_of` carry the group."""
     params = SamplingParams(**r["params"])
     req = _Request(int(r["rid"]), np.asarray(r["prompt"], np.int32),
                    params, now - float(r.get("elapsed_s", 0.0)))
@@ -322,6 +349,11 @@ def _restore_request(r: Dict, now: float) -> _Request:
         req.fork_rids = [int(x) for x in r["fork_rids"]]
     if r.get("fork_of") is not None:
         req.fork_of = int(r["fork_of"])
+    kv = r.get("kv_pages")
+    if kv is not None and "tier_key" not in kv:
+        req.kv_host = {"k": list(kv["k"]), "v": list(kv["v"]),
+                       "rows": int(kv["rows"]),
+                       "origin": kv.get("origin", "handoff")}
     if params.deadline_s is not None:
         req.deadline_t = req.submit_t + params.deadline_s
     return req
@@ -693,6 +725,13 @@ class LLMEngine:
     tokens (default 64; the page size under "paged"); the slotted pool
     holds `prefix_pool_pages` pages (default `max_slots * (max_seq //
     prefix_block)`, 0 turns the cache off).
+
+    Observability: `trace` (default True) records lifecycle events into
+    a ring of `trace_capacity` (4096) events; `flight_dir` (default
+    None: reports kept in memory only) is where post-mortems are
+    written; `name` (default `llm_engine_<n>`) names the stats provider
+    that `register_stats` (default True) registers with `profiler`,
+    unregistered by `close()` or at garbage collection.
     """
 
     def __init__(self, model, max_slots: int = 8, max_queue: int = 64,
@@ -710,15 +749,17 @@ class LLMEngine:
                  prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = None,
                  prefix_cache: bool = True, prefix_block: int = 64,
-                 prefix_pool_pages: Optional[int] = None, **knobs):
+                 prefix_pool_pages: Optional[int] = None,
+                 trace: bool = True, trace_capacity: int = 4096,
+                 flight_dir: Optional[str] = None,
+                 name: Optional[str] = None, register_stats: bool = True,
+                 **knobs):
         for knob, value in knobs.items():
             if knob not in _UNSUPPORTED_KNOBS:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
                                 f"argument {knob!r}")
             off, feature, item = _UNSUPPORTED_KNOBS[knob]
-            inert = knobs.get("trace", False) is False if off is None \
-                else any(value is o or value == o for o in off)
-            if not inert:
+            if not any(value is o or value == o for o in off):
                 raise NotImplementedError(
                     f"{knob}={value!r}: {feature} is not ported to the "
                     f"PyTorch engine yet (ROADMAP.md, {item})")
@@ -909,6 +950,59 @@ class LLMEngine:
         self._inflight: Optional[_Inflight] = None
         self._ahead: Optional[_Inflight] = None     # the overlap lookahead
         self._last_proc_t = 0.0   # decode-time attribution watermark
+        # rid -> request parked by swap_out (host pages, no device state)
+        self._swapped: Dict[int, _Request] = {}
+        # program keys, shaped like the JAX engine's trace-counter keys
+        # (the trailing () is its mesh fingerprint: single device), and
+        # the builds of each program (on a card: its CUDA graph
+        # capture), which the watchdog budgets at one per program
+        self._dtype_key = (f"{str(dtype).replace('torch.', '')}:"
+                           f"{self.kv_dtype}")
+        paged_head = (self.page_size, self.kv_pages) if self.paged else ()
+        self._decode_key = (
+            "paged_decode" if self.paged else "decode", self.max_slots,
+            self.max_seq, self.decode_block_size, self.attend_impl,
+            *paged_head, self._dtype_key, ())
+        self._spec_key = (
+            "paged_spec_decode" if self.paged else "spec_decode",
+            self.max_slots, self.max_seq, self.spec_rounds,
+            self.speculate_k, self.draft, self.draft_layers,
+            self.attend_impl, *paged_head, self._dtype_key, ()) \
+            if self.speculate_k else None
+        self._captures: Dict[tuple, int] = {}
+        # observability: the lifecycle ring, the capture watchdog (over
+        # the dict above, never the engine) and the flight recorder;
+        # all host-side, none adds a device sync
+        self.tracer = LifecycleTracer(capacity=trace_capacity,
+                                      enabled=trace)
+        self.watchdog = CompileWatchdog.for_engine(self)
+        self.flight = FlightRecorder(dir=flight_dir)
+        self.name = name or f"llm_engine_{next(_ENGINE_IDS)}"
+        self._finalizer = None
+        if register_stats:
+            # the provider holds the metrics and watchdog objects, not
+            # the engine, so the gc-time unregister can run
+            metrics, watchdog = self.metrics, self.watchdog
+
+            def _provider(m=metrics, w=watchdog):
+                out = m.snapshot()
+                out.update(w.snapshot())
+                return out
+
+            profiler.register_stats_provider(self.name, _provider)
+            self._finalizer = weakref.finalize(
+                self, profiler.unregister_stats_provider, self.name)
+
+    def _prefill_key(self, rows: int) -> tuple:
+        """The program key of the prefill of `rows` rows (the JAX
+        engine's prefill key, with the row count for its bucket)."""
+        head = ("paged_prefill", self.max_seq, self.page_size,
+                self.kv_pages) if self.paged else \
+            ("prefill", self.max_slots, self.max_seq)
+        return head + (rows, self._dtype_key, ())
+
+    def _count_build(self, key: tuple):
+        self._captures[key] = self._captures.get(key, 0) + 1
 
     # ------------------------------------------------------------------ #
     # submission / results
@@ -971,33 +1065,45 @@ class LLMEngine:
             req.deadline_t = now + params.deadline_s
         self._queue.append(req)
         self.metrics.on_submit()
+        self.tracer.record("submitted", rid, ts=now)
         return rid
 
     def cancel(self, rid: int) -> bool:
-        """Cancel a queued, prefilling or generating request. Returns
-        True iff it was live. A generating request keeps its emitted
-        tokens; its lane freezes at the next dispatch and its slot frees
-        at the next block boundary. A prefilling request never entered
-        the decode grid: its slot and prefix pins free at once. Other
-        lanes are unaffected."""
+        """Cancel a queued, prefilling, generating or parked request.
+        Returns True iff it was live. A generating request keeps its
+        emitted tokens; its lane freezes at the next dispatch and its
+        slot frees at the next block boundary. A prefilling request
+        never entered the decode grid: its slot and prefix pins free at
+        once. A parked (swapped-out) request holds no device state:
+        dropping its host pages is the cancel. Other lanes are
+        unaffected."""
         self._ensure_open()
         for req in self._queue:
             if req.rid == rid:
                 self._queue.remove(req)
+                self.tracer.record("cancel", rid)
                 self._finish_early(req, "cancelled")
                 self.metrics.on_cancel()
                 return True
         for slot, req in self._active.items():
             if req.rid == rid and req.finish_reason is None:
                 req.finish_reason = "cancelled"
+                self.tracer.record("cancel", rid, slot)
                 self._freeze_slot(slot)
                 self.metrics.on_cancel()
                 return True
         for slot, req in list(self._prefilling.items()):
             if req.rid == rid:
+                self.tracer.record("cancel", rid, slot)
                 self._abort_prefill(slot, req, "cancelled")
                 self.metrics.on_cancel()
                 return True
+        if rid in self._swapped:
+            req = self._swapped.pop(rid)
+            self.tracer.record("cancel", rid)
+            self._finish_early(req, "cancelled")
+            self.metrics.on_cancel()
+            return True
         return False
 
     # ------------------------------------------------------------------ #
@@ -1012,7 +1118,10 @@ class LLMEngine:
         equal an undisturbed run), a request without re-enters as a new
         admission. It keeps its id, its recorded TTFT and its remaining
         `deadline_s`. Raises `EngineOverloadError` when the queue is
-        full.
+        full. A dict with host pages (`kv_pages`: a paged `extract()`, a
+        parked request) re-enters by page upload, with no prefill, when
+        this engine's pool takes the payload (`_kv_host_compat`: paged,
+        the same kv_dtype structure); otherwise it re-ingests.
 
         The request re-salts at this engine's queue pop (the origin's
         salt could collide with one this engine assigned), unless
@@ -1028,6 +1137,8 @@ class LLMEngine:
                                       (r.salt + 1) & SALT_MASK)
         else:
             r.salt = None
+        if r.kv_host is not None and not self._kv_host_compat(r):
+            r.kv_host = None      # layout or kv_dtype differs: re-ingest
         self._validate(r.prompt, r.params)
         if len(self._queue) >= self.max_queue:
             self.metrics.on_reject("overload")
@@ -1041,11 +1152,13 @@ class LLMEngine:
         r.adopted_t = now
         self._queue.append(r)
         self.metrics.on_submit()
+        self.tracer.record("submitted", r.rid, ts=now)
         return r.rid
 
     def _adoption_dict(self, r: _Request, now: float) -> Dict:
         """A request as `adopt()` takes it: the one serialization shared
-        by `snapshot()`, `extract()` and `unqueue()`."""
+        by `snapshot()`, `extract()` and `unqueue()`. A request's host
+        pages (parked, or queued for reactivation) ride as `kv_pages`."""
         d = {"rid": r.rid, "prompt": np.asarray(r.prompt, np.int32),
              "params": dataclasses.asdict(r.params),
              "generated": list(r.generated), "slot": r.slot,
@@ -1055,7 +1168,25 @@ class LLMEngine:
             d["fork_rids"] = list(r.fork_rids)
         if r.fork_of is not None:
             d["fork_of"] = r.fork_of
+        if r.kv_host is not None:
+            d["kv_pages"] = {"k": list(r.kv_host["k"]),
+                             "v": list(r.kv_host["v"]),
+                             "rows": int(r.kv_host["rows"]),
+                             "origin": r.kv_host.get("origin", "swap")}
         return d
+
+    def _kv_host_compat(self, r: _Request) -> bool:
+        """True when a request's host pages can upload into THIS
+        engine's pool: the paged layout and the same slab structure
+        (int8 {"q", "s"} rows for an int8 pool, plain stacks for an fp
+        one). Otherwise the request re-ingests: requantization goes
+        through the normal write path, never by reinterpreting foreign
+        bytes."""
+        if not self.paged or r.kv_host is None:
+            return False
+        ks = r.kv_host.get("k") or ()
+        return bool(len(ks)) and isinstance(ks[0], dict) \
+            == self.cache.quantized
 
     def salt_clock(self) -> int:
         """The next salt this engine's queue pop assigns."""
@@ -1068,10 +1199,22 @@ class LLMEngine:
         the salts the origin would have assigned."""
         self._next_salt = max(self._next_salt, int(value) & SALT_MASK)
 
+    def decoding_rids(self) -> List[int]:
+        """Active requests past prefill with at least one emitted token,
+        by slot: the prefill-to-decode HANDOFF set (what `extract()`
+        takes)."""
+        return [req.rid for _, req in sorted(self._active.items())
+                if req.finish_reason is None and req.generated]
+
     def extract(self, rid: int) -> Optional[Dict]:
         """Take a DECODING request (active, at least one token emitted)
         out of this engine and return its `adopt()` dict; None for any
-        other rid. No result is recorded here. The lane freezes like a
+        other rid. No result is recorded here. Under the paged layout
+        the dict carries the request's pages (`kv_pages`, gathered under
+        the recovery contract, one host sync booked in
+        `metrics.swap_host_syncs`), so the adopter uploads them instead
+        of re-ingesting; a gather that exhausts its retries leaves them
+        out (the adopter then re-ingests). The lane freezes like a
         cancel's and its slot frees at the next block boundary, not
         now: a block already dispatched still has the lane live, and a
         new occupant must not be credited with its tokens. Its stream is
@@ -1082,24 +1225,47 @@ class LLMEngine:
                 continue
             if req.finish_reason is not None or not req.generated:
                 return None
-            d = self._adoption_dict(req, time.perf_counter())
+            now = time.perf_counter()
+            d = self._adoption_dict(req, now)
+            if self.paged:
+                # the rows of every token but the last (`cur`, which
+                # the adopter's first decode step writes); a dispatched
+                # block only writes rows past them
+                rows = self.cache.length(slot)
+                pages = self.cache.lane_pages(slot)[
+                    :self.cache.span_pages(rows)]
+
+                def gather(d=d, pages=pages, rows=rows):
+                    k_host, v_host = self._gather_pages(pages)
+                    d["kv_pages"] = {"k": k_host, "v": v_host,
+                                     "rows": rows, "n_pages": len(pages),
+                                     "origin": "handoff"}
+
+                if self._run_with_retries(gather) is None:
+                    self.metrics.swap_host_syncs += 1
+                else:
+                    d.pop("kv_pages", None)
             req.finish_reason = "handoff"
             self._freeze_slot(slot)
             self._streams.pop(rid, None)
+            self.tracer.record("handoff", rid, slot, ts=now)
             return d
         return None
 
     def unqueue(self, rid: int) -> Optional[Dict]:
-        """Take a QUEUED request out of this engine and return its
-        `adopt()` dict (None if `rid` is not queued). A request that has
-        no salt yet gets the one its pop here would have drawn, so an
-        adopter with `keep_salt=True` continues the very stream this
-        engine would have produced (unqueue in pop order). No stream
-        event fires: the new owner's attach replays from zero. A fork
-        parent leaves without a salt: its group's salts are drawn at the
-        adopter's pop, where the siblings materialise. A sibling that
-        leaves lets go of its parent's fork stash here."""
+        """Take a request that holds NO device state out of this engine
+        (QUEUED, or PARKED by `swap_out`, its host pages riding the
+        dict) and return its `adopt()` dict (None otherwise). A queued
+        request that has no salt yet gets the one its pop here would
+        have drawn, so an adopter with `keep_salt=True` continues the
+        very stream this engine would have produced (unqueue in pop
+        order). No stream event fires: the new owner's attach replays
+        from zero. A fork parent leaves without a salt: its group's
+        salts are drawn at the adopter's pop, where the siblings
+        materialise. A sibling that leaves lets go of its parent's fork
+        stash here."""
         self._ensure_open()
+        now = time.perf_counter()
         for req in self._queue:
             if req.rid == rid:
                 self._queue.remove(req)
@@ -1108,7 +1274,13 @@ class LLMEngine:
                     self._next_salt = (self._next_salt + 1) & SALT_MASK
                 self._fork_done(req)
                 self._streams.pop(rid, None)
-                return self._adoption_dict(req, time.perf_counter())
+                self.tracer.record("handoff", rid, ts=now)
+                return self._adoption_dict(req, now)
+        if rid in self._swapped:
+            req = self._swapped.pop(rid)
+            self._streams.pop(rid, None)
+            self.tracer.record("handoff", rid, ts=now)
+            return self._adoption_dict(req, now)
         return None
 
     def result(self, rid: int) -> GenerationResult:
@@ -1158,12 +1330,18 @@ class LLMEngine:
             return True
         req = self._find_request(rid)
         if req is None:
-            if any(rid in group[1:] for group in self._fork_groups.values()):
+            if rid in self._swapped:
+                # a parked request streams again at reactivation; the
+                # replay below covers what it emitted so far
+                req = self._swapped[rid]
+            elif any(rid in group[1:]
+                     for group in self._fork_groups.values()):
                 # a PROMISED fork sibling (its parent has not popped):
                 # the sink registers now and gets the first token
                 self._streams[rid] = sink
                 return True
-            return False
+            else:
+                return False
         if req.generated:
             sink("tokens", 0, list(req.generated))
         self._streams[rid] = sink
@@ -1204,8 +1382,12 @@ class LLMEngine:
         calls that feed or drive the engine raise `RuntimeError("engine
         closed")` afterwards; `result()`, `stats()` and `snapshot()`
         keep working, so a shutting-down server can still collect
-        results and take a resume snapshot."""
+        results and take a resume snapshot. The stats provider is
+        unregistered (once)."""
         self._closed = True
+        if self._finalizer is not None:
+            self._finalizer()
+            self._finalizer = None
 
     def __enter__(self):
         return self
@@ -1218,6 +1400,8 @@ class LLMEngine:
             raise RuntimeError("engine closed")
 
     def has_work(self) -> bool:
+        """Whether `step()` has anything to do (parked requests are
+        outside the scheduler until `swap_in`)."""
         return bool(self._queue or self._active or self._prefilling
                     or self._inflight is not None
                     or self._ahead is not None)
@@ -1233,8 +1417,48 @@ class LLMEngine:
         partly ingested, first token not sampled yet)."""
         return len(self._prefilling)
 
+    @property
+    def kv_pages_free(self) -> int:
+        """Free pages of the pool (0 under the slotted layout)."""
+        return self.cache.pool.num_free if self.paged else 0
+
+    def page_load(self) -> Optional[int]:
+        """Outstanding work PRICED IN PAGES: pages held (the trash page
+        aside) plus the queue's reserved spans, minus what eviction
+        could reclaim now (idle cached prefixes are capacity, not
+        load). What admission will charge, so a least-work router ranks
+        replicas by memory pressure, not by request count. None under
+        the slotted layout."""
+        if not self.paged:
+            return None
+        demand = sum(self.cache.span_pages(self._span_rows(r))
+                     for r in self._queue)
+        reclaimable = self.prefix.reclaimable_pages() \
+            if self.prefix is not None else 0
+        pool = self.cache.pool
+        held = pool.pages_used - pool.reserved
+        return max(0, held - reclaimable) + demand
+
     def stats(self) -> Dict[str, float]:
         return self.metrics.snapshot()
+
+    # ------------------------------------------------------------------ #
+    # observability
+    # ------------------------------------------------------------------ #
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition of this engine's metrics and its
+        capture watchdog's families (what a front door serves at
+        /metrics)."""
+        return self.metrics.to_prometheus(
+            extra_families=self.watchdog.families())
+
+    def export_trace(self, path: Optional[str] = None) -> Dict:
+        """Chrome/Perfetto trace of the lifecycle ring (one track per KV
+        slot lane, the queue and engine tracks); written as JSON to
+        `path` when given. For a snapshot / resume pair concatenate the
+        two rings and call `obs.export_chrome_trace` (request ids never
+        overlap)."""
+        return self.tracer.export(path)
 
     # ------------------------------------------------------------------ #
     # scheduler
@@ -1361,7 +1585,7 @@ class LLMEngine:
         kids = []
         for krid in parent.fork_rids[1:]:
             if self._find_request(krid) is not None \
-                    or krid in self._results:
+                    or krid in self._results or krid in self._swapped:
                 continue
             k = _Request(krid, parent.prompt,
                          dataclasses.replace(parent.params, n=1),
@@ -1373,11 +1597,13 @@ class LLMEngine:
             self._next_salt = (self._next_salt + 1) & SALT_MASK
             kids.append(k)
             self.metrics.on_submit()
+            self.tracer.record("submitted", krid)
         if not kids:
             return
         for k in reversed(kids):
             self._queue.appendleft(k)
         parent.fork_pending = {k.rid for k in kids}
+        self.tracer.record("fork", parent.rid, args=(len(kids),))
 
     def _bucket_for(self, n: int) -> int:
         for b in self._buckets:
@@ -1404,6 +1630,8 @@ class LLMEngine:
         pages it can share (a fork parent's full prompt pages, or the
         prefix tree's)."""
         span = self.cache.span_pages(self._span_rows(req))
+        if req.kv_host is not None:
+            return span                  # a page upload shares nothing
         src = self._fork_src.get(req.fork_of)
         if src is not None:
             return span - src["prompt_len"] // self.page_size
@@ -1471,6 +1699,10 @@ class LLMEngine:
         return True
 
     def _admit_one(self, req: _Request, slot: int):
+        if self.paged and req.kv_host is not None:
+            # a page upload (swap-in, page handoff): no prefill at all
+            self._admit_pages(req, slot)
+            return
         if self.paged and req.fork_of in self._fork_src:
             # a COW fork: no prefill compute at all
             self._fork_install(req, slot, self._fork_src[req.fork_of])
@@ -1487,6 +1719,9 @@ class LLMEngine:
         req.queue_wait_s = t0 - (req.adopted_t or req.submit_t)
         self.metrics.on_admit(int(req.prompt.size), t1 - t0,
                               queue_wait_s=req.queue_wait_s)
+        self.tracer.record("admitted", req.rid, slot, dur=t1 - t0, ts=t1,
+                           args=(int(req.prompt.size), req.pages_copied,
+                                 bool(req.generated)))
         if req.generated:
             # a continuation: decode resumes after the last emitted
             # token; its TTFT was recorded where it started
@@ -1511,6 +1746,7 @@ class LLMEngine:
         req.ttft_s = now - req.submit_t
         self.metrics.on_first_token(req.ttft_s)
         req.generated.append(first)
+        req.last_emit_t = now               # the first TBT gap's start
         self._emit_stream(req.rid, "tokens", 0, [first])
         self._fork_done(req)            # a no-op but for a fork sibling
         self._install_slot(req, slot, pos=int(req.prompt.size))
@@ -1583,7 +1819,123 @@ class LLMEngine:
             self.metrics.on_cow_copy()
         self.metrics.on_admit(P, req.pf_compute_s,
                               queue_wait_s=req.queue_wait_s)
+        self.tracer.record("admitted", req.rid, slot, ts=now,
+                           args=(P, full, False))
         self._first_token_install(req, slot, first, now)
+
+    # ------------------------------------------------------------------ #
+    # page transfer and host swap (paged layout)
+    # ------------------------------------------------------------------ #
+    def _admit_pages(self, req: _Request, slot: int):
+        """Re-enter a request whose K/V rows arrived as host pages
+        (swap-in, or a page handoff): reserve its span in fresh pages,
+        scatter the rows into the first of them, and install the lane
+        after the last emitted token (its row is `cur`, written by the
+        next decode step) with the request's salt: no prefill, and
+        bitwise because the rows are the rows. The parked gap is no TBT
+        sample: the stream restarts here."""
+        self.cache.reset_length(slot)            # retry-safe
+        rows = int(req.kv_host["rows"])
+        npages = self.cache.span_pages(rows)
+        pages = self._alloc_pages(
+            self.cache.span_pages(self._span_rows(req)))
+        self.cache.bind_owned(slot, pages)       # before the scatter: a
+        # retry's reset_length drops them
+        self._scatter_pages(pages[:npages], req.kv_host["k"],
+                            req.kv_host["v"])
+        self.cache.advance(slot, rows)
+        now = time.perf_counter()
+        req.queue_wait_s = max(0.0, now - (req.adopted_t or req.submit_t))
+        if req.kv_host.get("origin") == "swap":
+            self.metrics.on_swap_in(npages)
+            self.tracer.record("swap_in", req.rid, slot, args=(npages,))
+        self.metrics.on_admit(int(req.prompt.size), 0.0,
+                              queue_wait_s=req.queue_wait_s)
+        self.tracer.record("admitted", req.rid, slot, ts=now,
+                           args=(int(req.prompt.size), npages, True))
+        req.kv_host = None
+        req.last_emit_t = 0.0
+        self._install_slot(
+            req, slot, pos=int(req.prompt.size) + len(req.generated) - 1)
+
+    def _gather_pages(self, pages: List[int]):
+        """`pages` of every layer to host memory (one device buffer, one
+        copy, one sync: `PagedKVCache.gather_pages`); fires the
+        `page_swap` fault point first."""
+        faults.fire("page_swap")
+        return self.cache.gather_pages(pages)
+
+    def _scatter_pages(self, pages: List[int], k_rows, v_rows):
+        """Host row stacks into `pages` of every layer
+        (`PagedKVCache.scatter_pages`); fires the `page_swap` fault
+        point first."""
+        faults.fire("page_swap")
+        self.cache.scatter_pages(pages, k_rows, v_rows)
+
+    def swap_out(self, rid: int) -> bool:
+        """Move a DECODING request's resident K/V pages to host memory
+        and free its lane and pages: a parked request holds no device
+        memory. Returns True iff `rid` was decoding and is now parked
+        (`swapped_rids`); False for any other rid, and for a swap whose
+        gather exhausted its retries (the request stays resident and
+        decoding, nothing leaks). Raises `RuntimeError` on the slotted
+        layout. In-flight blocks are discarded first (they replay from
+        the mirrors), so the gathered rows are exactly the mirrors'.
+        Lane, prefix pins and page references are released at once:
+        nothing is in flight after the discard. A parked request is
+        outside the scheduler: `has_work()` ignores it, its deadline
+        still runs, `cancel`, `unqueue` and `attach_stream` work on it,
+        and `snapshot()` carries it with its pages; `swap_in(rid)`
+        re-queues it."""
+        self._ensure_open()
+        if not self.paged:
+            raise RuntimeError("host swap needs kv_layout='paged'")
+        for slot, req in list(self._active.items()):
+            if req.rid != rid:
+                continue
+            if req.finish_reason is not None or not req.generated:
+                return False
+            self._discard_inflight()
+            rows = self.cache.length(slot)
+            pages = self.cache.lane_pages(slot)[
+                :self.cache.span_pages(rows)]
+
+            def gather(req=req, pages=pages, rows=rows):
+                k_host, v_host = self._gather_pages(pages)
+                req.kv_host = {"k": k_host, "v": v_host, "rows": rows,
+                               "origin": "swap"}
+
+            if self._run_with_retries(gather) is not None:
+                req.kv_host = None
+                return False
+            del self._active[slot]
+            self._release_prefix(req)
+            self.cache.release(slot)   # page references drop; pages the
+            # tree shares stay cached
+            self._act[slot] = False
+            self._dirty = True
+            self._swapped[rid] = req
+            self.metrics.on_swap_out(len(pages))
+            self.tracer.record("swap_out", rid, slot, args=(len(pages),))
+            return True
+        return False
+
+    def swap_in(self, rid: int) -> bool:
+        """Reactivate a parked request: it re-enters at the queue HEAD,
+        and its admission uploads its host pages into fresh pages
+        (`_admit_pages`); decode continues after its last emitted
+        token, bitwise. False for a rid that is not parked."""
+        self._ensure_open()
+        req = self._swapped.pop(rid, None)
+        if req is None:
+            return False
+        self._queue.appendleft(req)
+        return True
+
+    @property
+    def swapped_rids(self) -> List[int]:
+        """The parked (swapped-out) requests' ids, sorted."""
+        return sorted(self._swapped)
 
     # ------------------------------------------------------------------ #
     # chunked-prefill interleaving (prefill_budget set)
@@ -1624,17 +1976,25 @@ class LLMEngine:
                 # no token computed and no lane done: every parked lane
                 # is a fork sibling waiting for its parent's pages
                 break
+        if self._queue or self._prefilling:
+            # an engine-scope counter event per round with admission
+            # work: the queue-depth track of the Perfetto export
+            self.tracer.record("prefill_interleave",
+                               args=(len(self._queue),
+                                     len(self._prefilling), spent))
 
     def _begin_prefill(self) -> bool:
         """Pop the next request into a PREFILLING lane (slot, cached
         prefix, pages) under the recovery contract; exhaustion fails
         this request alone. Returns False only when page pressure
-        requeued it. A COW fork installs at once (it has no prompt to
-        compute); a paged sibling whose parent is mid-prefill parks
-        WAITING, with no pages, until the parent's stash exists."""
+        requeued it. A page upload or a COW fork installs at once (it
+        has no prompt to compute); a paged sibling whose parent is
+        mid-prefill parks WAITING, with no pages, until the parent's
+        stash exists."""
         req = self._pop_highest_priority()
         slot = self.cache.allocate()
-        if self.paged and req.fork_of in self._fork_src:
+        if self.paged and (req.kv_host is not None
+                           or req.fork_of in self._fork_src):
             err = self._run_with_retries(lambda: self._admit_one(req, slot))
             if err is not None:
                 self.cache.release(slot)
@@ -1648,12 +2008,22 @@ class LLMEngine:
         if self.paged and req.fork_of is not None \
                 and self._fork_parent_prefilling(req.fork_of):
             req.pf_wait_fork = True
+            self.tracer.record("admitted", req.rid, slot,
+                               args=(int(req.prompt.size), 0, False))
             self._prefilling[slot] = req
             return True
         t0 = time.perf_counter()
         err = self._run_with_retries(
             lambda: self._start_prefill_lane(slot, req))
-        req.pf_compute_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        req.pf_compute_s += t1 - t0
+        if err is None:
+            # the admitted event marks PREFILL START here (the chunks
+            # are spans of their own)
+            self.tracer.record("admitted", req.rid, slot, dur=t1 - t0,
+                               ts=t1, args=(int(req.prompt.size),
+                                            req.pages_copied,
+                                            bool(req.generated)))
         if err is not None:
             self.cache.release(slot)
             if isinstance(err, NoFreePages):
@@ -1737,7 +2107,8 @@ class LLMEngine:
         logits = [None]
 
         def chunk():
-            logits[0] = self._prefill_tokens(slot, piece, pos0=req.pf_filled)
+            logits[0] = self._prefill_tokens(slot, piece, pos0=req.pf_filled,
+                                             rid=req.rid)
 
         if piece.size:
             if not self._prefill_attempt(slot, req, chunk):
@@ -1828,7 +2199,8 @@ class LLMEngine:
             span = self.cache.span_pages(self._span_rows(req))
             self.cache.bind_owned(slot, self._alloc_pages(
                 span - self.cache.lane_page_count(slot)))
-        logits = self._prefill_tokens(slot, tokens[ncached:], pos0=ncached)
+        logits = self._prefill_tokens(slot, tokens[ncached:], pos0=ncached,
+                                      rid=req.rid)
         self._try_insert_prefix(slot, tokens)
         self.metrics.on_prefix(ncached, int(tokens.size) - ncached,
                                lookup=self.prefix is not None)
@@ -1931,23 +2303,29 @@ class LLMEngine:
             req.prefix_nodes = None
 
     def _prefill_tokens(self, slot: int, tokens: np.ndarray,
-                        pos0: int = 0) -> Optional[torch.Tensor]:
+                        pos0: int = 0, rid: int = -1
+                        ) -> Optional[torch.Tensor]:
         """Bucketed, optionally chunked prefill of `tokens` into rows
         [pos0, pos0 + len) of `slot` (through its block-table row when
         paged); returns the last real token's fp32 logits (None for no
         tokens: a fully cached re-ingest). Each piece fires the
         `prefill` fault point once, then runs as the prefill program of
         its bucket's rows, at least `PREFILL_MIN_ROWS` (on a card one
-        CUDA graph replay); rows past max_seq park."""
+        CUDA graph replay); rows past max_seq park. Each piece records
+        one `prefill_chunk` event for request `rid`."""
         chunk = self.prefill_chunk or max(int(tokens.size), 1)
         table = self.cache.block_tables[slot] if self.paged else None
         logits = None
         for ofs in range(0, int(tokens.size), chunk):
             faults.fire("prefill")
+            c0 = time.perf_counter()
             piece = tokens[ofs:ofs + chunk]
             rows = max(self._bucket_for(piece.size), PREFILL_MIN_ROWS)
             logits = self._prefill_runner(rows).run(piece, slot,
                                                     pos0 + ofs, table)
+            self.tracer.record("prefill_chunk", rid, slot,
+                               dur=time.perf_counter() - c0,
+                               args=(int(piece.size), pos0 + ofs))
         return logits
 
     def _prefill_runner(self, rows: int) -> PrefillRunner:
@@ -1971,6 +2349,7 @@ class LLMEngine:
             runner = PrefillRunner(body, rows, cache_rows, table_len,
                                    self.device, graphed=graphed,
                                    pool=self._prefill_pool)
+            self._count_build(self._prefill_key(rows))
             if runner.graph is not None:
                 self.metrics.on_prefill_graph_capture(
                     time.perf_counter() - t0, runner.pool_bytes)
@@ -2015,7 +2394,8 @@ class LLMEngine:
         if req.fork_rids and req.fork_of is None:
             for krid in req.fork_rids[1:]:
                 if self._find_request(krid) is None \
-                        and krid not in self._results:
+                        and krid not in self._results \
+                        and krid not in self._swapped:
                     kid = _Request(krid, req.prompt, req.params,
                                    req.submit_t)
                     kid.finish_reason, kid.error = reason, error
@@ -2023,6 +2403,8 @@ class LLMEngine:
         self._record_result(req)
 
     def _record_result(self, req: _Request):
+        self.tracer.record("finished", req.rid, req.slot,
+                           args=(req.finish_reason,))
         self._emit_stream(req.rid, "finished", req.finish_reason, req.error)
         self._streams.pop(req.rid, None)
         self._results[req.rid] = GenerationResult(
@@ -2036,17 +2418,20 @@ class LLMEngine:
         or PREFILLING books its wait into queue_wait (prefilling: minus
         its own chunk compute) and leaves with its (empty) result at
         once; an active one freezes and retires at the boundary,
-        keeping its tokens."""
+        keeping its tokens; a parked one leaves with its tokens (parking
+        never outlives a deadline)."""
         now = time.perf_counter()
         for req in [r for r in self._queue
                     if r.deadline_t is not None and now >= r.deadline_t]:
             self._queue.remove(req)
+            self.tracer.record("deadline", req.rid, ts=now)
             req.queue_wait_s = now - (req.adopted_t or req.submit_t)
             self.metrics.queue_wait.observe(req.queue_wait_s)
             self._finish_early(req, "deadline")
             self.metrics.on_deadline()
         for slot, req in list(self._prefilling.items()):
             if req.deadline_t is not None and now >= req.deadline_t:
+                self.tracer.record("deadline", req.rid, slot, ts=now)
                 req.queue_wait_s = max(
                     0.0, (now - (req.adopted_t or req.submit_t))
                     - req.pf_compute_s)
@@ -2057,7 +2442,14 @@ class LLMEngine:
             if (req.finish_reason is None and req.deadline_t is not None
                     and now >= req.deadline_t):
                 req.finish_reason = "deadline"
+                self.tracer.record("deadline", req.rid, slot, ts=now)
                 self._freeze_slot(slot)
+                self.metrics.on_deadline()
+        for rid, req in list(self._swapped.items()):
+            if req.deadline_t is not None and now >= req.deadline_t:
+                del self._swapped[rid]
+                self.tracer.record("deadline", rid, ts=now)
+                self._finish_early(req, "deadline")
                 self.metrics.on_deadline()
 
     def _check_finished(self, req: _Request, tok: int):
@@ -2100,6 +2492,7 @@ class LLMEngine:
         for attempt in range(self.max_retries + 1):
             if attempt:
                 self.metrics.on_retry()
+                self.tracer.record("retry", args=(attempt,))
                 self._backoff(attempt - 1)
             try:
                 attempt_fn()
@@ -2145,18 +2538,25 @@ class LLMEngine:
                 "kv_dtype": self.kv_dtype, "speculate_k": self.speculate_k,
                 "draft": self.draft,
                 "draft_layers": self.draft_layers or None,
-                "device": str(self.device)}
+                "device": str(self.device),
+                # the observability settings ride along, so a resumed
+                # engine keeps the deployment's tracing and flight dir
+                "trace": self.tracer.enabled,
+                "trace_capacity": self.tracer.capacity,
+                "flight_dir": self.flight.dir}
 
     # ------------------------------------------------------------------ #
     # snapshot and resume
     # ------------------------------------------------------------------ #
     def snapshot(self) -> Dict:
-        """The engine's request state as a picklable dict of primitives
-        and numpy arrays: the engine config, the id and salt counters,
-        the free-slot order, every active and queued request and the
-        uncollected results. The KV slabs are not serialized:
-        `resume()` re-ingests each active request's prompt and emitted
-        tokens. Dispatched, unprocessed blocks are discarded first (they
+        """The engine's request state as a picklable dict of primitives,
+        numpy arrays and (host pages) CPU tensors: the engine config,
+        the id and salt counters, the free-slot order, every active,
+        queued and parked request and the uncollected results. The KV
+        slabs are not serialized: `resume()` re-ingests each active
+        request's prompt and emitted tokens; a parked request's pages
+        are host state already and ride its dict (`swapped`,
+        `kv_pages`), so it reactivates without a prefill. Dispatched, unprocessed blocks are discarded first (they
         replay from the mirrors), and PREFILLING requests serialize as
         queued at the head of the queue (they have emitted nothing, so
         nothing re-emits), their slots on top of the free stack so they
@@ -2177,6 +2577,8 @@ class LLMEngine:
             "queued": [self._adoption_dict(r, now)
                        for r in self._prefilling.values()]
             + [self._adoption_dict(r, now) for r in self._queue],
+            "swapped": [self._adoption_dict(r, now)
+                        for _, r in sorted(self._swapped.items())],
             "results": [{"rid": g.request_id, "prompt": g.prompt,
                          "token_ids": list(g.token_ids),
                          "finish_reason": g.finish_reason,
@@ -2194,8 +2596,12 @@ class LLMEngine:
         tokens re-ingested through prefill (under the recovery contract;
         exhaustion fails that request alone); the free-slot order, the
         id and salt counters and the remaining `deadline_s` carry over;
-        queued requests re-enter the queue in order. `overrides` go to
-        the constructor (e.g. `device="cpu"`).
+        queued requests re-enter the queue in order. Parked requests
+        (`swapped`) park again with their host pages where this engine's
+        pool takes them (`_kv_host_compat`), and re-enter the queue to
+        re-ingest where it does not (a layout or kv_dtype override); a
+        queued request's pages are dropped the same way. `overrides` go
+        to the constructor (e.g. `device="cpu"`).
 
         A JAX snapshot's `step_no` and `gen_state` (JAX RNG state) and
         its requests' `first_key` are read and ignored: the port keys
@@ -2255,31 +2661,46 @@ class LLMEngine:
                 eng._admit_failed(req, err)
                 continue
             eng.metrics.on_admit(int(req.prompt.size), ingest_s + replay_s)
+            t1 = time.perf_counter()
+            eng.tracer.record("admitted", req.rid, slot,
+                              dur=ingest_s + replay_s, ts=t1,
+                              args=(int(req.prompt.size), req.pages_copied,
+                                    True))
             eng._install_slot(req, slot, pos=eng.cache.length(slot))
         if "free_slots" in snap:
             eng.cache.restore_free_order(snap["free_slots"])
-        # host-swapped requests of a JAX snapshot re-enter as queued
-        # (host swap is not ported): they re-prefill
-        for r in list(snap.get("queued", ())) + list(snap.get("swapped",
-                                                              ())):
+        for r in snap.get("queued", ()):
             req = _restore_request(r, now)
             if req.fork_rids:
                 eng._fork_groups[req.rid] = list(req.fork_rids)
+            if not eng._kv_host_compat(req):
+                req.kv_host = None
             eng._queue.append(req)
+            eng.metrics.on_submit()
+        for r in snap.get("swapped", ()):
+            req = _restore_request(r, now)
+            if req.fork_rids:
+                eng._fork_groups[req.rid] = list(req.fork_rids)
+            if eng._kv_host_compat(req):
+                eng._swapped[req.rid] = req
+            else:
+                req.kv_host = None       # re-ingests as a continuation
+                eng._queue.append(req)
             eng.metrics.on_submit()
         return eng
 
     def _postmortem(self, reason: str, detail: Optional[Dict] = None
-                    ) -> Dict:
-        """The post-mortem report of a terminal failure: reason, detail,
-        a metrics snapshot and the engine config, handed to an armed
-        fault plan (`faults.note_postmortem`). Called only on terminal
-        paths, never per block."""
-        report = {"reason": str(reason), "detail": detail,
-                  "metrics": self.metrics.snapshot(),
-                  "config": self._engine_config()}
-        faults.note_postmortem(report)
-        return report
+                    ) -> Optional[Dict]:
+        """One flight-recorder dump of a terminal failure: the reason,
+        the detail, the lifecycle ring's tail, a metrics snapshot and
+        the engine config, redacted, kept, written to `flight_dir` when
+        set, and announced to an armed fault plan
+        (`faults.note_postmortem`, inside `FlightRecorder.dump`). Called
+        only on terminal paths, never per block."""
+        return self.flight.dump(
+            reason, events=self.tracer.tail(self.flight.last_n),
+            metrics=self.metrics.snapshot(),
+            config=self._engine_config(), detail=detail)
 
     # ------------------------------------------------------------------ #
     # decode
@@ -2396,6 +2817,7 @@ class LLMEngine:
             t0 = time.perf_counter()
             runner = BlockRunner(body, self._lanes, steps, spec,
                                  graphed=self._use_graphs)
+            self._count_build(self._spec_key if spec else self._decode_key)
             if runner.graph is not None:
                 self.metrics.on_graph_capture(time.perf_counter() - t0)
             self._runners[spec] = runner
@@ -2439,8 +2861,14 @@ class LLMEngine:
         toks = flat[:n].reshape(blk.steps, S)
         emits = flat[n:2 * n].reshape(blk.steps, S).astype(bool)
         if blk.spec:
-            self.metrics.on_spec(int(flat[2 * n]), int(flat[2 * n + 1]))
+            nprop, nacc = int(flat[2 * n]), int(flat[2 * n + 1])
+            self.metrics.on_spec(nprop, nacc)
+            self.tracer.record("spec", args=(nprop, nacc))
         produced = 0
+        # per-lane token counts ride the block's ONE decode_block event;
+        # the list is built only with tracing on
+        lanes = [] if self.tracer.enabled else None
+        delivered = []           # streams that advanced (TBT samples)
         for slot, req in self._active.items():
             if req.finish_reason is not None:
                 continue  # finished at admission or an earlier block
@@ -2460,6 +2888,10 @@ class LLMEngine:
                     break
             produced += emitted
             self._act[slot] = req.finish_reason is None
+            if emitted:
+                delivered.append(req)
+            if lanes is not None:
+                lanes.append((slot, req.rid, emitted))
             if emitted and req.rid in self._streams:
                 # one event per streamed request per block, from the
                 # tokens just distributed
@@ -2470,6 +2902,16 @@ class LLMEngine:
         # attribute only the wall time not already charged to the
         # previous block: with overlap, block N+1's dispatch t0 lies
         # before block N's sync completed
-        self.metrics.on_decode_step(now - max(blk.t0, self._last_proc_t),
-                                    produced, steps=blk.steps)
+        dur = now - max(blk.t0, self._last_proc_t)
+        self.metrics.on_decode_step(dur, produced, steps=blk.steps,
+                                    lanes=self.max_slots)
+        for req in delivered:
+            # tokens reach the client at the block's host sync: the gap
+            # between two deliveries of one stream is its TBT
+            if req.last_emit_t:
+                self.metrics.on_tbt(now - req.last_emit_t)
+            req.last_emit_t = now
         self._last_proc_t = now
+        if lanes is not None:
+            self.tracer.record("decode_block", dur=dur, ts=now,
+                               args=(blk.steps, produced, tuple(lanes)))

@@ -1,21 +1,30 @@
-"""Serving metrics: TTFT, queue wait, decode time per token, tokens/s,
-host syncs and dispatches, the recovery counters, graph captures, the
-KV memory gauges, the prefix-cache counters and gauges, the prefilling
-gauge and the speculative decoding counters.
+"""Serving metrics: TTFT, queue wait, time between tokens, decode time
+per token, tokens/s, host syncs and dispatches, the recovery counters,
+graph captures, the KV memory gauges, the prefix-cache counters and
+gauges, the prefilling gauge, the host-swap counters and the
+speculative decoding counters, and their Prometheus exposition.
 
-A copy of the subset of `paddle_tpu/serving/metrics.py` that the port's
-engine feeds. Aggregates are O(1) online (count/total/min/max); TTFT
-and queue-wait quantiles come from a bounded reservoir with a
-deterministic private RNG, so two identical runs report identical
-quantiles and a long run never grows host memory.
+The counterpart of `paddle_tpu/serving/metrics.py`. Aggregates are O(1)
+online (count/total/min/max); TTFT, queue-wait and TBT quantiles come
+from a bounded reservoir with a deterministic private RNG, so two
+identical runs report identical quantiles and a long run never grows
+host memory. `to_prometheus` renders the reference's families under the
+same namespace, so a dashboard carries across, plus the port's own
+(graph captures, their seconds, the prefill graph pool, replay steps).
 """
 from __future__ import annotations
 
 import random
 import time
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
-__all__ = ["OnlineStat", "ServingMetrics", "nearest_rank_p99"]
+__all__ = ["OnlineStat", "ServingMetrics", "PROM_NAMESPACE",
+           "nearest_rank_p99"]
+
+# metric-name prefix of the exposition (the reference's); the provider
+# registry (`obs.prometheus.registry_exposition`) uses "paddle_tpu", so
+# the two surfaces never collide in one scrape file
+PROM_NAMESPACE = "paddle_tpu_serving"
 
 
 def nearest_rank_p99(values) -> float:
@@ -89,8 +98,10 @@ class ServingMetrics:
     split `invalid` vs `overload`), cancelled, deadline-expired and
     failed requests, retries and recoveries, prompt and generated
     tokens, decode steps / dispatches / host syncs, CUDA graph
-    captures (decode programs, and prefill programs apart). Latency: TTFT (submit → first token on host), queue
-    wait (submit → prefill start), per-dispatch decode wall time.
+    captures (decode programs, and prefill programs apart), host swaps.
+    Latency: TTFT (submit → first token on host), queue wait (submit →
+    prefill start), time between tokens (one gap per request per
+    processed block), per-dispatch decode wall time.
     `tokens_per_sec` is generated tokens over the busy window (first
     submit → last activity); `decode_ms_per_token` is decode wall time
     per in-program decode step — the gap between two tokens of one
@@ -130,6 +141,7 @@ class ServingMetrics:
         self.decode_steps = 0        # in-program steps, frozen lanes too
         self.decode_dispatches = 0   # decode blocks run
         self.decode_tokens = 0       # decode-emitted (excl. first token)
+        self.lane_steps = 0          # slots x in-program steps, frozen too
         self.host_syncs = 0          # device→host barriers, decode path
         self.kv_cache_bytes = 0      # preallocated slab footprint (gauge)
         # K+V bytes per cache row, all layers (scales included): what
@@ -159,6 +171,20 @@ class ServingMetrics:
         # best-of-n forks: the partial boundary page each sibling of a
         # fork group copies when the prompt is no multiple of the page
         self.pages_cow_copied = 0
+        # host swap (paged): pages moved device -> host and back, the
+        # requests parked and reactivated, and the device-to-host
+        # barriers of the swap and page-handoff gathers (apart from the
+        # per-block decode host_syncs)
+        self.pages_swapped_out = 0
+        self.pages_swapped_in = 0
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swap_host_syncs = 0
+        # the fleet KV tier (not ported: always 0, exposed so the
+        # reference's dashboards read the same families)
+        self.kv_tier_hits = 0
+        self.kv_tier_misses = 0
+        self.kv_tier_bytes = 0
         # speculative decoding (all 0 with speculate_k=0): proposed
         # counts every drafted token offered to a verify pass, accepted
         # the ones that matched the target's own draw. Correction and
@@ -171,6 +197,9 @@ class ServingMetrics:
         self.spec_fallbacks = 0      # blocks degraded to plain decode
         self.ttft = OnlineStat()
         self.queue_wait = OnlineStat()
+        # time between tokens of an active stream: one gap per request
+        # per processed block, the client-visible stutter TTFT misses
+        self.tbt = OnlineStat()
         self.decode_step_time = OnlineStat(reservoir=0)
         self.prefill_time = OnlineStat(reservoir=0)
         self.queue_depth = 0
@@ -240,12 +269,15 @@ class ServingMetrics:
         self.ttft.observe(ttft_s)
         self.generated_tokens += 1  # the prefill-sampled token
 
-    def on_decode_step(self, step_s: float, tokens: int, steps: int = 1):
+    def on_decode_step(self, step_s: float, tokens: int, steps: int = 1,
+                       lanes: int = 0):
         """One processed decode dispatch of `steps` in-program steps
-        producing `tokens`, with its one host sync."""
+        over `lanes` slots (frozen lanes included) producing `tokens`,
+        with its one host sync."""
         self.decode_dispatches += 1
         self.decode_steps += steps
         self.decode_tokens += tokens
+        self.lane_steps += steps * max(lanes, 0)
         self.host_syncs += 1
         self.generated_tokens += tokens
         self.decode_step_time.observe(step_s)
@@ -257,6 +289,24 @@ class ServingMetrics:
 
     def on_cow_copy(self, pages: int = 1):
         self.pages_cow_copied += pages
+
+    def on_tbt(self, gap_s: float):
+        """One inter-delivery gap of one active stream (per request per
+        processed block, never per token)."""
+        self.tbt.observe(gap_s)
+
+    def on_swap_out(self, pages: int):
+        """One request parked to host RAM: `pages` gathered with one
+        device-to-host barrier."""
+        self.swap_outs += 1
+        self.pages_swapped_out += pages
+        self.swap_host_syncs += 1
+        self._touch()
+
+    def on_swap_in(self, pages: int):
+        self.swap_ins += 1
+        self.pages_swapped_in += pages
+        self._touch()
 
     def on_spec(self, proposed: int, accepted: int):
         """One processed speculative block: `proposed` drafted tokens
@@ -329,6 +379,13 @@ class ServingMetrics:
             if self.spec_proposed else 0.0
 
     @property
+    def slot_lane_efficiency(self) -> float:
+        """Decode tokens over (slots x in-program steps): how much of the
+        fixed decode grid carried live tokens."""
+        return self.decode_tokens / self.lane_steps if self.lane_steps \
+            else 0.0
+
+    @property
     def decode_ms_per_token(self) -> float:
         return 1e3 * self.decode_step_time.total / self.decode_steps \
             if self.decode_steps else 0.0
@@ -380,6 +437,15 @@ class ServingMetrics:
             "pages_cow_copied": self.pages_cow_copied,
             "kv_page_occupancy": (self.kv_pages_used / self.kv_pages_total
                                   if self.kv_pages_total else 0.0),
+            "pages_swapped_out": self.pages_swapped_out,
+            "pages_swapped_in": self.pages_swapped_in,
+            "swap_outs": self.swap_outs,
+            "swap_ins": self.swap_ins,
+            "swap_host_syncs": self.swap_host_syncs,
+            "kv_tier_hits": self.kv_tier_hits,
+            "kv_tier_misses": self.kv_tier_misses,
+            "kv_tier_bytes": self.kv_tier_bytes,
+            "slot_lane_efficiency": self.slot_lane_efficiency,
             "queue_depth": self.queue_depth,
             "slots_active": self.slots_active,
             "prefilling": self.prefilling,
@@ -395,6 +461,195 @@ class ServingMetrics:
         }
         out.update(self.ttft.as_dict("ttft", quantiles=True))
         out.update(self.queue_wait.as_dict("queue_wait", quantiles=True))
+        out.update(self.tbt.as_dict("tbt", quantiles=True))
         out.update(self.decode_step_time.as_dict("decode_step"))
         out.update(self.prefill_time.as_dict("prefill"))
         return out
+
+    def to_prometheus(self, namespace: str = PROM_NAMESPACE,
+                      extra_families: Optional[Sequence] = None) -> str:
+        """Valid Prometheus text exposition (v0.0.4) of this surface:
+        the reference's families, names and types (counters end in
+        `_total`, seconds carry `_seconds`, bytes `_bytes`, ratios
+        `_ratio`; TTFT, queue wait and TBT as summaries with p50/p99,
+        the per-block and per-admission timers sum/count only), then the
+        port's own families. `extra_families` appends pre-built
+        `obs.prometheus.Family` objects (the engine passes its capture
+        watchdog's); `LLMEngine.to_prometheus()` is the one-call
+        wrapper. The output round-trips `obs.prometheus.parse_exposition`."""
+        from ..obs.prometheus import Family, render_families
+        ns = namespace
+        fams = []
+
+        def counter(key: str, value: float, help_text: str):
+            fams.append(Family(f"{ns}_{key}_total", "counter",
+                               help_text).add(value))
+
+        def gauge(key: str, value: float, help_text: str):
+            fams.append(Family(f"{ns}_{key}", "gauge",
+                               help_text).add(value))
+
+        def summary(key: str, stat: OnlineStat, help_text: str):
+            fams.append(Family(f"{ns}_{key}", "summary",
+                               help_text).add_summary(stat))
+
+        counter("requests_submitted", self.requests_submitted,
+                "requests accepted into the bounded queue")
+        counter("requests_admitted", self.requests_admitted,
+                "requests granted a KV slot (prefill ran)")
+        counter("requests_completed", self.requests_completed,
+                "requests finished with stop/length (successes only)")
+        rej = Family(f"{ns}_requests_rejected_total", "counter",
+                     "admission rejects by reason (invalid = can never "
+                     "be served; overload = bounded queue full)")
+        rej.add(self.rejected_invalid, {"reason": "invalid"})
+        rej.add(self.rejected_overload, {"reason": "overload"})
+        fams.append(rej)
+        counter("requests_cancelled", self.requests_cancelled,
+                "requests ended early by cancel()")
+        counter("requests_deadline_expired", self.deadline_expired,
+                "requests ended by deadline_s TTL expiry")
+        counter("requests_failed", self.failed_requests,
+                "requests failed after retry exhaustion "
+                "(graceful-degradation counter)")
+        counter("retries", self.retries,
+                "failed decode/prefill attempts re-run")
+        counter("recoveries", self.recoveries,
+                "retry rounds that then succeeded")
+        counter("prompt_tokens", self.prompt_tokens,
+                "prompt tokens ingested")
+        counter("generated_tokens", self.generated_tokens,
+                "tokens emitted (prefill-sampled + decode)")
+        counter("decode_steps", self.decode_steps,
+                "in-program decode steps dispatched")
+        counter("decode_dispatches", self.decode_dispatches,
+                "decode block programs run")
+        counter("decode_tokens", self.decode_tokens,
+                "decode-emitted tokens (excl. prefill first token)")
+        counter("lane_steps", self.lane_steps,
+                "slots x in-program steps, frozen lanes included")
+        counter("host_syncs", self.host_syncs,
+                "device-to-host barriers in the decode path "
+                "(one per processed block)")
+        counter("prefix_lookups", self.prefix_lookups,
+                "prefix-cache lookups (one per prompt ingestion)")
+        counter("prefix_hits", self.prefix_hits,
+                "ingestions that reused at least one cached chunk")
+        counter("prefix_tokens_reused", self.prefix_tokens_reused,
+                "prompt tokens copied from the prefix pool")
+        counter("prefill_tokens_computed", self.prefill_tokens_computed,
+                "prompt tokens that went through real prefill")
+        counter("prefix_evictions", self.prefix_evictions,
+                "prefix pool pages LRU-evicted under pressure")
+        counter("pages_cow_copied", self.pages_cow_copied,
+                "fork boundary pages copied on divergence (COW)")
+        counter("pages_swapped_out", self.pages_swapped_out,
+                "KV pages moved device to host (swap-out)")
+        counter("pages_swapped_in", self.pages_swapped_in,
+                "KV pages moved host to device (swap-in)")
+        counter("swap_outs", self.swap_outs,
+                "requests parked to host RAM")
+        counter("swap_ins", self.swap_ins,
+                "parked requests reactivated on device")
+        counter("swap_host_syncs", self.swap_host_syncs,
+                "D2H barriers on the swap path (apart from the "
+                "per-block decode budget)")
+        counter("kv_tier_hits", self.kv_tier_hits,
+                "fleet KV tier chunks bound into the block table "
+                "instead of re-prefilling")
+        counter("kv_tier_misses", self.kv_tier_misses,
+                "fleet KV tier probes that fell back to real prefill")
+        counter("kv_tier_bytes", self.kv_tier_bytes,
+                "payload bytes published to or fetched from the "
+                "fleet KV tier")
+        counter("spec_blocks", self.spec_blocks,
+                "speculative decode blocks processed (draft + "
+                "batched verify in one dispatch)")
+        counter("spec_tokens_proposed", self.spec_proposed,
+                "drafted tokens offered to a verify pass")
+        counter("spec_tokens_accepted", self.spec_accepted,
+                "drafted tokens that matched the target's own draw")
+        counter("spec_fallbacks", self.spec_fallbacks,
+                "blocks degraded to plain decode by a failing draft")
+        gauge("spec_acceptance_ratio", self.spec_acceptance_rate,
+              "accepted / proposed drafted tokens (draft quality; "
+              "the emitted stream never depends on it)")
+        gauge("kv_pages", self.kv_pages_total,
+              "paged KV pool size in pages (0 under slotted layout)")
+        gauge("kv_pages_used", self.kv_pages_used,
+              "pages currently held (block tables + prefix tree)")
+        gauge("kv_pages_peak", self.kv_pages_peak,
+              "page high-water mark since engine build")
+        gauge("kv_cache_bytes", self.kv_cache_bytes,
+              "preallocated KV slab footprint")
+        gauge("kv_bytes_per_token", self.kv_bytes_per_token,
+              "KV slab bytes per cache row, all layers K+V (scale "
+              "rows included for quantized pools)")
+        if self.kv_dtype:
+            # info-style gauge: the label carries the pool storage
+            # dtype, the constant 1 makes it a valid sample
+            info = Family(f"{ns}_kv_pool_dtype", "gauge",
+                          "KV pool storage dtype (info-style: value "
+                          "is always 1, the dtype rides the label)")
+            info.add(1, {"dtype": self.kv_dtype})
+            fams.append(info)
+        gauge("prefix_pool_bytes", self.prefix_pool_bytes,
+              "prefix page-pool slab footprint")
+        gauge("prefix_pool_pages", self.prefix_pool_pages_total,
+              "prefix pool size in pages")
+        gauge("prefix_pool_pages_used", self.prefix_pool_pages_used,
+              "prefix pool pages currently holding cached chunks")
+        gauge("prefix_hit_rate_ratio", self.prefix_hit_rate,
+              "request-level hit rate (token counters are the "
+              "compute-savings truth)")
+        gauge("queue_depth", self.queue_depth,
+              "requests waiting for a slot")
+        gauge("prefilling", self.prefilling,
+              "requests parked mid chunked prefill (slot held, "
+              "not yet decoding; their wait books into queue_wait)")
+        gauge("slots_active", self.slots_active,
+              "KV slots currently serving a request")
+        gauge("slots", self.slots_total, "KV slots configured")
+        gauge("slot_occupancy_ratio", self.slot_occupancy,
+              "slots_active / slots")
+        gauge("slot_lane_efficiency_ratio", self.slot_lane_efficiency,
+              "decode tokens / (slots x in-program steps)")
+        gauge("tokens_per_second", self.tokens_per_sec,
+              "generated tokens over the busy window")
+        summary("ttft_seconds", self.ttft,
+                "submit to first token on host")
+        summary("queue_wait_seconds", self.queue_wait,
+                "time a request spent waiting before decode entry "
+                "(queued + parked mid-prefill, excl. its own prefill "
+                "compute; split out from TTFT)")
+        summary("tbt_seconds", self.tbt,
+                "time between consecutive token deliveries of one "
+                "active stream (one sample per request per processed "
+                "block)")
+        summary("decode_step_seconds", self.decode_step_time,
+                "per-processed-block wall time (sum/count only: the "
+                "hot path keeps no reservoir)")
+        summary("prefill_seconds", self.prefill_time,
+                "per-admission prefill wall time (sum/count only)")
+        # the port's own families: CUDA graph captures of the decode
+        # and prefill programs, their wall time, the prefill graph pool
+        # and the teacher-forced replay steps of continuations
+        counter("graph_captures", self.graph_captures,
+                "decode block programs captured into CUDA graphs")
+        counter("graph_capture_seconds", self.graph_capture_s,
+                "wall time of the decode graph captures (warm-up "
+                "included), booked apart from decode time")
+        counter("prefill_graph_captures", self.prefill_graph_captures,
+                "prefill programs captured into CUDA graphs (one per "
+                "row count used)")
+        counter("prefill_graph_capture_seconds",
+                self.prefill_graph_capture_s,
+                "wall time of the prefill graph captures")
+        gauge("prefill_graph_pool_bytes", self.prefill_graph_pool_bytes,
+              "bytes the prefill captures added to their graph pool")
+        counter("replay_steps", self.replay_steps,
+                "teacher-forced decode steps rebuilding a resumed or "
+                "adopted continuation's rows")
+        if extra_families:
+            fams.extend(extra_families)
+        return render_families(fams)

@@ -1,7 +1,6 @@
 """Paged KV memory: one refcounted page pool with per-lane block tables.
 
-The counterpart of `paddle_tpu/serving/paged_kv.py` without host swap
-and page transfer (ROADMAP Queue 1 item 11):
+The counterpart of `paddle_tpu/serving/paged_kv.py`:
 
 - ONE pool per layer: fixed-shape slabs `[num_pages, page_size, heads,
   head_dim]` (fp or the quantized {"q", "s"} form) hold every resident
@@ -30,6 +29,13 @@ and page transfer (ROADMAP Queue 1 item 11):
 - COPY-ON-WRITE FORKS: a best-of-n sibling binds its parent's full
   prompt pages shared and owns a copy of the partial boundary page
   (`copy_page`), the one page its first decode write would change.
+- PAGE TRANSFER (host swap, page handoff): `gather_pages` reads pages
+  of every layer to host memory (one device buffer, one copy, one
+  synchronise) and `scatter_pages` writes host rows into pages. The payload is the reference's: per layer a
+  `[n, page_size, heads, head_dim]` stack, or `{"q", "s"}` under int8 —
+  the pool slabs' own layout, so a JAX engine's payload uploads as it
+  is. Both are eager index ops (the reference's page programs are
+  jitted XLA gathers and scatters, not kernels).
 
 Numerics: `pages_per_seq * page_size == max_seq` is enforced, so the
 masked paged attention gathers a lane's pages into exactly the
@@ -43,12 +49,32 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core import DeviceLike
-from ..quantization.kv import slab_leaves
+from ..core import DeviceLike, host_tensor
+from ..quantization.kv import is_quantized, slab_leaves
 from .kv_cache import KVCacheManager
 
 __all__ = ["NoFreePages", "PagePool", "TreePageAllocator", "PagedKVCache",
            "paged_rows"]
+
+_ALIGN = 16     # byte alignment of each leaf in a transfer buffer
+
+
+def _layout(leaves) -> Tuple[List[int], int]:
+    """Each leaf's byte offset in one transfer buffer (aligned), and the
+    buffer's size."""
+    offs, n = [], 0
+    for t in leaves:
+        offs.append(n)
+        n += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+    return offs, n
+
+
+def _typed(buf: torch.Tensor, off: int, like: torch.Tensor,
+           shape) -> torch.Tensor:
+    """The view of `buf` (uint8) at byte `off` with `like`'s dtype and
+    `shape`."""
+    nbytes = int(np.prod(shape)) * like.element_size()
+    return buf[off:off + nbytes].view(like.dtype).view(*shape)
 
 
 class NoFreePages(RuntimeError):
@@ -268,6 +294,74 @@ class PagedKVCache(KVCacheManager):
 
     def bytes_per_token(self) -> float:
         return self.nbytes() / (self.num_pages * self.page_size)
+
+    # --- page transfer (host swap, page handoff) ---------------------------- #
+    def page_nbytes(self) -> int:
+        """Bytes of one page across every layer, K and V (scales
+        included): what a transfer moves per page."""
+        return self.nbytes() // self.num_pages
+
+    def gather_pages(self, pages: Sequence[int]):
+        """Read `pages` of every layer to host memory: each slab's rows
+        (both leaves of an int8 slab) are gathered into ONE device
+        buffer, which goes to pinned host memory in ONE copy behind ONE
+        synchronise (the caller books it as a swap host sync). Returns
+        (k, v): per layer a CPU `[n, page_size, heads, head_dim]` tensor,
+        or {"q", "s"} under int8, views of that one host buffer."""
+        idx = torch.tensor(list(pages), dtype=torch.long,
+                           device=self.device)
+        n = len(pages)
+        slabs = self.k + self.v
+        leaves = [t for slab in slabs for t in slab_leaves(slab)]
+        offs, size = _layout(t[:n] for t in leaves)
+        dev = torch.empty(size, dtype=torch.uint8, device=self.device)
+        for t, off in zip(leaves, offs):
+            torch.index_select(t, 0, idx, out=_typed(
+                dev, off, t, (n, *t.shape[1:])))
+        cuda = self.device.type == "cuda"
+        host = torch.empty(size, dtype=torch.uint8, pin_memory=cuda)
+        host.copy_(dev, non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        views = iter(_typed(host, off, t, (n, *t.shape[1:]))
+                     for t, off in zip(leaves, offs))
+        rows = [{"q": next(views), "s": next(views)} if is_quantized(slab)
+                else next(views) for slab in slabs]
+        L = self.num_layers
+        return rows[:L], rows[L:]
+
+    def scatter_pages(self, pages: Sequence[int], k_rows, v_rows):
+        """Write host row stacks (`gather_pages`' layout, torch or numpy
+        leaves) into `pages` of every layer: one upload and one index
+        copy per slab leaf (a leaf in pinned memory, as `gather_pages`
+        returns them, uploads asynchronously). The payload's structure
+        must match the pool's (int8 {"q", "s"} or fp stacks), and each
+        leaf's shape `[len(pages), ...]` and dtype the pool's rows';
+        raises otherwise, before anything is written."""
+        n = len(pages)
+        slabs = self.k + self.v
+        if len(k_rows) != self.num_layers or len(v_rows) != self.num_layers:
+            raise ValueError(f"payload has {len(k_rows)}/{len(v_rows)} "
+                             f"layers, the pool {self.num_layers}")
+        pairs = []
+        for slab, rows in zip(slabs, list(k_rows) + list(v_rows)):
+            if isinstance(rows, dict) != is_quantized(slab):
+                raise ValueError("payload and pool differ in kv_dtype")
+            parts = [rows["q"], rows["s"]] if isinstance(rows, dict) \
+                else [rows]
+            for t, a in zip(slab_leaves(slab), parts):
+                a = host_tensor(a)
+                want = (n, *t.shape[1:])
+                if tuple(a.shape) != want or a.dtype != t.dtype:
+                    raise ValueError(f"payload rows {tuple(a.shape)} "
+                                     f"{a.dtype} != pool rows {want} "
+                                     f"{t.dtype}")
+                pairs.append((t, a))
+        idx = torch.tensor(list(pages), dtype=torch.long,
+                           device=self.device)
+        for t, a in pairs:
+            t.index_copy_(0, idx, a.to(self.device,
+                                       non_blocking=a.is_pinned()))
 
 
 def paged_rows(tables: torch.Tensor, pos: torch.Tensor,

@@ -173,25 +173,51 @@ def test_overload_and_invalid_requests(model):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("trace", True), ("name", "x"), ("register_stats", True),
-    ("kv_tier", object()), ("mesh", object()), ("tp", 2),
-    ("trace_capacity", 4096), ("flight_dir", "flight")])
+    ("kv_tier", object()), ("mesh", object()), ("tp", 2)])
 def test_unported_knob_raises(model, knob, value):
-    """Unported features raise and name their ROADMAP item. The inert
-    observability values a JAX snapshot carries are accepted; a
-    tracer capacity raises once the tracer is on."""
-    knobs = {knob: value}
-    if knob == "trace_capacity":
-        knobs["trace"] = True
+    """Unported features raise and name their ROADMAP item."""
     with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 1"):
-        _engine(model, **knobs)
+        _engine(model, **{knob: value})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("trace", True), ("name", "x"), ("register_stats", True),
+    ("trace_capacity", 8), ("flight_dir", "flight")])
+def test_ported_obs_knob_takes_effect(model, knob, value, tmp_path):
+    """The observability knobs are ported: each is accepted and does
+    what the reference's does."""
+    from paddle_tpu_torch import profiler
+    if knob == "flight_dir":
+        value = str(tmp_path / value)
+    eng = _engine(model, **{knob: value})
+    if knob == "trace":
+        eng.generate([_prompts()[0]], SamplingParams(max_new_tokens=4))
+        assert eng.tracer.enabled and len(eng.tracer) > 0
+    elif knob == "trace_capacity":
+        assert eng.tracer.capacity == 8
+        eng.generate(_prompts()[:2], SamplingParams(max_new_tokens=20))
+        assert len(eng.tracer) == 8 and eng.tracer.dropped > 0
+    elif knob in ("name", "register_stats"):
+        assert eng.name in profiler.custom_stats()
+        if knob == "name":
+            assert eng.name == "x"
+        eng.close()
+        assert eng.name not in profiler.custom_stats()
+    else:
+        assert eng.flight.dir == value
+        report = eng._postmortem("probe", {"failed_rids": []})
+        assert report["path"].startswith(value)
 
 
 def test_off_values_accepted_and_unknown_knob_rejected(model):
+    from paddle_tpu_torch import profiler
     eng = _engine(model, prefix_cache=False, overlap=False, tp=1,
                   kv_layout="slotted", speculate_k=0, trace=False,
-                  trace_capacity=4096, flight_dir=None)
+                  trace_capacity=4096, flight_dir=None, mesh=None,
+                  kv_tier=None, register_stats=False, name=None)
     assert eng.attend_impl == "masked"
+    assert not eng.tracer.enabled and eng.flight.dir is None
+    assert eng.name not in profiler.custom_stats()
     with pytest.raises(TypeError, match="unexpected"):
         _engine(model, no_such_knob=1)
 

@@ -37,6 +37,9 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.quantization\n"
         "import paddle_tpu_torch.testing.faults\n"
         "import paddle_tpu_torch.serving.graphs\n"
+        "import paddle_tpu_torch.obs, paddle_tpu_torch.profiler\n"
+        "import paddle_tpu_torch.obs.__main__\n"
+        "import paddle_tpu_torch.framework.io\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
