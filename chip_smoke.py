@@ -199,6 +199,38 @@ every phase passed):
    4d's streams, 48 K7 launches per decode step. swap_out, gather and
    scatter ms at 1, 9 and 16 pages beside the bytes and a pinned copy
    of the same bytes are logged.
+4l. the replica fleet on GPT-small bf16 (`EngineFleet`, every replica
+   on this one card): (a) the reference's KV tier A/B
+   (`bench_serve_kv_tier` at its accelerator settings: 3 paged
+   replicas, 4 slots, 64-row pages, max_seq 512, one 337-token shared
+   prompt, 32 new tokens, a leader then 3 waves of 3) with the tier off
+   and on: streams identical across on, off and the leader, tier hits
+   >= 4 and publishes >= 1, the reuse gain (on - off) / (3 x 320
+   aligned tokens) within 0.8-1.2 x 2/3, 0 leaked pages, 0 unexpected
+   captures, K4 = layers x (decode + discarded steps) summed over the
+   replicas (a periodic fleet snapshot discards the overlap lookahead:
+   launched, never processed); again with int8 KV (K6); (b) the
+   reference's autoscale load (`bench_serve_autoscale`: 16 Poisson
+   arrivals at 8/s then 48 at 32/s, 96-token prompts, 96 new tokens,
+   1-3 replicas behind a `FleetAutoscaler`, the busiest replica killed
+   during the step): 0 stranded, 0 leaked, 0 unexpected captures, a
+   policy scale-out, the kill replaced, settled at 1 replica, TTFT p99
+   step / steady at most 15 (the reference's time-share limit: every
+   replica shares this card), K4 = layers x (decode + replay +
+   discarded steps) over every engine the fleet built; (c) the kill
+   soak of `python -m paddle_tpu_torch.serving` at GPT-small (3
+   replicas, prefix affinity, the busiest killed after 3 rounds and
+   revived through the canary), slotted (K1) and paged with roles
+   (prefill, decode, decode) and the tier (K4, pages handed off through
+   the tier): 0 stranded, greedy streams equal one undisturbed
+   engine's, the exposition strict-parsed; (d) captures amid garbage:
+   a captured engine dropped inside a reference cycle (as a failover or
+   a scale-in leaves one), then a fresh engine's prefill and decode
+   block captured with the cycle collector run at nearly every
+   allocation: the dead engine collected, no collection inside a
+   capture, the stream equal to the dead engine's. TTFT p50 / p99 tier
+   on and off, publish and bind ms, and each replica's captures and
+   capture seconds are logged with the card.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
    logged).
@@ -2734,6 +2766,438 @@ def phase_obs_swap(torch, np, dec, k7, engine_run, variants, int8_run):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phase 4l: the replica fleet, its KV tier and its autoscaler
+# --------------------------------------------------------------------------- #
+
+# the reference's accelerator settings of its tier and autoscale benches
+FLEET_KW = dict(max_slots=4, max_seq=512, kv_layout="paged", page_size=64,
+                seed=0, device="cuda")
+
+
+def tracked_fleet(EngineFleet):
+    """An `EngineFleet` that keeps every engine it builds (initial
+    replicas, failover rebuilds, revives, spawns) in `built`, so a run's
+    decode and replay steps can be summed over engines that were closed
+    on the way. Each engine also counts, in `discarded_steps`, the steps
+    of the dispatched blocks its `_discard_inflight` throws away (the
+    overlap lookahead a periodic fleet snapshot discards: launched, and
+    counted by the launch counters, but never processed)."""
+    class Tracked(EngineFleet):
+        def _build_engine(self, idx):
+            eng = super()._build_engine(idx)
+            self.__dict__.setdefault("built", []).append(eng)
+            eng.discarded_steps = 0
+            discard = eng._discard_inflight
+
+            def counted(eng=eng, discard=discard):
+                eng.discarded_steps += sum(
+                    b.steps for b in (eng._inflight, eng._ahead)
+                    if b is not None)
+                discard()
+
+            eng._discard_inflight = counted
+            return eng
+    return Tracked
+
+
+def fleet_engine_totals(fleet, layers):
+    """Over every engine the fleet built: decode steps, replay steps,
+    discarded block steps, the decode kernel launches they imply
+    (layers per step), the watchdog's unexpected captures, and each
+    engine's graph captures and capture seconds."""
+    dsteps = rsteps = xsteps = unexpected = 0
+    caps = []
+    for eng in fleet.built:
+        st = eng.stats()
+        dsteps += st["decode_steps"]
+        rsteps += st["replay_steps"]
+        xsteps += eng.discarded_steps
+        unexpected += eng.watchdog.compiles_unexpected
+        caps.append((eng.name.rsplit("_", 1)[-1], all_captures(eng),
+                     round(st["graph_capture_s"]
+                           + st["prefill_graph_capture_s"], 3)))
+    return {"decode_steps": dsteps, "replay_steps": rsteps,
+            "discarded_steps": xsteps,
+            "launches_want": layers * (dsteps + rsteps + xsteps),
+            "unexpected": unexpected, "captures": caps}
+
+
+def steps_text(tot) -> str:
+    return (f"({tot['decode_steps']} decode + {tot['replay_steps']} replay "
+            f"+ {tot['discarded_steps']} discarded steps)")
+
+
+def fleet_leaked(fleet) -> int:
+    return sum(leaked_pages(eng) for eng in fleet.live_engines())
+
+
+def tier_event_ms(fleet, kind):
+    """Host ms of every `kind` event (tier_publish / tier_bind) of the
+    fleet's live engines."""
+    return [e[1] * 1e3 for eng in fleet.live_engines()
+            for e in eng.tracer.events() if e[2] == kind]
+
+
+def tier_ab(torch, np, dec, model, card, kv_dtype):
+    """(4l a) bench_serve_kv_tier at its accelerator settings: 3 paged
+    replicas, one 337-token shared prompt (5 aligned pages), 32 new
+    tokens, a leader then 3 waves of 3, served with the tier off and
+    on."""
+    from paddle_tpu_torch.serving import EngineFleet, SamplingParams
+    Fleet = tracked_fleet(EngineFleet)
+    layers = model.cfg.num_layers
+    name = "K6" if kv_dtype else "K4"
+    counters = decode_counters(dec)
+    replicas, waves, plen, page = 3, 3, 337, FLEET_KW["page_size"]
+    aligned = (plen // page) * page
+    shared = np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size, (plen,))
+    sp = SamplingParams(max_new_tokens=32)
+    runs = {}
+    for with_tier in (False, True):
+        fleet = Fleet(model, replicas=replicas, register_stats=False,
+                      kv_tier=True if with_tier else None,
+                      max_queue=replicas * waves + 4, kv_dtype=kv_dtype,
+                      **FLEET_KW)
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        rids = [fleet.submit(shared, sp)]
+        fleet.run_until_complete(max_steps=400)
+        for _ in range(waves):
+            rids += [fleet.submit(shared, sp) for _ in range(replicas)]
+            fleet.run_until_complete(max_steps=400)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: c.count for k, c in counters.items()}
+        res = [fleet.result(r) for r in rids]
+        check(all(g.finish_reason == "length" for g in res),
+              f"4l (a) {name} tier={with_tier}: a request did not finish")
+        st = [eng.stats() for eng in fleet.live_engines()]
+        tot = fleet_engine_totals(fleet, layers)
+        want = {k: tot["launches_want"] if k == name else 0
+                for k in counters}
+        check(counts == want, f"4l (a) {name} tier={with_tier}: launches "
+                              f"{counts} != {want}")
+        check(tot["unexpected"] == 0,
+              f"4l (a) {name}: unexpected captures")
+        fst = fleet.stats()
+        run = {
+            "streams": [tuple(g.token_ids) for g in res],
+            "reused": sum(s["prefix_tokens_reused"] for s in st),
+            "computed": sum(s["prefill_tokens_computed"] for s in st),
+            "hits": sum(s["kv_tier_hits"] for s in st),
+            "publishes": int(fst.get("kv_tier_publishes", 0)),
+            "routed_tier": fst["routed_tier"], "wall_s": wall,
+            "launches": counts[name], **tot,
+            "ttft_ms": [g.ttft_s * 1e3 for g in res],
+            "publish_ms": tier_event_ms(fleet, "tier_publish"),
+            "bind_ms": tier_event_ms(fleet, "tier_bind")}
+        check(fleet_leaked(fleet) == 0, f"4l (a) {name}: leaked pages")
+        fleet.close()
+        runs["on" if with_tier else "off"] = run
+    on, off = runs["on"], runs["off"]
+    target = (replicas - 1) / replicas
+    gain = (on["reused"] - off["reused"]) / float(replicas * aligned)
+    check(len(set(off["streams"])) == 1
+          and set(on["streams"]) == set(off["streams"]),
+          f"4l (a) {name}: streams differ across tier on / off / leader")
+    check(on["hits"] >= 4 and on["publishes"] >= 1 and off["hits"] == 0,
+          f"4l (a) {name}: tier hits {on['hits']}, publishes "
+          f"{on['publishes']}, tier-off hits {off['hits']}")
+    check(0.8 * target <= gain <= 1.2 * target,
+          f"4l (a) {name}: reuse gain {gain:.3f} outside 0.8-1.2 x "
+          f"{target:.3f} (reused on {on['reused']} / off {off['reused']})")
+    for key, run in runs.items():
+        t = sorted(run["ttft_ms"])
+        log(f"  (a) {name} tier {key} [card: {card}]: 13 requests in "
+            f"{run['wall_s']:.2f} s, TTFT p50 {statistics.median(t):.2f} / "
+            f"p99 {t[-1]:.2f} ms, reused {run['reused']} computed "
+            f"{run['computed']} prefill tokens, tier hits {run['hits']} "
+            f"publishes {run['publishes']}, {name} launches "
+            f"{run['launches']} = {layers} x {steps_text(run)}; publish ms {[round(x, 3) for x in run['publish_ms']]}"
+            f", bind ms {[round(x, 3) for x in run['bind_ms']]}; captures "
+            f"(replica, graphs, s) {run['captures']}")
+    log(f"  (a) {name}: streams identical tier on / off / leader; reuse "
+        f"gain {gain:.4f} of {replicas} x {aligned} (target {target:.4f}, "
+        f"gate 0.8-1.2x); 0 leaked, 0 unexpected captures")
+    for run in runs.values():
+        run.pop("streams")
+    return {"gain": gain, "target": target, **runs}
+
+
+def autoscale_load(torch, np, dec, model, card):
+    """(4l b) bench_serve_autoscale at its accelerator settings: 16
+    Poisson arrivals at 8/s then 48 at 32/s, prompts of 96 tokens, 96
+    new tokens, 1-3 replicas behind a FleetAutoscaler, the busiest
+    replica killed (no revive) during the step."""
+    from paddle_tpu_torch.serving import (AutoscalePolicy, EngineFleet,
+                                          FleetAutoscaler, SamplingParams)
+    from paddle_tpu_torch.serving.metrics import nearest_rank_p99
+    Fleet = tracked_fleet(EngineFleet)
+    layers = model.cfg.num_layers
+    counters = decode_counters(dec)
+    n_a, n_b, rate_a, new_toks, plen = 16, 48, 8.0, 96, 96
+    rng = np.random.RandomState(0)
+    V = model.cfg.vocab_size
+    fleet = Fleet(model, replicas=1, snapshot_every=2,
+                  quarantine_backoff_s=0.01, register_stats=False,
+                  max_queue=n_a + n_b + 8, **FLEET_KW)
+    scaler = FleetAutoscaler(fleet, AutoscalePolicy(
+        min_replicas=1, max_replicas=3, out_backlog=1.5, out_hold_s=0.02,
+        in_hold_s=0.5, out_cooldown_s=0.05, in_cooldown_s=1.0),
+        heartbeat_timeout_s=1.0)
+    # the first replica's graphs, outside the measured window (later
+    # replicas capture theirs on their canary)
+    fleet.generate([rng.randint(0, V, (plen,))],
+                   SamplingParams(max_new_tokens=new_toks))
+    arr_a = np.cumsum(rng.exponential(1.0 / rate_a, size=n_a))
+    arr_b = arr_a[-1] + np.cumsum(
+        rng.exponential(1.0 / (4.0 * rate_a), size=n_b))
+    arrivals = np.concatenate([arr_a, arr_b])
+    prompts = [rng.randint(0, V, (plen,)) for _ in range(n_a + n_b)]
+    sp = SamplingParams(max_new_tokens=new_toks)
+    submit_t, first_t = {}, {}
+
+    def sink_for(rid):
+        def sink(kind, *payload):
+            if kind == "tokens" and rid not in first_t:
+                first_t[rid] = time.perf_counter()
+        return sink
+
+    for c in counters.values():
+        c.reset()
+    base = {id(e): (e.stats()["decode_steps"], e.stats()["replay_steps"],
+                    e.discarded_steps) for e in fleet.built}
+    rids, peak, killed, i = [], 1, -1, 0
+    t0 = time.perf_counter()
+    while (i < len(prompts) or fleet.has_work()) \
+            and time.perf_counter() - t0 < 120:
+        now = time.perf_counter() - t0
+        while i < len(prompts) and arrivals[i] <= now:
+            rid = fleet.submit(prompts[i], sp)
+            submit_t[rid] = time.perf_counter()
+            fleet.attach_stream(rid, sink_for(rid))
+            rids.append(rid)
+            i += 1
+        if fleet.has_work():
+            fleet.step()
+            serving = sum(1 for s in fleet.replica_states()
+                          if s in ("healthy", "suspect"))
+            peak = max(peak, serving)
+            if killed < 0 and i > n_a + n_b // 2 and serving >= 2:
+                killed = fleet.busiest()
+                fleet.kill(killed)
+        elif i < len(prompts):
+            time.sleep(min(0.002, max(arrivals[i] - now, 0.0)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stranded = sum(1 for r in rids if not fleet.has_result(r))
+    res = {r: fleet.result(r) for r in rids if fleet.has_result(r)}
+    t_settle = time.perf_counter()
+    while time.perf_counter() - t_settle < 10.0:
+        fleet.step()
+        if len(fleet.replica_states()) <= 1:
+            break
+    settle_s = time.perf_counter() - t_settle
+    settled = sum(1 for s in fleet.replica_states()
+                  if s in ("healthy", "suspect"))
+    counts = {k: c.count for k, c in counters.items()}
+    tot = fleet_engine_totals(fleet, layers)
+    done = sum(layers * sum(n) for n in base.values())
+    want = {k: tot["launches_want"] - done if k == "K4" else 0
+            for k in counters}
+    leaked = fleet_leaked(fleet)
+    fst = fleet.stats()
+    events = scaler.events()
+    fleet.close()
+    ttft = {r: (first_t[r] - submit_t[r]) * 1e3 for r in rids
+            if r in first_t}
+    steady = [ttft[r] for r in rids[:n_a] if r in ttft]
+    step = [ttft[r] for r in rids[n_a:] if r in ttft]
+    p99_steady, p99_step = nearest_rank_p99(steady), nearest_rank_p99(step)
+    ratio = p99_step / max(p99_steady, 1e-9)
+    policy_outs = sum(1 for _, k, d in events
+                      if k == "scale_out" and "(policy)" in d)
+    replaced = any(k == "scale_out" and "replace" in d
+                   for _, k, d in events)
+    check(stranded == 0, f"4l (b): {stranded} stranded")
+    check(all(g.finish_reason == "length" for g in res.values()),
+          "4l (b): a request did not finish")
+    check(leaked == 0, f"4l (b): {leaked} leaked pages")
+    check(tot["unexpected"] == 0, "4l (b): unexpected captures")
+    check(counts == want, f"4l (b): launches {counts} != {want}")
+    check(policy_outs >= 1 and peak >= 2,
+          f"4l (b): no policy scale-out (peak {peak})")
+    check(killed >= 0 and replaced, f"4l (b): the kill of r{killed} was "
+                                    f"not replaced ({events})")
+    check(settled == 1, f"4l (b): settled at {settled} replicas")
+    check(ratio <= 15.0, f"4l (b): ttft p99 step/steady {ratio:.2f} > 15")
+    log(f"  (b) [card: {card}] {n_a}+{n_b} requests at {rate_a:.0f} -> "
+        f"{4 * rate_a:.0f}/s in {wall:.2f} s: replicas 1 -> {peak} -> "
+        f"{settled} (settled in {settle_s:.2f} s), policy scale-outs "
+        f"{policy_outs}, scale-ins {scaler.scale_ins}, r{killed} killed "
+        f"and replaced, {fst['requests_drained']} drained; TTFT p99 "
+        f"steady {p99_steady:.1f} ms, step {p99_step:.1f} ms, ratio "
+        f"{ratio:.2f} (limit 15: every replica shares this one card, the "
+        f"reference's time-share case; its 3x assumes a chip per replica);"
+        f" K4 launches {counts['K4']} = {layers} x {steps_text(tot)} "
+        f"less the warm-up's; 0 stranded, 0 leaked, 0 unexpected "
+        f"captures; captures (replica, graphs, s) {tot['captures']}")
+    return {"wall_s": wall, "peak": peak, "settled": settled,
+            "settle_s": settle_s, "policy_scale_outs": policy_outs,
+            "scale_ins": scaler.scale_ins, "killed": killed,
+            "drained": fst["requests_drained"],
+            "ttft_p99_steady_ms": p99_steady, "ttft_p99_step_ms": p99_step,
+            "ratio": ratio, "launches": counts["K4"], **tot}
+
+
+def kill_soak(torch, np, dec, model, card):
+    """(4l c) `python -m paddle_tpu_torch.serving`'s kill soak at
+    GPT-small: 3 replicas, prefix affinity, the busiest killed after 3
+    rounds and revived through the canary; once slotted (K1), once paged
+    with roles (prefill, decode, decode) and the KV tier (K4), where the
+    handoffs carry pages through extract / adopt and the tier."""
+    from paddle_tpu_torch.serving import (EngineFleet, LLMEngine,
+                                          SamplingParams)
+    from paddle_tpu_torch.serving.__main__ import run_soak, soak_prompts
+    Fleet = tracked_fleet(EngineFleet)
+    layers = model.cfg.num_layers
+    counters = decode_counters(dec)
+    prompts = soak_prompts(18, 16, 0)
+    out = {}
+    for name, knobs in (
+            ("K1", {}),
+            ("K4", dict(kv_layout="paged", page_size=16, kv_tier=True,
+                        roles=("prefill", "decode", "decode")))):
+        eng_kw = dict(max_slots=2, max_seq=96, prefix_block=8, seed=0,
+                      device="cuda",
+                      **{k: v for k, v in knobs.items()
+                         if k in ("kv_layout", "page_size")})
+        ref = LLMEngine(model, register_stats=False, **eng_kw)
+        want = [r.token_ids for r in ref.generate(
+            prompts, SamplingParams(max_new_tokens=12))]
+        fleet = Fleet(model, replicas=3, routing="prefix_affinity",
+                      snapshot_every=2, quarantine_backoff_s=0.01,
+                      register_stats=False,
+                      **{k: v for k, v in knobs.items()
+                         if k in ("kv_tier", "roles")}, **eng_kw)
+        for c in counters.values():
+            c.reset()
+        report, results, rids = run_soak(fleet, prompts, 12, 3)
+        torch.cuda.synchronize()
+        counts = {k: c.count for k, c in counters.items()}
+        tot = fleet_engine_totals(fleet, layers)
+        st = fleet.stats()
+        check(report["stranded_requests"] == 0
+              and report["failed_requests"] == 0,
+              f"4l (c) {name}: {report}")
+        check([results[r].token_ids for r in rids] == want,
+              f"4l (c) {name}: soak streams != one undisturbed engine's")
+        check(counts == {k: tot["launches_want"] if k == name else 0
+                         for k in counters},
+              f"4l (c) {name}: launches {counts} != {tot['launches_want']}")
+        check(tot["unexpected"] == 0, f"4l (c) {name}: unexpected captures")
+        check(report["failovers"] == 1 and report["canary_probes"] >= 1,
+              f"4l (c) {name}: failover {report}")
+        if name == "K4":
+            check(st["handoffs"] > 0
+                  and st["tier_handoffs"] == st["handoffs"]
+                  and st["kv_tier_handoffs_open"] == 0,
+                  f"4l (c): handoffs {st['handoffs']}, through the tier "
+                  f"{st['tier_handoffs']}")
+            check(fleet_leaked(fleet) == 0, "4l (c): leaked pages")
+        fleet.close()
+        out[name] = {**report, "launches": counts[name],
+                     "handoffs": st["handoffs"],
+                     "handoff_pages_moved": st["handoff_pages_moved"], **tot}
+        log(f"  (c) {name} {knobs or 'slotted'} [card: {card}]: 18 "
+            f"requests, r{report['killed_replica']} killed after 3 rounds "
+            f"and revived ({report['canary_probes']} canaries), "
+            f"{report['readmitted_requests']} re-admitted + "
+            f"{report['resubmitted_requests']} re-submitted, handoffs "
+            f"{st['handoffs']} ({st['handoff_pages_moved']} pages); greedy "
+            f"streams == one engine's; TTFT p99 affected "
+            f"{report['ttft_p99_failover_s'] * 1e3:.1f} ms, steady "
+            f"{report['ttft_p99_steady_s'] * 1e3:.1f} ms; {name} launches "
+            f"{counts[name]} = {layers} x {steps_text(tot)}; exposition "
+            f"strict-parsed; 0 stranded; captures (replica, graphs, s) "
+            f"{tot['captures']}")
+    return out
+
+
+def capture_amid_garbage(torch, np, model, card):
+    """(4l d) A dead engine's CUDA graphs freed inside another engine's
+    capture invalidate it (`cudaErrorStreamCaptureInvalidated`); the
+    cycle collector frees them wherever it happens to run, as it did
+    after a fleet phase. A captured engine is dropped inside a reference
+    cycle, then a fresh engine captures its prefill and decode block
+    with the collector set to run at nearly every allocation: the dead
+    engine is collected, no collection starts inside a capture (the
+    capture pauses the collector), and the stream equals the dead
+    engine's."""
+    import gc
+    import weakref
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    kw = dict(max_slots=2, max_seq=256, register_stats=False, seed=0,
+              device="cuda")
+    sp = SamplingParams(max_new_tokens=8)
+    prompt = np.random.RandomState(3).randint(0, model.cfg.vocab_size,
+                                              (200,))
+    dead = LLMEngine(model, **kw)
+    want = dead.generate([prompt], sp)[0].token_ids
+    dead.cycle = dead
+    gone = weakref.ref(dead)
+    del dead
+    seen = {"collections": 0, "in_capture": 0}
+
+    def watch(phase, info):
+        if phase == "start":
+            seen["collections"] += 1
+            seen["in_capture"] += torch.cuda.is_current_stream_capturing()
+
+    thresholds = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1, 1, 1)
+    t0 = time.perf_counter()
+    try:
+        eng = LLMEngine(model, **kw)
+        got = eng.generate([prompt], sp)[0].token_ids
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.callbacks.remove(watch)
+    secs = time.perf_counter() - t0
+    caps = all_captures(eng)
+    eng.close()
+    check(got == want, "4l (d): the stream differs from the dead engine's")
+    check(gone() is None, "4l (d): the dead engine was not collected")
+    check(seen["collections"] > 0 and seen["in_capture"] == 0,
+          f"4l (d): collections {seen}")
+    check(caps >= 2, f"4l (d): {caps} captures")
+    log(f"  (d) [card: {card}] {caps} captures amid {seen['collections']} "
+        f"cycle collections, none inside a capture, the dead engine "
+        f"collected, stream == the dead engine's ({secs:.2f} s)")
+    return {**seen, "captures": caps, "seconds": secs}
+
+
+def phase_fleet(torch, np, dec, engine_run):
+    """(4l) GPT-small bf16, phase 4's model, through `EngineFleet`: (a)
+    the KV tier A/B, fp and int8 KV; (b) the autoscale load; (c) the
+    kill soak, slotted and disaggregated; (d) captures amid garbage."""
+    model = engine_run["model"]
+    card = card_line()
+    t0 = time.perf_counter()
+    res = {"a_K4": tier_ab(torch, np, dec, model, card, None),
+           "a_K6": tier_ab(torch, np, dec, model, card, "int8"),
+           "b": autoscale_load(torch, np, dec, model, card),
+           "c": kill_soak(torch, np, dec, model, card),
+           "d": capture_amid_garbage(torch, np, model, card)}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 4l: {res['seconds']:.1f} s")
+    return res
+
+
 def phase_paged_vs_slotted(torch, np, P):
     """(d) paged ≡ slotted greedy streams in fp32 (K4 against K1) and in
     int8 over fp32 weights (K6 against K5), token for token; the
@@ -3917,6 +4381,9 @@ def main(argv=None) -> int:
         "serving artifact")
     obs_swap = phase_obs_swap(torch, np, dec, k7, engine_run, variants,
                               int8_run)
+    log("phase 4l: the replica fleet: the KV tier A/B, the autoscale "
+        "load and the kill soak")
+    fleet = phase_fleet(torch, np, dec, engine_run)
     del engine_run["model"], variants["K1"], int8_run["model"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
@@ -4057,7 +4524,7 @@ def main(argv=None) -> int:
                        "speculative": drop(spec), "dispatch": dispatch,
                        "admission": admission, "openloop": openloop,
                        "bestof": bestof, "generation": generation,
-                       "obs_swap": obs_swap,
+                       "obs_swap": obs_swap, "fleet": fleet,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32, "train_fp16": train16,

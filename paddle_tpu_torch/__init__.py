@@ -8,7 +8,9 @@ TPU kernel on a ported path is a hand-written Hopper kernel under
 `ops_cuda/`, with a plain PyTorch version beside it for CPU tensors.
 Ported paths: GPT served by `LLMEngine` from a slotted or paged, fp or
 int8 KV cache (kernels K1, K4, K5, K6), with int8-PTQ weights and
-speculative decoding (kernel K7, the fused int8 GEMV), and GPT trained
+speculative decoding (kernel K7, the fused int8 GEMV), GPT served by a
+replica fleet (`serving.EngineFleet`, its KV tier over `ps/` and its
+autoscaler; the same kernels in every replica), and GPT trained
 by `Trainer` (kernels K2 and K3, in bf16, fp16 and fp32) with every
 optimizer rule, LR scheduler and gradient clip of the JAX package, AMP
 O1 and O2, a GradScaler, dropout, remat and the `check_nan_inf` flag.

@@ -21,7 +21,10 @@ distinct programs than the configuration allows:
 - `prefill`: the exact image of the engine's row-count function
   (`max(bucket, PREFILL_MIN_ROWS)` over its buckets, `max_seq`
   included);
-- `kernel_build`: one per source of `_build.kernel_names()`.
+- `kernel_build`: one per source of `_build.kernel_names()`;
+- `native_build`: one per host C++ source of `native.NATIVE_SOURCES`
+  (the `ps/` sparse table behind the fleet KV tier, built with g++ and
+  counted in `_build.BUILDS` beside the kernels).
 
 The prefix copies and the page programs (gather, scatter, COW copy)
 run eagerly in the port, so they build nothing and have no budget.
@@ -63,6 +66,7 @@ class CompileWatchdog:
         configuration. Holds the engine's capture dict and the build
         counts, not the engine, so a watchdog never keeps an engine
         alive."""
+        from ..native import NATIVE_SOURCES
         from ..ops_cuda import _build
         from ..serving import engine as engine_mod
         floor = engine_mod.PREFILL_MIN_ROWS
@@ -72,8 +76,12 @@ class CompileWatchdog:
         programs: Dict[str, Tuple[Callable, int]] = {
             "decode": (lambda k, dk=engine._decode_key: k == dk, 1),
             "prefill": (lambda k, pk=prefill: k in pk, len(prefill)),
-            "kernel_build": (lambda k: k[0] == "kernel_build",
+            "kernel_build": (lambda k: k[0] == "kernel_build"
+                             and k[1] not in NATIVE_SOURCES,
                              len(_build.kernel_names())),
+            "native_build": (lambda k: k[0] == "kernel_build"
+                             and k[1] in NATIVE_SOURCES,
+                             len(NATIVE_SOURCES)),
         }
         if engine.speculate_k:
             programs["spec_decode"] = (

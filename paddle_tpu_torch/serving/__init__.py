@@ -1,16 +1,22 @@
 """Serving stack of the PyTorch/CUDA port: the continuous-batching
 `LLMEngine` over a slotted or paged KV cache (fp or int8) with chunked,
 interleaved and prefix-cached admission, host swap and page handoff,
-its prefix cache, its sampler and its metrics, and the serving artifact
-(`save_for_serving` / `load_model` / `load_engine`)."""
+its prefix cache, its sampler and its metrics, the serving artifact
+(`save_for_serving` / `load_model` / `load_engine`), the replica fleet
+(`EngineFleet`, `ReplicaHealth`), its shared KV tier (`KVTier`) and its
+autoscaler (`AutoscalePolicy`, `FleetAutoscaler`, `ScaleSignals`).
+`python -m paddle_tpu_torch.serving` runs the fleet kill soak."""
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
 
+from .autoscale import AutoscalePolicy, FleetAutoscaler, ScaleSignals
 from .engine import (EngineOverloadError, GenerationResult, LLMEngine,
                      SamplingParams)
+from .fleet import REPLICA_STATES, EngineFleet, ReplicaHealth
+from .kv_tier import KVTier, chunk_key
 from .kv_cache import KVCacheManager, NoFreeSlot
 from .metrics import OnlineStat, ServingMetrics
 from .paged_kv import (NoFreePages, PagedKVCache, PagePool,
@@ -25,7 +31,9 @@ __all__ = ["LLMEngine", "SamplingParams", "GenerationResult",
            "PrefixCache", "PrefixNode",
            "ServingMetrics", "OnlineStat", "filtered_logits",
            "sample_tokens", "sample_tokens_per_lane", "save_for_serving",
-           "load_model", "load_engine"]
+           "load_model", "load_engine", "EngineFleet", "ReplicaHealth",
+           "REPLICA_STATES", "KVTier", "chunk_key", "AutoscalePolicy",
+           "FleetAutoscaler", "ScaleSignals"]
 
 # GPTConfig fields of the JAX package that select a TPU kernel and have
 # no meaning here (the port picks its kernels by device)

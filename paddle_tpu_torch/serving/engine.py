@@ -77,6 +77,17 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   it at the head, where admission uploads its pages
   (`_admit_pages`) and decode continues bitwise. Parked requests and
   their pages ride `snapshot()` (`swapped`).
+- FLEET KV TIER (`kv_tier`, or `attach_kv_tier`; paged only, a slotted
+  engine holds the tier inertly). After a prefill the engine PUBLISHES
+  the prompt's full pages the tier lacks (one gather, one host sync
+  booked in `metrics.swap_host_syncs`); at admission it BINDS the
+  published chunks past its local prefix hit (scattered into fresh
+  pages) and prefills only the rest. Swap-out parks the pages in the
+  tier as a single-use parcel and keeps a stub (`tier_key`), which
+  admission redeems; a tier fault (`tier_fetch`) or a parcel of the
+  other kv_dtype degrades to a prefill. A bound chunk's rows are the
+  publisher's prefill rows, and the suffix prefills under the row
+  floor, so a tier bind is bitwise where a local paged prefix hit is.
 - STREAMS. `attach_stream()` delivers a request's tokens at its first
   token and at each block boundary, then its finish, from host data
   the scheduler already has; `has_result()` / `peek_result()` poll
@@ -187,7 +198,6 @@ __all__ = ["SamplingParams", "GenerationResult", "EngineOverloadError",
 _UNSUPPORTED_KNOBS = {
     "mesh": ((None,), "TP-sharded serving", "Queue 1 item 12"),
     "tp": ((1,), "TP-sharded serving", "Queue 1 item 12"),
-    "kv_tier": ((None,), "the fleet KV tier", "Queue 1 item 11, part 2"),
 }
 # monotonic default engine names (an id() can be reused after gc, which
 # would let a new engine take a live one's stats-provider slot)
@@ -335,9 +345,9 @@ def _restore_request(r: Dict, now: float) -> _Request:
     handoff: per-layer row stacks, numpy or torch, plain or int8
     {"q", "s"}, and the row count) becomes the request's host pages,
     which admission uploads instead of re-ingesting; a fleet-tier stub
-    (`tier_key`: the rows live in a KV tier the port does not have) is
-    dropped, and the request re-ingests. A best-of-n parent's
-    `fork_rids` and a sibling's `fork_of` carry the group."""
+    (`tier_key`: the rows live in the shared `KVTier`) is kept as it is
+    and redeemed at admission (`_resolve_tier_stub`). A best-of-n
+    parent's `fork_rids` and a sibling's `fork_of` carry the group."""
     params = SamplingParams(**r["params"])
     req = _Request(int(r["rid"]), np.asarray(r["prompt"], np.int32),
                    params, now - float(r.get("elapsed_s", 0.0)))
@@ -350,7 +360,9 @@ def _restore_request(r: Dict, now: float) -> _Request:
     if r.get("fork_of") is not None:
         req.fork_of = int(r["fork_of"])
     kv = r.get("kv_pages")
-    if kv is not None and "tier_key" not in kv:
+    if kv is not None and "tier_key" in kv:
+        req.kv_host = dict(kv)
+    elif kv is not None:
         req.kv_host = {"k": list(kv["k"]), "v": list(kv["v"]),
                        "rows": int(kv["rows"]),
                        "origin": kv.get("origin", "handoff")}
@@ -726,6 +738,9 @@ class LLMEngine:
     holds `prefix_pool_pages` pages (default `max_slots * (max_seq //
     prefix_block)`, 0 turns the cache off).
 
+    Fleet KV tier: `kv_tier` (default None), a `serving.KVTier` of the
+    engine's page size, shared with other engines (`attach_kv_tier`).
+
     Observability: `trace` (default True) records lifecycle events into
     a ring of `trace_capacity` (4096) events; `flight_dir` (default
     None: reports kept in memory only) is where post-mortems are
@@ -753,7 +768,7 @@ class LLMEngine:
                  trace: bool = True, trace_capacity: int = 4096,
                  flight_dir: Optional[str] = None,
                  name: Optional[str] = None, register_stats: bool = True,
-                 **knobs):
+                 kv_tier=None, **knobs):
         for knob, value in knobs.items():
             if knob not in _UNSUPPORTED_KNOBS:
                 raise TypeError(f"LLMEngine got an unexpected keyword "
@@ -952,6 +967,11 @@ class LLMEngine:
         self._last_proc_t = 0.0   # decode-time attribution watermark
         # rid -> request parked by swap_out (host pages, no device state)
         self._swapped: Dict[int, _Request] = {}
+        # the fleet KV tier (publish / bind prefix chunks, swap and
+        # handoff parcels); None until attached
+        self._kv_tier = None
+        if kv_tier is not None:
+            self.attach_kv_tier(kv_tier)
         # program keys, shaped like the JAX engine's trace-counter keys
         # (the trailing () is its mesh fingerprint: single device), and
         # the builds of each program (on a card: its CUDA graph
@@ -1034,23 +1054,28 @@ class LLMEngine:
                 f"best-of-n continuations each hold a decode lane")
         return prompt
 
-    def submit(self, prompt, params: Optional[SamplingParams] = None) -> int:
+    def submit(self, prompt, params: Optional[SamplingParams] = None,
+               rid: Optional[int] = None) -> int:
         """Enqueue a request; returns its id. Raises `ValueError` for a
         request that can never be served and `EngineOverloadError` when
-        the bounded queue is full."""
+        the bounded queue is full. `rid` lets an outside scheduler (the
+        replica fleet) assign the id from its own space; the engine's
+        counter moves past it, so the two spaces never collide."""
         self._ensure_open()
         params = params or SamplingParams()
-        return self._enqueue(self._validate(prompt, params), params)
+        return self._enqueue(self._validate(prompt, params), params, rid)
 
-    def _enqueue(self, prompt: np.ndarray, params: SamplingParams) -> int:
+    def _enqueue(self, prompt: np.ndarray, params: SamplingParams,
+                 rid: Optional[int] = None) -> int:
         if len(self._queue) >= self.max_queue:
             self.metrics.on_reject("overload")
             raise EngineOverloadError(
                 f"request queue full ({self.max_queue} pending, "
                 f"{self.cache.num_active}/{self.max_slots} slots busy) — "
                 f"retry after in-flight requests drain")
-        rid = self._next_id
-        self._next_id += 1
+        if rid is None:
+            rid = self._next_id
+        self._next_id = max(self._next_id, int(rid) + 1)
         now = time.perf_counter()
         req = _Request(rid, prompt, params, now)
         if params.n > 1:
@@ -1125,13 +1150,14 @@ class LLMEngine:
 
         The request re-salts at this engine's queue pop (the origin's
         salt could collide with one this engine assigned), unless
-        `keep_salt=True`: then the imported salt is kept and this
-        engine's salt counter moves past it, so a sampled stream
-        continues exactly as on the origin."""
+        `keep_salt=True` (also read from the dict's `"keep_salt"` key, as
+        a fleet drain marks its moves): then the imported salt is kept
+        and this engine's salt counter moves past it, so a sampled
+        stream continues exactly as on the origin."""
         self._ensure_open()
         now = time.perf_counter()
         r = _restore_request(req, now)
-        if keep_salt:
+        if keep_salt or req.get("keep_salt"):
             if r.salt is not None:
                 self._next_salt = max(self._next_salt,
                                       (r.salt + 1) & SALT_MASK)
@@ -1168,7 +1194,10 @@ class LLMEngine:
             d["fork_rids"] = list(r.fork_rids)
         if r.fork_of is not None:
             d["fork_of"] = r.fork_of
-        if r.kv_host is not None:
+        if r.kv_host is not None and "tier_key" in r.kv_host:
+            # a tier stub: only the single-use parcel key crosses
+            d["kv_pages"] = dict(r.kv_host)
+        elif r.kv_host is not None:
             d["kv_pages"] = {"k": list(r.kv_host["k"]),
                              "v": list(r.kv_host["v"]),
                              "rows": int(r.kv_host["rows"]),
@@ -1184,6 +1213,12 @@ class LLMEngine:
         bytes."""
         if not self.paged or r.kv_host is None:
             return False
+        if "tier_key" in r.kv_host:
+            # a tier stub: redeemable iff a tier is attached here and
+            # the parcel's kv_dtype is this pool's
+            return self._kv_tier is not None and \
+                bool(r.kv_host.get("quantized", False)) \
+                == self.cache.quantized
         ks = r.kv_host.get("k") or ()
         return bool(len(ks)) and isinstance(ks[0], dict) \
             == self.cache.quantized
@@ -1699,8 +1734,11 @@ class LLMEngine:
         return True
 
     def _admit_one(self, req: _Request, slot: int):
-        if self.paged and req.kv_host is not None:
-            # a page upload (swap-in, page handoff): no prefill at all
+        if self.paged and req.kv_host is not None \
+                and self._resolve_tier_stub(req):
+            # a page upload (swap-in, page handoff, a parcel redeemed
+            # from the tier): no prefill at all. An unredeemable stub
+            # dropped kv_host and falls through to the prefill
             self._admit_pages(req, slot)
             return
         if self.paged and req.fork_of in self._fork_src:
@@ -1872,6 +1910,173 @@ class LLMEngine:
         faults.fire("page_swap")
         self.cache.scatter_pages(pages, k_rows, v_rows)
 
+    # ------------------------------------------------------------------ #
+    # the fleet KV tier: cross-replica prefix reuse and parked pages
+    # ------------------------------------------------------------------ #
+    def attach_kv_tier(self, tier) -> None:
+        """Attach the fleet-shared host KV tier (`serving/kv_tier.py`).
+        A paged engine publishes page-aligned prefix chunks after
+        prefill, binds published chunks at admission instead of
+        prefilling them, and parks swapped-out pages in the tier. A
+        slotted engine holds the reference inertly: nothing slotted
+        crosses engines. Raises `ValueError` for a tier of another page
+        size."""
+        if self.paged and int(tier.page_size) != self.page_size:
+            raise ValueError(
+                f"kv tier page_size {tier.page_size} != engine "
+                f"page_size {self.page_size}")
+        self._kv_tier = tier
+
+    @staticmethod
+    def _tier_payload_nbytes(layers) -> int:
+        return sum(a.numel() * a.element_size()
+                   for lay in layers
+                   for a in (lay.values() if isinstance(lay, dict)
+                             else (lay,)))
+
+    @staticmethod
+    def _cat_rows(payloads, side: str, layer: int):
+        """Layer `layer`'s `side` rows of several one-page payloads, as
+        one `[n, ...]` stack (both leaves of an int8 layer)."""
+        rows = [p[side][layer] for p in payloads]
+        if isinstance(rows[0], dict):
+            return {key: torch.cat([r[key] for r in rows])
+                    for key in ("q", "s")}
+        return torch.cat(rows)
+
+    def _tier_bind(self, slot: int, req: _Request, tokens: np.ndarray,
+                   ncached: int, limit: int) -> int:
+        """Bind tier-published chunks PAST the local prefix hit into
+        `slot`'s block table: probe consecutive chunk keys from row
+        `ncached` (up to `limit` rows: a fresh request keeps its last
+        token for the prefill whose logits give the first token), fetch
+        every hit and scatter the rows into freshly allocated pages.
+        Returns the rows bound (a multiple of the page size). A tier
+        fault (`tier_fetch`) or a payload of the other kv_dtype stops
+        the probe: the rest just prefills."""
+        tier = self._kv_tier
+        if tier is None or not self.paged:
+            return 0
+        ps = self.page_size
+        ci = ncached // ps
+        if (ci + 1) * ps > limit:
+            return 0
+        t0 = time.perf_counter()
+        payloads = []
+        try:
+            while (ci + 1) * ps <= limit:
+                key = tier.chunk_key(tokens[:(ci + 1) * ps])
+                if not tier.has_chunk(key):
+                    break
+                faults.fire("tier_fetch")
+                p = tier.fetch_chunk(key)
+                if p is None or bool(p.get("quantized", False)) \
+                        != self.cache.quantized:
+                    break      # foreign bytes never reinterpret
+                payloads.append(p)
+                ci += 1
+        except faults.InjectedFault:
+            pass               # a lost tier: keep what was fetched
+        if not payloads:
+            self.metrics.kv_tier_misses += 1
+            return 0
+        n, L = len(payloads), self.cfg.num_layers
+        k_rows = [self._cat_rows(payloads, "k", j) for j in range(L)]
+        v_rows = [self._cat_rows(payloads, "v", j) for j in range(L)]
+        pages = self._alloc_pages(n)
+        self.cache.bind_owned(slot, pages)   # before the scatter: a
+        # retry's reset drops them
+        self._scatter_pages(pages, k_rows, v_rows)
+        rows = n * ps
+        req.pages_copied += n
+        self.metrics.kv_tier_hits += n
+        self.metrics.kv_tier_bytes += self._tier_payload_nbytes(k_rows) \
+            + self._tier_payload_nbytes(v_rows)
+        self.tracer.record("tier_bind", req.rid, slot,
+                           dur=time.perf_counter() - t0, args=(rows, n))
+        return rows
+
+    def _tier_publish(self, slot: int, tokens: np.ndarray, rid: int):
+        """Publish `slot`'s full prompt pages the tier does not hold
+        yet: one gather to host memory (one host sync, booked in
+        `metrics.swap_host_syncs` like every swap-path sync), then one
+        tier put per missing chunk, each chunk's own bytes. Best effort:
+        a failed publish never fails the admission that computed the
+        rows."""
+        tier = self._kv_tier
+        if tier is None or not self.paged:
+            return
+        try:
+            ps = self.page_size
+            want = []
+            for ci in range(int(tokens.size) // ps):
+                key = tier.chunk_key(tokens[:(ci + 1) * ps])
+                if not tier.has_chunk(key):
+                    want.append((ci, key))
+            if not want:
+                return
+            t0 = time.perf_counter()
+            pages = [self.cache.lane_page(slot, ci) for ci, _ in want]
+            k_host, v_host = self._gather_pages(pages)
+            self.metrics.swap_host_syncs += 1
+
+            def one(lay, j):
+                if isinstance(lay, dict):
+                    return {key: a[j:j + 1] for key, a in lay.items()}
+                return lay[j:j + 1]
+
+            nbytes = 0
+            for j, (_, key) in enumerate(want):
+                nbytes += tier.publish_chunk(key, {
+                    "k": [one(lay, j) for lay in k_host],
+                    "v": [one(lay, j) for lay in v_host],
+                    "rows": ps, "quantized": self.cache.quantized})
+            self.metrics.kv_tier_bytes += nbytes
+            self.tracer.record("tier_publish", rid, slot,
+                               dur=time.perf_counter() - t0,
+                               args=(len(want) * ps, len(want), nbytes))
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception:  # noqa: BLE001 — publishing is best effort
+            pass
+
+    def _resolve_tier_stub(self, req: _Request) -> bool:
+        """True when `req.kv_host` holds (or now holds) uploadable rows.
+        A tier stub is redeemed here, a single-use pop, so a retried
+        admission sees the resolved payload and never asks the tier
+        twice. A stub that cannot be redeemed (a `tier_fetch` fault, a
+        lost parcel, the other kv_dtype) degrades to a prefill: kv_host
+        drops to None and admission re-ingests, bitwise."""
+        kv = req.kv_host
+        if kv is None:
+            return False
+        if "tier_key" not in kv:
+            return True
+        tier = self._kv_tier
+        payload = None
+        try:
+            faults.fire("tier_fetch")
+            if tier is not None:
+                payload = tier.take_handoff(kv["tier_key"])
+        except faults.InjectedFault:
+            if tier is not None:      # unreachable by contract: drop it
+                tier.drop_handoff(kv["tier_key"])
+        if payload is None or bool(payload.get("quantized", False)) \
+                != self.cache.quantized:
+            self.metrics.kv_tier_misses += 1
+            req.kv_host = None
+            return False
+        rows = int(payload["rows"])
+        req.kv_host = {"k": payload["k"], "v": payload["v"],
+                       "rows": rows, "origin": kv.get("origin", "handoff")}
+        self.metrics.kv_tier_hits += 1
+        self.metrics.kv_tier_bytes += \
+            self._tier_payload_nbytes(payload["k"]) \
+            + self._tier_payload_nbytes(payload["v"])
+        self.tracer.record("tier_bind", req.rid,
+                           args=(rows, self.cache.span_pages(rows)))
+        return True
+
     def swap_out(self, rid: int) -> bool:
         """Move a DECODING request's resident K/V pages to host memory
         and free its lane and pages: a parked request holds no device
@@ -1908,6 +2113,23 @@ class LLMEngine:
             if self._run_with_retries(gather) is not None:
                 req.kv_host = None
                 return False
+            if self._kv_tier is not None:
+                # pool swap capacity fleet-wide: park the pages in the
+                # tier and keep a single-use stub, which any engine of
+                # the tier (this one too) redeems at admission; on a
+                # tier error the local payload stays
+                try:
+                    kv = req.kv_host
+                    key = self._kv_tier.put_handoff(
+                        {"k": kv["k"], "v": kv["v"], "rows": kv["rows"],
+                         "quantized": self.cache.quantized})
+                    req.kv_host = {"tier_key": key, "rows": kv["rows"],
+                                   "n_pages": len(pages), "origin": "swap",
+                                   "quantized": self.cache.quantized}
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except Exception:  # noqa: BLE001 — keep the local pages
+                    pass
             del self._active[slot]
             self._release_prefix(req)
             self.cache.release(slot)   # page references drop; pages the
@@ -2056,6 +2278,14 @@ class LLMEngine:
                 req.pages_copied = len(pages)
                 req.pf_filled = len(pages) * self.prefix_block
                 self.cache.advance(slot, req.pf_filled)
+        # the fleet tier extends the local hit with published chunks;
+        # the rest prefills chunk by chunk
+        got = self._tier_bind(
+            slot, req, req.prompt, req.pf_filled,
+            int(req.prompt.size) - (0 if req.generated else 1))
+        if got:
+            req.pf_filled += got
+            self.cache.advance(slot, got)
         if self.paged:
             span = self.cache.span_pages(self._span_rows(req))
             self.cache.bind_owned(slot, self._alloc_pages(
@@ -2123,6 +2353,7 @@ class LLMEngine:
             return int(piece.size)
         del self._prefilling[slot]
         self._try_insert_prefix(slot, req.prompt)
+        self._tier_publish(slot, req.prompt, req.rid)
         ncached = req.pages_copied * self.prefix_block
         self.metrics.on_prefix(ncached, total - ncached,
                                lookup=self.prefix is not None)
@@ -2195,6 +2426,10 @@ class LLMEngine:
                     self._copy_prefix(slot, pages)
                 ncached = len(pages) * self.prefix_block
                 req.pages_copied = len(pages)
+        # the fleet tier: continue past the local hit with chunks another
+        # engine published (booked as reused tokens)
+        ncached += self._tier_bind(slot, req, tokens, ncached,
+                                   int(tokens.size) - int(need_logits))
         if self.paged:
             span = self.cache.span_pages(self._span_rows(req))
             self.cache.bind_owned(slot, self._alloc_pages(
@@ -2202,6 +2437,7 @@ class LLMEngine:
         logits = self._prefill_tokens(slot, tokens[ncached:], pos0=ncached,
                                       rid=req.rid)
         self._try_insert_prefix(slot, tokens)
+        self._tier_publish(slot, tokens, req.rid)
         self.metrics.on_prefix(ncached, int(tokens.size) - ncached,
                                lookup=self.prefix is not None)
         return logits
@@ -2389,6 +2625,12 @@ class LLMEngine:
         same reason, so no stream of the group is stranded."""
         req.finish_reason = reason
         req.error = error
+        if req.kv_host is not None and "tier_key" in req.kv_host \
+                and self._kv_tier is not None:
+            # a parked request dying with an unredeemed parcel must not
+            # leave it in the shared store
+            self._kv_tier.drop_handoff(req.kv_host["tier_key"])
+            req.kv_host = None
         self._release_prefix(req)   # a failed admission may hold pins
         self._fork_done(req)
         if req.fork_rids and req.fork_of is None:

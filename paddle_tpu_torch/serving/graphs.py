@@ -21,7 +21,8 @@ plain program continues from the speculative one's lane state.
   frozen (act all False): a frozen lane parks its writes at row T-1
   (slotted) or on the trash page (paged), rows no live lane attends,
   and the chained state is restored afterwards. A capture that fails
-  raises `GraphCaptureError`; nothing carries on eagerly.
+  raises `GraphCaptureError`; nothing carries on eagerly. The cycle
+  collector is paused during each capture (`_cycle_collector_paused`).
 - After each run the block's outputs (tokens, emit flags and, for a
   speculative block, the (proposed, accepted) tally) are copied to a
   host buffer owned by that dispatch, behind an event: the one host
@@ -57,6 +58,7 @@ per signature; each call is one replay and its outputs are copied out.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -139,10 +141,30 @@ def _warm_up_and_capture(graph: torch.cuda.CUDAGraph, step: Callable,
         torch.cuda.current_stream().wait_stream(side)
 
     def capture():
-        with ctx:
+        with _cycle_collector_paused(), ctx:
             step()
 
     return counted_capture(warm_up, capture)
+
+
+@contextlib.contextmanager
+def _cycle_collector_paused():
+    """Python's cycle collector held off for the span of a capture.
+
+    A collection that runs inside a capture (set off by any allocation
+    the step makes) frees whatever dead cycles hold, such as another
+    engine's CUDA graphs: a fleet leaves such engines behind at a
+    failover or a scale-in. A CUDA graph destroyed on the capturing
+    thread invalidates the capture (`cudaErrorStreamCaptureInvalidated`).
+    Paused, those cycles wait for the next collection outside any
+    capture."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 class LaneState:

@@ -27,13 +27,29 @@ Points fired by the port's `serving.LLMEngine`:
   replayed: firing here DEGRADES that block to the plain graph
   (`metrics.spec_fallbacks`); every request keeps its bit-identical
   stream, and a draft failure never fails a request, never strands a
-  lane and never consumes a retry.
+  lane and never consumes a retry;
+- ``page_swap``       -- `_gather_pages` / `_scatter_pages`, before a
+  paged engine moves pages to or from host memory (swap, page handoff,
+  a tier publish or bind);
+- ``tier_fetch``      -- before a paged engine fetches a published
+  chunk from the fleet KV tier (`_tier_bind`) or redeems a parcel
+  (`_resolve_tier_stub`): firing here degrades to a prefill.
+
+Points fired by `serving.EngineFleet`:
+
+- ``replica_dispatch``  -- before each replica's `step()` (a crash of
+  the replica process: it quarantines and its work fails over);
+- ``replica_heartbeat`` -- before a replica's liveness beat (a fault
+  suppresses the beat: the autoscaler's watchdog preempts the replica);
+- ``replica_spawn``     -- in `add_replica`, before the engine is built
+  (a failed spawn degrades to the current size);
+- ``replica_health``    -- before a canary request is submitted (a
+  failed canary re-quarantines with a doubled backoff).
 
 The other points (``checkpoint_io``, ``client_disconnect``,
-``http_write``, ``page_swap``, ``replica_*``, ``tier_fetch``) belong to
-modules the port does not have yet (ROADMAP.md, Queue 1 items 11 and
-13); they are registered so that a plan written for the JAX package is
-accepted here unchanged.
+``http_write``) belong to modules the port does not have yet
+(ROADMAP.md, Queue 1 item 11 part 3 and item 13); they are registered
+so that a plan written for the JAX package is accepted here unchanged.
 
 Triggers are deterministic so a failing run replays exactly:
 

@@ -40,6 +40,11 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.obs, paddle_tpu_torch.profiler\n"
         "import paddle_tpu_torch.obs.__main__\n"
         "import paddle_tpu_torch.framework.io\n"
+        "import paddle_tpu_torch.ps, paddle_tpu_torch.native\n"
+        "import paddle_tpu_torch.serving.fleet\n"
+        "import paddle_tpu_torch.serving.kv_tier\n"
+        "import paddle_tpu_torch.serving.autoscale\n"
+        "import paddle_tpu_torch.serving.__main__\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
