@@ -208,8 +208,8 @@ every phase passed):
    >= 4 and publishes >= 1, the reuse gain (on - off) / (3 x 320
    aligned tokens) within 0.8-1.2 x 2/3, 0 leaked pages, 0 unexpected
    captures, K4 = layers x (decode + discarded steps) summed over the
-   replicas (a periodic fleet snapshot discards the overlap lookahead:
-   launched, never processed); again with int8 KV (K6); (b) the
+   replicas (discarded: blocks launched and never processed, a killed
+   replica's in-flight block); again with int8 KV (K6); (b) the
    reference's autoscale load (`bench_serve_autoscale`: 16 Poisson
    arrivals at 8/s then 48 at 32/s, 96-token prompts, 96 new tokens,
    1-3 replicas behind a `FleetAutoscaler`, the busiest replica killed
@@ -231,6 +231,40 @@ every phase passed):
    capture, the stream equal to the dead engine's. TTFT p50 / p99 tier
    on and off, publish and bind ms, and each replica's captures and
    capture seconds are logged with the card.
+4m. the HTTP front door on phase 4's GPT-small bf16: K4 and K6 against
+   their plain versions at the paged soak's shapes (4 lanes, max_seq
+   256, 8-row pages, bf16; lengths at the page edges and across its
+   streams: visit counts exact, dead rows and the trash page unread, K4
+   == K1 bitwise); then `python -m paddle_tpu_torch.serving.server`'s
+   soak (`run_soak` on this model, on this main thread: 48 behaved + 24
+   flood streams, every 5th behaved stream disconnecting after its
+   first chunk, a real SIGTERM drain after 12 completions and a
+   restarted server (resumed from the drain's snapshot where the drain
+   found work in flight; on a card a lone engine has usually finished
+   everything by then) that takes reattach-by-id and the refused
+   streams, 4 slots, 12 new tokens, every 6th stream 16x, 75 ms
+   spacing, prefill_budget 16, max_seq 256; each backend's programs
+   captured by `warm_up` before its server takes traffic) slotted (a,
+   K1), paged int8 KV (b, K6 at 8-row pages), 2 replicas with the
+   busiest killed and revived (c, K1), speculate 4 with the int8 draft
+   (d, K1 + K7), autoscaled 1-3 replicas with a preemption (e, K1), and
+   paged int8 KV drained after 4 completions, while the first 16x
+   stream is still decoding (f, K6): the restart resumes a lone engine
+   from the drain's pickled snapshot and reattaches that stream by id.
+   Each passes the soak's gates at the reference's values (0 stranded,
+   0 bit mismatches against an undisturbed engine, a strict-parsed
+   exposition, sheds > 0 each with Retry-After, steady ttft_p99 /
+   decode ms per token <= 400 (disarmed for (e), as in the reference),
+   0 leaked pages, the autoscale contract), launches its kernels and no
+   other decode kernel (counters set to 0 just before the soak, read
+   once its servers have stopped and before the verdicts' reference
+   engine runs), and, but for (d), launches each exactly 12 x (decode
+   + replay + discarded steps) over every engine that served (killed,
+   revived, spawned and resumed ones too); it makes no capture in the
+   restarted server's window (all but e) and leaves the SIGTERM /
+   SIGINT handlers as they were. TTFT p99 steady and under shedding,
+   decode ms per token, the tail ratio, sheds, disconnects, reattached
+   streams, captures and seconds are logged with the card.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
    logged).
@@ -311,6 +345,7 @@ Then one JSON line of kernel records and, last, the device line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -507,108 +542,118 @@ def paged_cases(torch, np):
                                         serving_lengths(np, 1024)]
 
 
+def hold_paged_kernels(torch, dec, gen, S, T, page, dtype, lengths, names,
+                       tag):
+    """Hold each kernel of `names` (of K4, K5, K6) against its plain
+    version (split + merge) on the same CUDA tensors: S lanes of T rows,
+    nh 12, hd 64, `page`-row pages at shuffled ids; visit counts exact;
+    NaN in dead rows and on the trash page (in the scales, for int8
+    codes) leaves the output bitwise unchanged; K4 == K1 and K6 == K5
+    bitwise on the same rows (where both ran). Returns {name: max
+    |kernel - plain|}."""
+    from paddle_tpu_torch.quantization.kv import kv_quantize
+    nh, hd = 12, 64
+    scale = 1 / math.sqrt(hd)
+    tol = PLAIN_TOL[str(dtype)[6:]]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    q = torch.randn(S, nh, hd, device="cuda", generator=gen).to(dtype)
+    kc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).to(dtype)
+    vc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).to(dtype)
+    kq, ks = kv_quantize(kc)
+    vq, vs = kv_quantize(vc)
+    sm = torch.arange(S, dtype=torch.int32, device="cuda")
+    keep = (torch.arange(T, device="cuda")[None, :]
+            < lens[:, None].long())                  # (S, T)
+    tables, npages, live = page_tables(torch, gen, S, T, lengths, page)
+    kp, vp, kqp, vqp, ksp, vsp = (
+        to_pages(torch, x, tables, npages, page)
+        for x in (kc, vc, kq, vq, ks, vs))
+    cases = {
+        "K4": (dict(paged=True), (kp, vp, None, None)),
+        "K5": (dict(paged=False), (kq, vq, ks, vs)),
+        "K6": (dict(paged=True), (kqp, vqp, ksp, vsp))}
+    outs, errs = {}, {}
+    for kname in names:
+        how, (k_, v_, ks_, vs_) = cases[kname]
+        if how["paged"]:
+            bk, ns = dec.pick_paged_decode_blocks(T, page, hd, k_.dtype)
+            run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
+                dec.paged_ragged_decode_attention(
+                    q, k_, v_, tables, lens, block_k=bk,
+                    num_splits=ns, with_stats=True, k_scale=ks_,
+                    v_scale=vs_)
+            plain = dec.paged_decode_split_plain(
+                q, k_, v_, tables, lens, scale, bk, ns, ks_, vs_)
+        else:
+            bk, ns = dec.pick_decode_blocks(T, hd, k_.dtype)
+            run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
+                dec.ragged_decode_attention(
+                    q, k_, v_, lens, block_k=bk, num_splits=ns,
+                    with_stats=True, k_scale=ks_, v_scale=vs_)
+            plain = dec.ragged_decode_split_plain(
+                q, k_, v_, lens, sm, scale, bk, ns, ks_, vs_)
+        out, visits = run(k_, v_, ks_, vs_)
+        torch.cuda.synchronize()
+        want = dec._merge_splits(*plain[:3], q.dtype)
+        check(bool(torch.isfinite(out).all()),
+              f"{kname} {tag}: non-finite output")
+        torch.testing.assert_close(out.float(), want.float(), **tol)
+        err = (out.float() - want.float()).abs().max().item()
+        rows = T // ns
+        exp = [[min(max(-(-(n - p * rows) // bk), 0), rows // bk)
+                for p in range(ns)] for n in lengths]
+        check(visits.cpu().tolist() == exp == plain[3].tolist(),
+              f"{kname} {tag}: visits {visits.cpu().tolist()} != {exp}")
+        # dead rows and the trash page never read: NaN there (in the
+        # scales, for int8 codes) leaves the output unchanged
+        nan = float("nan")
+        if how["paged"]:
+            dead = ~live
+            if ks_ is None:
+                out_nan, _ = run(k_.masked_fill(dead[..., None, None], nan),
+                                 v_.masked_fill(dead[..., None, None], nan),
+                                 None, None)
+            else:
+                out_nan, _ = run(k_, v_,
+                                 ks_.masked_fill(dead[..., None], nan),
+                                 vs_.masked_fill(dead[..., None], nan))
+        else:
+            out_nan, _ = run(k_, v_,
+                             ks_.masked_fill(~keep[..., None], nan),
+                             vs_.masked_fill(~keep[..., None], nan))
+        torch.cuda.synchronize()
+        check(torch.equal(out_nan, out),
+              f"{kname} {tag}: a dead row was read")
+        outs[kname], errs[kname] = out, err
+        log(f"  {kname} {tag} (block_k {bk}, splits {ns}): max|kernel - "
+            f"plain| = {err:.3e} (atol=rtol={tol['atol']:g}), visits "
+            f"exact, dead rows and trash page unread")
+    # the addressing seam does not change the arithmetic
+    if "K4" in outs:
+        k1 = dec.ragged_decode_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        check(torch.equal(outs["K4"], k1), f"K4 != K1 bitwise ({tag})")
+    if "K5" in outs and "K6" in outs:
+        check(torch.equal(outs["K6"], outs["K5"]),
+              f"K6 != K5 bitwise ({tag})")
+    return errs
+
+
 def phase_paged_quant_kernels(torch, np, dec):
     """K4 (paged), K5 (int8) and K6 (paged int8) at the serving shapes
     and each T of DECODE_T against their plain versions (split + merge)
     on the same CUDA tensors; visit counts; NaN in dead rows and on the
     trash page leaves the output bitwise unchanged; K4 ≡ K1 and K6 ≡ K5
     bitwise on the same rows. Lengths are clipped to T."""
-    from paddle_tpu_torch.quantization.kv import kv_quantize
-    S, nh, hd = 8, 12, 64
-    scale = 1 / math.sqrt(hd)
     gen = torch.Generator(device="cuda").manual_seed(11)
     worst = {"K4": 0.0, "K5": 0.0, "K6": 0.0}
     for T, dtype, lname, lengths in paged_cases(torch, np):
-        tname = f"T {T} {str(dtype)[6:]}"
-        tol = PLAIN_TOL[str(dtype)[6:]]
-        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        q = torch.randn(S, nh, hd, device="cuda", generator=gen).to(dtype)
-        kc = torch.randn(S, T, nh, hd, device="cuda",
-                         generator=gen).to(dtype)
-        vc = torch.randn(S, T, nh, hd, device="cuda",
-                         generator=gen).to(dtype)
-        kq, ks = kv_quantize(kc)
-        vq, vs = kv_quantize(vc)
-        sm = torch.arange(S, dtype=torch.int32, device="cuda")
-        keep = (torch.arange(T, device="cuda")[None, :]
-                < lens[:, None].long())                  # (S, T)
-        tables, npages, live = page_tables(torch, gen, S, T, lengths,
-                                           PAGE)
-        kp, vp, kqp, vqp, ksp, vsp = (
-            to_pages(torch, x, tables, npages, PAGE)
-            for x in (kc, vc, kq, vq, ks, vs))
-        cases = {
-            "K4": (dict(paged=True), (kp, vp, None, None)),
-            "K5": (dict(paged=False), (kq, vq, ks, vs)),
-            "K6": (dict(paged=True), (kqp, vqp, ksp, vsp))}
-        outs = {}
-        for kname, (how, (k_, v_, ks_, vs_)) in cases.items():
-            if how["paged"]:
-                bk, ns = dec.pick_paged_decode_blocks(T, PAGE, hd,
-                                                      k_.dtype)
-                run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
-                    dec.paged_ragged_decode_attention(
-                        q, k_, v_, tables, lens, block_k=bk,
-                        num_splits=ns, with_stats=True, k_scale=ks_,
-                        v_scale=vs_)
-                plain = dec.paged_decode_split_plain(
-                    q, k_, v_, tables, lens, scale, bk, ns, ks_, vs_)
-            else:
-                bk, ns = dec.pick_decode_blocks(T, hd, k_.dtype)
-                run = lambda k_, v_, ks_, vs_, bk=bk, ns=ns: \
-                    dec.ragged_decode_attention(
-                        q, k_, v_, lens, block_k=bk, num_splits=ns,
-                        with_stats=True, k_scale=ks_, v_scale=vs_)
-                plain = dec.ragged_decode_split_plain(
-                    q, k_, v_, lens, sm, scale, bk, ns, ks_, vs_)
-            out, visits = run(k_, v_, ks_, vs_)
-            torch.cuda.synchronize()
-            want = dec._merge_splits(*plain[:3], q.dtype)
-            check(bool(torch.isfinite(out).all()),
-                  f"{kname} {tname} {lname}: non-finite output")
-            torch.testing.assert_close(out.float(), want.float(), **tol)
-            err = (out.float() - want.float()).abs().max().item()
-            rows = T // ns
-            exp = [[min(max(-(-(n - p * rows) // bk), 0), rows // bk)
-                    for p in range(ns)] for n in lengths]
-            check(visits.cpu().tolist() == exp == plain[3].tolist(),
-                  f"{kname} {tname} {lname}: visits "
-                  f"{visits.cpu().tolist()} != {exp}")
-            # dead rows and the trash page never read: NaN there (in
-            # the scales, for int8 codes) leaves the output unchanged
-            nan = float("nan")
-            if how["paged"]:
-                dead = ~live
-                if ks_ is None:
-                    out_nan, _ = run(k_.masked_fill(dead[..., None, None],
-                                                    nan),
-                                     v_.masked_fill(dead[..., None, None],
-                                                    nan), None, None)
-                else:
-                    out_nan, _ = run(k_, v_,
-                                     ks_.masked_fill(dead[..., None], nan),
-                                     vs_.masked_fill(dead[..., None], nan))
-            else:
-                out_nan, _ = run(k_, v_,
-                                 ks_.masked_fill(~keep[..., None], nan),
-                                 vs_.masked_fill(~keep[..., None], nan))
-            torch.cuda.synchronize()
-            check(torch.equal(out_nan, out),
-                  f"{kname} {tname} {lname}: a dead row was read")
-            outs[kname] = out
-            worst[kname] = max(worst[kname], err)
-            log(f"  {kname} {tname} {lname} (block_k {bk}, splits {ns}):"
-                f" max|kernel - plain| = {err:.3e} (atol=rtol="
-                f"{tol['atol']:g}), visits exact, dead rows and trash "
-                f"page unread")
-        # the addressing seam does not change the arithmetic
-        k1 = dec.ragged_decode_attention(q, kc, vc, lens)
-        torch.cuda.synchronize()
-        check(torch.equal(outs["K4"], k1),
-              f"K4 != K1 bitwise ({tname} {lname})")
-        check(torch.equal(outs["K6"], outs["K5"]),
-              f"K6 != K5 bitwise ({tname} {lname})")
-        log(f"  {tname} {lname}: K4 == K1 and K6 == K5 bitwise")
+        tag = f"T {T} {str(dtype)[6:]} {lname}"
+        errs = hold_paged_kernels(torch, dec, gen, 8, T, PAGE, dtype,
+                                  lengths, ("K4", "K5", "K6"), tag)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
+        log(f"  {tag}: K4 == K1 and K6 == K5 bitwise")
     return worst
 
 
@@ -1650,15 +1695,16 @@ def phase_dispatch(torch, np, dec, k7, engine_run, variants, int8_run,
     log(f"  spec int8 with faults {plan.injected}: streams == spec off, "
         f"8/8; spec_fallbacks 2, retries 1, recoveries 1, 2 graph "
         f"captures (speculative and plain)")
-    # CUDA kernels per graph launch: one decode-only step (overlap off)
+    # CUDA kernels per decode block: one decode-only step (overlap off)
     eng = LLMEngine(model, overlap=False, **SERVE_KW)
     for p in prompts[:8]:
         eng.submit(p, params[0])
     eng.step()
     per_block, busy = kernels_per_block(torch, eng)
     out["kernels_per_block"], out["busy_share"] = per_block, busy
-    log(f"  one graph launch (a decode block of {eng.decode_block_size} "
-        f"steps, 8 lanes): {per_block:.0f} CUDA kernels; device busy "
+    log(f"  one decode block ({eng.decode_block_size} steps: as many "
+        f"replays of a one-step graph, 8 lanes): {per_block:.0f} CUDA "
+        f"kernels; device busy "
         f"{busy:.3f} of the profiled step [card: {card_line()}]")
     del eng
     gc.collect()
@@ -2775,40 +2821,56 @@ FLEET_KW = dict(max_slots=4, max_seq=512, kv_layout="paged", page_size=64,
                 seed=0, device="cuda")
 
 
+def track_discards(eng):
+    """Make `eng` count, in `discarded_steps`, the steps of dispatched
+    blocks never processed: those its `_discard_inflight` throws away (a
+    failed dispatch's retry, a swap) and those in flight when it is
+    closed (a replica killed or retired mid-block, a drained engine):
+    launched, and counted by the launch counters, but never processed.
+    Returns `eng`."""
+    eng.discarded_steps = 0
+    discard, close = eng._discard_inflight, eng.close
+
+    def outstanding():
+        eng.discarded_steps += sum(b.steps for b in (eng._inflight,
+                                                     eng._ahead)
+                                   if b is not None)
+
+    def counted():
+        outstanding()
+        discard()
+
+    def closed():
+        if not eng._closed:
+            outstanding()
+        close()
+
+    eng._discard_inflight, eng.close = counted, closed
+    return eng
+
+
 def tracked_fleet(EngineFleet):
     """An `EngineFleet` that keeps every engine it builds (initial
-    replicas, failover rebuilds, revives, spawns) in `built`, so a run's
-    decode and replay steps can be summed over engines that were closed
-    on the way. Each engine also counts, in `discarded_steps`, the steps
-    of the dispatched blocks its `_discard_inflight` throws away (the
-    overlap lookahead a periodic fleet snapshot discards: launched, and
-    counted by the launch counters, but never processed)."""
+    replicas, failover rebuilds, revives, spawns) in `built`, each
+    counting its discarded steps (`track_discards`), so a run's decode
+    and replay steps can be summed over engines that were closed on the
+    way."""
     class Tracked(EngineFleet):
         def _build_engine(self, idx):
-            eng = super()._build_engine(idx)
+            eng = track_discards(super()._build_engine(idx))
             self.__dict__.setdefault("built", []).append(eng)
-            eng.discarded_steps = 0
-            discard = eng._discard_inflight
-
-            def counted(eng=eng, discard=discard):
-                eng.discarded_steps += sum(
-                    b.steps for b in (eng._inflight, eng._ahead)
-                    if b is not None)
-                discard()
-
-            eng._discard_inflight = counted
             return eng
     return Tracked
 
 
-def fleet_engine_totals(fleet, layers):
-    """Over every engine the fleet built: decode steps, replay steps,
-    discarded block steps, the decode kernel launches they imply
-    (layers per step), the watchdog's unexpected captures, and each
-    engine's graph captures and capture seconds."""
+def engine_totals(engines, layers):
+    """Over `engines`: decode steps, replay steps, discarded block steps
+    (`track_discards`), the decode kernel launches they imply (layers
+    per step), the watchdog's unexpected captures, and each engine's
+    graph captures and capture seconds."""
     dsteps = rsteps = xsteps = unexpected = 0
     caps = []
-    for eng in fleet.built:
+    for eng in engines:
         st = eng.stats()
         dsteps += st["decode_steps"]
         rsteps += st["replay_steps"]
@@ -2875,7 +2937,7 @@ def tier_ab(torch, np, dec, model, card, kv_dtype):
         check(all(g.finish_reason == "length" for g in res),
               f"4l (a) {name} tier={with_tier}: a request did not finish")
         st = [eng.stats() for eng in fleet.live_engines()]
-        tot = fleet_engine_totals(fleet, layers)
+        tot = engine_totals(fleet.built, layers)
         want = {k: tot["launches_want"] if k == name else 0
                 for k in counters}
         check(counts == want, f"4l (a) {name} tier={with_tier}: launches "
@@ -3004,7 +3066,7 @@ def autoscale_load(torch, np, dec, model, card):
     settled = sum(1 for s in fleet.replica_states()
                   if s in ("healthy", "suspect"))
     counts = {k: c.count for k, c in counters.items()}
-    tot = fleet_engine_totals(fleet, layers)
+    tot = engine_totals(fleet.built, layers)
     done = sum(layers * sum(n) for n in base.values())
     want = {k: tot["launches_want"] - done if k == "K4" else 0
             for k in counters}
@@ -3088,7 +3150,7 @@ def kill_soak(torch, np, dec, model, card):
         report, results, rids = run_soak(fleet, prompts, 12, 3)
         torch.cuda.synchronize()
         counts = {k: c.count for k, c in counters.items()}
-        tot = fleet_engine_totals(fleet, layers)
+        tot = engine_totals(fleet.built, layers)
         st = fleet.stats()
         check(report["stranded_requests"] == 0
               and report["failed_requests"] == 0,
@@ -3195,6 +3257,198 @@ def phase_fleet(torch, np, dec, engine_run):
            "d": capture_amid_garbage(torch, np, model, card)}
     res["seconds"] = time.perf_counter() - t0
     log(f"  phase 4l: {res['seconds']:.1f} s")
+    return res
+
+
+# the front-door soak's configurations (4m): the soak's own flags, the
+# decode kernels the run must launch (every other decode kernel and K7
+# launch 0 times) and whether the drain must find work in flight, so
+# that the restart resumes from its snapshot and reattaches by id. With
+# the reference's drain after 12 completions a lone engine on the card
+# has finished every stream by then; (f) drains after 4, while stream 3
+# (16x, arriving at 225 ms) still decodes.
+FRONT_DOOR_CONFIGS = (
+    ("a", "slotted", [], ("K1",), False),
+    ("b", "paged int8", ["--paged", "--kv-dtype", "int8"], ("K6",), False),
+    ("c", "2 replicas, kill + revive", ["--replicas", "2"], ("K1",),
+     False),
+    ("d", "speculate 4, int8 draft", ["--speculate", "4", "--draft",
+                                      "int8"], ("K1", "K7"), False),
+    ("e", "autoscale", ["--autoscale"], ("K1",), False),
+    ("f", "paged int8, drain after 4", ["--paged", "--kv-dtype", "int8",
+                                        "--drain-after", "4"], ("K6",),
+     True))
+
+
+@contextlib.contextmanager
+def served_engines():
+    """Inside the block, every engine `paddle_tpu_torch.serving` builds
+    (an `LLMEngine`, its `resume`, or a fleet's replica) is appended to
+    the list this yields, counting its discarded steps
+    (`track_discards`)."""
+    from unittest import mock
+    from paddle_tpu_torch.serving import engine as E
+    from paddle_tpu_torch.serving import fleet as F
+    built = []
+
+    class Engine(E.LLMEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(track_discards(self))
+
+    class Fleet(F.EngineFleet):
+        def _build_engine(self, idx):
+            eng = track_discards(super()._build_engine(idx))
+            built.append(eng)
+            return eng
+
+    with mock.patch.object(E, "LLMEngine", Engine), \
+            mock.patch.object(F, "EngineFleet", Fleet):
+        yield built
+
+
+def soak_page_kernels(torch, dec, card):
+    """(4m) K4 and K6 at the paged soak's shapes, 8-row pages: 4 lanes
+    of max_seq 256 (block_k shrinks to the page), bf16 queries, lengths
+    at the page edges and across the soak's streams (prompts of 4-15
+    tokens, 12 or 192 new tokens)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst = {"K4": 0.0, "K6": 0.0}
+    for lname, lengths in (("edges", [1, 7, 8, 9]),
+                           ("streams", [15, 27, 207, 256]),
+                           ("short", [0, 4, 16, 100])):
+        tag = f"8-row pages, T 256, 4 lanes, {lname} {lengths}"
+        errs = hold_paged_kernels(torch, dec, gen, 4, 256, 8,
+                                  torch.bfloat16, lengths, ("K4", "K6"),
+                                  tag)
+        for k, e in errs.items():
+            worst[k] = max(worst[k], e)
+    log(f"  [card: {card}] K4 and K6 at 8-row pages within bf16 "
+        f"atol=rtol=2e-2 of their plain versions (worst {worst}); K4 == "
+        f"K1 bitwise")
+    return worst
+
+
+def front_door_soak(torch, dec, k7, model, card, tag, what, argv, kernels,
+                    resumes):
+    """(4m) one configuration of `python -m paddle_tpu_torch.serving.
+    server`'s soak on `model`, on this (the main) thread: the soak's own
+    gates (0 stranded, 0 bit mismatches, strict exposition, sheds with
+    Retry-After, the tail gate, 0 leaked pages, the autoscale contract);
+    with every launch counter set to 0 just before the soak and read
+    when its servers have stopped (before its reference engine runs),
+    its decode kernels (and K7) launched and no other, and but for the
+    speculative run exactly 12 x (decode + replay + discarded steps)
+    over the engines that served; with `resumes`, a restart from the
+    drain's snapshot that reattached a stream; the SIGTERM / SIGINT
+    handlers as they were."""
+    import gc
+    import signal
+    import tempfile
+    from paddle_tpu_torch.serving import server as fd
+    layers = model.cfg.num_layers
+    counters = {**decode_counters(dec), "K7": k7.INT8_LAUNCHES}
+    handlers = [signal.getsignal(s) for s in (signal.SIGTERM,
+                                              signal.SIGINT)]
+    seen = {}
+    with tempfile.TemporaryDirectory() as d, served_engines() as built:
+        args = fd.soak_parser().parse_args(
+            ["--device", "cuda", "--server-out",
+             os.path.join(d, "SERVER.json"), *argv])
+
+        def served(backends):
+            torch.cuda.synchronize()
+            seen["counts"] = {k: c.count for k, c in counters.items()}
+            seen["engines"] = list(built)
+
+        # dead engines of earlier runs are collected here, on this
+        # thread, before a worker thread captures
+        gc.collect()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        rc, rep, extra = fd.run_soak(model, args, served=served)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    gc.collect()
+    check(rc == 0, f"4m ({tag}) {what}: the soak's gates failed: {rep}")
+    check([signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)]
+          == handlers, f"4m ({tag}): signal handlers not restored")
+    counts = seen["counts"]
+    check(all(counts[k] > 0 if k in kernels else counts[k] == 0
+              for k in counts),
+          f"4m ({tag}) {what}: launches {counts}, want {kernels} only")
+    tot = engine_totals(seen["engines"], layers)
+    formula = ""
+    if "K7" not in kernels:
+        check(all(counts[k] == tot["launches_want"] for k in kernels),
+              f"4m ({tag}) {what}: launches {counts} != {layers} x "
+              f"{steps_text(tot)} = {tot['launches_want']}")
+        formula = f" = {layers} x {steps_text(tot)}"
+    if resumes:
+        check(rep["drain_snapshot"] and rep["reattached_streams"] > 0,
+              f"4m ({tag}) {what}: the drain left no snapshot to resume "
+              f"or no stream reattached: {rep}")
+    if tag != "e":
+        check(extra["builds_steady"] == 0,
+              f"4m ({tag}): {extra['builds_steady']} captures in the "
+              f"restarted server's window")
+    keys = ("ttft_p99_steady_ms", "ttft_p99_shed_ms",
+            "decode_ms_per_token", "ttft_tail_ratio", "shed_count",
+            "disconnected_streams", "drain_snapshot", "reattached_streams",
+            "killed_replica", "stranded_count", "bit_mismatches",
+            "leaked_pages", "spec_acceptance_rate")
+    out = {k: rep[k] for k in keys}
+    if tag == "e":
+        out.update({k: rep[k] for k in ("scale_outs", "scale_ins",
+                                        "replicas_peak",
+                                        "preempt_replaced")})
+    out.update(extra, launches={k: counts[k] for k in kernels},
+               engines=len(tot["captures"]),
+               steps={k: tot[k] for k in ("decode_steps", "replay_steps",
+                                          "discarded_steps")},
+               seconds=secs)
+    log(f"  ({tag}) {what} [card: {card}]: {rep['requests']} behaved + "
+        f"{rep['flood_requests']} flood streams; ttft_p99 steady "
+        f"{rep['ttft_p99_steady_ms']:.2f} ms ({extra['ttft_after']} "
+        f"streams), under shedding {rep['ttft_p99_shed_ms']:.2f} ms "
+        f"({extra['ttft_during']}); decode {rep['decode_ms_per_token']:.4f}"
+        f" ms/token; tail ratio {rep['ttft_tail_ratio']:.2f} (gate "
+        f"{rep['tail_gate_ratio']:g}, "
+        f"{'disarmed: autoscale' if tag == 'e' else 'armed'}); "
+        f"sheds {rep['shed_count']}, disconnects "
+        f"{rep['disconnected_streams']}, drain snapshot "
+        f"{rep['drain_snapshot']}, reattached "
+        f"{rep['reattached_streams']}, killed r{rep['killed_replica']}; "
+        f"launches {out['launches']}{formula} over "
+        f"{len(tot['captures'])} engines; captures: "
+        f"{extra['warm_programs']} warm-up, {extra['builds_serving']} "
+        f"while serving, {extra['builds_steady']} in the restarted "
+        f"server's window; {secs:.1f} s"
+        + (f"; scale-outs {rep['scale_outs']}, scale-ins "
+           f"{rep['scale_ins']}, peak {rep['replicas_peak']}, preemption"
+           f" replaced" if tag == "e" else "")
+        + (f"; acceptance {rep['spec_acceptance_rate']}" if tag == "d"
+           else ""))
+    return out
+
+
+def phase_front_door(torch, np, dec, k7, engine_run):
+    """(4m) The HTTP front door on phase 4's GPT-small bf16: K4 and K6
+    at the paged soak's 8-row pages, then the front-door soak (48
+    behaved + 24 flood streams, every 5th behaved stream disconnecting,
+    the SIGTERM drain after 12, 4 slots, 12 new tokens (every 6th
+    stream 16x), 75 ms spacing, prefill_budget 16, max_seq 256) in the
+    configurations of FRONT_DOOR_CONFIGS."""
+    model = engine_run["model"]
+    card = card_line()
+    t0 = time.perf_counter()
+    res = {"page8_kernels": soak_page_kernels(torch, dec, card)}
+    for tag, what, argv, kernels, resumes in FRONT_DOOR_CONFIGS:
+        res[tag] = front_door_soak(torch, dec, k7, model, card, tag, what,
+                                   argv, kernels, resumes)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 4m: {res['seconds']:.1f} s")
     return res
 
 
@@ -4384,6 +4638,9 @@ def main(argv=None) -> int:
     log("phase 4l: the replica fleet: the KV tier A/B, the autoscale "
         "load and the kill soak")
     fleet = phase_fleet(torch, np, dec, engine_run)
+    log("phase 4m: the HTTP front door: K4 / K6 at 8-row pages, the "
+        "front-door soak in six configurations")
+    front_door = phase_front_door(torch, np, dec, k7, engine_run)
     del engine_run["model"], variants["K1"], int8_run["model"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
@@ -4525,6 +4782,7 @@ def main(argv=None) -> int:
                        "admission": admission, "openloop": openloop,
                        "bestof": bestof, "generation": generation,
                        "obs_swap": obs_swap, "fleet": fleet,
+                       "front_door": front_door,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32, "train_fp16": train16,

@@ -4,8 +4,13 @@ interleaved and prefix-cached admission, host swap and page handoff,
 its prefix cache, its sampler and its metrics, the serving artifact
 (`save_for_serving` / `load_model` / `load_engine`), the replica fleet
 (`EngineFleet`, `ReplicaHealth`), its shared KV tier (`KVTier`) and its
-autoscaler (`AutoscalePolicy`, `FleetAutoscaler`, `ScaleSignals`).
-`python -m paddle_tpu_torch.serving` runs the fleet kill soak."""
+autoscaler (`AutoscalePolicy`, `FleetAutoscaler`, `ScaleSignals`), and
+the HTTP front door over an engine or a fleet (`LLMServer`, its
+scheduling thread `EngineWorker`, `ServerMetrics`) with its SLO
+admission (`SLOController`, `TenantPolicy`, `TokenBucket`, `Admission`,
+`SHED_REASONS`). `python -m paddle_tpu_torch.serving` runs the fleet
+kill soak, `python -m paddle_tpu_torch.serving.server` the front door's
+disconnect-and-drain soak."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +29,9 @@ from .paged_kv import (NoFreePages, PagedKVCache, PagePool,
 from .prefix_cache import PrefixCache, PrefixNode
 from .sampler import (filtered_logits, sample_tokens,
                       sample_tokens_per_lane)
+from .server import EngineWorker, LLMServer, ServerMetrics
+from .slo import (SHED_REASONS, Admission, SLOController, TenantPolicy,
+                  TokenBucket)
 
 __all__ = ["LLMEngine", "SamplingParams", "GenerationResult",
            "EngineOverloadError", "KVCacheManager", "NoFreeSlot",
@@ -33,7 +41,9 @@ __all__ = ["LLMEngine", "SamplingParams", "GenerationResult",
            "sample_tokens", "sample_tokens_per_lane", "save_for_serving",
            "load_model", "load_engine", "EngineFleet", "ReplicaHealth",
            "REPLICA_STATES", "KVTier", "chunk_key", "AutoscalePolicy",
-           "FleetAutoscaler", "ScaleSignals"]
+           "FleetAutoscaler", "ScaleSignals", "LLMServer", "EngineWorker",
+           "ServerMetrics", "SLOController", "TenantPolicy", "TokenBucket",
+           "Admission", "SHED_REASONS"]
 
 # GPTConfig fields of the JAX package that select a TPU kernel and have
 # no meaning here (the port picks its kernels by device)

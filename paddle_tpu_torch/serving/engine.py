@@ -1424,6 +1424,43 @@ class LLMEngine:
             self._finalizer()
             self._finalizer = None
 
+    @torch.no_grad()
+    def warm_up(self, prompt_lengths: Sequence[int] = (1,)) -> int:
+        """Build (on a card: capture) the programs traffic will run, now
+        rather than inside the first requests' TTFTs: the plain decode
+        block program (which a continuation's replay steps run too: a
+        failover adoption, a resume), the speculative one when
+        `speculate_k` > 0, and the prefill program of every row count a
+        prompt of one of `prompt_lengths` tokens is prefilled at (its
+        `prefill_chunk` pieces, each at least `PREFILL_MIN_ROWS` rows).
+        Each program is built once per engine, whenever it is built, so
+        the watchdog's budget is unchanged; the captures run with every
+        lane frozen and every prefill write parked, so live requests
+        are untouched. The JAX engine shares compiled programs through
+        the model; the port's graphs belong to each engine (a resumed or
+        rebuilt engine warms its own). Returns the number of programs
+        built."""
+        self._ensure_open()
+
+        def built():
+            return len(self._runners) + len(self._prefill_runners)
+
+        before = built()
+        self._runner(False)
+        if self.speculate_k:
+            self._runner(True)
+        rows = set()
+        for n in prompt_lengths:
+            n = min(max(int(n), 1), self.max_seq)
+            chunk = self.prefill_chunk or n
+            pieces = [chunk] * (n // chunk) + ([n % chunk] if n % chunk
+                                               else [])
+            rows.update(max(self._bucket_for(p), PREFILL_MIN_ROWS)
+                        for p in pieces)
+        for r in sorted(rows):
+            self._prefill_runner(r)
+        return built() - before
+
     def __enter__(self):
         return self
 
@@ -2453,34 +2490,39 @@ class LLMEngine:
         and the attention kernel reads each lane's own rows, so the
         rows are decode's bits on every device; a prefill of the same
         tokens (the reference's re-ingest) computes other bits on a
-        card. Advances each slot's length by g - 1; a retry replays
-        from the start."""
+        card. Each step is one run of the plain block's one-step program
+        (on a card one graph replay) on the block's static lane buffers,
+        every sampling knob neutral (its token is discarded); the lane
+        state is re-uploaded from the mirrors at the next dispatch.
+        Advances each slot's length by g - 1; a retry replays from the
+        start."""
         todo = [(slot, int(req.prompt.size), req.generated[:-1])
                 for slot, req in lanes if len(req.generated) > 1]
         if not todo:
             return
-        S, dev = self.max_slots, self.device
-        tables = torch.from_numpy(self.cache.block_tables).to(dev) \
-            if self.paged else None
-        knobs = (torch.zeros(S, dtype=torch.int64, device=dev),     # salt
-                 torch.zeros(S, dtype=torch.float32, device=dev),   # temp
-                 torch.zeros(S, dtype=torch.int64, device=dev),     # topk
-                 torch.ones(S, dtype=torch.float32, device=dev),    # topp
-                 torch.full((S,), -1, dtype=torch.int64, device=dev))
-        rem = torch.ones(S, dtype=torch.int64, device=dev)
+        runner = self._runner(False)
+        self._dirty = True
+        S = self.max_slots
+        state = {"cur": np.zeros(S, np.int64), "pos": np.zeros(S, np.int64),
+                 "rem": np.ones(S, np.int64), "act": np.zeros(S, bool),
+                 "salt": np.zeros(S, np.int64),
+                 "temp": np.zeros(S, np.float32),
+                 "topk": np.zeros(S, np.int64),
+                 "topp": np.ones(S, np.float32),
+                 "eos": np.full(S, -1, np.int64)}
+        if self.paged:
+            state["tables"] = self.cache.block_tables
         for j in range(max(len(t) for _, _, t in todo)):
-            cur, pos = np.zeros(S, np.int64), np.zeros(S, np.int64)
-            act = np.zeros(S, bool)
+            state["cur"][:] = 0
+            state["pos"][:] = 0
+            state["act"][:] = False
             for slot, p0, toks in todo:
                 if j < len(toks):
-                    cur[slot], pos[slot], act[slot] = toks[j], p0 + j, True
-            _decode_block(self.cfg, self._params, self.cache.k,
-                          self.cache.v, torch.from_numpy(cur).to(dev),
-                          torch.from_numpy(pos).to(dev), rem,
-                          torch.from_numpy(act).to(dev), *knobs, block=1,
-                          attend_impl=self.attend_impl, seed=self.seed,
-                          max_seq=self.max_seq, tables=tables,
-                          page_size=self.page_size)
+                    state["cur"][slot] = toks[j]
+                    state["pos"][slot] = p0 + j
+                    state["act"][slot] = True
+            self._lanes.upload(state)
+            runner.run_once()
             self.metrics.replay_steps += 1
         for slot, _, toks in todo:
             self.cache.advance(slot, len(toks))
@@ -2798,12 +2840,17 @@ class LLMEngine:
         slabs are not serialized: `resume()` re-ingests each active
         request's prompt and emitted tokens; a parked request's pages
         are host state already and ride its dict (`swapped`,
-        `kv_pages`), so it reactivates without a prefill. Dispatched, unprocessed blocks are discarded first (they
-        replay from the mirrors), and PREFILLING requests serialize as
-        queued at the head of the queue (they have emitted nothing, so
-        nothing re-emits), their slots on top of the free stack so they
-        get their lanes back. The engine keeps serving afterwards."""
-        self._discard_inflight()
+        `kv_pages`), so it reactivates without a prefill. It is the
+        host state as of the last processed block: a dispatched,
+        unprocessed block keeps running, and a continuation of the
+        snapshot replays what it emits, since sampling keys by (seed,
+        salt, position) and not by a step index the block would advance
+        (the JAX engine discards such blocks, whose step index rolls
+        back; a fleet's periodic snapshot would waste one block in
+        three). PREFILLING requests serialize as queued at the head of
+        the queue (they have emitted nothing, so nothing re-emits),
+        their slots on top of the free stack so they get their lanes
+        back. The engine keeps serving afterwards."""
         self._retire_finished()
         now = time.perf_counter()
         pf_slots = list(self._prefilling)
@@ -3052,9 +3099,10 @@ class LLMEngine:
                     rounds=self.spec_rounds, k=self.speculate_k,
                     draft_layers=self.draft_layers, **common)
             else:
+                # one step, run decode_block_size times a block
                 body = functools.partial(
                     _decode_block, self.cfg, self._params, self.cache.k,
-                    self.cache.v, block=self.decode_block_size, **common)
+                    self.cache.v, block=1, **common)
             steps = self._block_capacity if spec else self.decode_block_size
             t0 = time.perf_counter()
             runner = BlockRunner(body, self._lanes, steps, spec,

@@ -348,13 +348,11 @@ class EngineFleet:
     (bit-identity of a continuation needs the same `max_seq`/`seed`
     geometry on the peer). `tp > 1` raises `NotImplementedError`.
 
-    `snapshot_every` trades failover freshness against decode
-    throughput: `engine.snapshot()` must discard the dispatched
-    overlap/speculative blocks to stay coherent (they replay, so it is
-    correct but not free — with `overlap=True` roughly one extra
-    block dispatch per snapshot). The default (4) keeps the tax to a
-    fraction of a block per round; the demos use 2 because they kill
-    replicas on purpose and want small snapshot gaps.
+    `snapshot_every` trades failover freshness against host work: a
+    snapshot reads the engine's host state and leaves its dispatched
+    blocks running (the JAX engine discards them, one extra block
+    dispatch per snapshot). The default is 4; the demos use 2 because
+    they kill replicas on purpose and want small snapshot gaps.
     """
 
     def __init__(self, model, replicas: int = 2,
@@ -883,6 +881,13 @@ class EngineFleet:
         zero-leak check — without reaching into `_replicas`)."""
         return [r.engine for r in self._replicas
                 if r.engine is not None]
+
+    def warm_up(self, prompt_lengths: Sequence[int] = (1,)) -> int:
+        """`LLMEngine.warm_up` on every live replica (each captures its
+        own graphs); a replica built later (revive, failover, a
+        scale-out) captures at its canary. Returns the programs built."""
+        self._ensure_open()
+        return sum(e.warm_up(prompt_lengths) for e in self.live_engines())
 
     @property
     def paged(self) -> bool:

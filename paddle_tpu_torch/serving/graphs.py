@@ -16,13 +16,18 @@ plain program continues from the speculative one's lane state.
   end, so block N+1 replays off block N's state with no host round
   trip. Host mirror edits (admission, cancel, a discard) are uploaded
   into the same buffers (`LaneState.upload`) before the next replay.
-- On a CUDA device the function is captured once into a CUDA graph and
-  every block is one replay. Warm-up and capture run with every lane
-  frozen (act all False): a frozen lane parks its writes at row T-1
-  (slotted) or on the trash page (paged), rows no live lane attends,
-  and the chained state is restored afterwards. A capture that fails
-  raises `GraphCaptureError`; nothing carries on eagerly. The cycle
-  collector is paused during each capture (`_cycle_collector_paused`).
+- On a CUDA device the function is captured once into a CUDA graph. A
+  speculative block is one replay; a plain block is `decode_block_size`
+  replays of a one-step graph, each shifting its row into the block's
+  outputs: the same bits as one block-long graph at one step's capture
+  cost, which a replica spawned or revived under traffic pays on the
+  one thread that serves every stream. Warm-up and capture run with
+  every lane frozen (act all False): a frozen lane parks its writes at
+  row T-1 (slotted) or on the trash page (paged), rows no live lane
+  attends, and the chained state is restored afterwards. A capture
+  that fails raises `GraphCaptureError`; nothing carries on eagerly.
+  The cycle collector is paused during each capture
+  (`_cycle_collector_paused`).
 - After each run the block's outputs (tokens, emit flags and, for a
   speculative block, the (proposed, accepted) tally) are copied to a
   host buffer owned by that dispatch, behind an event: the one host
@@ -213,11 +218,16 @@ class BlockResult:
 class BlockRunner:
     """One decode block program of an engine over `lanes`.
 
-    `body(*lane_args, tables=...)` is `_decode_block` or
-    `_spec_decode_block` with everything but the lane state bound; it
-    returns (tokens (steps, S), emits (steps, S), cur, pos, rem, act[,
-    tally (2,)]). `graphed` captures it into a CUDA graph (the lanes
-    must live on a card)."""
+    `body(*lane_args, tables=...)` is `_spec_decode_block`, or
+    `_decode_block` of one step, with everything but the lane state
+    bound; it returns (tokens (rows, S), emits (rows, S), cur, pos, rem,
+    act[, tally (2,)]). A block emits `steps` rows: a speculative block
+    in one run of the program; a plain block in `steps` runs of the
+    one-step program, whose state chains in place and whose row shifts
+    into the block's outputs, so its capture (and a replica's stall at
+    spawn) costs a step's, not a block's, with the same bits. `graphed`
+    captures the program into a CUDA graph (the lanes must live on a
+    card)."""
 
     _RING = 2   # dispatches in flight at most: the block and one ahead
 
@@ -227,6 +237,7 @@ class BlockRunner:
         self.lanes = lanes
         self.steps = int(steps)
         self.spec = bool(spec)
+        self.runs = 1 if self.spec else self.steps
         S = lanes.bufs["cur"].shape[0]
         n = 2 * self.steps * S + (2 if spec else 0)
         dev = lanes.device
@@ -240,16 +251,24 @@ class BlockRunner:
             self._capture()
 
     def _step(self):
-        """The block: read the static inputs, write the static outputs,
-        chain the lane state into the inputs."""
+        """One run of the program: read the static inputs, write the
+        static outputs (a plain block's one-step run shifts the block's
+        rows up one and writes its row last), chain the lane state into
+        the inputs."""
         bufs = self.lanes.bufs
         toks, emits, *state = self.body(*(bufs[k] for k in LANE_ARGS),
                                         tables=bufs.get("tables"))
         tally = state[4:]
-        parts = [toks.reshape(-1).to(torch.int64),
-                 emits.reshape(-1).to(torch.int64)]
-        parts += [t.reshape(-1).to(torch.int64) for t in tally]
-        self.out.copy_(torch.cat(parts))
+        if self.spec:
+            parts = [toks.reshape(-1).to(torch.int64),
+                     emits.reshape(-1).to(torch.int64)]
+            parts += [t.reshape(-1).to(torch.int64) for t in tally]
+            self.out.copy_(torch.cat(parts))
+        else:
+            n = self.out.numel() // 2
+            for rows, new in ((self.out[:n], toks), (self.out[n:], emits)):
+                rows = rows.view(self.steps, -1)
+                rows.copy_(torch.cat([rows[1:], new.to(torch.int64)]))
         for name, t in zip(CHAINED, state[:4]):
             bufs[name].copy_(t)
 
@@ -276,20 +295,28 @@ class BlockRunner:
                 self.deltas = _warm_up_and_capture(graph, self._step)
         except Exception as err:  # noqa: BLE001 — named and re-raised
             raise GraphCaptureError(
-                f"capturing the {kind} decode block ({self.steps} steps) "
+                f"capturing the {kind} decode block ({self.steps} steps, "
+                f"{self.runs} runs) "
                 f"into a CUDA graph failed: {type(err).__name__}: "
                 f"{err}") from err
         self.graph = graph
 
-    def run(self) -> BlockResult:
-        """One block: a graph replay (or, ungraphed, the function on the
-        static buffers), then the outputs' copy to this dispatch's host
-        buffer behind an event."""
+    def run_once(self):
+        """One run of the program (a graph replay, or the function),
+        without the outputs' host copy: what a continuation's replay
+        step runs."""
         if self.graph is not None:
             self.graph.replay()
             count_replay(self.deltas)
         else:
             self._step()
+
+    def run(self) -> BlockResult:
+        """One block: `runs` graph replays (or, ungraphed, runs of the
+        function on the static buffers), then the outputs' copy to this
+        dispatch's host buffer behind an event."""
+        for _ in range(self.runs):
+            self.run_once()
         host, event = self._ring[self._next]
         self._next = (self._next + 1) % self._RING
         host.copy_(self.out, non_blocking=True)

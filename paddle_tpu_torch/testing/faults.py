@@ -46,10 +46,18 @@ Points fired by `serving.EngineFleet`:
 - ``replica_health``    -- before a canary request is submitted (a
   failed canary re-quarantines with a doubled backoff).
 
-The other points (``checkpoint_io``, ``client_disconnect``,
-``http_write``) belong to modules the port does not have yet
-(ROADMAP.md, Queue 1 item 11 part 3 and item 13); they are registered
-so that a plan written for the JAX package is accepted here unchanged.
+Points fired by the HTTP front door (`serving.server.LLMServer`):
+
+- ``http_write``        -- before each SSE event is written to a
+  client: a fault is a write failure, handled as a disconnect (the
+  request is cancelled, its slot and prefix pins freed);
+- ``client_disconnect`` -- after each stream event is taken off a
+  request's relay, before it is handled: a fault is a client that went
+  away (the same cancel path).
+
+``checkpoint_io`` belongs to a module the port does not have yet
+(ROADMAP.md, Queue 1 item 13); it is registered so that a plan written
+for the JAX package is accepted here unchanged.
 
 Triggers are deterministic so a failing run replays exactly:
 

@@ -2,7 +2,7 @@
 """Serving A/B of two checkouts of the PyTorch/CUDA port on one card.
 
     python3 scripts/serving_ab.py --a PARENT_DIR --b CHANGE_DIR \
-        [--order ABBAABBA] [--out result.json]
+        [--order ABBAABBA] [--spec] [--out result.json]
 
 Each turn of `--order` is a fresh process in that checkout's root: it
 builds the checkout's kernels (cached after its first turn), runs the
@@ -45,6 +45,13 @@ enqueue: 50 calls at phase 8's shapes, the
 median of 7 such rounds. The summary gives every turn, each version's
 median and spread (max - min over median) per metric, and B's medians
 over A's.
+With `--spec` a turn runs phase 4 (the model and its prompts) and then
+only phase 4e, and serves 4e's load again on three WARMED engines,
+speculation off and on with the trunc and int8 drafts: each first
+serves the same prompts for 4 new tokens (building its decode,
+speculative and prefill programs), then its prefix tree is cleared
+and its metrics replaced; it reports 4e's three tokens/s and the
+warmed engines' tokens/s and the captures inside their windows.
 Alternating in one call keeps both versions on one card and one host.
 """
 from __future__ import annotations
@@ -234,6 +241,48 @@ for tag, knobs in (("a", dict(prefix_cache=False)),
 print("AB " + json.dumps(out))
 """
 
+TURN_SPEC = r"""
+import json, sys
+sys.path.insert(0, ".")
+import numpy as np, torch
+import chip_smoke as cs
+import paddle_tpu_torch as P
+from paddle_tpu_torch.ops_cuda import _build, decode_attention as dec
+from paddle_tpu_torch.ops_cuda import int8_linear as k7
+from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+from paddle_tpu_torch.serving.metrics import ServingMetrics
+_build.build(["decode_attention", "int8_linear"])
+run = cs.phase_engine(torch, np, P)
+spec = cs.phase_speculative(torch, np, dec, k7, run)
+out = {"spec_off_tokens_per_s": spec["off_bf16"]["tokens_per_s"],
+       "spec_trunc_tokens_per_s": spec["trunc slotted"]["tokens_per_s"],
+       "spec_int8_tokens_per_s": spec["int8 slotted"]["tokens_per_s"]}
+prompts, params = spec["prompts"], spec["params"]
+for name, knobs in (("off", {}),
+                    ("trunc", dict(speculate_k=cs.SPEC_K, draft="trunc")),
+                    ("int8", dict(speculate_k=cs.SPEC_K, draft="int8"))):
+    eng = LLMEngine(run["model"], **cs.SPEC_KW, **knobs)
+    eng.generate(prompts, SamplingParams(max_new_tokens=4))
+    torch.cuda.synchronize()
+    if getattr(eng, "prefix", None) is not None:
+        eng.prefix.clear()
+    eng.metrics = ServingMetrics(eng.max_slots)
+    eng.generate(prompts, params)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    out[f"w_spec_{name}_tokens_per_s"] = st["tokens_per_sec"]
+    out[f"w_spec_{name}_window_captures"] = st["graph_captures"] \
+        + st.get("prefill_graph_captures", 0)
+    del eng
+print("AB " + json.dumps(out))
+"""
+
+SPEC_METRICS = ("spec_off_tokens_per_s", "spec_trunc_tokens_per_s",
+                "spec_int8_tokens_per_s", "w_spec_off_tokens_per_s",
+                "w_spec_trunc_tokens_per_s", "w_spec_int8_tokens_per_s")
+SPEC_OPTIONAL = tuple(f"w_spec_{n}_window_captures"
+                      for n in ("off", "trunc", "int8"))
+
 METRICS = ("tokens_per_s", "decode_ms_per_token", "ttft_p50_s",
            "ttft_p99_s", "graph_capture_s", "k1_ms", "k1_host_us",
            "kernels_per_decode_step",
@@ -256,8 +305,8 @@ OPTIONAL = tuple(f"g4w_{t}_{m}" for t in "bcde"
     "w4_window_captures")
 
 
-def run_turn(root: Path, timeout: int) -> dict:
-    proc = subprocess.run([sys.executable, "-c", TURN], cwd=str(root),
+def run_turn(root: Path, timeout: int, turn: str = TURN) -> dict:
+    proc = subprocess.run([sys.executable, "-c", turn], cwd=str(root),
                           capture_output=True, text=True, timeout=timeout)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
     if proc.returncode != 0 or not lines:
@@ -266,12 +315,12 @@ def run_turn(root: Path, timeout: int) -> dict:
     return json.loads(lines[-1][3:])
 
 
-def summarise(turns):
+def summarise(turns, metrics=METRICS, optional=OPTIONAL):
     out = {}
     for v in ("A", "B"):
         runs = [t for name, t in turns if name == v]
         out[v] = {}
-        for m in METRICS + OPTIONAL:
+        for m in metrics + optional:
             xs = [r[m] for r in runs if m in r]
             if not xs:
                 continue
@@ -279,7 +328,7 @@ def summarise(turns):
             out[v][m] = {"runs": xs, "median": med,
                          "spread": (max(xs) - min(xs)) / med if med else 0.0}
     out["B_over_A"] = {m: out["B"][m]["median"] / out["A"][m]["median"]
-                       for m in METRICS}
+                       for m in metrics}
     return out
 
 
@@ -288,6 +337,8 @@ def main(argv=None) -> int:
     ap.add_argument("--a", required=True, help="checkout A (the parent)")
     ap.add_argument("--b", required=True, help="checkout B (the change)")
     ap.add_argument("--order", default="ABBAABBA")
+    ap.add_argument("--spec", action="store_true",
+                    help="phase 4e alone, cold and warmed (see above)")
     ap.add_argument("--timeout", type=int, default=600,
                     help="seconds per turn")
     ap.add_argument("--out", help="also write the summary to this file")
@@ -298,24 +349,27 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     roots = {"A": Path(args.a).resolve(), "B": Path(args.b).resolve()}
+    turn, metrics, optional = (TURN_SPEC, SPEC_METRICS, SPEC_OPTIONAL) \
+        if args.spec else (TURN, METRICS, OPTIONAL)
     turns = []
     for i, v in enumerate(args.order):
-        r = run_turn(roots[v], args.timeout)
+        r = run_turn(roots[v], args.timeout, turn)
         turns.append((v, r))
         print(f"turn {i} {v}: " + ", ".join(f"{m} {r[m]:.6g}"
-                                           for m in METRICS + OPTIONAL
+                                           for m in metrics + optional
                                            if m in r)
-              + f", int8_repeat_equal {r['int8_repeat_equal']}", flush=True)
-    summary = {"card": card, "order": args.order,
+              + (f", int8_repeat_equal {r['int8_repeat_equal']}"
+                 if "int8_repeat_equal" in r else ""), flush=True)
+    summary = {"card": card, "order": args.order, "spec": args.spec,
                "roots": {k: str(p) for k, p in roots.items()},
                "turns": [{"version": v, **r} for v, r in turns],
-               **summarise(turns)}
-    for m in METRICS:
+               **summarise(turns, metrics, optional)}
+    for m in metrics:
         a, b = summary["A"][m], summary["B"][m]
         print(f"{m}: A median {a['median']:.6g} (spread {a['spread']:.3f}),"
               f" B median {b['median']:.6g} (spread {b['spread']:.3f}), "
               f"B/A {summary['B_over_A'][m]:.4f}  [{card}]", flush=True)
-    for m in OPTIONAL:
+    for m in optional:
         for v in ("A", "B"):
             if m in summary[v]:
                 x = summary[v][m]

@@ -45,6 +45,8 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.serving.kv_tier\n"
         "import paddle_tpu_torch.serving.autoscale\n"
         "import paddle_tpu_torch.serving.__main__\n"
+        "import paddle_tpu_torch.serving.server\n"
+        "import paddle_tpu_torch.serving.slo\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
