@@ -265,6 +265,26 @@ every phase passed):
    SIGINT handlers as they were. TTFT p99 steady and under shedding,
    decode ms per token, the tail ratio, sheds, disconnects, reattached
    streams, captures and seconds are logged with the card.
+4n. TP-sharded serving on phase 4's GPT-small bf16, every rank of a
+   group on this one card (`LLMEngine(tp=k)`): K1 and K4 through the
+   sharded entries over 6-head (tp 2) and 3-head (tp 4) slabs at
+   phase-4 shapes, fp32 and bf16, tp launches a call, each rank within
+   1e-5 / 2e-2 of its plain version and the ranks joined == the 12-head
+   launch bitwise; phase 4's first 8 requests (their first 32 tokens)
+   through K1, K4, K5 and K6 at tp 2 and 4 (K1 at tp 1 too): each
+   kernel tp x 12 x decode steps and no other, 2 L + 2 = 26 collectives
+   a forward (prefill call or decode step), kv_bytes_per_token tp 1's;
+   first-token logits within 2 e of tp 1's, e being tp 1's bf16 error
+   against the fp32 logits of the same weights; greedy streams equal
+   phase 4 / 4b's tp=1 streams but after a step whose tp=1 top-2 margin
+   is below the tie bound 4 e (such steps are printed); at tp 2 graph
+   == eager and a snapshot resumed bitwise (K1 = 24 x (decode + replay
+   + discarded steps)); `EngineFleet(tp=2)` of two groups with the
+   busiest killed and revived (0 stranded, greedy = one tp 2 engine's,
+   K1 = 24 x the steps of every engine); the front-door soak at `--tp
+   2` (slotted, phase 4m's gates, K1 = 24 x steps). K1 and K4 at 12, 6
+   and 3 heads, decode ms per step, capture seconds and prefill pool
+   bytes at tp 1 / 2 / 4 are logged with the card.
 5. ragged against masked attention in fp32: equal greedy streams,
    except after a step whose top-2 logit margin is below 1e-3 (margins
    logged).
@@ -1116,13 +1136,17 @@ def shared_prefix_load(np, SamplingParams, vocab):
 def serve(torch, dec, model, prompts, params, name, **knobs):
     """Serve the load through one engine with every decode counter set
     to 0 just before and read just after. Checks: every request
-    finishes with 64 in-range tokens; the variant's kernel launched
-    num_layers x decode steps times and no other decode kernel at all;
-    one host sync per dispatch."""
+    finishes with its max_new_tokens in-range tokens; the variant's
+    kernel launched tp x num_layers x decode steps times (`tp` in
+    `knobs`, default 1) and no other decode kernel at all; one host sync
+    per dispatch; at tp > 1, 2 L + 2 collectives per forward (each
+    prefill call and decode step)."""
     from paddle_tpu_torch.serving import LLMEngine
     counters = decode_counters(dec)
+    tp = knobs.get("tp", 1)
     eng = LLMEngine(model, **{**SERVE_KW, **knobs})
-    check(eng.attend_impl == "ragged", f"auto gave {eng.attend_impl}")
+    route = "ragged_tp" if tp > 1 else "ragged"
+    check(eng.attend_impl == route, f"auto gave {eng.attend_impl}")
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
@@ -1132,17 +1156,27 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
     counts = {k: c.count for k, c in counters.items()}
     st = eng.stats()
     vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
-    for r in results:
-        check(r.finish_reason == "length" and len(r.token_ids) == 64,
+    for r, p in zip(results, params):
+        check(r.finish_reason == "length"
+              and len(r.token_ids) == p.max_new_tokens,
               f"{name} request {r.request_id}: {r.finish_reason}, "
               f"{len(r.token_ids)} tokens")
         check(all(0 <= t < vocab for t in r.token_ids),
               f"{name} request {r.request_id}: token id out of range")
-    want = {k: layers * st["decode_steps"] if k == name else 0
+    want = {k: tp * layers * st["decode_steps"] if k == name else 0
             for k in counters}
     check(counts == want, f"{name}: decode kernel launches {counts} != "
-                          f"{want} ({layers} layers x {st['decode_steps']} "
-                          f"decode steps)")
+                          f"{want} ({tp} ranks x {layers} layers x "
+                          f"{st['decode_steps']} decode steps)")
+    prefills = sum(1 for e in eng.tracer.events() if e[2] == "prefill_chunk")
+    if tp > 1:
+        per = 2 * layers + 2
+        check(st["tp_collectives_per_step"] == per
+              and st["tp_collectives"] == per * (prefills
+                                                 + st["decode_steps"]),
+              f"{name} tp {tp}: {st['tp_collectives']} collectives, "
+              f"{st['tp_collectives_per_step']} a forward, want {per} x "
+              f"({prefills} prefill calls + {st['decode_steps']} steps)")
     check(st["host_syncs"] == st["decode_dispatches"],
           f"{name}: host_syncs {st['host_syncs']} != dispatches "
           f"{st['decode_dispatches']}")
@@ -1157,8 +1191,13 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
     log(f"  {name} {knobs or 'slotted'}: {len(results)} requests "
         f"({st['prompt_tokens']} prompt, {st['generated_tokens']} generated"
         f" tokens) in {wall:.2f} s; {name} launches {counts[name]} = "
-        f"{layers} layers x {st['decode_steps']} decode steps, other "
-        f"decode kernels 0; host_syncs = dispatches "
+        + (f"{tp} ranks x " if tp > 1 else "")
+        + f"{layers} layers x {st['decode_steps']} decode steps, other "
+        f"decode kernels 0; "
+        + (f"collectives {st['tp_collectives']} = {2 * layers + 2} x "
+           f"({prefills} prefill calls + {st['decode_steps']} steps); "
+           if tp > 1 else "")
+        + f"host_syncs = dispatches "
         f"{st['decode_dispatches']}; 1 graph capture "
         f"({st['graph_capture_s']:.3f} s), prefill graphs of "
         f"{sorted(eng._prefill_runners)} rows "
@@ -1177,6 +1216,7 @@ def serve(torch, dec, model, prompts, params, name, **knobs):
         "prefill_graph_pool_bytes": st["prefill_graph_pool_bytes"],
         "kv_bytes_per_token": st["kv_bytes_per_token"],
         "kv_pages_peak": st["kv_pages_peak"],
+        "tp_collectives": st["tp_collectives"],
         "streams": [r.token_ids for r in results]}
 
 
@@ -3330,7 +3370,7 @@ def soak_page_kernels(torch, dec, card):
 
 
 def front_door_soak(torch, dec, k7, model, card, tag, what, argv, kernels,
-                    resumes):
+                    resumes, tp: int = 1, phase: str = "4m"):
     """(4m) one configuration of `python -m paddle_tpu_torch.serving.
     server`'s soak on `model`, on this (the main) thread: the soak's own
     gates (0 stranded, 0 bit mismatches, strict exposition, sheds with
@@ -3339,9 +3379,9 @@ def front_door_soak(torch, dec, k7, model, card, tag, what, argv, kernels,
     when its servers have stopped (before its reference engine runs),
     its decode kernels (and K7) launched and no other, and but for the
     speculative run exactly 12 x (decode + replay + discarded steps)
-    over the engines that served; with `resumes`, a restart from the
-    drain's snapshot that reattached a stream; the SIGTERM / SIGINT
-    handlers as they were."""
+    over the engines that served (tp x 12 for a soak at `--tp`); with
+    `resumes`, a restart from the drain's snapshot that reattached a
+    stream; the SIGTERM / SIGINT handlers as they were."""
     import gc
     import signal
     import tempfile
@@ -3371,27 +3411,30 @@ def front_door_soak(torch, dec, k7, model, card, tag, what, argv, kernels,
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     gc.collect()
-    check(rc == 0, f"4m ({tag}) {what}: the soak's gates failed: {rep}")
+    check(rc == 0,
+          f"{phase} ({tag}) {what}: the soak's gates failed: {rep}")
     check([signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)]
-          == handlers, f"4m ({tag}): signal handlers not restored")
+          == handlers, f"{phase} ({tag}): signal handlers not restored")
     counts = seen["counts"]
     check(all(counts[k] > 0 if k in kernels else counts[k] == 0
               for k in counts),
-          f"4m ({tag}) {what}: launches {counts}, want {kernels} only")
-    tot = engine_totals(seen["engines"], layers)
+          f"{phase} ({tag}) {what}: launches {counts}, want {kernels} "
+          f"only")
+    tot = engine_totals(seen["engines"], layers * tp)
     formula = ""
     if "K7" not in kernels:
         check(all(counts[k] == tot["launches_want"] for k in kernels),
-              f"4m ({tag}) {what}: launches {counts} != {layers} x "
-              f"{steps_text(tot)} = {tot['launches_want']}")
-        formula = f" = {layers} x {steps_text(tot)}"
+              f"{phase} ({tag}) {what}: launches {counts} != "
+              f"{tp * layers} x {steps_text(tot)} = "
+              f"{tot['launches_want']}")
+        formula = f" = {tp * layers} x {steps_text(tot)}"
     if resumes:
         check(rep["drain_snapshot"] and rep["reattached_streams"] > 0,
-              f"4m ({tag}) {what}: the drain left no snapshot to resume "
-              f"or no stream reattached: {rep}")
+              f"{phase} ({tag}) {what}: the drain left no snapshot to "
+              f"resume or no stream reattached: {rep}")
     if tag != "e":
         check(extra["builds_steady"] == 0,
-              f"4m ({tag}): {extra['builds_steady']} captures in the "
+              f"{phase} ({tag}): {extra['builds_steady']} captures in the "
               f"restarted server's window")
     keys = ("ttft_p99_steady_ms", "ttft_p99_shed_ms",
             "decode_ms_per_token", "ttft_tail_ratio", "shed_count",
@@ -3449,6 +3492,315 @@ def phase_front_door(torch, np, dec, k7, engine_run):
                                    argv, kernels, resumes)
     res["seconds"] = time.perf_counter() - t0
     log(f"  phase 4m: {res['seconds']:.1f} s")
+    return res
+
+
+# --------------------------------------------------------------------------- #
+# phase 4n: TP-sharded serving, every rank on this one card
+# --------------------------------------------------------------------------- #
+
+TP_DEGREES = (2, 4)
+TP_LOAD = 8        # phase 4's first 8 requests (2 of them sampled) ...
+TP_NEW = 32        # ... and their first 32 tokens
+
+
+def tp_kernels(torch, np, dec, card):
+    """(4n) K1 and K4 per shard at phase-4 shapes (S 8, T 1024, hd 64,
+    phase-4 lengths, 64-row pages at shuffled ids), fp32 and bf16: the
+    sharded entries over 6-head (tp 2) and 3-head (tp 4) slabs launch
+    tp kernels a call, each rank's output is within 1e-5 (fp32) / 2e-2
+    (bf16) of its plain version (split + merge), and the ranks' outputs
+    joined equal the unsharded 12-head launch bitwise (a CTA's work is
+    one lane and head). Then K1 and K4 timed (bf16) at 12, 6 and 3
+    heads beside each shape's byte bound, and the whole sharded call."""
+    S, T, nh, hd = 8, 1024, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lengths = serving_lengths(np, T)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    ident = torch.arange(S, dtype=torch.int32, device="cuda")
+    scale = 1 / math.sqrt(hd)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    live = sum(lengths)
+    worst, times = {"K1": 0.0, "K4": 0.0}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype)[6:]
+        q = torch.randn(S, nh, hd, device="cuda", generator=gen).to(dtype)
+        kc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).to(dtype)
+        vc = torch.randn(S, T, nh, hd, device="cuda", generator=gen).to(dtype)
+        tables, npages, _ = page_tables(torch, gen, S, T, lengths, PAGE)
+        kp, vp = (to_pages(torch, x, tables, npages, PAGE) for x in (kc, vc))
+        whole = {"K1": dec.ragged_decode_attention(q, kc, vc, lens),
+                 "K4": dec.paged_ragged_decode_attention(q, kp, vp, tables,
+                                                         lens)}
+        for tp in TP_DEGREES:
+            h = nh // tp
+
+            def heads(x):
+                return [x[:, :, r * h:(r + 1) * h].contiguous()
+                        for r in range(tp)]
+
+            shards = {"K1": (heads(kc), heads(vc)),
+                      "K4": (heads(kp), heads(vp))}
+            for name, counter in (("K1", dec.LAUNCHES),
+                                  ("K4", dec.PAGED_LAUNCHES)):
+                ks, vs = shards[name]
+                if name == "K1":
+                    def call(ks=ks, vs=vs):
+                        return dec.sharded_ragged_decode_attention(
+                            q, ks, vs, lens)
+                else:
+                    def call(ks=ks, vs=vs):
+                        return dec.sharded_paged_ragged_decode_attention(
+                            q, ks, vs, tables, lens)
+                counter.reset()
+                got = call()
+                torch.cuda.synchronize()
+                check(counter.count == tp, f"4n {name} tp {tp}: "
+                      f"{counter.count} launches for one sharded call")
+                check(torch.equal(got, whole[name]),
+                      f"4n {name} tp {tp} {tname}: the ranks' outputs "
+                      f"joined != the unsharded launch")
+                for r in range(tp):
+                    qr = q[:, r * h:(r + 1) * h].contiguous()
+                    if name == "K1":
+                        bk, ns = dec.pick_decode_blocks(T, hd, dtype)
+                        plain = dec.ragged_decode_split_plain(
+                            qr, ks[r], vs[r], lens, ident, scale, bk, ns)
+                    else:
+                        bk, ns = dec.pick_paged_decode_blocks(T, PAGE, hd,
+                                                              dtype)
+                        plain = dec.paged_decode_split_plain(
+                            qr, ks[r], vs[r], tables, lens, scale, bk, ns)
+                    want = dec._merge_splits(*plain[:3], dtype).float()
+                    part = got[:, r * h:(r + 1) * h].float()
+                    torch.testing.assert_close(part, want, **PLAIN_TOL[tname])
+                    worst[name] = max(worst[name],
+                                      (part - want).abs().max().item())
+                if dtype == torch.bfloat16:
+                    if name == "K1":
+                        def one(ks=ks, vs=vs):
+                            return dec.ragged_decode_attention(
+                                q[:, :h].contiguous(), ks[0], vs[0], lens)
+                    else:
+                        def one(ks=ks, vs=vs):
+                            return dec.paged_ragged_decode_attention(
+                                q[:, :h].contiguous(), ks[0], vs[0], tables,
+                                lens)
+                    nbytes = 2 * live * h * hd * 2 + 2 * S * h * hd * 2 \
+                        + 4 * S
+                    times[f"{name} {h} heads"] = {
+                        "ms": time_ms(torch, one, flush),
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+                    times[f"{name} tp {tp} call"] = {
+                        "ms": time_ms(torch, call, flush)}
+        if dtype == torch.bfloat16:
+            for name, fn in (
+                    ("K1", lambda: dec.ragged_decode_attention(q, kc, vc,
+                                                               lens)),
+                    ("K4", lambda: dec.paged_ragged_decode_attention(
+                        q, kp, vp, tables, lens))):
+                nbytes = 2 * live * nh * hd * 2 + 2 * S * nh * hd * 2 + 4 * S
+                times[f"{name} {nh} heads"] = {
+                    "ms": time_ms(torch, fn, flush),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    log(f"  K1 / K4 per shard (6 and 3 heads of 12, fp32 and bf16): tp "
+        f"launches a call, every shard within 1e-5 / 2e-2 of its plain "
+        f"version (worst {worst}), the shards joined == the 12-head "
+        f"launch bitwise")
+    for key, t in times.items():
+        log(f"    {key} [card: {card}]: {t['ms']:.4f} ms"
+            + (f" (byte bound {t['bound_ms']:.5f} ms)" if "bound_ms" in t
+               else ""))
+    return {"max_abs_err": worst, "times": times}
+
+
+def tp_first_logits(torch, engines, prompts):
+    """The first-token logits of `prompts` through the prefill of each
+    engine of `engines` ({tp: engine}, idle), the prompt in slot 0."""
+    out = {}
+    for tp, eng in engines.items():
+        rows = []
+        for p in prompts:
+            slot = eng.cache.allocate()
+            rows.append(eng._prefill_tokens(slot, p))
+            eng.cache.release(slot)
+        out[tp] = torch.stack(rows).float()
+    return out
+
+
+def phase_tp(torch, np, dec, k7, engine_run, variants):
+    """(4n) TP-sharded serving of phase 4's GPT-small bf16, every rank
+    on this card: per-shard K1 / K4 (`tp_kernels`); phase 4's first 8
+    requests (6 greedy, 2 sampled; their first 32 tokens) through K1,
+    K4, K5 and K6 at tp 2 and 4 (and K1 at tp 1 for the timing): each
+    engine's kernel launched tp x 12 x decode steps and no other, 26
+    collectives a forward, the KV bytes per token tp=1's; first-token
+    logits at tp 2 and 4 within 2 e of tp 1's (e: tp 1's bf16 error
+    against fp32 logits of the same weights); greedy streams equal
+    phase 4 / 4b's tp=1 streams, except after a step whose tp=1 top-2
+    margin is below the tie bound 4 e; inside tp 2: graph == eager
+    and a snapshot resumed (continuation bitwise, K1 = 2 x 12 x (decode
+    + replay + discarded steps)); a two-group `EngineFleet(tp=2)` with
+    the busiest group killed and revived (0 stranded, greedy streams
+    those of one tp=2 engine); the front-door soak at `--tp 2`
+    (slotted)."""
+    from paddle_tpu_torch.serving import (EngineFleet, LLMEngine,
+                                          SamplingParams)
+    model = engine_run["model"]
+    card = card_line()
+    t0 = time.perf_counter()
+    layers = model.cfg.num_layers
+    res = {"kernels": tp_kernels(torch, np, dec, card)}
+    prompts = engine_run["prompts"][:TP_LOAD]
+    params = [dataclasses.replace(p, max_new_tokens=TP_NEW)
+              for p in engine_run["params"][:TP_LOAD]]
+    greedy = [i for i, p in enumerate(params) if p.temperature == 0]
+    base = {name: [s[:TP_NEW] for s in run["streams"][:TP_LOAD]]
+            for name, run in variants.items()}
+    runs, k1 = {}, {}
+    for name, knobs in DECODE_VARIANTS:
+        for tp in ((1,) if name == "K1" else ()) + TP_DEGREES:
+            LLMEngine(model, **SERVE_KW, **knobs, tp=tp).generate(
+                prompts[:2], SamplingParams(max_new_tokens=4))   # warm-up
+            torch.cuda.synchronize()
+            eng, _, run = serve(torch, dec, model, prompts, params, name,
+                                tp=tp, **knobs)
+            runs[(name, tp)] = run
+            if name == "K1":
+                k1[tp] = eng
+            want_bpt = variants[name]["kv_bytes_per_token"]
+            check(run["kv_bytes_per_token"] == want_bpt,
+                  f"4n {name} tp {tp}: kv_bytes_per_token "
+                  f"{run['kv_bytes_per_token']} != tp 1's {want_bpt}")
+    check(runs[("K1", 1)]["streams"] == base["K1"],
+          "4n: K1 tp 1 on the first 8 requests != phase 4's streams")
+    # first-token logits across degrees, against bf16's own error: the
+    # fp32 logits of the same (bf16) weights give tp 1's error e; two
+    # bf16 computations of one function, each about e from it, differ
+    # by at most 2 e, and a greedy token can flip only where the tp=1
+    # top-2 margin is below twice that
+    lg = tp_first_logits(torch, k1, prompts)
+    from paddle_tpu_torch.models import GPT
+    m32 = GPT(model.cfg, device="cuda")
+    m32.load_state_dict({k: v.float() for k, v in
+                         model.state_dict().items()})
+    lg32 = torch.stack([m32.logits(torch.from_numpy(p[None]).long().cuda())
+                        [0, -1].float() for p in prompts])
+    del m32
+    e = float((lg[1] - lg32).abs().max())
+    gate, tie = 2 * e, 4 * e
+    logit_err = {tp: float((lg[tp] - lg[1]).abs().max())
+                 for tp in TP_DEGREES}
+    for tp, err in logit_err.items():
+        check(err <= gate, f"4n: tp {tp}'s first-token logits {err:.4f} "
+              f"from tp 1's, over twice tp 1's bf16 error {e:.4f}")
+    # greedy streams against tp 1: equal, or first apart at a near-tie
+    flips = []
+    for (name, tp), run in sorted(runs.items()):
+        if tp == 1:
+            continue
+        for i in greedy:
+            got, want = run["streams"][i], base[name][i]
+            if got == want:
+                continue
+            j = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+            m = float(greedy_margins(torch, np, model, prompts, base[name],
+                                     [i])[i][j])
+            flips.append((name, tp, i, j, m))
+            check(m < tie, f"4n {name} tp {tp} request {i}: stream apart "
+                  f"from tp 1's at step {j}, where the tp=1 top-2 margin "
+                  f"{m:.4f} is not below the tie bound {tie:.4f}")
+    sampled = [run["streams"][i] == base[name][i]
+               for (name, tp), run in runs.items() if tp > 1
+               for i in range(TP_LOAD) if i not in greedy]
+    log(f"  first-token logits (8 prompts): tp 1's bf16 error against "
+        f"fp32 {e:.4f}; tp 2 / 4 from tp 1's {logit_err} (gate 2 e = "
+        f"{gate:.4f}, |logit| <= {float(lg32.abs().max()):.3f}); tie "
+        f"bound 4 e = {tie:.4f}; greedy streams equal tp 1's but {flips} "
+        f"((variant, tp, request, step, tp=1 margin)); sampled streams "
+        f"equal tp 1's: {sum(sampled)} of {len(sampled)}")
+    res.update(logit_err=logit_err, bf16_err=e, tie_bound=tie, flips=flips)
+    res["runs"] = {f"{name} tp {tp}": {k: v for k, v in run.items()
+                                       if k != "streams"}
+                   for (name, tp), run in runs.items()}
+    for tp in (1,) + TP_DEGREES:
+        run = runs[("K1", tp)]
+        log(f"  K1 tp {tp} [card: {card}]: decode "
+            f"{run['decode_ms_per_token']:.3f} ms per step, "
+            f"{run['tokens_per_s']:.1f} tokens/s, decode graph capture "
+            f"{run['graph_capture_s']:.3f} s, prefill graphs "
+            f"{run['prefill_graph_captures']} in "
+            f"{run['prefill_graph_capture_s']:.3f} s, pool "
+            f"{run['prefill_graph_pool_bytes'] / 2**20:.1f} MiB")
+    tp2 = runs[("K1", 2)]["streams"]
+    # graph == eager at tp 2
+    eager = LLMEngine(model, **SERVE_KW, tp=2)
+    eager._use_graphs = False
+    check([r.token_ids for r in eager.generate(prompts, params)] == tp2,
+          "4n: tp 2 eager streams != tp 2 graph streams")
+    del eager
+    # a tp 2 snapshot resumed at tp 2
+    counter = dec.LAUNCHES
+    eng = LLMEngine(model, **SERVE_KW, tp=2)
+    rids = [eng.submit(p, sp) for p, sp in zip(prompts, params)]
+    for _ in range(3):
+        eng.step()
+    snap = eng.snapshot()
+    eng.close()
+    torch.cuda.synchronize()
+    counter.reset()
+    resumed = track_discards(LLMEngine.resume(model, snap))
+    check(resumed.tp == 2, f"4n: resumed at tp {resumed.tp}")
+    resumed.run_until_complete()
+    torch.cuda.synchronize()
+    tot = engine_totals([resumed], 2 * layers)
+    check([resumed.result(r).token_ids for r in rids] == tp2,
+          "4n: the tp 2 snapshot's continuation != the tp 2 streams")
+    check(counter.count == tot["launches_want"],
+          f"4n resume: K1 {counter.count} != {2 * layers} x "
+          f"{steps_text(tot)}")
+    log(f"  tp 2 snapshot after 3 steps resumed at tp 2: streams bitwise "
+        f"(sampled included), K1 {counter.count} = {2 * layers} x "
+        f"{steps_text(tot)}; graph == eager at tp 2 bitwise")
+    del resumed, eng
+    # two TP groups, the busiest killed
+    Fleet = tracked_fleet(EngineFleet)
+    fleet = Fleet(model, replicas=2, tp=2, snapshot_every=1,
+                  quarantine_backoff_s=0.0, register_stats=False,
+                  **SERVE_KW)
+    check([r.engine.mesh.ranks for r in fleet._replicas] == [(0, 1), (2, 3)],
+          "4n fleet: replicas are not the groups (0, 1), (2, 3)")
+    counter.reset()
+    rids = [fleet.submit(p, sp) for p, sp in zip(prompts, params)]
+    for _ in range(2):
+        fleet.step()
+    victim = fleet.busiest()
+    fleet.kill(victim)
+    fleet.revive(victim)
+    fleet.run_until_complete(max_steps=5000)
+    torch.cuda.synchronize()
+    got = [fleet.result(r) for r in rids]
+    st = fleet.stats()
+    check(all(g.finish_reason == "length" for g in got),
+          f"4n fleet: stranded {[g.finish_reason for g in got]}")
+    check([got[i].token_ids for i in greedy] == [tp2[i] for i in greedy],
+          "4n fleet: greedy streams != one tp 2 engine's")
+    check(st["kills"] == 1 and st["failovers"] == 1, f"4n fleet: {st}")
+    tot = engine_totals(fleet.built, 2 * layers)
+    check(counter.count == tot["launches_want"] and tot["unexpected"] == 0,
+          f"4n fleet: K1 {counter.count} != {2 * layers} x "
+          f"{steps_text(tot)}, {tot['unexpected']} unexpected captures")
+    fleet.close()
+    log(f"  EngineFleet(tp=2), 2 groups, r{victim} killed and revived: 0 "
+        f"stranded, greedy streams = one tp 2 engine's, K1 "
+        f"{counter.count} = {2 * layers} x {steps_text(tot)} over "
+        f"{len(fleet.built)} engines")
+    del fleet
+    res["soak"] = front_door_soak(torch, dec, k7, model, card, "n",
+                                  "slotted, --tp 2", ["--tp", "2"],
+                                  ("K1",), False, tp=2, phase="4n")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  phase 4n: {res['seconds']:.1f} s")
     return res
 
 
@@ -4641,6 +4993,10 @@ def main(argv=None) -> int:
     log("phase 4m: the HTTP front door: K4 / K6 at 8-row pages, the "
         "front-door soak in six configurations")
     front_door = phase_front_door(torch, np, dec, k7, engine_run)
+    log("phase 4n: TP-sharded serving at tp 2 and 4 on the one card: K1 "
+        "/ K4 per shard, K1 / K4 / K5 / K6 per rank, snapshot, a fleet of "
+        "TP groups, the front-door soak at --tp 2")
+    tp_run = phase_tp(torch, np, dec, k7, engine_run, variants)
     del engine_run["model"], variants["K1"], int8_run["model"]
     torch.cuda.empty_cache()
     log("phase 5: ragged vs masked attention, fp32")
@@ -4782,7 +5138,7 @@ def main(argv=None) -> int:
                        "admission": admission, "openloop": openloop,
                        "bestof": bestof, "generation": generation,
                        "obs_swap": obs_swap, "fleet": fleet,
-                       "front_door": front_door,
+                       "front_door": front_door, "tp": tp_run,
                        "int8_numbers": k7nums, "flash_numbers": fnums,
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32, "train_fp16": train16,

@@ -23,6 +23,19 @@ through K7 (`ops_cuda/int8_linear.py`).
 Cache slabs are written IN PLACE (the JAX code returns updated arrays
 and donates the old ones instead).
 
+Tensor parallel serving: handed a `nn.tp.ShardedParams` (the weights
+placed over a TP group by `serving.sharded_kv.shard_serving_params`),
+the decode wiring runs the trainer's layout of the reference
+(`paddle_tpu/models/gpt.py:358-471`, `tp_param_specs`): qkv (split
+head-aligned) and fc1 by columns, out and fc2 by rows, each rank's
+partial sums added by `all_reduce` before the row-parallel bias, the
+embedding vocab-parallel (masked lookups, one all-reduce) and the tied
+head's vocab-sharded logits joined by `all_gather`; LayerNorms, `wpe`
+and the row-parallel biases replicated, computed once. Every rank's
+attention runs on its own heads and its own KV slabs (`HeadShards`):
+the attention callback gets per-rank q / k / v lists. int8-PTQ linears
+stay replicated, as the reference leaves them out of its specs.
+
 Generation: `GPT.forward(caches=, cache_position=)` over `init_cache`'s
 fixed caches; `generate` (eager, greedy or sampled with a
 `torch.Generator`); `generate_jit` / `generate_compiled` and
@@ -49,11 +62,13 @@ from torch import nn
 from ..core import DeviceLike, make_generator, resolve_device, resolve_dtype
 from ..nn import functional as F
 from ..nn.layers import GELU, Dropout, Embedding, LayerNorm, Linear
-from ..quantization.kv import (dequant_slab, is_quantized, map_slab,
-                               slab_data, slab_shape, take_rows)
+from ..nn.tp import ShardedParams, all_gather, all_reduce
+from ..quantization.kv import (HeadShards, dequant_slab, is_quantized,
+                               map_slab, slab_data, slab_shape, take_rows)
 
 __all__ = ["GPTConfig", "GPT", "GPTBlock", "gpt_tiny", "gpt_small",
-           "gpt_medium", "gpt_1p3b", "param_shapes", "generate_greedy",
+           "gpt_medium", "gpt_1p3b", "param_shapes", "tp_param_specs",
+           "tp_collectives_per_step", "generate_greedy",
            "generate_compiled", "beam_search_compiled"]
 
 NEG_INF = -1e30
@@ -476,6 +491,53 @@ def _ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y * w + b).to(x.dtype)
 
 
+def tp_param_specs(cfg: GPTConfig, params: Params) -> Dict[str, tuple]:
+    """How a TP group shards each parameter, by name: the trainer's
+    layout of the reference (`paddle_tpu/models/gpt.py:358-471`).
+    ("qkv", nh): columns, head-aligned (rank r takes the q, k and v
+    columns of its heads, not a contiguous third: the columns are laid
+    out (3, nh, hd)); ("col",): contiguous column blocks; ("row",):
+    contiguous row blocks (attn.out's rows are head-major, so these are
+    head-aligned too); ("vocab",): embedding rows; ("vocab_col",): an
+    untied head's columns. A name absent replicates: LayerNorms, `wpe`,
+    the row-parallel biases, and every linear without an fp `.weight`
+    (int8-PTQ codes and scales, as the reference's specs leave them
+    out)."""
+    specs: Dict[str, tuple] = {}
+    if "wte.weight" in params:
+        specs["wte.weight"] = ("vocab",)
+    if "lm_head.weight" in params:
+        specs["lm_head.weight"] = ("vocab_col",)
+    kinds = {"attn.qkv": ("qkv", cfg.num_heads), "attn.out": ("row",),
+             "mlp.fc1": ("col",), "mlp.fc2": ("row",)}
+    for i in range(cfg.num_layers):
+        for lin, kind in kinds.items():
+            pre = f"blocks.{i}.{lin}"
+            if pre + ".weight" in params:
+                specs[pre + ".weight"] = kind
+                if kind[0] in ("qkv", "col") and pre + ".bias" in params:
+                    specs[pre + ".bias"] = kind
+    return specs
+
+
+def tp_collectives_per_step(cfg: GPTConfig, params: Params) -> int:
+    """Collectives of one forward through the TP wiring (a decode step,
+    or a prefill call): the embedding's all-reduce; per block one for
+    attn.out (an all-reduce, or the all-gather of the heads for a
+    replicated int8 out) and one for the MLP (an all-reduce when fc2 is
+    row-parallel, an all-gather when only fc1 is sharded, none when both
+    are replicated); the head's all-gather unless it is int8. With fp
+    weights 2 L + 1 all-reduces and 1 all-gather."""
+    n = 1
+    for i in range(cfg.num_layers):
+        pre = f"blocks.{i}."
+        n += 1
+        if pre + "mlp.fc1.weight" in params or pre + "mlp.fc2.weight" \
+                in params:
+            n += 1
+    return n + (0 if "lm_head.qweight" in params else 1)
+
+
 def _block_params(params: Params, i: int) -> Params:
     pre = f"blocks.{i}."
     return {k[len(pre):]: v for k, v in params.items()
@@ -493,6 +555,97 @@ def _by_groups(fn: Callable, x: torch.Tensor, groups: int) -> torch.Tensor:
     return torch.cat([fn(c) for c in x.chunk(groups)])
 
 
+def _each(x, fn: Callable):
+    """`fn` over each rank's tensor of a per-rank list, or on a tensor."""
+    return [fn(t) for t in x] if isinstance(x, list) else fn(x)
+
+
+def _tp_groups(fn: Callable, x, groups: int):
+    """`_by_groups` over a tensor or a per-rank list of tensors (each
+    rank's rows chunked alike), for `fn` returning either form."""
+    if groups == 1:
+        return fn(x)
+    chunks = list(zip(*[t.chunk(groups) for t in x])) \
+        if isinstance(x, list) else x.chunk(groups)
+    outs = [fn(list(c) if isinstance(x, list) else c) for c in chunks]
+    if isinstance(outs[0], list):
+        return [torch.cat(rank) for rank in zip(*outs)]
+    return torch.cat(outs)
+
+
+def _col_linear(p: Params, pr: list, prefix: str, x: torch.Tensor):
+    """A column-parallel linear of the TP wiring: per-rank outputs when
+    its fp weight is sharded, else the replicated linear's full
+    output."""
+    if prefix + ".weight" in pr[0]:
+        return [_apply_linear(q, prefix, x) for q in pr]
+    return _apply_linear(p, prefix, x)
+
+
+def _row_linear(p: Params, pr: list, prefix: str, x, group):
+    """A row-parallel linear of the TP wiring: each rank's partial
+    product over its rows of the weight, summed by `all_reduce`, then
+    the replicated bias once. A full input is split over the ranks'
+    rows first; a replicated (int8) linear takes the full input, the
+    ranks' pieces joined by `all_gather` first."""
+    if prefix + ".weight" in pr[0]:
+        if not isinstance(x, list):
+            x = list(torch.split(x, [q[prefix + ".weight"].shape[0]
+                                     for q in pr], dim=-1))
+        out = all_reduce([torch.matmul(t, q[prefix + ".weight"])
+                          for t, q in zip(x, pr)], group)
+        b = p.get(prefix + ".bias")
+        return out if b is None else out + b
+    if isinstance(x, list):
+        x = all_gather(x, dim=-1, group=group)
+    return _apply_linear(p, prefix, x)
+
+
+def _tp_body_layers(cfg: GPTConfig, params: ShardedParams,
+                    x: torch.Tensor, per_layer_attn: Callable,
+                    num_layers: Optional[int], row_groups: int
+                    ) -> torch.Tensor:
+    """`_body_layers` over a TP group (see the module docstring): the
+    residual stream is replicated (one tensor on the group's device),
+    each rank computes its heads' q / k / v and its share of the MLP,
+    and the attention callback gets per-rank lists and returns per-rank
+    outputs. Under `row_groups` every row-wise op, the collectives
+    included, runs once per group of rows, as in `_body_layers`."""
+    eps, g = cfg.layer_norm_eps, row_groups
+    grp = params.group
+    nhr, hd = cfg.num_heads // grp.tp, cfg.head_dim
+    B, s = x.shape[0], x.shape[1]
+    for i in range(num_layers if num_layers is not None
+                   else cfg.num_layers):
+        p = _block_params(params, i)
+        pr = [_block_params(q, i) for q in params.ranks]
+        qkv = _tp_groups(lambda t: _col_linear(
+            p, pr, "attn.qkv", _ln(t, p["ln1.weight"], p["ln1.bias"], eps)),
+            x, g)
+        if isinstance(qkv, list):
+            qkv = [t.reshape(B, s, 3, nhr, hd) for t in qkv]
+        else:                         # replicated (int8): slice the heads
+            full = qkv.reshape(B, s, 3, cfg.num_heads, hd)
+            qkv = [full[:, :, :, r * nhr:(r + 1) * nhr]
+                   for r in range(grp.tp)]
+        a = per_layer_attn(i, [t[:, :, 0] for t in qkv],
+                           [t[:, :, 1] for t in qkv],
+                           [t[:, :, 2] for t in qkv])
+        x = x + _tp_groups(lambda t: _row_linear(p, pr, "attn.out", t, grp),
+                           [t.reshape(B, s, nhr * hd) for t in a], g)
+
+        def mlp(t):
+            m = _col_linear(p, pr, "mlp.fc1",
+                            _ln(t, p["ln2.weight"], p["ln2.bias"], eps))
+            m = _each(m, lambda u: torch.nn.functional.gelu(
+                u, approximate="tanh"))
+            return _row_linear(p, pr, "mlp.fc2", m, grp)
+
+        x = x + _tp_groups(mlp, x, g)
+    return _by_groups(lambda t: _ln(t, params["ln_f.weight"],
+                                    params["ln_f.bias"], eps), x, g)
+
+
 def _body_layers(cfg: GPTConfig, params: Params, x: torch.Tensor,
                  per_layer_attn: Callable, num_layers: Optional[int] = None,
                  row_groups: int = 1) -> torch.Tensor:
@@ -505,7 +658,11 @@ def _body_layers(cfg: GPTConfig, params: Params, x: torch.Tensor,
     `rows / row_groups` rows (`_by_groups`) while the attention callback
     sees all rows at once: the speculative verify pass, whose k+1
     positions ride the batch axis position-major, so each group is one
-    plain decode step's shape."""
+    plain decode step's shape. Handed `ShardedParams`, the TP form
+    (`_tp_body_layers`)."""
+    if isinstance(params, ShardedParams):
+        return _tp_body_layers(cfg, params, x, per_layer_attn, num_layers,
+                               row_groups)
     eps = cfg.layer_norm_eps
     g = row_groups
     for i in range(num_layers if num_layers is not None
@@ -527,10 +684,33 @@ def _body_layers(cfg: GPTConfig, params: Params, x: torch.Tensor,
 
 
 def _head(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """LM head: explicit weight or tied embeddings."""
+    """LM head: explicit weight or tied embeddings. Over a TP group the
+    ranks' vocab-sharded logits are joined by `all_gather` (an int8 head
+    is replicated)."""
+    if isinstance(params, ShardedParams) and "lm_head.qweight" not in params:
+        return all_gather([
+            torch.matmul(x, q["lm_head.weight"]) if "lm_head.weight" in q
+            else torch.matmul(x, q["wte.weight"].t())
+            for q in params.ranks], dim=-1, group=params.group)
     if "lm_head.weight" in params or "lm_head.qweight" in params:
         return _apply_linear(params, "lm_head", x)
     return torch.matmul(x, params["wte.weight"].t())
+
+
+def _token_embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
+    """The token embedding rows of `ids`. Over a TP group each rank
+    looks up the ids inside its vocabulary rows (the others give 0) and
+    `all_reduce` adds the ranks' rows: exactly the one rank's row."""
+    if not isinstance(params, ShardedParams):
+        return params["wte.weight"][ids]
+    parts = []
+    for q, v0 in zip(params.ranks, params.vocab_starts):
+        w = q["wte.weight"]
+        loc = ids - v0
+        ok = (loc >= 0) & (loc < w.shape[0])
+        parts.append(torch.where(ok[..., None],
+                                 w[loc.clamp(0, w.shape[0] - 1)], 0))
+    return all_reduce(parts, params.group)
 
 
 def _masked_attend(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
@@ -553,8 +733,28 @@ def _kernel_scales(kc, vc) -> dict:
 
 
 def _check_impl(impl: str):
-    if impl not in ("masked", "ragged"):
-        raise ValueError(f"impl must be 'masked' or 'ragged', got {impl!r}")
+    if impl not in ("masked", "ragged", "ragged_tp"):
+        raise ValueError(f"impl must be 'masked', 'ragged' or 'ragged_tp', "
+                         f"got {impl!r}")
+
+
+def _shard_kernel_args(kc, vc) -> dict:
+    """A TP group's slabs as the sharded kernel entries take them: the
+    ranks' data tensors, and their scales for int8 slabs."""
+    kw = dict(k_cache=[slab_data(p) for p in kc],
+              v_cache=[slab_data(p) for p in vc])
+    if is_quantized(kc):
+        kw.update(k_scale=[p["s"] for p in kc],
+                  v_scale=[p["s"] for p in vc])
+    return kw
+
+
+def _per_shard(fn: Callable, q, kc, vc):
+    """`fn(q, kc, vc)` once per rank over a TP group's per-rank queries
+    and slabs (a list out), or once."""
+    if isinstance(kc, HeadShards):
+        return [fn(*a) for a in zip(q, kc, vc)]
+    return fn(q, kc, vc)
 
 
 def _slot_attend(q: torch.Tensor, kc, vc, pos: torch.Tensor,
@@ -575,9 +775,24 @@ def _slot_attend(q: torch.Tensor, kc, vc, pos: torch.Tensor,
     scales and widens in fp32; the masked path widens the slab to q's
     dtype first (as the reference's `dequant_slab(kc, q.dtype)`, which
     rounds to bf16 under bf16 weights) and runs the same math.
+
+    A TP group's slabs (`HeadShards`, q a per-rank list) run per rank:
+    "ragged" / "ragged_tp" through `sharded_ragged_decode_attention`
+    (the unsharded kernel on each rank's heads), "masked" the full-slab
+    path on each rank's slab; the output is per rank. "ragged_tp" over
+    an unsharded slab is "ragged".
     """
     _check_impl(impl)
-    if impl == "ragged":
+    if isinstance(kc, HeadShards) and impl != "masked":
+        from ..ops_cuda.decode_attention import \
+            sharded_ragged_decode_attention
+        return sharded_ragged_decode_attention(
+            q, lengths=(pos + 1).to(torch.int32),
+            **_shard_kernel_args(kc, vc))
+    if isinstance(kc, HeadShards):
+        return _per_shard(lambda a, b, c: _slot_attend(a, b, c, pos),
+                          q, kc, vc)
+    if impl != "masked":
         from ..ops_cuda.decode_attention import ragged_decode_attention
         return ragged_decode_attention(
             q.contiguous(), slab_data(kc), slab_data(vc),
@@ -604,9 +819,20 @@ def _slot_verify_attend(q: torch.Tensor, kc, vc, slot_of: torch.Tensor,
       through `slot_map` (K1, or K5 for int8 slabs); each (lane, head)
       runs in its own CTAs with block picks that depend only on the
       cache shape, so a virtual lane gets the plain step's bits.
+
+    A TP group's slabs run per rank, as in `_slot_attend`.
     """
     _check_impl(impl)
-    if impl == "ragged":
+    if isinstance(kc, HeadShards) and impl != "masked":
+        from ..ops_cuda.decode_attention import \
+            sharded_ragged_decode_attention
+        return sharded_ragged_decode_attention(
+            q, lengths=(q_pos + 1).to(torch.int32),
+            slot_map=slot_of.to(torch.int32), **_shard_kernel_args(kc, vc))
+    if isinstance(kc, HeadShards):
+        return _per_shard(lambda a, b, c: _slot_verify_attend(
+            a, b, c, slot_of, q_pos), q, kc, vc)
+    if impl != "masked":
         from ..ops_cuda.decode_attention import ragged_decode_attention
         return ragged_decode_attention(
             q.contiguous(), slab_data(kc), slab_data(vc),
@@ -646,9 +872,22 @@ def _paged_attend(q: torch.Tensor, kp, vp, tables: torch.Tensor,
       path on identical rows;
     - impl="ragged": the block-table flash-decode kernel (K4, or K6 for
       int8 pools), which reads only the live rows through the table.
+
+    A TP group's pools run per rank, as in `_slot_attend`
+    (`sharded_paged_ragged_decode_attention`).
     """
     _check_impl(impl)
-    if impl == "ragged":
+    if isinstance(kp, HeadShards) and impl != "masked":
+        from ..ops_cuda.decode_attention import \
+            sharded_paged_ragged_decode_attention
+        kw = _shard_kernel_args(kp, vp)
+        return sharded_paged_ragged_decode_attention(
+            q, kw.pop("k_cache"), kw.pop("v_cache"), tables,
+            (pos + 1).to(torch.int32), **kw)
+    if isinstance(kp, HeadShards):
+        return _per_shard(lambda a, b, c: _paged_attend(a, b, c, tables,
+                                                        pos), q, kp, vp)
+    if impl != "masked":
         from ..ops_cuda.decode_attention import paged_ragged_decode_attention
         return paged_ragged_decode_attention(
             q.contiguous(), slab_data(kp), slab_data(vp), tables,
@@ -665,20 +904,27 @@ def _paged_attend(q: torch.Tensor, kp, vp, tables: torch.Tensor,
 def _decode_forward(cfg: GPTConfig, params: Params, ids: torch.Tensor,
                     pos: int, k_cache: torch.Tensor, v_cache: torch.Tensor):
     """Cache-writing forward over `ids` (b, s) starting at absolute
-    `pos`; k_cache/v_cache (L, b, T, nh, hd) are written in place.
-    Returns (logits (b, s, vocab), k_cache, v_cache)."""
+    `pos`; k_cache/v_cache (L, b, T, nh, hd) are written in place (over
+    a TP group, `ShardedParams`: per-rank lists of (L, b, T, nh / tp,
+    hd) caches). Returns (logits (b, s, vocab), k_cache, v_cache)."""
     b, s = ids.shape
     dev = ids.device
     positions = pos + torch.arange(s, device=dev)
-    x = params["wte.weight"][ids] + params["wpe.weight"][positions][None]
-    T = k_cache.shape[2]
+    x = _token_embed(params, ids) + params["wpe.weight"][positions][None]
+    sharded = isinstance(k_cache, list)
+    T = (k_cache[0] if sharded else k_cache).shape[2]
     keep = (torch.arange(T, device=dev)[None, :]
             <= positions[:, None])[None, None]               # causal
 
+    def one(i, q, kn, vn, kc, vc):
+        kc[i, :, pos:pos + s] = kn.to(kc.dtype)
+        vc[i, :, pos:pos + s] = vn.to(vc.dtype)
+        return _masked_attend(q, kc[i], vc[i], keep)
+
     def attn(i, q, kn, vn):
-        k_cache[i, :, pos:pos + s] = kn.to(k_cache.dtype)
-        v_cache[i, :, pos:pos + s] = vn.to(v_cache.dtype)
-        return _masked_attend(q, k_cache[i], v_cache[i], keep)
+        if sharded:
+            return [one(i, *a) for a in zip(q, kn, vn, k_cache, v_cache)]
+        return one(i, q, kn, vn, k_cache, v_cache)
 
     x = _body_layers(cfg, params, x, attn)
     return _head(params, x), k_cache, v_cache

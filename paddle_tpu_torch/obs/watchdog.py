@@ -29,6 +29,14 @@ distinct programs than the configuration allows:
 The prefix copies and the page programs (gather, scatter, COW copy)
 run eagerly in the port, so they build nothing and have no budget.
 
+Every program key ends in the engine's TP group fingerprint (`()`
+without a group, `(tp, *rank ids)` with one: `nn/tp.py`), and each
+matcher is this engine's exact keys, fingerprint included
+(`paddle_tpu/obs/watchdog.py:74-82` pins `key[-1]`): sibling engines on
+other groups (a fleet's replicas) never match each other's programs,
+and a TP engine's budget is the unsharded engine's, since sharding
+adds no program.
+
 It keeps the reference's read side and family names (`counts`,
 `compiles_total`, `compiles_unexpected`, `budget_total`, `snapshot`,
 `families`), so the exposition and the stats digest read the same as

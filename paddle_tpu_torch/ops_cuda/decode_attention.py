@@ -33,6 +33,16 @@ launches in its own counter (`LAUNCHES`, `PAGED_LAUNCHES`,
 `QUANT_LAUNCHES`, `PAGED_QUANT_LAUNCHES`). `ragged_decode_reference` /
 `paged_decode_reference` are the full-slab masked attentions the
 results are held against.
+
+TP-sharded decode: `sharded_ragged_decode_attention` and
+`sharded_paged_ragged_decode_attention` (the reference's `shard_map`
+entries, `paddle_tpu/ops_pallas/decode_attention.py:598` / `:672`) take
+a TP group's per-rank slabs (each rank's contiguous `nh / tp` heads)
+and call the unsharded entry once per rank on that rank's queries and
+slab: K1 / K5 slotted, K4 / K6 paged, tp launches per call. Heads are
+independent in attention, so nothing crosses ranks; the visit counts
+depend on the lengths alone, equal on every rank, and are returned
+once. One slab (not a sequence) is the plain call.
 """
 from __future__ import annotations
 
@@ -48,7 +58,8 @@ __all__ = ["ragged_decode_attention", "paged_ragged_decode_attention",
            "ragged_decode_reference", "paged_decode_reference",
            "ragged_decode_split_plain", "paged_decode_split_plain",
            "pick_decode_blocks", "pick_paged_decode_blocks",
-           "cluster_size", "LAUNCHES",
+           "cluster_size", "sharded_ragged_decode_attention",
+           "sharded_paged_ragged_decode_attention", "LAUNCHES",
            "PAGED_LAUNCHES", "QUANT_LAUNCHES", "PAGED_QUANT_LAUNCHES",
            "launch_counter"]
 
@@ -460,3 +471,79 @@ def paged_ragged_decode_attention(q, kp, vp, tables, lengths,
         lambda: paged_decode_split_plain(q, kp, vp, tables, lengths, scale,
                                          block_k, num_splits, k_scale,
                                          v_scale))
+
+
+def _rank_queries(q, k_cache):
+    """Rank r's queries: q a per-rank sequence (returned as it is, the
+    output per rank), or one (B, [1,] nh, hd) tensor split into the
+    ranks' head blocks (the output joined back). Raises when the heads
+    do not split evenly or disagree with the slabs."""
+    tp = len(k_cache)
+    if isinstance(q, (list, tuple)):
+        if len(q) != tp:
+            raise ValueError(f"{len(q)} query shards for {tp} slabs")
+        return list(q), False
+    nh = q.shape[-2]
+    if nh % tp:
+        raise ValueError(f"num_heads {nh} not divisible by tp={tp}")
+    if any(k.shape[-2] != nh // tp for k in k_cache):
+        raise ValueError(f"slab heads {[k.shape[-2] for k in k_cache]} != "
+                         f"{nh // tp} per rank")
+    return [t.contiguous() for t in q.split(nh // tp, dim=-2)], True
+
+
+def _sharded(entry, q, k_cache, v_cache, args, k_scale, v_scale,
+             with_stats, kw):
+    if isinstance(k_cache, torch.Tensor):              # tp = 1
+        return entry(q, k_cache, v_cache, *args, with_stats=with_stats,
+                     k_scale=k_scale, v_scale=v_scale, **kw)
+    qs, joined = _rank_queries(q, k_cache)
+    ks = k_scale if k_scale is not None else [None] * len(qs)
+    vs = v_scale if v_scale is not None else [None] * len(qs)
+    outs, visits = [], None
+    for qr, kr, vr, ksr, vsr in zip(qs, k_cache, v_cache, ks, vs):
+        o = entry(qr.contiguous(), kr, vr, *args, with_stats=with_stats,
+                  k_scale=ksr, v_scale=vsr, **kw)
+        if with_stats:
+            o, visits = o          # the same on every rank: keep one
+        outs.append(o)
+    out = torch.cat(outs, dim=-2) if joined else outs
+    return (out, visits) if with_stats else out
+
+
+def sharded_ragged_decode_attention(q, k_cache, v_cache, lengths,
+                                    slot_map: Optional[torch.Tensor] = None,
+                                    block_k: Optional[int] = None,
+                                    num_splits: Optional[int] = None,
+                                    with_stats: bool = False,
+                                    k_scale=None, v_scale=None):
+    """`ragged_decode_attention` over a TP group's per-rank slabs (K1,
+    or K5 with the ranks' scales): `k_cache` / `v_cache` (and
+    `k_scale` / `v_scale` for int8) are sequences, rank r's slab (S, T,
+    nh / tp, hd) holding heads [r nh / tp, (r + 1) nh / tp). `q` is a
+    per-rank sequence (the output then per rank) or the full (B, [1,]
+    nh, hd) queries (split by heads; the output joined). One launch per
+    rank on CUDA tensors; the plain version per rank on CPU tensors.
+    `lengths`, `slot_map` and the block picks are the unsharded
+    entry's, shared by every rank; with `with_stats` the visit counts
+    are returned once. A single slab tensor is the plain call."""
+    return _sharded(ragged_decode_attention, q, k_cache, v_cache,
+                    (lengths,), k_scale, v_scale, with_stats,
+                    dict(slot_map=slot_map, block_k=block_k,
+                         num_splits=num_splits))
+
+
+def sharded_paged_ragged_decode_attention(q, k_pool, v_pool, tables,
+                                          lengths,
+                                          block_k: Optional[int] = None,
+                                          num_splits: Optional[int] = None,
+                                          with_stats: bool = False,
+                                          k_scale=None, v_scale=None):
+    """`paged_ragged_decode_attention` over a TP group's per-rank page
+    pools (K4, or K6 with the ranks' scale pools): page ids and block
+    tables are shared by the group, the page bytes split by heads, rank
+    r's pool (num_pages, page, nh / tp, hd). `q` and the output as in
+    `sharded_ragged_decode_attention`."""
+    return _sharded(paged_ragged_decode_attention, q, k_pool, v_pool,
+                    (tables, lengths), k_scale, v_scale, with_stats,
+                    dict(block_k=block_k, num_splits=num_splits))

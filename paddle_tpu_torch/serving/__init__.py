@@ -8,7 +8,9 @@ autoscaler (`AutoscalePolicy`, `FleetAutoscaler`, `ScaleSignals`), and
 the HTTP front door over an engine or a fleet (`LLMServer`, its
 scheduling thread `EngineWorker`, `ServerMetrics`) with its SLO
 admission (`SLOController`, `TenantPolicy`, `TokenBucket`, `Admission`,
-`SHED_REASONS`). `python -m paddle_tpu_torch.serving` runs the fleet
+`SHED_REASONS`), and TP-sharded serving (`make_tp_mesh`, the
+`KVManager` interface, `ShardedKVCacheManager`, `ShardedPagedKVCache`,
+`make_kv_manager`). `python -m paddle_tpu_torch.serving` runs the fleet
 kill soak, `python -m paddle_tpu_torch.serving.server` the front door's
 disconnect-and-drain soak."""
 from __future__ import annotations
@@ -30,6 +32,8 @@ from .prefix_cache import PrefixCache, PrefixNode
 from .sampler import (filtered_logits, sample_tokens,
                       sample_tokens_per_lane)
 from .server import EngineWorker, LLMServer, ServerMetrics
+from .sharded_kv import (KVManager, ShardedKVCacheManager,
+                         ShardedPagedKVCache, make_kv_manager, make_tp_mesh)
 from .slo import (SHED_REASONS, Admission, SLOController, TenantPolicy,
                   TokenBucket)
 
@@ -43,7 +47,9 @@ __all__ = ["LLMEngine", "SamplingParams", "GenerationResult",
            "REPLICA_STATES", "KVTier", "chunk_key", "AutoscalePolicy",
            "FleetAutoscaler", "ScaleSignals", "LLMServer", "EngineWorker",
            "ServerMetrics", "SLOController", "TenantPolicy", "TokenBucket",
-           "Admission", "SHED_REASONS"]
+           "Admission", "SHED_REASONS", "KVManager",
+           "ShardedKVCacheManager", "ShardedPagedKVCache",
+           "make_kv_manager", "make_tp_mesh"]
 
 # GPTConfig fields of the JAX package that select a TPU kernel and have
 # no meaning here (the port picks its kernels by device)

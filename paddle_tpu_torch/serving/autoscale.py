@@ -2,8 +2,12 @@
 preemptible capacity.
 
 The port of `paddle_tpu/serving/autoscale.py`, duck-typed against the
-port's `EngineFleet` (neither module imports the other). Three pieces,
-smallest-surface-first:
+port's `EngineFleet` (neither module imports the other). The unit of
+scale is a replica, which under `tp=k` is a TP group of k ranks
+(`EngineFleet._build_engine` gives a new replica the next group's
+ranks), so the policy's `min_replicas` / `max_replicas` count groups
+(the reference's `--max-replicas`, `paddle_tpu/serving/server.py:1722`).
+Three pieces, smallest-surface-first:
 
 - `ScaleSignals` — one frozen reading of the fleet's load: backlog per
   serving replica (fleet pending + engine queues), occupancy (KV page

@@ -130,6 +130,23 @@ The counterpart of `paddle_tpu/serving/engine.py`'s single-device core:
   (K1 slotted, K4 paged, K5 / K6 their int8 forms), "masked" the
   full-slab `_masked_attend`; "auto" picks "ragged" on a CUDA device
   and "masked" on the CPU.
+- TP-SHARDED SERVING (`tp=k`, or `mesh=serving.make_tp_mesh(k)`): a
+  group of k ranks in this process, all on the engine's device
+  (`nn/tp.py`). The weights are placed by the trainer's layout
+  (`sharded_kv.shard_serving_params` over `models.gpt.tp_param_specs`:
+  qkv head-aligned and fc1 by columns, out and fc2 by rows, the
+  embedding by vocabulary rows), the KV slabs per rank over each
+  rank's heads (`sharded_kv.ShardedKVCacheManager` /
+  `ShardedPagedKVCache`), and every rank runs the decode kernel on its
+  own heads ("ragged" resolves to "ragged_tp":
+  `sharded_ragged_decode_attention`, tp launches a layer). Ranks meet
+  only in `nn.tp.all_reduce` / `all_gather`, 2 L + 2 per decode step
+  and per prefill call with fp weights (`stats()["tp_collectives"]`).
+  The scheduler, its mirrors and every payload are the unsharded
+  engine's; program keys end in the group's fingerprint. Inside one
+  degree the invariants below hold bitwise; across degrees the
+  logits differ by the partial sums' rounding and the greedy streams
+  agree wherever the top-2 margin exceeds it.
 
 Numerics: under "masked", a request decoded beside others is bitwise
 identical to the same request decoded alone, for any
@@ -169,9 +186,12 @@ import torch
 from ..core import DeviceLike, resolve_device
 from .. import profiler
 from ..models.gpt import (BLOCK_LINEARS, _block_params, _body_layers,
-                          _by_groups, _head, _ln, _masked_attend,
-                          _paged_attend, _paged_verify_attend, _slot_attend,
-                          _slot_verify_attend)
+                          _by_groups, _each, _head, _ln, _masked_attend,
+                          _paged_attend, _paged_verify_attend, _per_shard,
+                          _slot_attend, _slot_verify_attend, _token_embed,
+                          tp_collectives_per_step, tp_param_specs)
+from ..nn.tp import TPGroup, make_tp_mesh, mesh_fingerprint, \
+    require_tp_heads
 from ..obs import CompileWatchdog, FlightRecorder, LifecycleTracer
 from ..quantization import abs_max_scale, quantize_tensor
 from ..quantization.kv import (dequant_slab, kv_update, map_slab,
@@ -179,26 +199,17 @@ from ..quantization.kv import (dequant_slab, kv_update, map_slab,
 from ..testing import faults
 from .graphs import (BlockResult, BlockRunner, GraphCaptureError,
                      LaneState, PrefillRunner)
-from .kv_cache import KVCacheManager
 from .metrics import ServingMetrics
-from .paged_kv import (NoFreePages, PagedKVCache, TreePageAllocator,
-                       paged_rows)
+from .paged_kv import NoFreePages, TreePageAllocator, paged_rows
 from .prefix_cache import PrefixCache
 from .sampler import (DOMAIN_FIRST, compact_block, sample_tokens,
                       sample_tokens_per_lane, sample_verify_tokens,
                       speculative_accept)
+from .sharded_kv import make_kv_manager, shard_serving_params
 
 __all__ = ["SamplingParams", "GenerationResult", "EngineOverloadError",
            "LLMEngine"]
 
-# JAX-engine knobs of features the port does not have yet: the values
-# that mean "feature off" (what the port does) are accepted, any other
-# value raises, naming the feature's open item of ROADMAP.md. `tp` is
-# also a key a JAX engine's snapshot carries.
-_UNSUPPORTED_KNOBS = {
-    "mesh": ((None,), "TP-sharded serving", "Queue 1 item 12"),
-    "tp": ((1,), "TP-sharded serving", "Queue 1 item 12"),
-}
 # monotonic default engine names (an id() can be reused after gc, which
 # would let a new engine take a live one's stats-provider slot)
 _ENGINE_IDS = itertools.count()
@@ -382,7 +393,7 @@ def _default_buckets(max_seq: int) -> List[int]:
 
 def _embed(params, ids: torch.Tensor, positions: torch.Tensor):
     pos = torch.clamp(positions, 0, params["wpe.weight"].shape[0] - 1)
-    return params["wte.weight"][ids] + params["wpe.weight"][pos]
+    return _token_embed(params, ids) + params["wpe.weight"][pos]
 
 
 def _prefill_rows(k0, slot: torch.Tensor, q_pos: torch.Tensor,
@@ -446,10 +457,11 @@ def _prefill_forward(cfg, params, k_list, v_list, ids: torch.Tensor,
             <= q_pos[:, None])[None, None]                    # (1,1,L,T)
 
     def attn(i, q, kn, vn):
-        kv_update(k_list[i], rows, kn[0])
-        kv_update(v_list[i], rows, vn[0])
-        return _masked_attend(q, lane_view(k_list[i], q.dtype),
-                              lane_view(v_list[i], q.dtype), keep)
+        kv_update(k_list[i], rows, _each(kn, lambda t: t[0]))
+        kv_update(v_list[i], rows, _each(vn, lambda t: t[0]))
+        return _per_shard(lambda qr, kc, vc: _masked_attend(
+            qr, lane_view(kc, qr.dtype), lane_view(vc, qr.dtype), keep),
+            q, k_list[i], v_list[i])
 
     x = _body_layers(cfg, params, x, attn)
     return _head(params, x.index_select(1, length - 1))[0, 0].float()
@@ -479,8 +491,8 @@ def _decode_block(cfg, params, k_list, v_list, cur, pos, rem, act, salt,
             rows = paged_rows(tables, pos, page_size, live=act)
 
         def attn(i, q, kn, vn, rows=rows, pos=pos):
-            kv_update(k_list[i], rows, kn[:, 0])
-            kv_update(v_list[i], rows, vn[:, 0])
+            kv_update(k_list[i], rows, _each(kn, lambda t: t[:, 0]))
+            kv_update(v_list[i], rows, _each(vn, lambda t: t[:, 0]))
             if tables is None:
                 return _slot_attend(q, k_list[i], v_list[i], pos,
                                     attend_impl)
@@ -636,8 +648,8 @@ def _spec_decode_block(cfg, params, draft_params, k_list, v_list, cur, pos,
                 rows = paged_rows(tables, apos, page_size, live=ok)
 
             def dattn(i, q, kn, vn, rows=rows, apos=apos):
-                kv_update(k_list[i], rows, kn[:, 0])
-                kv_update(v_list[i], rows, vn[:, 0])
+                kv_update(k_list[i], rows, _each(kn, lambda t: t[:, 0]))
+                kv_update(v_list[i], rows, _each(vn, lambda t: t[:, 0]))
                 if tables is None:
                     return _slot_attend(q, k_list[i], v_list[i], apos,
                                         attend_impl)
@@ -665,8 +677,8 @@ def _spec_decode_block(cfg, params, draft_params, k_list, v_list, cur, pos,
                                live=act_flat & (q_flat < T))
 
         def vattn(i, q, kn, vn):
-            kv_update(k_list[i], vrows, kn[:, 0])
-            kv_update(v_list[i], vrows, vn[:, 0])
+            kv_update(k_list[i], vrows, _each(kn, lambda t: t[:, 0]))
+            kv_update(v_list[i], vrows, _each(vn, lambda t: t[:, 0]))
             if tables is None:
                 return _slot_verify_attend(q, k_list[i], v_list[i],
                                            slot_of, a_flat, attend_impl)
@@ -741,6 +753,11 @@ class LLMEngine:
     Fleet KV tier: `kv_tier` (default None), a `serving.KVTier` of the
     engine's page size, shared with other engines (`attach_kv_tier`).
 
+    Tensor parallelism: `tp` (default 1) serves over a group of `tp`
+    ranks on this engine's device (`make_tp_mesh(tp)`); `mesh` a group
+    of one's own (`serving.make_tp_mesh(k, ranks=...)`), whose degree a
+    `tp` other than 1 must equal. The heads must divide by the degree.
+
     Observability: `trace` (default True) records lifecycle events into
     a ring of `trace_capacity` (4096) events; `flight_dir` (default
     None: reports kept in memory only) is where post-mortems are
@@ -768,20 +785,32 @@ class LLMEngine:
                  trace: bool = True, trace_capacity: int = 4096,
                  flight_dir: Optional[str] = None,
                  name: Optional[str] = None, register_stats: bool = True,
-                 kv_tier=None, **knobs):
-        for knob, value in knobs.items():
-            if knob not in _UNSUPPORTED_KNOBS:
-                raise TypeError(f"LLMEngine got an unexpected keyword "
-                                f"argument {knob!r}")
-            off, feature, item = _UNSUPPORTED_KNOBS[knob]
-            if not any(value is o or value == o for o in off):
-                raise NotImplementedError(
-                    f"{knob}={value!r}: {feature} is not ported to the "
-                    f"PyTorch engine yet (ROADMAP.md, {item})")
+                 kv_tier=None, mesh: Optional[TPGroup] = None, tp: int = 1):
         cfg = model.cfg
         self.model = model
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the TP group (`paddle_tpu/serving/engine.py:511-530`): `tp`
+        # alone builds one over the engine's device; a group of one rank
+        # serves the unsharded path under its own fingerprint
+        if int(tp) < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if mesh is not None:
+            if not isinstance(mesh, TPGroup):
+                raise TypeError(f"mesh must be a TP group "
+                                f"(serving.make_tp_mesh), got "
+                                f"{type(mesh).__name__}")
+            if int(tp) not in (1, mesh.tp):
+                raise ValueError(f"tp={tp} disagrees with the mesh's "
+                                 f"degree ({mesh.tp})")
+        elif int(tp) > 1:
+            mesh = make_tp_mesh(int(tp))
+        if mesh is not None:
+            require_tp_heads(cfg.num_heads, mesh.tp)
+            mesh = mesh.bind(self.device)
+        self.mesh = mesh
+        self.tp = mesh.tp if mesh is not None else 1
+        self._mesh_fp = mesh_fingerprint(mesh)
         self.max_seq = int(max_seq or cfg.max_seq_len)
         if not 1 <= self.max_seq <= cfg.max_seq_len:
             raise ValueError(f"max_seq {self.max_seq} outside [1, "
@@ -799,19 +828,23 @@ class LLMEngine:
         self.max_retries = int(max_retries)
         self.retry_backoff_s = float(retry_backoff_s)
         self.retry_backoff_max_s = float(retry_backoff_max_s)
-        if attend_impl not in ("auto", "masked", "ragged"):
-            raise ValueError(f"attend_impl must be 'auto', 'masked' or "
-                             f"'ragged', got {attend_impl!r}")
+        if attend_impl not in ("auto", "masked", "ragged", "ragged_tp"):
+            raise ValueError(f"attend_impl must be 'auto', 'masked', "
+                             f"'ragged' or 'ragged_tp', got {attend_impl!r}")
         if attend_impl == "auto":
             attend_impl = "ragged" if self.device.type == "cuda" \
                 else "masked"
+        if attend_impl == "ragged" and self.tp > 1:
+            # the kernel per rank over its heads; the masked path runs
+            # the full-slab math per rank the same way
+            attend_impl = "ragged_tp"
         self.attend_impl = attend_impl
         self.seed = int(seed)
         # parameters AND buffers: an int8-converted model keeps its codes
         # and scales in buffers; _apply_linear dispatches on the keys
-        self._params = {k: v.to(self.device)
-                        for k, v in model.serving_params().items()}
-        dtype = self._params["wte.weight"].dtype
+        full = {k: v.to(self.device)
+                for k, v in model.serving_params().items()}
+        dtype = full["wte.weight"].dtype
         if speculate_k < 0:
             raise ValueError("speculate_k must be >= 0")
         self.speculate_k = int(speculate_k)
@@ -837,26 +870,41 @@ class LLMEngine:
             self.spec_rounds = max(
                 1, self.decode_block_size // (self.speculate_k + 1))
             if self.draft == "int8":
-                self._draft_params = _int8_draft_params(cfg, self._params,
-                                                        dl)
+                self._draft_params = _int8_draft_params(cfg, full, dl)
         elif draft_layers is not None:
             raise ValueError("draft_layers needs speculate_k > 0")
+        self._params = full
+        # collectives of one forward (decode step or prefill call)
+        self._tp_per_step = 0
+        if self.tp > 1:
+            self._tp_per_step = tp_collectives_per_step(cfg, full)
+            # the weights placed by the trainer's layout (the int8
+            # draft's replicated linears stay whole)
+            self._params = shard_serving_params(
+                full, tp_param_specs(cfg, full), self.mesh)
+            if self._draft_params is not None:
+                self._draft_params = shard_serving_params(
+                    self._draft_params,
+                    tp_param_specs(cfg, self._draft_params), self.mesh)
+        del full
         if kv_layout not in ("slotted", "paged"):
             raise ValueError(f"kv_layout must be 'slotted' or 'paged', "
                              f"got {kv_layout!r}")
         self.paged = kv_layout == "paged"
         if prefix_block < 1:
             raise ValueError("prefix_block must be >= 1")
-        dims = (cfg.num_layers, self.max_slots, self.max_seq,
-                cfg.num_heads, cfg.head_dim, dtype, self.device)
+        dims = dict(num_layers=cfg.num_layers, max_slots=self.max_slots,
+                    max_seq=self.max_seq, num_heads=cfg.num_heads,
+                    head_dim=cfg.head_dim, dtype=dtype, device=self.device,
+                    kv_dtype=kv_dtype)
         if self.paged:
             if page_size is None:
                 page_size = 64
                 while page_size > 1 and self.max_seq % page_size:
                     page_size //= 2
-            self.cache = PagedKVCache(*dims, page_size=int(page_size),
-                                      num_pages=kv_pages,
-                                      kv_dtype=kv_dtype)
+            self.cache = make_kv_manager("paged", self.mesh, **dims,
+                                         page_size=int(page_size),
+                                         num_pages=kv_pages)
             self.page_size = self.cache.page_size
             self.kv_pages = self.cache.num_pages
             # the prefix chunk IS the page: a hit binds the tree's pages
@@ -882,15 +930,15 @@ class LLMEngine:
                 raise ValueError("prefix_pool_pages must be >= 0")
             self.prefix_pool_pages = int(prefix_pool_pages) \
                 if prefix_cache else 0
-            self.cache = KVCacheManager(
-                *dims, kv_dtype=kv_dtype,
+            self.cache = make_kv_manager(
+                "slotted", self.mesh, **dims,
                 prefix_pool_pages=self.prefix_pool_pages,
                 prefix_block=self.prefix_block)
             self.prefix = PrefixCache(self.prefix_block,
                                       self.prefix_pool_pages) \
                 if self.prefix_pool_pages > 0 else None
         self.kv_dtype = self.cache.kv_dtype
-        if attend_impl == "ragged" and not self.cache.quantized \
+        if attend_impl != "masked" and not self.cache.quantized \
                 and self.cache.slab_dtype != dtype:
             raise ValueError(f"attend_impl='ragged' needs the cache in the "
                              f"weights' dtype ({dtype}) or int8, got "
@@ -973,7 +1021,7 @@ class LLMEngine:
         if kv_tier is not None:
             self.attach_kv_tier(kv_tier)
         # program keys, shaped like the JAX engine's trace-counter keys
-        # (the trailing () is its mesh fingerprint: single device), and
+        # (ending in the group's fingerprint, () without one), and
         # the builds of each program (on a card: its CUDA graph
         # capture), which the watchdog budgets at one per program
         self._dtype_key = (f"{str(dtype).replace('torch.', '')}:"
@@ -982,13 +1030,13 @@ class LLMEngine:
         self._decode_key = (
             "paged_decode" if self.paged else "decode", self.max_slots,
             self.max_seq, self.decode_block_size, self.attend_impl,
-            *paged_head, self._dtype_key, ())
+            *paged_head, self._dtype_key, self._mesh_fp)
         self._spec_key = (
             "paged_spec_decode" if self.paged else "spec_decode",
             self.max_slots, self.max_seq, self.spec_rounds,
             self.speculate_k, self.draft, self.draft_layers,
-            self.attend_impl, *paged_head, self._dtype_key, ()) \
-            if self.speculate_k else None
+            self.attend_impl, *paged_head, self._dtype_key,
+            self._mesh_fp) if self.speculate_k else None
         self._captures: Dict[tuple, int] = {}
         # observability: the lifecycle ring, the capture watchdog (over
         # the dict above, never the engine) and the flight recorder;
@@ -1019,7 +1067,7 @@ class LLMEngine:
         head = ("paged_prefill", self.max_seq, self.page_size,
                 self.kv_pages) if self.paged else \
             ("prefill", self.max_slots, self.max_seq)
-        return head + (rows, self._dtype_key, ())
+        return head + (rows, self._dtype_key, self._mesh_fp)
 
     def _count_build(self, key: tuple):
         self._captures[key] = self._captures.get(key, 0) + 1
@@ -1512,7 +1560,15 @@ class LLMEngine:
         return max(0, held - reclaimable) + demand
 
     def stats(self) -> Dict[str, float]:
-        return self.metrics.snapshot()
+        """The metrics snapshot, plus the TP degree, the collectives the
+        engine's forwards ran (`tp_collectives`: all-reduces and
+        all-gathers, counted per replay on a card; 0 at tp 1) and the
+        collectives of one forward (`tp_collectives_per_step`)."""
+        out = self.metrics.snapshot()
+        out.update(tp=self.tp, tp_collectives=self.mesh.collectives
+                   if self.mesh is not None else 0,
+                   tp_collectives_per_step=self._tp_per_step)
+        return out
 
     # ------------------------------------------------------------------ #
     # observability
@@ -2823,6 +2879,9 @@ class LLMEngine:
                 "draft": self.draft,
                 "draft_layers": self.draft_layers or None,
                 "device": str(self.device),
+                # the degree only: resume() builds a group of it over its
+                # device (overrides may pin one: `mesh=`)
+                "tp": self.tp,
                 # the observability settings ride along, so a resumed
                 # engine keeps the deployment's tracing and flight dir
                 "trace": self.tracer.enabled,

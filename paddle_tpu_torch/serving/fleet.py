@@ -66,8 +66,13 @@ clean), the fleet's own `FlightRecorder` (a failover dumps a post-mortem
 naming every re-admitted and re-submitted rid), and `export_trace()`
 with one Perfetto process per replica plus a fleet track.
 
-`tp > 1` raises `NotImplementedError` (TP-sharded serving, ROADMAP.md
-Queue 1 item 12).
+TP groups (`tp=k` in the engine kwargs): a replica is a TP group of k
+ranks (`paddle_tpu/serving/fleet.py:604-621`). Replica i serves on the
+logical ranks `[i*k, (i+1)*k)` (`_build_engine`), every group on the
+fleet's one device; the health machine, the router, the failover and
+the autoscaler see one engine per group, so a kill takes out the whole
+group and its requests drain onto the surviving groups through the
+group-agnostic adoption payloads.
 """
 from __future__ import annotations
 
@@ -84,6 +89,7 @@ from ..testing import faults
 from .engine import (EngineOverloadError, GenerationResult, LLMEngine,
                      SamplingParams)
 from .kv_tier import KVTier
+from .sharded_kv import make_tp_mesh
 
 __all__ = ["REPLICA_STATES", "ReplicaHealth", "EngineFleet"]
 
@@ -346,7 +352,8 @@ class EngineFleet:
     (`max_slots`, `max_seq`, `decode_block_size`, ...). Replicas are
     homogeneous by construction — failover re-ingest requires it
     (bit-identity of a continuation needs the same `max_seq`/`seed`
-    geometry on the peer). `tp > 1` raises `NotImplementedError`.
+    geometry on the peer). With `tp=k` each replica is a TP group of k
+    ranks (`_build_engine`).
 
     `snapshot_every` trades failover freshness against host work: a
     snapshot reads the engine's host state and leaves its dispatched
@@ -551,12 +558,16 @@ class EngineFleet:
         """A fresh replica engine over the shared model. It captures its
         own CUDA graphs at its first decode block and prefill (on the
         canary, for a spawned or revived replica), budgeted by its own
-        watchdog. TP groups (`tp > 1`) are not ported."""
+        watchdog. With `tp=k` (and no `mesh`) in the engine kwargs,
+        replica `idx` is the TP group of logical ranks `[idx*k,
+        (idx+1)*k)`, as the reference gives it devices `[idx*k,
+        (idx+1)*k)`: its program keys end in that group's fingerprint,
+        apart from every other replica's."""
         kw = dict(self._engine_kwargs)
-        if int(kw.get("tp", 1) or 1) > 1 or kw.get("mesh") is not None:
-            raise NotImplementedError(
-                "tp > 1: TP-sharded replicas are not ported to the "
-                "PyTorch fleet yet (ROADMAP.md, Queue 1 item 12)")
+        tp = int(kw.get("tp", 1) or 1)
+        if tp > 1 and kw.get("mesh") is None:
+            kw["mesh"] = make_tp_mesh(tp, ranks=range(idx * tp,
+                                                      (idx + 1) * tp))
         eng = LLMEngine(self.model, name=f"{self.name}_r{idx}",
                         register_stats=self._register_stats, **kw)
         if self._kv_tier is not None:

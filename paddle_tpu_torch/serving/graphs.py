@@ -39,7 +39,11 @@ plain program continues from the speculative one's lane state.
 - Kernel launch counters count Python calls, and a replay makes none:
   `counted_capture` records each counter's launches over the capture
   (restoring every counter afterwards, since warm-up and capture run no
-  processed block) and `count_replay` adds them on every replay.
+  processed block) and `count_replay` adds them on every replay. A TP
+  engine's collective counters (`nn/tp.py`) are such counters too.
+- Under a TP group every rank's kernels and the collectives between
+  them run on the engine's one device, so a block, a one-step program
+  or a prefill is still one capture and one replay.
 
 Prefill: an engine owns one `PrefillRunner` per prefill row count it
 uses, made at the first prefill of that many rows, as the JAX engine

@@ -72,7 +72,9 @@ class KVCacheManager:
 
     def _new_slab(self, shape):
         """One zeroed per-layer slab in the configured kv_dtype (a plain
-        tensor, or the quantized {"q", "s"} pair)."""
+        tensor, or the quantized {"q", "s"} pair): the seam through
+        which `_alloc_slabs` and `reallocate_pool` make every slab, and
+        which the TP-sharded managers override (`sharded_kv.py`)."""
         return make_slab(shape, self.slab_dtype, self.quantized,
                          self.device)
 

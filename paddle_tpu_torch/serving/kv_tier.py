@@ -13,6 +13,11 @@ Store: the byte-blob API of `ps.SparseTable` (threaded shards; with
 cold chunks spill to disk under RAM pressure and come back on the next
 hit).
 
+A TP engine publishes and binds through the same payload: its pool
+joins its ranks' heads on the way out and splits them on the way in
+(`paged_kv.PagedKVCache.gather_pages` / `scatter_pages`), so a chunk
+published at one degree binds at any other.
+
 Keying: chunk i covers tokens [i*page_size, (i+1)*page_size). A row's
 K/V depend on every earlier token, so a chunk's key hashes the WHOLE
 aligned prefix up to and including the chunk (`chunk_key`, equal to the

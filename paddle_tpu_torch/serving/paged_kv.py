@@ -35,7 +35,11 @@ The counterpart of `paddle_tpu/serving/paged_kv.py`:
   `[n, page_size, heads, head_dim]` stack, or `{"q", "s"}` under int8 —
   the pool slabs' own layout, so a JAX engine's payload uploads as it
   is. Both are eager index ops (the reference's page programs are
-  jitted XLA gathers and scatters, not kernels).
+  jitted XLA gathers and scatters, not kernels). A TP group's pool
+  (`serving/sharded_kv.py`) joins its ranks' heads into that layout on
+  the way out and splits them on the way in, so a payload is the same
+  bytes at every degree (the reference's "the wire format never sees
+  the mesh").
 
 Numerics: `pages_per_seq * page_size == max_seq` is enforced, so the
 masked paged attention gathers a lane's pages into exactly the
@@ -50,7 +54,9 @@ import numpy as np
 import torch
 
 from ..core import DeviceLike, host_tensor
-from ..quantization.kv import is_quantized, slab_leaves
+from ..quantization.kv import (HeadShards, is_quantized, join_heads,
+                               slab_data, slab_leaves, slab_parts,
+                               split_heads)
 from .kv_cache import KVCacheManager
 
 __all__ = ["NoFreePages", "PagePool", "TreePageAllocator", "PagedKVCache",
@@ -325,8 +331,11 @@ class PagedKVCache(KVCacheManager):
             torch.cuda.current_stream(self.device).synchronize()
         views = iter(_typed(host, off, t, (n, *t.shape[1:]))
                      for t, off in zip(leaves, offs))
-        rows = [{"q": next(views), "s": next(views)} if is_quantized(slab)
-                else next(views) for slab in slabs]
+        # a TP group's ranks' rows joined by heads (a copy); one rank's
+        # rows are views of the host buffer
+        rows = [join_heads([{"q": next(views), "s": next(views)}
+                            if is_quantized(p) else next(views)
+                            for p in slab_parts(slab)]) for slab in slabs]
         L = self.num_layers
         return rows[:L], rows[L:]
 
@@ -347,16 +356,28 @@ class PagedKVCache(KVCacheManager):
         for slab, rows in zip(slabs, list(k_rows) + list(v_rows)):
             if isinstance(rows, dict) != is_quantized(slab):
                 raise ValueError("payload and pool differ in kv_dtype")
-            parts = [rows["q"], rows["s"]] if isinstance(rows, dict) \
-                else [rows]
-            for t, a in zip(slab_leaves(slab), parts):
-                a = host_tensor(a)
-                want = (n, *t.shape[1:])
-                if tuple(a.shape) != want or a.dtype != t.dtype:
-                    raise ValueError(f"payload rows {tuple(a.shape)} "
-                                     f"{a.dtype} != pool rows {want} "
-                                     f"{t.dtype}")
-                pairs.append((t, a))
+            rows = {k: host_tensor(a) for k, a in rows.items()} \
+                if isinstance(rows, dict) else host_tensor(rows)
+            if isinstance(slab, HeadShards):
+                heads = [slab_data(p).shape[-2] for p in slab]
+                full = (rows["q"] if isinstance(rows, dict) else rows
+                        ).shape[-2]
+                if full != sum(heads):
+                    raise ValueError(f"payload heads {full} != pool heads "
+                                     f"{sum(heads)}")
+                ranks = split_heads(rows, heads)
+            else:
+                ranks = [rows]
+            for part, prow in zip(slab_parts(slab), ranks):
+                leaves = [prow["q"], prow["s"]] if isinstance(prow, dict) \
+                    else [prow]
+                for t, a in zip(slab_leaves(part), leaves):
+                    want = (n, *t.shape[1:])
+                    if tuple(a.shape) != want or a.dtype != t.dtype:
+                        raise ValueError(f"payload rows {tuple(a.shape)} "
+                                         f"{a.dtype} != pool rows {want} "
+                                         f"{t.dtype}")
+                    pairs.append((t, a))
         idx = torch.tensor(list(pages), dtype=torch.long,
                            device=self.device)
         for t, a in pairs:

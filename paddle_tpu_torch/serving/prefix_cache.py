@@ -10,7 +10,9 @@ numpy and dicts; it touches no device):
   (`KVCacheManager`'s `[pool_pages, prefix_block, heads, head_dim]`
   slabs), or, under the paged layout, a page of the one shared
   `PagePool` (`paged_kv.TreePageAllocator`). The tree hands out page
-  ids and never touches the device.
+  ids and never touches the device. Under a TP group the pool's slabs
+  are per-rank (`sharded_kv.ShardedKVCacheManager`): a page id names the
+  same page on every rank, and the copies move every rank's rows.
 - A node at depth d commits to the exact d * prefix_block leading
   tokens, from position 0, and a K/V row depends only on the tokens at
   and before it and its position: the rows behind a matched path are

@@ -1754,7 +1754,7 @@ def soak_parser() -> argparse.ArgumentParser:
                     help="autoscaler floor (and the fleet's starting "
                          "size in --autoscale mode)")
     ap.add_argument("--max-replicas", type=int, default=3,
-                    help="autoscaler ceiling")
+                    help="autoscaler ceiling (TP GROUPS when --tp>1)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
@@ -1793,8 +1793,9 @@ def soak_parser() -> argparse.ArgumentParser:
                          "the checkpoint's first blocks, or an "
                          "int8-quantized copy")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel group size; > 1 is not "
-                         "ported (raises NotImplementedError)")
+                    help="tensor-parallel group size: the backend (each "
+                         "fleet replica) serves on a TP group of this "
+                         "many ranks on the device")
     ap.add_argument("--tail-gate", type=float, default=400.0,
                     help="fail if steady-state ttft_p99_ms divided by "
                          "the platform's decode_ms_per_token exceeds "
@@ -1804,13 +1805,6 @@ def soak_parser() -> argparse.ArgumentParser:
                     help="'cuda' (default; raises without a card) or "
                          "'cpu'")
     return ap
-
-
-def _check_tp(args):
-    if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1: TP-sharded serving is not ported to the PyTorch "
-            "engine yet (ROADMAP.md, Queue 1 item 12)")
 
 
 def main(argv=None) -> int:
@@ -1824,7 +1818,6 @@ def main(argv=None) -> int:
     exposition parser, a 429 without Retry-After, no shed at all, the
     tail gate, a leaked page or a broken autoscale contract."""
     args = soak_parser().parse_args(argv)
-    _check_tp(args)
     from ..models import gpt_tiny
     model = gpt_tiny(seed=args.seed, device=args.device)
     model.eval()
@@ -1846,7 +1839,6 @@ def run_soak(model, args, served=None) -> Tuple[int, Dict, Dict]:
     server (whose streams the tail gate reads), `ttft_during` /
     `ttft_after` the sample counts of the two TTFT windows."""
     import signal
-    _check_tp(args)
     if threading.current_thread() is not threading.main_thread():
         raise RuntimeError("the soak drains through a real SIGTERM: run "
                            "it on the main thread")
@@ -2058,6 +2050,13 @@ async def _soak(model, args, served=None) -> Tuple[int, Dict, Dict]:
         # soak asserts the same zero-stranded/bit-identity/tail
         # contracts hold with it on, which the accept rule guarantees
         eng_kw.update(speculate_k=args.speculate, draft=args.draft)
+    if args.tp > 1:
+        # TP-sharded serving threads through the same kwargs: the lone
+        # backend serves on one TP group, a fleet one group per replica
+        # (`fleet._build_engine` gives each its own ranks), and the
+        # reference engine below re-serves on the same degree. Each
+        # backend warms its own groups on the worker (`_start_warm`).
+        eng_kw.update(tp=args.tp)
 
     # every FleetAutoscaler the soak attaches (the pre-drain backend's
     # and, after a restart, the resumed backend's) — the verdict sums

@@ -32,7 +32,15 @@ share its calls. This script measures, at GPT-small widths in bf16:
    tokens, prefix cache off) served, with its TTFT p50 / p99 and
    tokens/s.
 
-    python3 scripts/prefill_row_probe.py [--out result.json]
+With `--tp 2 4` the probe runs at the per-rank shapes of TP-sharded
+serving instead (`LLMEngine(tp=k)`, every rank on the one card): part 1
+over each rank's GEMMs (qkv and fc1 with 1/k of the columns, out and
+fc2 with 1/k of the rows) and attention's products over 12/k heads, and
+part 2 through engines of each degree under the designs "no floor"
+and "floor 128" (the grid designs are an unsharded forward); part 3 is
+skipped.
+
+    python3 scripts/prefill_row_probe.py [--tp 2 4] [--out result.json]
 
 Needs one card; prints the card's name and power limit.
 """
@@ -57,9 +65,10 @@ ROWS = (16, 32, 64, 128, 192, 256, 384, 512, 640, 768, 1024)
 DESIGNS = ("no floor", "floor 128", "grid 64", "grid 128")
 
 
-def probe_ops():
+def probe_ops(tp: int = 1):
     """{op: {R: rows differing from one 1024-row call}}: calls of R rows
-    over the first R * (1024 // R) rows."""
+    over the first R * (1024 // R) rows; at `tp` > 1 one rank's GEMMs
+    and attention over its 12 / tp heads."""
     from paddle_tpu_torch.models import gpt as G
     g = torch.Generator(device="cuda").manual_seed(0)
     dt = torch.bfloat16
@@ -69,7 +78,10 @@ def probe_ops():
                 * scale).to(dt)
 
     ops = {}
-    for k, n in GEMMS:
+    gemms = GEMMS if tp == 1 else ((768, 2304 // tp), (768 // tp, 768),
+                                   (768, 3072 // tp), (3072 // tp, 768))
+    nh = 12 // tp
+    for k, n in gemms:
         w, x = rnd(k, n, scale=0.02), rnd(1024, 1, k)
         ops[f"matmul {k}x{n}"] = (lambda t, w=w: torch.matmul(t, w), x)
     lw, lb = rnd(768), rnd(768)
@@ -78,14 +90,14 @@ def probe_ops():
         t, approximate="tanh"), rnd(1024, 1, 3072))
     ops["softmax 1024 fp32"] = (lambda t: torch.softmax(t, dim=-1),
                                 rnd(1024, 12, 1024).float())
-    kc, vc = rnd(1, 1024, 12, 64), rnd(1, 1024, 12, 64)
-    ops["scores q.k 12x64x1024"] = (
+    kc, vc = rnd(1, 1024, nh, 64), rnd(1, 1024, nh, 64)
+    ops[f"scores q.k {nh}x64x1024"] = (
         lambda t: torch.einsum("bqnd,bknd->bnqk", t.transpose(0, 1).float(),
                                kc.float())[0].transpose(0, 1),
-        rnd(1024, 1, 12, 64))
-    wts = torch.softmax(torch.randn(1024, 1, 12, 1024, device="cuda",
+        rnd(1024, 1, nh, 64))
+    wts = torch.softmax(torch.randn(1024, 1, nh, 1024, device="cuda",
                                     generator=g), -1).to(dt)
-    ops["weights.v 12x1024x64"] = (
+    ops[f"weights.v {nh}x1024x64"] = (
         lambda t: torch.einsum("bnqk,bknd->bqnd", t.permute(1, 2, 0, 3),
                                vc).transpose(0, 1),
         wts)
@@ -193,14 +205,17 @@ def load_4g(vocab):
 def ingest_all(E, eng, prompts):
     """Prefill every prompt through the engine's admission path (cache
     hit, suffix prefill, insert) one at a time; returns per request the
-    K/V rows of every layer and the first-token logits, on the host."""
+    K/V rows of every layer (a TP engine's ranks' heads joined) and the
+    first-token logits, on the host."""
+    from paddle_tpu_torch.quantization.kv import slab_parts
     out = []
     for i, p in enumerate(prompts):
         req = E._Request(i, p, E.SamplingParams(max_new_tokens=1), 0.0)
         slot = eng.cache.allocate()
         logits = eng._ingest_tokens(slot, req, p, need_logits=True)
-        rows = [t[slot, :p.size].float().cpu()
-                for t in eng.cache.k + eng.cache.v]
+        rows = [torch.cat([t[slot, :p.size] for t in slab_parts(slab)],
+                          dim=-2).float().cpu()
+                for slab in eng.cache.k + eng.cache.v]
         out.append((rows, logits.float().cpu()))
         eng._release_prefix(req)
         eng.cache.release(slot)
@@ -212,12 +227,13 @@ CONFIGS = (("prefix cache", {}),
            ("prefix cache + 64-token chunks", dict(prefill_chunk=64)))
 
 
-def probe_prefills(model, prompts):
-    """{design: {config: requests not bitwise monolithic}}."""
+def probe_prefills(model, prompts, tp: int = 1, designs=DESIGNS):
+    """{design: {config: requests not bitwise monolithic}}, through
+    engines of TP degree `tp`."""
     from paddle_tpu_torch.serving import engine as E
-    kw = dict(max_slots=8, max_seq=1024, seed=0, device="cuda")
+    kw = dict(max_slots=8, max_seq=1024, seed=0, device="cuda", tp=tp)
     result = {}
-    for name in DESIGNS:
+    for name in designs:
         with design(name):
             ref = ingest_all(E, E.LLMEngine(model, prefix_cache=False, **kw),
                              prompts)
@@ -284,6 +300,8 @@ def probe_cost(model):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the result to this JSON file")
+    ap.add_argument("--tp", type=int, nargs="*", default=[],
+                    help="probe these TP degrees' per-rank shapes instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prefill_row_probe: no CUDA device", file=sys.stderr)
@@ -292,6 +310,8 @@ def main(argv=None) -> int:
     import paddle_tpu_torch as P
     card = C.card_line()
     print(f"[{card}; torch {torch.__version__}, CUDA {torch.version.cuda}]")
+    if args.tp:
+        return probe_tp(args, card)
     ops = probe_ops()
     print("ops: rows that differ from one 1024-row call, by the rows R "
           "per call")
@@ -316,6 +336,36 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": card, "ops": ops, "prefills": prefills,
                        "cost": cost}, f, indent=1)
+    return 0
+
+
+def probe_tp(args, card: str) -> int:
+    """Parts 1 and 2 at the per-rank shapes of each degree in
+    `args.tp`."""
+    import paddle_tpu_torch as P
+    result = {"card": card}
+    with torch.no_grad():
+        model = P.models.gpt_small(seed=0, device="cuda", dtype="bf16")
+        prompts = load_4g(model.cfg.vocab_size)
+        for tp in args.tp:
+            ops = probe_ops(tp)
+            print(f"tp={tp} ops (one rank's shapes): rows that differ from "
+                  f"one 1024-row call, by the rows R per call")
+            for name, row in ops.items():
+                print(f"  {name:24s} " + " ".join(f"R{r}:{n}" for r, n in
+                                                   row.items()))
+            prefills = probe_prefills(model, prompts, tp=tp,
+                                      designs=DESIGNS[:2])
+            print(f"tp={tp} prefills: requests (of 16) not bitwise the "
+                  f"monolithic prefill of the same degree, by design")
+            for name, row in prefills.items():
+                print(f"  {name}: {row}")
+            result[f"tp{tp}"] = {"ops": ops, "prefills": prefills}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
     return 0
 
 

@@ -175,14 +175,19 @@ def test_overload_and_invalid_requests(model):
 @pytest.mark.parametrize("knob,value", [
     ("kv_tier", object()), ("mesh", object()), ("tp", 2)])
 def test_unported_knob_raises(model, knob, value):
-    """Unported features raise and name their ROADMAP item. `kv_tier` is
-    ported (the fleet KV tier): the knob is taken, and a slotted engine
-    holds the tier inertly (only a paged engine checks its page size)."""
+    """Every knob of the JAX engine is ported now. `kv_tier` (the fleet
+    KV tier) is taken, and a slotted engine holds the tier inertly (only
+    a paged engine checks its page size); `tp` builds a TP group
+    (`tests/test_torch_tp_serving.py`); `mesh` takes a TP group and
+    rejects anything else."""
     if knob == "kv_tier":
         assert _engine(model, kv_tier=value)._kv_tier is value
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Queue 1"):
-        _engine(model, **{knob: value})
+    elif knob == "tp":
+        eng = _engine(model, tp=value)
+        assert eng.tp == 2 and eng.mesh.tp == 2
+    else:
+        with pytest.raises(TypeError, match="make_tp_mesh"):
+            _engine(model, mesh=value)
 
 
 @pytest.mark.parametrize("knob,value", [

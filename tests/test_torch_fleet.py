@@ -238,8 +238,11 @@ def test_handoff_through_the_tier_bitwise(model):
     for r in fleet._replicas[1:]:
         assert r.engine.metrics.kv_tier_hits > 0
     _clean(fleet)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _fleet(model, replicas=1, tp=2)
+    # tp > 1 is ported: each replica is a TP group of its own ranks
+    # (tests/test_torch_tp_fleet.py drives it)
+    tp_fleet = _fleet(model, replicas=1, tp=2)
+    assert tp_fleet._replicas[0].engine.mesh.ranks == (0, 1)
+    tp_fleet.close()
 
 
 def test_snapshot_resume_port_and_jax(model, jax_model):

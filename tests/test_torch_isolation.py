@@ -47,6 +47,7 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.serving.__main__\n"
         "import paddle_tpu_torch.serving.server\n"
         "import paddle_tpu_torch.serving.slo\n"
+        "import paddle_tpu_torch.serving.sharded_kv, paddle_tpu_torch.nn.tp\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -266,6 +266,9 @@ def test_served_sees_the_served_backends_before_the_reference(tmp_path):
 
 
 def test_tp_is_not_ported():
+    """`--tp` is ported (the `--tp 2` soak runs in
+    tests/test_torch_tp_serving.py): it reaches the engine, whose head
+    check rejects a degree gpt_tiny's 4 heads do not divide by."""
     from paddle_tpu_torch.serving.server import main
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main(["--device", "cpu", "--tp", "2"])
+    with pytest.raises(ValueError, match="not divisible by tp=3"):
+        main(["--device", "cpu", "--tp", "3"])
