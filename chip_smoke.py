@@ -326,6 +326,37 @@ every phase passed):
    gpt_tiny fp32 on the card (tf32x3 route, TF32 off) and on the CPU:
    ||move_card - move_cpu|| / ||move_cpu|| <= 2e-2 over all parameters,
    losses within 1e-4.
+6g. ResNet-50 at bench.py's configuration (`resnet50(num_classes=1000,
+   data_format="NHWC", stem_s2d=True)`, Momentum(0.1, 0.9),
+   cross-entropy, O2 bf16, a device-resident batch of 128 x 224 x 224,
+   `loop_unroll=2`) through `Trainer.train_steps`, cudnn.benchmark off
+   (on, it bought nothing measurable: `scripts/resnet_probe.py`): 3
+   warm-up and 10 timed steps;
+   every loss finite, one below the first (at lr 0.1 it falls, then
+   oscillates); every BatchNorm buffer moved and fp32, parameters bf16
+   but BatchNorm's fp32, an fp32 master for exactly the bf16 ones. Step
+   ms, images/s, peak memory, the step's compute bound (convolution and
+   fc FLOPs, forward and both gradients, counted by
+   `torch.utils.flop_counter`, over 989 TFLOP/s) and one profiled step
+   by kernel group with the device's busy share.
+6h. config 1 through its entry point: `hapi.Model(resnet50(
+   num_classes=10))` with Momentum(0.05, 0.9, weight_decay=5e-4),
+   `CrossEntropyLoss` and `Accuracy`, `fit` for one epoch over
+   `DataLoader(Cifar10(mode="train", transform=Compose([
+   RandomHorizontalFlip, Normalize(HWC), Transpose])), batch_size=64,
+   shuffle=True)` on the synthetic fallback (1024 images), then
+   `evaluate` on the test split: 16 steps, finite loss and accuracy;
+   images/s of the epoch including the loader.
+6i. fp32 with TF32 off: 3 Trainer steps of ResNet-18 (10 classes, NHWC,
+   stem_s2d) at 8 x 32 x 32, Momentum(1e-3, 0.9), on the card and on
+   the CPU from one seed, each of the card's steps started from the
+   CPU's state (the free-running fp32 trajectory is not comparable: a
+   ReLU input whose sign one rounding flips re-routes a gradient):
+   losses within
+   1e-4 relative, every parameter, BatchNorm buffer and velocity within
+   1e-3 of its largest magnitude (the CPU tests' limits); on the card,
+   NHWC == NCHW and stem_s2d == conv1 (logits within 2e-5, gradients
+   within 1e-4).
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters, and again in fp16) through the kernels
    against the same step with the plain versions swapped in on the
@@ -3884,18 +3915,22 @@ KERNEL_GROUPS = (("flash K2/K3", ("flash_fwd", "flash_bwd")),
                  ("torch elementwise / reduction", ("at::native",)))
 
 
-def profile_steps(torch, trainer, ids, steps: int = 3, top: int = 25):
-    """Device time by kernel over `steps` training steps
-    (torch.profiler, CUDA activity), per step, grouped as
-    KERNEL_GROUPS; the device's busy share of the wall time (the union
-    of the kernels' intervals). Diagnostics only (`--profile`)."""
+def profile_steps(torch, trainer, ids, steps: int = 3, top: int = 25,
+                  batch=None, kernel_groups=KERNEL_GROUPS):
+    """Device time by kernel over `steps` training steps on `batch`
+    ((ids, ids) by default) (torch.profiler, CUDA activity), per step,
+    grouped as `kernel_groups` (the first group whose keys a kernel's
+    name holds); the device's busy share of the wall time (the union of
+    the kernels' intervals). Diagnostics (`--profile`; phase 6g
+    always)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    batch = (ids, ids) if batch is None else batch
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train_steps(ids, ids, steps=steps)
+        trainer.train_steps(*batch, steps=steps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -3909,7 +3944,7 @@ def profile_steps(torch, trainer, ids, steps: int = 3, top: int = 25):
         ms = (e.time_range.end - e.time_range.start) / 1e3 / steps
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + ms)
-        g = next((g for g, keys in KERNEL_GROUPS
+        g = next((g for g, keys in kernel_groups
                   if any(k in e.name for k in keys)), "other")
         groups[g] = groups.get(g, 0.0) + ms
     log(f"  profile of {steps} steps [{card_line()}]: wall {wall_ms:.2f} ms "
@@ -4246,7 +4281,7 @@ def phase_dropout_remat(torch, np, P):
     grads = {}
     for remat in (False, True):
         tr = make(0.1, remat)
-        loss, _, g = tr._loss_and_grads(tr.init_state(), (ids, ids))
+        loss, _, _, g = tr._loss_and_grads(tr.init_state(), (ids, ids))
         grads[remat] = (loss, g)
         del tr
         torch.cuda.empty_cache()
@@ -4440,6 +4475,289 @@ def phase_grad_check(torch, np, P, tname: str = "bfloat16"):
     del model, params, g_kernel, g_plain
     torch.cuda.empty_cache()
     return {"worst_rel": worst, "worst_param": worst_name}
+
+
+# --------------------------------------------------------------------------- #
+# phases 6g-6i: ResNet training
+# --------------------------------------------------------------------------- #
+
+RESNET_BATCH, RESNET_SIZE = 128, 224     # bench.py's resnet50 shape
+RESNET_WARM, RESNET_STEPS = 3, 10
+RESNET_GROUPS = (
+    ("max / avg pooling", ("pool",)),
+    ("optimizer (_foreach)", ("multi_tensor_apply",)),
+    ("copies / casts / layout", ("copy", "Memcpy", "Memset", "nchwToNhwc",
+                                 "nhwcToNchw", "CatArray")),
+    ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "xmma",
+                             "cudnn", "implicit")),
+    ("GEMM (fc)", ("gemm", "nvjet", "cutlass")),
+    ("batch norm, ReLU, adds, loss (elementwise / reductions)",
+     ("at::native",)),
+)
+
+
+def _resnet_state_checks(torch, model, st, buf0, norm_names):
+    """O2's layout: parameters bf16 but BatchNorm's fp32, an fp32 master
+    for exactly the bf16 ones; every BatchNorm buffer fp32 and moved
+    from its initial value."""
+    for k, v in st.params.items():
+        want = torch.float32 if k in norm_names else torch.bfloat16
+        check(v.dtype == want, f"{k}: {v.dtype}, want {want}")
+        sl = st.opt_state["slots"][k]
+        check(("master_weight" in sl) == (k not in norm_names),
+              f"{k}: master_weight present {'master_weight' in sl}, "
+              f"BatchNorm {k in norm_names}")
+        check(all(t.dtype == torch.float32 for t in sl.values()),
+              f"{k}: slots not fp32")
+    check(set(st.buffers) == set(buf0) and len(buf0) == 106,
+          f"{len(st.buffers)} buffers, want ResNet-50's 106")
+    for k, v in st.buffers.items():
+        check(v.dtype == torch.float32, f"buffer {k}: {v.dtype}")
+        check(not torch.equal(v, buf0[k]), f"buffer {k} never moved")
+
+
+def resnet_step_flops(torch, model, batch: int, size: int) -> float:
+    """FLOPs of one training step's convolutions and fc (forward,
+    weight gradients and input gradients, the stem's input gradient
+    excepted: the image needs none), from the shapes the port runs
+    (the space-to-depth stem as its 4 x 4 x 12 convolution), counted by
+    `torch.utils.flop_counter` on one image's forward and backward and
+    scaled by the batch (every count is linear in it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    was = model.training
+    model.eval()                   # the same shapes; the buffers stay
+    x = torch.zeros(1, size, size, 3, device="cuda")
+    with FlopCounterMode(display=False) as fc:
+        model(x).float().sum().backward()
+    model.zero_grad(set_to_none=True)
+    model.train(was)
+    return float(fc.get_total_flops()) * batch
+
+
+def phase_resnet50(torch, np, P, card: str):
+    """(6g) ResNet-50 at bench.py's configuration through
+    `Trainer.train_steps`; cudnn.benchmark off for the phase, then
+    restored (on, it bought nothing measurable: 123.42 against 123.64
+    ms a step on one H100 at 700 W, `scripts/resnet_probe.py`)."""
+    benchmark = False
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = benchmark
+    try:
+        model = P.models.resnet50(num_classes=1000, data_format="NHWC",
+                                  stem_s2d=True, seed=0, device="cuda")
+        trainer = Trainer(model, Momentum(learning_rate=0.1, momentum=0.9),
+                          lambda out, y: F.cross_entropy(out, y),
+                          amp_level="O2", amp_dtype="bfloat16",
+                          loop_unroll=2)
+        rs = np.random.RandomState(0)
+        # a device-resident batch, as bench.py's
+        x = torch.from_numpy(rs.randn(RESNET_BATCH, RESNET_SIZE,
+                                      RESNET_SIZE, 3).astype(np.float32)
+                             ).to("cuda", torch.bfloat16)
+        y = torch.from_numpy(rs.randint(0, 1000, (RESNET_BATCH,))).cuda()
+        buf0 = {k: b.detach().clone() for k, b in model.named_buffers()}
+        norm_names = trainer._norm_param_names()
+        t0 = time.perf_counter()
+        _, warm = trainer.train_steps(x, y, steps=RESNET_WARM)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, timed = trainer.train_steps(x, y, steps=RESNET_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = warm.float().cpu().tolist() + timed.float().cpu().tolist()
+        check(all(math.isfinite(v) for v in losses),
+              f"ResNet-50 non-finite loss: {losses}")
+        # at bench's lr 0.1 (no warm-up) the loss on the repeated random
+        # batch falls for a few steps, then oscillates above its low:
+        # the check is that it falls below its start within the run
+        check(min(losses[1:]) < losses[0], f"ResNet-50 loss never fell "
+                                           f"below its first value over "
+                                           f"{len(losses)} steps: {losses}")
+        _resnet_state_checks(torch, model, trainer.state, buf0, norm_names)
+        step_ms = wall / RESNET_STEPS * 1e3
+        ips = RESNET_BATCH * RESNET_STEPS / wall
+        flops = resnet_step_flops(torch, model, RESNET_BATCH, RESNET_SIZE)
+        bound_ms = flops / BF16_FLOPS * 1e3
+        log(f"  ResNet-50 O2 bf16, NHWC, stem_s2d, bs {RESNET_BATCH} x "
+            f"{RESNET_SIZE}^2, Momentum(0.1, 0.9), cudnn.benchmark "
+            f"{benchmark}: "
+            f"{RESNET_WARM} warm-up steps in {warm_s:.2f} s; losses "
+            f"{[round(v, 4) for v in losses]}")
+        log(f"  ResNet-50 [{card}]: {step_ms:.2f} ms per step, {ips:.1f} "
+            f"images/s, peak memory {peak / 2**30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated), cudnn.benchmark "
+            f"{benchmark}")
+        log(f"  ResNet-50 step compute bound: {flops / 1e12:.3f} TFLOP "
+            f"(convolutions + fc, forward + both gradients, "
+            f"torch.utils.flop_counter) / {BF16_FLOPS / 1e12:.0f} TFLOP/s "
+            f"bf16 = {bound_ms:.3f} ms ({bound_ms / step_ms:.1%} of the "
+            f"step)")
+        prof = profile_steps(torch, trainer, None, steps=1, top=15,
+                             batch=(x, y), kernel_groups=RESNET_GROUPS)
+        del trainer, model, x
+        torch.cuda.empty_cache()
+        return {"losses": losses, "step_ms": step_ms,
+                "images_per_s": ips, "peak_bytes": peak,
+                "warmup_s": warm_s, "wall_s": wall, "step_flops": flops,
+                "bound_ms": bound_ms, "cudnn_benchmark": benchmark,
+                "profile": prof}
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+
+CIFAR_MEAN, CIFAR_STD = [125.3, 123.0, 113.9], [63.0, 62.1, 66.7]
+
+
+def phase_resnet_fit(torch, np, P, card: str):
+    """(6h) config 1 through its own entry point: `hapi.Model.fit` of a
+    ResNet-50 (10 classes) over the DataLoader of synthetic CIFAR-10,
+    one epoch, then `evaluate` on the test split."""
+    from paddle_tpu_torch import hapi, metric, nn, optimizer
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    datasets.set_synthetic_fallback(True)
+    tf = T.Compose([T.RandomHorizontalFlip(seed=0),
+                    T.Normalize(mean=CIFAR_MEAN, std=CIFAR_STD,
+                                data_format="HWC"),
+                    T.Transpose()])
+    train = datasets.Cifar10(mode="train", transform=tf)
+    test = datasets.Cifar10(mode="test", transform=tf)
+    model = hapi.Model(P.models.resnet50(num_classes=10, seed=0,
+                                         device="cuda"))
+    model.prepare(optimizer.Momentum(learning_rate=0.05, momentum=0.9,
+                                     weight_decay=5e-4),
+                  nn.CrossEntropyLoss(), metric.Accuracy())
+    loader = DataLoader(train, batch_size=64, shuffle=True)
+    t0 = time.perf_counter()
+    hist = model.fit(loader, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev = model.evaluate(DataLoader(test, batch_size=64), verbose=0)
+    check(set(hist) == {"loss", "acc", "ips"}, f"fit logs {sorted(hist)}")
+    check(math.isfinite(hist["loss"][0]) and 0 <= hist["acc"][0] <= 1,
+          f"fit history {hist}")
+    check(set(ev) == {"loss", "acc"} and math.isfinite(ev["loss"]),
+          f"evaluate {ev}")
+    check(model._trainer.state.step == len(loader) == 16,
+          f"{model._trainer.state.step} steps, want 16")
+    ips = len(train) / wall
+    log(f"  hapi.Model(resnet50(num_classes=10)).fit, 1 epoch of synthetic "
+        f"CIFAR-10 (1024 images, bs 64, flip + normalize + transpose on "
+        f"the host, fp32): {wall:.2f} s, {ips:.1f} images/s including the "
+        f"loader and the first steps; fit's own ips (after 2 steps) "
+        f"{hist['ips'][0]:.1f}; epoch loss {hist['loss'][0]:.4f}, acc "
+        f"{hist['acc'][0]:.4f}; evaluate on the 256 test images: loss "
+        f"{ev['loss']:.4f}, acc {ev['acc']:.4f} [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "images_per_s": ips,
+            "fit_ips": hist["ips"][0], "history": hist, "evaluate": ev}
+
+
+def phase_resnet_card_vs_cpu(torch, np, P):
+    """(6i) in fp32 with TF32 off: 3 Trainer steps of ResNet-18 at 8 x
+    32 x 32 on the card and on the CPU from the same weights, each step
+    of the card's started from the CPU's state (`load_state`), within
+    the CPU tests' tolerances; NHWC == NCHW and stem_s2d == conv1 on
+    the card. Why each step restarts from the CPU's state: the
+    free-running 3-step fp32 trajectory of this network is not
+    comparable across devices. At the third step one ReLU input sits so
+    near 0 that the card's fp32 forward flips its sign against fp64
+    (the CPU's does not), which re-routes a gradient: the card's free
+    run then leaves the fp64 one by 1e-3 (parameters) and 5.3e-3
+    (velocity), a jump the CPU makes too from weights perturbed by
+    3e-7 (`scripts/resnet_probe.py`). From the CPU's state one step
+    agrees within ~2.7e-5."""
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rs = np.random.RandomState(0)
+        x = rs.randn(8, 32, 32, 3).astype(np.float32)
+        y = rs.randint(0, 10, (8,))
+        kw = dict(num_classes=10, data_format="NHWC", stem_s2d=True, seed=0)
+        trainers = {dev: Trainer(P.models.resnet18(device=dev, **kw),
+                                 Momentum(1e-3, 0.9),
+                                 lambda o, t: F.cross_entropy(o, t))
+                    for dev in ("cpu", "cuda")}
+        cpu, card = trainers["cpu"], trainers["cuda"]
+        cpu.init_state()
+        losses = {"cpu": [], "cuda": []}
+        worst = {"params": (0.0, ""), "buffers": (0.0, ""),
+                 "slots": (0.0, "")}
+        for _ in range(3):
+            card.load_state(cpu.state)               # copies to the card
+            for dev, tr in trainers.items():
+                loss, _ = tr.train_step(x, y)
+                losses[dev].append(float(loss))
+            for part, get in (
+                    ("params", lambda s: s.params),
+                    ("buffers", lambda s: s.buffers),
+                    ("slots", lambda s: {k: v["velocity"] for k, v in
+                                         s.opt_state["slots"].items()})):
+                c, g = get(cpu.state), get(card.state)
+                worst[part] = max([worst[part]] + [
+                    (float((g[k].detach().cpu() - v.detach()).abs().max()
+                           / v.detach().abs().max().clamp_min(1e-30)), k)
+                    for k, v in c.items()])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+        check(rel <= 1e-4, f"ResNet-18 losses card {losses['cuda']} vs CPU "
+                           f"{losses['cpu']}: {rel:.2e} > 1e-4")
+        for part, (err, name) in worst.items():
+            check(err <= 1e-3, f"ResNet-18 {part} card vs CPU: {err:.2e} "
+                               f"({name}) > 1e-3")
+        log(f"  ResNet-18 fp32 (TF32 off), 3 steps Momentum(1e-3, 0.9) at "
+            f"8 x 32^2, each from the CPU's state, card vs CPU: losses "
+            f"{losses['cpu']} / {losses['cuda']}, max relative {rel:.2e} "
+            f"(limit 1e-4); worst params {worst['params'][0]:.2e} "
+            f"({worst['params'][1]}), buffers {worst['buffers'][0]:.2e}, "
+            f"velocity {worst['slots'][0]:.2e} (limit 1e-3 of the largest "
+            f"magnitude)")
+        plain = P.models.resnet18(num_classes=10, seed=5, device="cuda")
+        xn = torch.from_numpy(rs.randn(8, 3, 32, 32).astype(np.float32))
+        yn = torch.from_numpy(rs.randint(0, 10, (8,))).cuda()
+        outs, grads = [], []
+        for fmt, s2d in (("NCHW", False), ("NHWC", False), ("NHWC", True)):
+            m = P.models.resnet18(num_classes=10, seed=9, device="cuda",
+                                  data_format=fmt, stem_s2d=s2d)
+            m.load_state_dict(plain.state_dict())
+            m.train()
+            xi = xn if fmt == "NCHW" else xn.permute(0, 2, 3, 1).contiguous()
+            out = m(xi.cuda())
+            F.cross_entropy(out, yn).backward()
+            outs.append(out.detach())
+            grads.append({k: p.grad for k, p in m.named_parameters()})
+        errs = []
+        for o, gr in zip(outs[1:], grads[1:]):
+            e_out = float((o - outs[0]).abs().max() / outs[0].abs().max())
+            e_grad = max(float((gr[k] - v).abs().max()
+                               / v.abs().max().clamp_min(1e-30))
+                         for k, v in grads[0].items())
+            check(e_out <= 2e-5 and e_grad <= 1e-4,
+                  f"layout identity on the card: logits {e_out:.2e} "
+                  f"(limit 2e-5), gradients {e_grad:.2e} (limit 1e-4)")
+            errs.append((e_out, e_grad))
+        log(f"  on the card, fp32: NHWC vs NCHW logits {errs[0][0]:.2e}, "
+            f"gradients {errs[0][1]:.2e}; NHWC stem_s2d vs NCHW conv1 "
+            f"logits {errs[1][0]:.2e}, gradients {errs[1][1]:.2e} "
+            f"(limits 2e-5 / 1e-4 of the largest magnitude)")
+        return {"loss_rel": rel,
+                "worst": {k: v[0] for k, v in worst.items()},
+                "layout": errs}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 # --------------------------------------------------------------------------- #
@@ -5018,6 +5336,15 @@ def main(argv=None) -> int:
     dropout = phase_dropout_remat(torch, np, P)
     log("phase 6f: the 10 optimizer rules, gpt_tiny on the card vs the CPU")
     rules = phase_rules(torch, np, P)
+    log("phase 6g: ResNet-50 at bench.py's configuration through "
+        "Trainer.train_steps (O2 bf16, bs 128 x 224^2)")
+    resnet = phase_resnet50(torch, np, P, card)
+    log("phase 6h: config 1 through hapi.Model.fit over the DataLoader of "
+        "synthetic CIFAR-10")
+    resnet_fit = phase_resnet_fit(torch, np, P, card)
+    log("phase 6i: ResNet-18 card vs CPU (fp32, TF32 off), NHWC == NCHW "
+        "and stem_s2d == conv1 on the card")
+    resnet_cpu = phase_resnet_card_vs_cpu(torch, np, P)
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = {tname: phase_grad_check(torch, np, P, tname)
             for tname in ("bfloat16", "float16")}
@@ -5044,6 +5371,12 @@ def main(argv=None) -> int:
         f"{train16['step_ms']:.2f} ms per step, "
         f"{train16['tokens_per_s']:.1f} tokens/s, peak memory "
         f"{train16['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  ResNet-50 training, phase 6g (O2 bf16, bs {RESNET_BATCH} x "
+        f"{RESNET_SIZE}^2) [card: {card}]: {resnet['step_ms']:.2f} ms per "
+        f"step, {resnet['images_per_s']:.1f} images/s, peak memory "
+        f"{resnet['peak_bytes'] / 2**30:.2f} GiB, compute bound "
+        f"{resnet['bound_ms']:.3f} ms; hapi fit, phase 6h: "
+        f"{resnet_fit['images_per_s']:.1f} images/s with the loader")
 
     flash = "paddle_tpu/ops_pallas/flash_attention.py"
     kernels = [{
@@ -5143,7 +5476,9 @@ def main(argv=None) -> int:
                        "flash_route_numbers": rnums, "tf32_probe": probe,
                        "train_fp32": train32, "train_fp16": train16,
                        "train_o1": train_o1, "dropout_remat": dropout,
-                       "optimizer_rules": rules,
+                       "optimizer_rules": rules, "resnet50": resnet,
+                       "resnet_fit": resnet_fit,
+                       "resnet_card_vs_cpu": resnet_cpu,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

@@ -11,11 +11,12 @@ from_jax_train_state` + `Trainer.load_state`).
 
 AMP is the JAX policy. O2: every floating parameter except the norm
 layers' (with `keep_bn_fp32`, the default) is cast to `amp_dtype` and
-gets an fp32 master in the optimizer; norm parameters stay fp32 with no
-master and are cast to the activation dtype inside
-`nn.functional.layer_norm`. O1: the parameters stay fp32 and the
-forward runs under `amp.auto_cast`, where `nn.functional.linear` casts
-its operands to `amp_dtype`.
+gets an fp32 master in the optimizer; norm parameters (LayerNorm's and
+BatchNorm's) stay fp32 with no master and are cast to the activation
+dtype inside `nn.functional.layer_norm` / `batch_norm`. O1: the
+parameters stay fp32 and the forward runs under `amp.auto_cast`, where
+`nn.functional.linear` and the convolutions cast their operands to
+`amp_dtype`.
 
 A `scaler` (`amp.GradScaler`) scales the loss before the gradients,
 unscales them, divides the reported loss by the scale and updates its
@@ -28,6 +29,19 @@ the host: one host sync per step with a scaler. The flag
 after the backward and raises `FloatingPointError` naming the first 8
 offenders, also one host sync per step; under a scaler it checks the
 unscaled gradients and keeps quiet on a step the scaler rejects.
+
+Buffers: what a training forward changes in them (BatchNorm's running
+statistics) is written back as in JAX, where `functional_call` returns
+the updates and the step merges them (`new_buffers = {**st.buffers,
+**buf_updates}`): once per optimizer step, from the primal forward;
+threaded through the `grad_accum` microbatches (microbatch i
+normalises with the statistics microbatch i-1 left); written even on a
+step the GradScaler rejects (JAX's merge is unconditional); never by
+`eval_step`; each in its own dtype (fp32 under O2). The forward does
+not write them itself: the Trainer hands the model's BatchNorms a
+`nn.layers_norm.StatSink` around the forward and the backward (so the
+forward a checkpoint recomputes writes nothing) and installs the
+recorded statistics after the backward.
 
 `remat=True` checkpoints the loss function
 (`torch.utils.checkpoint`, `use_reentrant=False`), as
@@ -50,10 +64,11 @@ from torch import nn
 from .. import amp, core
 from ..nn import rng
 from ..nn.layers import LayerNorm
+from ..nn.layers_norm import _BatchNormBase, collect_stats
 
 __all__ = ["TrainState", "Trainer"]
 
-_NORM_TYPES = (LayerNorm,)
+_NORM_TYPES = (LayerNorm, _BatchNormBase)
 
 
 class TrainState:
@@ -120,6 +135,7 @@ class Trainer:
         self.loop_unroll = int(loop_unroll)
         self.grad_accum = grad_accum
         self.state: Optional[TrainState] = None
+        self._module_paths = None          # {module: dotted name}
 
     @property
     def device(self) -> torch.device:
@@ -195,34 +211,49 @@ class Trainer:
         loss = self.loss_fn(out, *labels)
         return loss, out
 
+    def _stat_names(self, sink):
+        """{buffer name: new value} of a `StatSink`'s records."""
+        if self._module_paths is None:
+            self._module_paths = {m: p for p, m in
+                                  self.model.named_modules()}
+        out = {}
+        for m, (mean, var) in sink.updates.items():
+            path = self._module_paths[m]
+            pre = f"{path}." if path else ""
+            out[pre + "_mean"], out[pre + "_variance"] = mean, var
+        return out
+
     def _loss_and_grads(self, st: TrainState, batch):
-        """(loss, out, grads): whole batch, or the mean over
-        `grad_accum` microbatches (out is None then, as in JAX). With a
-        scaler the loss and gradients are the scaled ones."""
+        """(loss, out, buffers, grads): whole batch, or the mean over
+        `grad_accum` microbatches (out is None then, as in JAX); the
+        buffers with the step's statistics merged in. With a scaler the
+        loss and gradients are the scaled ones."""
         names = [k for k, v in st.params.items() if v.requires_grad]
         leaves = [st.params[k] for k in names]
 
-        def grad_of(b, key):
+        def grad_of(b, key, buffers):
             def loss_for_grad():
-                loss, out = self._forward(st.params, st.buffers, b,
+                loss, out = self._forward(st.params, buffers, b,
                                           training=True, key=key)
                 if self.scaler:
                     loss = self.scaler.scale_loss(loss, st.scaler_state)
                 return loss, out
 
-            if self.remat:
-                loss, out = torch.utils.checkpoint.checkpoint(
-                    loss_for_grad, use_reentrant=False)
-            else:
-                loss, out = loss_for_grad()
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with collect_stats(self.model) as sink:
+                if self.remat:
+                    loss, out = torch.utils.checkpoint.checkpoint(
+                        loss_for_grad, use_reentrant=False)
+                else:
+                    loss, out = loss_for_grad()
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             return loss.detach(), out, {
-                k: g for k, g in zip(names, grads) if g is not None}
+                k: g for k, g in zip(names, grads) if g is not None}, \
+                {**buffers, **self._stat_names(sink)}
 
         key = (st.rng_key, st.step)
         if self.grad_accum == 1:
-            loss, out, grads = grad_of(batch, key)
-            return loss, out.detach(), grads
+            loss, out, grads, buffers = grad_of(batch, key, st.buffers)
+            return loss, out.detach(), buffers, grads
 
         k = self.grad_accum
         for b in batch:
@@ -230,10 +261,12 @@ class Trainer:
                 raise ValueError(f"batch dim {b.shape[0]} not divisible by "
                                  f"grad_accum={k}")
         micro = [b.chunk(k, dim=0) for b in batch]
-        gsum, lsum = None, None
+        gsum, lsum, buffers = None, None, st.buffers
         for i in range(k):
-            # fresh dropout masks per microbatch, as JAX's fold_in(rng, i)
-            loss, _, grads = grad_of(tuple(m[i] for m in micro), key + (i,))
+            # fresh dropout masks per microbatch, as JAX's fold_in(rng, i);
+            # the statistics thread through the microbatches
+            loss, _, grads, buffers = grad_of(
+                tuple(m[i] for m in micro), key + (i,), buffers)
             if gsum is None:
                 gsum, lsum = grads, loss.float()
             else:
@@ -242,11 +275,12 @@ class Trainer:
                 lsum = lsum + loss
         inv_k = 1.0 / k
         grads = {n: g.mul_(inv_k) for n, g in gsum.items()}
-        return lsum * inv_k, None, grads
+        return lsum * inv_k, None, buffers, grads
 
     def _step_body(self, st: TrainState, batch):
-        """One optimizer step: forward, backward, (scaler,) the update."""
-        loss, out, grads = self._loss_and_grads(st, batch)
+        """One optimizer step: forward, backward, (scaler,) the update,
+        the buffers (also on a step the scaler rejects, as in JAX)."""
+        loss, out, buffers, grads = self._loss_and_grads(st, batch)
         check = core.get_flags("check_nan_inf")["check_nan_inf"]
         scaler_state = st.scaler_state
         if self.scaler:
@@ -263,7 +297,7 @@ class Trainer:
             if check:
                 self._check_numerics(loss, grads, st.step)
             self.optimizer.update(grads, st.opt_state, st.params)
-        new_state = TrainState(st.params, st.buffers, st.opt_state,
+        new_state = TrainState(st.params, buffers, st.opt_state,
                                scaler_state, st.rng_key, st.step + 1)
         return new_state, loss, out
 

@@ -1,5 +1,5 @@
-"""Weight bridge: JAX GPT parameters and train states (as numpy
-arrays) → the port.
+"""Weight bridge: JAX model parameters, buffers and train states (as
+numpy arrays) → the port.
 
 The JAX package's `GPT.raw_parameters()` is a flat {dotted name:
 array} dict whose names and (in, out) linear layout the port's `GPT`
@@ -11,7 +11,10 @@ bit for bit; CPU tensors (a state-dict file read by `framework.io`) are
 taken as they are. An int8 model (PTQ- or QAT-converted) crosses with
 `load_jax_int8_params`: its `raw_buffers()` carry each `Int8Linear`'s
 codes and scales, and the port model's Linears there become
-`Int8Linear`s.
+`Int8Linear`s. Any other port module whose names mirror its JAX model's
+(the ResNet family) crosses with `load_jax_state` (parameters and
+buffers, such as BatchNorm's running statistics), and its train state
+with `from_jax_train_state(tree, model=...)`.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from ..framework.trainer import TrainState
 from .gpt import BLOCK_LINEARS, GPT, GPTConfig, param_shapes
 
 __all__ = ["from_jax_params", "load_jax_params", "load_jax_int8_params",
-           "infer_config", "from_jax_train_state"]
+           "load_jax_state", "infer_config", "from_jax_train_state"]
 
 # the slots of each optimizer rule (JAX's names), beside the optional
 # fp32 `master_weight`
@@ -115,6 +118,29 @@ def load_jax_params(model: GPT,
     return model
 
 
+@torch.no_grad()
+def load_jax_state(model: torch.nn.Module,
+                   np_params: Mapping[str, np.ndarray],
+                   np_buffers: Optional[Mapping[str, np.ndarray]] = None
+                   ) -> torch.nn.Module:
+    """Copy a JAX model's `raw_parameters()` and `raw_buffers()` into a
+    port module whose names mirror it (each value converted to the
+    model's device and the tensor's dtype; bf16 carried bit for bit).
+    Parameter names and shapes must equal the model's, and so must the
+    buffers' when `np_buffers` is given; any mismatch raises before
+    anything is copied."""
+    own = dict(model.named_parameters())
+    _check(np_params, {k: tuple(p.shape) for k, p in own.items()})
+    bufs = dict(model.named_buffers())
+    if np_buffers is not None:
+        _check(np_buffers, {k: tuple(b.shape) for k, b in bufs.items()})
+    for k, v in np_params.items():
+        own[k].copy_(_to_tensor(k, v))
+    for k, v in (np_buffers or {}).items():
+        bufs[k].copy_(_to_tensor(k, v))
+    return model
+
+
 def _linear_prefixes(cfg: GPTConfig):
     out = [f"blocks.{i}.{t}" for i in range(cfg.num_layers)
            for t in BLOCK_LINEARS]
@@ -185,19 +211,35 @@ def _expected_slots(jax_slots: Mapping, optimizer) -> tuple:
 
 
 def from_jax_train_state(state_tree: Mapping, cfg: Optional[GPTConfig] = None,
-                         optimizer=None):
-    """A port `TrainState` (CPU tensors) from a JAX `TrainState.tree()`
-    of a GPT: the parameters (names and shapes checked as in
-    `from_jax_params`), the optimizer's step and every parameter's slots
-    (any rule of `optimizer/__init__.py`: the names checked against
-    `optimizer`'s rule when it is given, else against the rule the
-    slots name, the same for every parameter, plus an optional
-    `master_weight`; each slot's shape checked against the parameter),
+                         optimizer=None,
+                         model: Optional[torch.nn.Module] = None):
+    """A port `TrainState` (CPU tensors) from a JAX `TrainState.tree()`:
+    of a GPT by default (names and shapes checked as in
+    `from_jax_params`), or of any port `model` whose names mirror the
+    JAX model's (its parameters' names and shapes, and its buffers',
+    such as BatchNorm's statistics, checked against the model's own;
+    the buffers carried in their dtype); the optimizer's step and every
+    parameter's slots (any rule of `optimizer/__init__.py`: the names
+    checked against `optimizer`'s rule when it is given, else against
+    the rule the slots name, the same for every parameter, plus an
+    optional `master_weight`; each slot's shape checked against the
+    parameter),
     the GradScaler's state (`scale`, `good_steps`, `bad_steps`, or
     none) and the train step. `Trainer.load_state` then resumes the run
     on the model's device."""
     np_params = state_tree["params"]
-    params = from_jax_params(np_params, cfg)
+    buffers = {}
+    if model is None:
+        params = from_jax_params(np_params, cfg)
+    else:
+        _check(np_params, {k: tuple(p.shape)
+                           for k, p in model.named_parameters()
+                           if p.requires_grad})
+        params = {k: _to_tensor(k, v) for k, v in np_params.items()}
+        np_buffers = state_tree.get("buffers") or {}
+        _check(np_buffers, {k: tuple(b.shape)
+                            for k, b in model.named_buffers()})
+        buffers = {k: _to_tensor(k, v) for k, v in np_buffers.items()}
     opt = state_tree["opt_state"]
     jax_slots = opt["slots"]
     if set(jax_slots) != set(params):
@@ -221,6 +263,6 @@ def from_jax_train_state(state_tree: Mapping, cfg: Optional[GPTConfig] = None,
                        f"{list(_SCALER_KEYS)}")
     scaler = {sk: _to_tensor(f"scaler_state.{sk}", v).reshape(())
               for sk, v in jax_scaler.items()}
-    return TrainState(params, {}, {"step": int(np.asarray(opt["step"])),
-                                   "slots": slots},
+    return TrainState(params, buffers,
+                      {"step": int(np.asarray(opt["step"])), "slots": slots},
                       scaler, 0, int(np.asarray(state_tree["step"])))

@@ -7,13 +7,19 @@ They keep the JAX package's parameter names and layouts (`weight` and
 equal the JAX `raw_parameters()` keys. Weights are drawn from an
 explicit `torch.Generator` (the port keeps no global RNG state): Linear
 and Embedding take a normal std, LayerNorm starts at weight 1, bias 0.
+A Linear given no std takes the JAX `Linear`'s weight initializer
+instead (`weight_attr`, default `XavierUniform`), as ResNet's head
+does.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from . import functional as F
+from . import initializer as I
 
 __all__ = ["Linear", "Embedding", "LayerNorm", "GELU", "Dropout"]
 
@@ -24,12 +30,22 @@ def _normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
 
 class Linear(nn.Module):
     """y = x @ weight + bias with weight (in, out), the JAX layout;
-    weight ~ N(0, std), bias 0."""
+    weight ~ N(0, std), or without a std from the `weight_attr`
+    initializer (XavierUniform by default, as JAX's `Linear`); bias
+    0."""
 
-    def __init__(self, in_features: int, out_features: int, std: float,
-                 gen: torch.Generator, bias: bool = True):
+    def __init__(self, in_features: int, out_features: int,
+                 std: Optional[float] = None,
+                 gen: Optional[torch.Generator] = None, bias: bool = True,
+                 weight_attr=None):
         super().__init__()
-        self.weight = _normal((in_features, out_features), std, gen)
+        shape = (in_features, out_features)
+        if std is not None:
+            self.weight = _normal(shape, std, gen)
+        else:
+            w_init = weight_attr if isinstance(weight_attr, I.Initializer) \
+                else I.XavierUniform()
+            self.weight = nn.Parameter(w_init(shape, gen))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias \
             else None
 

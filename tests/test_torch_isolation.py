@@ -48,6 +48,18 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.serving.server\n"
         "import paddle_tpu_torch.serving.slo\n"
         "import paddle_tpu_torch.serving.sharded_kv, paddle_tpu_torch.nn.tp\n"
+        "import paddle_tpu_torch.models.resnet, paddle_tpu_torch.io\n"
+        "import paddle_tpu_torch.nn.initializer\n"
+        "import paddle_tpu_torch.nn.layers_conv\n"
+        "import paddle_tpu_torch.nn.layers_norm\n"
+        "import paddle_tpu_torch.nn.layers_pooling\n"
+        "import paddle_tpu_torch.nn.layers_common\n"
+        "import paddle_tpu_torch.nn.layers_loss\n"
+        "import paddle_tpu_torch.vision.datasets\n"
+        "import paddle_tpu_torch.vision.transforms.functional\n"
+        "import paddle_tpu_torch.vision.transforms.transforms\n"
+        "import paddle_tpu_torch.metric, paddle_tpu_torch.hapi.model\n"
+        "import paddle_tpu_torch.hapi.callbacks\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
@@ -85,6 +97,14 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
         gpt_small()                              # fails before the init
     with pytest.raises(RuntimeError, match="cuda"):
         KVCacheManager(2, 3, 16, 4, 8)           # slabs default to the card
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.models import resnet18, resnet50
+    with pytest.raises(RuntimeError, match="cuda"):
+        resnet50()                               # fails before the init
+    with pytest.raises(RuntimeError, match="cuda"):
+        resnet18(num_classes=10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DataLoader(TensorDataset([torch.zeros(2)]), to_device="cuda")
     assert core.resolve_device("cpu").type == "cpu"
 
 
