@@ -59,7 +59,9 @@ every phase passed):
    sq 200 / sk 333, fp32 causal sq 300 / sk 200, bf16 d 32 packed and
    not, bf16 d 32 causal sq 300 / sk 200 and sq 1 / sk 333 (the 64-byte
    swizzle on the same edges as d 64), fp32 d 128 sq 1000 / sk 900 and
-   an fp32 slice whose strides are no multiple of 16 bytes. bf16: the
+   an fp32 slice whose strides are no multiple of 16 bytes, and
+   ERNIE's shape (b 64, s 128, h 12, d 64, non-causal, packed qkv,
+   bf16: one key tile per (b, h) pair). bf16: the
    output
    within atol = rtol = 2e-2, the logsumexp within atol = 1e-3, each
    gradient within max|kernel - plain| <= 2e-2 * max|plain|; fp32: the
@@ -357,6 +359,38 @@ every phase passed):
    1e-3 of its largest magnitude (the CPU tests' limits); on the card,
    NHWC == NCHW and stem_s2d == conv1 (logits within 2e-5, gradients
    within 1e-4).
+6j. ERNIE-3.0-base at bench.py's accelerator configuration
+   (`bench_ernie`: `BertForSequenceClassification(ernie_base(), 2)`
+   from seed 0, AdamW(2e-5), cross-entropy, O2 bf16, dropout 0.1
+   everywhere, a device-resident batch of 64 x 128 ids from numpy seed
+   0) through `Trainer.train_steps`: 3 warm-up and 10 timed steps;
+   attention dropout sends every layer to `attention_dense`
+   (`DENSE_ATTENTION_CALLS` = 12 a forward), K2/K3 launch 0 times;
+   every loss finite. Step ms, seq/s, peak memory, the compute bound
+   (6 x the matmul parameters x tokens plus attention's six products,
+   over 989 TFLOP/s) and one profiled step by kernel group with the
+   device's busy share.
+6k. the kernel route: the same model (seed 0) and batch with
+   `attention_dropout=0`: K2 and K3 12 launches a step each on the
+   wgmma route (non-causal, packed qkv, s 128), 0 dense calls, step ms
+   beside 6j's; an eval forward of the 64 x 128 batch (no mask): K2 12,
+   K3 0; and `examples/finetune_bert.py`'s loop at `ernie_base` (bs 16
+   x 128, 30 steps, AdamW(LinearWarmup(CosineAnnealingDecay(2e-5,
+   T_max=30), 3 from 0), weight_decay=0.01), the shifted-token
+   synthetic data) with `attention_dropout=0`: finite losses, K2/K3 12
+   x 30.
+6l. padded batches and the other heads: `text.Imdb` (the synthetic
+   fallback, 512 reviews of 16-63 tokens) through `io.DataLoader` with a
+   collate that pads to 64 and makes `attention_mask`, into
+   `hapi.Model(ernie, inputs=[ids, token types, mask]).fit` for one
+   epoch at bs 32 under O2: 16 steps, dense attention only (12 calls a
+   forward), K2/K3 0, seq/s; one O2 AdamW step of
+   `BertForMaskedLM(ernie_base())` at 16 x 128 (the head tied to the
+   word embedding; finite loss); and a 2-layer BERT (hidden 128, 2
+   heads) in fp32 with TF32 off and dropout 0, 3 SGD steps on the card
+   and on the CPU, each of the card's from the CPU's state, without and
+   with a padding mask (tf32x3 K2/K3 vs dense): losses and every
+   parameter within 1e-4.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters, and again in fp16) through the kernels
    against the same step with the plain versions swapped in on the
@@ -386,7 +420,9 @@ every phase passed):
    on rows padded to 32). The tf32x3 route's forward
    and backward at GPT-small's fp32 training shape (the split kernel's
    share timed alone), the wgmma route at phase 3's bf16 d 32 shape and
-   the wgmma_f16 route at the training shape (fp16 packed qkv), each
+   the wgmma_f16 route at the training shape (fp16 packed qkv) and
+   the wgmma route at ERNIE's shape (non-causal; its yardstick
+   non-causal too), each
    beside their bounds (fp32: three TF32 products over 495 TFLOP/s, and
    the FFMA bound over 67 TFLOP/s), plain versions,
    `scaled_dot_product_attention` (TF32 off), and each kernel's
@@ -780,6 +816,7 @@ def phase_int8_kernel(torch, k7):
 # --------------------------------------------------------------------------- #
 
 FLASH_SHAPE = dict(b=18, s=1024, h=12, d=64)     # GPT-small, bench.py bs
+ERNIE_SHAPE = dict(b=64, s=128, h=12, d=64)      # ernie_base, bench.py bs
 
 
 def flash_inputs(torch, gen, b, sq, sk, h, d, packed, dtype=None):
@@ -860,6 +897,13 @@ def flash_cases(torch):
     yield "fp16 causal sq 300, sk 200", 2, 300, 200, 12, 64, True, False, \
         h16
     yield "fp16 d 32 s 1000", 4, 1000, 1000, 12, 32, False, False, h16
+    # ERNIE-3.0-base's encoder (phases 6k, 6l): non-causal on slices of
+    # the packed qkv at s 128, one key tile per (b, h) pair, so K2's
+    # online softmax and K3's dk/dv sweep run their first and last tile
+    # with no step between, over 768 pairs
+    e = ERNIE_SHAPE
+    yield ("ERNIE shape", e["b"], e["s"], e["s"], e["h"], e["d"], False,
+           True, bf)
 
 
 LAYOUT_NOTE = {True: ", packed qkv", "odd": ", odd strides"}
@@ -970,6 +1014,9 @@ def phase_flash_kernels(torch, fa):
             del same, o2, l2, grads
         key = prefix[route] + "fwd"
         worst[key] = max(worst[key], err_o)
+        if name == "ERNIE shape":       # its own record (phase 8's line)
+            worst["ernie_fwd"], worst["ernie_bwd"] = err_o, max(
+                held["grad_err"])
         n_empty = held["empty"]
         log(f"  {route} {name} (b {b}, sq {sq}, sk {sk}, h {h}, d {d}, "
             f"{str(dtype)[6:]}, causal {causal}"
@@ -4761,6 +4808,389 @@ def phase_resnet_card_vs_cpu(torch, np, P):
 
 
 # --------------------------------------------------------------------------- #
+# phases 6j-6l: ERNIE-3.0-base fine-tuning
+# --------------------------------------------------------------------------- #
+
+ERNIE_WARM, ERNIE_STEPS = 3, 10
+FINETUNE_BATCH, FINETUNE_STEPS = 16, 30      # examples/finetune_bert.py
+IMDB_PAD, IMDB_BATCH = 64, 32
+ERNIE_GROUPS = (
+    ("flash K2/K3", ("flash_fwd", "flash_bwd")),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("optimizer (_foreach)", ("multi_tensor_apply",)),
+    ("copies / casts", ("copy", "Memcpy", "Memset", "CatArray")),
+    ("softmax, dropout, LayerNorm, GELU, adds, loss (elementwise / "
+     "reductions)", ("at::native",)),
+)
+
+
+def bert_step_flops(cfg, bs: int, seq: int) -> float:
+    """FLOPs of one training step's matmuls: 6 x the encoder's matmul
+    parameters (qkv, out, fc1, fc2 of every layer) x the tokens
+    (forward and both gradients), plus attention's six products per
+    layer and head (q.k and p.v forward; dp, dv, dq, dk backward) of 2
+    s^2 d each. The pooler and the classifier see one token a sequence
+    and are left out."""
+    h, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    matmul_params = n * (h * 3 * h + h * h + 2 * h * f)
+    attention = n * bs * 6 * 2 * seq * seq * h
+    return 6.0 * matmul_params * bs * seq + attention
+
+
+def ernie_trainer(P, cfg, lr=2e-5, weight_decay=None):
+    """bench_ernie's model and trainer on the card: BertForSequence-
+    Classification(cfg, 2) from seed 0, AdamW, cross-entropy, O2
+    bf16."""
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    model = P.models.BertForSequenceClassification(cfg, 2, seed=0,
+                                                   device="cuda")
+    kw = {} if weight_decay is None else {"weight_decay": weight_decay}
+    return model, Trainer(model, AdamW(learning_rate=lr, **kw),
+                          lambda logits, y: F.cross_entropy(logits, y),
+                          amp_level="O2", amp_dtype="bfloat16")
+
+
+def ernie_batch(torch, np, cfg):
+    """bench_ernie's resident batch: 64 x 128 ids, then 64 labels, from
+    numpy seed 0."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (ERNIE_SHAPE["b"],
+                                          ERNIE_SHAPE["s"]))
+    y = rng.randint(0, 2, (ERNIE_SHAPE["b"],))
+    return torch.from_numpy(ids).cuda(), torch.from_numpy(y).cuda()
+
+
+def attention_counts(fa):
+    """(K2 launches, K3 launches, wgmma K2, wgmma K3, dense calls)."""
+    return (fa.FWD_LAUNCHES.count, fa.BWD_LAUNCHES.count,
+            fa.WGMMA_FWD_LAUNCHES.count, fa.WGMMA_BWD_LAUNCHES.count,
+            fa.DENSE_ATTENTION_CALLS.count)
+
+
+def reset_attention_counts(fa):
+    reset_flash_counters(fa)
+    fa.DENSE_ATTENTION_CALLS.reset()
+
+
+def timed_ernie(torch, trainer, ids, y, fa):
+    """ERNIE_WARM warm-up steps, then ERNIE_STEPS timed ones with the
+    attention counters and the peak memory reset between: (losses,
+    wall s of the timed steps, peak bytes, counts, warm-up s, host ms:
+    the time one more step takes to return, before the device has
+    finished it, i.e. the host's enqueue of its ~2000 kernels)."""
+    t0 = time.perf_counter()
+    _, warm = trainer.train_steps(ids, y, steps=ERNIE_WARM)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_attention_counts(fa)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, timed = trainer.train_steps(ids, y, steps=ERNIE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = attention_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm.float().cpu().tolist() + timed.float().cpu().tolist()
+    check(all(math.isfinite(v) for v in losses),
+          f"ERNIE non-finite loss: {losses}")
+    t0 = time.perf_counter()
+    trainer.train_steps(ids, y, steps=1)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return losses, wall, peak, counts, warm_s, host_ms
+
+
+def phase_ernie(torch, np, P, card: str):
+    """(6j) bench_ernie's accelerator configuration: dropout 0.1
+    everywhere sends attention to the dense path."""
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    cfg = P.models.ernie_base()
+    check((cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+           cfg.intermediate_size, cfg.vocab_size, cfg.attention_dropout)
+          == (768, 12, 12, 3072, 40000, 0.1), f"not ERNIE-base: {cfg}")
+    model, trainer = ernie_trainer(P, cfg)
+    ids, y = ernie_batch(torch, np, cfg)
+    losses, wall, peak, counts, warm_s, host_ms = timed_ernie(
+        torch, trainer, ids, y, fa)
+    want = cfg.num_layers * ERNIE_STEPS
+    check(counts == (0, 0, 0, 0, want),
+          f"6j attention (K2, K3, wgmma K2, wgmma K3, dense) {counts}, "
+          f"want dense {want} = {cfg.num_layers} layers x {ERNIE_STEPS} "
+          f"forwards and no kernel")
+    bs, seq = ERNIE_SHAPE["b"], ERNIE_SHAPE["s"]
+    step_ms = wall / ERNIE_STEPS * 1e3
+    seq_s = bs * ERNIE_STEPS / wall
+    flops = bert_step_flops(cfg, bs, seq)
+    bound_ms = flops / BF16_FLOPS * 1e3
+    log(f"  ERNIE-base O2 bf16, bs {bs} x seq {seq}, AdamW(2e-5), dropout "
+        f"0.1: {ERNIE_WARM} warm-up steps in {warm_s:.2f} s; losses "
+        f"{[round(v, 4) for v in losses]}; dense attention calls "
+        f"{counts[4]} = {cfg.num_layers} x {ERNIE_STEPS}, K2/K3 0")
+    log(f"  ERNIE-base (6j) [{card}]: {step_ms:.2f} ms per step, "
+        f"{seq_s:.1f} seq/s, peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); one step's host enqueue "
+        f"{host_ms:.2f} ms")
+    log(f"  ERNIE-base step compute bound: {flops / 1e12:.3f} TFLOP (6 x "
+        f"matmul parameters x {bs * seq} tokens + attention's 6 "
+        f"products) / {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 = "
+        f"{bound_ms:.3f} ms ({bound_ms / step_ms:.1%} of the step)")
+    prof = profile_steps(torch, trainer, None, steps=1, top=15,
+                         batch=(ids, y), kernel_groups=ERNIE_GROUPS)
+    if prof:
+        # the profiler slows the host: the busy share of the plain step
+        log(f"  device busy {prof['busy_ms_per_step']:.2f} ms of the "
+            f"unprofiled {step_ms:.2f} ms step: busy share "
+            f"{prof['busy_ms_per_step'] / step_ms:.3f}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "seq_per_s": seq_s,
+            "peak_bytes": peak, "warmup_s": warm_s, "wall_s": wall,
+            "host_ms": host_ms, "dense_calls": counts[4],
+            "step_flops": flops, "bound_ms": bound_ms, "profile": prof}
+
+
+def phase_ernie_kernels(torch, np, P, card: str, dense_run):
+    """(6k) the kernel route: attention_dropout 0 (training), an eval
+    forward, and examples/finetune_bert.py's loop at ernie_base."""
+    from paddle_tpu_torch.optimizer import lr as lr_mod
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    cfg = P.models.ernie_base(attention_dropout=0.0)
+    n = cfg.num_layers
+    model, trainer = ernie_trainer(P, cfg)
+    ids, y = ernie_batch(torch, np, cfg)
+    losses, wall, peak, counts, _, host_ms = timed_ernie(torch, trainer,
+                                                         ids, y, fa)
+    want = n * ERNIE_STEPS
+    check(counts == (want, want, want, want, 0),
+          f"6k attention (K2, K3, wgmma K2, wgmma K3, dense) {counts}, "
+          f"want {want} = {n} layers x {ERNIE_STEPS} steps on the wgmma "
+          f"route and no dense call")
+    launches = counts[0]
+    step_ms = wall / ERNIE_STEPS * 1e3
+    bs = ERNIE_SHAPE["b"]
+    log(f"  ERNIE-base O2 bf16, attention_dropout 0 [{card}]: "
+        f"{step_ms:.2f} ms per step ({bs * ERNIE_STEPS / wall:.1f} seq/s; "
+        f"6j's dense route {dense_run['step_ms']:.2f}), host enqueue "
+        f"{host_ms:.2f} ms a step (6j's {dense_run['host_ms']:.2f}), peak "
+        f"{peak / 2**30:.2f} GiB; K2 {counts[0]}, K3 {counts[1]} launches "
+        f"(wgmma), dense 0; losses {[round(v, 4) for v in losses]}")
+    reset_attention_counts(fa)
+    ev_loss, logits = trainer.eval_step(ids, y)
+    torch.cuda.synchronize()
+    ev_counts = attention_counts(fa)
+    check(ev_counts == (n, 0, n, 0, 0),
+          f"6k eval forward (K2, K3, wgmma K2, wgmma K3, dense) "
+          f"{ev_counts}, want K2 {n}, K3 0")
+    check(math.isfinite(float(ev_loss)) and tuple(logits.shape) == (bs, 2),
+          f"6k eval: loss {float(ev_loss)}, logits {tuple(logits.shape)}")
+    log(f"  eval forward of the {bs} x {ERNIE_SHAPE['s']} batch, no mask: "
+        f"K2 {ev_counts[0]}, K3 0, dense 0; loss {float(ev_loss):.4f}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    # examples/finetune_bert.py at --arch ernie_base (attention dropout 0)
+    sched = lr_mod.LinearWarmup(
+        lr_mod.CosineAnnealingDecay(2e-5, T_max=FINETUNE_STEPS),
+        warmup_steps=max(FINETUNE_STEPS // 10, 1), start_lr=0.0,
+        end_lr=2e-5)
+    model, trainer = ernie_trainer(P, cfg, lr=sched, weight_decay=0.01)
+    rng = np.random.RandomState(0)
+    half = cfg.vocab_size // 2
+    fy = rng.randint(0, 2, (FINETUNE_BATCH,))
+    fids = rng.randint(0, half, (FINETUNE_BATCH, ERNIE_SHAPE["s"])) \
+        + fy[:, None] * half
+    reset_attention_counts(fa)
+    t0 = time.perf_counter()
+    _, ft = trainer.train_steps(fids, fy, steps=FINETUNE_STEPS)
+    ft = ft.float().cpu().tolist()
+    ft_wall = time.perf_counter() - t0
+    ft_counts = attention_counts(fa)
+    want = n * FINETUNE_STEPS
+    at = sorted({*range(0, FINETUNE_STEPS, 10), FINETUNE_STEPS - 1})
+    check(all(math.isfinite(v) for v in ft), f"finetune losses {ft}")
+    check(ft_counts == (want, want, want, want, 0),
+          f"finetune attention {ft_counts}, want {want} each on wgmma")
+    log(f"  finetune_bert loop at ernie_base (bs {FINETUNE_BATCH} x "
+        f"{ERNIE_SHAPE['s']}, {FINETUNE_STEPS} steps, LinearWarmup("
+        f"CosineAnnealingDecay(2e-5)), AdamW(weight_decay=0.01)): "
+        f"{ft_wall:.2f} s; losses every 10 steps and the last: "
+        f"{[round(ft[i], 4) for i in at]}; K2/K3 "
+        f"{ft_counts[0]}/{ft_counts[1]}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "peak_bytes": peak,
+            "wall_s": wall, "host_ms": host_ms, "fwd_launches": launches,
+            "bwd_launches": counts[1], "eval_launches": ev_counts[0],
+            "finetune_losses": ft, "finetune_s": ft_wall}
+
+
+def pad_collate(np, length: int):
+    """(ids, token types, attention_mask, labels) of (doc, label)
+    samples: each doc cut or zero-padded to `length`, the mask 1 over
+    its tokens."""
+    def collate(batch):
+        n = len(batch)
+        ids = np.zeros((n, length), np.int64)
+        mask = np.zeros((n, length), np.int64)
+        for i, (doc, _) in enumerate(batch):
+            m = min(len(doc), length)
+            ids[i, :m] = doc[:m]
+            mask[i, :m] = 1
+        labels = np.asarray([lab for _, lab in batch], np.int64)
+        return ids, np.zeros_like(ids), mask, labels
+    return collate
+
+
+def bert_cpu_vs_card(torch, np, P, masked: bool):
+    """A 2-layer BERT (hidden 128, 2 heads: d 64), fp32, dropout 0, 3
+    SGD(0.5) steps at 8 x 32 on the CPU and on the card, each of the
+    card's from the CPU's state: (losses cpu, losses card, worst
+    parameter error / max|param|, its name). SGD keeps a parameter's
+    difference the gradient's (Adam's first steps turn a gradient near
+    0 into a step of +-lr, so an ulp can flip a whole step)."""
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD
+    cfg = P.models.BertConfig(vocab_size=1000, hidden_size=128,
+                              num_layers=2, num_heads=2,
+                              intermediate_size=256,
+                              max_position_embeddings=64, hidden_dropout=0.0,
+                              attention_dropout=0.0)
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, cfg.vocab_size, (8, 32))
+    tt = rs.randint(0, cfg.type_vocab_size, (8, 32))
+    y = rs.randint(0, 2, (8,))
+    lengths = rs.randint(8, 33, (8, 1))
+    mask = (np.arange(32)[None, :] < lengths).astype(np.int64)
+    batch = (ids, tt, mask, y) if masked else (ids, tt, y)
+    trainers = {dev: Trainer(P.models.BertForSequenceClassification(
+                    cfg, 2, seed=0, device=dev), SGD(0.5),
+                    lambda o, t: F.cross_entropy(o, t),
+                    num_inputs=len(batch) - 1)
+                for dev in ("cpu", "cuda")}
+    cpu, card = trainers["cpu"], trainers["cuda"]
+    cpu.init_state()
+    losses = {"cpu": [], "cuda": []}
+    worst = (0.0, "")
+    for _ in range(3):
+        card.load_state(cpu.state)
+        for dev, tr in trainers.items():
+            loss, _ = tr.train_step(*batch)
+            losses[dev].append(float(loss))
+        worst = max([worst] + [
+            (float((card.state.params[k].detach().cpu() - v.detach()).abs()
+                   .max() / v.detach().abs().max().clamp_min(1e-30)), k)
+            for k, v in cpu.state.params.items()])
+    return losses["cpu"], losses["cuda"], worst
+
+
+def phase_ernie_padded(torch, np, P, card: str):
+    """(6l) padded batches through hapi (dense attention), the MLM head
+    under O2, and card == CPU for a 2-layer BERT with and without a
+    mask."""
+    from paddle_tpu_torch import hapi, metric, nn, optimizer, text
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    text.set_synthetic_fallback(True)
+    imdb = text.Imdb(mode="train")
+    cfg = P.models.ernie_base()
+    net = P.models.BertForSequenceClassification(cfg, 2, seed=0,
+                                                 device="cuda")
+    model = hapi.Model(net, inputs=["input_ids", "token_type_ids",
+                                    "attention_mask"], labels=["label"])
+    model.prepare(optimizer.AdamW(learning_rate=2e-5),
+                  nn.CrossEntropyLoss(), metric.Accuracy(),
+                  amp_configs="O2")
+    loader = DataLoader(imdb, batch_size=IMDB_BATCH, shuffle=True,
+                        collate_fn=pad_collate(np, IMDB_PAD))
+    reset_attention_counts(fa)
+    t0 = time.perf_counter()
+    hist = model.fit(loader, epochs=1, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = attention_counts(fa)
+    steps = len(loader)
+    check(steps == 16 and model._trainer.state.step == steps,
+          f"fit took {model._trainer.state.step} steps, want 16")
+    check(counts == (0, 0, 0, 0, cfg.num_layers * steps),
+          f"6l fit attention (K2, K3, wgmma K2, wgmma K3, dense) "
+          f"{counts}, want dense {cfg.num_layers} x {steps}")
+    check(math.isfinite(hist["loss"][0]) and 0 <= hist["acc"][0] <= 1,
+          f"fit history {hist}")
+    seq_s = len(imdb) / wall
+    log(f"  hapi.Model(ernie_base classifier).fit, 1 epoch of synthetic "
+        f"Imdb ({len(imdb)} reviews of 16-63 tokens padded to "
+        f"{IMDB_PAD}, bs {IMDB_BATCH}, O2 bf16, AdamW(2e-5)) [{card}]: "
+        f"{wall:.2f} s, {seq_s:.1f} seq/s including the loader and the "
+        f"first steps; fit's ips {hist['ips'][0]:.1f}; dense calls "
+        f"{counts[4]}, K2/K3 0; loss {hist['loss'][0]:.4f}, acc "
+        f"{hist['acc'][0]:.4f}")
+    del model, net
+    torch.cuda.empty_cache()
+    # the MLM head: one O2 step at 16 x 128
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.optimizer import AdamW
+    mlm = P.models.BertForMaskedLM(cfg, seed=0, device="cuda")
+    tr = Trainer(mlm, AdamW(learning_rate=2e-5),
+                 lambda logits, t: F.cross_entropy(
+                     logits.reshape(-1, logits.shape[-1]), t.reshape(-1)),
+                 amp_level="O2", amp_dtype="bfloat16")
+    mids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (FINETUNE_BATCH, ERNIE_SHAPE["s"]))).cuda()
+    pool0 = mlm.bert.pooler.weight.detach().clone()     # fp32
+    reset_attention_counts(fa)
+    t0 = time.perf_counter()
+    mlm_loss, logits = tr.train_step(mids, mids)
+    torch.cuda.synchronize()
+    mlm_s = time.perf_counter() - t0
+    mcounts = attention_counts(fa)
+    check(math.isfinite(float(mlm_loss)) and tuple(logits.shape)
+          == (FINETUNE_BATCH, ERNIE_SHAPE["s"], cfg.vocab_size),
+          f"MLM step: loss {float(mlm_loss)}, logits "
+          f"{tuple(logits.shape)}")
+    check(mcounts == (0, 0, 0, 0, cfg.num_layers),
+          f"MLM attention {mcounts}, want dense {cfg.num_layers}")
+    # the pooler's fp32 master: decayed by AdamW under its zero gradient
+    moved = not torch.equal(tr.state.opt_state["slots"][
+        "bert.pooler.weight"]["master_weight"], pool0)
+    log(f"  BertForMaskedLM(ernie_base) one O2 step at {FINETUNE_BATCH} x "
+        f"{ERNIE_SHAPE['s']} (vocab {cfg.vocab_size}, tied head): loss "
+        f"{float(mlm_loss):.4f} (ln V = {math.log(cfg.vocab_size):.4f}), "
+        f"{mlm_s:.2f} s with its first-call costs; the unreached pooler "
+        f"moved by AdamW's decay: {moved}")
+    del tr, mlm, logits
+    torch.cuda.empty_cache()
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"fit_s": wall, "seq_per_s": seq_s, "fit_ips": hist["ips"][0],
+           "history": hist, "mlm_loss": float(mlm_loss)}
+    try:
+        for masked in (False, True):
+            lc, lg, (err, name) = bert_cpu_vs_card(torch, np, P, masked)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+            tag = "with" if masked else "without"
+            check(rel <= 1e-4, f"2-layer BERT {tag} mask: losses card {lg} "
+                               f"vs CPU {lc}: {rel:.2e} > 1e-4")
+            check(err <= 1e-4, f"2-layer BERT {tag} mask: {name} card vs "
+                               f"CPU {err:.2e} > 1e-4")
+            log(f"  2-layer BERT fp32 (TF32 off) {tag} a padding mask, 3 "
+                f"SGD steps each from the CPU's state, card vs CPU: "
+                f"losses {lc} / {lg}, max relative {rel:.2e}; worst "
+                f"parameter {err:.2e} of its largest magnitude ({name}); "
+                f"limits 1e-4")
+            out[f"card_vs_cpu_{tag}_mask"] = {"loss_rel": rel,
+                                              "param_err": err}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 8: numbers
 # --------------------------------------------------------------------------- #
 
@@ -5123,16 +5553,23 @@ def phase_flash_numbers(torch, fa, card: str, built):
 
 
 # the other timed rows: the tf32x3 route at GPT-small's fp32 training
-# shape (phase 6b) and the wgmma route at phase 3's bf16 head dim 32 case
+# shape (phase 6b), the wgmma route at phase 3's bf16 head dim 32 case,
+# the wgmma_f16 route at the training shape and the wgmma route at
+# ERNIE's non-causal encoder shape (phases 6k, 6l); (name, b, s, h, d,
+# dtype, causal)
 ROUTE_TIMING = (("fp32 d 64, GPT-small training shape", FLASH_SHAPE["b"],
-                 FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float32"),
-                ("bf16 d 32", 4, 512, 24, 32, "bfloat16"),
+                 FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float32", True),
+                ("bf16 d 32", 4, 512, 24, 32, "bfloat16", True),
                 ("fp16 d 64, GPT-small training shape", FLASH_SHAPE["b"],
-                 FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float16"))
+                 FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float16", True),
+                ("bf16 d 64, ERNIE shape", ERNIE_SHAPE["b"],
+                 ERNIE_SHAPE["s"], ERNIE_SHAPE["h"], ERNIE_SHAPE["d"],
+                 "bfloat16", False))
+ERNIE_TIMING = ROUTE_TIMING[3][0]
 
 
 def phase_flash_route_numbers(torch, fa, card: str):
-    """K2/K3 at ROUTE_TIMING's shapes (causal, packed qkv), first held
+    """K2/K3 at ROUTE_TIMING's shapes (packed qkv), first held
     against their plain versions there (`hold_flash`), then forward and
     backward medians after an L2 flush (fp32: the split kernel's share
     timed alone too) beside their bounds (fp32: three TF32 products per
@@ -5145,20 +5582,22 @@ def phase_flash_route_numbers(torch, fa, card: str):
     gen = torch.Generator(device="cuda").manual_seed(9)
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     out = {}
-    for name, b, s_, h, d, tname in ROUTE_TIMING:
+    for name, b, s_, h, d, tname, causal in ROUTE_TIMING:
         dtype = getattr(torch, tname)
         fp32 = dtype == torch.float32
         q, k, v, g = flash_inputs(torch, gen, b, s_, s_, h, d, True, dtype)
         scale = 1 / math.sqrt(d)
-        route = fa._check_cuda_args(q, k, v, True)
+        route = fa._check_cuda_args(q, k, v, causal)
         check(route == fa._ROUTE_OF_DTYPE[dtype], f"{name}: route {route}")
-        o, lse = fa._launch_fwd(q, k, v, True, scale)
-        held = hold_flash(torch, fa, name, q, k, v, g, True, scale, o, lse,
-                          fa._launch_bwd(q, k, v, o, lse, g, True, scale))
-        fwd_ms = time_ms(torch, lambda: fa._launch_fwd(q, k, v, True, scale),
-                         flush, reps=10)
+        o, lse = fa._launch_fwd(q, k, v, causal, scale)
+        held = hold_flash(torch, fa, name, q, k, v, g, causal, scale, o,
+                          lse, fa._launch_bwd(q, k, v, o, lse, g, causal,
+                                              scale))
+        fwd_ms = time_ms(torch, lambda: fa._launch_fwd(q, k, v, causal,
+                                                       scale), flush,
+                         reps=10)
         bwd_ms = time_ms(torch, lambda: fa._launch_bwd(q, k, v, o, lse, g,
-                                                       True, scale),
+                                                       causal, scale),
                          flush, reps=10)
         split, parts = {}, {}
         if fp32:    # the split kernel alone, and each backward kernel
@@ -5166,36 +5605,38 @@ def phase_flash_route_numbers(torch, fa, card: str):
             lib = load_library("flash_attention_fwd", fa._FWD_SIGNATURES)
             sc = fa._scratch(lib, "fwd", q, k)
             split["forward"] = time_ms(torch, lambda: fa._launch_fwd(
-                q, k, v, True, scale, parts=fa.FWD_SPLIT, scratch=sc),
+                q, k, v, causal, scale, parts=fa.FWD_SPLIT, scratch=sc),
                 flush, reps=10)
             lib = load_library("flash_attention_bwd", fa._BWD_SIGNATURES)
             sc = fa._scratch(lib, "bwd", q, k)
             rows = fa._bwd_rows(b, h, s_, "cuda")
-            fa._launch_bwd(q, k, v, o, lse, g, True, scale, rows=rows,
+            fa._launch_bwd(q, k, v, o, lse, g, causal, scale, rows=rows,
                            scratch=sc)
             for pname, bit in (("split", fa.BWD_SPLIT),
                                ("delta", fa.BWD_DELTA),
                                ("dk/dv", fa.BWD_DKDV), ("dq", fa.BWD_DQ)):
                 parts[pname] = time_ms(torch, lambda: fa._launch_bwd(
-                    q, k, v, o, lse, g, True, scale, parts=bit, rows=rows,
-                    scratch=sc), flush, reps=10)
+                    q, k, v, o, lse, g, causal, scale, parts=bit,
+                    rows=rows, scratch=sc), flush, reps=10)
             split["backward"] = parts["split"]
             del sc, rows
         fwd_plain = time_ms(torch, lambda: fa.flash_forward_plain(
-            q, k, v, True, scale), flush, reps=3)
+            q, k, v, causal, scale), flush, reps=3)
         bwd_plain = time_ms(torch, lambda: fa.flash_backward_plain(
-            q, k, v, o, lse, g, True, scale), flush, reps=3)
+            q, k, v, o, lse, g, causal, scale), flush, reps=3)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)
         fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), flush, reps=10)
+            qt, kt, vt, is_causal=causal), flush, reps=10)
         bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), g.transpose(1, 2), retain_graph=True),
             flush, reps=10)
         isz = 4 if fp32 else 2
-        log(f"  {route} route, {name} (b {b}, s {s_}, h {h}, d {d}, causal, "
-            f"packed qkv) [card: {card}]: against the plain versions, out "
+        log(f"  {route} route, {name} (b {b}, s {s_}, h {h}, d {d}, causal "
+            f"{causal}, packed qkv) [card: {card}]: against the plain "
+            f"versions, out "
             f"max err {held['out_rel']:.2e} of max|plain|, dq/dk/dv "
             + "/".join(f"{r:.2e}" for r in held["grad_rel"])
             + f" (limit {held['limit']:g})")
@@ -5205,15 +5646,15 @@ def phase_flash_route_numbers(torch, fa, card: str):
                 ("backward", bwd_ms, bwd_plain, bwd_lib, 5, 4)):
             if fp32:
                 bound, by, nbytes, flops = flash_bound(
-                    b, s_, s_, h, d, True, 3 * n_prod, n_io, n_io, isz,
+                    b, s_, s_, h, d, causal, 3 * n_prod, n_io, n_io, isz,
                     TF32_FLOPS)
-                ffma = flash_bound(b, s_, s_, h, d, True, n_prod, n_io, n_io,
-                                   isz, FP32_FLOPS)[0]
+                ffma = flash_bound(b, s_, s_, h, d, causal, n_prod, n_io,
+                                   n_io, isz, FP32_FLOPS)[0]
                 extra = (f"; FFMA bound {ffma:.4f} ms; split kernel alone "
                          f"{split[part]:.4f} ms ({split[part] / ms:.1%})")
             else:
                 bound, by, nbytes, flops = flash_bound(
-                    b, s_, s_, h, d, True, n_prod, n_io, n_io, isz,
+                    b, s_, s_, h, d, causal, n_prod, n_io, n_io, isz,
                     BF16_FLOPS)
                 ffma, extra = None, ""
             log(f"    {part}: median {ms:.4f} ms; bound {bound:.4f} ms "
@@ -5345,6 +5786,16 @@ def main(argv=None) -> int:
     log("phase 6i: ResNet-18 card vs CPU (fp32, TF32 off), NHWC == NCHW "
         "and stem_s2d == conv1 on the card")
     resnet_cpu = phase_resnet_card_vs_cpu(torch, np, P)
+    log("phase 6j: ERNIE-3.0-base at bench.py's configuration through "
+        "Trainer.train_steps (O2 bf16, bs 64 x 128, dropout 0.1: dense "
+        "attention)")
+    ernie = phase_ernie(torch, np, P, card)
+    log("phase 6k: ERNIE-base through K2/K3 (attention_dropout 0), an eval "
+        "forward, the finetune_bert loop")
+    ernie_k = phase_ernie_kernels(torch, np, P, card, ernie)
+    log("phase 6l: padded Imdb batches through hapi.Model.fit, the MLM "
+        "head, a 2-layer BERT card vs CPU with and without a mask")
+    ernie_pad = phase_ernie_padded(torch, np, P, card)
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = {tname: phase_grad_check(torch, np, P, tname)
             for tname in ("bfloat16", "float16")}
@@ -5377,6 +5828,14 @@ def main(argv=None) -> int:
         f"{resnet['peak_bytes'] / 2**30:.2f} GiB, compute bound "
         f"{resnet['bound_ms']:.3f} ms; hapi fit, phase 6h: "
         f"{resnet_fit['images_per_s']:.1f} images/s with the loader")
+    log(f"  ERNIE-base training, phase 6j (O2 bf16, bs "
+        f"{ERNIE_SHAPE['b']} x {ERNIE_SHAPE['s']}, dense attention) "
+        f"[card: {card}]: {ernie['step_ms']:.2f} ms per step, "
+        f"{ernie['seq_per_s']:.1f} seq/s, peak memory "
+        f"{ernie['peak_bytes'] / 2**30:.2f} GiB, compute bound "
+        f"{ernie['bound_ms']:.3f} ms; 6k (K2/K3) {ernie_k['step_ms']:.2f} "
+        f"ms per step; 6l hapi fit over padded Imdb "
+        f"{ernie_pad['seq_per_s']:.1f} seq/s with the loader")
 
     flash = "paddle_tpu/ops_pallas/flash_attention.py"
     kernels = [{
@@ -5423,6 +5882,20 @@ def main(argv=None) -> int:
             "max_abs_err": flash_err[f"tf32x3_{part}"],
             **{k: tf32_main[key][k] for k in ("ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")}})
+    # the wgmma route at ERNIE's encoder shape (non-causal, packed qkv,
+    # s 128): phase 6k's launches
+    ernie_t = rnums[ERNIE_TIMING]
+    for part, line, key in (("fwd", 90, "forward"), ("bwd", 205,
+                                                     "backward")):
+        kernels.append({
+            "name": f"flash_attention_ernie_{part}", "route": "cuda",
+            "source": f"paddle_tpu_torch/ops_cuda/csrc/flash_attention_"
+                      f"{part}.cu",
+            "replaces": f"{flash}:{line}",
+            "launches": ernie_k[f"{part}_launches"],
+            "max_abs_err": flash_err[f"ernie_{part}"],
+            **{k: ernie_t[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}})
     dpy = "paddle_tpu/ops_pallas/decode_attention.py"
     for name, line, what in (("K4", 258, "paged_decode"),
                              ("K5", 242, "ragged_decode_int8"),
@@ -5479,6 +5952,8 @@ def main(argv=None) -> int:
                        "optimizer_rules": rules, "resnet50": resnet,
                        "resnet_fit": resnet_fit,
                        "resnet_card_vs_cpu": resnet_cpu,
+                       "ernie": ernie, "ernie_kernels": ernie_k,
+                       "ernie_padded": ernie_pad,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

@@ -18,21 +18,29 @@ and the ResNet family trained by `Trainer` or `hapi.Model.fit` over
 `io.DataLoader` and `vision.datasets` (convolution, batch norm and
 pooling as PyTorch ops, since the JAX package computes them with plain
 XLA: no TPU kernel lies on that path), with BatchNorm's running
-statistics threaded through the Trainer's steps as in JAX.
+statistics threaded through the Trainer's steps as in JAX, and BERT /
+ERNIE fine-tuning (`models/bert.py` over the transformer, activation
+and container layers; `text/`'s datasets) by `Trainer` or `hapi.Model`,
+whose attention takes K2/K3 (non-causal, packed qkv) without a mask or
+attention dropout and the dense path with either.
 """
 from . import (amp, framework, hapi, io, metric, models, nn, ops_cuda,
-               optimizer, quantization, serving, vision)
+               optimizer, quantization, serving, text, vision)
 from .core import (default_device, get_flags, resolve_device,
                    resolve_dtype, set_flags)
 from .framework import Trainer
 from .hapi import Model
-from .models import (GPT, GPTConfig, gpt_small, gpt_tiny, resnet18,
-                     resnet50)
+from .models import (GPT, Bert, BertConfig, BertForMaskedLM,
+                     BertForSequenceClassification, GPTConfig, ernie_base,
+                     gpt_small, gpt_tiny, resnet18, resnet50)
 from .serving import LLMEngine, SamplingParams
 
 __all__ = ["amp", "framework", "hapi", "io", "metric", "models", "nn",
-           "ops_cuda", "optimizer", "quantization", "serving", "vision",
+           "ops_cuda", "optimizer", "quantization", "serving", "text",
+           "vision",
            "default_device", "resolve_device", "resolve_dtype",
            "set_flags", "get_flags", "GPT",
            "GPTConfig", "gpt_small", "gpt_tiny", "resnet18", "resnet50",
+           "Bert", "BertConfig", "BertForSequenceClassification",
+           "BertForMaskedLM", "ernie_base",
            "LLMEngine", "SamplingParams", "Trainer", "Model"]

@@ -43,6 +43,10 @@ not write them itself: the Trainer hands the model's BatchNorms a
 forward a checkpoint recomputes writes nothing) and installs the
 recorded statistics after the backward.
 
+A parameter the loss does not reach (BertForMaskedLM's pooler) gets a
+zero gradient, as `jax.grad` gives it, so the rule still updates it
+(AdamW's decoupled decay moves it).
+
 `remat=True` checkpoints the loss function
 (`torch.utils.checkpoint`, `use_reentrant=False`), as
 `jax.checkpoint(loss_for_grad)` does. Dropout draws from a key (`nn.rng`)
@@ -246,8 +250,12 @@ class Trainer:
                 else:
                     loss, out = loss_for_grad()
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a parameter the loss does not reach (BertForMaskedLM's
+            # pooler) gets a zero gradient, as jax.grad gives it, so the
+            # rule still updates it (AdamW's decay)
             return loss.detach(), out, {
-                k: g for k, g in zip(names, grads) if g is not None}, \
+                k: g if g is not None else torch.zeros_like(p)
+                for k, g, p in zip(names, grads, leaves)}, \
                 {**buffers, **self._stat_names(sink)}
 
         key = (st.rng_key, st.step)

@@ -1,4 +1,7 @@
 """Models of the PyTorch/CUDA port."""
+from .bert import (Bert, BertConfig, BertForMaskedLM,
+                   BertForSequenceClassification, bert_base, bert_large,
+                   ernie_base)
 from .gpt import (GPT, GPTConfig, generate_greedy, gpt_1p3b, gpt_medium,
                   gpt_small, gpt_tiny)
 from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18,
@@ -16,4 +19,6 @@ __all__ = ["GPT", "GPTConfig", "gpt_tiny", "gpt_small", "gpt_medium",
            "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
            "resnext101_64x4d", "resnext152_32x4d", "from_jax_params",
            "from_jax_train_state", "load_jax_params", "load_jax_int8_params",
-           "load_jax_state"]
+           "load_jax_state", "Bert", "BertConfig",
+           "BertForSequenceClassification", "BertForMaskedLM", "ernie_base",
+           "bert_base", "bert_large"]

@@ -6,7 +6,11 @@ dtype, and under `amp.auto_cast` (O1) casts x and w to the compute
 dtype first, as the JAX `linear` does; `layer_norm` normalises in fp32,
 casts to the activation dtype and THEN applies weight and bias in that
 dtype (so bf16 stays bf16; the serving path's `models.gpt._ln` keeps
-the decode wiring's fp32 affine); `gelu` and `embedding` as in JAX;
+the decode wiring's fp32 affine); `gelu` (exact erf unless `approximate`), the
+activations of `paddle_tpu/nn/functional.py:71-200` (the jax.nn
+formulas; `softmax` / `log_softmax` cast to `dtype=` first; `rrelu` and
+`gumbel_softmax` draw from the step's key) and `embedding` (with
+`padding_idx`) as in JAX;
 `dropout` (both modes, `axis`), `dropout2d`, `dropout3d` and
 `alpha_dropout` draw their masks from the training step's key
 (`nn.rng`); `scaled_dot_product_attention` goes through the dispatcher
@@ -27,7 +31,11 @@ activation dtype; `max_pool2d` / `avg_pool2d` are `reduce_window` over
 the padded input (`ceil_mode` widens the high side, `exclusive` counts
 only the real entries); `adaptive_avg_pool2d` means axis by axis;
 `cross_entropy` has hard and soft labels, `ignore_index`, `weight`,
-`label_smoothing` and `reduction`.
+`label_smoothing` and `reduction`; the other losses of
+`paddle_tpu/nn/functional.py:1031-1330` (binary cross-entropy with and
+without logits, mse, l1, nll, smooth l1, huber, kl, poisson and
+gaussian nll, the margin and embedding losses, focal, log, n-pair and
+CTC by the forward algorithm) keep the JAX formulas.
 """
 from __future__ import annotations
 
@@ -36,14 +44,29 @@ import math
 import torch
 
 from .. import amp as _amp
+from .. import core
 from ..ops_cuda import flash_attention as _fa
 from . import rng as _rng
 
-__all__ = ["linear", "layer_norm", "gelu", "relu", "embedding", "dropout",
-           "dropout2d", "dropout3d", "alpha_dropout",
+__all__ = ["linear", "layer_norm", "gelu", "relu", "relu_", "relu6",
+           "leaky_relu", "elu", "selu", "celu", "silu", "swish", "mish",
+           "sigmoid", "log_sigmoid", "hardsigmoid", "hardswish", "hardtanh",
+           "hardshrink", "softshrink", "tanhshrink", "softplus", "softsign",
+           "tanh", "prelu", "rrelu", "glu", "maxout", "softmax",
+           "log_softmax", "temperature_softmax", "gumbel_softmax",
+           "embedding", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "scaled_dot_product_attention", "conv1d", "conv2d", "conv3d",
            "batch_norm", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
-           "flatten", "cross_entropy"]
+           "flatten", "cross_entropy", "softmax_with_cross_entropy",
+           "binary_cross_entropy", "binary_cross_entropy_with_logits",
+           "mse_loss", "square_error_cost", "l1_loss", "nll_loss",
+           "smooth_l1_loss", "huber_loss", "kl_div", "poisson_nll_loss",
+           "margin_ranking_loss", "hinge_embedding_loss",
+           "cosine_embedding_loss", "triplet_margin_loss",
+           "soft_margin_loss", "multi_label_soft_margin_loss",
+           "gaussian_nll_loss", "sigmoid_focal_loss", "log_loss",
+           "npair_loss", "ctc_loss", "cosine_similarity",
+           "pairwise_distance"]
 
 
 def linear(x, weight, bias=None):
@@ -84,8 +107,166 @@ def relu(x):
     return torch.relu(x)
 
 
-def embedding(x, weight):
-    return weight[x]
+# --------------------------------------------------------------------------- #
+# activations (`paddle_tpu/nn/functional.py:71-200`, the jax.nn formulas)
+# --------------------------------------------------------------------------- #
+
+relu_ = relu
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def leaky_relu(x, negative_slope=0.01):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def elu(x, alpha=1.0):
+    return torch.where(x > 0, x, alpha * torch.expm1(
+        torch.where(x > 0, torch.zeros_like(x), x)))
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def celu(x, alpha=1.0):
+    return torch.clamp_min(x, 0.0) + alpha * torch.expm1(
+        torch.clamp_max(x, 0.0) / alpha)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+swish = silu
+
+
+def mish(x):
+    return x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def log_sigmoid(x):
+    return torch.nn.functional.logsigmoid(x)
+
+
+def hardsigmoid(x, slope=1.0 / 6, offset=0.5):
+    return torch.clamp(slope * x + offset, 0.0, 1.0)
+
+
+def hardswish(x):
+    return x * relu6(x + 3.0) / 6.0
+
+
+def hardtanh(x, min=-1.0, max=1.0):
+    return torch.clamp(x, min, max)
+
+
+def hardshrink(x, threshold=0.5):
+    return torch.where(x.abs() > threshold, x, 0.0)
+
+
+def softshrink(x, threshold=0.5):
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, 0.0))
+
+
+def tanhshrink(x):
+    return x - torch.tanh(x)
+
+
+def softplus(x, beta=1.0, threshold=20.0):
+    """x where beta x > threshold, else log(1 + exp(beta x)) / beta."""
+    return torch.where(x * beta > threshold, x,
+                       torch.logaddexp(x * beta, torch.zeros_like(x)) / beta)
+
+
+def softsign(x):
+    return x / (x.abs() + 1)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def prelu(x, weight, data_format="NCHW"):
+    """One slope, or one per channel (the channel axis by
+    `data_format`)."""
+    w = weight
+    if w.numel() > 1 and x.dim() > 1:
+        c_axis = 1 if data_format.startswith("NC") else x.dim() - 1
+        shape = [1] * x.dim()
+        shape[c_axis] = w.numel()
+        w = w.reshape(shape)
+    return torch.where(x > 0, x, w * x)
+
+
+def rrelu(x, lower=1.0 / 8, upper=1.0 / 3, training=False):
+    """Negative inputs times a slope: drawn uniformly from [lower,
+    upper) per entry in training (from the step's key, `nn.rng`), their
+    mean otherwise."""
+    if training:
+        a = _rng.uniform(x.shape, x.device, lower, upper).to(x.dtype)
+    else:
+        a = (lower + upper) / 2.0
+    return torch.where(x >= 0, x, a * x)
+
+
+def glu(x, axis=-1):
+    a, b = x.chunk(2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+def maxout(x, groups, axis=1):
+    axis = axis % x.dim()
+    c = x.shape[axis]
+    shape = x.shape[:axis] + (c // groups, groups) + x.shape[axis + 1:]
+    return x.reshape(shape).amax(dim=axis + 1)
+
+
+def softmax(x, axis=-1, dtype=None):
+    """In `dtype` when given (the input cast first), else x's."""
+    if dtype is not None:
+        x = x.to(core.resolve_dtype(dtype))
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=-1, dtype=None):
+    if dtype is not None:
+        x = x.to(core.resolve_dtype(dtype))
+    return torch.log_softmax(x, dim=axis)
+
+
+def temperature_softmax(x, temperature=1.0, axis=-1):
+    return torch.softmax(x / temperature, dim=axis)
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1):
+    """softmax((x + g) / temperature), g Gumbel noise drawn from the
+    step's key (`nn.rng`); `hard` makes it one-hot in the forward with
+    the soft gradient (straight through)."""
+    tiny = torch.finfo(x.dtype).tiny
+    u = _rng.uniform(x.shape, x.device, tiny, 1.0).to(x.dtype)
+    y = torch.softmax((x - torch.log(-torch.log(u))) / temperature, dim=axis)
+    if hard:
+        idx = y.argmax(dim=axis, keepdim=True)
+        y_hard = torch.zeros_like(y).scatter_(axis, idx, 1.0)
+        y = (y_hard - y).detach() + y
+    return y
+
+
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """Rows of `weight`; positions holding `padding_idx` give zeros
+    (and so pass no gradient to that row)."""
+    out = weight[x]
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx).unsqueeze(-1), 0.0, out)
+    return out
 
 
 def _weak(v: float, x):
@@ -457,4 +638,259 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     loss = torch.where(valid, loss, 0.0)
     if reduction == "mean":
         return loss.sum() / torch.clamp_min(valid.sum().to(loss.dtype), 1.0)
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1,
+                               return_softmax=False):
+    """The per-row loss with its `axis` kept (size 1); an ignored row's
+    loss is 0; with `return_softmax`, (loss, softmax)."""
+    logp = torch.log_softmax(logits, dim=axis)
+    if soft_label:
+        loss = -(label * logp).sum(dim=axis, keepdim=True)
+    else:
+        label = torch.as_tensor(label, device=logits.device)
+        if label.dim() == logits.dim() and label.shape[axis] == 1:
+            label = label.squeeze(axis)
+        label = label.long()
+        ignored = (label == ignore_index).unsqueeze(axis)
+        safe = torch.where(label == ignore_index, 0, label)
+        loss = -torch.gather(logp, axis, safe.unsqueeze(axis))
+        loss = torch.where(ignored, 0.0, loss)
+    if return_softmax:
+        return loss, torch.softmax(logits, dim=axis)
+    return loss
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean"):
+    eps = 1e-12
+    loss = -(label * torch.log(torch.clamp_min(input, eps))
+             + (1 - label) * torch.log(torch.clamp_min(1 - input, eps)))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    """The stable form max(x, 0) - x y + log1p(exp(-|x|)); with
+    `pos_weight` the positive term is scaled by it."""
+    max_val = torch.clamp_min(-logit, 0.0)
+    if pos_weight is not None:
+        log_w = (pos_weight - 1) * label + 1
+        loss = (1 - label) * logit + log_w * (
+            torch.log1p(torch.exp(-logit.abs())) + max_val)
+    else:
+        loss = torch.clamp_min(logit, 0.0) - logit * label \
+            + torch.log1p(torch.exp(-logit.abs()))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def mse_loss(input, label, reduction="mean"):
+    return _reduce((input - label).square(), reduction)
+
+
+def square_error_cost(input, label):
+    return (input - label).square()
+
+
+def l1_loss(input, label, reduction="mean"):
+    return _reduce((input - label).abs(), reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100,
+             reduction="mean"):
+    """-input[i, label[i]] over (N, C) log-probabilities; ignored rows
+    drop out; with `weight` the mean divides by the kept weights'
+    sum."""
+    label = torch.as_tensor(label, device=input.device).long()
+    valid = label != ignore_index
+    safe = torch.where(valid, label, 0)
+    loss = -torch.gather(input, 1, safe[:, None])[:, 0]
+    if weight is not None:
+        w = torch.as_tensor(weight, device=input.device)[safe]
+        loss = torch.where(valid, loss * w, 0.0)
+        if reduction == "mean":
+            return loss.sum() / torch.where(valid, w, 0.0).sum()
+    loss = torch.where(valid, loss, 0.0)
+    if reduction == "mean":
+        return loss.sum() / torch.clamp_min(valid.sum().to(loss.dtype), 1.0)
+    return _reduce(loss, reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    d = input - label
+    ad = d.abs()
+    return _reduce(torch.where(ad < delta, 0.5 * d * d / delta,
+                               ad - 0.5 * delta), reduction)
+
+
+def huber_loss(input, label, delta=1.0, reduction="mean"):
+    d = input - label
+    ad = d.abs()
+    return _reduce(torch.where(ad <= delta, 0.5 * d * d,
+                               delta * (ad - 0.5 * delta)), reduction)
+
+
+def kl_div(input, label, reduction="mean", log_target=False):
+    """label (log label with `log_target`) against log-probabilities
+    `input`; "batchmean" divides the sum by the batch."""
+    if log_target:
+        loss = torch.exp(label) * (label - input)
+    else:
+        loss = label * (torch.log(torch.clamp_min(label, 1e-12)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+def poisson_nll_loss(input, label, log_input=True, full=False,
+                     epsilon=1e-8, reduction="mean"):
+    if log_input:
+        loss = torch.exp(input) - label * input
+    else:
+        loss = input - label * torch.log(input + epsilon)
+    if full:
+        lab = torch.clamp_min(label, 1.0)
+        stirling = label * torch.log(lab) - label \
+            + 0.5 * torch.log(2 * math.pi * lab)
+        loss = loss + torch.where(label > 1, stirling, 0.0)
+    return _reduce(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
+    return _reduce(torch.clamp_min(-label * (input - other) + margin, 0.0),
+                   reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
+    return _reduce(torch.where(label == 1, input,
+                               torch.clamp_min(margin - input, 0.0)),
+                   reduction)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    dot = (x1 * x2).sum(dim=axis)
+    n1 = x1.square().sum(dim=axis).sqrt()
+    n2 = x2.square().sum(dim=axis).sqrt()
+    return dot / torch.clamp_min(n1 * n2, eps)
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
+    d = x - y + epsilon
+    return (d.abs() ** p).sum(dim=-1, keepdim=keepdim) ** (1.0 / p)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean"):
+    cs = cosine_similarity(input1, input2, axis=-1)
+    return _reduce(torch.where(label == 1, 1 - cs,
+                               torch.clamp_min(cs - margin, 0.0)), reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean"):
+    d_pos = pairwise_distance(input, positive, p=p, epsilon=epsilon)
+    d_neg = pairwise_distance(input, negative, p=p, epsilon=epsilon)
+    if swap:
+        d_neg = torch.minimum(d_neg, pairwise_distance(
+            positive, negative, p=p, epsilon=epsilon))
+    return _reduce(torch.clamp_min(d_pos - d_neg + margin, 0.0), reduction)
+
+
+def soft_margin_loss(input, label, reduction="mean"):
+    return _reduce(torch.log1p(torch.exp(-label * input)), reduction)
+
+
+def multi_label_soft_margin_loss(input, label, weight=None,
+                                 reduction="mean"):
+    ls = torch.nn.functional.logsigmoid
+    loss = -(label * ls(input) + (1 - label) * ls(-input))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss.mean(dim=-1), reduction)
+
+
+def gaussian_nll_loss(input, label, variance, full=False, epsilon=1e-6,
+                      reduction="mean"):
+    var = torch.clamp_min(variance, epsilon)
+    loss = 0.5 * (torch.log(var) + (input - label).square() / var)
+    if full:
+        loss = loss + 0.5 * math.log(2 * math.pi)
+    return _reduce(loss, reduction)
+
+
+def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
+                       reduction="sum"):
+    p = torch.sigmoid(logit)
+    ce = torch.clamp_min(logit, 0.0) - logit * label \
+        + torch.log1p(torch.exp(-logit.abs()))
+    p_t = p * label + (1 - p) * (1 - label)
+    a_t = alpha * label + (1 - alpha) * (1 - label)
+    loss = a_t * (1 - p_t) ** gamma * ce
+    if normalizer is not None:
+        loss = loss / normalizer
+    return _reduce(loss, reduction)
+
+
+def log_loss(input, label, epsilon=1e-4):
+    return -(label * torch.log(input + epsilon)
+             + (1 - label) * torch.log(1 - input + epsilon))
+
+
+def npair_loss(anchor, positive, labels, l2_reg=0.002):
+    sim = anchor @ positive.t()
+    lab = (labels[:, None] == labels[None, :]).to(sim.dtype)
+    lab = lab / lab.sum(dim=1, keepdim=True)
+    ce = (-(lab * torch.log_softmax(sim, dim=1)).sum(dim=1)).mean()
+    reg = l2_reg * (anchor.square().sum(dim=1).mean()
+                    + positive.square().sum(dim=1).mean()) * 0.25
+    return ce + reg
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC by the forward algorithm in log space over (T, N, C) scores
+    (log-softmaxed first), the extended label sequence blank, l1,
+    blank, ..., blank; an input stops at its length (its alphas
+    frozen)."""
+    log_probs = torch.log_softmax(log_probs, dim=-1)
+    dev = log_probs.device
+    labels = torch.as_tensor(labels, device=dev).long()
+    input_lengths = torch.as_tensor(input_lengths, device=dev)
+    label_lengths = torch.as_tensor(label_lengths, device=dev).long()
+    T, N, _ = log_probs.shape
+    L = labels.shape[1]
+    S = 2 * L + 1
+    ext = torch.full((N, S), blank, dtype=torch.long, device=dev)
+    ext[:, 1::2] = labels
+    neg_inf = -1e30
+    alpha = torch.full((N, S), neg_inf, dtype=log_probs.dtype, device=dev)
+    alpha = torch.cat([log_probs[0, :, blank:blank + 1],
+                       torch.gather(log_probs[0], 1, ext[:, 1:2]),
+                       alpha[:, 2:]], dim=1)
+    same_as_prev2 = torch.cat(
+        [torch.ones((N, 2), dtype=torch.bool, device=dev),
+         ext[:, 2:] == ext[:, :-2]], dim=1)
+    pad1 = torch.full((N, 1), neg_inf, dtype=alpha.dtype, device=dev)
+    pad2 = torch.full((N, 2), neg_inf, dtype=alpha.dtype, device=dev)
+    for t in range(1, T):
+        emit = torch.gather(log_probs[t], 1, ext)
+        a_prev1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
+        a_prev2 = torch.where(same_as_prev2, neg_inf,
+                              torch.cat([pad2, alpha[:, :-2]], dim=1))
+        new = torch.logaddexp(torch.logaddexp(alpha, a_prev1), a_prev2) \
+            + emit
+        alpha = torch.where((t < input_lengths)[:, None], new, alpha)
+    idx_last = 2 * label_lengths
+    a_last = torch.gather(alpha, 1, idx_last[:, None])[:, 0]
+    a_prev = torch.gather(alpha, 1,
+                          torch.clamp_min(idx_last - 1, 0)[:, None])[:, 0]
+    loss = -torch.logaddexp(a_last, torch.where(label_lengths > 0, a_prev,
+                                                neg_inf))
+    if norm_by_times:
+        loss = loss / input_lengths
     return _reduce(loss, reduction)

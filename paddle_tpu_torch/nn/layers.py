@@ -9,7 +9,8 @@ explicit `torch.Generator` (the port keeps no global RNG state): Linear
 and Embedding take a normal std, LayerNorm starts at weight 1, bias 0.
 A Linear given no std takes the JAX `Linear`'s weight initializer
 instead (`weight_attr`, default `XavierUniform`), as ResNet's head
-does.
+does, and an Embedding given none JAX's `Normal(0, 1)` (or its
+`weight_attr`), with `padding_idx` as in JAX.
 """
 from __future__ import annotations
 
@@ -31,14 +32,16 @@ def _normal(shape, std: float, gen: torch.Generator) -> nn.Parameter:
 class Linear(nn.Module):
     """y = x @ weight + bias with weight (in, out), the JAX layout;
     weight ~ N(0, std), or without a std from the `weight_attr`
-    initializer (XavierUniform by default, as JAX's `Linear`); bias
-    0."""
+    initializer (XavierUniform by default, as JAX's `Linear`); bias 0,
+    or from the `bias_attr` initializer (`bias_attr=False` or
+    `bias=False`: none)."""
 
     def __init__(self, in_features: int, out_features: int,
                  std: Optional[float] = None,
                  gen: Optional[torch.Generator] = None, bias: bool = True,
-                 weight_attr=None):
+                 weight_attr=None, bias_attr=None):
         super().__init__()
+        self.in_features, self.out_features = in_features, out_features
         shape = (in_features, out_features)
         if std is not None:
             self.weight = _normal(shape, std, gen)
@@ -46,23 +49,50 @@ class Linear(nn.Module):
             w_init = weight_attr if isinstance(weight_attr, I.Initializer) \
                 else I.XavierUniform()
             self.weight = nn.Parameter(w_init(shape, gen))
-        self.bias = nn.Parameter(torch.zeros(out_features)) if bias \
-            else None
+        if not bias or bias_attr is False:
+            self.bias = None
+        elif isinstance(bias_attr, I.Initializer):
+            self.bias = nn.Parameter(bias_attr((out_features,), gen))
+        else:
+            self.bias = nn.Parameter(torch.zeros(out_features))
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
 
 class Embedding(nn.Module):
-    """Lookup table (num, dim) ~ N(0, std)."""
+    """Lookup table (num, dim): ~ N(0, std) when a std is given (GPT's
+    form, `Embedding(num, dim, std, gen)`), else from the `weight_attr`
+    initializer (JAX's default `Normal(0, 1)`; another non-initializer
+    attribute: XavierUniform). A `padding_idx` (negative counts from
+    the end) has its row zeroed at init and gives zeros, and no
+    gradient, where the input holds it."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int, std: float,
-                 gen: torch.Generator):
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 std: Optional[float] = None,
+                 gen: Optional[torch.Generator] = None, *,
+                 padding_idx: Optional[int] = None, sparse: bool = False,
+                 weight_attr=None, name=None):
         super().__init__()
-        self.weight = _normal((num_embeddings, embedding_dim), std, gen)
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.padding_idx = None if padding_idx is None else (
+            padding_idx if padding_idx >= 0
+            else num_embeddings + padding_idx)
+        shape = (num_embeddings, embedding_dim)
+        if std is not None:
+            self.weight = _normal(shape, std, gen)
+        else:
+            init = weight_attr if isinstance(weight_attr, I.Initializer) \
+                else I.Normal(0.0, 1.0) if weight_attr is None \
+                else I.XavierUniform()
+            self.weight = nn.Parameter(init(shape, gen))
+        if self.padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self.padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
 
 
 class LayerNorm(nn.Module):

@@ -1,12 +1,16 @@
-"""`CrossEntropyLoss`: the counterpart of the JAX package's
-(`paddle_tpu/nn/layers_loss.py`), over `functional.cross_entropy`."""
+"""Loss layers: the counterparts of `paddle_tpu/nn/layers_loss.py`, each
+over its `functional` loss (the JAX formulas)."""
 from __future__ import annotations
 
 from torch import nn
 
 from . import functional as F
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss", "HuberLoss",
+           "MarginRankingLoss", "HingeEmbeddingLoss", "CosineEmbeddingLoss",
+           "TripletMarginLoss", "PoissonNLLLoss", "GaussianNLLLoss",
+           "SoftMarginLoss", "MultiLabelSoftMarginLoss", "CTCLoss"]
 
 
 class CrossEntropyLoss(nn.Module):
@@ -26,3 +30,177 @@ class CrossEntropyLoss(nn.Module):
         return F.cross_entropy(input, label, self.weight, self.ignore_index,
                                self.reduction, self.soft_label, self.axis,
                                self.use_softmax, self.label_smoothing)
+
+
+class MSELoss(nn.Module):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(nn.Module):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.l1_loss(input, label, self.reduction)
+
+
+class NLLLoss(nn.Module):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.weight, self.ignore_index, self.reduction = \
+            weight, ignore_index, reduction
+
+    def forward(self, input, label):
+        return F.nll_loss(input, label, self.weight, self.ignore_index,
+                          self.reduction)
+
+
+class BCELoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):
+        return F.binary_cross_entropy(input, label, self.weight,
+                                      self.reduction)
+
+
+class BCEWithLogitsLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", pos_weight=None,
+                 name=None):
+        super().__init__()
+        self.weight, self.reduction, self.pos_weight = \
+            weight, reduction, pos_weight
+
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(
+            logit, label, self.weight, self.reduction, self.pos_weight)
+
+
+class KLDivLoss(nn.Module):
+    def __init__(self, reduction="mean", log_target=False):
+        super().__init__()
+        self.reduction, self.log_target = reduction, log_target
+
+    def forward(self, input, label):
+        return F.kl_div(input, label, self.reduction, self.log_target)
+
+
+class SmoothL1Loss(nn.Module):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction, self.delta = reduction, delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+class HuberLoss(nn.Module):
+    def __init__(self, reduction="mean", delta=1.0, name=None):
+        super().__init__()
+        self.reduction, self.delta = reduction, delta
+
+    def forward(self, input, label):
+        return F.huber_loss(input, label, self.delta, self.reduction)
+
+
+class MarginRankingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(nn.Module):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CosineEmbeddingLoss(nn.Module):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class TripletMarginLoss(nn.Module):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.margin, self.p, self.epsilon, self.swap, self.reduction = \
+            margin, p, epsilon, swap, reduction
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative, self.margin,
+                                     self.p, self.epsilon, self.swap,
+                                     self.reduction)
+
+
+class PoissonNLLLoss(nn.Module):
+    def __init__(self, log_input=True, full=False, epsilon=1e-8,
+                 reduction="mean", name=None):
+        super().__init__()
+        self.log_input, self.full, self.epsilon, self.reduction = \
+            log_input, full, epsilon, reduction
+
+    def forward(self, input, label):
+        return F.poisson_nll_loss(input, label, self.log_input, self.full,
+                                  self.epsilon, self.reduction)
+
+
+class GaussianNLLLoss(nn.Module):
+    def __init__(self, full=False, epsilon=1e-6, reduction="mean", name=None):
+        super().__init__()
+        self.full, self.epsilon, self.reduction = full, epsilon, reduction
+
+    def forward(self, input, label, variance):
+        return F.gaussian_nll_loss(input, label, variance, self.full,
+                                   self.epsilon, self.reduction)
+
+
+class SoftMarginLoss(nn.Module):
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.soft_margin_loss(input, label, self.reduction)
+
+
+class MultiLabelSoftMarginLoss(nn.Module):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self.weight, self.reduction = weight, reduction
+
+    def forward(self, input, label):
+        return F.multi_label_soft_margin_loss(input, label, self.weight,
+                                              self.reduction)
+
+
+class CTCLoss(nn.Module):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self.blank, self.reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction, norm_by_times)

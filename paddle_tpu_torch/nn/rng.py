@@ -24,7 +24,7 @@ import threading
 
 import torch
 
-__all__ = ["rng_context", "next_seed", "keep_mask"]
+__all__ = ["rng_context", "next_seed", "keep_mask", "uniform"]
 
 _M64 = (1 << 64) - 1
 
@@ -80,3 +80,15 @@ def keep_mask(prob: float, shape, device) -> torch.Tensor:
     g = torch.Generator(device=device)
     g.manual_seed(next_seed())
     return torch.rand(tuple(shape), generator=g, device=device) < prob
+
+
+def uniform(shape, device, low: float = 0.0, high: float = 1.0
+            ) -> torch.Tensor:
+    """An fp32 tensor of `shape` on `device`, uniform in [low, high),
+    from a generator seeded by `next_seed()` (`rrelu`'s slopes,
+    `gumbel_softmax`'s noise)."""
+    device = torch.device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(next_seed())
+    u = torch.rand(tuple(shape), generator=g, device=device)
+    return low + (high - low) * u
