@@ -391,6 +391,39 @@ every phase passed):
    and on the CPU, each of the card's from the CPU's state, without and
    with a padding mask (tf32x3 K2/K3 vs dense): losses and every
    parameter within 1e-4.
+6m. ResNet-50 (`resnet50()`, NCHW, 224^2, fp32, TF32 off, cuDNN's
+   deterministic algorithms) through `jit.to_static` (`torch.export`):
+   an eval forward of 64 images equals the eager one, and one
+   Momentum(0.1, 0.9) step in train mode on 16 of them through the
+   captured program
+   equals one eager step from the same state (loss, every parameter,
+   every BatchNorm buffer, which the captured program writes in
+   place), each within 1e-5 of the largest magnitude.
+6n. `jit.save` of ResNet-50 (seed 0, eval) with InputSpec([None, 3,
+   224, 224]); a fresh process that imports only paddle_tpu_torch
+   (jax and paddle_tpu blocked) builds an `inference.Predictor` on the
+   card and serves batches 1, 8 and 64 against this process's eager
+   outputs (within 1e-5): 3 entries in `_compiled`, each one CUDA
+   graph, a repeated batch reusing its entry; per batch the eager
+   forward ms, the Predictor's `run` ms (numpy in and out), its graph
+   replay ms on device-resident input, and images/s.
+6o. ERNIE-base (`BertForSequenceClassification(ernie_base(), 2)`, bf16,
+   eval) exported with InputSpec([None, 128], int64) x 2 (ids, token
+   types; no mask: K2's wgmma route): a Predictor at 64 x 128 whose
+   replay launches K2 12 times and no dense attention, within bf16's
+   atol = rtol = 2e-2 of the eager forward (Predictor and eager ms
+   logged); `jit.load` and one SGD step on the loaded layer over 16 x
+   128 (lr a tenth of loss / |g|^2): K2 12 and K3 12 launches (K3
+   through the forward operator's registered backward), the loss on
+   the same batch falls.
+6p. dy2static on the card: a function and a Layer with a traced if /
+   elif, a while with a break and a for over a traced bound with an
+   early return, exported (`torch.cond` / `while_loop` nodes) and
+   equal to the eager (Python-path) call, bitwise, on inputs through
+   each branch; `jit.save` of each and the Predictor serving the
+   program eagerly (its `eager_reason`: no CUDA graph), equal outputs.
+   6k's host enqueue of one eager ERNIE step (K2/K3 as operators) is
+   logged beside PR 19's 53.7-137.6 ms.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters, and again in fp16) through the kernels
    against the same step with the plain versions swapped in on the
@@ -4441,33 +4474,20 @@ def phase_rules(torch, np, P):
 
 class _PlainFlash:
     """Swaps the plain K2/K3 functions in for the kernels on CUDA
-    tensors, for the gradient check only (restored on exit)."""
+    tensors, for the gradient check only (restored on exit): the
+    `paddle_tpu_torch::flash_attention_*` operators call
+    `flash_forward` / `flash_backward` by their module names."""
 
     def __init__(self, torch, fa):
         self.fa = fa
 
-        class Plain(torch.autograd.Function):
-            @staticmethod
-            def forward(ctx, q, k, v, causal, scale):
-                out, lse = fa.flash_forward_plain(q, k, v, causal, scale)
-                ctx.save_for_backward(q, k, v, out, lse)
-                ctx.causal, ctx.scale = causal, scale
-                return out
-
-            @staticmethod
-            def backward(ctx, g):
-                q, k, v, out, lse = ctx.saved_tensors
-                return (*fa.flash_backward_plain(q, k, v, out, lse, g,
-                                                 ctx.causal, ctx.scale),
-                        None, None)
-        self.plain = Plain
-
     def __enter__(self):
-        self.saved = self.fa.FlashAttentionFunction
-        self.fa.FlashAttentionFunction = self.plain
+        self.saved = (self.fa.flash_forward, self.fa.flash_backward)
+        self.fa.flash_forward = self.fa.flash_forward_plain
+        self.fa.flash_backward = self.fa.flash_backward_plain
 
     def __exit__(self, *exc):
-        self.fa.FlashAttentionFunction = self.saved
+        self.fa.flash_forward, self.fa.flash_backward = self.saved
 
 
 def phase_grad_check(torch, np, P, tname: str = "bfloat16"):
@@ -5191,6 +5211,505 @@ def phase_ernie_padded(torch, np, P, card: str):
 
 
 # --------------------------------------------------------------------------- #
+# phases 6m-6p: capture, export and the Predictor
+# --------------------------------------------------------------------------- #
+
+CAPTURE_BATCH = 64                   # 6m's images, 6n's largest batch
+CAPTURE_TRAIN_BATCH = 16             # 6m's train step (a trace's cost is
+                                     # the batch's; the step's is not)
+PREDICTOR_BATCHES = (1, 8, 64)
+PREDICTOR_REPS = 10
+RESNET_CAPTURE_TOL = 1e-5            # of the largest magnitude, fp32
+ERNIE_EXPORT_BATCH, ERNIE_TUNE_BATCH = 64, 16
+
+
+@contextlib.contextmanager
+def tf32_off(torch):
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def rel_err(a, b) -> float:
+    """max|a - b| over the largest |b|."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    """Host ms of one `fn()` call, the device synchronised after `reps`
+    calls (one warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def device_busy_ms(torch, fn):
+    """(CUDA kernels, the device's busy ms) of one profiled `fn()` call
+    (after one unprofiled call): the device time a replay of the same
+    work could approach."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("Command Buffer")]
+    return len(kernels), busy_us(kernels) / 1e3
+
+
+def phase_to_static_resnet(torch, np, P, card: str):
+    """(6m) ResNet-50 (NCHW, 224^2, fp32, TF32 off, cuDNN's
+    deterministic algorithms) through `jit.to_static`: an eval forward
+    of 64 images equals the eager one, and one Momentum step in train
+    mode on 16 of them through the captured program equals one eager
+    step from the same state (loss, parameters and BatchNorm buffers),
+    each within RESNET_CAPTURE_TOL of the largest magnitude. cuDNN's
+    default weight-gradient algorithms sum in a run-dependent order:
+    with them a parameter after the step differed by 1.9e-5 of its
+    largest magnitude."""
+    import copy
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    out = {}
+    was_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tf32_off(torch), contextlib.ExitStack() as restore:
+        restore.callback(setattr, torch.backends.cudnn, "deterministic",
+                         was_det)
+        model = P.models.resnet50(device="cuda")
+        twin = copy.deepcopy(model)
+        rs = np.random.RandomState(0)
+        x = torch.from_numpy(rs.randn(CAPTURE_BATCH, 3, RESNET_SIZE,
+                                      RESNET_SIZE).astype(np.float32)).cuda()
+        y = torch.from_numpy(rs.randint(0, 1000, (CAPTURE_BATCH,))).cuda()
+        xt, yt = x[:CAPTURE_TRAIN_BATCH], y[:CAPTURE_TRAIN_BATCH]
+        static = jit.to_static(model)
+        model.eval()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = static(x)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        with torch.no_grad():
+            want = model(x)
+        err = rel_err(got, want)
+        check(err <= RESNET_CAPTURE_TOL,
+              f"6m eval forward: captured vs eager {err:.2e} > "
+              f"{RESNET_CAPTURE_TOL}")
+        out["eval_err"], out["eval_capture_s"] = err, capture_s
+        # one Momentum step in train mode: captured (model) vs eager (twin)
+        model.train()
+        twin.train()
+        losses, t0 = {}, time.perf_counter()
+        for name, m, fwd in (("captured", model, static), ("eager", twin,
+                                                            twin)):
+            params = {k: p for k, p in m.named_parameters()}
+            loss = F.cross_entropy(fwd(xt), yt)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            Momentum(0.1, 0.9).bind(m).step(dict(zip(params, grads)))
+            losses[name] = float(loss.detach())
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        loss_err = abs(losses["captured"] - losses["eager"]) \
+            / abs(losses["eager"])
+        worst = {"params": (0.0, ""), "buffers": (0.0, "")}
+        for part, get in (("params", lambda m: m.named_parameters()),
+                          ("buffers", lambda m: m.named_buffers())):
+            mine = dict(get(model))
+            worst[part] = max((rel_err(mine[k], v), k)
+                              for k, v in get(twin))
+        buf0 = dict(P.models.resnet50(device="cuda").named_buffers())
+        moved = sum(not torch.equal(v, buf0[k])
+                    for k, v in model.named_buffers() if v.is_floating_point())
+        check(loss_err <= RESNET_CAPTURE_TOL,
+              f"6m loss captured {losses['captured']} vs eager "
+              f"{losses['eager']}")
+        for part, (e, k) in worst.items():
+            check(e <= RESNET_CAPTURE_TOL,
+                  f"6m {part}: {k} captured vs eager {e:.2e}")
+        check(moved == 106, f"6m: {moved} BatchNorm buffers moved, want "
+                            f"ResNet-50's 106")
+        log(f"  ResNet-50 fp32 (TF32 off) through jit.to_static [{card}]: "
+            f"eval forward of {CAPTURE_BATCH} x 3 x {RESNET_SIZE}^2 "
+            f"captured in {capture_s:.2f} s, captured vs eager "
+            f"{err:.2e}; one Momentum(0.1, 0.9) step in train mode on "
+            f"{CAPTURE_TRAIN_BATCH} of them "
+            f"({train_s:.2f} s with the train capture): loss "
+            f"{losses['captured']:.6f} vs {losses['eager']:.6f} "
+            f"({loss_err:.2e}), worst parameter {worst['params'][0]:.2e} "
+            f"({worst['params'][1]}), worst buffer "
+            f"{worst['buffers'][0]:.2e} ({worst['buffers'][1]}), "
+            f"{moved} BatchNorm buffers moved in place; limit "
+            f"{RESNET_CAPTURE_TOL} of the largest magnitude")
+        out.update(loss_err=loss_err, param_err=worst["params"][0],
+                   buffer_err=worst["buffers"][0], train_s=train_s,
+                   programs=len(static._programs))
+        del twin, static, model
+        torch.cuda.empty_cache()
+    return out
+
+
+PREDICTOR_CHILD = r"""
+import json, sys, time
+sys.modules["jax"] = None
+sys.modules["paddle_tpu"] = None
+import numpy as np, torch
+from paddle_tpu_torch import inference
+prefix, batches, reps = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3])
+size = int(sys.argv[4])
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+pred = inference.create_predictor(inference.Config(prefix + ".pt2"))
+res = {"load_s": time.perf_counter() - t0, "batches": {}}
+entries = {}
+for b in batches:
+    x = np.load(f"{prefix}.x{b}.npy")
+    t0 = time.perf_counter()
+    got = pred.run([x])[0]
+    first = time.perf_counter() - t0
+    entries[b] = pred._compiled[(((b, 3, size, size), torch.float32),)]
+    want = np.load(f"{prefix}.want{b}.npy")
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    def positional():
+        pred.run([x])
+    h = pred.get_input_handle(pred.get_input_names()[0])
+    xd = torch.from_numpy(x).cuda()
+    def replay():
+        h.share_external_data(xd)
+        pred.run()
+    out = {"err": err, "first_s": first}
+    for name, fn in (("run_ms", positional), ("replay_ms", replay)):
+        fn(); torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    res["batches"][str(b)] = out
+pred.run([np.load(f"{prefix}.x{batches[1]}.npy")])      # a repeated batch
+key = (((batches[1], 3, size, size), torch.float32),)
+res["entries"] = len(pred._compiled)
+res["reused"] = pred._compiled[key] is entries[batches[1]]
+res["graphed"] = all(e[1].graph is not None for e in pred._compiled.values())
+res["modules_jax"] = sorted(
+    m for m in sys.modules if sys.modules[m] is not None
+    and (m in ("jax", "paddle_tpu") or m.startswith(("jax.", "paddle_tpu."))))
+print(json.dumps(res))
+"""
+
+
+def phase_predictor_resnet(torch, np, P, card: str, tmp: str):
+    """(6n) `jit.save` of ResNet-50 (seed 0, eval; 6m's one step at lr
+    0.1 leaves running statistics that overflow its eval forward) with
+    a dynamic batch; a fresh
+    process that imports only paddle_tpu_torch serves batches 1, 8 and
+    64 through `inference.Predictor` on the card (one CUDA graph per
+    signature) against this process's eager outputs (fp32, TF32 off on
+    both sides, within RESNET_CAPTURE_TOL of the largest magnitude)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.static import InputSpec
+    prefix = os.path.join(tmp, "resnet50")
+    model = P.models.resnet50(device="cuda")
+    model.eval()
+    t0 = time.perf_counter()
+    with tf32_off(torch):
+        jit.save(model, prefix, input_spec=[InputSpec([None, 3, RESNET_SIZE,
+                                                       RESNET_SIZE])])
+        save_s = time.perf_counter() - t0
+        rs = np.random.RandomState(1)
+        eager = {}
+        for b in PREDICTOR_BATCHES:
+            x = rs.randn(b, 3, RESNET_SIZE, RESNET_SIZE).astype(np.float32)
+            xd = torch.from_numpy(x).cuda()
+            with torch.no_grad():
+                want = model(xd).cpu().numpy()
+                ms = wall_ms(torch, lambda: model(xd), PREDICTOR_REPS)
+                eager[b] = (ms,) + device_busy_ms(torch, lambda: model(xd))
+            np.save(f"{prefix}.x{b}.npy", x)
+            np.save(f"{prefix}.want{b}.npy", want)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", PREDICTOR_CHILD, prefix,
+         json.dumps(PREDICTOR_BATCHES), str(PREDICTOR_REPS),
+         str(RESNET_SIZE)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"6n Predictor process failed:\n"
+                                f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(res["modules_jax"] == [], f"6n child imported {res['modules_jax']}")
+    check(res["entries"] == len(PREDICTOR_BATCHES) and res["reused"]
+          and res["graphed"],
+          f"6n: {res['entries']} compiled entries (want "
+          f"{len(PREDICTOR_BATCHES)}), repeated batch reused "
+          f"{res['reused']}, all CUDA graphs {res['graphed']}")
+    log(f"  jit.save(ResNet-50, InputSpec([None, 3, {RESNET_SIZE}, "
+        f"{RESNET_SIZE}])) in {save_s:.2f} s; a fresh process (no jax, no "
+        f"paddle_tpu) built the Predictor in {res['load_s']:.2f} s, "
+        f"{child_s:.1f} s in all; {res['entries']} entries (one CUDA graph "
+        f"per batch), a repeated batch reused its entry")
+    for b in PREDICTOR_BATCHES:
+        r = res["batches"][str(b)]
+        check(r["err"] <= RESNET_CAPTURE_TOL,
+              f"6n batch {b}: Predictor vs eager {r['err']:.2e}")
+        ms, kernels, busy = eager[b]
+        log(f"  [{card}] batch {b}: eager forward {ms:.2f} ms ({kernels} "
+            f"kernels, device busy {busy:.2f} ms), "
+            f"Predictor run (numpy in and out) {r['run_ms']:.2f} ms = "
+            f"{b / r['run_ms'] * 1e3:.1f} images/s, graph replay on "
+            f"device-resident input {r['replay_ms']:.2f} ms = "
+            f"{b / r['replay_ms'] * 1e3:.1f} images/s, first run (capture) "
+            f"{r['first_s']:.2f} s; vs eager {r['err']:.2e} (limit "
+            f"{RESNET_CAPTURE_TOL})")
+        r["eager_ms"], r["eager_kernels"], r["busy_ms"] = eager[b]
+    res["save_s"], res["child_s"] = save_s, child_s
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_export_ernie(torch, np, P, card: str, tmp: str, ernie_k):
+    """(6o) ERNIE-3.0-base (bf16, eval, no mask) exported with specs
+    [None, 128] x 2: a Predictor at 64 x 128 replays one CUDA graph
+    whose run launches K2 12 times and no dense attention, within phase
+    3's bf16 tolerance of the eager forward; `jit.load` and one SGD step
+    on the loaded layer over 16 x 128 (lr a tenth of loss / |g|^2)
+    launch K2 12 and K3 12 times, and the loss on that batch falls."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.static import InputSpec
+    cfg = P.models.ernie_base()
+    n, s = cfg.num_layers, ERNIE_SHAPE["s"]
+    model = P.models.BertForSequenceClassification(
+        cfg, 2, seed=0, device="cuda", dtype="bfloat16")
+    model.eval()
+    prefix = os.path.join(tmp, "ernie")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[InputSpec([None, s], "int64"),
+                                        InputSpec([None, s], "int64")])
+    save_s = time.perf_counter() - t0
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (ERNIE_EXPORT_BATCH, s))
+    tt = np.zeros_like(ids)
+    ids_d, tt_d = torch.from_numpy(ids).cuda(), torch.from_numpy(tt).cuda()
+    with torch.no_grad():
+        want = model(ids_d, tt_d)
+        eager_ms = wall_ms(torch, lambda: model(ids_d, tt_d), PREDICTOR_REPS)
+        kernels, busy = device_busy_ms(torch, lambda: model(ids_d, tt_d))
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(prefix))
+    got = pred.run([ids, tt])[0]          # warm-up, capture, one replay
+    first_s = time.perf_counter() - t0
+    reset_attention_counts(fa)
+    got = pred.run([ids, tt])[0]
+    torch.cuda.synchronize()
+    counts = attention_counts(fa)
+    check(counts == (n, 0, n, 0, 0),
+          f"6o Predictor run (K2, K3, wgmma K2, wgmma K3, dense) {counts}, "
+          f"want K2 {n} on the wgmma route and nothing else")
+    check(len(pred._compiled) == 1 and all(
+        e[1].graph is not None for e in pred._compiled.values()),
+          "6o: the Predictor's entry is not one CUDA graph")
+    want_np = want.float().cpu().numpy()
+    err = float(np.abs(got - want_np).max())
+    check(np.allclose(got, want_np, **TOL["bfloat16"]),
+          f"6o Predictor vs eager: max |diff| {err:.3e} beyond bf16's "
+          f"atol = rtol = 2e-2")
+    h = [pred.get_input_handle(k) for k in pred.get_input_names()]
+
+    def replay():
+        h[0].share_external_data(ids_d)
+        h[1].share_external_data(tt_d)
+        pred.run()
+    run_ms = wall_ms(torch, lambda: pred.run([ids, tt]), PREDICTOR_REPS)
+    replay_ms = wall_ms(torch, replay, PREDICTOR_REPS)
+    log(f"  ERNIE-base bf16 eval exported (InputSpec([None, {s}], int64) "
+        f"x 2) in {save_s:.2f} s; the Predictor's first run (load, "
+        f"capture) {first_s:.2f} s; one replay: K2 {counts[0]} (wgmma), "
+        f"dense 0; vs eager max |diff| {err:.3e} (bf16 limits atol = rtol "
+        f"= 2e-2)")
+    log(f"  [{card}] ERNIE-base {ERNIE_EXPORT_BATCH} x {s}: eager forward "
+        f"{eager_ms:.2f} ms ({kernels} kernels, device busy {busy:.2f} "
+        f"ms), Predictor run (numpy in and out) "
+        f"{run_ms:.2f} ms, graph replay on device-resident input "
+        f"{replay_ms:.2f} ms ({ERNIE_EXPORT_BATCH / replay_ms * 1e3:.1f} "
+        f"seq/s); 6k's eager training step enqueued in "
+        f"{ernie_k['host_ms']:.2f} ms on the host with K2/K3 as "
+        f"operators (PR 19: 53.7-137.6 ms through autograd.Function)")
+    del pred, model
+    torch.cuda.empty_cache()
+    # the loaded layer, fine-tuned: one SGD step over 16 x 128
+    layer = jit.load(prefix)
+    layer.train()
+    fy = torch.from_numpy(rs.randint(0, 2, (ERNIE_TUNE_BATCH,))).cuda()
+    fids, ftt = ids_d[:ERNIE_TUNE_BATCH], tt_d[:ERNIE_TUNE_BATCH]
+    params = dict(layer.named_parameters())
+    reset_attention_counts(fa)
+    loss0 = F.cross_entropy(layer(fids, ftt).float(), fy)
+    grads = torch.autograd.grad(loss0, list(params.values()))
+    loss0 = loss0.detach()
+    torch.cuda.synchronize()
+    step_counts = attention_counts(fa)
+    # a tenth of the step that the first-order model says would take
+    # the loss to 0 (at lr 0.1 the bf16 step overshot: 0.66 -> 1.53)
+    gsq = sum(float(g.float().square().sum()) for g in grads)
+    lr = 0.1 * float(loss0) / gsq
+    SGD(lr).bind(layer).step(dict(zip(params, grads)))
+    with torch.no_grad():
+        loss1 = F.cross_entropy(layer(fids, ftt).float(), fy)
+    check(step_counts == (n, n, n, n, 0),
+          f"6o loaded-layer step (K2, K3, wgmma K2, wgmma K3, dense) "
+          f"{step_counts}, want {n} each on the wgmma route")
+    check(float(loss1) < float(loss0),
+          f"6o loaded-layer SGD step: loss {float(loss0)} -> "
+          f"{float(loss1)}, did not fall")
+    log(f"  jit.load(ERNIE-base) and one SGD step (lr {lr:.3e} = 0.1 x "
+        f"loss / |g|^2) on the loaded layer over {ERNIE_TUNE_BATCH} x "
+        f"{s}: K2 {step_counts[0]}, K3 "
+        f"{step_counts[1]} (wgmma), dense 0; loss {float(loss0):.4f} -> "
+        f"{float(loss1):.4f} on the same batch")
+    del layer, grads
+    torch.cuda.empty_cache()
+    return {"save_s": save_s, "first_s": first_s, "counts": counts,
+            "err": err, "eager_ms": eager_ms, "eager_kernels": kernels,
+            "busy_ms": busy, "run_ms": run_ms,
+            "replay_ms": replay_ms, "step_counts": step_counts,
+            "losses": [float(loss0), float(loss1)], "sgd_lr": lr,
+            "fwd_launches": counts[0], "tune_fwd": step_counts[0],
+            "tune_bwd": step_counts[1]}
+
+
+def cf_function(x, n):
+    """(6p) a traced if / elif, a while with a break and a for over a
+    traced bound with an early return."""
+    s = x.sum()
+    if s > 0:
+        y = x * 2.0
+    elif s > -8.0:
+        y = x + 1.0
+    else:
+        y = -x
+    total = y[0] * 0.0
+    i = n * 0
+    while i < 16:
+        total = total + y[i]
+        if total.sum() > 40.0:
+            break
+        i = i + 1
+    acc = total * 0.0
+    for j in range(n):
+        acc = acc + y[j] * 0.5
+        if acc.sum() > 30.0:
+            return acc * 3.0
+    return acc + total
+
+
+def cf_layer(torch, P):
+    """(6p) a Layer whose forward holds a traced if and a while with a
+    break."""
+    from paddle_tpu_torch.core import make_generator
+    from paddle_tpu_torch.nn.layers import Linear
+
+    class ControlFlowLayer(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.fc = Linear(64, 64, 0.2, make_generator(3))
+
+        def forward(self, x, n):
+            h = self.fc(x)
+            if h.mean() > 0:
+                out = h * 0.5
+            else:
+                out = -h
+            k = n * 0
+            while k < n:
+                out = out + h[k]
+                if out.sum() > 500.0:
+                    break
+                k = k + 1
+            return out
+
+    return ControlFlowLayer().cuda()
+
+
+def phase_dy2static_card(torch, np, P, card: str, tmp: str):
+    """(6p) dy2static on the card: the exported program of a function
+    and of a Layer with traced control flow equals the eager (Python
+    path) call on inputs that take each branch; the Predictor serves
+    the saved program eagerly (it holds torch.cond / while_loop nodes),
+    as its docstring says, with the same outputs."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.jit.dy2static import convert_to_static
+    from paddle_tpu_torch.static import InputSpec
+    rs = np.random.RandomState(5)
+    base = rs.randn(16, 64).astype(np.float32)
+    cases = [(base * 0.1 + 0.05, 5), (-base * 0.01 - 0.005, 12),
+             (-np.abs(base) - 1.0, 3), (np.abs(base) * 3.0, 16)]
+    layer = cf_layer(torch, P)
+    targets = (("function", cf_function, convert_to_static(cf_function)),
+               ("Layer", layer, layer.forward))
+    rows = {}
+    for name, obj, eager in targets:
+        static = jit.to_static(obj)
+        t0 = time.perf_counter()
+        for xv, nv in cases:
+            x = torch.from_numpy(xv).cuda()
+            nt = torch.tensor(nv).cuda()
+            got = static(x, nt)
+            with torch.no_grad():
+                want = eager(x, nt)
+            diff = float((got - want).detach().abs().max())
+            check(torch.equal(got, want),
+                  f"6p {name}: exported vs eager differ by {diff:.3e} at "
+                  f"n {nv}")
+        prog = static.program(x, nt)
+        check(jit.has_control_flow(prog), f"6p {name}: no cond / while_loop "
+                                          f"node in the program")
+        capture_s = time.perf_counter() - t0
+        prefix = os.path.join(tmp, f"cf_{name}")
+        spec = [InputSpec([16, 64]), InputSpec([], "int64")]
+        jit.save(obj, prefix, input_spec=spec, device=x.device)
+        pred = inference.create_predictor(inference.Config(prefix))
+        for xv, nv in cases:
+            got = pred.run([xv, np.asarray(nv)])[0]
+            with torch.no_grad():
+                want = eager(torch.from_numpy(xv).cuda(),
+                             torch.tensor(nv).cuda()).cpu().numpy()
+            check(np.array_equal(got, want),
+                  f"6p {name}: Predictor vs eager at n {nv}")
+        check(pred.eager_reason is not None and all(
+            e[1].graph is None for e in pred._compiled.values()),
+              f"6p {name}: the Predictor captured a program with control "
+              f"flow")
+        rows[name] = {"capture_s": capture_s, "programs":
+                      len(static._programs), "entries": len(pred._compiled)}
+        log(f"  [{card}] {name}: {len(cases)} inputs through each branch, "
+            f"exported == eager (bitwise), {len(static._programs)} program "
+            f"({capture_s:.2f} s with the capture); the Predictor runs it "
+            f"eagerly ({pred.eager_reason}), equal outputs")
+    return rows
+
+
+# --------------------------------------------------------------------------- #
 # phase 8: numbers
 # --------------------------------------------------------------------------- #
 
@@ -5796,6 +6315,28 @@ def main(argv=None) -> int:
     log("phase 6l: padded Imdb batches through hapi.Model.fit, the MLM "
         "head, a 2-layer BERT card vs CPU with and without a mask")
     ernie_pad = phase_ernie_padded(torch, np, P, card)
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        t_cap = time.perf_counter()
+        log("phase 6m: ResNet-50 through jit.to_static (fp32, TF32 off): "
+            "eval forward and one Momentum step against eager")
+        captured = phase_to_static_resnet(torch, np, P, card)
+        log("phase 6n: jit.save(ResNet-50) and a fresh-process Predictor "
+            "on the card at batches 1, 8 and 64")
+        predicted = phase_predictor_resnet(torch, np, P, card, tmp)
+        torch.cuda.empty_cache()
+        log("phase 6o: ERNIE-base exported: the Predictor through K2, the "
+            "loaded layer fine-tuned through K2/K3")
+        exported = phase_export_ernie(torch, np, P, card, tmp, ernie_k)
+        log("phase 6p: dy2static on the card: exported control flow == "
+            "eager, served eagerly by the Predictor")
+        cflow = phase_dy2static_card(torch, np, P, card, tmp)
+        capture_s = time.perf_counter() - t_cap
+        log(f"  phases 6m-6p took {capture_s:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = {tname: phase_grad_check(torch, np, P, tname)
             for tname in ("bfloat16", "float16")}
@@ -5954,6 +6495,10 @@ def main(argv=None) -> int:
                        "resnet_card_vs_cpu": resnet_cpu,
                        "ernie": ernie, "ernie_kernels": ernie_k,
                        "ernie_padded": ernie_pad,
+                       "to_static_resnet": captured,
+                       "predictor_resnet": predicted,
+                       "export_ernie": exported, "dy2static": cflow,
+                       "capture_phases_s": capture_s,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

@@ -22,10 +22,16 @@ statistics threaded through the Trainer's steps as in JAX, and BERT /
 ERNIE fine-tuning (`models/bert.py` over the transformer, activation
 and container layers; `text/`'s datasets) by `Trainer` or `hapi.Model`,
 whose attention takes K2/K3 (non-causal, packed qkv) without a mask or
-attention dropout and the dense path with either.
+attention dropout and the dense path with either; and program capture
+and export (`jit.to_static`, `jit.save` / `jit.load` over
+`torch.export`, with Python control flow rewritten onto `torch.cond` /
+`while_loop` by `jit.dy2static`; `static`'s shims) served by
+`inference.Predictor`, one CUDA graph per input signature, with K2/K3
+as `paddle_tpu_torch::` operators inside the exported programs.
 """
-from . import (amp, framework, hapi, io, metric, models, nn, ops_cuda,
-               optimizer, quantization, serving, text, vision)
+from . import (amp, framework, hapi, inference, io, jit, metric, models,
+               nn, ops_cuda, optimizer, quantization, serving, static, text,
+               vision)
 from .core import (default_device, get_flags, resolve_device,
                    resolve_dtype, set_flags)
 from .framework import Trainer
@@ -35,9 +41,9 @@ from .models import (GPT, Bert, BertConfig, BertForMaskedLM,
                      gpt_small, gpt_tiny, resnet18, resnet50)
 from .serving import LLMEngine, SamplingParams
 
-__all__ = ["amp", "framework", "hapi", "io", "metric", "models", "nn",
-           "ops_cuda", "optimizer", "quantization", "serving", "text",
-           "vision",
+__all__ = ["amp", "framework", "hapi", "inference", "io", "jit", "metric",
+           "models", "nn", "ops_cuda", "optimizer", "quantization",
+           "serving", "static", "text", "vision",
            "default_device", "resolve_device", "resolve_dtype",
            "set_flags", "get_flags", "GPT",
            "GPTConfig", "gpt_small", "gpt_tiny", "resnet18", "resnet50",

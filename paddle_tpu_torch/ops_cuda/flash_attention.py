@@ -18,7 +18,12 @@ call's arguments, not a fallback: a case the kernels take never
 reaches `attention_dense`, and a kernel that fails raises.
 `DENSE_ATTENTION_CALLS` counts its calls.
 
-On a CUDA tensor `FlashAttentionFunction` launches hand-written Hopper
+The kernels are two operators of the `paddle_tpu_torch` namespace
+(`torch.library.custom_op`: `flash_attention_fwd`, whose registered
+autograd calls `flash_attention_bwd`), each with a fake (shape)
+implementation, so `torch.export` captures a call as one node and a
+loaded program launches the kernels again (`jit.save` / `jit.load`,
+`inference.Predictor`). On a CUDA tensor they launch hand-written Hopper
 kernels (`csrc/flash_attention_fwd.cu`, `csrc/flash_attention_bwd.cu`:
 TMA loads and wgmma products), built on first use by `_build.py`, on
 one of three routes fixed by dtype (`_check_cuda_args`, which raises on
@@ -61,7 +66,8 @@ import torch
 
 from .decode_attention import _LaunchCounter
 
-__all__ = ["dot_product_attention", "FlashAttentionFunction",
+__all__ = ["dot_product_attention", "flash_attention",
+           "flash_attention_fwd", "flash_attention_bwd",
            "flash_forward_plain", "flash_backward_plain",
            "flash_delta_plain", "attention_reference", "attention_dense",
            "empty_rows", "tf32_split", "FWD_LAUNCHES", "BWD_LAUNCHES",
@@ -550,23 +556,91 @@ def flash_backward(q, k, v, out, lse, g, causal: bool, scale: float):
     raise ValueError(f"unsupported device {q.device}")
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """`_flash_attention`'s custom VJP: the forward saves q, k, v, the
-    output and the logsumexp; the backward recomputes p from them."""
+def _padded_lse(lse):
+    """The (b, h, _lse_rows(sq)) row buffer under a (b, h, sq) lse: the
+    buffer itself when `lse` lies in one (what K2 returns), else a
+    fresh one with `lse` copied in (the plain versions' lse)."""
+    b, h, sq = lse.shape
+    rows = _lse_rows(sq)
+    if _in_row_buffer(lse):
+        return lse.as_strided((b, h, rows), (h * rows, rows, 1))
+    full = torch.zeros((b, h, rows), dtype=torch.float32, device=lse.device)
+    full[..., :sq].copy_(lse)
+    return full
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        out, lse = flash_forward(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, g, ctx.causal,
-                                    ctx.scale)
-        return dq, dk, dv, None, None
+# K2 and K3 as operators of the `paddle_tpu_torch` namespace, so that a
+# program captured by `torch.export` holds one node per call and the
+# loaded program launches the kernels again. The forward returns the
+# logsumexp as the whole (b, h, _lse_rows(sq)) row buffer the kernel
+# writes (a fake must describe the real output exactly, and K3 reads
+# that layout); `flash_attention` slices nothing of it, the backward op
+# takes it as it is. Each implementation calls `flash_forward` /
+# `flash_backward` by their module names, so a check may swap the
+# plain versions in on CUDA tensors.
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out (b, sq, h, d), lse row buffer (b, h, _lse_rows(sq)) fp32)."""
+    out, lse = flash_forward(q, k, v, causal, scale)
+    return out.contiguous(), _padded_lse(lse)
+
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, causal, scale):
+    b, sq, h, d = q.shape
+    return (q.new_empty((b, sq, h, d)),
+            q.new_empty((b, h, _lse_rows(sq)), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_bwd",
+                         mutates_args=())
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        g: torch.Tensor, causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """(dq, dk, dv) from the forward's `out` and lse row buffer."""
+    dq, dk, dv = flash_backward(q, k, v, out, lse[..., :q.shape[1]], g,
+                                causal, scale)
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
+@flash_attention_bwd.register_fake
+def _(q, k, v, out, lse, g, causal, scale):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    return (q.new_empty((b, sq, h, d)), k.new_empty((b, sk, h, d)),
+            v.new_empty((b, sk, h, d)))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _fwd_backward(ctx, g, _g_lse):
+    """`_flash_attention`'s custom VJP: the backward op recomputes p
+    from q, k, v, the output and the logsumexp (whose own gradient, 0
+    wherever the lse is not used, is dropped: nothing reads it but
+    K3)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.causal,
+                                     ctx.scale)
+    return dq, dk, dv, None, None
+
+
+flash_attention_fwd.register_autograd(_fwd_backward, setup_context=_fwd_setup)
+
+
+def flash_attention(q, k, v, causal: bool, scale: float):
+    """Attention through the K2/K3 operators: (b, sq, h, d),
+    differentiable."""
+    return flash_attention_fwd(q, k, v, causal, float(scale))[0]
 
 
 def dot_product_attention(q, k, v, mask=None, causal: bool = False,
@@ -576,9 +650,9 @@ def dot_product_attention(q, k, v, mask=None, causal: bool = False,
     q (b, sq, h, d), k/v (b, sk, h, d) → (b, sq, h, d), differentiable.
     A mask or dropout > 0 goes to `attention_dense` (JAX's
     `_pallas_ok` sends both to `_attention_reference`); everything else
-    through `FlashAttentionFunction`, whose CUDA path raises on what no
-    kernel route takes (`_check_cuda_args`)."""
+    through the K2/K3 operators (`flash_attention`), whose CUDA path
+    raises on what no kernel route takes (`_check_cuda_args`)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if mask is not None or dropout_p > 0.0:
         return attention_dense(q, k, v, mask, causal, scale, dropout_p)
-    return FlashAttentionFunction.apply(q, k, v, causal, float(scale))
+    return flash_attention(q, k, v, causal, scale)

@@ -62,6 +62,8 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.hapi.callbacks\n"
         "import paddle_tpu_torch.models.bert, paddle_tpu_torch.text\n"
         "import paddle_tpu_torch.nn.layers_transformer\n"
+        "import paddle_tpu_torch.jit, paddle_tpu_torch.jit.dy2static\n"
+        "import paddle_tpu_torch.static, paddle_tpu_torch.inference\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
