@@ -424,6 +424,36 @@ every phase passed):
    program eagerly (its `eager_reason`: no CUDA graph), equal outputs.
    6k's host enqueue of one eager ERNIE step (K2/K3 as operators) is
    logged beside PR 19's 53.7-137.6 ms.
+6q. `parallel/` on the card (a mesh is k logical ranks on this one
+   card): each collective over 4 ranks' CUDA tensors equal to its
+   rank-order formula, bitwise, in its list and its rank (SPMD run)
+   form; GPT-small fp32 (TF32 off, the tf32x3 route) takes one
+   Momentum step under a dp 2 x fsdp 2 mesh at ZeRO stages 1, 2 and 3:
+   against one rank's whole-batch step the loss within 1e-5 relative
+   and each parameter's move within 1e-3 in relative L2 norm; against
+   one rank whose grad_accum=4 microbatches are the ranks' rows, stage
+   1 bitwise and stages 2-3 within 1e-5 (another order of the four
+   adds); per rank, optimizer-slot bytes = the split entries' total
+   over the fsdp ranks plus the entries that stay whole; a bf16 O2
+   step at stage 2 finite.
+6r. config 4 ("Fleet collective data-parallel ResNet-50"): bench.py's
+   ResNet-50 (128 x 224^2, NHWC, stem_s2d, O2 bf16, Momentum(0.1,
+   0.9)) through `DataParallel` and `Trainer(mesh=)` over 4 data ranks
+   with synced batch norm: the loss falls below its first value;
+   step ms, images/s, peak memory, 215 all-reduces a step (53 batch
+   norms, 1 count, 161 gradients). One step at 64 x 224^2 of the 4
+   ranks against one rank's whole batch: fp64 gradients and running
+   statistics within 1e-9; fp32 no further from one rank's fp64 step
+   than twice one rank's own fp32 step is.
+6s. config 5 ("Fleet sharding stage2 + GPT-3 1.3B pretrain"):
+   `gpt_1p3b` built through `fleet.init` / `distributed_model` /
+   `distributed_trainer` (sharding stage 2, sharding_degree 4, AMP O2
+   bf16), AdamW, global batch 8 x 2048 over 4 ranks: the loss finite
+   and falling over 1 + 3 steps, K2 and K3 each launched 24 layers x
+   4 ranks = 96 times a step through the wgmma route, per-rank
+   optimizer-state bytes, step ms, tokens/s, peak memory. Phase 3
+   holds K2/K3 at its rank shape (b 2, s 2048, h 16, d 128, causal,
+   packed qkv) and phase 8 times them there.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters, and again in fp16) through the kernels
    against the same step with the plain versions swapped in on the
@@ -850,6 +880,7 @@ def phase_int8_kernel(torch, k7):
 
 FLASH_SHAPE = dict(b=18, s=1024, h=12, d=64)     # GPT-small, bench.py bs
 ERNIE_SHAPE = dict(b=64, s=128, h=12, d=64)      # ernie_base, bench.py bs
+P1B_RANK_SHAPE = dict(b=2, s=2048, h=16, d=128)  # gpt_1p3b, one of 4 ranks
 
 
 def flash_inputs(torch, gen, b, sq, sk, h, d, packed, dtype=None):
@@ -937,6 +968,11 @@ def flash_cases(torch):
     e = ERNIE_SHAPE
     yield ("ERNIE shape", e["b"], e["s"], e["s"], e["h"], e["d"], False,
            True, bf)
+    # gpt_1p3b's rank shape under config 5 (phase 6s): 8 x 2048 tokens
+    # over 4 ranks, d 128, causal, slices of the packed qkv
+    r = P1B_RANK_SHAPE
+    yield ("gpt_1p3b rank shape", r["b"], r["s"], r["s"], r["h"], r["d"],
+           True, True, bf)
 
 
 LAYOUT_NOTE = {True: ", packed qkv", "odd": ", odd strides"}
@@ -1049,6 +1085,9 @@ def phase_flash_kernels(torch, fa):
         worst[key] = max(worst[key], err_o)
         if name == "ERNIE shape":       # its own record (phase 8's line)
             worst["ernie_fwd"], worst["ernie_bwd"] = err_o, max(
+                held["grad_err"])
+        if name == "gpt_1p3b rank shape":
+            worst["1p3b_fwd"], worst["1p3b_bwd"] = err_o, max(
                 held["grad_err"])
         n_empty = held["empty"]
         log(f"  {route} {name} (b {b}, sq {sq}, sk {sk}, h {h}, d {d}, "
@@ -5710,6 +5749,453 @@ def phase_dy2static_card(torch, np, P, card: str, tmp: str):
 
 
 # --------------------------------------------------------------------------- #
+# phases 6q-6s: parallel/ on the one card (configs 4 and 5)
+# --------------------------------------------------------------------------- #
+
+MESH_BATCH = dict(b=8, s=256)         # 6q: gpt_small, dp 2 x fsdp 2
+DP_RANKS = 4                          # 6r: config 4's data ranks
+DP_WARM, DP_STEPS = 2, 6
+P1B = dict(b=8, s=2048, ranks=4, stage=2)   # 6s: config 5
+P1B_STEPS = 3
+# AdamW without warm-up: at 1e-4 the loss on the repeated batch fell
+# for two steps and rose past its start at the fourth (11.24, 10.93,
+# 10.62, 11.64; NVIDIA H100 80GB HBM3, 700.00 W)
+P1B_LR = 3e-5
+
+
+def collective_formulas(torch, C):
+    """Each collective over 4 ranks' CUDA tensors (list form and rank
+    form inside an SPMD run) against its rank-order formula, bitwise."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    xs = [torch.randn(8, 12, device="cuda", generator=gen)
+          for _ in range(4)]
+    s = ((xs[0] + xs[1]) + xs[2]) + xs[3]
+    want = {
+        "sum": s, "avg": s / 4,
+        "max": torch.maximum(torch.maximum(torch.maximum(xs[0], xs[1]),
+                                           xs[2]), xs[3]),
+        "min": torch.minimum(torch.minimum(torch.minimum(xs[0], xs[1]),
+                                           xs[2]), xs[3]),
+        "prod": ((xs[0] * xs[1]) * xs[2]) * xs[3]}
+    for op, w in want.items():
+        check(torch.equal(C.all_reduce(xs, op=op), w),
+              f"all_reduce {op} != its rank-order formula")
+    check(torch.equal(C.all_gather(xs, axis=1), torch.cat(xs, 1)),
+          "all_gather")
+    check(all(torch.equal(a, b) for a, b in zip(
+        C.reduce_scatter(xs), s.chunk(4, 0))), "reduce_scatter")
+    check(torch.equal(C.broadcast(xs, src=2), xs[2]), "broadcast")
+    a2a = C.all_to_all(xs, split_axis=0, concat_axis=1)
+    check(all(torch.equal(a2a[i], torch.cat([x.chunk(4, 0)[i] for x in xs],
+                                            1)) for i in range(4)),
+          "all_to_all")
+    ring = C.ppermute(xs, [(i, (i + 1) % 4) for i in range(4)])
+    check(all(torch.equal(ring[(i + 1) % 4], xs[i]) for i in range(4)),
+          "ppermute")
+    got = C.spmd([{"dp": i} for i in range(4)], lambda r: (
+        C.all_reduce(xs[r], group="dp"), C.reduce_scatter(xs[r], group="dp"),
+        C.all_to_all(xs[r], group="dp")))
+    for r in range(4):
+        check(torch.equal(got[r][0], s), f"rank {r}: in-run all_reduce")
+        check(torch.equal(got[r][1], s.chunk(4, 0)[r]),
+              f"rank {r}: in-run reduce_scatter")
+        check(torch.equal(got[r][2], C.all_to_all(xs)[r]),
+              f"rank {r}: in-run all_to_all")
+    return len(want) + 5
+
+
+def mesh_gpt_small_step(torch, np, P, parallel, stage, mesh, amp_level=None,
+                        steps=1, grad_accum=1):
+    """(losses, trainer) of `steps` Momentum steps of GPT-small on
+    MESH_BATCH's ids (one rank when mesh is None)."""
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.optimizer import Momentum
+    model = P.models.gpt_small(seed=0, device="cuda")
+    if mesh is not None:
+        parallel.apply_fsdp(model, mesh, stage=stage)
+    tr = Trainer(model, Momentum(1e-2, 0.9),
+                 lambda lg, y: model.loss(lg, y), mesh=mesh,
+                 amp_level=amp_level, grad_accum=grad_accum)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size, (MESH_BATCH["b"], MESH_BATCH["s"]))).cuda()
+    losses = [float(tr.train_step(ids, ids)[0]) for _ in range(steps)]
+    return losses, tr
+
+
+def move_errs(torch, got, want, p0):
+    """Per parameter: ||move - one rank's move|| / ||one rank's move||
+    (relative L2) and max |move - one rank's| / max |one rank's move|."""
+    out = {}
+    for k, w in want.items():
+        d = (got[k] - p0[k]) - w
+        out[k] = (float(d.norm() / w.norm().clamp_min(1e-30)),
+                  float(d.abs().max() / w.abs().max().clamp_min(1e-30)))
+    return out
+
+
+def phase_mesh(torch, np, P, card: str):
+    """(6q) the collectives on the card, and GPT-small (fp32, TF32 off,
+    the tf32x3 route) taking one Momentum step under a dp 2 x fsdp 2
+    mesh at ZeRO stages 1, 2 and 3 on the same batch as one rank. The
+    first Momentum step moves each parameter by lr x its gradient, so
+    the moves hold the gradients. Against one rank's whole-batch step:
+    the loss within 1e-5 relative, each parameter's move within 1e-3 in
+    relative L2 (the ranks' GEMMs and K2/K3 calls sum over 2 rows where
+    one rank's sum over 8; a bias gradient sums thousands of rows that
+    cancel, so its largest element may be further off: logged).
+    Against one rank whose `grad_accum=4` microbatches are the ranks'
+    rows (the same kernels at the same shapes): stage 1 (one all_reduce
+    over the 4 ranks, in rank order) bitwise; stages 2-3 (a
+    reduce_scatter per dp row, then an all_reduce over dp: another
+    order of the four adds, which a cancelling bias gradient shows
+    most) within 1e-5 relative L2. Per rank, slot
+    bytes = the split entries' total over the fsdp ranks plus the
+    entries that stay whole; a bf16 O2 step at stage 2 finite."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.nn import ranks
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel.sharding import Sharded, rank_bytes
+    t0 = time.perf_counter()
+    n_coll = collective_formulas(torch, C)
+    log(f"  {n_coll} collectives over 4 ranks' CUDA tensors equal their "
+        f"rank-order formulas bitwise (list and rank forms)")
+    res = {"collectives_checked": n_coll, "stages": {}}
+    with tf32_off(torch):
+        p0 = {k: v.detach().clone()
+              for k, v in P.models.gpt_small(seed=0, device="cuda"
+                                             ).named_parameters()}
+        moves = {}
+        for acc in (1, 4):
+            (loss,), tr1 = mesh_gpt_small_step(torch, np, P, parallel, None,
+                                               None, grad_accum=acc)
+            moves[acc] = (loss, {k: tr1.state.params[k].detach() - p0[k]
+                                 for k in p0})
+            del tr1
+        one = moves[1][0]
+        for stage in (1, 2, 3):
+            mesh = parallel.init_mesh(dp=2, fsdp=2, device="cuda")
+            ranks.reset_counts()
+            (loss,), tr = mesh_gpt_small_step(torch, np, P, parallel, stage,
+                                              mesh)
+            counts = ranks.counts()
+            st = tr.gathered_state()
+            e1 = move_errs(torch, st.params, moves[1][1], p0)
+            e4 = move_errs(torch, st.params, moves[4][1], p0)
+            l2 = max(e1.values())
+            mx = max(e1.items(), key=lambda kv: kv[1][1])
+            l2_4 = max(v[0] for v in e4.values())
+            check(abs(loss - one) <= 1e-5 * abs(one),
+                  f"stage {stage}: loss {loss} vs one rank {one}")
+            check(l2[0] <= 1e-3, f"stage {stage}: a parameter's move is "
+                                 f"{l2[0]:.2e} off in relative L2")
+            if stage == 1:
+                check(l2_4 == 0.0 and loss == moves[4][0],
+                      f"stage 1 vs grad_accum=4: {l2_4:.2e}, loss {loss} "
+                      f"vs {moves[4][0]}")
+            else:
+                check(l2_4 <= 1e-5, f"stage {stage} vs grad_accum=4: "
+                                    f"{l2_4:.2e}")
+            per = rank_bytes(tr.state, mesh)
+            total = sum(v.numel() * v.element_size() for s in
+                        st.opt_state["slots"].values() for v in s.values())
+            # the entries no dim of which splits (the column biases,
+            # whose one dim the reference's tp spec holds) stay whole
+            whole = sum(v.numel() * v.element_size()
+                        for s in tr.state.opt_state["slots"].values()
+                        for v in s.values() if not isinstance(v, Sharded))
+            check(all(p["slots"] == (total - whole) / 2 + whole
+                      for p in per),
+                  f"stage {stage}: per-rank slot bytes "
+                  f"{[p['slots'] for p in per]} vs the split {total - whole}"
+                  f" / 2 + the whole {whole}")
+            log(f"  stage {stage}, dp 2 x fsdp 2, fp32: loss {loss:.6f} "
+                f"(one rank {one:.6f}); parameter moves against one rank's "
+                f"worst {l2[0]:.2e} relative L2, largest element "
+                f"{mx[1][1]:.2e} of its max ({mx[0]}); against grad_accum 4 "
+                f"{l2_4:.2e}; per-rank slots {per[0]['slots']} B of {total} "
+                f"B ({whole} B whole on every rank), params "
+                f"{per[0]['params']} B; collectives {counts}")
+            res["stages"][stage] = {
+                "loss": loss, "one_rank_loss": one, "move_rel_l2": l2[0],
+                "move_max_elem": [mx[0], mx[1][1]],
+                "vs_grad_accum4": l2_4, "rank_bytes": per[0],
+                "slot_bytes_total": total, "slot_bytes_whole": whole,
+                "collectives": counts}
+            del tr, st
+            parallel.set_mesh(None)
+    mesh = parallel.init_mesh(dp=2, fsdp=2, device="cuda")
+    losses, tr = mesh_gpt_small_step(torch, np, P, parallel, 2, mesh,
+                                     amp_level="O2", steps=2)
+    check(all(math.isfinite(x) for x in losses), f"O2 stage 2: {losses}")
+    log(f"  stage 2 O2 bf16 (wgmma route): losses {losses}")
+    res["o2_stage2_losses"] = losses
+    del tr
+    parallel.set_mesh(None)
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def resnet50_dp_trainer(torch, P, parallel, mesh, amp_level, lr=0.1):
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    model = P.models.resnet50(num_classes=1000, data_format="NHWC",
+                              stem_s2d=True, seed=0, device="cuda")
+    model = parallel.DataParallel(model, mesh=mesh) if mesh else model
+    return Trainer(model, Momentum(learning_rate=lr, momentum=0.9),
+                   lambda out, y: F.cross_entropy(out, y), mesh=mesh,
+                   amp_level=amp_level, amp_dtype="bfloat16")
+
+
+def phase_dp_resnet50(torch, np, P, card: str):
+    """(6r) config 4, "Fleet collective data-parallel ResNet-50":
+    bench.py's shape (128 x 224^2, NHWC, stem_s2d, O2 bf16,
+    Momentum(0.1, 0.9)) over DP_RANKS data ranks through
+    `DataParallel` and `Trainer(mesh=)` with synced batch norm: the loss
+    falls below its first value (no TPU kernel on this path), step ms,
+    images/s, peak memory and the collectives per step. Then one step
+    of the 4 ranks against one rank's whole-batch step from the same
+    weights at RESNET_CHECK_BATCH x 224^2 (TF32 off, cuDNN
+    deterministic; the gradients are the first Momentum step's move at
+    lr 1): in fp64 the gradients within 1e-9 in relative L2 norm over
+    the model and the running statistics within 1e-9 of their largest
+    magnitude; in fp32 both no further from one rank's fp64 step than
+    twice one rank's own fp32 step is (a random-init ResNet-50's fp32
+    gradients are a few percent off its fp64 ones, in layer4 most, so
+    a fixed fp32 bound would measure the model, not the ranks)."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.nn import ranks
+    t0 = time.perf_counter()
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE,
+                                  3).astype(np.float32)).cuda()
+    y = torch.from_numpy(rs.randint(0, 1000, (RESNET_BATCH,))).cuda()
+    try:
+        mesh = parallel.init_mesh(dp=DP_RANKS, device="cuda")
+        tr = resnet50_dp_trainer(torch, P, parallel, mesh, "O2")
+        xb = x.to(torch.bfloat16)
+        t1 = time.perf_counter()
+        _, warm = tr.train_steps(xb, y, steps=DP_WARM)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        torch.cuda.reset_peak_memory_stats()
+        ranks.reset_counts()
+        t1 = time.perf_counter()
+        _, timed = tr.train_steps(xb, y, steps=DP_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: v / DP_STEPS for k, v in ranks.counts().items()
+                    if v}
+        losses = warm.float().cpu().tolist() + timed.float().cpu().tolist()
+        check(all(math.isfinite(v) for v in losses), f"DP ResNet-50: "
+                                                     f"{losses}")
+        check(min(losses[1:]) < losses[0], f"DP ResNet-50 loss never fell "
+                                           f"below its first: {losses}")
+        n_bn = sum(isinstance(m, P.nn.layers_norm._BatchNormBase)
+                   for m in tr.model.modules())
+        n_par = len(tr.state.params)
+        check(per_step.get("all_reduce") == n_bn + 1 + n_par,
+              f"all-reduces per step {per_step} != {n_bn} batch norms + 1 "
+              f"count + {n_par} gradients")
+        step_ms = wall / DP_STEPS * 1e3
+        ips = RESNET_BATCH * DP_STEPS / wall
+        log(f"  DP ResNet-50 O2 bf16, {DP_RANKS} ranks x "
+            f"{RESNET_BATCH // DP_RANKS} images, synced batch norm "
+            f"[{card}]: {DP_WARM} warm-up steps {warm_s:.2f} s; "
+            f"{step_ms:.2f} ms per step, {ips:.1f} images/s, peak memory "
+            f"{peak / 2**30:.2f} GiB; collectives per step {per_step}; "
+            f"losses {[round(v, 4) for v in losses]}")
+        del tr, xb
+        torch.cuda.empty_cache()
+        res = {"losses": losses, "step_ms": step_ms, "images_per_s": ips,
+               "peak_bytes": peak, "warmup_s": warm_s,
+               "collectives_per_step": per_step, "batch_norms": n_bn}
+        # one step of 4 ranks vs one rank, same weights and batch, in
+        # fp64 (the ranks' arithmetic alone) and fp32 (against fp32's
+        # own distance from fp64)
+        xs, ys = x[:RESNET_CHECK_BATCH], y[:RESNET_CHECK_BATCH]
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        runs = {}
+        try:
+            with tf32_off(torch):
+                for tname in ("float64", "float32"):
+                    for m in (None, mesh):
+                        runs[tname, m is not None] = resnet50_one_step(
+                            torch, P, parallel, m, getattr(torch, tname),
+                            xs, ys)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        ref = runs["float64", False]
+        err = {key: (grad_rel_l2(g, ref[0]), max(
+            rel_err(b[k], ref[1][k]) for k in ref[1]))
+            for key, (g, b) in runs.items()}
+        mesh64, mesh32, one32 = (err["float64", True], err["float32", True],
+                                 err["float32", False])
+        check(mesh64[0] <= 1e-9 and mesh64[1] <= 1e-9,
+              f"fp64: 4 ranks vs one rank {mesh64}")
+        check(mesh32[0] <= 2 * one32[0] and mesh32[1] <= 2 * one32[1],
+              f"fp32 4 ranks {mesh32} vs one rank's own fp32 error {one32}")
+        log(f"  one step at {RESNET_CHECK_BATCH} x {RESNET_SIZE}^2, "
+            f"{DP_RANKS} ranks vs one rank's whole batch (TF32 off, cuDNN "
+            f"deterministic): fp64 gradients {mesh64[0]:.2e} relative L2, "
+            f"running statistics {mesh64[1]:.2e} of their largest "
+            f"magnitude; fp32 against fp64's one rank: 4 ranks "
+            f"{mesh32[0]:.2e} / {mesh32[1]:.2e}, one rank {one32[0]:.2e} / "
+            f"{one32[1]:.2e}")
+        res.update(check_batch=RESNET_CHECK_BATCH, fp64_vs_one=mesh64,
+                   fp32_mesh_vs_fp64=mesh32, fp32_one_vs_fp64=one32,
+                   seconds=time.perf_counter() - t0)
+        return res
+    finally:
+        torch.backends.cudnn.benchmark = prev
+        parallel.set_mesh(None)
+
+
+RESNET_CHECK_BATCH = 64     # 6r's one-step comparison (fp64 fits twice)
+
+
+def grad_rel_l2(g, ref) -> float:
+    num = sum(float((g[k].double() - ref[k].double()).square().sum())
+              for k in ref)
+    den = sum(float(ref[k].double().square().sum()) for k in ref)
+    return math.sqrt(num / den)
+
+
+def resnet50_one_step(torch, P, parallel, mesh, dtype, x, y):
+    """(gradients, running statistics) of one Momentum step at lr 1 (the
+    first step moves by the gradient) of ResNet-50 in `dtype`, on one
+    rank or over `mesh` (through DataParallel); names without the
+    wrapper's prefix."""
+    t = resnet50_dp_trainer(torch, P, parallel, mesh, None, lr=1.0)
+    t.model.to(dtype)
+    t.init_state()
+    p0 = {k: v.detach().clone() for k, v in t.state.params.items()}
+    t.train_step(x.to(dtype), y)
+    st = t.gathered_state()
+    out = ({k.removeprefix("_layers."): p0[k] - st.params[k].detach()
+            for k in p0},
+           {k.removeprefix("_layers."): v.clone()
+            for k, v in st.buffers.items()})
+    del t, st, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+def p1b_step_flops(cfg, tokens: int, seq: int) -> float:
+    """6 N per token for the weights' GEMMs (N counting the tied head
+    once) plus the causal attention's 2 x 2 x d x pairs products x 3
+    (forward and the two backward ones)."""
+    n = sum(math.prod(s) for k, s in P1B_SHAPES(cfg).items()
+            if not k.endswith(("bias",)) and "ln" not in k
+            and k != "wpe.weight")
+    pairs = seq * (seq + 1) / 2
+    attn = 3 * 2 * 2 * cfg.head_dim * pairs * cfg.num_heads * \
+        cfg.num_layers * (tokens / seq)
+    return 6 * n * tokens + attn
+
+
+def P1B_SHAPES(cfg):
+    from paddle_tpu_torch.models.gpt import param_shapes
+    return param_shapes(cfg)
+
+
+def phase_p1b(torch, np, P, card: str):
+    """(6s) config 5, "Fleet sharding stage2 + GPT-3 1.3B pretrain":
+    `gpt_1p3b` at O2 bf16 with AdamW, built through `fleet.init` /
+    `distributed_model` / `distributed_trainer` (sharding, stage 2,
+    sharding_degree 4), global batch 8 x 2048 over 4 ranks: the loss
+    finite and falling over the steps, K2/K3 each launched 24 layers x
+    4 ranks = 96 times a step (read from their counters), each rank's
+    optimizer-state bytes, step ms, tokens/s and peak memory."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.nn import ranks
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import fleet
+    from paddle_tpu_torch.parallel.sharding import rank_bytes
+    t0 = time.perf_counter()
+    s = parallel.DistributedStrategy(
+        sharding=True, sharding_configs={"stage": P1B["stage"]},
+        hybrid_configs={"sharding_degree": P1B["ranks"]}, amp=True,
+        amp_configs={"level": "O2", "dtype": "bfloat16"})
+    mesh = fleet.init(strategy=s, world_size=P1B["ranks"], device="cuda")
+    try:
+        model = fleet.distributed_model(P.models.gpt_1p3b(seed=0,
+                                                          device="cuda"))
+        cfg = model.cfg
+        check((cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+               cfg.max_seq_len) == (2048, 24, 16, 2048), f"not 1.3B: {cfg}")
+        n_params = sum(p.numel() for p in model.parameters())
+        tr = fleet.distributed_trainer(
+            model, fleet.distributed_optimizer(AdamW(learning_rate=P1B_LR)),
+            lambda lg, y: model.loss(lg, y))
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (P1B["b"], P1B["s"]))).cuda()
+        build_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        warm, _ = tr.train_step(ids, ids)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counters(fa)
+        ranks.reset_counts()
+        t1 = time.perf_counter()
+        _, timed = tr.train_steps(ids, ids, steps=P1B_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        fwd, bwd = fa.FWD_LAUNCHES.count, fa.BWD_LAUNCHES.count
+        check((fa.WGMMA_FWD_LAUNCHES.count, fa.WGMMA_BWD_LAUNCHES.count)
+              == (fwd, bwd), "1.3B training left the wgmma route")
+        want = cfg.num_layers * P1B["ranks"] * P1B_STEPS
+        check(fwd == want and bwd == want,
+              f"K2/K3 launches {fwd}/{bwd} != {cfg.num_layers} layers x "
+              f"{P1B['ranks']} ranks x {P1B_STEPS} steps")
+        losses = [float(warm)] + timed.float().cpu().tolist()
+        check(all(math.isfinite(v) for v in losses), f"1.3B: {losses}")
+        check(losses[-1] < losses[0] and losses[-1] < losses[1],
+              f"1.3B loss did not fall: {losses}")
+        per = rank_bytes(tr.state, mesh)
+        total = sum(p["slots"] for p in per)      # the ranks' slices
+        counts = {k: v / P1B_STEPS for k, v in ranks.counts().items() if v}
+        tokens = P1B["b"] * P1B["s"]
+        step_ms = wall / P1B_STEPS * 1e3
+        flops = p1b_step_flops(cfg, tokens, P1B["s"])
+        log(f"  gpt_1p3b ({n_params / 1e9:.3f} B parameters) O2 bf16, "
+            f"AdamW, ZeRO stage {P1B['stage']} over {P1B['ranks']} ranks, "
+            f"global batch {P1B['b']} x {P1B['s']} [{card}]: built in "
+            f"{build_s:.1f} s, warm-up step {warm_s:.2f} s, then "
+            f"{step_ms:.1f} ms per step, {tokens * P1B_STEPS / wall:.0f} "
+            f"tokens/s, peak memory {peak / 2**30:.2f} GiB; losses "
+            f"{[round(v, 4) for v in losses]}")
+        log(f"  K2 launches {fwd}, K3 launches {bwd} = {cfg.num_layers} "
+            f"layers x {P1B['ranks']} ranks x {P1B_STEPS} steps; "
+            f"collectives per step {counts}; per-rank optimizer state "
+            f"{[p['slots'] for p in per]} B ({total / 2**30:.2f} GiB in "
+            f"all), per-rank parameters {per[0]['params']} B; step "
+            f"model FLOPs {flops / 1e12:.1f} T "
+            f"({flops / step_ms / 1e9:.0f} TFLOP/s)")
+        res = {"losses": losses, "step_ms": step_ms,
+               "tokens_per_s": tokens * P1B_STEPS / wall,
+               "peak_bytes": peak, "warmup_s": warm_s, "build_s": build_s,
+               "fwd_launches": fwd, "bwd_launches": bwd,
+               "launches_per_step": fwd // P1B_STEPS,
+               "rank_bytes": per, "collectives_per_step": counts,
+               "n_params": n_params, "step_flops": flops,
+               "seconds": time.perf_counter() - t0}
+        del tr, model, ids
+        torch.cuda.empty_cache()
+        return res
+    finally:
+        parallel.set_mesh(None)
+
+
+# --------------------------------------------------------------------------- #
 # phase 8: numbers
 # --------------------------------------------------------------------------- #
 
@@ -6083,8 +6569,12 @@ ROUTE_TIMING = (("fp32 d 64, GPT-small training shape", FLASH_SHAPE["b"],
                  FLASH_SHAPE["s"], FLASH_SHAPE["h"], 64, "float16", True),
                 ("bf16 d 64, ERNIE shape", ERNIE_SHAPE["b"],
                  ERNIE_SHAPE["s"], ERNIE_SHAPE["h"], ERNIE_SHAPE["d"],
-                 "bfloat16", False))
+                 "bfloat16", False),
+                ("bf16 d 128, gpt_1p3b rank shape", P1B_RANK_SHAPE["b"],
+                 P1B_RANK_SHAPE["s"], P1B_RANK_SHAPE["h"],
+                 P1B_RANK_SHAPE["d"], "bfloat16", True))
 ERNIE_TIMING = ROUTE_TIMING[3][0]
+P1B_TIMING = ROUTE_TIMING[4][0]
 
 
 def phase_flash_route_numbers(torch, fa, card: str):
@@ -6337,6 +6827,18 @@ def main(argv=None) -> int:
         log(f"  phases 6m-6p took {capture_s:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    t_par = time.perf_counter()
+    log("phase 6q: parallel/ on the card: the collectives, GPT-small fp32 "
+        "under dp 2 x fsdp 2 at ZeRO stages 1-3 == one rank, O2 stage 2")
+    mesh_run = phase_mesh(torch, np, P, card)
+    log("phase 6r: config 4, DP ResNet-50 over 4 ranks with synced batch "
+        "norm (O2 bf16, bs 128 x 224^2); fp32 4 ranks == one rank")
+    dp_resnet = phase_dp_resnet50(torch, np, P, card)
+    log("phase 6s: config 5, gpt_1p3b ZeRO stage 2 over 4 ranks through "
+        "fleet (O2 bf16, AdamW, 8 x 2048 tokens) through K2/K3")
+    p1b = phase_p1b(torch, np, P, card)
+    parallel_s = time.perf_counter() - t_par
+    log(f"  phases 6q-6s took {parallel_s:.1f} s")
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = {tname: phase_grad_check(torch, np, P, tname)
             for tname in ("bfloat16", "float16")}
@@ -6377,6 +6879,18 @@ def main(argv=None) -> int:
         f"{ernie['bound_ms']:.3f} ms; 6k (K2/K3) {ernie_k['step_ms']:.2f} "
         f"ms per step; 6l hapi fit over padded Imdb "
         f"{ernie_pad['seq_per_s']:.1f} seq/s with the loader")
+    log(f"  DP ResNet-50, phase 6r (O2 bf16, {DP_RANKS} ranks, bs "
+        f"{RESNET_BATCH} x {RESNET_SIZE}^2, synced batch norm) [card: "
+        f"{card}]: {dp_resnet['step_ms']:.2f} ms per step, "
+        f"{dp_resnet['images_per_s']:.1f} images/s, peak memory "
+        f"{dp_resnet['peak_bytes'] / 2**30:.2f} GiB, collectives per step "
+        f"{dp_resnet['collectives_per_step']}")
+    log(f"  gpt_1p3b ZeRO-2, phase 6s (O2 bf16, {P1B['ranks']} ranks, "
+        f"{P1B['b']} x {P1B['s']} tokens) [card: {card}]: "
+        f"{p1b['step_ms']:.1f} ms per step, {p1b['tokens_per_s']:.0f} "
+        f"tokens/s, peak memory {p1b['peak_bytes'] / 2**30:.2f} GiB, "
+        f"per-rank optimizer state "
+        f"{p1b['rank_bytes'][0]['slots'] / 2**30:.3f} GiB")
 
     flash = "paddle_tpu/ops_pallas/flash_attention.py"
     kernels = [{
@@ -6437,6 +6951,20 @@ def main(argv=None) -> int:
             "max_abs_err": flash_err[f"ernie_{part}"],
             **{k: ernie_t[key][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}})
+    # the wgmma route at gpt_1p3b's rank shape under config 5 (d 128,
+    # causal, packed qkv, s 2048): phase 6s's launches
+    p1b_t = rnums[P1B_TIMING]
+    for part, line, key in (("fwd", 90, "forward"), ("bwd", 205,
+                                                     "backward")):
+        kernels.append({
+            "name": f"flash_attention_1p3b_{part}", "route": "cuda",
+            "source": f"paddle_tpu_torch/ops_cuda/csrc/flash_attention_"
+                      f"{part}.cu",
+            "replaces": f"{flash}:{line}",
+            "launches": p1b[f"{part}_launches"],
+            "max_abs_err": flash_err[f"1p3b_{part}"],
+            **{k: p1b_t[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}})
     dpy = "paddle_tpu/ops_pallas/decode_attention.py"
     for name, line, what in (("K4", 258, "paged_decode"),
                              ("K5", 242, "ragged_decode_int8"),
@@ -6499,6 +7027,9 @@ def main(argv=None) -> int:
                        "predictor_resnet": predicted,
                        "export_ernie": exported, "dy2static": cflow,
                        "capture_phases_s": capture_s,
+                       "mesh": mesh_run, "dp_resnet50": dp_resnet,
+                       "gpt_1p3b_stage2": p1b,
+                       "parallel_phases_s": parallel_s,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

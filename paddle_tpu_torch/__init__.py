@@ -27,23 +27,30 @@ and export (`jit.to_static`, `jit.save` / `jit.load` over
 `torch.export`, with Python control flow rewritten onto `torch.cond` /
 `while_loop` by `jit.dy2static`; `static`'s shims) served by
 `inference.Predictor`, one CUDA graph per input signature, with K2/K3
-as `paddle_tpu_torch::` operators inside the exported programs.
+as `paddle_tpu_torch::` operators inside the exported programs; and
+data-parallel and ZeRO 1-3 training over a mesh of logical ranks on one
+card (`parallel`, also `distributed`; `Trainer(mesh=)`, synced batch
+norm, `fleet`).
 """
 from . import (amp, framework, hapi, inference, io, jit, metric, models,
-               nn, ops_cuda, optimizer, quantization, serving, static, text,
-               vision)
+               nn, ops_cuda, optimizer, parallel, quantization, serving,
+               static, text, vision)
 from .core import (default_device, get_flags, resolve_device,
                    resolve_dtype, set_flags)
 from .framework import Trainer
 from .hapi import Model
+from .parallel import DataParallel
 from .models import (GPT, Bert, BertConfig, BertForMaskedLM,
                      BertForSequenceClassification, GPTConfig, ernie_base,
                      gpt_small, gpt_tiny, resnet18, resnet50)
 from .serving import LLMEngine, SamplingParams
 
+distributed = parallel
+
 __all__ = ["amp", "framework", "hapi", "inference", "io", "jit", "metric",
-           "models", "nn", "ops_cuda", "optimizer", "quantization",
-           "serving", "static", "text", "vision",
+           "models", "nn", "ops_cuda", "optimizer", "parallel",
+           "distributed", "quantization", "serving", "static", "text",
+           "vision", "DataParallel",
            "default_device", "resolve_device", "resolve_dtype",
            "set_flags", "get_flags", "GPT",
            "GPTConfig", "gpt_small", "gpt_tiny", "resnet18", "resnet50",

@@ -1,13 +1,18 @@
-"""Metrics: `Metric` and `Accuracy`, the counterparts of
+"""Metrics: `Metric`, `Accuracy`, `Precision`, `Recall`, `Auc` and the
+functional `accuracy`, the counterparts of
 `paddle_tpu/metric/__init__.py`. Host-side numpy accumulation: a step's
 predictions (a tensor on any device, bf16 included, or an array) come
-to the host once in `compute`."""
+to the host once in `compute` / `update`. Each metric keeps additive
+sufficient statistics (Accuracy: total, count; Precision: tp, fp;
+Recall: tp, fn; Auc: the positive and negative bucket histograms),
+which `parallel.fleet_metrics` sums over workers."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["Metric", "Accuracy"]
+__all__ = ["Metric", "Accuracy", "Precision", "Recall", "Auc",
+           "accuracy"]
 
 
 def _np(x):
@@ -78,3 +83,103 @@ class Accuracy(Metric):
         if len(self.topk) == 1:
             return [self._name]
         return [f"{self._name}_top{k}" for k in self.topk]
+
+
+class Precision(Metric):
+    """Binary precision of scores thresholded at 0.5."""
+
+    def __init__(self, name=None):
+        super().__init__(name or "precision")
+        self.reset()
+
+    def reset(self):
+        self.tp = 0
+        self.fp = 0
+
+    def update(self, preds, labels):
+        preds = (_np(preds) > 0.5).astype(np.int64).reshape(-1)
+        labels = _np(labels).astype(np.int64).reshape(-1)
+        self.tp += int(((preds == 1) & (labels == 1)).sum())
+        self.fp += int(((preds == 1) & (labels == 0)).sum())
+
+    def accumulate(self):
+        denom = self.tp + self.fp
+        return float(self.tp / denom) if denom else 0.0
+
+
+class Recall(Metric):
+    """Binary recall of scores thresholded at 0.5."""
+
+    def __init__(self, name=None):
+        super().__init__(name or "recall")
+        self.reset()
+
+    def reset(self):
+        self.tp = 0
+        self.fn = 0
+
+    def update(self, preds, labels):
+        preds = (_np(preds) > 0.5).astype(np.int64).reshape(-1)
+        labels = _np(labels).astype(np.int64).reshape(-1)
+        self.tp += int(((preds == 1) & (labels == 1)).sum())
+        self.fn += int(((preds == 0) & (labels == 1)).sum())
+
+    def accumulate(self):
+        denom = self.tp + self.fn
+        return float(self.tp / denom) if denom else 0.0
+
+
+class Auc(Metric):
+    """ROC AUC over `num_thresholds` + 1 score buckets: each score adds
+    one to its bucket's positive or negative count; `accumulate` sums
+    the trapezoids from the highest bucket down."""
+
+    def __init__(self, curve="ROC", num_thresholds=4095, name=None):
+        super().__init__(name or "auc")
+        self.num_thresholds = num_thresholds
+        self.reset()
+
+    def reset(self):
+        self._stat_pos = np.zeros(self.num_thresholds + 1)
+        self._stat_neg = np.zeros(self.num_thresholds + 1)
+
+    def update(self, preds, labels):
+        preds = _np(preds)
+        if preds.ndim == 2:                      # [neg_prob, pos_prob]
+            preds = preds[:, -1]
+        labels = _np(labels).reshape(-1)
+        buckets = np.clip((preds * self.num_thresholds).astype(np.int64),
+                          0, self.num_thresholds).reshape(-1)
+        pos = labels.astype(bool)
+        self._stat_pos += np.bincount(buckets[pos],
+                                      minlength=self.num_thresholds + 1)
+        self._stat_neg += np.bincount(buckets[~pos],
+                                      minlength=self.num_thresholds + 1)
+
+    @staticmethod
+    def trapezoid_area(x1, x2, y1, y2):
+        return abs(x1 - x2) * (y1 + y2) / 2.0
+
+    def accumulate(self):
+        # from the highest bucket down, as the reference's loop
+        pos = np.cumsum(self._stat_pos[::-1])
+        neg = np.cumsum(self._stat_neg[::-1])
+        tot_pos, tot_neg = pos[-1], neg[-1]
+        if tot_pos == 0 or tot_neg == 0:
+            return 0.0
+        prev_pos = np.concatenate([[0.0], pos[:-1]])
+        prev_neg = np.concatenate([[0.0], neg[:-1]])
+        auc = np.sum(np.abs(neg - prev_neg) * (pos + prev_pos) / 2.0)
+        return float(auc / (tot_pos * tot_neg))
+
+
+def accuracy(input, label, k=1):
+    """Top-k accuracy of one batch as a 0-d fp32 tensor
+    (paddle.metric.accuracy); labels as ids or a trailing 1 column."""
+    input = torch.as_tensor(input)
+    label = torch.as_tensor(label, device=input.device)
+    if label.dim() == input.dim() and label.shape[-1] == 1:
+        label = label[..., 0]
+    topk = torch.argsort(-input, dim=-1, stable=True)[..., :k]
+    correct = (topk == label[..., None]).any(dim=-1)
+    return correct.to(torch.float32).mean()

@@ -61,6 +61,7 @@ from torch import nn
 
 from ..core import DeviceLike, make_generator, resolve_device, resolve_dtype
 from ..nn import functional as F
+from ..nn import ranks
 from ..nn.layers import GELU, Dropout, Embedding, LayerNorm, Linear
 from ..nn.tp import ShardedParams, all_gather, all_reduce
 from ..quantization.kv import (HeadShards, dequant_slab, is_quantized,
@@ -156,7 +157,8 @@ def _ce_fwd_impl(logits, labels, ignore_index: int):
     idx = labels.clamp(min=0).long()
     tgt = logits.gather(-1, idx[..., None])[..., 0].float()
     mask = (labels != ignore_index).float()
-    denom = torch.clamp(mask.sum(), min=1.0)
+    # under a mesh: the count of the global batch (nn.ranks)
+    denom = torch.clamp(ranks.mean_denominator(mask.sum()), min=1.0)
     loss = ((lse - tgt) * mask).sum() / denom
     return loss, lse, mask, denom
 
@@ -184,7 +186,12 @@ class _MaskedSoftmaxCE(torch.autograd.Function):
 def _masked_softmax_ce(logits, labels, ignore_index: int = -100):
     """Mean next-token cross-entropy over the labels that are not
     `ignore_index` (a label of ignore_index contributes nothing; an
-    all-ignored batch gives 0)."""
+    all-ignored batch gives 0). Under a mesh the mean is over the valid
+    labels of the global batch: a data rank divides its sum by their
+    all-reduced count (`nn.ranks.mean_denominator`), which the Trainer's
+    count pass gathers before any backward."""
+    if ranks.is_counting():
+        return ranks.record_count((labels != ignore_index).sum())
     return _MaskedSoftmaxCE.apply(logits, labels, ignore_index)
 
 

@@ -15,6 +15,14 @@ codes and scales, and the port model's Linears there become
 (the ResNet family) crosses with `load_jax_state` (parameters and
 buffers, such as BatchNorm's running statistics), and its train state
 with `from_jax_train_state(tree, model=...)`.
+
+Under a mesh the values are those of the unsharded state: a JAX state
+trained with `Trainer(mesh=)` holds global arrays, whose
+`np.asarray` is the whole tensor, so `from_jax_train_state` reads it
+as any other (a port `Trainer(mesh=)` then splits what it loads for
+its ZeRO stage), and `train_state_numpy` gives a port state, its split
+entries (`parallel.sharding.Sharded`) joined, in the same numpy tree
+for comparison.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ from ..framework.trainer import TrainState
 from .gpt import BLOCK_LINEARS, GPT, GPTConfig, param_shapes
 
 __all__ = ["from_jax_params", "load_jax_params", "load_jax_int8_params",
-           "load_jax_state", "infer_config", "from_jax_train_state"]
+           "load_jax_state", "infer_config", "from_jax_train_state",
+           "train_state_numpy"]
 
 # the slots of each optimizer rule (JAX's names), beside the optional
 # fp32 `master_weight`
@@ -266,3 +275,28 @@ def from_jax_train_state(state_tree: Mapping, cfg: Optional[GPTConfig] = None,
     return TrainState(params, buffers,
                       {"step": int(np.asarray(opt["step"])), "slots": slots},
                       scaler, 0, int(np.asarray(state_tree["step"])))
+
+
+def _numpy(t):
+    if hasattr(t, "full"):                      # a Sharded: join it
+        t = t.full()
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(t)
+
+
+def train_state_numpy(state: TrainState) -> Dict:
+    """A port `TrainState` as the numpy tree of a JAX `TrainState.tree()`
+    (params, buffers, opt_state {step, slots}, scaler_state, step), its
+    split entries joined; bf16 comes out as fp32."""
+    return {"params": {k: _numpy(v) for k, v in state.params.items()},
+            "buffers": {k: _numpy(v) for k, v in state.buffers.items()},
+            "opt_state": {"step": int(state.opt_state["step"]),
+                          "slots": {k: {sk: _numpy(sv)
+                                        for sk, sv in s.items()}
+                                    for k, s in
+                                    state.opt_state["slots"].items()}},
+            "scaler_state": {k: _numpy(v)
+                             for k, v in state.scaler_state.items()},
+            "step": int(state.step)}

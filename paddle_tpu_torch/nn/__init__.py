@@ -1,7 +1,8 @@
 """Layers and functional ops of the PyTorch/CUDA port (the subsets GPT,
 the ResNet family and BERT / ERNIE train with, the activations,
-containers, transformer layers and losses)."""
-from . import clip, functional, initializer, rng
+containers, transformer layers and losses); `ranks` is the runtime of a
+mesh's logical ranks that `parallel/` drives."""
+from . import clip, functional, initializer, ranks, rng
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layers import GELU, Dropout, Embedding, LayerNorm, Linear
 from .layers_common import (CELU, ELU, GLU, SELU, AlphaDropout, Dropout2D,
@@ -19,7 +20,8 @@ from .layers_loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
                           MarginRankingLoss, MSELoss,
                           MultiLabelSoftMarginLoss, NLLLoss, PoissonNLLLoss,
                           SmoothL1Loss, SoftMarginLoss, TripletMarginLoss)
-from .layers_norm import BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D
+from .layers_norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                          SyncBatchNorm)
 from .layers_pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D
 from .layers_transformer import (FusedFeedForward, FusedMultiHeadAttention,
                                  FusedTransformerEncoderLayer,
@@ -27,7 +29,7 @@ from .layers_transformer import (FusedFeedForward, FusedMultiHeadAttention,
                                  TransformerDecoder, TransformerDecoderLayer,
                                  TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["clip", "functional", "initializer", "rng", "Linear",
+__all__ = ["clip", "functional", "initializer", "ranks", "rng", "Linear",
            "Embedding", "LayerNorm", "GELU", "Dropout", "Identity",
            "Flatten", "Dropout2D", "Dropout3D", "AlphaDropout",
            "Sequential", "LayerList", "LayerDict", "ParameterList", "ReLU",
@@ -37,7 +39,7 @@ __all__ = ["clip", "functional", "initializer", "rng", "Linear",
            "Softsign", "Tanh", "PReLU", "RReLU", "GLU", "Maxout", "Softmax",
            "LogSoftmax", "ThresholdedReLU", "Conv1D", "Conv2D", "Conv3D",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D", "CrossEntropyLoss",
+           "SyncBatchNorm", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D", "CrossEntropyLoss",
            "MSELoss", "L1Loss", "NLLLoss", "BCELoss", "BCEWithLogitsLoss",
            "KLDivLoss", "SmoothL1Loss", "HuberLoss", "MarginRankingLoss",
            "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss",

@@ -15,6 +15,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..core import fp32_norms, mul_fp32
+from . import ranks
 
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm"]
@@ -60,26 +61,31 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """Every gradient scaled by min(1, clip_norm / the global L2 norm of
-    all of them). `axes` (a cross-device sum of the squared norm) is
-    sharded training's, which the port does not have yet."""
+    all of them). `axes`: the squared norm is summed over those mesh
+    axes' ranks before the scale (`paddle_tpu/nn/utils_clip.py:47`'s
+    psum), so a rank's slices make up the norm of the unsharded
+    gradients; that needs the rank's collective, inside an SPMD run
+    (`nn.ranks`), and raises elsewhere. Inside the Trainer's ZeRO update
+    a clip without `axes` sums over the partitions too, as JAX's GSPMD
+    step takes the norm of the whole gradients."""
 
     def __init__(self, clip_norm, group_name: str = "default",
                  axes: Optional[Sequence[str]] = None):
-        if axes:
-            raise NotImplementedError(
-                "ClipGradByGlobalNorm(axes=...) sums the norm over mesh "
-                "axes: sharded training is not ported yet (ROADMAP Queue "
-                "1, item 13)")
         self.clip_norm = clip_norm
-        self.axes = ()
+        self.axes = tuple(axes) if axes else ()
 
     def __call__(self, grads):
         names = list(grads)
-        if not names:
+        ctx = ranks.current()
+        axes = self.axes or (ctx.update_axes if ctx is not None else ())
+        if not names and not axes:
             return {}
         gs = [grads[k] for k in names]
         norms = fp32_norms(gs)
-        dev = norms[0].device
-        sq = torch.stack([n.to(dev) for n in norms]).square().sum()
+        dev = norms[0].device if norms else None
+        sq = torch.stack([n.to(dev) for n in norms]).square().sum() \
+            if norms else torch.zeros(())
+        if axes:
+            sq = ranks.collective("all_reduce", sq, axes, op="sum")
         scale = _scale(torch.sqrt(sq), self.clip_norm)
         return dict(zip(names, mul_fp32(gs, scale)))

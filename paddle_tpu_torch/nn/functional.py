@@ -46,6 +46,7 @@ import torch
 from .. import amp as _amp
 from .. import core
 from ..ops_cuda import flash_attention as _fa
+from . import ranks as _ranks
 from . import rng as _rng
 
 __all__ = ["linear", "layer_norm", "gelu", "relu", "relu_", "relu6",
@@ -460,7 +461,11 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     input shifted by the running mean, var = max(E[x²] − E[x]², 0), the
     running stats moved by `momentum` with the biased variance and kept
     in their dtype; otherwise the running stats normalise and come back
-    unchanged. The normalisation and the affine run in x's dtype."""
+    unchanged. The normalisation and the affine run in x's dtype. Under
+    a mesh (`nn.ranks`) the shifted moments are averaged over the data
+    ranks in rank order before the variance is formed: every rank
+    normalises with the global batch's statistics, as JAX's batch norm
+    over a sharded batch does."""
     c_axis = x.dim() - 1 if data_format.endswith("C") and x.dim() > 2 \
         else 1
     red = tuple(i for i in range(x.dim()) if i != c_axis)
@@ -477,6 +482,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         xf = x.to(acc_t) - rm.reshape(shape)
         mean_s = xf.mean(dim=red)
         ex2_s = xf.square().mean(dim=red)
+        # under a mesh: averaged over the data ranks (sync batch norm)
+        mean_s, ex2_s = _ranks.sync_moments(mean_s, ex2_s)
         var = torch.clamp_min(ex2_s - mean_s.square(), 0.0)
         mean = mean_s + rm
         new_mean = (momentum * running_mean
@@ -633,12 +640,22 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         w = torch.as_tensor(weight, device=input.device)[safe]
         loss = torch.where(valid, loss * w, 0.0)
         if reduction == "mean":
-            return loss.sum() / torch.clamp_min(
-                torch.where(valid, w, 0.0).sum(), 1e-12)
+            return _masked_mean(loss, torch.where(valid, w, 0.0).sum(),
+                                1e-12)
     loss = torch.where(valid, loss, 0.0)
     if reduction == "mean":
-        return loss.sum() / torch.clamp_min(valid.sum().to(loss.dtype), 1.0)
+        return _masked_mean(loss, valid.sum().to(loss.dtype), 1.0)
     return _reduce(loss, reduction)
+
+
+def _masked_mean(loss, count, floor: float):
+    """loss.sum() / max(count, floor); under a mesh the count is the
+    global batch's (`nn.ranks.mean_denominator`), and the count pass
+    only records it."""
+    if _ranks.is_counting():
+        return _ranks.record_count(count)
+    return loss.sum() / torch.clamp_min(_ranks.mean_denominator(count),
+                                        floor)
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -714,10 +731,11 @@ def nll_loss(input, label, weight=None, ignore_index=-100,
         w = torch.as_tensor(weight, device=input.device)[safe]
         loss = torch.where(valid, loss * w, 0.0)
         if reduction == "mean":
-            return loss.sum() / torch.where(valid, w, 0.0).sum()
+            return _masked_mean(loss, torch.where(valid, w, 0.0).sum(),
+                                0.0)
     loss = torch.where(valid, loss, 0.0)
     if reduction == "mean":
-        return loss.sum() / torch.clamp_min(valid.sum().to(loss.dtype), 1.0)
+        return _masked_mean(loss, valid.sum().to(loss.dtype), 1.0)
     return _reduce(loss, reduction)
 
 

@@ -87,6 +87,9 @@ class Embedding(nn.Module):
                 else I.Normal(0.0, 1.0) if weight_attr is None \
                 else I.XavierUniform()
             self.weight = nn.Parameter(init(shape, gen))
+        # the ZeRO-3 hint of the reference: a table's fsdp shard goes on
+        # its vocab dim (`parallel.sharding.fsdp_extend_spec`)
+        self.weight.fsdp_dims = (0,)
         if self.padding_idx is not None:
             with torch.no_grad():
                 self.weight[self.padding_idx] = 0.0

@@ -22,6 +22,12 @@ values are dropped), and the Trainer installs them after the backward,
 as the JAX Trainer merges `functional_call`'s buffer updates. The sink
 hangs on the modules, not on a thread: the CUDA backward, recompute
 included, runs on autograd's own thread.
+
+Under a mesh every batch norm is synced: `functional.batch_norm`
+averages its shifted moments over the data ranks (`nn.ranks`), as
+JAX's plain batch norm over a sharded batch reduces over the global
+batch. `SyncBatchNorm` is the reference's name for it, and
+`convert_sync_batchnorm` swaps it in for the BatchNorms of a model.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ from torch import nn
 from . import functional as F
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "StatSink", "collect_stats"]
+           "SyncBatchNorm", "StatSink", "collect_stats"]
 
 
 class StatSink:
@@ -125,3 +131,29 @@ class BatchNorm3D(_BatchNormBase):
                  use_global_stats=None, name=None):
         super().__init__(num_features, momentum, epsilon, weight_attr,
                          bias_attr, data_format, use_global_stats)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-rank batch norm (`paddle_tpu/nn/layers_norm.py:86`): every
+    batch norm of the port reduces over the data ranks under a mesh, so
+    this class is the reference's name for it."""
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """`layer` with every BatchNorm replaced by a SyncBatchNorm that
+        holds the same parameters and buffers (a BatchNorm `layer`
+        itself comes back converted)."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(
+                layer, SyncBatchNorm):
+            new = cls(layer.num_features, layer.momentum, layer.epsilon,
+                      data_format=layer.data_format,
+                      use_global_stats=layer.use_global_stats)
+            new.weight, new.bias = layer.weight, layer.bias
+            new._buffers["_mean"] = layer._buffers["_mean"]
+            new._buffers["_variance"] = layer._buffers["_variance"]
+            new.train(layer.training)
+            return new
+        for name, sub in list(layer._modules.items()):
+            if sub is not None:
+                layer._modules[name] = cls.convert_sync_batchnorm(sub)
+        return layer

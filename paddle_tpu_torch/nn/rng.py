@@ -16,6 +16,11 @@ another mask and the gradients would be silently wrong. The Trainer
 enters the context inside the checkpointed function, so the recompute
 restarts the counter and draws the same masks. Masks equal JAX's in
 law only (another generator), as the sampler's draws do.
+
+Under a mesh (`nn.ranks`), a data rank's draw whose leading dim is its
+batch rows is its rows of one draw over the global batch, as JAX draws
+one mask for the global batch of a sharded step: every rank draws the
+whole mask from the same seed and keeps its slice.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ import contextlib
 import threading
 
 import torch
+
+from . import ranks
 
 __all__ = ["rng_context", "next_seed", "keep_mask", "uniform"]
 
@@ -76,10 +83,21 @@ def keep_mask(prob: float, shape, device) -> torch.Tensor:
     """A bool tensor of `shape` on `device`, each entry True with
     probability `prob` (`jax.random.bernoulli`'s law: uniform < prob),
     from a generator seeded by `next_seed()`."""
+    return _draw(shape, device) < prob
+
+
+def _draw(shape, device) -> torch.Tensor:
+    """fp32 uniforms in [0, 1) of `shape` from a generator seeded by
+    `next_seed()`; a data rank's rows of the global batch's draw under
+    a mesh (`ranks.global_rows`)."""
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(next_seed())
-    return torch.rand(tuple(shape), generator=g, device=device) < prob
+    whole = ranks.global_rows(shape)
+    if whole is None:
+        return torch.rand(tuple(shape), generator=g, device=device)
+    full, start, rows = whole
+    return torch.rand(full, generator=g, device=device)[start:start + rows]
 
 
 def uniform(shape, device, low: float = 0.0, high: float = 1.0
@@ -87,8 +105,4 @@ def uniform(shape, device, low: float = 0.0, high: float = 1.0
     """An fp32 tensor of `shape` on `device`, uniform in [low, high),
     from a generator seeded by `next_seed()` (`rrelu`'s slopes,
     `gumbel_softmax`'s noise)."""
-    device = torch.device(device)
-    g = torch.Generator(device=device)
-    g.manual_seed(next_seed())
-    u = torch.rand(tuple(shape), generator=g, device=device)
-    return low + (high - low) * u
+    return low + (high - low) * _draw(shape, device)

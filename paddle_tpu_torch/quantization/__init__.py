@@ -2,9 +2,9 @@
 straight-through gradient), PTQ calibration and the int8 Linear.
 
 The counterpart of `paddle_tpu/quantization/__init__.py` for Linear
-layers (the convolution layers are not ported: the port has no conv
-model yet). The rounding points are the reference's, because an int8
-code is decided at them:
+layers (its quantized convolutions, `QuantedConv2D` and `Int8Conv2D`,
+are not ported yet: ROADMAP Queue 1, item 13.1's rest). The rounding
+points are the reference's, because an int8 code is decided at them:
 
 - the abs-max and the division by 127 run in the INPUT's dtype, so a
   bf16 input gives a bf16-rounded scale (widened later by the caller);

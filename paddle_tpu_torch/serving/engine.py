@@ -166,9 +166,9 @@ The KV slabs and the prefix pool are updated in place (the JAX engine
 donates them into each compiled step instead), so a failed step never
 loses them and the reference's slab and pool healing
 (`_heal_cache`, `_pool_healthy`) has nothing to do here (nor has the
-tracer's `heal` event an emitter). Features of the JAX engine that are
-not ported yet raise `NotImplementedError` when their knob is passed
-with any value other than "off"; they are listed in ROADMAP.md.
+tracer's `heal` event an emitter). Every knob of the JAX engine is
+ported; the one refusal left is a TP group whose ranks name several
+devices (`nn.tp.make_tp_mesh`: ROADMAP Queue 1, item 18).
 """
 from __future__ import annotations
 

@@ -180,8 +180,9 @@ class ServingMetrics:
         self.swap_outs = 0
         self.swap_ins = 0
         self.swap_host_syncs = 0
-        # the fleet KV tier (not ported: always 0, exposed so the
-        # reference's dashboards read the same families)
+        # the fleet KV tier (`kv_tier=`, serving/kv_tier.py): pages
+        # bound from the tier, admissions that found none, and the
+        # payload bytes bound or published
         self.kv_tier_hits = 0
         self.kv_tier_misses = 0
         self.kv_tier_bytes = 0

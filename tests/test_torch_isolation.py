@@ -64,6 +64,12 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.nn.layers_transformer\n"
         "import paddle_tpu_torch.jit, paddle_tpu_torch.jit.dy2static\n"
         "import paddle_tpu_torch.static, paddle_tpu_torch.inference\n"
+        "import paddle_tpu_torch.parallel, paddle_tpu_torch.nn.ranks\n"
+        "import paddle_tpu_torch.parallel.fleet\n"
+        "import paddle_tpu_torch.parallel.fleet_metrics\n"
+        "import paddle_tpu_torch.parallel.sharding\n"
+        "import paddle_tpu_torch.parallel.collective\n"
+        "import paddle_tpu_torch.parallel.random_\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -155,8 +155,13 @@ def test_clip_matches_jax(clip, dtype):
 
 
 def test_global_norm_axes_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pclip.ClipGradByGlobalNorm(1.0, axes=("dp",))
+    """`axes` sums the squared norm over a mesh's ranks: outside an SPMD
+    run (`parallel.spmd`, `Trainer(mesh=)`) there are none to meet, and
+    the call raises (tests/test_torch_parallel_train.py runs it over
+    ranks)."""
+    clip = pclip.ClipGradByGlobalNorm(1.0, axes=("dp",))
+    with pytest.raises(RuntimeError, match="SPMD run"):
+        clip({"w": torch.ones(3)})
 
 
 def test_clip_and_scheduler_inside_update():

@@ -342,13 +342,19 @@ def test_sync_model_writes_masters_back(np_params):
 
 
 def test_trainer_refuses_what_is_not_ported(np_params):
-    """`mesh` still raises, naming item 13; remat, a scaler, O1,
-    loop_unroll > 1 and keep_bn_fp32 are taken (their behaviour:
-    tests/test_torch_amp.py, test_torch_dropout.py); check_nan_inf is a
-    flag (core.set_flags), not a keyword, as in JAX."""
+    """`mesh` takes a `parallel.Mesh` of dp and fsdp ranks (its training:
+    tests/test_torch_parallel_*.py); anything else is a TypeError, and a
+    tp degree above 1 still raises, naming item 13.4's later steps;
+    remat, a scaler, O1, loop_unroll > 1 and keep_bn_fp32 are taken
+    (their behaviour: tests/test_torch_amp.py, test_torch_dropout.py);
+    check_nan_inf is a flag (core.set_flags), not a keyword, as in
+    JAX."""
+    from paddle_tpu_torch import parallel
     from paddle_tpu_torch.amp import GradScaler
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         _port_trainer(np_params, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 13.4"):
+        _port_trainer(np_params, mesh=parallel.Mesh({"tp": 2}, "cpu"))
     for kw in (dict(remat=True), dict(scaler=GradScaler()),
                dict(amp_level="O1"), dict(loop_unroll=2),
                dict(keep_bn_fp32=False), dict(donate=False)):
