@@ -454,6 +454,37 @@ every phase passed):
    optimizer-state bytes, step ms, tokens/s, peak memory. Phase 3
    holds K2/K3 at its rank shape (b 2, s 2048, h 16, d 128, causal,
    packed qkv) and phase 8 times them there.
+6t. tensor parallelism (`Trainer(mesh=)` with tp 2; each rank holds
+   its column, row and vocabulary shards, qkv head-aligned): GPT-small
+   fp32 (TF32 off) at 4 x 1024 takes one Momentum step under dp 2 x
+   tp 2 against one rank's whole-batch step (loss within 1e-5
+   relative, every parameter's gradient, the first step's velocity,
+   within 1e-3 in relative L2); then
+   gpt_1p3b O2 bf16 (AdamW, no remat) on 8 x 2048 tokens under dp 2 x
+   tp 2, a warm-up and 3 timed steps: finite and falling, K2/K3 each
+   launched causal 24 layers x 4 ranks a step, step ms, tokens/s, peak
+   memory, collectives a step.
+6u. sequence parallelism: GPT-small's width at seq 4096 (fp32, TF32
+   off), one Momentum step at sp 4 through ring and through Ulysses
+   attention against sp 1 (6t's tolerances); gpt_1p3b O2 bf16 (6t's
+   model) on 2 x 2048 tokens at sp 4, ring and Ulysses, a warm-up and
+   2 timed steps each: finite and falling, K2/K3 launches, causal and
+   full counted apart (ring: 10 chunk pairs a layer over the 4 ranks,
+   the 4 diagonal ones causal and the 6 below it full; Ulysses: one
+   causal call a rank and layer), ppermutes (ring: k and v, 3 hops
+   each, 6 a layer, 144 a step) and all_to_alls (Ulysses, 96 a step)
+   as the schedules give them, step ms, peak memory.
+6v. pipeline parallelism: a `PipelineStack` of 12 GPT-small-width
+   `GPTBlock`s (fp32, TF32 off) at pp 4 with 8 microbatches, at v 1 and
+   v 3: loss within 1e-5 relative and gradients within 1e-4 in relative
+   L2 of the sequential stack's, `_num_ticks` ppermutes.
+6w. expert parallelism: `MoELayer` (768 -> 3072, 8 experts, top-2, a
+   capacity that drops no token, checked) over 8 x 1024 tokens, ep 4
+   against the dense route in fp32 within 1e-5 of the largest output;
+   one O2 bf16 training step at ep 4 timed. Phase 3 holds K2/K3 at
+   the model-parallel rank shapes of 6t and 6u (tp 2: b 4, h 8; Ulysses
+   sp 4: b 2, h 4, s 2048; the ring's 512 x 512 chunk pairs, diagonal
+   causal and below it full; d 128) and phase 8 times them there.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters, and again in fp16) through the kernels
    against the same step with the plain versions swapped in on the
@@ -485,7 +516,7 @@ every phase passed):
    share timed alone), the wgmma route at phase 3's bf16 d 32 shape and
    the wgmma_f16 route at the training shape (fp16 packed qkv) and
    the wgmma route at ERNIE's shape (non-causal; its yardstick
-   non-causal too), each
+   non-causal too) and at 6s', 6t's and 6u's gpt_1p3b rank shapes, each
    beside their bounds (fp32: three TF32 products over 495 TFLOP/s, and
    the FFMA bound over 67 TFLOP/s), plain versions,
    `scaled_dot_product_attention` (TF32 off), and each kernel's
@@ -881,6 +912,13 @@ def phase_int8_kernel(torch, k7):
 FLASH_SHAPE = dict(b=18, s=1024, h=12, d=64)     # GPT-small, bench.py bs
 ERNIE_SHAPE = dict(b=64, s=128, h=12, d=64)      # ernie_base, bench.py bs
 P1B_RANK_SHAPE = dict(b=2, s=2048, h=16, d=128)  # gpt_1p3b, one of 4 ranks
+# gpt_1p3b's model-parallel rank shapes (d 128): name -> (b, s, h,
+# causal, packed qkv); phase 3 holds them, phase 8 times them
+MP_FLASH_SHAPES = {
+    "gpt_1p3b tp 2 rank shape": (4, 2048, 8, True, True),      # 6t
+    "gpt_1p3b Ulysses sp 4 rank shape": (2, 2048, 4, True, False),  # 6u
+    "gpt_1p3b ring diagonal pair": (2, 512, 16, True, True),   # 6u
+    "gpt_1p3b ring pair below the diagonal": (2, 512, 16, False, True)}
 
 
 def flash_inputs(torch, gen, b, sq, sk, h, d, packed, dtype=None):
@@ -973,6 +1011,14 @@ def flash_cases(torch):
     r = P1B_RANK_SHAPE
     yield ("gpt_1p3b rank shape", r["b"], r["s"], r["s"], r["h"], r["d"],
            True, True, bf)
+    # the model-parallel rank shapes of phases 6t and 6u (gpt_1p3b, d
+    # 128, causal): a tp 2 rank's 8 heads on slices of its packed qkv;
+    # a Ulysses rank's 4 heads over the whole sequence (the all_to_all's
+    # contiguous tensors); a ring rank's 512 x 512 chunk pairs, the
+    # diagonal causal, a pair below it full (it returns the lse the
+    # merge reads)
+    for name, (b_, sq_, h_, causal_, packed_) in MP_FLASH_SHAPES.items():
+        yield (name, b_, sq_, sq_, h_, 128, causal_, packed_, bf)
 
 
 LAYOUT_NOTE = {True: ", packed qkv", "odd": ", odd strides"}
@@ -980,7 +1026,8 @@ LAYOUT_NOTE = {True: ", packed qkv", "odd": ", odd strides"}
 
 def reset_flash_counters(fa):
     for c in (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES,
-              *(c for pair in fa.ROUTE_COUNTERS.values() for c in pair)):
+              *(c for pair in fa.ROUTE_COUNTERS.values() for c in pair),
+              *(c for pair in fa.CAUSAL_COUNTERS.values() for c in pair)):
         c.reset()
 
 
@@ -1089,6 +1136,8 @@ def phase_flash_kernels(torch, fa):
         if name == "gpt_1p3b rank shape":
             worst["1p3b_fwd"], worst["1p3b_bwd"] = err_o, max(
                 held["grad_err"])
+        if name in MP_FLASH_SHAPES:     # each its own record
+            worst[name] = (err_o, max(held["grad_err"]))
         n_empty = held["empty"]
         log(f"  {route} {name} (b {b}, sq {sq}, sk {sk}, h {h}, d {d}, "
             f"{str(dtype)[6:]}, causal {causal}"
@@ -6196,6 +6245,406 @@ def phase_p1b(torch, np, P, card: str):
 
 
 # --------------------------------------------------------------------------- #
+# phases 6t-6w: model-parallel training on the one card
+# --------------------------------------------------------------------------- #
+
+TP_BATCH = dict(b=4, s=1024)          # 6t: GPT-small fp32, dp 2 x tp 2
+MP_P1B = dict(b=8, s=2048, dp=2, tp=2)   # 6t: gpt_1p3b, 3 steps
+MP_P1B_STEPS = 3
+SP_SMALL = dict(b=2, s=4096, sp=4)    # 6u: GPT-small width, fp32
+SP_P1B = dict(b=2, s=2048, sp=4)      # 6u: gpt_1p3b, ring and Ulysses
+SP_P1B_STEPS = 2
+PP_STACK = dict(layers=12, pp=4, micro=8, b=8, s=1024)   # 6v
+MOE = dict(d_model=768, d_hidden=3072, experts=8, top_k=2, b=8, s=1024,
+           ep=4, capacity_factor=2.0)                    # 6w
+
+
+def one_step_grads(torch, P, model_fn, mesh, ids, grad_accum=1):
+    """(loss, {name: the parameter's gradient}) of one Momentum step of
+    `model_fn()` on `ids`, under `mesh` (one rank when None); fp32,
+    TF32 off. The first step's velocity is the gradient itself (the
+    move p1 - p0 would round it to the ulps of p: a layer norm weight
+    of 1 moves by ~1e-5, a few ulps)."""
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.optimizer import Momentum
+    model = model_fn()
+    tr = Trainer(model, Momentum(1e-2, 0.9), lambda lg, y: model.loss(lg, y),
+                 mesh=mesh, grad_accum=grad_accum)
+    loss = float(tr.train_step(ids, ids)[0])
+    st = tr.gathered_state()
+    grads = {k: s["velocity"].detach().clone()
+             for k, s in st.opt_state["slots"].items()}
+    del tr, model, st
+    torch.cuda.empty_cache()
+    return loss, grads
+
+
+def grad_l2(a, b):
+    """{name: ||a - b|| / ||b||} over b's parameters."""
+    return {k: float((a[k] - w).norm() / w.norm().clamp_min(1e-30))
+            for k, w in b.items()}
+
+
+def hold_grads(loss, grads, one_loss, one_grads, what):
+    """The loss within 1e-5 relative of one rank's, and each
+    parameter's gradient within 1e-3 in relative L2 (6q's bar for the
+    moves) of one rank's."""
+    l2 = grad_l2(grads, one_grads)
+    top = sorted(l2.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  {what}: the three furthest gradients (relative L2) " + ", ".join(
+        f"{k} {v:.2e}" for k, v in top))
+    check(abs(loss - one_loss) <= 1e-5 * abs(one_loss),
+          f"{what}: loss {loss} vs one rank {one_loss}")
+    check(top[0][1] <= 1e-3,
+          f"{what}: {top[0][0]}'s gradient is {top[0][1]:.2e} off in "
+          f"relative L2 (bar 1e-3)")
+    return {"loss": loss, "one_rank_loss": one_loss,
+            "grad_rel_l2": top[0][1], "worst_param": top[0][0]}
+
+
+def timed_mp_steps(torch, np, fa, tr, ids, steps: int):
+    """A warm-up step, then `steps` timed steps with the flash and
+    collective counters zeroed just before and read just after:
+    (losses, step ms, peak bytes, K2 launches, K3 launches,
+    collectives per step, {"causal": (K2, K3), "full": (K2, K3)}
+    launches by the causal flag)."""
+    from paddle_tpu_torch.nn import ranks
+    warm, _ = tr.train_step(ids, ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_flash_counters(fa)
+    ranks.reset_counts()
+    t1 = time.perf_counter()
+    _, timed = tr.train_steps(ids, ids, steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    losses = [float(warm)] + timed.float().cpu().tolist()
+    counts = {k: v / steps for k, v in ranks.counts().items() if v}
+    by_flag = {("causal" if c else "full"): (f.count, b.count)
+               for c, (f, b) in fa.CAUSAL_COUNTERS.items()}
+    return (losses, wall / steps * 1e3, torch.cuda.max_memory_allocated(),
+            fa.FWD_LAUNCHES.count, fa.BWD_LAUNCHES.count, counts, by_flag)
+
+
+def run_mp_p1b(torch, np, P, fa, model, mesh, ids, steps):
+    """`timed_mp_steps` of gpt_1p3b under `mesh` (O2 bf16, AdamW, no
+    remat)."""
+    import gc
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.optimizer import AdamW
+    tr = Trainer(model, AdamW(learning_rate=P1B_LR),
+                 lambda lg, y: model.loss(lg, y), mesh=mesh,
+                 amp_level="O2", amp_dtype="bfloat16")
+    res = timed_mp_steps(torch, np, fa, tr, ids, steps)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_falling(losses, what):
+    check(all(math.isfinite(v) for v in losses), f"{what}: {losses}")
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall: "
+                                  f"{losses}")
+
+
+def phase_tp_train(torch, np, P, card: str):
+    """(6t) tensor parallelism. GPT-small fp32 (TF32 off, the tf32x3
+    route) at full width, 4 x 1024 ids, one Momentum step under dp 2 x
+    tp 2 against one rank's whole-batch step (`hold_grads`: the loss
+    within 1e-5 relative, each gradient within 1e-3 relative L2). Then
+    gpt_1p3b at O2 bf16 (AdamW) on 8 x 2048 ids under dp 2 x tp 2: a
+    warm-up and 3 timed steps, finite and falling; each rank runs 8 of
+    the 16 heads through K2/K3, so each is launched 24 layers x 4
+    ranks = 96 times a step (read from their counters); step ms,
+    tokens/s, peak memory, collectives a step."""
+    import gc
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s_ = TP_BATCH["b"], TP_BATCH["s"]
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 50304, (b, s_))).cuda()
+    with tf32_off(torch):
+        def small():
+            return P.models.gpt_small(seed=0, device="cuda")
+        one = one_step_grads(torch, P, small, None, ids)
+        mesh = parallel.init_mesh(dp=2, tp=2, device="cuda")
+        got = one_step_grads(torch, P, small, mesh, ids)
+        parallel.set_mesh(None)
+    res = {"small": hold_grads(*got, *one, "6t dp 2 x tp 2")}
+    log(f"  GPT-small fp32 (TF32 off), {b} x {s_}, dp 2 x tp 2 against one "
+        f"rank: loss {got[0]:.6f} (one rank {one[0]:.6f}); worst gradient "
+        f"{res['small']['grad_rel_l2']:.2e} relative L2 "
+        f"({res['small']['worst_param']})")
+    t1 = time.perf_counter()
+    model = P.models.gpt_1p3b(seed=0, device="cuda")
+    cfg = model.cfg
+    res["p1b_build_s"] = time.perf_counter() - t1
+    mesh = parallel.init_mesh(dp=MP_P1B["dp"], tp=MP_P1B["tp"],
+                              device="cuda")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (MP_P1B["b"], MP_P1B["s"]))).cuda()
+    try:
+        losses, step_ms, peak, fwd, bwd, counts, by_flag = run_mp_p1b(
+            torch, np, P, fa, model, mesh, ids, MP_P1B_STEPS)
+    finally:
+        parallel.set_mesh(None)
+    check_falling(losses, "6t gpt_1p3b dp 2 x tp 2")
+    n_ranks = MP_P1B["dp"] * MP_P1B["tp"]
+    want = cfg.num_layers * n_ranks * MP_P1B_STEPS
+    check(fwd == want and bwd == want and by_flag["causal"] == (want, want),
+          f"6t: K2/K3 launches {fwd}/{bwd} ({by_flag}) != "
+          f"{cfg.num_layers} layers x {n_ranks} ranks x {MP_P1B_STEPS} "
+          f"steps, all causal")
+    tokens = MP_P1B["b"] * MP_P1B["s"]
+    log(f"  gpt_1p3b O2 bf16, AdamW, dp 2 x tp 2 (8 of 16 heads a rank), "
+        f"{MP_P1B['b']} x {MP_P1B['s']} [{card}]: {step_ms:.1f} ms per "
+        f"step, {tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB; losses "
+        f"{[round(v, 4) for v in losses]}; K2 {fwd}, K3 {bwd} launches = "
+        f"{cfg.num_layers} layers x {n_ranks} ranks x {MP_P1B_STEPS} "
+        f"steps; collectives per step {counts}")
+    res.update({"losses": losses, "step_ms": step_ms,
+                "tokens_per_s": tokens / step_ms * 1e3, "peak_bytes": peak,
+                "fwd_launches": fwd, "bwd_launches": bwd,
+                "launches_per_step": fwd // MP_P1B_STEPS,
+                "collectives_per_step": counts,
+                "seconds": time.perf_counter() - t0})
+    return res, model
+
+
+def phase_sp_train(torch, np, P, card: str, model):
+    """(6u) sequence parallelism. GPT-small's width at seq 4096 (fp32,
+    TF32 off), 2 x 4096 ids, one Momentum step at sp 4, ring and
+    Ulysses each, against sp 1's (`hold_grads`, as 6t). Then
+    gpt_1p3b (6t's model) at O2 bf16 on 2 x 2048 ids at sp 4, ring and
+    Ulysses: a warm-up and 2 timed steps each, finite and falling.
+    Ring: per layer and step rank i runs K2 and K3 on i + 1 chunk
+    pairs (the diagonal causal, the others full: 4 causal and 6 full
+    pairs over 4 ranks) and receives k and v over 3 ppermute hops each
+    (6 a layer, 144 a step); Ulysses: each rank runs K2/K3 once,
+    causal, on its 4 heads over the whole sequence, between 4
+    all_to_alls a layer. Launches (causal and full apart) and
+    collectives read from their counters."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    t0 = time.perf_counter()
+    sp = SP_SMALL["sp"]
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 50304, (SP_SMALL["b"], SP_SMALL["s"]))).cuda()
+    res = {}
+    with tf32_off(torch):
+        def small(mode):
+            return lambda: P.models.gpt_small(
+                seed=0, device="cuda", max_seq_len=SP_SMALL["s"],
+                sequence_parallel=mode)
+        one = one_step_grads(torch, P, small("none"), None, ids)
+        for mode in ("ring", "ulysses"):
+            mesh = parallel.init_mesh(sp=sp, device="cuda")
+            got = one_step_grads(torch, P, small(mode), mesh, ids)
+            parallel.set_mesh(None)
+            res[f"small_{mode}"] = hold_grads(*got, *one, f"6u {mode}")
+            log(f"  GPT-small width fp32, {SP_SMALL['b']} x {SP_SMALL['s']},"
+                f" {mode} at sp {sp} against sp 1: loss {got[0]:.6f} (sp 1 "
+                f"{one[0]:.6f}); worst gradient "
+                f"{res[f'small_{mode}']['grad_rel_l2']:.2e} relative L2")
+    cfg = model.cfg
+    ids = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (SP_P1B["b"], SP_P1B["s"]))).cuda()
+    layers = cfg.num_layers
+    # a step's (causal, full) launches of each of K2 and K3, and its
+    # collectives, as the schedules give them
+    want = {"ring": ((layers * sp, layers * sp * (sp - 1) // 2),
+                     {"ppermute": 2 * (sp - 1) * layers}),
+            "ulysses": ((layers * sp, 0), {"all_to_all": 4 * layers})}
+    try:
+        for mode in ("ring", "ulysses"):
+            cfg.sequence_parallel = mode
+            mesh = parallel.init_mesh(sp=sp, device="cuda")
+            losses, step_ms, peak, fwd, bwd, counts, by_flag = run_mp_p1b(
+                torch, np, P, fa, model, mesh, ids, SP_P1B_STEPS)
+            parallel.set_mesh(None)
+            check_falling(losses, f"6u gpt_1p3b {mode}")
+            (n_causal, n_full), coll = want[mode]
+            n = n_causal + n_full
+            for flag, k in (("causal", n_causal), ("full", n_full)):
+                check(by_flag[flag] == (k * SP_P1B_STEPS,) * 2,
+                      f"6u {mode}: {flag} K2/K3 launches {by_flag[flag]} "
+                      f"!= {k} a step")
+            check(fwd == n * SP_P1B_STEPS and bwd == n * SP_P1B_STEPS,
+                  f"6u {mode}: K2/K3 launches {fwd}/{bwd} != {n} a step")
+            for name, c in coll.items():
+                check(counts.get(name) == c, f"6u {mode}: {name} "
+                                             f"{counts.get(name)} != {c}")
+            tokens = SP_P1B["b"] * SP_P1B["s"]
+            log(f"  gpt_1p3b O2 bf16, {mode} at sp {sp}, {SP_P1B['b']} x "
+                f"{SP_P1B['s']} [{card}]: {step_ms:.1f} ms per step, "
+                f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+                f"{peak / 2**30:.2f} GiB; "
+                f"losses {[round(v, 4) for v in losses]}; K2 {fwd}, K3 "
+                f"{bwd} launches ({n} a step; causal {by_flag['causal']}, "
+                f"full {by_flag['full']}); collectives per step {counts}")
+            res[mode] = {"losses": losses, "step_ms": step_ms,
+                         "tokens_per_s": tokens / step_ms * 1e3,
+                         "peak_bytes": peak,
+                         "fwd_launches": fwd, "bwd_launches": bwd,
+                         "causal_launches": by_flag["causal"],
+                         "full_launches": by_flag["full"],
+                         "launches_per_step": n,
+                         "collectives_per_step": counts}
+    finally:
+        cfg.sequence_parallel = "none"
+        parallel.set_mesh(None)
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def phase_pp_train(torch, np, P, card: str):
+    """(6v) pipeline parallelism: a `PipelineStack` of 12 GPT-small-width
+    `GPTBlock`s (fp32, TF32 off) on 8 x 1024 x 768 activations at pp 4
+    with 8 microbatches, at v 1 and v 3 (interleaved): the loss
+    sum(out * r), r a fixed random tensor, within 1e-5 relative and
+    every parameter's gradient within 1e-4 in relative L2 of the
+    sequential stack's; one ppermute per tick, `_num_ticks` of them."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.models.gpt import GPTBlock, GPTConfig
+    from paddle_tpu_torch.nn import ranks
+    from paddle_tpu_torch.parallel import pipeline as pp
+    t0 = time.perf_counter()
+    c = PP_STACK
+    cfg = GPTConfig(num_layers=c["layers"])
+    gen = torch.Generator().manual_seed(0)
+    res = {}
+    with tf32_off(torch):
+        rs = np.random.RandomState(3)
+        x = torch.from_numpy(rs.randn(c["b"], c["s"], cfg.hidden_size)
+                             .astype(np.float32)).cuda()
+        r = torch.from_numpy(rs.randn(c["b"], c["s"], cfg.hidden_size)
+                             .astype(np.float32)).cuda()
+        for v in (1, 3):
+            stack = pp.PipelineStack(lambda i: GPTBlock(cfg, gen),
+                                     c["layers"], num_micro=c["micro"],
+                                     virtual_degree=v).cuda()
+            params = [p for n, p in stack.named_parameters()
+                      if not n.startswith("_template")]
+            want = (stack(x) * r).sum()
+            g_want = torch.autograd.grad(want, params)
+            mesh = parallel.init_mesh(pp=c["pp"], device="cuda")
+            ranks.reset_counts()
+            got = (stack.pipeline_forward(x, mesh=mesh) * r).sum()
+            ticks = ranks.counts()["ppermute"]
+            g_got = torch.autograd.grad(got, params)
+            parallel.set_mesh(None)
+            rel = max(float((a - b_).norm() / b_.norm().clamp_min(1e-30))
+                      for a, b_ in zip(g_got, g_want))
+            want_ticks = pp._num_ticks(c["micro"], c["pp"], v)
+            check(abs(float(got) - float(want)) <= 1e-5 * abs(float(want)),
+                  f"6v v {v}: loss {float(got)} vs {float(want)}")
+            check(rel <= 1e-4, f"6v v {v}: a gradient is {rel:.2e} off")
+            check(ticks == want_ticks, f"6v v {v}: {ticks} ticks != "
+                                       f"{want_ticks}")
+            log(f"  12 GPT-small blocks, pp {c['pp']}, {c['micro']} "
+                f"microbatches, v {v}: loss {float(got):.6f} (sequential "
+                f"{float(want):.6f}), worst gradient {rel:.2e} relative L2,"
+                f" {ticks} ticks = _num_ticks (bubble "
+                f"{pp.bubble_fraction(c['micro'], c['pp'], v):.3f})")
+            res[f"v{v}"] = {"loss": float(got), "sequential": float(want),
+                            "grad_rel_l2": rel, "ticks": ticks}
+            del stack, params, g_want, g_got, got, want
+            torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def phase_moe_train(torch, np, P, card: str):
+    """(6w) expert parallelism: `MoELayer` (d_model 768, d_hidden 3072, 8
+    experts, top-2, capacity factor 2: no token dropped, checked) over
+    8 x 1024 tokens, fp32 (TF32 off): ep 4 against the dense route,
+    the output within 1e-5 of its largest magnitude and the aux loss
+    within 1e-5 relative; then one timed O2 bf16 training step
+    (AdamW; the loss mse to a target plus 0.01 x the aux loss) at ep
+    4 after a warm-up."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.nn import ranks
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.moe import MoELayer
+    t0 = time.perf_counter()
+    c = MOE
+    gen = torch.Generator().manual_seed(0)
+    layer = MoELayer(c["d_model"], c["d_hidden"], c["experts"],
+                     top_k=c["top_k"], capacity_factor=c["capacity_factor"],
+                     gen=gen).cuda()
+    layer.gate.noise_std = 0.0
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(c["b"], c["s"], c["d_model"]).astype(
+        np.float32)).cuda()
+    res = {}
+    with tf32_off(torch), torch.no_grad():
+        flat = x.reshape(-1, c["d_model"])
+        per_rank = flat.shape[0] // c["ep"]
+        for tokens, name in ((flat, "dense"),
+                             (flat[:per_rank], "an ep rank")):
+            disp, _, _ = layer.gate(tokens)
+            kept = int(disp.sum())
+            check(kept == tokens.shape[0] * c["top_k"],
+                  f"6w: {name}'s gate drops {tokens.shape[0] * c['top_k'] - kept}"
+                  f" token slots")
+            del disp
+        dense = layer(x)
+        dense_aux = float(layer.aux_loss)
+        mesh = parallel.init_mesh(ep=c["ep"], device="cuda")
+        ranks.reset_counts()
+        ep = layer(x)
+        counts = ranks.counts()
+        parallel.set_mesh(None)
+        err = float((ep - dense).abs().max() / dense.abs().max())
+        check(err <= 1e-5, f"6w: ep {c['ep']} vs dense {err:.2e}")
+        ep_aux = float(layer.aux_loss)
+    log(f"  MoE {c['experts']} experts top-{c['top_k']}, {c['b']} x "
+        f"{c['s']} tokens, fp32: ep {c['ep']} against dense {err:.2e} of "
+        f"max|out|; aux {ep_aux:.6f} (mean over the ep ranks; dense "
+        f"{dense_aux:.6f}); collectives {dict((k, v) for k, v in counts.items() if v)}")
+    res["ep_vs_dense"] = err
+    res["collectives"] = counts
+    del dense, ep
+
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.moe = layer
+
+        def forward(self, h):
+            return self.moe(h)
+
+    net = Net()
+    target = torch.from_numpy(rs.randn(*x.shape).astype(np.float32)).cuda()
+    mesh = parallel.init_mesh(ep=c["ep"], device="cuda")
+    try:
+        tr = Trainer(net, AdamW(1e-4), lambda o, y: ((o.float() - y) ** 2)
+                     .mean() + 0.01 * net.moe.aux_loss, mesh=mesh,
+                     amp_level="O2", amp_dtype="bfloat16")
+        l0 = float(tr.train_step(x, target)[0])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        l1 = float(tr.train_step(x, target)[0])
+        step_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        parallel.set_mesh(None)
+    check(math.isfinite(l0) and math.isfinite(l1), f"6w: {l0}, {l1}")
+    log(f"  MoE O2 bf16 training step at ep {c['ep']} [{card}]: "
+        f"{step_ms:.1f} ms (after a warm-up); losses {l0:.5f}, {l1:.5f}")
+    res.update({"step_ms": step_ms, "losses": [l0, l1],
+                "seconds": time.perf_counter() - t0})
+    del tr, net, layer
+    torch.cuda.empty_cache()
+    return res
+
+
+# --------------------------------------------------------------------------- #
 # phase 8: numbers
 # --------------------------------------------------------------------------- #
 
@@ -6572,7 +7021,9 @@ ROUTE_TIMING = (("fp32 d 64, GPT-small training shape", FLASH_SHAPE["b"],
                  "bfloat16", False),
                 ("bf16 d 128, gpt_1p3b rank shape", P1B_RANK_SHAPE["b"],
                  P1B_RANK_SHAPE["s"], P1B_RANK_SHAPE["h"],
-                 P1B_RANK_SHAPE["d"], "bfloat16", True))
+                 P1B_RANK_SHAPE["d"], "bfloat16", True)) + tuple(
+    (name, b_, s_, h_, 128, "bfloat16", causal_)
+    for name, (b_, s_, h_, causal_, _) in MP_FLASH_SHAPES.items())
 ERNIE_TIMING = ROUTE_TIMING[3][0]
 P1B_TIMING = ROUTE_TIMING[4][0]
 
@@ -6594,7 +7045,10 @@ def phase_flash_route_numbers(torch, fa, card: str):
     for name, b, s_, h, d, tname, causal in ROUTE_TIMING:
         dtype = getattr(torch, tname)
         fp32 = dtype == torch.float32
-        q, k, v, g = flash_inputs(torch, gen, b, s_, s_, h, d, True, dtype)
+        packed = MP_FLASH_SHAPES[name][4] if name in MP_FLASH_SHAPES \
+            else True
+        q, k, v, g = flash_inputs(torch, gen, b, s_, s_, h, d, packed,
+                                  dtype)
         scale = 1 / math.sqrt(d)
         route = fa._check_cuda_args(q, k, v, causal)
         check(route == fa._ROUTE_OF_DTYPE[dtype], f"{name}: route {route}")
@@ -6644,7 +7098,8 @@ def phase_flash_route_numbers(torch, fa, card: str):
             flush, reps=10)
         isz = 4 if fp32 else 2
         log(f"  {route} route, {name} (b {b}, s {s_}, h {h}, d {d}, causal "
-            f"{causal}, packed qkv) [card: {card}]: against the plain "
+            f"{causal}{LAYOUT_NOTE.get(packed, '')}) [card: {card}]: "
+            f"against the plain "
             f"versions, out "
             f"max err {held['out_rel']:.2e} of max|plain|, dq/dk/dv "
             + "/".join(f"{r:.2e}" for r in held["grad_rel"])
@@ -6839,6 +7294,27 @@ def main(argv=None) -> int:
     p1b = phase_p1b(torch, np, P, card)
     parallel_s = time.perf_counter() - t_par
     log(f"  phases 6q-6s took {parallel_s:.1f} s")
+    t_mp = time.perf_counter()
+    log("phase 6t: tensor parallelism: GPT-small fp32 dp 2 x tp 2 == one "
+        "rank, gpt_1p3b O2 bf16 dp 2 x tp 2 (8 x 2048 tokens) through "
+        "K2/K3")
+    tp_train, p1b_model = phase_tp_train(torch, np, P, card)
+    log("phase 6u: sequence parallelism: GPT-small width at seq 4096, ring "
+        "and Ulysses at sp 4 == sp 1; gpt_1p3b O2 bf16 at sp 4 (2 x 2048)")
+    sp_train = phase_sp_train(torch, np, P, card, p1b_model)
+    del p1b_model
+    torch.cuda.empty_cache()
+    log("phase 6v: pipeline parallelism: 12 GPT-small blocks at pp 4, v 1 "
+        "and 3 == the sequential stack")
+    pp_train = phase_pp_train(torch, np, P, card)
+    log("phase 6w: expert parallelism: MoE (8 experts, top-2) ep 4 == "
+        "dense, an O2 bf16 step")
+    moe_train = phase_moe_train(torch, np, P, card)
+    mp_s = {"6t": tp_train["seconds"], "6u": sp_train["seconds"],
+            "6v": pp_train["seconds"], "6w": moe_train["seconds"],
+            "all": time.perf_counter() - t_mp}
+    log(f"  phases 6t-6w took {mp_s['all']:.1f} s (6t {mp_s['6t']:.1f}, "
+        f"6u {mp_s['6u']:.1f}, 6v {mp_s['6v']:.1f}, 6w {mp_s['6w']:.1f})")
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = {tname: phase_grad_check(torch, np, P, tname)
             for tname in ("bfloat16", "float16")}
@@ -6891,6 +7367,13 @@ def main(argv=None) -> int:
         f"tokens/s, peak memory {p1b['peak_bytes'] / 2**30:.2f} GiB, "
         f"per-rank optimizer state "
         f"{p1b['rank_bytes'][0]['slots'] / 2**30:.3f} GiB")
+    log(f"  gpt_1p3b dp 2 x tp 2, phase 6t (O2 bf16, {MP_P1B['b']} x "
+        f"{MP_P1B['s']}) [card: {card}]: {tp_train['step_ms']:.1f} ms per "
+        f"step, {tp_train['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{tp_train['peak_bytes'] / 2**30:.2f} GiB; 6u sp 4 ({SP_P1B['b']} "
+        f"x {SP_P1B['s']}): ring {sp_train['ring']['step_ms']:.1f} ms, "
+        f"Ulysses {sp_train['ulysses']['step_ms']:.1f} ms per step; 6w MoE "
+        f"ep {MOE['ep']} step {moe_train['step_ms']:.1f} ms")
 
     flash = "paddle_tpu/ops_pallas/flash_attention.py"
     kernels = [{
@@ -6965,6 +7448,32 @@ def main(argv=None) -> int:
             "max_abs_err": flash_err[f"1p3b_{part}"],
             **{k: p1b_t[key][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")}})
+    # the model-parallel routes' shapes (phases 6t and 6u): the launches
+    # of each main-path run; the ring's diagonal pairs are its causal
+    # launches and the pairs below it its full ones, each counted
+    ring = sp_train["ring"]
+    for tag, name, launches in (
+            ("tp", "gpt_1p3b tp 2 rank shape",
+             (tp_train["fwd_launches"], tp_train["bwd_launches"])),
+            ("ulysses", "gpt_1p3b Ulysses sp 4 rank shape",
+             (sp_train["ulysses"]["fwd_launches"],
+              sp_train["ulysses"]["bwd_launches"])),
+            ("ring_diag", "gpt_1p3b ring diagonal pair",
+             ring["causal_launches"]),
+            ("ring", "gpt_1p3b ring pair below the diagonal",
+             ring["full_launches"])):
+        t_ = rnums[name]
+        for i, (part, line, key) in enumerate((("fwd", 90, "forward"),
+                                               ("bwd", 205, "backward"))):
+            kernels.append({
+                "name": f"flash_attention_{tag}_{part}", "route": "cuda",
+                "source": f"paddle_tpu_torch/ops_cuda/csrc/flash_attention_"
+                          f"{part}.cu",
+                "replaces": f"{flash}:{line}",
+                "launches": launches[i],
+                "max_abs_err": flash_err[name][i],
+                **{k: t_[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}})
     dpy = "paddle_tpu/ops_pallas/decode_attention.py"
     for name, line, what in (("K4", 258, "paged_decode"),
                              ("K5", 242, "ragged_decode_int8"),
@@ -7030,6 +7539,9 @@ def main(argv=None) -> int:
                        "mesh": mesh_run, "dp_resnet50": dp_resnet,
                        "gpt_1p3b_stage2": p1b,
                        "parallel_phases_s": parallel_s,
+                       "tp_train": tp_train, "sp_train": sp_train,
+                       "pp_train": pp_train, "moe_train": moe_train,
+                       "model_parallel_phases_s": mp_s,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

@@ -56,17 +56,32 @@ draws the same masks. `loop_unroll` is an XLA scan hint: any value >= 1
 is accepted and changes nothing. There is no `donate`: the step always
 updates the state's tensors in place.
 
-`mesh` (a `parallel.Mesh` of dp and fsdp ranks; tp, pp, sp or ep above
-1 raise, naming ROADMAP Queue 1 item 13.4's steps 4-5) trains data
-parallel over k = dp x fsdp logical ranks on the mesh's one device, at
-the model's ZeRO stage (`parallel.apply_fsdp`; `parallel/sharding.py`
-says what each stage splits). The step equals JAX's one program over
-the global batch, which GSPMD partitions:
+`mesh` (a `parallel.Mesh`) trains over every logical rank of the mesh
+on its one device: data parallel over k = dp x fsdp data ranks at the
+model's ZeRO stage (`parallel.apply_fsdp`; `parallel/sharding.py` says
+what each stage splits), and within each data rank over its model
+group of m = pp x ep x sp x tp ranks. The step equals JAX's one
+program over the global batch, which GSPMD partitions:
 - the global batch (each microbatch under `grad_accum`: the global
-  batch's chunk i) is split over the data ranks in rank order, and
-  each rank runs its forward and backward on its rows
-  (`nn.ranks.spmd`, one rank at a time between collectives), with its
-  own alias of every parameter, so its gradients are its own;
+  batch's chunk i) is split over the data ranks in rank order; every
+  rank of a data rank's model group gets its rows and runs its
+  forward (`nn.ranks.spmd`, one rank at a time between collectives)
+  with its own leaf of every parameter: an alias of a replicated one,
+  its block of one whose `.spec` splits it over tp or ep
+  (`parallel.sharding.model_splits`; a fused qkv by whole heads), so
+  its gradients are its own. The model's layers run their shards
+  (`parallel.tp_layers`, `sequence`, `moe`, `pipeline`) and meet in
+  collectives that carry the gradient between the ranks' graphs;
+- every rank of a model group holds the data rank's loss (the last
+  collectives make it whole: a vocabulary-parallel cross-entropy's
+  all-reduces, the sequence-parallel loss's sum over "sp"), weighted
+  1/m, and the group's ranks run one joint backward, one data rank's
+  group after another (one group's activations alive at a time); a
+  parameter's gradient
+  is joined from the ranks' blocks (`all_gather`) and the shares of
+  the ranks that hold the same block summed (`all_reduce`), which
+  gives each data rank the whole gradient; the state keeps whole
+  tensors in JAX's layout;
 - the ranks' gradients meet in `parallel.collective`: `all_reduce` at
   stages 0-1, `reduce_scatter` over the fsdp ranks at stages 2-3 (then
   an `all_reduce` over dp when dp > 1); the optimizer rule runs once
@@ -78,17 +93,21 @@ the global batch, which GSPMD partitions:
   backward, and each rank divides by the global count; a loss with no
   masked mean is weighted by the rank's share of the rows;
 - dropout draws one mask over the global batch and each rank keeps its
-  rows; batch norm averages its moments over the data ranks mid-forward
-  (sync batch norm), so a model with batch norm runs the ranks'
-  forwards together and one backward over all of them; the running
-  statistics update once from the global moments;
+  rows (a tp rank its heads' block of an attention mask); batch norm
+  averages its moments over the data ranks mid-forward (sync batch
+  norm), so a model with batch norm, like one with a model group of
+  more than one rank, runs the ranks' forwards together and one
+  backward over all of them; the running statistics update once from
+  the global moments;
 - a GradScaler's found_inf is the MAX over the partitions; a
   `ClipGradByGlobalNorm` sums its squared norm over the partitions, as
   the norm of the unsharded gradients. Rules and clips that take one
   parameter's norm (Lamb, LarsMomentum, ClipGradByNorm) refuse
   partitions.
 `gathered_state()` gives the state as whole tensors; `sync_model`,
-`eval_step` and a loaded state go through it.
+`eval_step` and a loaded state go through it. The step's output joins
+what the ranks hold of it (`nn.ranks.mark_split`: a GPT's vocabulary
+blocks and sequence chunks).
 """
 from __future__ import annotations
 
@@ -455,13 +474,6 @@ class Trainer:
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh must be a parallel.Mesh "
                             f"(parallel.init_mesh), got {type(mesh)!r}")
-        later = {a: n for a, n in mesh.shape.items()
-                 if a in ("tp", "pp", "sp", "ep") and n > 1}
-        if later:
-            raise NotImplementedError(
-                f"Trainer(mesh=) with {later}: tensor, pipeline, sequence "
-                f"and expert parallel training are ROADMAP Queue 1 item "
-                f"13.4, steps 4-5; this Trainer splits over dp and fsdp")
         dev = self.device
         if (mesh.device.type, mesh.device.index or 0) != \
                 (dev.type, dev.index or 0):
@@ -475,10 +487,24 @@ class Trainer:
                 f"{type(self.optimizer.grad_clip).__name__}: a rule or clip "
                 f"that takes each parameter's own norm over fsdp "
                 f"partitions is not ported")
+        from ..parallel.sharding import model_splits
         self.mesh = mesh
         self._data = mesh.ranks_over(("dp", "fsdp"))
-        self._coupled = any(isinstance(m, _BatchNormBase)
-                            for m in self.model.modules())
+        # every rank of the mesh, in rank order, and the ranks of each
+        # data rank's model group (tp, sp, ep, pp)
+        self._coords = [mesh.coords(i) for i in range(mesh.size)]
+        self._groups = [[r for r, c in enumerate(self._coords)
+                         if (c["dp"], c["fsdp"]) == (d.get("dp", 0),
+                                                     d.get("fsdp", 0))]
+                        for d in self._data]
+        self._data_of = {r: j for j, g in enumerate(self._groups)
+                         for r in g}
+        self._msplit = model_splits(self.model, mesh)
+        # batch norm couples every rank (its moments meet over the data
+        # ranks); a model group of several ranks couples its ranks
+        self._bn = any(isinstance(m, _BatchNormBase)
+                       for m in self.model.modules())
+        self._coupled = self._bn or len(self._groups[0]) > 1
         self._modules: Optional[List[nn.Module]] = None
         self._pdims: Dict[str, Optional[int]] = {}
 
@@ -501,26 +527,85 @@ class Trainer:
             self._pdims[k] = d
 
     def _rank_modules(self) -> List[nn.Module]:
-        """The model for rank 0 and a replica for each other data rank:
-        the same parameters, buffers and settings, its own module
-        objects, so the ranks' `functional_call`s do not meet."""
+        """The model for rank 0 and a replica for each other rank: the
+        same parameters, buffers and settings, its own module objects,
+        so the ranks' `functional_call`s do not meet."""
         if self._modules is None:
             self._modules = [self.model] + [
-                _replica(self.model) for _ in self._data[1:]]
+                _replica(self.model) for _ in self._coords[1:]]
         return self._modules
 
-    def _rank_leaves(self, st: TrainState) -> Dict[str, torch.Tensor]:
+    def _rank_leaves(self, st: TrainState, coords
+                     ) -> Dict[str, torch.Tensor]:
         """A rank's parameters: its own autograd leaf over each tensor
         (one storage for the replicated ones); at stage 3 each split
-        parameter all-gathered from its slices first."""
+        parameter all-gathered from its slices first; a parameter split
+        over tp or ep (its `.spec`), the rank's block of it."""
         from ..parallel import collective as C
-        from ..parallel.sharding import Sharded
+        from ..parallel.sharding import Sharded, take_shard
         out = {}
         for k, v in st.params.items():
             if isinstance(v, Sharded):
                 v = C.all_gather(v.parts, axis=v.dim, group="fsdp")
+            for dim, axis, groups in self._msplit.get(k, ()):
+                v = take_shard(v, dim, coords[axis], self.mesh.shape[axis],
+                               groups)
             out[k] = v.detach().requires_grad_(v.is_floating_point())
         return out
+
+    def _model_join(self, grads) -> List[Dict[str, torch.Tensor]]:
+        """Each data rank's whole gradients from its model group's
+        ranks: a parameter split over tp or ep joined from the ranks'
+        blocks (`all_gather`), the shares of the ranks that hold the
+        same block (a replicated parameter's: every rank's) summed
+        (`all_reduce`)."""
+        from ..parallel import collective as C
+        from ..parallel.sharding import join_shards
+        if len(self._groups[0]) == 1:
+            return [grads[g[0]] for g in self._groups]
+        out = []
+        for g in self._groups:
+            whole = {}
+            for name in grads[g[0]]:
+                split = self._msplit.get(name, ())
+                axis = split[0][1] if split else None
+                blocks: Dict[int, list] = {}
+                for r in g:
+                    i = self._coords[r][axis] if axis else 0
+                    blocks.setdefault(i, []).append(grads[r][name])
+                summed = [C.all_reduce(p, group=("pp", "ep", "sp", "tp"))
+                          if len(p) > 1 else p[0]
+                          for _, p in sorted(blocks.items())]
+                whole[name] = summed[0] if not split else join_shards(
+                    summed, split[0][0], axis, split[0][2])
+            out.append(whole)
+        return out
+
+    def _join_outputs(self, outs, group):
+        """A data rank's output from its model group's ranks: a tensor
+        a layer marked split (`nn.ranks.mark_split`: a GPT's vocabulary
+        shards over tp, its sequence chunks over sp) joined along its
+        dims, anything else the group's first rank's."""
+        first = outs[group[0]]
+        if isinstance(first, (list, tuple)):
+            return type(first)(self._join_outputs(
+                [o[i] if o is not None else None for o in outs], group)
+                for i in range(len(first)))
+        marks = ranks.split_marks(first)
+        if not isinstance(first, torch.Tensor) or not marks:
+            return first
+
+        def join(members, todo):
+            if not todo:
+                return outs[members[0]]
+            axis, dim = todo[0]
+            pieces = []
+            for i in range(self.mesh.shape[axis]):
+                sub = [r for r in members if self._coords[r][axis] == i]
+                pieces.append(join(sub, todo[1:]))
+            return torch.cat(pieces, dim=dim)
+
+        return join(group, list(marks))
 
     def _count_pass(self, out, shards, ctxs):
         """Every rank's masked-mean counts from its labels (the loss
@@ -547,22 +632,25 @@ class Trainer:
         return True
 
     def _mesh_micro(self, st: TrainState, mb, key, buffers):
-        """One (micro)batch over the data ranks: ([rank losses], [rank
-        gradient dicts], [rank outputs], buffers). A model with batch
-        norm runs the ranks' forwards together (its moments meet) and
-        one backward over all of them; otherwise each rank's backward
+        """One (micro)batch over the mesh's ranks: ([data rank losses],
+        [data rank gradient dicts], [data rank outputs], buffers). Each
+        data rank's rows go to every rank of its model group. Ranks a
+        collective couples (a model group of more than one rank, a
+        model with batch norm) run their forwards together and one
+        backward over all of them; otherwise each rank's backward
         follows its forward."""
         k = len(self._data)
+        m = len(self._groups[0])
         rows = mb[0].shape[0] // k
         shards = [tuple(b[r * rows:(r + 1) * rows] for b in mb)
                   for r in range(k)]
         ctxs = [ranks.RankContext(c, self.mesh.shape, ("dp", "fsdp"), rows)
-                for c in self._data]
+                for c in self._coords]
         mods = self._rank_modules()
         shared = {"masked": None}
 
         def rank_fn(r):
-            leaves = self._rank_leaves(st)
+            leaves = self._rank_leaves(st, self._coords[r])
             names = [n for n, v in leaves.items() if v.requires_grad]
 
             def before_loss(out):
@@ -571,12 +659,16 @@ class Trainer:
 
             def loss_for_grad():
                 with ranks.use(ctxs[r]):
-                    loss, out = self._forward(leaves, buffers, shards[r],
-                                              training=True, key=key,
-                                              module=mods[r],
-                                              before_loss=before_loss)
+                    loss, out = self._forward(
+                        leaves, buffers, shards[self._data_of[r]],
+                        training=True, key=key, module=mods[r],
+                        before_loss=before_loss)
                     if not shared["masked"]:
                         loss = loss * (1.0 / k)
+                    if m > 1:
+                        # every rank of a model group holds the data
+                        # rank's loss; their joint backward adds m shares
+                        loss = loss * (1.0 / m)
                     if self.scaler:
                         loss = self.scaler.scale_loss(loss,
                                                       st.scaler_state)
@@ -594,27 +686,46 @@ class Trainer:
                                         allow_unused=True)
             return loss.detach(), out, _zero_fill(names, grads, leaves), None
 
+        def run(ids):
+            """The ranks `ids` forward together (one SPMD run), then their
+            backward: ([losses], [gradient dicts], [outputs])."""
+            res = ranks.spmd([self._coords[r] for r in ids],
+                             lambda i: rank_fn(ids[i]))
+            losses = [r_[0] for r_ in res]
+            if not self._coupled:
+                return losses, [x[2] for x in res], [x[1] for x in res]
+            total = all_reduce(losses)
+            flat = [(i, n) for i, x in enumerate(res) for n in x[3]]
+            gs = torch.autograd.grad(
+                total, [res[i][2][n] for i, n in flat], allow_unused=True)
+            grads = [{} for _ in res]
+            for (i, n), g in zip(flat, gs):
+                grads[i][n] = g if g is not None else \
+                    torch.zeros_like(res[i][2][n])
+            return [l_.detach() for l_ in losses], grads, \
+                [x[1] for x in res]
+
+        # batch norm: every rank at once; model groups: one data rank's
+        # group at a time (their graphs meet only inside a group), so
+        # one group's activations are alive at a time
+        order = [list(range(len(self._coords)))] if self._bn or m == 1 \
+            else self._groups
+        losses, grads, outs = [None] * len(self._coords), \
+            [None] * len(self._coords), [None] * len(self._coords)
         with contextlib.ExitStack() as stack:
-            sinks = [stack.enter_context(collect_stats(m)) for m in mods]
-            res = ranks.spmd(self._data, rank_fn)
-            losses = [r[0] for r in res]
-            if self._coupled:
-                total = all_reduce(losses)
-                flat = [(r, n) for r, x in enumerate(res) for n in x[3]]
-                gs = torch.autograd.grad(
-                    total, [res[r][2][n] for r, n in flat],
-                    allow_unused=True)
-                grads = [{} for _ in res]
-                for (r, n), g in zip(flat, gs):
-                    grads[r][n] = g if g is not None else \
-                        torch.zeros_like(res[r][2][n])
-                losses = [l.detach() for l in losses]
-            else:
-                grads = [x[2] for x in res]
+            sinks = [stack.enter_context(collect_stats(m_)) for m_ in mods]
+            for ids in order:
+                for r, l_, g, o in zip(ids, *run(ids)):
+                    losses[r], grads[r], outs[r] = l_, g, o
+        grads = self._model_join(grads)
+        if m > 1:
+            losses = [all_reduce([losses[r] for r in g])
+                      for g in self._groups]
         # every rank's statistics are the global moments' (sync batch
         # norm): rank 0's, the model's own modules, go to the buffers
         buffers = {**buffers, **self._stat_names(sinks[0])}
-        return losses, grads, [x[1] for x in res], buffers
+        return losses, grads, [self._join_outputs(outs, g)
+                               for g in self._groups], buffers
 
     def _mesh_loss_and_grads(self, st: TrainState, batch):
         """(loss, out, buffers, [rank gradient dicts]) of the global
@@ -768,7 +879,11 @@ def _replica(module: nn.Module) -> nn.Module:
 
 def _tree_detach(t):
     if isinstance(t, torch.Tensor):
-        return t.detach()
+        d = t.detach()
+        marks = ranks.split_marks(t)
+        if marks:
+            d._rank_split = marks
+        return d
     if isinstance(t, (list, tuple)):
         return type(t)(_tree_detach(x) for x in t)
     if isinstance(t, dict):

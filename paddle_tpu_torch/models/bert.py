@@ -11,8 +11,14 @@ twice, so two draws); a tanh pooler over the first token. Names, shapes
 and layouts are JAX's, so `named_parameters()` equals the JAX
 `raw_parameters()` keys and a JAX model (and its AdamW state) carries
 over with `models.weights.load_jax_state` / `from_jax_train_state(
-model=)`. The TP `.spec` annotations of the JAX parameters are not
-carried (sharded training is ROADMAP Queue 1 item 13.4).
+model=)`. The parameters carry the JAX package's TP `.spec`s
+(`paddle_tpu/models/bert.py:48-95`): qkv and fc1 split by columns
+(qkv head-aligned, `tp_groups` 3, so a rank holds whole heads), out
+and fc2 by rows, the word embedding by vocabulary; under
+`Trainer(mesh=)` with tp > 1 each rank runs its shards
+(`parallel.tp_layers`: the row-parallel linears and the word lookup
+all-reduce over "tp"; the masked-LM head's vocabulary-sharded logits
+are all-gathered).
 
 Attention takes slices of the packed (b, s, 3, h, d) qkv through
 `nn.functional.scaled_dot_product_attention`, so it routes as JAX's
@@ -43,6 +49,9 @@ from ..core import DeviceLike, make_generator, resolve_device, resolve_dtype
 from ..nn import functional as F
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from ..nn.layers_common import LayerList, Tanh
+from ..parallel.mesh import P
+from ..parallel.tp_layers import (copy_to_tp, head_block, parallel_matmul,
+                                  row_parallel, vocab_parallel)
 
 __all__ = ["BertConfig", "BertSelfAttention", "BertLayer", "Bert",
            "BertForSequenceClassification", "BertForMaskedLM",
@@ -78,17 +87,21 @@ class BertSelfAttention(nn.Module):
         self.num_heads = cfg.num_heads
         self.head_dim = h // cfg.num_heads
         self.qkv = Linear(h, 3 * h, std, gen)
+        _column(self.qkv, groups=3)
         self.out = Linear(h, h, std, gen)
+        self.out.weight.spec = P("tp", None)
         self.dropout = cfg.attention_dropout
 
     def forward(self, x, attn_mask=None):
         b, s, h = x.shape
-        qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        # under tp: the rank's heads
+        qkv = self.qkv(copy_to_tp(x)).reshape(b, s, 3, -1, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
-            training=self.training)
-        return self.out(out.reshape(b, s, h))
+            training=self.training,
+            head_block=head_block(q.shape[2], self.num_heads))
+        return row_parallel(self.out, out.reshape(b, s, -1))
 
 
 class BertLayer(nn.Module):
@@ -100,14 +113,24 @@ class BertLayer(nn.Module):
         self.attn = BertSelfAttention(cfg, gen)
         self.ln1 = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
         self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size, std, gen)
+        _column(self.fc1)
         self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size, std, gen)
+        self.fc2.weight.spec = P("tp", None)
         self.ln2 = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
         self.dropout = Dropout(cfg.hidden_dropout)
 
     def forward(self, x, attn_mask=None):
         x = self.ln1(x + self.dropout(self.attn(x, attn_mask)))
-        ffn = self.fc2(F.gelu(self.fc1(x)))
+        ffn = row_parallel(self.fc2, F.gelu(self.fc1(copy_to_tp(x))))
         return self.ln2(x + self.dropout(ffn))
+
+
+def _column(linear: Linear, groups: int = 1) -> None:
+    """The JAX specs of a column-parallel linear (weight P(None, "tp"),
+    bias P("tp")); `groups` column groups split each over the ranks."""
+    linear.weight.spec = P(None, "tp")
+    linear.bias.spec = P("tp")
+    linear.weight.tp_groups = linear.bias.tp_groups = groups
 
 
 def additive_mask(attention_mask, dtype):
@@ -130,6 +153,7 @@ class Bert(nn.Module):
         std = cfg.initializer_range
         self.cfg = cfg
         self.word_emb = Embedding(cfg.vocab_size, cfg.hidden_size, std, gen)
+        self.word_emb.weight.spec = P("tp", None)
         self.pos_emb = Embedding(cfg.max_position_embeddings,
                                  cfg.hidden_size, std, gen)
         self.type_emb = Embedding(cfg.type_vocab_size, cfg.hidden_size, std,
@@ -147,8 +171,8 @@ class Bert(nn.Module):
         pos = torch.arange(s, device=input_ids.device)[None, :]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = self.word_emb(input_ids) + self.pos_emb(pos) + \
-            self.type_emb(token_type_ids)
+        x = vocab_parallel(self.word_emb, input_ids) + self.pos_emb(pos) \
+            + self.type_emb(token_type_ids)
         x = self.emb_drop(self.emb_ln(x))
         mask = None
         if attention_mask is not None:
@@ -193,7 +217,9 @@ class BertForMaskedLM(nn.Module):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None):
         seq, _ = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.transform_ln(F.gelu(self.transform(seq)))
-        return torch.matmul(h, self.bert.word_emb.weight.t())
+        # under tp the rank's vocabulary columns, all-gathered
+        return parallel_matmul(h, self.bert.word_emb.weight,
+                               transpose_y=True)
 
 
 def ernie_base(**kw):

@@ -36,6 +36,22 @@ attention runs on its own heads and its own KV slabs (`HeadShards`):
 the attention callback gets per-rank q / k / v lists. int8-PTQ linears
 stay replicated, as the reference leaves them out of its specs.
 
+Model-parallel training (`Trainer(mesh=)`, `parallel/`): the
+parameters' specs are JAX's (`parallel.sharding.param_specs`); under
+tp a rank's training forward runs its shards: the vocabulary-parallel
+embedding, its heads' q / k / v (the fused qkv split head-aligned:
+each rank's columns are whole heads of q, k and v, where JAX's spec
+splits the (h, 3h) columns contiguously, which GSPMD may do in a
+global program; the shard shapes are JAX's), each column-parallel
+product reading tp rank 0's copy of its input (`copy_to_tp`), the
+row-parallel out and
+fc2 (all-reduced over "tp"), and its vocabulary block of the tied
+head's logits, whose loss is `parallel.tp_layers.vocab_parallel_ce`.
+With `sequence_parallel` "ring" or "ulysses" and sp > 1, each sp rank
+holds its chunk of the sequence at its global positions, attention
+runs through `parallel.sequence`, and the loss sums the chunks' terms
+over "sp" (the reference's `ValueError` for attention dropout kept).
+
 Generation: `GPT.forward(caches=, cache_position=)` over `init_cache`'s
 fixed caches; `generate` (eager, greedy or sampled with a
 `torch.Generator`); `generate_jit` / `generate_compiled` and
@@ -64,6 +80,8 @@ from ..nn import functional as F
 from ..nn import ranks
 from ..nn.layers import GELU, Dropout, Embedding, LayerNorm, Linear
 from ..nn.tp import ShardedParams, all_gather, all_reduce
+from ..parallel.tp_layers import (copy_to_tp, head_block, row_parallel,
+                                  vocab_parallel)
 from ..quantization.kv import (HeadShards, dequant_slab, is_quantized,
                                map_slab, slab_data, slab_shape, take_rows)
 
@@ -100,10 +118,6 @@ class GPTConfig:
             raise ValueError(
                 f"sequence_parallel must be 'none', 'ring' or 'ulysses', "
                 f"got {self.sequence_parallel!r}")
-        if self.sequence_parallel != "none":
-            raise NotImplementedError(
-                f"sequence_parallel={self.sequence_parallel!r} is not "
-                f"ported yet (ROADMAP Queue 1, item 13)")
 
     @property
     def ffn_size(self) -> int:
@@ -146,7 +160,7 @@ def param_shapes(cfg: GPTConfig) -> Dict[str, tuple]:
 # outlives the call. Plain torch, as XLA computed it in JAX; the fp32
 # temporaries are updated in place so one of them exists at a time.
 
-def _ce_fwd_impl(logits, labels, ignore_index: int):
+def _ce_fwd_impl(logits, labels, ignore_index: int, count=None):
     # max and gather in the logits' dtype (exact), the exp-sum in fp32
     m = logits.amax(dim=-1, keepdim=True)
     mf = m.float()
@@ -158,15 +172,17 @@ def _ce_fwd_impl(logits, labels, ignore_index: int):
     tgt = logits.gather(-1, idx[..., None])[..., 0].float()
     mask = (labels != ignore_index).float()
     # under a mesh: the count of the global batch (nn.ranks)
-    denom = torch.clamp(ranks.mean_denominator(mask.sum()), min=1.0)
+    denom = torch.clamp(ranks.mean_denominator(
+        mask.sum() if count is None else count), min=1.0)
     loss = ((lse - tgt) * mask).sum() / denom
     return loss, lse, mask, denom
 
 
 class _MaskedSoftmaxCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels, ignore_index: int):
-        loss, lse, mask, denom = _ce_fwd_impl(logits, labels, ignore_index)
+    def forward(ctx, logits, labels, ignore_index: int, count=None):
+        loss, lse, mask, denom = _ce_fwd_impl(logits, labels, ignore_index,
+                                              count)
         ctx.save_for_backward(logits, labels, lse, mask, denom)
         return loss
 
@@ -180,7 +196,7 @@ class _MaskedSoftmaxCE(torch.autograd.Function):
         p.scatter_add_(-1, idx, torch.full(idx.shape, -1.0,
                                            device=p.device))  # p - onehot
         p.mul_(coef)
-        return p.to(logits.dtype), None, None
+        return p.to(logits.dtype), None, None, None
 
 
 def _masked_softmax_ce(logits, labels, ignore_index: int = -100):
@@ -220,13 +236,35 @@ class GPTAttention(nn.Module):
         its kernels); returns (out, cache)."""
         b, s, h = x.shape
         cfg = self.cfg
+        if cache is None:
+            # under tp the qkv weight is the rank's head-aligned columns:
+            # its heads' q, k and v
+            qkv = self.qkv(copy_to_tp(x))
+            nh = qkv.shape[-1] // (3 * cfg.head_dim)
+            qkv = qkv.reshape(b, s, 3, nh, cfg.head_dim)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            if _sp_degree(cfg) > 1:
+                if self.training and self.dropout > 0.0:
+                    # the sequence-parallel routes have no attention
+                    # dropout (a dense fallback would lose the O(S/sp)
+                    # memory asked for), as in the reference
+                    raise ValueError(
+                        "sequence_parallel is incompatible with "
+                        "attention dropout > 0 (set dropout=0.0, the "
+                        "usual long-context pretraining setting)")
+                from ..parallel import sequence as seq
+                attn = {"ring": seq.ring_attention,
+                        "ulysses": seq.ulysses_attention}[
+                            cfg.sequence_parallel]
+                out = attn(q, k, v, causal=True)
+            else:
+                out = F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, dropout_p=self.dropout,
+                    training=self.training,
+                    head_block=head_block(nh, cfg.num_heads))
+            return row_parallel(self.out, out.reshape(b, s, nh * cfg.head_dim))
         qkv = self.qkv(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if cache is None:
-            out = F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, dropout_p=self.dropout,
-                training=self.training)
-            return self.out(out.reshape(b, s, h))
         if cache_position is None:
             raise ValueError("a fixed-shape cache needs an explicit "
                              "cache_position (see GPT.init_cache)")
@@ -253,7 +291,16 @@ class GPTMLP(nn.Module):
         self.act = GELU(True)
 
     def forward(self, x):
-        return self.fc2(self.act(self.fc1(x)))
+        return row_parallel(self.fc2, self.act(self.fc1(copy_to_tp(x))))
+
+
+def _sp_degree(cfg: GPTConfig) -> int:
+    """The sp ranks a sequence-parallel GPT's forward splits over (1
+    outside an SPMD run with sp > 1, or with sequence_parallel
+    "none")."""
+    if cfg.sequence_parallel == "none":
+        return 1
+    return ranks.axis_info("sp")[1]
 
 
 class GPTBlock(nn.Module):
@@ -301,6 +348,10 @@ class GPT(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
         self.lm_head = None if cfg.tie_embeddings else \
             Linear(cfg.hidden_size, cfg.vocab_size, std, gen, bias=False)
+        for blk in self.blocks:
+            # a tp rank's qkv columns are its heads' q, k and v
+            # (`parallel.sharding.model_splits`)
+            blk.attn.qkv.weight.tp_groups = blk.attn.qkv.bias.tp_groups = 3
         self.to(device=dev, dtype=resolve_dtype(dtype))
 
     def init_cache(self, batch: int, max_len: int, dtype=None):
@@ -331,10 +382,23 @@ class GPT(nn.Module):
             raise ValueError(
                 "forward with caches needs an explicit cache_position "
                 "(fixed-shape decode protocol: see GPT.init_cache)")
+        sp_i, sp = (0, 1) if caches is not None else \
+            ranks.axis_info("sp") if _sp_degree(self.cfg) > 1 else (0, 1)
+        if sp > 1:
+            # this sp rank's chunk of the sequence, at its global
+            # positions
+            if s % sp:
+                raise ValueError(f"sequence {s} does not split over "
+                                 f"sp={sp}")
+            s //= sp
+            input_ids = input_ids[:, sp_i * s:(sp_i + 1) * s]
+            if position_ids is not None and position_ids.shape[-1] != s:
+                position_ids = position_ids[..., sp_i * s:(sp_i + 1) * s]
         if position_ids is None:
-            ofs = 0 if caches is None else int(cache_position)
+            ofs = sp_i * s if caches is None else int(cache_position)
             position_ids = ofs + torch.arange(s, device=input_ids.device)[None]
-        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        x = self.drop(vocab_parallel(self.wte, input_ids)
+                      + self.wpe(position_ids))
         new_caches = []
         for i, blk in enumerate(self.blocks):
             if caches is None:
@@ -343,9 +407,17 @@ class GPT(nn.Module):
                 x, c = blk(x, caches[i], cache_position)
                 new_caches.append(c)
         x = self.ln_f(x)
+        if caches is None:
+            x = copy_to_tp(x)           # the head's vocabulary columns
         logits = self.lm_head(x) if self.lm_head is not None \
             else torch.matmul(x, self.wte.weight.t())
-        return logits if caches is None else (logits, new_caches)
+        if caches is not None:
+            return logits, new_caches
+        if sp > 1:
+            ranks.mark_split(logits, "sp", 1)
+        if ranks.axis_info("tp")[1] > 1:     # the rank's vocabulary block
+            ranks.mark_split(logits, "tp", -1)
+        return logits
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int = 32,
@@ -398,9 +470,43 @@ class GPT(nn.Module):
 
     def loss(self, logits, labels, ignore_index: int = -100):
         """Next-token cross-entropy: logits[:, :-1] against
-        labels[:, 1:], labels equal to `ignore_index` left out."""
-        return _masked_softmax_ce(logits[:, :-1], labels[:, 1:],
-                                  ignore_index)
+        labels[:, 1:], labels equal to `ignore_index` left out.
+
+        Inside an SPMD run: under tp the logits are the rank's
+        vocabulary block and the loss is the vocabulary-parallel form
+        (`parallel.tp_layers.vocab_parallel_ce`: the row max, sums of
+        exponentials and target logits all-reduced, the fp32 reductions
+        in place); under sequence parallelism the logits are the rank's
+        chunk of positions, the labels the whole sequence: the chunk's
+        masked sum over the count of the whole sequence's labels,
+        all-reduced over "sp", so every rank holds the whole loss."""
+        tp = ranks.axis_info("tp")[1]
+        sp_i, sp = ranks.axis_info("sp") if _sp_degree(self.cfg) > 1 \
+            else (0, 1)
+        if tp == 1 and sp == 1:
+            return _masked_softmax_ce(logits[:, :-1], labels[:, 1:],
+                                      ignore_index)
+        nxt = labels[:, 1:]
+        if ranks.is_counting():
+            return ranks.record_count((nxt != ignore_index).sum())
+        count = None
+        if sp > 1:
+            count = (nxt != ignore_index).sum().float()
+            L = logits.shape[1]
+            nxt = torch.cat([nxt, torch.full_like(labels[:, :1],
+                                                  ignore_index)], dim=1)
+            nxt = nxt[:, sp_i * L:(sp_i + 1) * L]
+        else:
+            logits = logits[:, :-1]
+        if tp > 1:
+            from ..parallel.tp_layers import vocab_parallel_ce
+            loss = vocab_parallel_ce(logits, nxt, ignore_index, count)
+        else:
+            loss = _MaskedSoftmaxCE.apply(logits, nxt, ignore_index, count)
+        if sp > 1:
+            from ..parallel import collective as C
+            loss = C.all_reduce(loss, group="sp")
+        return loss
 
     @property
     def device(self) -> torch.device:

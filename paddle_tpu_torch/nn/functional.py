@@ -334,13 +334,16 @@ def alpha_dropout(x, p: float = 0.5, training: bool = True, keep=None):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True):
+                                 training: bool = True, head_block=None):
     """Layout (batch, seq, heads, head_dim); the flash kernels K2/K3 on
     CUDA tensors, their plain versions on CPU tensors; a mask or
-    dropout (in training) through `attention_dense`."""
+    dropout (in training) through `attention_dense`. `head_block` (r,
+    n), the port's own, says the heads are block r of n of one
+    attention's (a tensor-parallel rank's): dropout draws their block
+    of the mask over all heads."""
     return _fa.dot_product_attention(
         query, key, value, mask=attn_mask, causal=is_causal,
-        dropout_p=dropout_p if training else 0.0)
+        dropout_p=dropout_p if training else 0.0, head_block=head_block)
 
 
 # --------------------------------------------------------------------------- #

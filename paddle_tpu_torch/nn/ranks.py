@@ -14,10 +14,16 @@ Python process drives on one device, as `nn/tp.py`'s TP group is
   meets a collective or returns; then the next rank in rank order runs.
   A collective met in a run is a rendezvous: each rank of its group
   leaves its part, the last to arrive combines them in rank order, and
-  every rank gets that result (one tensor on the shared device). So a
-  run is deterministic (a fixed order of launches, rank-order sums),
-  and ranks that must meet inside a computation can: batch norm under
-  a mesh reduces each layer's moments over the data ranks mid-forward.
+  every rank gets that result (views of one tensor on the shared
+  device). So a run is deterministic (a fixed order of launches,
+  rank-order sums), and ranks that must meet inside a computation can:
+  batch norm under a mesh reduces each layer's moments over the data
+  ranks mid-forward. When a part requires grad the collective is one
+  autograd node over the ranks' parts with an output per rank
+  (`_Joined`), whose backward takes the ranks' gradients in rank
+  order: one backward over the ranks' graphs (the Trainer's joint
+  backward) then gives the same bits whatever ran before it in the
+  process.
 - **The rank context** (`RankContext`, thread-local, entered with
   `use`): the rank's place in the mesh and what the layers read there.
   Dropout draws one mask over the global batch and keeps the rank's
@@ -45,7 +51,8 @@ from . import tp as _tp
 __all__ = ["COUNTS", "counts", "reset_counts", "combine", "spmd",
            "RankContext", "use", "current", "in_run", "collective",
            "axis_index", "counting", "is_counting", "record_count",
-           "mean_denominator",
+           "mean_denominator", "axis_info", "rank_store",
+           "mark_split", "split_marks",
            "global_rows", "sync_moments", "REDUCE_OPS"]
 
 OPS = ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
@@ -140,6 +147,99 @@ _ARITH = {"all_reduce": (_reduce, True), "all_gather": (_all_gather, True),
           "ppermute": (_ppermute, False), "barrier": (_barrier, True)}
 
 
+def _grad_of(name, ctx, parts, gs):
+    """The parts' gradients of collective `name` from the ranks' output
+    gradients `gs` (None: zeros), each sum taken in rank order."""
+    kw, k = ctx.kw, len(gs)
+
+    def total():
+        out = None
+        for g in gs:
+            if g is not None:
+                out = g if out is None else out + g
+        return out
+
+    if name == "all_reduce":
+        t = total()
+        if t is not None and kw.get("op", "sum") == "avg":
+            t = t / k
+        return [t] * k
+    if name == "all_gather":
+        t, axis = total(), kw.get("axis", 0)
+        if t is None:
+            return [None] * k
+        if not kw.get("tiled", True):
+            return list(t.unbind(axis))
+        return list(t.split([p.shape[axis] for p in parts], dim=axis))
+    if name == "reduce_scatter":
+        axis = kw.get("axis", 0)
+        gs = [g if g is not None else o for g, o in zip(gs, ctx.outs)]
+        whole = torch.cat(gs, dim=axis)
+        return [whole] * k
+    if name == "broadcast":
+        return [total() if i == kw.get("src", 0) else None
+                for i in range(k)]
+    if name == "all_to_all":
+        gs = [g if g is not None else o for g, o in zip(gs, ctx.outs)]
+        return _all_to_all(gs, split_axis=kw.get("concat_axis", 0),
+                           concat_axis=kw.get("split_axis", 0))
+    if name == "ppermute":
+        out = [None] * k
+        for src, dst in kw.get("perm", ()):
+            out[src] = gs[dst]
+        return out
+    raise NotImplementedError(f"no gradient for {name}")
+
+
+class _Joined(torch.autograd.Function):
+    """A collective over the ranks' parts as ONE autograd node with one
+    output per rank. The ranks' graphs meet in it, so the joint
+    backward sums their gradients in rank order inside the node: where
+    each rank read one shared result, the engine added the ranks'
+    gradients in the order it reached them, which follows the autograd
+    sequence numbers of the ranks' threads (their history in the
+    process), so two equal runs could differ in the last bit."""
+
+    @staticmethod
+    def forward(ctx, name, kw, *parts):
+        fn, shared = _ARITH[name]
+        ctx.name, ctx.kw = name, dict(kw)
+        out = fn(list(parts), **ctx.kw)
+        outs = [out] * len(parts) if shared else list(out)
+        # fresh tensor objects: an output may not be an input or
+        # another output
+        outs = [o.view_as(o) for o in outs]
+        # shapes only: what a missing output gradient is zeros of
+        ctx.outs = [torch.empty_like(o, device="meta") for o in outs]
+        ctx.parts = [torch.empty_like(p, device="meta") for p in parts]
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        dev = next(g for g in gs if g is not None).device
+        ctx.outs = [torch.zeros(o.shape, dtype=o.dtype, device=dev)
+                    for o in ctx.outs]
+        return (None, None, *_grad_of(ctx.name, ctx, ctx.parts, gs))
+
+
+def _joined(name: str, parts: list, kw) -> list:
+    """The ranks' results of collective `name`, one per part: through
+    `_Joined` when a part requires grad, else the shared result (or
+    the per-rank list)."""
+    fn, shared = _ARITH[name]
+    if torch.is_grad_enabled() and all(
+            isinstance(p, torch.Tensor) for p in parts) and any(
+            p.requires_grad for p in parts):
+        if name == "all_reduce" and kw.get("op", "sum") not in ("sum",
+                                                               "avg"):
+            raise NotImplementedError(
+                f"the gradient of all_reduce {kw['op']} inside an SPMD "
+                f"run: reduce a detached tensor")
+        return list(_Joined.apply(name, tuple(sorted(kw.items())), *parts))
+    out = fn(parts, **kw)
+    return [out] * len(parts) if shared else list(out)
+
+
 def combine(name: str, parts: Sequence[torch.Tensor], **kw):
     """Collective `name` over the ranks' `parts` (rank order), counted
     once: one tensor when every rank gets the same (all_reduce,
@@ -226,7 +326,6 @@ class _Run:
     def meet(self, r: int, name: str, axes: tuple, part, kw):
         """Rank r's part of collective `name` over `axes`; returns its
         result once every rank of the group has arrived."""
-        fn, shared = _ARITH[name]
         with self.cv:
             seq = self.seq[r].get(axes, 0)
             self.seq[r][axes] = seq + 1
@@ -246,8 +345,8 @@ class _Run:
                 raise _Aborted()
             slot.parts[r] = part
             if len(slot.parts) == len(slot.members):
-                slot.result = fn([slot.parts[q] for q in slot.members],
-                                 **kw)
+                slot.result = _joined(
+                    name, [slot.parts[q] for q in slot.members], kw)
                 COUNTS[name].count += 1
                 slot.complete = True
             self.blocked[r] = slot
@@ -257,26 +356,39 @@ class _Run:
             slot.taken += 1
             if slot.taken == len(slot.members):
                 del self.slots[key]
-            res = slot.result
-            return res if shared else res[slot.members.index(r)]
+            return slot.result[slot.members.index(r)]
 
 
 class _Worker(threading.Thread):
     """A rank's thread, kept for the process: what a thread caches
     (cuDNN's execution plans are per thread) stays warm from one run
-    to the next."""
+    to the next.
+
+    Each job runs under the intra-op thread count of the thread that
+    submitted it. OpenMP's and MKL's thread counts are per thread:
+    `torch.set_num_threads` on the driving thread leaves a worker at
+    the count it took at its first parallel op, so a rank's GEMMs and
+    reductions could split their sums another way than the driving
+    thread's, and from one run to the next."""
 
     def __init__(self, index: int):
         super().__init__(name=f"rank{index}", daemon=True)
         self.jobs: "queue.SimpleQueue" = queue.SimpleQueue()
+        self.threads: Optional[int] = None
         self.start()
 
     def run(self):
         while True:
-            job, done = self.jobs.get()
+            job, threads, done = self.jobs.get()
             try:
+                if threads != self.threads:
+                    torch.set_num_threads(threads)
+                    self.threads = threads
                 job()
             finally:
+                # the job's closure holds its run (the ranks' results
+                # and, after a failure, their graphs): not past its end
+                job = None
                 done.set()
 
 
@@ -287,11 +399,17 @@ _workers_lock = threading.Lock()
 def _on_workers(fns) -> None:
     """Run fns[i] on worker i and wait for all; from inside a worker
     (a run within a run) on fresh threads instead."""
+    threads = torch.get_num_threads()
     if threading.current_thread() in _workers:
-        threads = [threading.Thread(target=f, daemon=True) for f in fns]
-        for t in threads:
+        def pinned(f):
+            torch.set_num_threads(threads)
+            f()
+
+        fresh = [threading.Thread(target=pinned, args=(f,), daemon=True)
+                 for f in fns]
+        for t in fresh:
             t.start()
-        for t in threads:
+        for t in fresh:
             t.join()
         return
     # one run at a time on the workers: two runs from two threads
@@ -302,7 +420,7 @@ def _on_workers(fns) -> None:
         done = []
         for w, f in zip(_workers, fns):
             ev = threading.Event()
-            w.jobs.put((f, ev))
+            w.jobs.put((f, threads, ev))
             done.append(ev)
         for ev in done:
             ev.wait()
@@ -390,6 +508,9 @@ class RankContext:
         self.data_index, self.data_ranks = idx, n
         self.rows = rows
         self.update_axes: tuple = ()
+        # what a layer leaves for the loss on this rank (an MoE layer's
+        # aux loss), by the layer's key
+        self.store: Dict[object, object] = {}
         self.denominators: Optional[List[torch.Tensor]] = None
         self._den_pos = 0
         self._log: list = []
@@ -457,6 +578,43 @@ def axis_index(axes: Sequence[str]) -> int:
     if run is None:
         return 0
     return run.members(_local.rank, tuple(axes)).index(_local.rank)
+
+
+def axis_info(axis: str):
+    """(this rank's index along mesh axis `axis`, the axis' size): from
+    the rank context (so a forward a checkpoint recomputes outside the
+    run reads the same), else from the SPMD run's coordinates; (0, 1)
+    outside both."""
+    ctx = _local.ctx
+    if ctx is not None and axis in ctx.shape:
+        return ctx.coords.get(axis, 0), ctx.shape[axis]
+    run = _local.run
+    if run is None or axis not in run.coords[_local.rank]:
+        return 0, 1
+    group = run.members(_local.rank, (axis,))
+    return group.index(_local.rank), len(group)
+
+
+def rank_store() -> Optional[Dict[object, object]]:
+    """The rank context's store (None outside one): where a layer
+    leaves a value its rank's loss reads (`parallel.moe`'s aux loss),
+    since the ranks' module replicas share the loss function's
+    closure."""
+    ctx = _local.ctx
+    return None if ctx is None else ctx.store
+
+
+def mark_split(t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """Note on an output tensor that the ranks along `axis` hold its
+    pieces along `dim` (a GPT's vocab-sharded logits over "tp", its
+    sequence chunks over "sp"): `Trainer(mesh=)` joins them so the
+    step returns the global output."""
+    t._rank_split = getattr(t, "_rank_split", ()) + ((axis, dim),)
+    return t
+
+
+def split_marks(t) -> tuple:
+    return getattr(t, "_rank_split", ())
 
 
 # --- what the layers read ----------------------------------------------------

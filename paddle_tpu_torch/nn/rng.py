@@ -31,7 +31,8 @@ import torch
 
 from . import ranks
 
-__all__ = ["rng_context", "next_seed", "keep_mask", "uniform"]
+__all__ = ["rng_context", "next_seed", "keep_mask", "keep_mask_block",
+           "normal", "uniform"]
 
 _M64 = (1 << 64) - 1
 
@@ -86,18 +87,42 @@ def keep_mask(prob: float, shape, device) -> torch.Tensor:
     return _draw(shape, device) < prob
 
 
-def _draw(shape, device) -> torch.Tensor:
-    """fp32 uniforms in [0, 1) of `shape` from a generator seeded by
-    `next_seed()`; a data rank's rows of the global batch's draw under
-    a mesh (`ranks.global_rows`)."""
+def keep_mask_block(prob: float, shape, device, block) -> torch.Tensor:
+    """`keep_mask` for a tensor that is block r of n along dim of a
+    larger one, `block` = (dim, r, n) (a tensor-parallel rank's heads
+    of one attention): that block of the draw over the whole."""
+    return _draw(shape, device, block) < prob
+
+
+def normal(shape, device) -> torch.Tensor:
+    """fp32 standard normals of `shape` from a generator seeded by
+    `next_seed()` (an MoE gate's noise)."""
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(next_seed())
+    return torch.randn(tuple(shape), generator=g, device=device)
+
+
+def _draw(shape, device, block=None) -> torch.Tensor:
+    """fp32 uniforms in [0, 1) of `shape` from a generator seeded by
+    `next_seed()`; under a mesh a data rank's rows of the global
+    batch's draw (`ranks.global_rows`), and with `block` (dim, r, n)
+    block r of n along dim of the draw over the whole dim."""
+    device = torch.device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(next_seed())
+    full, index = list(shape), [slice(None)] * len(shape)
     whole = ranks.global_rows(shape)
-    if whole is None:
-        return torch.rand(tuple(shape), generator=g, device=device)
-    full, start, rows = whole
-    return torch.rand(full, generator=g, device=device)[start:start + rows]
+    if whole is not None:
+        full[0] = whole[0][0]
+        index[0] = slice(whole[1], whole[1] + whole[2])
+    if block is not None and block[2] > 1:
+        dim, r, n = block
+        d = shape[dim]
+        full[dim] = d * n
+        index[dim] = slice(r * d, (r + 1) * d)
+    out = torch.rand(tuple(full), generator=g, device=device)
+    return out if list(full) == list(shape) else out[tuple(index)]
 
 
 def uniform(shape, device, low: float = 0.0, high: float = 1.0

@@ -37,9 +37,9 @@ kernel writes first, with the transposed copies TF32 wgmma needs;
 `tf32_split` is its arithmetic in plain torch). On CPU tensors it runs
 `flash_forward_plain` / `flash_backward_plain`, the same functions in
 plain torch. There is no fallback from one to the other. Each CUDA
-launch adds one to `FWD_LAUNCHES` or `BWD_LAUNCHES` and to its route's
-own counter (one backward call launches the split, delta, dk/dv and dq
-kernels, and counts once).
+launch adds one to `FWD_LAUNCHES` or `BWD_LAUNCHES`, to its route's
+own counter and to its causal flag's (`CAUSAL_COUNTERS`); one backward
+call launches the split, delta, dk/dv and dq kernels, and counts once.
 
 Causal attention with sq > sk leaves the first sq - sk query rows with
 no visible key; every version gives them the reference's uniform
@@ -74,6 +74,8 @@ __all__ = ["dot_product_attention", "flash_attention",
            "WGMMA_FWD_LAUNCHES", "WGMMA_BWD_LAUNCHES",
            "WGMMA_F16_FWD_LAUNCHES", "WGMMA_F16_BWD_LAUNCHES",
            "TF32X3_FWD_LAUNCHES", "TF32X3_BWD_LAUNCHES",
+           "CAUSAL_FWD_LAUNCHES", "CAUSAL_BWD_LAUNCHES",
+           "FULL_FWD_LAUNCHES", "FULL_BWD_LAUNCHES",
            "DENSE_ATTENTION_CALLS"]
 
 NEG_INF = -1e30
@@ -101,6 +103,15 @@ ROUTE_COUNTERS = {WGMMA: (WGMMA_FWD_LAUNCHES, WGMMA_BWD_LAUNCHES),
                   WGMMA_F16: (WGMMA_F16_FWD_LAUNCHES,
                               WGMMA_F16_BWD_LAUNCHES),
                   TF32X3: (TF32X3_FWD_LAUNCHES, TF32X3_BWD_LAUNCHES)}
+# ...and by the causal flag: causal (True) -> (forward, backward)
+# counter, so a run can show its causal and its full launches apart (a
+# ring's diagonal chunk pairs and the pairs below it)
+CAUSAL_FWD_LAUNCHES = _LaunchCounter()
+CAUSAL_BWD_LAUNCHES = _LaunchCounter()
+FULL_FWD_LAUNCHES = _LaunchCounter()
+FULL_BWD_LAUNCHES = _LaunchCounter()
+CAUSAL_COUNTERS = {True: (CAUSAL_FWD_LAUNCHES, CAUSAL_BWD_LAUNCHES),
+                   False: (FULL_FWD_LAUNCHES, FULL_BWD_LAUNCHES)}
 # calls of `attention_dense` (a mask or dropout), on any device
 DENSE_ATTENTION_CALLS = _LaunchCounter()
 
@@ -129,7 +140,7 @@ def attention_reference(q, k, v, causal: bool = False,
 
 def attention_dense(q, k, v, mask=None, causal: bool = False,
                     scale: Optional[float] = None, dropout_p: float = 0.0,
-                    keep=None):
+                    keep=None, head_block=None):
     """`_attention_reference` whole, in torch: what the dispatcher sends
     a mask or dropout > 0 to, on every device. As `attention_reference`,
     then the mask: a bool mask keeps where True (else the score is
@@ -138,7 +149,10 @@ def attention_dense(q, k, v, mask=None, causal: bool = False,
     probability 1 - p (the mask drawn by `nn.rng.keep_mask` from the
     training step's key, or `keep`, a bool mask of their shape, which
     the tests pass to hold the arithmetic against JAX's draw) and the
-    kept ones divided by 1 - p, before the cast to v's dtype."""
+    kept ones divided by 1 - p, before the cast to v's dtype.
+    `head_block` (r, n) says that q, k, v hold block r of n of one
+    attention's heads (a tensor-parallel rank's): the mask is then
+    their block of the draw over all heads."""
     from ..nn import rng
     DENSE_ATTENTION_CALLS.count += 1
     sq, d = q.shape[1], q.shape[-1]
@@ -158,7 +172,9 @@ def attention_dense(q, k, v, mask=None, causal: bool = False,
     w = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
         if keep is None:
-            keep = rng.keep_mask(1.0 - dropout_p, w.shape, w.device)
+            keep = rng.keep_mask(1.0 - dropout_p, w.shape, w.device) \
+                if head_block is None else rng.keep_mask_block(
+                    1.0 - dropout_p, w.shape, w.device, (1, *head_block))
         w = torch.where(keep, w / (1.0 - dropout_p), 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
 
@@ -439,6 +455,7 @@ def _launch_fwd(q, k, v, causal: bool, scale: float, parts: int = FWD_ALL,
             scale, parts, _stream(q))
     _raise_on(err, lib, "flash forward")
     ROUTE_COUNTERS[route][0].count += 1
+    CAUSAL_COUNTERS[bool(causal)][0].count += 1
     FWD_LAUNCHES.count += 1
     return out, lse
 
@@ -492,6 +509,7 @@ def _launch_bwd(q, k, v, out, lse, g, causal: bool, scale: float,
             int(causal), scale, parts, _stream(q))
     _raise_on(err, lib, "flash backward")
     ROUTE_COUNTERS[route][1].count += 1
+    CAUSAL_COUNTERS[bool(causal)][1].count += 1
     BWD_LAUNCHES.count += 1
     return dq, dk, dv
 
@@ -645,14 +663,16 @@ def flash_attention(q, k, v, causal: bool, scale: float):
 
 def dot_product_attention(q, k, v, mask=None, causal: bool = False,
                           scale: Optional[float] = None,
-                          dropout_p: float = 0.0):
+                          dropout_p: float = 0.0, head_block=None):
     """The dispatcher under `nn.functional.scaled_dot_product_attention`:
     q (b, sq, h, d), k/v (b, sk, h, d) → (b, sq, h, d), differentiable.
     A mask or dropout > 0 goes to `attention_dense` (JAX's
     `_pallas_ok` sends both to `_attention_reference`); everything else
     through the K2/K3 operators (`flash_attention`), whose CUDA path
-    raises on what no kernel route takes (`_check_cuda_args`)."""
+    raises on what no kernel route takes (`_check_cuda_args`).
+    `head_block` is `attention_dense`'s."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if mask is not None or dropout_p > 0.0:
-        return attention_dense(q, k, v, mask, causal, scale, dropout_p)
+        return attention_dense(q, k, v, mask, causal, scale, dropout_p,
+                               head_block=head_block)
     return flash_attention(q, k, v, causal, scale)

@@ -2,7 +2,9 @@
 reference's fleet/base/fleet_base.py:139).
 
 `init(strategy=)` builds THE mesh from the strategy's hybrid degrees
-(`world_size` logical ranks on `device`, see `mesh.py`);
+(dp, `sharding_degree` as fsdp, `mp_degree` as tp, `pp_degree`,
+`sep_degree` as sp, `ep_degree`: `world_size` logical ranks on
+`device`, see `mesh.py`);
 `distributed_model` applies the ZeRO stage and places the model;
 `distributed_trainer` returns a `Trainer` over the mesh with the
 strategy's AMP, loss scaling, recompute and gradient merge. One path

@@ -36,7 +36,13 @@ from .mesh import Mesh, P, mesh_shape
 __all__ = ["fsdp_extend_spec", "apply_fsdp", "shard_model", "Sharded",
            "param_specs", "zero_stage", "partition_dim", "state_partitions",
            "shard_train_state", "gather_train_state", "rank_bytes",
-           "fsdp_size"]
+           "fsdp_size", "MODEL_SPLIT_AXES", "model_splits", "take_shard",
+           "join_shards"]
+
+# the mesh axes a parameter's own spec may split it over inside the
+# ranks' forward: tensor parallel (columns, rows, vocabulary) and expert
+# parallel (the expert dim); fsdp splits the state, not the compute
+MODEL_SPLIT_AXES = ("ep", "tp")
 
 
 def fsdp_extend_spec(spec: Optional[P], shape, mesh: Mesh,
@@ -98,8 +104,73 @@ def param_specs(model: nn.Module) -> Dict[str, Optional[P]]:
                 base[k] = P("tp") if named[k].dim() == 1 else P(None, "tp")
             else:
                 base[k] = _GPT_SPECS[kind[0]]
-    return {k: getattr(p, "spec", None) or base.get(k)
+    return {k: p.spec if getattr(p, "spec", None) is not None
+            else base.get(k)
             for k, p in model.named_parameters() if p.requires_grad}
+
+
+def model_splits(model: nn.Module, mesh: Mesh
+                 ) -> Dict[str, List[tuple]]:
+    """{name: [(dim, axis, groups)]}: where each trainable parameter is
+    split over the mesh's tp or ep ranks (axes of size > 1 in its spec).
+    `groups` > 1 (a Parameter's `tp_groups`: a fused qkv's 3) splits
+    each of that many equal column groups over the ranks, so a rank
+    holds whole heads of q, k and v; its shard's shape is the
+    contiguous block's."""
+    ms = mesh_shape(mesh)
+    specs = param_specs(model)
+    named = dict(model.named_parameters())
+    out: Dict[str, List[tuple]] = {}
+    for k, spec in specs.items():
+        found = []
+        for d, e in enumerate(spec or ()):
+            names = e if isinstance(e, tuple) else (e,)
+            for a in MODEL_SPLIT_AXES:
+                if a in names and ms.get(a, 1) > 1:
+                    n = ms[a]
+                    if named[k].shape[d] % n:
+                        raise ValueError(
+                            f"{k}: dim {d} of size {named[k].shape[d]} "
+                            f"does not split over {a}={n}")
+                    found.append((d, a, int(getattr(named[k], "tp_groups",
+                                                    1)) if a == "tp" else 1))
+        if len(found) > 1:
+            raise NotImplementedError(
+                f"{k}: split over {[a for _, a, _ in found]}; a parameter "
+                f"splits over one of tp and ep")
+        if found:
+            out[k] = found
+    return out
+
+
+def take_shard(t: torch.Tensor, dim: int, r: int, n: int,
+               groups: int = 1) -> torch.Tensor:
+    """Rank r of n's block of `t` along `dim`: a view of the contiguous
+    r-th block, or with `groups` > 1 the r-th block of each of `groups`
+    equal column groups, joined (a copy)."""
+    size = t.shape[dim]
+    if groups == 1:
+        return t.narrow(dim, r * (size // n), size // n)
+    g = size // groups
+    w = g // n
+    return torch.cat([t.narrow(dim, j * g + r * w, w)
+                      for j in range(groups)], dim=dim)
+
+
+def join_shards(parts: Sequence[torch.Tensor], dim: int, axis: str,
+                groups: int = 1) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks (`take_shard`'s inverse):
+    one `all_gather` over `axis`, then the group columns put back in
+    place."""
+    from . import collective as C
+    whole = C.all_gather(list(parts), axis=dim, group=axis)
+    if groups == 1:
+        return whole
+    n = len(parts)
+    shape = list(whole.shape)
+    w = shape[dim] // (n * groups)
+    v = whole.reshape(shape[:dim] + [n, groups, w] + shape[dim + 1:])
+    return v.transpose(dim, dim + 1).reshape(shape)
 
 
 def zero_stage(model: nn.Module) -> int:

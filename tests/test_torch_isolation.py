@@ -70,6 +70,10 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.parallel.sharding\n"
         "import paddle_tpu_torch.parallel.collective\n"
         "import paddle_tpu_torch.parallel.random_\n"
+        "import paddle_tpu_torch.parallel.tp_layers\n"
+        "import paddle_tpu_torch.parallel.sequence\n"
+        "import paddle_tpu_torch.parallel.moe\n"
+        "import paddle_tpu_torch.parallel.pipeline\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

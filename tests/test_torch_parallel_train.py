@@ -12,8 +12,9 @@ devices, same weights (carried from the JAX model) and numpy batches.
   equal the total over fsdp within the largest replicated entry.
 - `ClipGradByGlobalNorm` under ZeRO-2 and 3, with `axes=("fsdp",)` and
   without: JAX's clipped step (its GSPMD norm is the whole gradients').
-- What still raises: tp, pp, sp or ep above 1, a non-mesh, a mesh on
-  another device, per-parameter-norm rules over partitions.
+- What still raises: the strategy's dgc (ROADMAP item 13.4, step 6),
+  a parameter split over both tp and ep, a non-mesh, a mesh on another
+  device, per-parameter-norm rules over partitions.
 """
 import jax
 import numpy as np
@@ -216,8 +217,20 @@ def test_mesh_trainer_refuses_what_is_not_ported():
                        lambda o, t: F.cross_entropy(o, t), mesh=mesh)
 
     for kw in (dict(tp=2), dict(pp=2, dp=2), dict(sp=2), dict(ep=2)):
-        with pytest.raises(NotImplementedError, match="13.4, steps 4-5"):
-            make(parallel.init_mesh(**kw, device="cpu"))
+        assert make(parallel.init_mesh(**kw, device="cpu")).mesh.shape == \
+            {**{a: 1 for a in parallel.Mesh.axis_names}, **kw}
+    from paddle_tpu_torch.parallel import fleet
+    fleet.init(strategy=parallel.DistributedStrategy(dgc=True),
+               world_size=2, device="cpu")
+    with pytest.raises(ValueError, match="13.4, step 6"):
+        fleet.distributed_trainer(_pmlp(), Adam(0.01),
+                                  lambda o, t: F.cross_entropy(o, t))
+    both = _pmlp()
+    both[0].weight.spec = parallel.P("ep", "tp")
+    with pytest.raises(NotImplementedError, match="one of tp and ep"):
+        make_mesh = parallel.init_mesh(tp=2, ep=2, device="cpu")
+        Trainer(both, Adam(0.01), lambda o, t: F.cross_entropy(o, t),
+                mesh=make_mesh)
     with pytest.raises(TypeError, match="parallel.Mesh"):
         make(object())
     if not torch.cuda.is_available():

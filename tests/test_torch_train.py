@@ -133,7 +133,9 @@ def test_bf16_forward_keeps_bf16_logits(np_params):
 def test_dropout_and_sequence_parallel_raise():
     """Dropout is ported: in training the forward draws its masks from
     the installed key (and needs one); in eval it is off. Sequence
-    parallel still raises, naming item 13."""
+    parallel is ported (tests/test_torch_parallel_sequence.py): an
+    unknown mode raises, and so does attention dropout in a
+    sequence-parallel training forward, as in the reference."""
     from paddle_tpu_torch.models import GPTConfig
     from paddle_tpu_torch.nn import rng
     model = gpt_tiny(seed=0, device="cpu", dropout=0.1)
@@ -148,8 +150,21 @@ def test_dropout_and_sequence_parallel_raise():
     c = model(ids)
     assert c.shape == (1, 8, 1024) and not torch.equal(a, b)
     assert not torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        GPTConfig(sequence_parallel="ring")
+    with pytest.raises(ValueError, match="sequence_parallel must be"):
+        GPTConfig(sequence_parallel="zigzag")
+    from paddle_tpu_torch import parallel
+    sp = gpt_tiny(seed=0, device="cpu", dropout=0.1,
+                  sequence_parallel="ring")
+
+    def rank(i):
+        with rng.rng_context(0, 0):
+            return sp(torch.zeros(1, 8, dtype=torch.long))
+
+    with pytest.raises(ValueError, match="attention dropout"):
+        parallel.spmd([{"sp": i} for i in range(2)], rank)
+    sp.eval()                                     # eval: no dropout
+    assert parallel.spmd([{"sp": i} for i in range(2)],
+                         rank)[0].shape == (1, 4, 1024)
 
 
 # --------------------------------------------------------------------------- #
@@ -342,9 +357,9 @@ def test_sync_model_writes_masters_back(np_params):
 
 
 def test_trainer_refuses_what_is_not_ported(np_params):
-    """`mesh` takes a `parallel.Mesh` of dp and fsdp ranks (its training:
+    """`mesh` takes a `parallel.Mesh` (its training over every axis:
     tests/test_torch_parallel_*.py); anything else is a TypeError, and a
-    tp degree above 1 still raises, naming item 13.4's later steps;
+    tp mesh over heads that do not split raises ValueError;
     remat, a scaler, O1, loop_unroll > 1 and keep_bn_fp32 are taken
     (their behaviour: tests/test_torch_amp.py, test_torch_dropout.py);
     check_nan_inf is a flag (core.set_flags), not a keyword, as in
@@ -353,8 +368,10 @@ def test_trainer_refuses_what_is_not_ported(np_params):
     from paddle_tpu_torch.amp import GradScaler
     with pytest.raises(TypeError, match="parallel.Mesh"):
         _port_trainer(np_params, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13.4"):
-        _port_trainer(np_params, mesh=parallel.Mesh({"tp": 2}, "cpu"))
+    tr = _port_trainer(np_params, mesh=parallel.Mesh({"tp": 2}, "cpu"))
+    assert tr._msplit["blocks.0.attn.qkv.weight"] == [(1, "tp", 3)]
+    with pytest.raises(ValueError, match="does not split over tp=3"):
+        _port_trainer(np_params, mesh=parallel.Mesh({"tp": 3}, "cpu"))
     for kw in (dict(remat=True), dict(scaler=GradScaler()),
                dict(amp_level="O1"), dict(loop_unroll=2),
                dict(keep_bn_fp32=False), dict(donate=False)):
