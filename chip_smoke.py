@@ -485,6 +485,34 @@ every phase passed):
    the model-parallel rank shapes of 6t and 6u (tp 2: b 4, h 8; Ulysses
    sp 4: b 2, h 4, s 2048; the ring's 512 x 512 chunk pairs, diagonal
    causal and below it full; d 128) and phase 8 times them there.
+6x. int8 error-feedback compression: `compressed_grad_step` on
+   GPT-small (fp32, TF32 off) over dp 2 at 6q's batch (8 x 256), 3
+   Momentum steps: each step's mean of every tensor and both ranks' new
+   residuals equal the formula over the ranks' fp32 locals, bitwise;
+   losses within 1e-2 relative of exact dp (`Trainer(mesh=)` dp 2);
+   the codes cross as int8 (the wire counter), fp32 only as scalars;
+   K2/K3 2 ranks x 12 layers a step.
+6y. `LocalSGD` on GPT-small over dp 2, k 4, 2 rounds (AdamW): one
+   exchange a round, the state after it the ranks' mean bitwise, K2/K3
+   2 x 4 x 12 a round.
+6z. `init_multislice_mesh(dcn={"dp": 2}, ici={"fsdp": 2})` and the
+   grid that is not row-major (dcn fsdp, ici dp): one GPT-small step
+   bitwise the `init_mesh(dp=2, fsdp=2)` step; `auto.Engine` over 4
+   ranks (plan, two `fit_batch` steps); `Calibrator.fit` over
+   `time_step_fn` times of three plans (fitted mfu and link rate).
+9a. several processes on the one card: `launch_local` of 2 workers
+   (this script with `--worker gang`): the gloo group, the host plane
+   and `fleet.metrics`' AUC across them; GPT-small on a dp 2 mesh
+   spanning the processes, 3 steps, losses and parameters bitwise the
+   one-process dp 2 mesh's; 0 kernel builds in the workers (they load
+   the kernels this run built); a step's time and the exchange's D2H,
+   gather and H2D beside one process's step; each worker's stages.
+9b. `ElasticController` over 2 workers (`--worker elastic`): GPT-small
+   width at 2 layers on a dp 2 mesh spanning them, `AutoCheckpoint`
+   every step; worker 1 dies after step 3 of 5, the gang relaunches and
+   resumes, every loss equal to an uninterrupted one-process run's;
+   each worker's K2/K3 launches = layers x its steps, 0 builds.
+   6x-9b print their seconds each and together.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters, and again in fp16) through the kernels
    against the same step with the plain versions swapped in on the
@@ -5854,12 +5882,13 @@ def collective_formulas(torch, C):
 
 
 def mesh_gpt_small_step(torch, np, P, parallel, stage, mesh, amp_level=None,
-                        steps=1, grad_accum=1):
-    """(losses, trainer) of `steps` Momentum steps of GPT-small on
-    MESH_BATCH's ids (one rank when mesh is None)."""
+                        steps=1, grad_accum=1, model=None):
+    """(losses, trainer) of `steps` Momentum steps of GPT-small (`model`,
+    else a new one) on MESH_BATCH's ids (one rank when mesh is None)."""
     from paddle_tpu_torch.framework import Trainer
     from paddle_tpu_torch.optimizer import Momentum
-    model = P.models.gpt_small(seed=0, device="cuda")
+    if model is None:
+        model = P.models.gpt_small(seed=0, device="cuda")
     if mesh is not None:
         parallel.apply_fsdp(model, mesh, stage=stage)
     tr = Trainer(model, Momentum(1e-2, 0.9),
@@ -6645,6 +6674,646 @@ def phase_moe_train(torch, np, P, card: str):
 
 
 # --------------------------------------------------------------------------- #
+# phases 6x-6z, 9a-9b: the rest of parallel/ (compression, LocalSGD,
+# multislice, auto; several processes on the one card)
+# --------------------------------------------------------------------------- #
+
+COMP_STEPS = 3                        # 6x: compressed_grad_step, dp 2
+COMP_LOSS_TOL = 1e-2                  # 6x: relative, against exact dp
+LSGD = dict(k=4, rounds=2)            # 6y: LocalSGD, dp 2
+GANG_STEPS = 3                        # 9a: one checked + two timed steps
+ELASTIC = dict(layers=2, steps=5, die_at=3)   # 9b: GPT-small width
+GANG_TIMEOUT_S = 240                  # 9a / 9b: the whole gang's limit
+
+
+
+def functional_loss(torch, model):
+    def loss_fn(p, b):
+        return model.loss(torch.func.functional_call(model, p, (b[0],)),
+                          b[1])
+    return loss_fn
+
+
+def mesh_ids(torch, np, vocab):
+    return torch.from_numpy(np.random.RandomState(0).randint(
+        0, vocab, (MESH_BATCH["b"], MESH_BATCH["s"]))).cuda()
+
+
+def plain_compressed(torch, np, locs, n):
+    """The compression's formula over the ranks' fp32 locals of one
+    tensor, written out: (mean, [residuals])."""
+    m = locs[0].abs().max()
+    for x in locs[1:]:
+        m = torch.maximum(m, x.abs().max())
+    qmax = float(math.floor(127.0 / n))
+    scale = torch.where(m > 0, m * float(np.float32(1.0 / qmax)),
+                        torch.ones_like(m))
+    qs = [torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
+          for x in locs]
+    total = qs[0]
+    for q in qs[1:]:
+        total = total + q
+    mean = total.to(torch.float32) * scale * float(np.float32(1.0 / n))
+    return mean, [(x.double() - q.double() * scale.double()).float()
+                  for x, q in zip(locs, qs)]
+
+
+def phase_compressed(torch, np, P, card: str, fa):
+    """(6x) `compressed_grad_step` on GPT-small (fp32, TF32 off: the
+    tf32x3 route) over dp 2 at MESH_BATCH, Momentum(1e-2, 0.9), for
+    COMP_STEPS steps. Per step, every tensor's mean and both ranks'
+    new residuals equal the formula over the ranks' fp32 locals
+    (gradient + residual, recorded where they are quantized), bitwise;
+    the losses within COMP_LOSS_TOL relative of exact dp
+    (`Trainer(mesh=)` dp 2, the same steps); the wire counter shows
+    the codes as int8 (2 ranks x parameters x steps) and fp32 only as
+    scalars (one max per tensor and rank, and the losses); K2/K3
+    launched 2 ranks x 12 layers a step."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.nn import ranks
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.parallel import compression as comp
+    t0 = time.perf_counter()
+    with tf32_off(torch):
+        model = P.models.gpt_small(seed=0, device="cuda")
+        ids = mesh_ids(torch, np, model.cfg.vocab_size)
+        params = {k: v.detach().clone() for k, v in
+                  model.named_parameters()}
+        names = list(params)
+        opt = Momentum(1e-2, 0.9)
+        state = opt.init(params)
+        mesh = parallel.init_mesh(dp=2, device="cuda")
+        res = comp.zero_residuals(params, mesh, "dp")
+        seen, means = [], []
+        codes, update = comp._codes, opt.update
+
+        def record(x, scale, qmax):
+            seen.append(x.clone())
+            return codes(x, scale, qmax)
+
+        def keep_grads(grads, st, ps):
+            means.append({k: g.clone() for k, g in grads.items()})
+            return update(grads, st, ps)
+
+        losses = []
+        reset_flash_counters(fa)
+        ranks.reset_counts()
+        comp._codes, opt.update = record, keep_grads
+        try:
+            for step in range(COMP_STEPS):
+                params, state, res, loss = comp.compressed_grad_step(
+                    functional_loss(torch, model), opt, params, state, res,
+                    (ids, ids), mesh=mesh, axis="dp")
+                losses.append(float(loss))
+                launches = (fa.FWD_LAUNCHES.count, fa.BWD_LAUNCHES.count)
+                wire = ranks.wire()
+                # the locals were quantized rank-major: rank i, tensor j
+                for j, k in enumerate(names):
+                    mean, rs = plain_compressed(
+                        torch, np, [seen[i * len(names) + j]
+                                    for i in range(2)], 2)
+                    check(torch.equal(means[-1][k], mean),
+                          f"6x step {step}: {k}'s mean != the formula")
+                    for i in range(2):
+                        check(torch.equal(res[k][i], rs[i]),
+                              f"6x step {step}: {k} rank {i}'s residual "
+                              f"!= the formula")
+                seen.clear()
+                means.clear()
+        finally:
+            comp._codes = codes
+        del params, state, res
+        torch.cuda.empty_cache()
+        exact = Trainer(model, Momentum(1e-2, 0.9),
+                        lambda lg, y: model.loss(lg, y),
+                        mesh=parallel.init_mesh(dp=2, device="cuda"))
+        exact_losses = [float(exact.train_step(ids, ids)[0])
+                        for _ in range(COMP_STEPS)]
+        del exact
+    parallel.set_mesh(None)
+    want = 2 * model.cfg.num_layers * COMP_STEPS
+    numel = sum(p.numel() for p in model.parameters())
+    check(launches == (want, want), f"6x: K2/K3 launches {launches}, "
+                                    f"expected {want} each")
+    check(wire.get("int8") == 2 * numel * COMP_STEPS,
+          f"6x: int8 bytes {wire.get('int8')} vs {2 * numel * COMP_STEPS}")
+    n_scalars = 2 * (len(names) + 1) * COMP_STEPS
+    check(wire.get("float32") == 4 * n_scalars,
+          f"6x: fp32 bytes {wire.get('float32')} vs {4 * n_scalars}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, exact_losses))
+    check(all(math.isfinite(v) for v in losses) and rel <= COMP_LOSS_TOL,
+          f"6x: losses {losses} vs exact dp {exact_losses}")
+    del model
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "exact_dp_losses": exact_losses,
+           "worst_rel_loss": rel, "launches": launches, "wire": wire,
+           "seconds": time.perf_counter() - t0}
+    log(f"  [{card}] 6x: {COMP_STEPS} steps, every mean and residual == "
+        f"the formula bitwise; losses {losses} vs exact dp {exact_losses} "
+        f"(worst {rel:.2e} relative, limit {COMP_LOSS_TOL}); wire bytes "
+        f"{wire}; K2/K3 {launches}")
+    log(f"  phase 6x took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_localsgd(torch, np, P, card: str, fa):
+    """(6y) `LocalSGD` on GPT-small (fp32, TF32 off) over dp 2, k
+    LSGD["k"], AdamW(1e-4), LSGD["rounds"] rounds at MESH_BATCH: each
+    round one exchange (one fp32 all_reduce of every parameter, slot
+    and loss); after it the state is the mean of the two ranks'
+    buffers (recorded at the exchange) bitwise, one tensor for both
+    ranks; the step counter counts k a round; K2/K3 launched 2 ranks x
+    k x 12 layers a round."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.nn import ranks
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import localsgd
+    t0 = time.perf_counter()
+    k, rounds = LSGD["k"], LSGD["rounds"]
+    with tf32_off(torch):
+        model = P.models.gpt_small(seed=0, device="cuda")
+        ids = mesh_ids(torch, np, model.cfg.vocab_size)
+        params = {n: v.detach().clone() for n, v in
+                  model.named_parameters()}
+        opt = AdamW(1e-4)
+        state = opt.init(params)
+        lsgd = localsgd.LocalSGD(functional_loss(torch, model), opt,
+                                 k_steps=k,
+                                 mesh=parallel.init_mesh(dp=2,
+                                                         device="cuda"))
+        exchanged = []
+        parts = localsgd.global_parts
+
+        def record(bufs):
+            out = parts(bufs)
+            exchanged.append([b[0] for b in out])
+            return out
+
+        reset_flash_counters(fa)
+        all_losses, per_round = [], []
+        localsgd.global_parts = record
+        try:
+            for r in range(rounds):
+                ranks.reset_counts()
+                exchanged.clear()
+                params, state, losses = lsgd.round(params, state,
+                                                   (ids, ids))
+                per_round.append(ranks.counts()["all_reduce"])
+                all_losses.append(losses.cpu().tolist())
+                b0, b1 = exchanged[0]
+                mean = (b0 + b1) / 2
+                flat = torch.cat([t.reshape(-1) for t in
+                                  list(params.values()) + [
+                                      s for sl in state["slots"].values()
+                                      for s in sl.values()]] + [losses])
+                check(torch.equal(flat, mean),
+                      f"6y round {r}: the state != the ranks' mean")
+                check(state["step"] == k * (r + 1),
+                      f"6y: step counter {state['step']}")
+        finally:
+            localsgd.global_parts = parts
+        launches = (fa.FWD_LAUNCHES.count, fa.BWD_LAUNCHES.count)
+        del params, state, lsgd, exchanged
+    parallel.set_mesh(None)
+    want = 2 * k * rounds * model.cfg.num_layers
+    check(per_round == [1] * rounds, f"6y: exchanges a round {per_round}")
+    check(launches == (want, want), f"6y: K2/K3 launches {launches}, "
+                                    f"expected {want} each")
+    check(all(math.isfinite(v) for lo in all_losses for v in lo),
+          f"6y: losses {all_losses}")
+    del model
+    torch.cuda.empty_cache()
+    out = {"losses": all_losses, "exchanges_per_round": per_round,
+           "launches": launches, "seconds": time.perf_counter() - t0}
+    log(f"  [{card}] 6y: {rounds} rounds of k {k} on dp 2: one exchange a "
+        f"round, the state the ranks' mean bitwise; losses {all_losses}; "
+        f"K2/K3 {launches}")
+    log(f"  phase 6y took {out['seconds']:.1f} s")
+    return out
+
+
+def phase_multislice_auto(torch, np, P, card: str):
+    """(6z) GPT-small (fp32, TF32 off) one Momentum step at ZeRO stage
+    1 over `init_multislice_mesh(dcn={"dp": 2}, ici={"fsdp": 2})` and
+    over the grid that is not row-major (dcn fsdp 2, ici dp 2): the
+    loss and every parameter bitwise the `init_mesh(dp=2, fsdp=2)`
+    step; `auto.Engine` over 4 logical ranks prepares GPT-small and
+    takes two `fit_batch` steps (finite); `Calibrator.fit` over
+    `time_step_fn` times of three plans (dp 4, fsdp 4 at stage 3, dp 2
+    x fsdp 2 at stage 3) gives the fitted mfu and fast-link rate."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.parallel import auto, multislice
+    import copy
+    t0 = time.perf_counter()
+    out = {}
+    base = P.models.gpt_small(seed=0, device="cuda")   # copied, never run
+    with tf32_off(torch):
+        (plain,), tr = mesh_gpt_small_step(
+            torch, np, P, parallel, 1,
+            parallel.init_mesh(dp=2, fsdp=2, device="cuda"),
+            model=copy.deepcopy(base))
+        want = {k: v.detach().clone() for k, v in
+                tr.gathered_state().params.items()}
+        del tr
+        for dcn, ici in (({"dp": 2}, {"fsdp": 2}), ({"fsdp": 2},
+                                                   {"dp": 2})):
+            mesh = multislice.init_multislice_mesh(dcn=dcn, ici=ici,
+                                                   device="cuda")
+            (loss,), tr = mesh_gpt_small_step(torch, np, P, parallel, 1,
+                                              mesh, model=copy.deepcopy(base))
+            got = tr.gathered_state().params
+            check(loss == plain and all(torch.equal(got[k], want[k])
+                                        for k in want),
+                  f"6z: dcn {dcn} ici {ici}: loss {loss} vs {plain} or a "
+                  f"parameter differs")
+            log(f"  [{card}] 6z: multislice dcn {dcn} ici {ici} (grid "
+                f"{mesh.devices.ravel().tolist()}): loss {loss:.6f} and "
+                f"every parameter == init_mesh(dp=2, fsdp=2) bitwise")
+            del tr, got
+        del want
+        torch.cuda.empty_cache()
+    model = copy.deepcopy(base)
+    ids = mesh_ids(torch, np, model.cfg.vocab_size)
+    eng = auto.Engine(model, lambda lg, y: model.loss(lg, y),
+                      Momentum(1e-2, 0.9), world_size=4)
+    eng.prepare(sample_shape=(1, MESH_BATCH["s"]),
+                global_batch=MESH_BATCH["b"], seq_like=True)
+    el = [float(eng.fit_batch(ids, ids)[0]) for _ in range(2)]
+    check(all(math.isfinite(v) for v in el), f"6z: Engine losses {el}")
+    out["engine"] = {"plan": str(eng.plan_), "losses": el}
+    log(f"  [{card}] 6z: auto.Engine over 4 ranks chose {eng.plan_}; "
+        f"fit_batch losses {el}")
+    del eng, model
+    parallel.set_mesh(None)
+    torch.cuda.empty_cache()
+    stats = auto.analyze_model(base, (1, MESH_BATCH["s"]), seq_like=True)
+    meas = []
+    for plan in (auto.Plan(4, 1, 1, 1), auto.Plan(1, 4, 1, 1),
+                 auto.Plan(2, 2, 1, 1)):
+        model = copy.deepcopy(base)
+        mesh = parallel.init_mesh(dp=plan.dp, fsdp=plan.fsdp,
+                                  device="cuda")
+        if plan.fsdp > 1:
+            parallel.apply_fsdp(model, mesh, stage=3)
+        tr = Trainer(model, Momentum(1e-2, 0.9),
+                     lambda lg, y: model.loss(lg, y), mesh=mesh)
+        sec = auto.time_step_fn(lambda a, b: tr.train_step(a, b)[0],
+                                (ids, ids), steps=3, warmup=1)
+        meas.append((plan, MESH_BATCH["b"], sec))
+        log(f"  [{card}] 6z: time_step_fn {plan.degrees}: {sec * 1e3:.2f} "
+            f"ms a step")
+        del tr, model
+        parallel.set_mesh(None)
+        torch.cuda.empty_cache()
+    del base
+    fitted = auto.Calibrator(auto.ClusterSpec(n_devices=4),
+                             remat=False).fit(stats, meas)
+    out["calibration"] = {"step_s": {str(p.degrees): s for p, _, s in meas},
+                          "mfu": fitted.mfu, "ici_bw": fitted.ici_bw,
+                          "card": card}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  [{card}] 6z: Calibrator.fit over 3 plans: mfu {fitted.mfu:.4g} "
+        f"of the datasheet's {fitted.peak_flops:.3g} FLOP/s, fast link "
+        f"{fitted.ici_bw:.4g} B/s (4 logical ranks on one card: the "
+        f"'link' is the in-process exchange)")
+    log(f"  phase 6z took {out['seconds']:.1f} s")
+    return out
+
+
+def gang_gpt_step(torch, np, P, steps: int, stamps=None):
+    """GPT-small (fp32, TF32 off) Momentum steps under a dp 2 mesh of
+    this process (one process) or spanning the processes: (losses,
+    sha256 of the parameters after the first step and after the last,
+    seconds a step after the first, layers)."""
+    import hashlib
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.optimizer import Momentum
+
+    def digest(tr):
+        h = hashlib.sha256()
+        for k, v in sorted(tr.gathered_state().params.items()):
+            h.update(k.encode())
+            h.update(v.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    stamps = {} if stamps is None else stamps
+    with tf32_off(torch):
+        model = P.models.gpt_small(seed=0, device="cuda")
+        tr = Trainer(model, Momentum(1e-2, 0.9),
+                     lambda lg, y: model.loss(lg, y),
+                     mesh=parallel.init_mesh(dp=2, world_size=2,
+                                             device="cuda"))
+        ids = mesh_ids(torch, np, model.cfg.vocab_size)
+        layers = model.cfg.num_layers
+        stamps["model"] = time.time()
+        losses = [float(tr.train_step(ids, ids)[0])]
+        stamps["step1"] = time.time()
+        first = digest(tr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(steps - 1):
+            losses.append(float(tr.train_step(ids, ids)[0]))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        last = digest(tr)
+    parallel.set_mesh(None)
+    return losses, first, last, sec / max(steps - 1, 1), layers
+
+
+def worker_gang(torch, np, P, result: str, stamps):
+    """9a's worker: the host plane and fleet.metrics over the gloo group,
+    then `gang_gpt_step` on a dp 2 mesh spanning the two processes."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.metric import Auc
+    from paddle_tpu_torch.ops_cuda import _build
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    from paddle_tpu_torch.parallel import collective as C
+    from paddle_tpu_torch.parallel import fleet_metrics
+    env = parallel.init_parallel_env(timeout=GANG_TIMEOUT_S / 2)
+    stamps["gloo"] = time.time()
+    rank = env.rank
+    out = {"world": env.world_size,
+           "gather": C.host_all_gather(
+               torch.tensor([rank, 10 + rank]).cuda()).tolist(),
+           "bcast": C.host_broadcast(torch.tensor([7.0 * rank + 1]),
+                                     src=1).tolist()}
+    C.barrier()
+    rs = np.random.RandomState(3)
+    preds, labels = rs.rand(400), rs.randint(0, 2, 400)
+    auc = Auc()
+    auc.update(preds[rank::2], labels[rank::2])
+    out["auc"] = fleet_metrics.DistributedMetric(auc).accumulate()
+    reset_flash_counters(fa)
+    C.reset_transport()
+    exchange = C.exchange_ranks
+
+    def stamped(local):
+        n = len([k for k in stamps if k.startswith("exchange")])
+        stamps[f"exchange{n // 2}_in"] = time.time()
+        got = exchange(local)
+        stamps[f"exchange{n // 2}_out"] = time.time()
+        return got
+
+    C.exchange_ranks = stamped
+    try:
+        (out["losses"], out["first"], out["last"], out["step_s"],
+         out["layers"]) = gang_gpt_step(torch, np, P, GANG_STEPS, stamps)
+    finally:
+        C.exchange_ranks = exchange
+    out["transport"] = dict(C.TRANSPORT)
+    out["launches"] = (fa.FWD_LAUNCHES.count, fa.BWD_LAUNCHES.count)
+    out["builds"] = sum(_build.BUILDS.values())
+    stamps["done"] = time.time()
+    out["stamps"] = stamps
+    with open(result, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_gang(torch, np, P, card: str):
+    """(9a) `launch_local` of 2 worker processes (this script with
+    `--worker gang`) on the one card: the gloo group, `host_all_gather`
+    / `host_broadcast` / `barrier`, `fleet.metrics`' AUC over the two
+    halves == the AUC of the whole; GANG_STEPS GPT-small Momentum steps
+    on a dp 2 mesh spanning the processes: the losses and the
+    parameters after the first and the last step bitwise the
+    one-process dp 2 mesh's; K2/K3 launched 12 layers a step in each
+    worker (its one rank); 0 kernel builds in the workers; step ms
+    beside the one-process step, with the transport's D2H, gather and
+    H2D."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.metric import Auc
+    from paddle_tpu_torch.parallel.launch import launch_local
+    t0 = time.perf_counter()
+    want_losses, want_first, want_last, one_s, layers = gang_gpt_step(
+        torch, np, P, GANG_STEPS)
+    torch.cuda.empty_cache()
+    log(f"  [{card}] 9a: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+        f"GiB of the card before the workers start")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    spawned = time.time()
+    try:
+        rc = launch_local(os.path.abspath(__file__),
+                          ["--worker", "gang", "--result",
+                           os.path.join(tmp, "r")],
+                          2, devices_per_proc=1, log_dir=tmp,
+                          timeout=GANG_TIMEOUT_S)
+        logs = {r: open(os.path.join(tmp, f"worker.{r}.log")).read()
+                for r in (0, 1)}
+        check(rc == 0, f"9a: the gang exited {rc}:\n" + "\n".join(
+            v[-2000:] for v in logs.values()))
+        outs = [json.load(open(os.path.join(tmp, f"r.{r}")))
+                for r in (0, 1)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    whole = Auc()
+    rs = np.random.RandomState(3)
+    preds, labels = rs.rand(400), rs.randint(0, 2, 400)
+    whole.update(preds, labels)
+    for r, o in enumerate(outs):
+        check(o["world"] == 2 and o["gather"] == [[0, 10], [1, 11]]
+              and o["bcast"] == [8.0], f"9a worker {r}: host plane {o}")
+        check(o["auc"] == whole.accumulate(), f"9a worker {r}: AUC "
+                                              f"{o['auc']}")
+        check(o["losses"] == want_losses and o["first"] == want_first
+              and o["last"] == want_last,
+              f"9a worker {r}: losses {o['losses']} vs one process "
+              f"{want_losses}, or the parameters differ")
+        check(tuple(o["launches"]) == (layers * GANG_STEPS,) * 2,
+              f"9a worker {r}: K2/K3 launches {o['launches']}")
+        check(o["builds"] == 0, f"9a worker {r}: {o['builds']} builds")
+    tr = outs[0]["transport"]
+    steps = GANG_STEPS
+    res = {"losses": want_losses, "one_process_step_ms": one_s * 1e3,
+           "gang_step_ms": [o["step_s"] * 1e3 for o in outs],
+           "transport_ms_per_step": {
+               k: tr[k] / steps * 1e3 for k in ("d2h_s", "gather_s",
+                                                 "h2d_s")},
+           "transport_bytes_per_step": tr["bytes"] / steps,
+           "launches": outs[0]["launches"],
+           "builds": [o["builds"] for o in outs],
+           "worker_stages_s": [stages(spawned, o["stamps"]) for o in outs],
+           "seconds": time.perf_counter() - t0}
+    log(f"  [{card}] 9a: 2 processes over gloo: host plane and fleet "
+        f"AUC across them; GPT-small dp 2 spanning them == one process "
+        f"bitwise (losses {want_losses}); step {res['gang_step_ms']} ms "
+        f"vs {res['one_process_step_ms']:.1f} ms in one process; the "
+        f"exchange a step: D2H "
+        f"{res['transport_ms_per_step']['d2h_s']:.1f} ms, gather "
+        f"{res['transport_ms_per_step']['gather_s']:.1f} ms, H2D "
+        f"{res['transport_ms_per_step']['h2d_s']:.1f} ms, "
+        f"{res['transport_bytes_per_step'] / 2**20:.1f} MiB sent; "
+        f"K2/K3 {outs[0]['launches']} a worker; builds {res['builds']}")
+    log(f"  [{card}] 9a: each worker's stages, seconds after the spawn: "
+        f"{res['worker_stages_s']}")
+    log(f"  phase 9a took {res['seconds']:.1f} s")
+    return res
+
+
+def elastic_model(torch, P):
+    cfg = P.models.GPTConfig(hidden_size=768, num_layers=ELASTIC["layers"],
+                             num_heads=12)
+    return P.models.GPT(cfg, seed=0, device="cuda")
+
+
+def elastic_trainer(torch, np, P, world: int):
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.framework import Trainer
+    from paddle_tpu_torch.optimizer import Momentum
+    model = elastic_model(torch, P)
+    tr = Trainer(model, Momentum(1e-2, 0.9),
+                 lambda lg, y: model.loss(lg, y),
+                 mesh=parallel.init_mesh(dp=2, world_size=world,
+                                         device="cuda"))
+    return tr, mesh_ids(torch, np, model.cfg.vocab_size)
+
+
+def worker_elastic(torch, np, P, result: str, ckpt: str, stamps):
+    """9b's worker: GPT-small width (ELASTIC["layers"] layers, fp32,
+    TF32 off) on a dp 2 mesh over the gang, `AutoCheckpoint` every
+    step; process 1 of the first incarnation dies after step
+    ELASTIC["die_at"]; a process whose exchange failed waits to be
+    stopped. Each writes its K2/K3 launches and builds after every
+    step."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.framework import AutoCheckpoint
+    from paddle_tpu_torch.ops_cuda import _build
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    env = parallel.init_parallel_env(timeout=GANG_TIMEOUT_S / 2)
+    stamps["gloo"] = time.time()
+    rank, inc = env.rank, int(os.environ["PTPU_ELASTIC_INCARNATION"])
+    with tf32_off(torch):
+        tr, ids = elastic_trainer(torch, np, P, 2)
+        stamps["model"] = time.time()
+        acp = AutoCheckpoint(tr, ckpt, save_every=1, max_to_keep=2,
+                             backend="pickle")
+        start = acp.restore()
+        stamps["restore"] = time.time()
+        reset_flash_counters(fa)
+        out = {"start": start, "losses": {}, "stamps": stamps,
+               "save_s": 0.0}
+        for step in range(start + 1, ELASTIC["steps"] + 1):
+            try:
+                loss, _ = tr.train_step(ids, ids)
+            except RuntimeError:
+                time.sleep(GANG_TIMEOUT_S)    # a peer is gone
+                return 3
+            out["losses"][step] = float(loss)
+            t_save = time.time()
+            acp.step(step)
+            out["save_s"] += time.time() - t_save
+            stamps[f"step{step}"] = time.time()
+            out.update(launches=(fa.FWD_LAUNCHES.count,
+                                 fa.BWD_LAUNCHES.count),
+                       builds=sum(_build.BUILDS.values()))
+            with open(f"{result}.i{inc}.r{rank}", "w") as f:
+                json.dump(out, f)
+            if inc == 0 and rank == 1 and step == ELASTIC["die_at"]:
+                os._exit(1)                   # a failure mid-training
+    return 0
+
+
+def phase_elastic(torch, np, P, card: str):
+    """(9b) `ElasticController` over 2 workers (this script with
+    `--worker elastic`): GPT-small width (ELASTIC["layers"] layers,
+    vocabulary 50304) on a dp 2 mesh spanning them with
+    `AutoCheckpoint(save_every=1)`; worker 1 dies after step
+    ELASTIC["die_at"]; the gang relaunches (incarnation 1, a rewritten
+    endpoint) and resumes from that step; every loss and the final one
+    equal an uninterrupted one-process dp 2 run's; each worker's K2/K3
+    launches equal layers x the steps it ran, and its builds are 0."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.parallel.elastic import ElasticController
+    from paddle_tpu_torch.parallel.launch import free_port
+    t0 = time.perf_counter()
+    with tf32_off(torch):
+        tr, ids = elastic_trainer(torch, np, P, 2)
+        want = [float(tr.train_step(ids, ids)[0])
+                for _ in range(ELASTIC["steps"])]
+        del tr
+    from paddle_tpu_torch import parallel
+    parallel.set_mesh(None)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    spawned = time.time()
+    try:
+        result = os.path.join(tmp, "r")
+        ctrl = ElasticController(
+            os.path.abspath(__file__),
+            ["--worker", "elastic", "--result", result, "--ckpt",
+             os.path.join(tmp, "ckpt")], nproc=2,
+            master=f"127.0.0.1:{free_port()}", devices_per_proc=1,
+            log_dir=tmp, max_restarts=2, poll_interval=0.1,
+            timeout=GANG_TIMEOUT_S)
+        rc = ctrl.run()
+        logs = sorted(f for f in os.listdir(tmp) if f.endswith(".log"))
+        check(rc == 0 and ctrl.restarts == 1,
+              f"9b: rc {rc}, restarts {ctrl.restarts}:\n" + "\n".join(
+                  open(os.path.join(tmp, f)).read()[-1500:] for f in logs))
+        outs = {(i, r): json.load(open(f"{result}.i{i}.r{r}"))
+                for i in (0, 1) for r in (0, 1)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    die = ELASTIC["die_at"]
+    layers = ELASTIC["layers"]
+    for (i, r), o in outs.items():
+        ran = len(o["losses"])
+        check(o["start"] == (0 if i == 0 else die),
+              f"9b i{i} r{r}: resumed from {o['start']}")
+        check(tuple(o["launches"]) == (layers * ran,) * 2,
+              f"9b i{i} r{r}: K2/K3 {o['launches']} for {ran} steps")
+        check(o["builds"] == 0, f"9b i{i} r{r}: {o['builds']} builds")
+        for step, loss in o["losses"].items():
+            check(loss == want[int(step) - 1],
+                  f"9b i{i} r{r} step {step}: loss {loss} vs the "
+                  f"uninterrupted {want[int(step) - 1]}")
+    check(sorted(int(s) for s in outs[(1, 0)]["losses"]) ==
+          list(range(die + 1, ELASTIC["steps"] + 1)), "9b: resumed steps")
+    res = {"losses": want, "restarts": ctrl.restarts,
+           "launches": {f"i{i}.r{r}": o["launches"]
+                        for (i, r), o in outs.items()},
+           "builds": {f"i{i}.r{r}": o["builds"] for (i, r), o in
+                      outs.items()},
+           "save_s": {f"i{i}.r{r}": o["save_s"] for (i, r), o in
+                      outs.items()},
+           "worker_stages_s": {f"i{i}.r{r}": stages(spawned, o["stamps"])
+                               for (i, r), o in outs.items()},
+           "seconds": time.perf_counter() - t0}
+    log(f"  [{card}] 9b: worker 1 died after step {die}; the gang "
+        f"relaunched and resumed; every loss == the uninterrupted run's "
+        f"({want}); K2/K3 {res['launches']}; builds {res['builds']}")
+    log(f"  [{card}] 9b: seconds saving checkpoints {res['save_s']}; each "
+        f"worker's stages after the first spawn: {res['worker_stages_s']}")
+    log(f"  phase 9b took {res['seconds']:.1f} s")
+    return res
+
+
+def worker_main(args, stamps) -> int:
+    """A worker process of phases 9a / 9b; `stamps` ({stage: time.time()})
+    goes into its result."""
+    import numpy as np
+    import torch
+    import paddle_tpu_torch as P
+    stamps["import"] = time.time()
+    if args.worker == "gang":
+        return worker_gang(torch, np, P, args.result + "." + os.environ[
+            "PTPU_PROCESS_ID"], stamps)
+    return worker_elastic(torch, np, P, args.result, args.ckpt, stamps)
+
+
+def stages(spawned: float, stamps) -> dict:
+    """A worker's stamps as seconds since its spawn, in order."""
+    return {k: round(v - spawned, 2) for k, v in sorted(
+        stamps.items(), key=lambda kv: kv[1])}
+
+
+# --------------------------------------------------------------------------- #
 # phase 8: numbers
 # --------------------------------------------------------------------------- #
 
@@ -7140,18 +7809,26 @@ def phase_flash_route_numbers(torch, fa, card: str):
 
 
 def main(argv=None) -> int:
+    t_main = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON "
                                   "file")
     ap.add_argument("--profile", action="store_true",
                     help="also profile 3 training steps by kernel "
                          "(torch.profiler) after phase 6")
+    ap.add_argument("--worker", choices=("gang", "elastic"),
+                    help=argparse.SUPPRESS)   # phases 9a / 9b's workers
+    ap.add_argument("--result", help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if args.worker:
+        torch.cuda.init()
+        return worker_main(args, {"main": t_main, "cuda": time.time()})
     import numpy as np
     import paddle_tpu_torch as P
     from paddle_tpu_torch.ops_cuda import _build
@@ -7315,6 +7992,26 @@ def main(argv=None) -> int:
             "all": time.perf_counter() - t_mp}
     log(f"  phases 6t-6w took {mp_s['all']:.1f} s (6t {mp_s['6t']:.1f}, "
         f"6u {mp_s['6u']:.1f}, 6v {mp_s['6v']:.1f}, 6w {mp_s['6w']:.1f})")
+    t_rest = time.perf_counter()
+    log("phase 6x: compressed_grad_step (int8 error feedback) on GPT-small "
+        "over dp 2 == its formula bitwise, near exact dp")
+    compressed = phase_compressed(torch, np, P, card, fa)
+    log("phase 6y: LocalSGD on GPT-small over dp 2, k 4, 2 rounds: one "
+        "exchange a round")
+    lsgd = phase_localsgd(torch, np, P, card, fa)
+    log("phase 6z: a multi-slice mesh == init_mesh bitwise; auto.Engine; "
+        "Calibrator.fit over time_step_fn")
+    mslice = phase_multislice_auto(torch, np, P, card)
+    log("phase 9a: launch_local of 2 processes on the card: the gloo "
+        "host plane, a dp 2 mesh spanning them == one process bitwise")
+    gang = phase_gang(torch, np, P, card)
+    log("phase 9b: ElasticController: a worker dies, the gang relaunches "
+        "and resumes from AutoCheckpoint, losses == an uninterrupted run")
+    elastic = phase_elastic(torch, np, P, card)
+    rest_s = {"6x": compressed["seconds"], "6y": lsgd["seconds"],
+              "6z": mslice["seconds"], "9a": gang["seconds"],
+              "9b": elastic["seconds"], "all": time.perf_counter() - t_rest}
+    log(f"  phases 6x-6z and 9a-9b took {rest_s['all']:.1f} s")
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = {tname: phase_grad_check(torch, np, P, tname)
             for tname in ("bfloat16", "float16")}
@@ -7542,6 +8239,9 @@ def main(argv=None) -> int:
                        "tp_train": tp_train, "sp_train": sp_train,
                        "pp_train": pp_train, "moe_train": moe_train,
                        "model_parallel_phases_s": mp_s,
+                       "compressed": compressed, "localsgd": lsgd,
+                       "multislice_auto": mslice, "gang": gang,
+                       "elastic": elastic, "rest_phases_s": rest_s,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

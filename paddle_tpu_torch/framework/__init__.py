@@ -1,4 +1,5 @@
-"""The training step of the PyTorch/CUDA port."""
+"""The training step of the PyTorch/CUDA port and its checkpoints."""
+from .auto_checkpoint import AutoCheckpoint
 from .trainer import TrainState, Trainer
 
-__all__ = ["TrainState", "Trainer"]
+__all__ = ["AutoCheckpoint", "TrainState", "Trainer"]

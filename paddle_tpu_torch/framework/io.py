@@ -1,7 +1,9 @@
 """State-dict files: numpy's own pickle of a {name: array} dict.
 
 The counterpart of `paddle_tpu/framework/io.py`'s `save` / `load` for
-the one shape the serving artifact stores, a flat dict of arrays. The
+the shapes the port stores: a flat dict of arrays (the serving
+artifact), or a nest of dicts of arrays and Python ints (a Trainer's
+state, `framework.auto_checkpoint`). The
 file unpickles to what numpy's pickle of such a dict holds (each array
 reduced through `numpy.ndarray`'s `_reconstruct`, bfloat16 as
 `ml_dtypes.bfloat16`, the JAX package's dtype), so either package reads
@@ -18,7 +20,6 @@ bfloat16 extension (which needs `ml_dtypes`):
 from __future__ import annotations
 
 import collections
-import io
 import os
 import pickle
 import struct
@@ -68,9 +69,9 @@ class _Writer:
         else:
             self.op(pickle.BINUNICODE, struct.pack("<I", len(b)) + b)
 
-    def bytes(self, b: bytes):
+    def bytes(self, b):
         if len(b) < 256:
-            self.op(pickle.SHORT_BINBYTES, bytes([len(b)]) + b)
+            self.op(pickle.SHORT_BINBYTES, bytes([len(b)]) + bytes(b))
         elif len(b) < 2 ** 32:
             self.op(pickle.BINBYTES, struct.pack("<I", len(b)))
             self.f.write(b)
@@ -105,6 +106,24 @@ class _Writer:
         self.op(pickle.TUPLE)
         self.op(pickle.BUILD)
 
+    def value(self, v, recon, where="state"):
+        """A nest of dicts (string keys) of tensors and Python ints, as
+        pickle writes it (no memo)."""
+        if isinstance(v, torch.Tensor):
+            self.array(v, recon)
+        elif isinstance(v, dict):
+            self.op(pickle.EMPTY_DICT)
+            if v:
+                self.op(pickle.MARK)
+                for k, x in v.items():
+                    self.str(str(k))
+                    self.value(x, recon, f"{where}[{k!r}]")
+                self.op(pickle.SETITEMS)
+        elif isinstance(v, int) and -2 ** 31 <= v < 2 ** 31:
+            self.op(pickle.BININT, struct.pack("<i", v))
+        else:
+            raise TypeError(f"{where}: cannot store a {type(v).__name__}")
+
     def array(self, t: torch.Tensor, recon):
         t = t.detach().cpu().contiguous()
         self.glob(*recon)
@@ -124,32 +143,26 @@ class _Writer:
         self.op(pickle.NEWFALSE)                        # C order
         raw = t.reshape(-1).view(torch.uint8) if t.dtype != torch.bool \
             else t.reshape(-1).to(torch.uint8)
-        self.bytes(raw.numpy().tobytes())
+        self.bytes(memoryview(raw.numpy()))
         self.op(pickle.TUPLE)
         self.op(pickle.BUILD)
 
 
-def save(state: Dict[str, torch.Tensor], path: str):
-    """Write a flat {name: tensor} dict as numpy's pickle of the
-    matching {name: array} dict (protocol 4)."""
+def save(state: Dict[str, object], path: str):
+    """Write a dict of tensors (or a nest of dicts of tensors and Python
+    ints: a Trainer's state) as numpy's pickle of the matching dict of
+    arrays (protocol 4)."""
+    if not isinstance(state, dict):
+        raise TypeError(f"a state is a dict, not a {type(state).__name__}")
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
     recon = _reconstruct_name()
-    buf = io.BytesIO()
-    w = _Writer(buf)
-    w.op(pickle.PROTO, bytes([4]))
-    w.op(pickle.EMPTY_DICT)
-    w.op(pickle.MARK)
-    for name, t in state.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name}: {type(t).__name__} is no tensor")
-        w.str(str(name))
-        w.array(t, recon)
-    w.op(pickle.SETITEMS)
-    w.op(pickle.STOP)
     with open(path, "wb") as f:
-        f.write(buf.getbuffer())
+        w = _Writer(f)
+        w.op(pickle.PROTO, bytes([4]))
+        w.value(state, recon)
+        w.op(pickle.STOP)
 
 
 class _BF16:
@@ -216,10 +229,25 @@ class _Unpickler(pickle.Unpickler):
         return fn
 
 
-def load(path: str) -> Dict[str, torch.Tensor]:
-    """Read a {name: array} pickle (`save`'s, or the JAX package's
-    `framework.io.save` of a state dict) as {name: CPU tensor}.
-    Refuses when `PTPU_FORBID_PICKLE=1` is set."""
+def _tensors(obj, path, where="state"):
+    """The loaded nest with every array a CPU tensor."""
+    if isinstance(obj, _Array):
+        return obj.tensor()
+    if isinstance(obj, dict):
+        return {(str(k) if not isinstance(k, (int, str)) else k):
+                _tensors(v, path, f"{where}[{k!r}]") for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_tensors(v, path, where) for v in obj)
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    raise pickle.UnpicklingError(f"{path}: {where} is no array")
+
+
+def load(path: str) -> Dict[str, object]:
+    """Read a dict pickle of arrays (`save`'s, or the JAX package's
+    `framework.io.save` of a state dict or of a Trainer's state tree)
+    with every array a CPU tensor. Refuses when `PTPU_FORBID_PICKLE=1`
+    is set."""
     if os.environ.get("PTPU_FORBID_PICKLE") == "1":
         raise RuntimeError(
             f"refusing pickle load of {path}: PTPU_FORBID_PICKLE=1 is "
@@ -229,9 +257,4 @@ def load(path: str) -> Dict[str, torch.Tensor]:
     if not isinstance(obj, dict):
         raise pickle.UnpicklingError(
             f"{path}: a {type(obj).__name__}, not a state dict")
-    out = {}
-    for k, v in obj.items():
-        if not isinstance(v, _Array):
-            raise pickle.UnpicklingError(f"{path}: {k!r} is no array")
-        out[str(k)] = v.tensor()
-    return out
+    return {str(k): _tensors(v, path, repr(k)) for k, v in obj.items()}

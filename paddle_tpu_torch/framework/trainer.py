@@ -107,7 +107,20 @@ program over the global batch, which GSPMD partitions:
 `gathered_state()` gives the state as whole tensors; `sync_model`,
 `eval_step` and a loaded state go through it. The step's output joins
 what the ranks hold of it (`nn.ranks.mark_split`: a GPT's vocabulary
-blocks and sequence chunks).
+blocks and sequence chunks). The ranks are the mesh's coordinates in
+row-major order, whatever its rank grid (`parallel.multislice`).
+
+A mesh whose ranks span several processes (`parallel.env`, each
+process passing the same global batch) runs only this process's ranks
+(`Mesh.local_ranks`); dropout still draws one mask over the global
+batch. The ranks' gradients and losses cross the processes whole
+(`parallel.collective.exchange_ranks`, gloo) and every process sums
+every data rank's part in global rank order, then runs the same
+update: a P-process step is bitwise the one-process step of the same
+ranks. The step's output holds this process's rows. Across processes
+only data axes at ZeRO stages 0-1 run; fsdp at stages 2-3, a model
+group (tp, sp, ep, pp) and batch norm (its moments meet inside the
+forward) raise `NotImplementedError` (ROADMAP item 18).
 """
 from __future__ import annotations
 
@@ -490,9 +503,9 @@ class Trainer:
         from ..parallel.sharding import model_splits
         self.mesh = mesh
         self._data = mesh.ranks_over(("dp", "fsdp"))
-        # every rank of the mesh, in rank order, and the ranks of each
-        # data rank's model group (tp, sp, ep, pp)
-        self._coords = [mesh.coords(i) for i in range(mesh.size)]
+        # every rank of the mesh, by its coordinates in row-major order,
+        # and the ranks of each data rank's model group (tp, sp, ep, pp)
+        self._coords = mesh.ranks_over(mesh.axis_names)
         self._groups = [[r for r, c in enumerate(self._coords)
                          if (c["dp"], c["fsdp"]) == (d.get("dp", 0),
                                                      d.get("fsdp", 0))]
@@ -507,6 +520,46 @@ class Trainer:
         self._coupled = self._bn or len(self._groups[0]) > 1
         self._modules: Optional[List[nn.Module]] = None
         self._pdims: Dict[str, Optional[int]] = {}
+        # each process's ranks (`Mesh.local_ranks`: equal blocks of rank
+        # ids), this process's: all of them in one process
+        per = mesh.size // mesh.processes
+        self._owned = [[r for r, c in enumerate(self._coords)
+                        if mesh.rank_at(c) // per == p]
+                       for p in range(mesh.processes)]
+        self._local = self._owned[mesh.process]
+        if mesh.spans_processes:
+            self._check_processes()
+
+    def _check_processes(self):
+        """What a mesh over several processes refuses (ROADMAP item 18:
+        collectives across processes inside a computation, and the
+        sharded states they need)."""
+        from ..parallel.sharding import zero_stage
+        why = None
+        if len(self._groups[0]) > 1:
+            why = "a model group (tp, sp, ep, pp) over its ranks"
+        elif self._bn:
+            why = "batch norm (its moments meet inside the forward)"
+        elif self.mesh.shape["fsdp"] > 1 and zero_stage(self.model) >= 2:
+            why = f"fsdp at ZeRO stage {zero_stage(self.model)}"
+        if why:
+            raise NotImplementedError(
+                f"a mesh over {self.mesh.processes} processes trains data "
+                f"axes at ZeRO stages 0-1 only; {why} across processes is "
+                f"ROADMAP item 18")
+
+    def _across(self, per_rank: List[Optional[list]]) -> List[list]:
+        """Every rank's lists from this process's (`per_rank[r]`, None
+        for another process's rank r): one exchange over the processes
+        (`collective.exchange_ranks`), each process's lists put back at
+        its ranks."""
+        from ..parallel.collective import exchange_ranks
+        got = exchange_ranks([per_rank[r] for r in self._local])
+        out = list(per_rank)
+        for p, ids in enumerate(self._owned):
+            for r, lst in zip(ids, got[p]):
+                out[r] = lst
+        return out
 
     def _partition_state(self):
         """Split the (whole) state for the model's ZeRO stage and note
@@ -690,7 +743,8 @@ class Trainer:
             """The ranks `ids` forward together (one SPMD run), then their
             backward: ([losses], [gradient dicts], [outputs])."""
             res = ranks.spmd([self._coords[r] for r in ids],
-                             lambda i: rank_fn(ids[i]))
+                             lambda i: rank_fn(ids[i]),
+                             partial=self.mesh.spans_processes)
             losses = [r_[0] for r_ in res]
             if not self._coupled:
                 return losses, [x[2] for x in res], [x[1] for x in res]
@@ -708,8 +762,7 @@ class Trainer:
         # batch norm: every rank at once; model groups: one data rank's
         # group at a time (their graphs meet only inside a group), so
         # one group's activations are alive at a time
-        order = [list(range(len(self._coords)))] if self._bn or m == 1 \
-            else self._groups
+        order = [self._local] if self._bn or m == 1 else self._groups
         losses, grads, outs = [None] * len(self._coords), \
             [None] * len(self._coords), [None] * len(self._coords)
         with contextlib.ExitStack() as stack:
@@ -721,6 +774,9 @@ class Trainer:
         if m > 1:
             losses = [all_reduce([losses[r] for r in g])
                       for g in self._groups]
+        if self.mesh.spans_processes:
+            losses = [x[0] for x in self._across(
+                [None if x is None else [x] for x in losses])]
         # every rank's statistics are the global moments' (sync batch
         # norm): rank 0's, the model's own modules, go to the buffers
         buffers = {**buffers, **self._stat_names(sinks[0])}
@@ -742,7 +798,8 @@ class Trainer:
         if acc == 1:
             losses, grads, outs, buffers = self._mesh_micro(
                 st, batch, key, st.buffers)
-            return all_reduce(losses), _tree_cat(outs), buffers, grads
+            return all_reduce(losses), _tree_cat(
+                [o for o in outs if o is not None]), buffers, grads
         micro = [b.chunk(acc, dim=0) for b in batch]
         gsum, lsum, buffers = None, None, st.buffers
         for i in range(acc):
@@ -753,12 +810,12 @@ class Trainer:
                 gsum, lsum = grads, loss
             else:
                 for acc_g, g in zip(gsum, grads):
-                    for n, t in g.items():
+                    for n, t in (g or {}).items():
                         acc_g[n].add_(t)
                 lsum = lsum + loss
         inv = 1.0 / acc
         for g in gsum:
-            for t in g.values():
+            for t in (g or {}).values():
                 t.mul_(inv)
         return lsum * inv, None, buffers, gsum
 
@@ -840,6 +897,11 @@ class Trainer:
         docstring)."""
         from ..parallel import collective as C
         loss, out, buffers, grads = self._mesh_loss_and_grads(st, batch)
+        if self.mesh.spans_processes:
+            names = list(next(g for g in grads if g is not None))
+            grads = [dict(zip(names, lst)) for lst in self._across(
+                [None if g is None else [g[n] for n in names]
+                 for g in grads])]
         parts = self._mesh_reduce(grads)
         del grads
         if not any(self._pdims.get(k) is not None for k in parts[0]):

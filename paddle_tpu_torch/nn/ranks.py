@@ -7,7 +7,10 @@ Python process drives on one device, as `nn/tp.py`'s TP group is
 - **Collectives over lists** (`combine`): the ranks' tensors joined in
   rank order. Sums add ((p0 + p1) + p2) + ... in the parts' dtype
   (`nn.tp.all_reduce`), gathers concatenate (`nn.tp.all_gather`).
-  `COUNTS` counts each collective once, whatever its number of ranks.
+  `COUNTS` counts each collective once, whatever its number of ranks;
+  `WIRE` adds up the bytes of the parts each moved, by dtype (every
+  rank's part once: what the ranks would send), so a test can hold
+  what crosses the wire (`parallel.compression`'s int8 sums).
 - **SPMD runs** (`spmd(coords, fn)`): `fn(i)` for every rank i, each in
   a thread of its own (rank i's, kept for the process) and one thread
   at a time. A rank runs until it
@@ -48,7 +51,7 @@ import torch
 from ..ops_cuda.decode_attention import _LaunchCounter
 from . import tp as _tp
 
-__all__ = ["COUNTS", "counts", "reset_counts", "combine", "spmd",
+__all__ = ["COUNTS", "WIRE", "counts", "wire", "reset_counts", "combine", "spmd",
            "RankContext", "use", "current", "in_run", "collective",
            "axis_index", "counting", "is_counting", "record_count",
            "mean_denominator", "axis_info", "rank_store",
@@ -63,13 +66,31 @@ REDUCE_OPS = ("sum", "max", "min", "avg", "prod")
 COUNTS: Dict[str, _LaunchCounter] = {name: _LaunchCounter() for name in OPS}
 
 
+# bytes of the ranks' parts the collectives moved, by dtype name
+WIRE: Dict[str, int] = {}
+
+
 def counts() -> Dict[str, int]:
     return {k: c.count for k, c in COUNTS.items()}
+
+
+def wire() -> Dict[str, int]:
+    """{dtype name: bytes} of the parts the collectives joined since
+    the last `reset_counts`."""
+    return dict(WIRE)
+
+
+def record_wire(parts):
+    for p in parts:
+        if isinstance(p, torch.Tensor):
+            k = str(p.dtype).replace("torch.", "")
+            WIRE[k] = WIRE.get(k, 0) + p.numel() * p.element_size()
 
 
 def reset_counts():
     for c in COUNTS.values():
         c.reset()
+    WIRE.clear()
 
 
 # --------------------------------------------------------------------------- #
@@ -247,6 +268,7 @@ def combine(name: str, parts: Sequence[torch.Tensor], **kw):
     fn, _ = _ARITH[name]
     out = fn(list(parts), **kw)
     COUNTS[name].count += 1
+    record_wire(parts)
     return out
 
 
@@ -269,8 +291,10 @@ class _Slot:
 
 
 class _Run:
-    def __init__(self, coords: Sequence[Dict[str, int]]):
+    def __init__(self, coords: Sequence[Dict[str, int]],
+                 partial: bool = False):
         self.coords = [dict(c) for c in coords]
+        self.partial = partial
         self.k = len(self.coords)
         self.cv = threading.Lock()
         # one condition per rank over the one lock: a handover wakes the
@@ -327,6 +351,14 @@ class _Run:
         """Rank r's part of collective `name` over `axes`; returns its
         result once every rank of the group has arrived."""
         with self.cv:
+            if self.partial:
+                self.error = NotImplementedError(
+                    f"{name} over {axes} inside an SPMD run of this "
+                    f"process's ranks of a mesh that spans processes: "
+                    f"collectives across processes inside a computation "
+                    f"are ROADMAP item 18")
+                self.wake_all()
+                raise _Aborted()
             seq = self.seq[r].get(axes, 0)
             self.seq[r][axes] = seq + 1
             off = tuple(sorted((a, v) for a, v in self.coords[r].items()
@@ -345,9 +377,10 @@ class _Run:
                 raise _Aborted()
             slot.parts[r] = part
             if len(slot.parts) == len(slot.members):
-                slot.result = _joined(
-                    name, [slot.parts[q] for q in slot.members], kw)
+                parts = [slot.parts[q] for q in slot.members]
+                slot.result = _joined(name, parts, kw)
                 COUNTS[name].count += 1
+                record_wire(parts)
                 slot.complete = True
             self.blocked[r] = slot
             self.handover(r)
@@ -441,14 +474,16 @@ def in_run() -> bool:
     return _local.run is not None
 
 
-def spmd(coords: Sequence[Dict[str, int]], fn: Callable[[int], object]
-         ) -> list:
+def spmd(coords: Sequence[Dict[str, int]], fn: Callable[[int], object],
+         partial: bool = False) -> list:
     """[fn(0), ..., fn(k-1)], rank i at mesh coordinates `coords[i]`,
     the ranks taking turns in rank order between collectives (see the
     module docstring). A failure in any rank ends the run and is raised
     here; a rank left waiting in a collective that cannot complete
-    raises `RuntimeError`."""
-    run = _Run(coords)
+    raises `RuntimeError`. `partial`: the ranks are this process's
+    share of a mesh that spans processes, and a collective raises
+    `NotImplementedError`."""
+    run = _Run(coords, partial)
     results: list = [None] * run.k
 
     def body(r):

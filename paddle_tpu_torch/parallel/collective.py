@@ -20,9 +20,17 @@ parts' dtype, gathers concatenate (`nn/tp.py`'s `all_reduce` and
 `all_gather`). `counts()` reads how many of each ran (each collective
 once, whatever its ranks), `reset_counts()` zeroes them. `group` is
 what the JAX package takes: an axis name, a tuple of names, a `Group`,
-or None for "dp". `barrier`, `wait`, `host_broadcast` and
-`host_all_gather` are the host control plane: one process, so they
-return at once (`barrier` inside a run is a rendezvous of its ranks).
+or None for "dp". `wire()` reads the bytes the collectives joined, by
+dtype.
+
+`barrier`, `host_broadcast` and `host_all_gather` are the host control
+plane. Over several processes (`env.init_parallel_env`) they go over
+the gloo group; in one process they return at once (`barrier` inside a
+run is a rendezvous of its ranks). Tensors cross the transport as CPU
+copies in their own dtype and come back on their device.
+`exchange_ranks` carries the ranks' tensors of a mesh that spans
+processes to every process (`TRANSPORT` times its parts), so each
+process can combine every rank's part in global rank order.
 
 Deviation: `ReduceOp.PROD` multiplies in rank order; the JAX package
 computes exp(psum(log x)), which is NaN for a negative entry.
@@ -32,8 +40,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import time
+from typing import List
+
 from ..nn import ranks as _ranks
-from ..nn.ranks import counts, reset_counts, spmd  # noqa: F401
+from ..nn.ranks import counts, reset_counts, spmd, wire  # noqa: F401
+from . import env as _env
 from .mesh import get_mesh, mesh_shape
 
 __all__ = ["ReduceOp", "Group", "all_reduce", "all_gather",
@@ -41,7 +53,8 @@ __all__ = ["ReduceOp", "Group", "all_reduce", "all_gather",
            "send_recv", "psum", "pmean", "pmax", "pmin", "axis_index",
            "axis_size", "barrier", "host_broadcast", "host_all_gather",
            "new_group", "wait", "get_group", "counts", "reset_counts",
-           "spmd"]
+           "spmd", "wire", "exchange_ranks", "TRANSPORT",
+           "reset_transport"]
 
 
 class ReduceOp:
@@ -197,21 +210,132 @@ def axis_size(group=None) -> int:
 
 def barrier(group=None):
     """A rendezvous of the group's ranks inside an SPMD run; outside one,
-    one process has nothing to wait for."""
+    of the processes (nothing to wait for in one process)."""
     if _ranks.in_run():
         _ranks.collective("barrier", None, _axes(group))
+    elif _env.is_initialized():
+        import torch.distributed as dist
+        dist.barrier()
+
+
+def _to_host(x):
+    """(CPU tensor, function mapping a CPU result back to x's kind)."""
+    if isinstance(x, torch.Tensor):
+        dev = x.device
+        return x.detach().to("cpu", copy=True).contiguous(), \
+            lambda t: t.to(dev)
+    a = np.ascontiguousarray(np.asarray(x))
+    return torch.from_numpy(a.copy()), lambda t: t.numpy()
 
 
 def host_broadcast(x, src: int = 0):
-    """One process: its value is everyone's."""
-    return x
+    """Process `src`'s value, in every process (one process: x)."""
+    if not _env.is_initialized():
+        return x
+    import torch.distributed as dist
+    t, back = _to_host(x)
+    dist.broadcast(t, src)
+    return back(t)
 
 
 def host_all_gather(x):
-    """One process: its value with a leading axis of 1."""
-    if isinstance(x, torch.Tensor):
-        return x[None]
-    return np.asarray(x)[None]
+    """Every process's value stacked on a new leading axis, process 0
+    first (one process: a leading axis of 1)."""
+    if not _env.is_initialized():
+        if isinstance(x, torch.Tensor):
+            return x[None]
+        return np.asarray(x)[None]
+    import torch.distributed as dist
+    t, back = _to_host(x)
+    out = [torch.empty_like(t) for _ in range(_env.get_world_size())]
+    dist.all_gather(out, t)
+    return back(torch.stack(out))
+
+
+# what `exchange_ranks` cost: calls, bytes this process sent, seconds
+# of the device-to-host copies, the gloo all_gathers and the copies back
+TRANSPORT = {"calls": 0, "bytes": 0, "d2h_s": 0.0, "gather_s": 0.0,
+             "h2d_s": 0.0}
+# page-locked host buffers of the exchanges from a card, kept per dtype
+# (a pinned allocation costs more than the copy it speeds up)
+_PINNED = {}
+# the gloo all_gather of a buffer goes as this many concurrent pieces
+# (gloo runs them on its worker threads: 1.6x one piece on loopback)
+_PIECES = 4
+
+
+def reset_transport():
+    TRANSPORT.update(calls=0, bytes=0, d2h_s=0.0, gather_s=0.0, h2d_s=0.0)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _host(key, shape, dtype, dev):
+    """A host buffer for an exchange: page-locked and kept for the next
+    exchange when the tensors are on a card, fresh otherwise."""
+    if dev.type != "cuda":
+        return torch.empty(shape, dtype=dtype)
+    buf = _PINNED.get(key)
+    if buf is None or tuple(buf.shape) != tuple(shape):
+        buf = _PINNED[key] = torch.empty(shape, dtype=dtype,
+                                         pin_memory=True)
+    return buf
+
+
+def exchange_ranks(local: List[List[torch.Tensor]]
+                   ) -> List[List[List[torch.Tensor]]]:
+    """Every process's ranks' tensors: `local[i][j]` is this process's
+    i-th rank's j-th tensor (every process passes the same number of
+    ranks and the same shapes and dtypes); returns `out[p][i][j]`,
+    process p's. One process: [local]. Across processes, per dtype the
+    tensors flattened into one buffer, one copy to the host, one gloo
+    all_gather (in `_PIECES` concurrent pieces) and one copy back: the
+    results come back on the tensors' device, bit for bit."""
+    if not _env.is_initialized():
+        return [list(local)]
+    import torch.distributed as dist
+    nproc = _env.get_world_size()
+    flat = [(i, j, t) for i, ts in enumerate(local) for j, t in
+            enumerate(ts)]
+    if not flat:
+        return [[[] for _ in local] for _ in range(nproc)]
+    dev = flat[0][2].device
+    out = [[[None] * len(ts) for ts in local] for _ in range(nproc)]
+    for dtype in dict.fromkeys(t.dtype for _, _, t in flat):
+        items = [(i, j, t) for i, j, t in flat if t.dtype == dtype]
+        t0 = time.perf_counter()
+        buf = torch.cat([t.detach().reshape(-1) for _, _, t in items])
+        n = buf.numel()
+        send = _host(("send", dtype), (n,), dtype, dev)
+        send.copy_(buf)
+        t1 = time.perf_counter()
+        recv = _host(("recv", dtype), (nproc, n), dtype, dev)
+        cuts = [n * k // _PIECES for k in range(_PIECES + 1)]
+        works = [dist.all_gather([recv[p, a:b] for p in range(nproc)],
+                                 send[a:b], async_op=True)
+                 for a, b in zip(cuts, cuts[1:]) if b > a]
+        for w in works:
+            w.wait()
+        t2 = time.perf_counter()
+        back = recv.to(dev, non_blocking=True) if dev.type == "cuda" \
+            else recv
+        _sync(dev)
+        t3 = time.perf_counter()
+        for p in range(nproc):
+            off = 0
+            for i, j, t in items:
+                out[p][i][j] = back[p, off:off + t.numel()].view(t.shape)
+                off += t.numel()
+        _ranks.record_wire([send])
+        TRANSPORT["calls"] += 1
+        TRANSPORT["bytes"] += n * send.element_size()
+        TRANSPORT["d2h_s"] += t1 - t0
+        TRANSPORT["gather_s"] += t2 - t1
+        TRANSPORT["h2d_s"] += t3 - t2
+    return out
 
 
 def wait(x, group=None, use_calc_stream=True):

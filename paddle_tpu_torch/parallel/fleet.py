@@ -94,9 +94,10 @@ def distributed_trainer(model: nn.Module, optimizer, loss_fn, **trainer_kw):
         trainer_kw["grad_accum"] = s.gradient_merge_configs.k_steps
     if s.dgc:
         raise ValueError(
-            "strategy.dgc compresses an explicit gradient reduction "
-            "(the JAX package's parallel/compression.py); its port is "
-            "ROADMAP Queue 1 item 13.4, step 6")
+            "strategy.dgc compresses an explicit gradient reduction; the "
+            "Trainer's reduction is its own. Step with "
+            "parallel.compression.compressed_grad_step (it reads "
+            "dgc_configs.axis) instead of a fleet Trainer")
     return Trainer(model, optimizer, loss_fn, mesh=get_mesh(),
                    amp_level=amp_level, amp_dtype=s.amp_configs.dtype,
                    scaler=scaler, remat=s.recompute, **trainer_kw)

@@ -3,10 +3,10 @@
 fleet/metrics/metric.py: sum / max / min / acc / mae / rmse / auc over
 the trainers' local statistics).
 
-The transport is the host collective (`collective.host_all_gather`);
-the port runs one process, where it is the identity, so the same code
-gives the global metric once several processes exist (ROADMAP Queue 1
-item 13.4, step 6). `DistributedMetric` wraps a `metric.Metric`: its
+The transport is the host collective (`collective.host_all_gather`):
+over the gloo group of several processes (`env.init_parallel_env`) it
+gathers every process's statistics; in one process it is the
+identity. `DistributedMetric` wraps a `metric.Metric`: its
 `accumulate` sums the metric's additive statistics over the workers
 first; `merged_accumulate` is the same merge over metric objects of
 one process (per-rank eval loops).
@@ -34,7 +34,7 @@ _STATE_ATTRS = {
 
 
 def _allreduce(x, op: str = "sum"):
-    """A host statistic reduced over the processes (one here)."""
+    """A host statistic reduced over the processes."""
     parts = np.asarray(host_all_gather(np.asarray(x, np.float64)))
     if op == "sum":
         return parts.sum(axis=0)

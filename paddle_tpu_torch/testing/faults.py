@@ -55,9 +55,13 @@ Points fired by the HTTP front door (`serving.server.LLMServer`):
   request's relay, before it is handled: a fault is a client that went
   away (the same cancel path).
 
-``checkpoint_io`` belongs to a module the port does not have yet
-(ROADMAP.md, Queue 1 item 13); it is registered so that a plan written
-for the JAX package is accepted here unchanged.
+Point fired by `framework.auto_checkpoint.AutoCheckpoint.save`:
+
+- ``checkpoint_io``     -- at the JAX package's two sites: the step
+  directory backend fires before it writes anything; the pickle
+  backend fires between the complete `.tmp` write and the atomic
+  publish (a fault there is a kill in the torn-write window: the
+  previous checkpoint stays the newest, and restore sweeps the `.tmp`).
 
 Triggers are deterministic so a failing run replays exactly:
 

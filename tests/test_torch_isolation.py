@@ -74,6 +74,13 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.parallel.sequence\n"
         "import paddle_tpu_torch.parallel.moe\n"
         "import paddle_tpu_torch.parallel.pipeline\n"
+        "import paddle_tpu_torch.parallel.compression\n"
+        "import paddle_tpu_torch.parallel.localsgd\n"
+        "import paddle_tpu_torch.parallel.multislice\n"
+        "import paddle_tpu_torch.parallel.auto\n"
+        "import paddle_tpu_torch.parallel.launch\n"
+        "import paddle_tpu_torch.parallel.elastic\n"
+        "import paddle_tpu_torch.framework.auto_checkpoint\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -339,7 +339,7 @@ def test_host_control_plane_and_env():
     env = parallel.init_parallel_env()
     assert (env.rank, env.world_size, env.nranks) == (0, 1, 1)
     assert parallel.get_rank() == 0 and parallel.get_world_size() == 1
-    with pytest.raises(NotImplementedError, match="step 6"):
+    with pytest.raises(ValueError, match="coordinator"):
         parallel.init_parallel_env(num_processes=2)
     g = C.new_group(axes=("dp", "fsdp"))
     parallel.init_mesh(dp=2, fsdp=4, device="cpu")

@@ -12,7 +12,8 @@ devices, same weights (carried from the JAX model) and numpy batches.
   equal the total over fsdp within the largest replicated entry.
 - `ClipGradByGlobalNorm` under ZeRO-2 and 3, with `axes=("fsdp",)` and
   without: JAX's clipped step (its GSPMD norm is the whole gradients').
-- What still raises: the strategy's dgc (ROADMAP item 13.4, step 6),
+- What still raises: the strategy's dgc (it points at
+  `compression.compressed_grad_step`),
   a parameter split over both tp and ep, a non-mesh, a mesh on another
   device, per-parameter-norm rules over partitions.
 """
@@ -222,7 +223,7 @@ def test_mesh_trainer_refuses_what_is_not_ported():
     from paddle_tpu_torch.parallel import fleet
     fleet.init(strategy=parallel.DistributedStrategy(dgc=True),
                world_size=2, device="cpu")
-    with pytest.raises(ValueError, match="13.4, step 6"):
+    with pytest.raises(ValueError, match="compressed_grad_step"):
         fleet.distributed_trainer(_pmlp(), Adam(0.01),
                                   lambda o, t: F.cross_entropy(o, t))
     both = _pmlp()
