@@ -513,6 +513,25 @@ every phase passed):
    resumes, every loss equal to an uninterrupted one-process run's;
    each worker's K2/K3 launches = layers x its steps, 0 builds.
    6x-9b print their seconds each and together.
+10a. the op sweep on the card: every case of
+   `paddle_tpu_torch/testing/op_cases.py` (the CPU tests' table) on the
+   card against the port's own result on the CPU, TF32 off, each case's
+   tolerance, its gradient where it takes one, every tensor result on
+   cuda; the random ops reproducible under `seed` and within their law;
+   matmul 4096^2, logsumexp / log_softmax / softmax over (18 x 1024,
+   50304) logits, topk / sort / argsort over 50304, gather /
+   index_select / scatter on a 50304 x 768 table, cumsum over 1M, each
+   within its stated tolerance of the CPU (exact ones bitwise); 0
+   failed. Prints the ops run and its seconds.
+10b. the reference's training idiom on GPT-small (12 layers, bf16
+   parameters, fp32 norms) at 18 x 1024: `pt.seed(0)`, then
+   `pt.value_and_grad(loss_fn)(params)` over `pt.functional_call` and
+   `model.loss`, loss and every gradient bitwise `torch.autograd.grad`'s
+   over the same function, 12 K2 and 12 K3 launches on the wgmma route,
+   0 dense attention calls; `jacobian`, `hessian`, `jvp`, `vjp`, a
+   PyLayer and grad of grad on small functions, card against CPU
+   within rtol 1e-5, atol 1e-6. 10a-10b print their seconds each and
+   together.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters, and again in fp16) through the kernels
    against the same step with the plain versions swapped in on the
@@ -7294,6 +7313,236 @@ def phase_elastic(torch, np, P, card: str):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# phases 10a-10b: the flat tensor surface (ops/, core, autograd/)
+# --------------------------------------------------------------------------- #
+
+SURFACE_BATCH = dict(b=18, s=1024)    # 10b: the bench's GPT-small step
+SURFACE_TOL = dict(rtol=1e-5, atol=1e-6)   # 10b's small functions, fp32
+
+
+def phase_op_sweep(torch, np, P, card: str):
+    """(10a) Every case of `testing/op_cases.py` on the card against the
+    port's own result on the CPU (TF32 off; each case's tolerance; the
+    gradient too where the case takes one; every tensor result on the
+    card), the random ops reproducible under `seed` and within their
+    law on the card, then the main path's sizes (GPT-small's matmul,
+    logits, vocabulary and table; `op_cases.main_path_cases`), each
+    within |card - CPU| <= atol · max|CPU| + rtol · |CPU|."""
+    from paddle_tpu_torch.testing import op_cases as oc
+    t0 = time.perf_counter()
+    failed, ran = [], 0
+    with tf32_off(torch):
+        for case in oc.CASES:
+            card_run = oc.port_run(case, "cuda", grad=case.grad)
+            cpu_run = oc.port_run(case, "cpu", grad=case.grad)
+            ran += 1
+            errs = [oc.compare(g, w, case.rtol, case.atol,
+                               f"{case.label}[{i}]")
+                    for i, (g, w) in enumerate(zip(card_run.values,
+                                                   cpu_run.values))]
+            if case.grad:
+                errs.append(oc.compare(card_run.grad, cpu_run.grad,
+                                       case.rtol, case.atol,
+                                       f"d {case.label}"))
+            if card_run.dtypes != cpu_run.dtypes:
+                errs.append(f"{case.label}: dtypes {card_run.dtypes} != "
+                            f"{cpu_run.dtypes}")
+            if card_run.devices - {"cuda"}:
+                errs.append(f"{case.label}: a result on "
+                            f"{card_run.devices}")
+            failed += [e for e in errs if e]
+        o = oc.port_namespace()
+        with oc.on_device("cuda"):
+            for rc in oc.RANDOM:
+                P.seed(99)
+                a = rc.draw(o)
+                P.seed(99)
+                b = rc.draw(o)
+                ran += 1
+                if a.device.type != "cuda" or not torch.equal(a, b) \
+                        or not rc.law(oc.to_numpy(a)):
+                    failed.append(f"random {rc.name}: on {a.device}, "
+                                  f"reproducible {torch.equal(a, b)}")
+        sweep_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        big, on_cpu = [], {}
+        for name, fn, inputs, rtol, atol in oc.main_path_cases(torch,
+                                                               "cuda"):
+            with oc.on_device("cuda"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = oc.leaves(fn(o, *inputs))
+                torch.cuda.synchronize()
+                card_ms = (time.perf_counter() - t) * 1e3
+            host = [on_cpu.setdefault(id(v), v.cpu()) for v in inputs]
+            with oc.on_device("cpu"):
+                want = oc.leaves(fn(o, *host))
+            ran += 1
+            worst = 0.0
+            for g, w in zip(got, want):
+                if g.device.type != "cuda":
+                    failed.append(f"{name}: a result on {g.device}")
+                w = w.to(g.device)        # compared on the card
+                if rtol == 0 and atol == 0:
+                    if not torch.equal(g, w):
+                        failed.append(f"{name}: not bitwise the CPU's")
+                    continue
+                diff = (g.float() - w.float()).abs()
+                wmax = w.float().abs().max()
+                err = float((diff - atol * wmax
+                             - rtol * w.float().abs()).max())
+                worst = max(worst, float(diff.max() / wmax))
+                if err > 0:
+                    failed.append(f"{name}: beyond rtol {rtol:g}, atol "
+                                  f"{atol:g} x max by {err:.3e}")
+                del diff
+            big.append({"name": name, "card_ms_first_call": card_ms,
+                        "max_err_over_max": worst})
+            del got, want
+        del inputs, on_cpu
+        torch.cuda.empty_cache()
+    check(not failed, f"10a: {len(failed)} failed:\n" + "\n".join(
+        failed[:40]))
+    res = {"cases": len(oc.CASES), "random": len(oc.RANDOM),
+           "main_path": big, "ran": ran, "failed": 0, "sweep_s": sweep_s,
+           "main_path_s": time.perf_counter() - t1,
+           "seconds": time.perf_counter() - t0}
+    log(f"  [{card}] 10a: {ran} ops run on the card against the CPU "
+        f"({len(oc.CASES)} cases, {len(oc.RANDOM)} random laws, "
+        f"{len(big)} at the main path's sizes), 0 failed, every result on "
+        f"cuda; sweep {sweep_s:.1f} s, main-path sizes "
+        f"{res['main_path_s']:.1f} s")
+    for b in big:
+        log(f"    {b['name']}: max |card - CPU| / max|CPU| "
+            f"{b['max_err_over_max']:.2e}, first call "
+            f"{b['card_ms_first_call']:.2f} ms")
+    log(f"  phase 10a took {res['seconds']:.1f} s")
+    return res
+
+
+def phase_functional_autograd(torch, np, P, card: str):
+    """(10b) The reference's training idiom on GPT-small (768 wide, 12
+    layers, 12 heads; bf16 parameters with fp32 norms, as phase 7) at
+    18 x 1024: `P.seed(0)`, then `P.value_and_grad(loss_fn)(params)`
+    over `P.functional_call` and `model.loss`; loss and every gradient
+    bitwise `torch.autograd.grad`'s over the same function, 12 K2 and
+    12 K3 launches on the wgmma route, no dense attention call. Then
+    `jacobian`, `hessian`, `jvp`, `vjp` and a PyLayer on small functions,
+    card against CPU."""
+    from paddle_tpu_torch.ops_cuda import flash_attention as fa
+    t0 = time.perf_counter()
+    cfg = P.models.GPTConfig(hidden_size=768, num_layers=12, num_heads=12)
+    model = P.models.GPT(cfg, seed=0, device="cuda")
+    norm = {k for k in dict(model.named_parameters())
+            if ".ln" in k or k.startswith("ln_")}
+    params = {k: (p.detach() if k in norm else p.detach().to(torch.bfloat16))
+              for k, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    ids = gpt_small_ids(torch, np, cfg, SURFACE_BATCH["b"],
+                        SURFACE_BATCH["s"])
+
+    def loss_fn(p):
+        logits, updates = P.functional_call(model, p, ids)
+        check(updates == {}, f"10b: buffer updates {sorted(updates)}")
+        return model.loss(logits, ids)
+
+    P.seed(0)
+    reset_flash_counters(fa)
+    fa.DENSE_ATTENTION_CALLS.reset()
+    loss, grads = P.value_and_grad(loss_fn)(params)
+    torch.cuda.synchronize()
+    launches = {"fwd": fa.FWD_LAUNCHES.count, "bwd": fa.BWD_LAUNCHES.count,
+                "wgmma": [c.count for c in fa.ROUTE_COUNTERS[fa.WGMMA]],
+                "dense": fa.DENSE_ATTENTION_CALLS.count}
+    check(launches["fwd"] == cfg.num_layers == launches["bwd"]
+          and launches["wgmma"] == [cfg.num_layers] * 2
+          and launches["dense"] == 0,
+          f"10b: launches {launches}, want {cfg.num_layers} K2 and K3 on "
+          f"the wgmma route, no dense attention")
+    loss = loss.detach()
+    grads = {k: g.detach() for k, g in grads.items()}
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    ref_loss = loss_fn(leaves)
+    ref = dict(zip(leaves, torch.autograd.grad(ref_loss,
+                                               list(leaves.values()))))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    # one more call of each, timed (the first calls above warmed them)
+    vg_ms = timed(lambda: P.value_and_grad(loss_fn)(params))
+    ref_ms = timed(lambda: torch.autograd.grad(
+        loss_fn(leaves), list(leaves.values())))
+    check(torch.equal(loss, ref_loss.detach()),
+          f"10b: loss {loss.item()} != {ref_loss.item()}")
+    check(set(grads) == set(ref), "10b: gradient names differ")
+    unequal = [k for k in ref if not torch.equal(grads[k], ref[k])]
+    check(not unequal, f"10b: {len(unequal)} gradients not bitwise "
+                       f"torch.autograd.grad's: {unequal[:5]}")
+    check(all(torch.isfinite(g).all() for g in grads.values()),
+          "10b: a gradient is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    n_grads = len(grads)
+    del model, params, grads, ref, leaves, ref_loss
+    torch.cuda.empty_cache()
+
+    class Cube(P.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return x ** 3
+
+        @staticmethod
+        def backward(ctx, dy):
+            (x,) = ctx.saved_tensor()
+            return 3 * x ** 2 * dy
+
+    f = lambda x: P.sin(x) * P.sum(x)
+    small = {
+        "jacobian": lambda x: P.autograd.jacobian(f, x),
+        "hessian": lambda x: P.autograd.hessian(
+            lambda t: P.sum(t ** 3 * P.exp(t)), x),
+        "jvp": lambda x: P.autograd.jvp(f, x, P.ones_like(x))[1],
+        "vjp": lambda x: P.autograd.vjp(f, x, P.ones_like(x))[1],
+        "PyLayer": lambda x: P.grad(lambda t: P.sum(Cube.apply(t) * t))(x),
+        "grad of grad": lambda x: P.grad(
+            lambda t: P.sum(P.grad(lambda u: P.sum(P.sin(u) * u ** 3))(t))
+        )(x),
+    }
+    x = torch.from_numpy(np.random.RandomState(5).uniform(
+        -1, 1, (6,)).astype(np.float32))
+    worst = {}
+    with tf32_off(torch):
+        for name, fn in small.items():
+            got, want = fn(x.cuda()), fn(x)
+            check(got.device.type == "cuda", f"10b {name}: on {got.device}")
+            check(torch.allclose(got.cpu(), want, **SURFACE_TOL),
+                  f"10b {name}: card vs CPU {rel_err(got.cpu(), want):.3e}")
+            worst[name] = rel_err(got.cpu(), want)
+    res = {"loss": loss.item(), "launches": launches,
+           "fwd_launches": launches["fwd"], "bwd_launches": launches["bwd"],
+           "value_and_grad_ms": vg_ms, "autograd_grad_ms": ref_ms,
+           "peak_bytes": peak, "small_rel_err": worst,
+           "seconds": time.perf_counter() - t0}
+    log(f"  [{card}] 10b: GPT-small 12 layers bf16, "
+        f"{SURFACE_BATCH['b']} x {SURFACE_BATCH['s']}: pt.value_and_grad "
+        f"over pt.functional_call, loss {res['loss']:.6f} and "
+        f"{n_grads} gradients bitwise torch.autograd.grad's; K2 "
+        f"{launches['fwd']} / K3 {launches['bwd']} on wgmma, dense "
+        f"attention 0; value_and_grad {vg_ms:.1f} ms vs autograd.grad "
+        f"{ref_ms:.1f} ms (a second call each); peak "
+        f"{peak / 2**30:.2f} GiB")
+    log("    card vs CPU (rtol 1e-5, atol 1e-6): " + ", ".join(
+        f"{k} {v:.1e}" for k, v in worst.items()))
+    log(f"  phase 10b took {res['seconds']:.1f} s")
+    return res
+
+
 def worker_main(args, stamps) -> int:
     """A worker process of phases 9a / 9b; `stamps` ({stage: time.time()})
     goes into its result."""
@@ -8012,6 +8261,19 @@ def main(argv=None) -> int:
               "6z": mslice["seconds"], "9a": gang["seconds"],
               "9b": elastic["seconds"], "all": time.perf_counter() - t_rest}
     log(f"  phases 6x-6z and 9a-9b took {rest_s['all']:.1f} s")
+    t_surface = time.perf_counter()
+    log("phase 10a: the op sweep on the card: every case of "
+        "testing/op_cases.py against the CPU, the random laws, GPT-small's "
+        "sizes")
+    sweep = phase_op_sweep(torch, np, P, card)
+    log("phase 10b: functional autograd on GPT-small (bf16, 18 x 1024): "
+        "pt.value_and_grad over pt.functional_call through K2/K3 == "
+        "torch.autograd.grad bitwise; jacobian, hessian, jvp, vjp, PyLayer")
+    fgrad = phase_functional_autograd(torch, np, P, card)
+    surface_s = {"10a": sweep["seconds"], "10b": fgrad["seconds"],
+                 "all": time.perf_counter() - t_surface}
+    log(f"  phases 10a-10b took {surface_s['all']:.1f} s (10a "
+        f"{surface_s['10a']:.1f}, 10b {surface_s['10b']:.1f})")
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = {tname: phase_grad_check(torch, np, P, tname)
             for tname in ("bfloat16", "float16")}
@@ -8242,6 +8504,8 @@ def main(argv=None) -> int:
                        "compressed": compressed, "localsgd": lsgd,
                        "multislice_auto": mslice, "gang": gang,
                        "elastic": elastic, "rest_phases_s": rest_s,
+                       "op_sweep": sweep, "functional_autograd": fgrad,
+                       "surface_phases_s": surface_s,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

@@ -31,12 +31,34 @@ as `paddle_tpu_torch::` operators inside the exported programs; and
 data-parallel and ZeRO 1-3 training over a mesh of logical ranks on one
 card (`parallel`, also `distributed`; `Trainer(mesh=)`, synced batch
 norm, `fleet`).
+
+The flat tensor surface is the reference's root namespace: the dtype,
+device, seed and grad-mode helpers of `core`, the ops of `ops` (`from
+.ops import *`; `tensor` is `ops`), `Parameter` / `functional_call`,
+and functional autograd (`autograd`, `grad`, `value_and_grad`). Run it
+on the CPU with `set_device("cpu")`; the default device is the card.
 """
 from . import (amp, framework, hapi, inference, io, jit, metric, models,
                nn, ops_cuda, optimizer, parallel, quantization, serving,
                static, text, vision)
-from .core import (default_device, get_flags, resolve_device,
-                   resolve_dtype, set_flags)
+from . import core
+from .core import (bfloat16, bool_, complex64, complex128,  # noqa: F401
+                   convert_dtype, default_device, device_count, float16,
+                   float32, float64, get_default_dtype, get_device,
+                   get_flags, int8, int16, int32, int64, is_compiled_with_tpu,
+                   no_grad, resolve_device, resolve_dtype, seed,
+                   set_default_dtype, set_device, set_flags, uint8)
+
+# flat tensor-op namespace (paddle.* parity)
+from .ops import *  # noqa: F401,F403
+from .ops import creation, linalg, manipulation, math  # noqa: F401
+from . import ops
+from . import ops as tensor  # noqa: F401
+
+from .nn.layer import Parameter, functional_call  # noqa: F401
+
+from . import autograd  # noqa: F401
+from .autograd import grad, value_and_grad  # noqa: F401
 from .framework import Trainer
 from .hapi import Model
 from .parallel import DataParallel
@@ -47,6 +69,32 @@ from .serving import LLMEngine, SamplingParams
 
 distributed = parallel
 
+
+# the reference's root names still to port, by ROADMAP item
+_PENDING = {"summary": "13.1's rest", "distribution": "13.5",
+            "sparse": "13.5", "incubate": "13.5", "onnx": "13.5",
+            "utils": "13.5", "analysis": "13.6"}
+
+
+def __getattr__(name):
+    if name in ("save", "load"):
+        from .framework import io as _io
+        globals()["save"], globals()["load"] = _io.save, _io.load
+        return globals()[name]
+    if name == "Tensor":
+        import torch
+        return torch.Tensor
+    if name in _PENDING:
+        raise AttributeError(
+            f"paddle_tpu_torch.{name} is not ported yet (ROADMAP Queue 1, "
+            f"item {_PENDING[name]})")
+    if name == "ops_pallas":
+        raise AttributeError(
+            "paddle_tpu_torch has no ops_pallas: the TPU kernels' "
+            "counterparts are the Hopper kernels of paddle_tpu_torch.ops_cuda")
+    raise AttributeError(
+        f"module 'paddle_tpu_torch' has no attribute {name!r}")
+
 __all__ = ["amp", "framework", "hapi", "inference", "io", "jit", "metric",
            "models", "nn", "ops_cuda", "optimizer", "parallel",
            "distributed", "quantization", "serving", "static", "text",
@@ -56,4 +104,9 @@ __all__ = ["amp", "framework", "hapi", "inference", "io", "jit", "metric",
            "GPTConfig", "gpt_small", "gpt_tiny", "resnet18", "resnet50",
            "Bert", "BertConfig", "BertForSequenceClassification",
            "BertForMaskedLM", "ernie_base",
-           "LLMEngine", "SamplingParams", "Trainer", "Model"]
+           "LLMEngine", "SamplingParams", "Trainer", "Model", "core",
+           "ops", "tensor", "autograd", "grad", "value_and_grad",
+           "Parameter", "functional_call", "seed", "set_device",
+           "get_device", "device_count", "is_compiled_with_tpu",
+           "convert_dtype", "set_default_dtype", "get_default_dtype",
+           "no_grad"]

@@ -29,7 +29,12 @@ E[x]² in fp32, the biased batch variance into the running one,
 momentum 0.9 meaning new = 0.9·old + 0.1·batch) and normalises in the
 activation dtype; `max_pool2d` / `avg_pool2d` are `reduce_window` over
 the padded input (`ceil_mode` widens the high side, `exclusive` counts
-only the real entries); `adaptive_avg_pool2d` means axis by axis;
+only the real entries), and so are `max_pool3d` / `avg_pool3d`;
+`conv1d_transpose` / `conv2d_transpose` / `conv3d_transpose` take the
+reference's (in, out / groups, *k) weights, integer padding as the
+gradient of a convolution and "SAME" / "VALID" as `lax.conv_transpose`
+pads them; `label_smooth` and `pixel_shuffle` are the reference's;
+`adaptive_avg_pool2d` means axis by axis;
 `cross_entropy` has hard and soft labels, `ignore_index`, `weight`,
 `label_smoothing` and `reduction`; the other losses of
 `paddle_tpu/nn/functional.py:1031-1330` (binary cross-entropy with and
@@ -57,7 +62,10 @@ __all__ = ["linear", "layer_norm", "gelu", "relu", "relu_", "relu6",
            "log_softmax", "temperature_softmax", "gumbel_softmax",
            "embedding", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "scaled_dot_product_attention", "conv1d", "conv2d", "conv3d",
-           "batch_norm", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
+           "conv1d_transpose", "conv2d_transpose", "conv3d_transpose",
+           "batch_norm", "max_pool2d", "avg_pool2d", "max_pool3d",
+           "avg_pool3d", "adaptive_avg_pool2d", "label_smooth",
+           "pixel_shuffle",
            "flatten", "cross_entropy", "softmax_with_cross_entropy",
            "binary_cross_entropy", "binary_cross_entropy_with_logits",
            "mse_loss", "square_error_cost", "l1_loss", "nll_loss",
@@ -452,6 +460,80 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
                  data_format)
 
 
+def _transpose_pads(padding, nd, stride, window, output_padding):
+    """(kernel flipped?, per-dimension (lo, hi) of the lhs-dilated
+    correlation) as the reference builds them: integer padding is the
+    gradient of a convolution (the kernel flipped, lo = k_eff - 1 -
+    pad_lo, hi = k_eff - 1 - pad_hi + output_padding); "SAME" / "VALID"
+    go through `lax.conv_transpose`'s padding with the kernel as it is."""
+    if isinstance(padding, str):
+        pads = []
+        for k, s in zip(window, stride):
+            if padding.upper() == "SAME":
+                total = k + s - 2
+                lo = k - 1 if s > k - 1 else -(-total // 2)
+            else:
+                total = k + s - 2 + max(k - s, 0)
+                lo = k - 1
+            pads.append((lo, total - lo))
+        return False, pads
+    p = _conv_padding(padding, nd)
+    return True, [(k - 1 - lo, k - 1 - hi + op)
+                  for k, (lo, hi), op in zip(window, p, output_padding)]
+
+
+def _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                    dilation, groups, nd, data_format):
+    """The reference's `_conv_transpose`: weight (in, out / groups, *k).
+    torch's transposed convolution (no padding) gives the full result;
+    the reference's padding then crops it (a negative pad) or extends it
+    with zeros."""
+    stride = _tupleize(stride, nd)
+    dilation = _tupleize(dilation, nd)
+    output_padding = _tupleize(output_padding, nd)
+    last = data_format in _CHANNELS_LAST
+    if last:
+        x = _channels_first(x, nd)
+    window = [(k - 1) * d + 1 for k, d in zip(weight.shape[2:], dilation)]
+    flipped, pads = _transpose_pads(padding, nd, stride, window,
+                                    output_padding)
+    if not flipped:
+        weight = torch.flip(weight, tuple(range(2, 2 + nd)))
+    conv = (torch.nn.functional.conv_transpose1d,
+            torch.nn.functional.conv_transpose2d,
+            torch.nn.functional.conv_transpose3d)[nd - 1]
+    full = conv(x, weight.to(x.dtype), None, stride, 0, 0, groups, dilation)
+    out = _pad_spatial(full, [(lo - (k - 1), hi - (k - 1))
+                              for (lo, hi), k in zip(pads, window)])
+    if bias is not None:
+        out = out + bias.to(out.dtype).reshape((1, -1) + (1,) * nd)
+    return _channels_last(out, nd) if last else out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL"):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 1, data_format)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW"):
+    """Weight (in, out / groups, kh, kw), as the reference's and torch's
+    transposed convolutions; `output_size` is accepted and, as in the
+    reference, not read."""
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 2, data_format)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW"):
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 3, data_format)
+
+
 # --------------------------------------------------------------------------- #
 # batch norm
 # --------------------------------------------------------------------------- #
@@ -507,13 +589,12 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
 # pooling
 # --------------------------------------------------------------------------- #
 
-def _pool2d(x, kind, kernel, stride, padding, ceil_mode, exclusive,
-            data_format):
+def _pool(x, kind, kernel, stride, padding, ceil_mode, exclusive,
+          data_format, nd):
     """`reduce_window` over the padded input, as the JAX `_pool`: max
     pads with -inf; avg sums the window and divides by the count of
     real entries (`exclusive`) or by the window size; `ceil_mode` widens
     the high side so a last partial window is kept."""
-    nd = 2
     kernel = _tupleize(kernel, nd)
     stride = _tupleize(stride if stride is not None else kernel, nd)
     last = data_format in _CHANNELS_LAST
@@ -526,47 +607,70 @@ def _pool2d(x, kind, kernel, stride, padding, ceil_mode, exclusive,
             rem = (sizes[i] + lo + hi - kernel[i]) % stride[i]
             if rem:
                 pads[i] = (lo, hi + stride[i] - rem)
+    max_pool = (torch.nn.functional.max_pool2d,
+                torch.nn.functional.max_pool3d)[nd - 2]
+    avg_pool = (torch.nn.functional.avg_pool2d,
+                torch.nn.functional.avg_pool3d)[nd - 2]
     if kind == "max":
         if all(lo == hi and 0 <= lo <= k // 2
                for (lo, hi), k in zip(pads, kernel)):
             # torch's own padding is the same -inf border
-            out = torch.nn.functional.max_pool2d(
-                x, kernel, stride, tuple(lo for lo, _ in pads))
+            out = max_pool(x, kernel, stride, tuple(lo for lo, _ in pads))
         else:
             low = -math.inf if x.is_floating_point() \
                 else torch.iinfo(x.dtype).min
-            out = torch.nn.functional.max_pool2d(
-                _pad_spatial(x, pads, low), kernel, stride)
+            out = max_pool(_pad_spatial(x, pads, low), kernel, stride)
     else:
-        summed = torch.nn.functional.avg_pool2d(
-            _pad_spatial(x, pads), kernel, stride, divisor_override=1)
+        summed = avg_pool(_pad_spatial(x, pads), kernel, stride,
+                          divisor_override=1)
         if exclusive:
             ones = torch.ones((1, 1) + tuple(sizes), dtype=x.dtype,
                               device=x.device)
-            counts = torch.nn.functional.avg_pool2d(
-                _pad_spatial(ones, pads), kernel, stride,
-                divisor_override=1)
+            counts = avg_pool(_pad_spatial(ones, pads), kernel, stride,
+                              divisor_override=1)
         else:
-            counts = float(kernel[0] * kernel[1])
+            counts = float(math.prod(kernel))
         out = summed / counts
     return _channels_last(out, nd) if last else out
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                data_format="NCHW"):
-    return _pool2d(x, "max", kernel_size, stride, padding, ceil_mode, True,
-                   data_format)
+    return _pool(x, "max", kernel_size, stride, padding, ceil_mode, True,
+                 data_format, 2)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCHW"):
-    out = _pool2d(x, "avg", kernel_size, stride, padding, ceil_mode,
-                  exclusive if divisor_override is None else False,
-                  data_format)
+    return _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+                     divisor_override, data_format, 2)
+
+
+def _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+              divisor_override, data_format, nd):
+    out = _pool(x, "avg", kernel_size, stride, padding, ceil_mode,
+                exclusive if divisor_override is None else False,
+                data_format, nd)
     if divisor_override is not None:
-        k = _tupleize(kernel_size, 2)
-        out = out * (float(k[0] * k[1]) / divisor_override)
+        k = _tupleize(kernel_size, nd)
+        out = out * (float(math.prod(k)) / divisor_override)
     return out
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCDHW"):
+    if return_mask:
+        raise NotImplementedError(
+            "max_pool3d return_mask is not ported yet (ROADMAP Queue 1, "
+            "item 13.1's rest)")
+    return _pool(x, "max", kernel_size, stride, padding, ceil_mode, True,
+                 data_format, 3)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW"):
+    return _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
+                     divisor_override, data_format, 3)
 
 
 def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
@@ -592,6 +696,26 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
                            ).mean(dim=axis, keepdim=True)
                 for j in range(osz)], dim=axis)
     return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    """(1 - epsilon) · label + epsilon · prior (uniform over the last
+    axis by default)."""
+    n = label.shape[-1]
+    prior = (1.0 / n) if prior_dist is None else prior_dist
+    return (1 - epsilon) * label + epsilon * prior
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    """(n, c · r², h, w) → (n, c, h · r, w · r) (or the NHWC layouts)."""
+    r = upscale_factor
+    if data_format == "NCHW":
+        n, c, h, w = x.shape
+        x = x.reshape(n, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+        return x.reshape(n, c // (r * r), h * r, w * r)
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, r, r, c // (r * r)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h * r, w * r, c // (r * r))
 
 
 def flatten(x, start_axis=0, stop_axis=-1):

@@ -1,8 +1,11 @@
 """Weight initializers: the counterpart of `paddle_tpu/nn/initializer.py`.
 
-Each initializer is a callable `(shape, gen, dtype=torch.float32) ->
-tensor` that draws on the CPU from the explicit `torch.Generator` it is
-given (the port keeps no global RNG state; `Constant` needs none). The
+Each initializer is a callable `(shape, gen=None, dtype=torch.float32)
+-> tensor` that draws on the CPU from the `torch.Generator` it is given,
+or, given none, from the default generator (`core.default_generator()`:
+a fresh generator per draw, reproducible under `paddle_tpu_torch.seed`),
+as the JAX initializers draw from the global generator without a key;
+`Constant` draws nothing. The
 laws are the JAX package's: `Normal(mean, std)`, `Uniform(low, high)`,
 Xavier from (fan_in + fan_out), Kaiming from fan_in and
 `calculate_gain`, with `_fans` reading a conv kernel as (out, in, *k).
@@ -16,6 +19,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from .. import core
 
 __all__ = ["Initializer", "Constant", "Zeros", "Ones", "Normal", "Uniform",
            "XavierNormal", "XavierUniform", "KaimingNormal",
@@ -57,8 +62,7 @@ class Initializer:
     def __call__(self, shape, gen: Optional[torch.Generator] = None,
                  dtype=torch.float32) -> torch.Tensor:
         if self.needs_generator and gen is None:
-            raise ValueError(f"{type(self).__name__} draws at random: pass "
-                             f"an explicit torch.Generator")
+            gen = core.default_generator().next_generator("cpu")
         return self._generate(tuple(shape), gen).to(dtype)
 
     def _generate(self, shape, gen) -> torch.Tensor:

@@ -6,7 +6,8 @@ alike, so a JAX state dict carries over as it is. The default
 initializer of weight and bias is Uniform(±1/sqrt(fan_in)), fan_in =
 in/groups · prod(k); `weight_attr` / `bias_attr` take an
 `initializer.Initializer`, `bias_attr=False` drops the bias. Random
-initializers draw from the explicit generator `gen`.
+initializers draw from the generator `gen`, or from the default
+generator (reproducible under `seed`) when it is None.
 """
 from __future__ import annotations
 

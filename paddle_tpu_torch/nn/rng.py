@@ -29,13 +29,11 @@ import threading
 
 import torch
 
+from .. import core
 from . import ranks
 
 __all__ = ["rng_context", "next_seed", "keep_mask", "keep_mask_block",
            "normal", "uniform"]
-
-_M64 = (1 << 64) - 1
-
 
 class _RngState(threading.local):
     def __init__(self):
@@ -58,13 +56,6 @@ def rng_context(*key: int):
         _state.key, _state.count = prev
 
 
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _M64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
-    return x ^ (x >> 31)
-
-
 def next_seed() -> int:
     """The seed of the next draw: a hash of the installed key and the
     call counter (then incremented). Raises outside `rng_context`."""
@@ -73,11 +64,9 @@ def next_seed() -> int:
             "a random draw (dropout in training) needs a key: run the "
             "forward under paddle_tpu_torch.nn.rng.rng_context(seed, step) "
             "(Trainer does this for every step)")
-    h = 0
-    for word in (*_state.key, _state.count):
-        h = _splitmix64(h ^ (word & _M64))
+    h = core.hash_seed(*_state.key, _state.count)
     _state.count += 1
-    return h & ((1 << 63) - 1)
+    return h
 
 
 def keep_mask(prob: float, shape, device) -> torch.Tensor:

@@ -81,6 +81,14 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.parallel.launch\n"
         "import paddle_tpu_torch.parallel.elastic\n"
         "import paddle_tpu_torch.framework.auto_checkpoint\n"
+        "import paddle_tpu_torch.ops, paddle_tpu_torch.ops.creation\n"
+        "import paddle_tpu_torch.ops.math, paddle_tpu_torch.ops.linalg\n"
+        "import paddle_tpu_torch.ops.manipulation\n"
+        "import paddle_tpu_torch.ops.extras\n"
+        "import paddle_tpu_torch.ops.registry\n"
+        "import paddle_tpu_torch.autograd, paddle_tpu_torch.nn.layer\n"
+        "import paddle_tpu_torch.testing.op_cases\n"
+        "assert paddle_tpu_torch.ops.registry.coverage()['missing'] == 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -400,8 +400,12 @@ def test_conv_layers_match_jax_layout_and_forward():
         x = _x(shape)
         _close(pl(_t(x)), jl(jnp.asarray(x)))
     assert pnn.Conv3D(2, 3, 3, gen=g).weight.shape == (3, 2, 3, 3, 3)
-    with pytest.raises(ValueError, match="Generator"):
-        pnn.Conv2D(3, 4, 3)                    # a random init needs a gen
+    # no gen: the default generator draws, reproducibly under seed
+    from paddle_tpu_torch import core as pcore
+    pcore.seed(5)
+    w0 = pnn.Conv2D(3, 4, 3).weight
+    pcore.seed(5)
+    assert torch.equal(pnn.Conv2D(3, 4, 3).weight, w0)
     with pytest.raises(NotImplementedError):
         pnn.Conv2D(3, 4, 3, padding_mode="reflect", gen=g)
 
