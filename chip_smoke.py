@@ -532,6 +532,46 @@ every phase passed):
    PyLayer and grad of grad on small functions, card against CPU
    within rtol 1e-5, atol 1e-6. 10a-10b print their seconds each and
    together.
+11a. the vision zoo at full width: each of the 23 constructors of
+   `models/vision.py` and `vision_extra.py`, and `vgg16(batch_norm=
+   True)`, built on the card from a seed with 1000 classes; parameter
+   and buffer counts equal to the JAX package's (the CPU tests' pinned
+   table), `summary`'s totals equal to them; an fp32 eval forward at
+   batch 2 (LeNet at 1 x 28^2, InceptionV3 at 299^2, the rest at 224^2,
+   TF32 off) finite and of shape (2, 1000); one constructor per family
+   (11) against the port on the CPU from the same state, within 1e-4
+   of the largest logit.
+11b. mobilenet_v2 (scale 1.0, 102 classes, fp32 as phase 6h) trained
+   20 steps at 64 x 224^2 through `hapi.Model.fit`: synthetic
+   `Flowers` through `RandomResizedCrop(224)`, `ColorJitter(0.4, 0.4,
+   0.4)`, `RandomHorizontalFlip`, `Normalize` and `Transpose` on 8
+   thread workers, batches stacked by the native collate; Momentum
+   under a cosine schedule stepped by `LRSchedulerCallback`,
+   `EarlyStopping` on the eval loss of the valid split, `VisualDL`
+   into a temporary directory. The loss falls (the mean of the last 5
+   steps under the first 5's) and the scalars file holds every step.
+   Prints step ms, images/s, peak memory and the share of wall time
+   waiting on the loader.
+11c. quantized convolutions at full width: PTQ of resnet50 (1000
+   classes, fp32, TF32 off) calibrated on 4 batches of 32 x 224^2 and
+   converted: 53 `Int8Conv2D` and 1 `Int8Linear`, no float Conv2D or
+   Linear left; the int32 accumulators and the whole forward (rescale
+   and bias) of all 53 `Int8Conv2D` layers and of a converted
+   mobilenet_v2's expand and depthwise layers bitwise the port's CPU
+   version on the same input; the codes each device's own forward
+   hands the layers, compared, with the first layer where they differ
+   and how close to a rounding boundary its inputs lie there; the
+   converted logits within 2e-2 of the largest of the CPU's, and
+   closer than the int8 model is to the float one; top-1 agreement with the float model on the
+   calibration batch and the int8 forward's ms against the float's;
+   one QAT step of a QuantedConv2D resnet18 on the card.
+11d. the new layers and the collate: the transposed convolutions
+   within 1e-5, the 1-D / 3-D max and average pools, the adaptive
+   pools and `MaxPool2D(return_mask=True)` on ReLU outputs (ties) card
+   against CPU, max values and indices bitwise, averages within 1e-6;
+   the native collate of 64 x 3 x 224 x 224 float32 samples bitwise
+   `np.stack`'s, both timed. 11a-11d print their seconds each and
+   together.
 7. gradients of one step of a full-width 2-layer GPT-small (bs 8 x
    1024, bf16 O2 parameters, and again in fp16) through the kernels
    against the same step with the plain versions swapped in on the
@@ -7563,6 +7603,619 @@ def stages(spawned: float, stamps) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# phases 11a-11d: the vision zoo, the image pipeline, quantized
+# convolutions, the new layers and the native collate
+# --------------------------------------------------------------------------- #
+
+# the 23 constructors, and VGG-16 with batch norm
+ZOO = [("LeNet", {}), ("AlexNet", {}), ("vgg11", {}), ("vgg13", {}),
+       ("vgg16", {}), ("vgg19", {}), ("vgg16", {"batch_norm": True}),
+       ("mobilenet_v1", {}), ("mobilenet_v2", {}),
+       ("mobilenet_v3_small", {}), ("mobilenet_v3_large", {}),
+       ("densenet121", {}), ("densenet161", {}), ("densenet169", {}),
+       ("densenet201", {}), ("inception_v3", {}),
+       ("shufflenet_v2_x0_25", {}), ("shufflenet_v2_x0_5", {}),
+       ("shufflenet_v2_x1_0", {}), ("shufflenet_v2_x1_5", {}),
+       ("shufflenet_v2_x2_0", {}), ("squeezenet1_0", {}),
+       ("squeezenet1_1", {}), ("googlenet", {})]
+# (parameters, buffers) at 1000 classes: the JAX package's counts, as
+# tests/test_torch_vision_models.py pins them
+ZOO_FULL_WIDTH = {
+    "LeNet": (145760, 0), "AlexNet": (61100840, 0),
+    "vgg11": (132863336, 0), "vgg13": (133047848, 0),
+    "vgg16": (138357544, 0), "vgg19": (143667240, 0),
+    "vgg16_bn": (138365992, 8448),
+    "mobilenet_v1": (4231976, 21888), "mobilenet_v2": (3504872, 34112),
+    "mobilenet_v3_small": (2542856, 12112),
+    "mobilenet_v3_large": (5483032, 24400),
+    "densenet121": (7978856, 83648), "densenet161": (28681000, 219936),
+    "densenet169": (14149480, 158400), "densenet201": (20013928, 229056),
+    "inception_v3": (23834568, 34432),
+    "shufflenet_v2_x0_25": (603688, 4024),
+    "shufflenet_v2_x0_5": (1366792, 7952),
+    "shufflenet_v2_x1_0": (2278604, 16180),
+    "shufflenet_v2_x1_5": (3503624, 23440),
+    "shufflenet_v2_x2_0": (7393996, 33716),
+    "squeezenet1_0": (1248424, 0), "squeezenet1_1": (1235496, 0),
+    "googlenet": (6998552, 0)}
+# one constructor per family, held against the CPU
+ZOO_FAMILIES = ("LeNet", "AlexNet", "vgg11", "mobilenet_v1", "mobilenet_v2",
+                "mobilenet_v3_large", "densenet121", "inception_v3",
+                "shufflenet_v2_x1_0", "squeezenet1_1", "googlenet")
+ZOO_BATCH = 2
+ZOO_TOL = 1e-4          # card vs CPU, of the largest logit (fp32, TF32 off)
+FIT_BATCH, FIT_STEPS, FIT_WORKERS = 64, 20, 8
+QUANT_CALIB = (4, 32)   # batches x images at 224^2
+# int8 resnet50 logits card vs CPU, of the largest. Every Int8Conv2D's
+# whole forward (codes, int32 accumulators, fp32 rescale and bias) is
+# held bitwise on the card's own input; the logits still drift, since
+# the float batch norms between the layers round apart on the two
+# devices and a code that lands on a half-point flips (the phase prints
+# the first such layer). The limit lies below the int8-vs-float gap of
+# the same run (2.73e-2 on an H100 80GB HBM3 at 700 W; checked too), so
+# a card model left in float fails it; that run read 1.35e-2
+QUANT_TOL = 2e-2
+COLLATE_N = 64
+VISION_DEVICE = "cuda"
+
+
+def _zoo_key(name, kw):
+    return name + ("_bn" if kw.get("batch_norm") else "")
+
+
+def _zoo_input(name):
+    """(channels, side) of a constructor's input at full width."""
+    return {"LeNet": (1, 28), "inception_v3": (3, 299)}.get(name, (3, 224))
+
+
+def _cpu_twin(torch, P, name, kw, model):
+    """The port's CPU twin of a card model: laid out on meta, then given
+    the card model's state."""
+    with torch.device("meta"):
+        twin = getattr(P.models, name)(device="meta", **kw)
+    twin = twin.to_empty(device="cpu")
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return twin.eval()
+
+
+def phase_zoo(torch, np, P, card: str):
+    """(11a) every constructor of the zoo at full width on the card."""
+    import io as _io
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(0)
+    rows = {}
+    with tf32_off(torch):
+        for name, kw in ZOO:
+            key = _zoo_key(name, kw)
+            t0 = time.perf_counter()
+            m = getattr(P.models, name)(num_classes=1000, seed=0,
+                                        device=VISION_DEVICE, **kw).eval()
+            build_s = time.perf_counter() - t0
+            counts = (sum(p.numel() for p in m.parameters()),
+                      sum(b.numel() for b in m.buffers()))
+            check(counts == ZOO_FULL_WIDTH[key],
+                  f"{key}: (parameters, buffers) {counts}, the JAX "
+                  f"package's {ZOO_FULL_WIDTH[key]}")
+            check(all(t.device.type == VISION_DEVICE for t in m.state_dict().values()),
+                  f"{key}: a tensor off the card")
+            c, side = _zoo_input(name)
+            with contextlib.redirect_stdout(_io.StringIO()):
+                summ = P.summary(m, (ZOO_BATCH, c, side, side))
+            check(summ == {"total_params": counts[0],
+                           "trainable_params": counts[0]},
+                  f"{key}: summary {summ}, {counts[0]} parameters")
+            x = torch.from_numpy(rs.randn(ZOO_BATCH, c, side, side)
+                                 .astype(np.float32)).to(VISION_DEVICE)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = m(x)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            check(tuple(out.shape) == (ZOO_BATCH, 1000)
+                  and bool(torch.isfinite(out).all()),
+                  f"{key}: output {tuple(out.shape)}, finite "
+                  f"{bool(torch.isfinite(out).all())}")
+            err = None
+            if key in ZOO_FAMILIES:
+                twin = _cpu_twin(torch, P, name, dict(kw, num_classes=1000),
+                                 m)
+                with torch.no_grad():
+                    err = rel_err(out.cpu(), twin(x.cpu()))
+                check(err <= ZOO_TOL, f"{key} card vs CPU: {err:.2e} > "
+                                      f"{ZOO_TOL}")
+                del twin
+            rows[key] = {"params": counts[0], "buffers": counts[1],
+                         "build_s": build_s, "first_forward_ms": fwd_ms,
+                         "card_vs_cpu": err}
+            log(f"  {key}: {counts[0]} parameters, {counts[1]} buffer "
+                f"entries (JAX's), summary's totals equal; built in "
+                f"{build_s:.2f} s; first fp32 forward at {ZOO_BATCH} x "
+                f"{c} x {side}^2 {fwd_ms:.1f} ms (cuDNN set-up included)"
+                + ("" if err is None else
+                   f"; card vs CPU {err:.2e} (limit {ZOO_TOL})"))
+            del m, out, x
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    held = sum(r["card_vs_cpu"] is not None for r in rows.values())
+    log(f"  11a: {len(rows)} constructors, {held} held against the CPU, "
+        f"in {seconds:.1f} s [{card}]")
+    return {"models": rows, "seconds": seconds}
+
+
+class _TimedLoader:
+    """A DataLoader whose iteration sums the seconds spent blocked in
+    `next()`: the wait on the loader."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.wait_s = 0.0
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            finally:
+                self.wait_s += time.perf_counter() - t0
+            yield batch
+
+
+def flowers_pipeline(P, size: int, seed: int = 0):
+    """The training and eval transforms of 11b on synthetic Flowers
+    (64 x 64 uint8 RGB), one random stream for the training ones."""
+    from paddle_tpu_torch.vision import transforms as T
+    r = T.SeededRandom(seed)
+    norm = [T.Normalize(mean=[127.5] * 3, std=[58.0] * 3, data_format="HWC"),
+            T.Transpose()]
+    train = T.Compose([T.RandomResizedCrop(size, seed=r),
+                       T.ColorJitter(0.4, 0.4, 0.4, seed=r),
+                       T.RandomHorizontalFlip(seed=r)] + norm)
+    return train, T.Compose([T.Resize((size, size))] + norm)
+
+
+def fit_flowers(torch, P, model, size, batch, steps, workers, log_dir,
+                device):
+    """`hapi.Model.fit` of `model` over synthetic Flowers: Momentum (0.9,
+    weight decay 4e-5) under a cosine schedule stepped each batch by
+    `LRSchedulerCallback`, `EarlyStopping` on the valid split's loss,
+    `VisualDL` into `log_dir`. Returns (history, the train loader, the
+    per-step losses from the scalars file, eval seconds, callbacks)."""
+    from paddle_tpu_torch import hapi, metric, nn, optimizer
+    from paddle_tpu_torch.hapi.callbacks import (Callback, EarlyStopping,
+                                                 LRSchedulerCallback,
+                                                 VisualDL)
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import datasets
+    datasets.set_synthetic_fallback(True)
+    tf, ev = flowers_pipeline(P, size)
+    train = datasets.Flowers(mode="train", transform=tf)
+    valid = datasets.Flowers(mode="valid", transform=ev)
+    sched = optimizer.lr.CosineAnnealingDecay(0.05, T_max=steps)
+    hm = hapi.Model(model)
+    hm.prepare(optimizer.Momentum(learning_rate=sched, momentum=0.9,
+                                  weight_decay=4e-5),
+               nn.CrossEntropyLoss(), metric.Accuracy())
+    loader = _TimedLoader(DataLoader(train, batch_size=batch, shuffle=True,
+                                     drop_last=True, num_workers=workers,
+                                     to_device=device, seed=0))
+    valid_loader = DataLoader(valid, batch_size=batch, num_workers=workers,
+                              to_device=device)
+
+    class EvalClock(Callback):
+        seconds = 0.0
+
+        def on_eval_begin(self, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_eval_end(self, logs=None):
+            EvalClock.seconds += time.perf_counter() - self._t0
+
+    stop = EarlyStopping(monitor="loss", patience=steps)
+    cbs = [LRSchedulerCallback(by_step=True, by_epoch=False), stop,
+           VisualDL(log_dir=log_dir), EvalClock()]
+    epochs = -(-steps // len(loader))
+    hist = hm.fit(loader, eval_data=valid_loader, epochs=epochs,
+                  num_iters=steps, verbose=0, callbacks=cbs)
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["value"] for r in rows if r["tag"] == "train/loss"]
+    return hist, loader, losses, EvalClock.seconds, {
+        "sched": sched, "stop": stop, "rows": rows, "model": hm}
+
+
+def phase_mobilenet_fit(torch, np, P, card: str):
+    """(11b) mobilenet_v2 trained through the image pipeline."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_vdl_")
+    try:
+        model = P.models.mobilenet_v2(scale=1.0, num_classes=102, seed=0,
+                                      device=VISION_DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist, loader, losses, eval_s, cb = fit_flowers(
+            torch, P, model, 224, FIT_BATCH, FIT_STEPS, FIT_WORKERS,
+            log_dir, VISION_DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(len(losses) == FIT_STEPS and all(math.isfinite(v)
+                                               for v in losses),
+              f"scalars file: {len(losses)} train losses {losses}")
+        first, last = (statistics.mean(losses[:5]),
+                       statistics.mean(losses[-5:]))
+        check(last < first, f"mobilenet_v2 loss did not fall: first 5 "
+                            f"{first:.4f}, last 5 {last:.4f}: {losses}")
+        evals = [r for r in cb["rows"] if r["tag"] == "eval/loss"]
+        check(len(evals) >= 1 and cb["stop"].best is not None,
+              f"eval rows {len(evals)}, EarlyStopping best "
+              f"{cb['stop'].best}")
+        check(cb["sched"].last_epoch == FIT_STEPS,
+              f"the schedule stepped {cb['sched'].last_epoch} times, want "
+              f"{FIT_STEPS}")
+        check(cb["model"]._trainer.state.step == FIT_STEPS,
+              f"{cb['model']._trainer.state.step} steps, want {FIT_STEPS}")
+        train_s = wall - eval_s
+        fit_ips = hist.get("ips", [float("nan")])[-1]
+        step_ms = train_s / FIT_STEPS * 1e3
+        ips = FIT_BATCH * FIT_STEPS / train_s
+        share = loader.wait_s / train_s
+        log(f"  mobilenet_v2 (102 classes, fp32) fit over synthetic Flowers "
+            f"(256 train images, RandomResizedCrop(224) + ColorJitter + "
+            f"flip + normalize + transpose on {FIT_WORKERS} thread "
+            f"workers, native collate), {FIT_STEPS} steps at {FIT_BATCH} x "
+            f"224^2: losses {[round(v, 4) for v in losses]}; first 5 mean "
+            f"{first:.4f}, last 5 {last:.4f}; eval losses "
+            f"{[round(r['value'], 4) for r in evals]}")
+        log(f"  11b [{card}]: {step_ms:.1f} ms per step, {ips:.1f} images/s "
+            f"(wall of fit {wall:.2f} s less {eval_s:.2f} s of evaluation), "
+            f"fit's own ips {fit_ips:.1f}; waiting on the loader "
+            f"{loader.wait_s:.2f} s = {share:.1%} of the training wall; peak "
+            f"memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+        del model, cb
+        torch.cuda.empty_cache()
+        return {"losses": losses, "step_ms": step_ms, "images_per_s": ips,
+                "fit_ips": fit_ips, "loader_wait_s": loader.wait_s,
+                "loader_share": share, "peak_bytes": peak, "wall_s": wall,
+                "eval_s": eval_s,
+                "seconds": time.perf_counter() - t_phase}
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+def _kinds(model, names):
+    out = {n: 0 for n in names}
+    for m in model.modules():
+        if type(m).__name__ in out:
+            out[type(m).__name__] += 1
+    return out
+
+
+def _int8_inputs(torch, model, names, x, rows):
+    """{layer name: the first `rows` images of its input} over one
+    forward of `model` on `x`, in the order the forward reaches them."""
+    seen, hooks = {}, []
+    for n in names:
+        def grab(mod, args, n=n):
+            seen[n] = args[0][:rows].detach().clone()
+        hooks.append(model.get_submodule(n).register_forward_pre_hook(grab))
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def hold_int8_layers(torch, model, cpu_model, inputs):
+    """Each named Int8Conv2D on the card against its CPU copy on the
+    same input, bitwise: its int32 accumulators and its whole forward
+    (the fp32 rescale and bias too); returns {name: (shape, groups)}."""
+    out = {}
+    with torch.no_grad():
+        for n, x in inputs.items():
+            layer, twin = model.get_submodule(n), cpu_model.get_submodule(n)
+            acc = layer.int32_acc(x)
+            ref = twin.int32_acc(x.cpu())
+            check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), ref),
+                  f"{n}: int32 accumulators card vs CPU differ "
+                  f"({int((acc.cpu() != ref).sum())} of {ref.numel()})")
+            y, y_ref = layer(x).cpu(), twin(x.cpu())
+            check(y.dtype == y_ref.dtype and torch.equal(y, y_ref),
+                  f"{n}: forward card vs CPU differs "
+                  f"({int((y != y_ref).sum())} of {y_ref.numel()}, "
+                  f"max {float((y - y_ref).abs().max()):.3e})")
+            out[n] = (tuple(acc.shape), layer._conv_args[3])
+    return out
+
+
+def _ordered_bits(torch, t):
+    """fp32 values as integers in the order of the values, so that two
+    values' difference counts the ulps between them."""
+    i = t.float().contiguous().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def flip_cause(torch, Q, cpu_model, card_inputs, cpu_inputs):
+    """Where the two devices' own forwards first hand an Int8Conv2D
+    codes that differ: that layer (in forward order), its flipped
+    codes, the ulps between the two inputs there, and how far each
+    input's x / scale lies from the rounding boundary between the two
+    codes (in code units); with the count of codes that differ in all
+    layers."""
+    first, flips, codes = None, 0, 0
+    for n, b in cpu_inputs.items():
+        a, s = card_inputs[n].cpu(), cpu_model.get_submodule(n).act_scale
+        qa, qb = Q.quantize_tensor(a, s), Q.quantize_tensor(b, s)
+        diff = qa != qb
+        flips += int(diff.sum())
+        codes += b.numel()
+        if first is None and bool(diff.any()):
+            ulps = (_ordered_bits(torch, a) - _ordered_bits(torch, b)).abs()
+            edge = (qa.float() + qb.float())[diff] / 2
+            sf = s.float()
+            first = {"layer": n, "flipped": int(diff.sum()),
+                     "codes": b.numel(),
+                     "inputs_apart": int((a != b).sum()),
+                     "ulps_max": int(ulps[diff].max()),
+                     "code_step_max": int((qa.int() - qb.int()).abs().max()),
+                     "edge_dist_max": float(torch.maximum(
+                         (a[diff].float() / sf - edge).abs(),
+                         (b[diff].float() / sf - edge).abs()).max())}
+    return first, flips, codes
+
+
+def phase_quant_conv(torch, np, P, card: str):
+    """(11c) PTQ of resnet50 at full width, each int8 layer card vs
+    CPU, one QAT step."""
+    import copy
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.nn import functional as F
+    t_phase = time.perf_counter()
+    kinds = ("QuantedConv2D", "QuantedLinear", "Int8Conv2D", "Int8Linear",
+             "Conv2D", "Linear")
+    rs = np.random.RandomState(0)
+    n_batches, bs = QUANT_CALIB
+    calib = [rs.randn(bs, 3, 224, 224).astype(np.float32)
+             for _ in range(n_batches)]
+    with tf32_off(torch):
+        model = P.models.resnet50(num_classes=1000, seed=0,
+                                  device=VISION_DEVICE).eval()
+        fmodel = copy.deepcopy(model)
+        ptq = Q.PTQ()
+        ptq.quantize(model)
+        k = _kinds(model, kinds)
+        check((k["QuantedConv2D"], k["QuantedLinear"]) == (53, 1),
+              f"PTQ wrapped {k}")
+        t0 = time.perf_counter()
+        ptq.sample(model, calib)
+        ptq.convert(model)
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        k = _kinds(model, kinds)
+        check((k["Int8Conv2D"], k["Int8Linear"], k["Conv2D"], k["Linear"],
+               k["QuantedConv2D"]) == (53, 1, 0, 0, 0),
+              f"converted resnet50 holds {k}")
+        x = torch.from_numpy(calib[0]).to(VISION_DEVICE)
+        with torch.no_grad():
+            q_out, f_out = model(x), fmodel(x)
+        check(bool(torch.isfinite(q_out).all()), "int8 logits not finite")
+        agree = float((q_out.argmax(1) == f_out.argmax(1)).float().mean())
+        q_rel = rel_err(q_out, f_out)
+        with torch.no_grad():
+            int8_ms = wall_ms(torch, lambda: model(x), 5)
+            float_ms = wall_ms(torch, lambda: fmodel(x), 5)
+        names = [n for n, m in model.named_modules()
+                 if isinstance(m, Q.Int8Conv2D)]
+        inputs = _int8_inputs(torch, model, names, x, 2)
+        cpu_model = copy.deepcopy(model).cpu()
+        shapes = hold_int8_layers(torch, model, cpu_model, inputs)
+        # the codes each device's own forward hands every layer
+        cpu_inputs = _int8_inputs(torch, cpu_model, names, x[:2].cpu(), 2)
+        first, flips, codes = flip_cause(torch, Q, cpu_model, inputs,
+                                         cpu_inputs)
+        with torch.no_grad():
+            cpu_err = rel_err(q_out[:2].cpu(), cpu_model(x[:2].cpu()))
+            f_cpu_err = rel_err(f_out[:2].cpu(),
+                                copy.deepcopy(fmodel).cpu()(x[:2].cpu()))
+        check(cpu_err <= QUANT_TOL and cpu_err < q_rel,
+              f"int8 resnet50 logits card vs CPU {cpu_err:.2e}: over "
+              f"{QUANT_TOL} or not under the int8-vs-float gap {q_rel:.2e}")
+        del cpu_model, fmodel
+        # a grouped (depthwise) layer: a converted mobilenet_v2
+        mb = P.models.mobilenet_v2(num_classes=1000, seed=0,
+                                   device=VISION_DEVICE).eval()
+        ptq2 = Q.PTQ()
+        ptq2.quantize(mb)
+        ptq2.sample(mb, [calib[1][:8]])
+        ptq2.convert(mb)
+        mnames = ["features.2.conv.0.0", "features.2.conv.1.0"]
+        inputs = _int8_inputs(torch, mb, mnames, x[:8], 2)
+        shapes.update(hold_int8_layers(torch, mb, copy.deepcopy(mb).cpu(),
+                                       inputs))
+        check(shapes["features.2.conv.1.0"][1] == 96,
+              f"features.2.conv.1.0 groups {shapes['features.2.conv.1.0']}")
+        del mb
+        # one QAT step of QuantedConv2D layers
+        qm = P.models.resnet18(num_classes=10, seed=0, device=VISION_DEVICE)
+        Q.QAT().quantize(qm)
+        check(_kinds(qm, kinds)["QuantedConv2D"] == 20, "QAT resnet18")
+        qm.train()
+        opt = P.optimizer.Momentum(0.01, momentum=0.9).bind(qm)
+        params = {n: p for n, p in qm.named_parameters() if p.requires_grad}
+        before = {n: p.detach().clone() for n, p in params.items()}
+        xb = torch.from_numpy(rs.randn(8, 3, 64, 64).astype(np.float32)
+                              ).to(VISION_DEVICE)
+        yb = torch.from_numpy(rs.randint(0, 10, (8,))).to(VISION_DEVICE)
+        loss = F.cross_entropy(qm(xb), yb)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        opt.step(dict(zip(params, grads)))
+        loss = float(loss.detach())
+        moved = sum(not torch.equal(p, before[n]) for n, p in params.items())
+        scale = float(qm.conv1._act_scale)
+        check(math.isfinite(loss)
+              and all(bool(torch.isfinite(g).all()) for g in grads)
+              and moved == len(params) and scale != 1.0,
+              f"QAT step: loss {loss}, {moved} of {len(params)} "
+              f"parameters moved, conv1 act scale {scale}")
+        del qm
+    torch.cuda.empty_cache()
+    held = ", ".join(f"{n} {s} groups {g}" for n, (s, g) in shapes.items()
+                     if n.startswith(("conv1", "features")))
+    log(f"  resnet50 PTQ (fp32, TF32 off): 53 Conv2D -> Int8Conv2D, fc -> "
+        f"Int8Linear; calibrated on {n_batches} x {bs} x 224^2 and "
+        f"converted in {convert_s:.2f} s; int32 accumulators and whole "
+        f"forwards bitwise the CPU's in all {len(names)} Int8Conv2D layers "
+        f"on the card's input (2 images; among them {held}); the two "
+        f"devices' own forwards hand the layers codes that differ in "
+        f"{flips} of {codes}, first at {first}; "
+        f"int8 logits card vs CPU {cpu_err:.2e} (limit {QUANT_TOL} and the "
+        f"int8-vs-float gap; the float model's {f_cpu_err:.2e}); int8 "
+        f"vs float logits {q_rel:.2e}, top-1 agreement {agree:.3f} on the "
+        f"calibration batch; one QAT step of resnet18 (20 QuantedConv2D): "
+        f"loss {loss:.4f}, conv1 act scale {scale:.4g}")
+    log(f"  11c [{card}]: resnet50 forward at {bs} x 224^2, int8 "
+        f"{int8_ms:.2f} ms against float {float_ms:.2f} ms (host clock, "
+        f"synchronised, 5 reps)")
+    return {"int8_ms": int8_ms, "float_ms": float_ms, "top1_agree": agree,
+            "int8_vs_float": q_rel, "card_vs_cpu": cpu_err,
+            "float_card_vs_cpu": f_cpu_err, "code_flips": flips,
+            "codes": codes, "first_flip": first,
+            "convert_s": convert_s,
+            "layers": {n: list(s) for n, s in shapes.items()},
+            "seconds": time.perf_counter() - t_phase}
+
+
+def phase_layers_collate(torch, np, P, card: str):
+    """(11d) the new layers card vs CPU, the native collate."""
+    import copy
+    nn = P.nn
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(0)
+
+    def relu(*shape):
+        return torch.from_numpy(np.maximum(rs.randn(*shape), 0)
+                                .astype(np.float32))
+
+    pools = [  # (what, layer, input): max pools on ReLU outputs (ties)
+        ("MaxPool2D(3, 2, 1, return_mask)",
+         nn.MaxPool2D(3, 2, 1, return_mask=True), relu(8, 64, 112, 112)),
+        ("MaxPool2D(2, return_mask)", nn.MaxPool2D(2, return_mask=True),
+         relu(8, 128, 56, 56)),
+        ("MaxPool1D(3, 2, 1)", nn.MaxPool1D(3, 2, 1), relu(8, 64, 1000)),
+        ("MaxPool3D(3, 2, 1)", nn.MaxPool3D(3, 2, 1), relu(2, 32, 16, 32, 32)),
+        ("AdaptiveMaxPool1D(7, return_mask)",
+         nn.AdaptiveMaxPool1D(7, return_mask=True), relu(8, 64, 100)),
+        ("AdaptiveMaxPool2D((7, 5))", nn.AdaptiveMaxPool2D((7, 5)),
+         relu(8, 64, 30, 30)),
+        ("AdaptiveMaxPool3D(3)", nn.AdaptiveMaxPool3D(3),
+         relu(2, 32, 10, 11, 12)),
+        ("AvgPool1D(3, 2, 1)", nn.AvgPool1D(3, 2, 1), relu(8, 64, 1000)),
+        ("AvgPool3D(3, 2, 1, exclusive)", nn.AvgPool3D(3, 2, 1),
+         relu(2, 32, 16, 32, 32)),
+        ("AdaptiveAvgPool1D(7)", nn.AdaptiveAvgPool1D(7), relu(8, 64, 100)),
+        ("AdaptiveAvgPool3D((2, 3, 5))", nn.AdaptiveAvgPool3D((2, 3, 5)),
+         relu(2, 32, 10, 11, 12))]
+    convs = [  # (what, layer, input)
+        ("Conv1DTranspose(32, 16, 5, 2, 2, output_padding=1)",
+         nn.Conv1DTranspose(32, 16, 5, 2, 2, output_padding=1),
+         torch.from_numpy(rs.randn(8, 32, 500).astype(np.float32))),
+        ("Conv2DTranspose(64, 32, 4, 2, 1)", nn.Conv2DTranspose(64, 32, 4, 2, 1),
+         torch.from_numpy(rs.randn(8, 64, 28, 28).astype(np.float32))),
+        ("Conv2DTranspose(64, 64, 3, 2, 1, 1, groups=4)",
+         nn.Conv2DTranspose(64, 64, 3, 2, 1, 1, groups=4),
+         torch.from_numpy(rs.randn(8, 64, 28, 28).astype(np.float32))),
+        ("Conv3DTranspose(16, 8, 3, 2, 1, 1)",
+         nn.Conv3DTranspose(16, 8, 3, 2, 1, 1),
+         torch.from_numpy(rs.randn(2, 16, 8, 16, 16).astype(np.float32)))]
+    worst = {"avg": 0.0, "conv": 0.0}
+    with tf32_off(torch), torch.no_grad():
+        for what, layer, x in pools:
+            ref = layer(x)
+            got = layer(x.to(VISION_DEVICE))
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            got = got if isinstance(got, tuple) else (got,)
+            for g, r in zip(got, ref):
+                check(g.dtype == r.dtype and g.shape == r.shape,
+                      f"{what}: {g.dtype} {tuple(g.shape)} vs {r.dtype} "
+                      f"{tuple(r.shape)}")
+                if "Max" in what or not r.is_floating_point():
+                    check(torch.equal(g.cpu(), r),
+                          f"{what}: card != CPU bitwise")
+                else:
+                    e = rel_err(g.cpu(), r)
+                    worst["avg"] = max(worst["avg"], e)
+                    check(e <= 1e-6, f"{what}: card vs CPU {e:.2e} > 1e-6")
+        for what, layer, x in convs:
+            ref = layer(x)
+            got = copy.deepcopy(layer).to(VISION_DEVICE)(x.to(VISION_DEVICE))
+            e = rel_err(got.cpu(), ref)
+            worst["conv"] = max(worst["conv"], e)
+            check(e <= 1e-5, f"{what}: card vs CPU {e:.2e} > 1e-5")
+    samples = [rs.rand(3, 224, 224).astype(np.float32)
+               for _ in range(COLLATE_N)]
+    got = P.native.collate_batch(samples)          # builds the library
+    want = np.stack(samples)
+    check(got.dtype == want.dtype and np.array_equal(got, want),
+          "native collate != np.stack")
+
+    def median_ms(fn, reps=10):
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    collate_ms = median_ms(lambda: P.native.collate_batch(samples))
+    stack_ms = median_ms(lambda: np.stack(samples))
+    log(f"  {len(pools)} pools on ReLU outputs: max values and indices "
+        f"bitwise the CPU's, averages within {worst['avg']:.2e}; "
+        f"{len(convs)} transposed convolutions within {worst['conv']:.2e} "
+        f"(fp32, TF32 off)")
+    log(f"  11d [{card}]: native collate of {COLLATE_N} x 3 x 224 x 224 "
+        f"float32 ({want.nbytes / 2**20:.1f} MiB) bitwise np.stack: "
+        f"{collate_ms:.2f} ms against np.stack {stack_ms:.2f} ms (median of "
+        f"10, host clock)")
+    return {"avg_err": worst["avg"], "conv_err": worst["conv"],
+            "collate_ms": collate_ms, "stack_ms": stack_ms,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def run_vision_phases(torch, np, P, card: str) -> dict:
+    """Phases 11a-11d, each timed."""
+    t0 = time.perf_counter()
+    log("phase 11a: the vision zoo at full width on the card: 24 builds, "
+        "JAX's counts, summary, an fp32 forward, 11 families vs the CPU")
+    zoo = phase_zoo(torch, np, P, card)
+    log("phase 11b: mobilenet_v2 trained through the image pipeline "
+        "(synthetic Flowers, transforms, thread workers, native collate, "
+        "hapi.Model.fit with LRSchedulerCallback, EarlyStopping, VisualDL)")
+    fit = phase_mobilenet_fit(torch, np, P, card)
+    log("phase 11c: quantized convolutions: PTQ of resnet50 at full width, "
+        "int32 accumulators card == CPU, one QAT step")
+    quant = phase_quant_conv(torch, np, P, card)
+    log("phase 11d: transposed convolutions, the new pools and return_mask "
+        "card vs CPU; the native collate")
+    layers = phase_layers_collate(torch, np, P, card)
+    seconds = {"11a": zoo["seconds"], "11b": fit["seconds"],
+               "11c": quant["seconds"], "11d": layers["seconds"],
+               "all": time.perf_counter() - t0}
+    log(f"  phases 11a-11d took {seconds['all']:.1f} s (11a "
+        f"{seconds['11a']:.1f}, 11b {seconds['11b']:.1f}, 11c "
+        f"{seconds['11c']:.1f}, 11d {seconds['11d']:.1f})")
+    return {"zoo": zoo, "fit": fit, "quant": quant, "layers": layers,
+            "seconds": seconds}
+
+
+# --------------------------------------------------------------------------- #
 # phase 8: numbers
 # --------------------------------------------------------------------------- #
 
@@ -8069,6 +8722,9 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)   # phases 9a / 9b's workers
     ap.add_argument("--result", help=argparse.SUPPRESS)
     ap.add_argument("--ckpt", help=argparse.SUPPRESS)
+    ap.add_argument("--vision-only", action="store_true",
+                    help="run only phases 11a-11d (a quick check of that "
+                         "path; prints no result line)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -8089,6 +8745,10 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
+    if args.vision_only:
+        run_vision_phases(torch, np, P, card)
+        log(card_line())
+        return 0
     t0 = time.perf_counter()
     built = _build.build(verbose=True)
     log(f"  built {sorted(built) or 'nothing (cached)'} with nvcc "
@@ -8274,6 +8934,7 @@ def main(argv=None) -> int:
                  "all": time.perf_counter() - t_surface}
     log(f"  phases 10a-10b took {surface_s['all']:.1f} s (10a "
         f"{surface_s['10a']:.1f}, 10b {surface_s['10b']:.1f})")
+    vision = run_vision_phases(torch, np, P, card)
     log("phase 7: gradients through the kernels vs the plain versions")
     grad = {tname: phase_grad_check(torch, np, P, tname)
             for tname in ("bfloat16", "float16")}
@@ -8333,6 +8994,17 @@ def main(argv=None) -> int:
         f"x {SP_P1B['s']}): ring {sp_train['ring']['step_ms']:.1f} ms, "
         f"Ulysses {sp_train['ulysses']['step_ms']:.1f} ms per step; 6w MoE "
         f"ep {MOE['ep']} step {moe_train['step_ms']:.1f} ms")
+
+    log(f"  mobilenet_v2 training, phase 11b (fp32, bs {FIT_BATCH} x 224^2, "
+        f"{FIT_WORKERS} loader threads) [card: {card}]: "
+        f"{vision['fit']['step_ms']:.1f} ms per step, "
+        f"{vision['fit']['images_per_s']:.1f} images/s, loader wait "
+        f"{vision['fit']['loader_share']:.1%} of the wall, peak memory "
+        f"{vision['fit']['peak_bytes'] / 2**30:.2f} GiB; int8 resnet50, "
+        f"phase 11c (bs {QUANT_CALIB[1]} x 224^2): "
+        f"{vision['quant']['int8_ms']:.2f} ms against float "
+        f"{vision['quant']['float_ms']:.2f} ms per forward; phases "
+        f"11a-11d {vision['seconds']['all']:.1f} s")
 
     flash = "paddle_tpu/ops_pallas/flash_attention.py"
     kernels = [{
@@ -8506,6 +9178,7 @@ def main(argv=None) -> int:
                        "elastic": elastic, "rest_phases_s": rest_s,
                        "op_sweep": sweep, "functional_autograd": fgrad,
                        "surface_phases_s": surface_s,
+                       "vision": vision,
                        "seconds": time.perf_counter() - t_start}, f,
                       indent=1)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")

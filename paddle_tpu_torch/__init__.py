@@ -60,7 +60,7 @@ from .nn.layer import Parameter, functional_call  # noqa: F401
 from . import autograd  # noqa: F401
 from .autograd import grad, value_and_grad  # noqa: F401
 from .framework import Trainer
-from .hapi import Model
+from .hapi import Model, summary
 from .parallel import DataParallel
 from .models import (GPT, Bert, BertConfig, BertForMaskedLM,
                      BertForSequenceClassification, GPTConfig, ernie_base,
@@ -71,7 +71,7 @@ distributed = parallel
 
 
 # the reference's root names still to port, by ROADMAP item
-_PENDING = {"summary": "13.1's rest", "distribution": "13.5",
+_PENDING = {"distribution": "13.5",
             "sparse": "13.5", "incubate": "13.5", "onnx": "13.5",
             "utils": "13.5", "analysis": "13.6"}
 
@@ -104,7 +104,8 @@ __all__ = ["amp", "framework", "hapi", "inference", "io", "jit", "metric",
            "GPTConfig", "gpt_small", "gpt_tiny", "resnet18", "resnet50",
            "Bert", "BertConfig", "BertForSequenceClassification",
            "BertForMaskedLM", "ernie_base",
-           "LLMEngine", "SamplingParams", "Trainer", "Model", "core",
+           "LLMEngine", "SamplingParams", "Trainer", "Model", "summary",
+           "core",
            "ops", "tensor", "autograd", "grad", "value_and_grad",
            "Parameter", "functional_call", "seed", "set_device",
            "get_device", "device_count", "is_compiled_with_tpu",

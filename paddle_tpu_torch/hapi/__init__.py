@@ -1,6 +1,7 @@
 """The high-level API of the PyTorch/CUDA port: `Model` over the port's
-`Trainer`, and the callbacks `fit` builds."""
+`Trainer`, the callbacks `fit` builds, and `summary`."""
 from . import callbacks
-from .model import Model
+from .model import InputSpec, Model
+from .model_summary import summary
 
-__all__ = ["callbacks", "Model"]
+__all__ = ["callbacks", "Model", "InputSpec", "summary"]

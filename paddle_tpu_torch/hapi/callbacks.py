@@ -1,7 +1,7 @@
 """Training callbacks: `Callback`, `CallbackList`, `History`,
-`ProgBarLogger` and `ModelCheckpoint`, the counterparts of
-`paddle_tpu/hapi/callbacks.py` (`EarlyStopping`, `LRSchedulerCallback`
-and `VisualDL` are not ported yet)."""
+`ProgBarLogger`, `ModelCheckpoint`, `LRSchedulerCallback`,
+`EarlyStopping` and `VisualDL`, the counterparts of
+`paddle_tpu/hapi/callbacks.py`."""
 from __future__ import annotations
 
 import os
@@ -11,8 +11,17 @@ from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["Callback", "CallbackList", "History", "ProgBarLogger",
-           "ModelCheckpoint"]
+__all__ = ["Callback", "CallbackList", "ProgBarLogger", "ModelCheckpoint",
+           "LRSchedulerCallback", "EarlyStopping", "History", "VisualDL"]
+
+
+def _scalar_value(v):
+    """A log value as a float; None when it is not scalar-like (one rule
+    for EarlyStopping and VisualDL)."""
+    try:
+        return float(np.asarray(v).reshape(-1)[0])
+    except (TypeError, ValueError, IndexError):
+        return None
 
 
 class Callback:
@@ -153,3 +162,145 @@ class ModelCheckpoint(Callback):
     def on_train_end(self, logs=None):
         if self.model is not None:
             self.model.save(os.path.join(self.save_dir, "final"))
+
+
+class LRSchedulerCallback(Callback):
+    """Steps the optimizer's LRScheduler each epoch (`by_epoch`) and / or
+    each batch (`by_step`)."""
+
+    def __init__(self, by_step: bool = False, by_epoch: bool = True):
+        super().__init__()
+        self.by_step = by_step
+        self.by_epoch = by_epoch
+
+    def _sched(self):
+        from ..optimizer.lr import LRScheduler
+        opt = getattr(self.model, "_optimizer", None)
+        lr = getattr(opt, "_lr", None)
+        return lr if isinstance(lr, LRScheduler) else None
+
+    def on_train_batch_end(self, step, logs=None):
+        if self.by_step:
+            s = self._sched()
+            if s:
+                s.step()
+
+    def on_epoch_end(self, epoch, logs=None):
+        if self.by_epoch:
+            s = self._sched()
+            if s:
+                s.step()
+
+
+class EarlyStopping(Callback):
+    """Sets `stop_training` once the monitored eval log has not improved
+    (by more than `min_delta`, in `mode`: "auto" is "max" for a name with
+    "acc" in it, else "min") for `patience` evaluations; `fit` stops
+    after that epoch."""
+
+    def __init__(self, monitor="loss", mode="auto", patience=0, verbose=1,
+                 min_delta=0, baseline=None, save_best_model=True):
+        super().__init__()
+        self.monitor = monitor
+        self.patience = patience
+        self.min_delta = abs(min_delta)
+        self.baseline = baseline
+        self.save_best_model = save_best_model
+        if mode == "auto":
+            mode = "max" if "acc" in monitor else "min"
+        self.mode = mode
+        self.stopped_epoch = 0
+        self.wait = 0
+        self.best = None
+        self.stop_training = False
+        self._warned_nonscalar = False
+
+    def _better(self, cur, best):
+        if self.mode == "min":
+            return cur < best - self.min_delta
+        return cur > best + self.min_delta
+
+    def on_eval_end(self, logs=None):
+        logs = logs or {}
+        raw = logs.get(self.monitor)
+        cur = _scalar_value(raw)
+        if cur is None:
+            if raw is not None and not self._warned_nonscalar:
+                import warnings
+                warnings.warn(
+                    f"EarlyStopping monitor {self.monitor!r} produced a "
+                    f"non-scalar value ({type(raw).__name__}); early "
+                    "stopping is effectively disabled", stacklevel=2)
+                self._warned_nonscalar = True
+            return
+        if self.best is None or self._better(cur, self.best):
+            self.best = cur
+            self.wait = 0
+        else:
+            self.wait += 1
+            if self.wait >= self.patience:
+                self.stop_training = True
+
+
+class VisualDL(Callback):
+    """Scalar logging: each train batch's logs (every `log_freq` steps)
+    as `train/<name>` and each evaluation's as `eval/<name>`, to a
+    visualdl `LogWriter` when the `visualdl` package imports, else to
+    `{log_dir}/scalars.jsonl`, one {"tag", "step", "value"} object per
+    line (JAX's file, line for line). Non-scalar values are skipped."""
+
+    def __init__(self, log_dir: str = "./vdl_log", log_freq: int = 1):
+        super().__init__()
+        self.log_dir = log_dir
+        self.log_freq = max(log_freq, 1)
+        os.makedirs(log_dir, exist_ok=True)
+        self._step = 0
+        self._eval_round = 0
+        self._writer = None
+        self._jsonl = None
+
+    def _ensure_open(self):
+        """Lazy (re-)open: the callback survives close (reuse across
+        fit/evaluate calls) and an aborted fit leaks nothing beyond the
+        currently-open handle."""
+        if self._writer is not None or \
+                (self._jsonl is not None and not self._jsonl.closed):
+            return
+        try:  # real visualdl when present
+            from visualdl import LogWriter  # type: ignore
+            self._writer = LogWriter(logdir=self.log_dir)
+        except ImportError:
+            self._jsonl = open(os.path.join(self.log_dir,
+                                            "scalars.jsonl"),
+                               "a", buffering=1)
+
+    def _scalar(self, tag, value, step):
+        value = _scalar_value(value)
+        if value is None:
+            return
+        self._ensure_open()
+        if self._writer is not None:
+            self._writer.add_scalar(tag=tag, value=value, step=step)
+        else:
+            import json
+            self._jsonl.write(json.dumps(
+                {"tag": tag, "step": step, "value": value}) + "\n")
+
+    def on_train_batch_end(self, step, logs=None):
+        self._step += 1
+        if self._step % self.log_freq:
+            return
+        for k, v in (logs or {}).items():
+            self._scalar(f"train/{k}", v, self._step)
+
+    def on_eval_end(self, logs=None):
+        self._eval_round += 1
+        for k, v in (logs or {}).items():
+            self._scalar(f"eval/{k}", v, self._eval_round)
+
+    def on_train_end(self, logs=None):
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+        elif self._jsonl is not None:
+            self._jsonl.close()  # _ensure_open reopens on reuse

@@ -1,6 +1,7 @@
 """The high-level `Model`: the counterpart of `paddle_tpu/hapi/model.py`
 over the port's `Trainer` (`prepare`, `fit`, `evaluate`, `predict`,
-`train_batch`, `eval_batch`, `predict_batch`, `save`, `load`).
+`train_batch`, `eval_batch`, `predict_batch`, `save`, `load`,
+`summary`); `InputSpec` is `static.InputSpec`, re-exported as in JAX.
 
 The network runs where its parameters are (a port model is built on
 the card unless it is given `device="cpu"`); numpy batches go there
@@ -26,9 +27,10 @@ from ..framework.trainer import Trainer
 from ..io import DataLoader, Dataset
 from ..metric import Metric
 from ..profiler import Benchmark, benchmark
+from ..static import InputSpec
 from .callbacks import CallbackList, History, ModelCheckpoint, ProgBarLogger
 
-__all__ = ["Model"]
+__all__ = ["Model", "InputSpec"]
 
 
 class Model:
@@ -290,3 +292,9 @@ class Model:
 
     def parameters(self):
         return self.network.parameters()
+
+    def summary(self, input_size=None, dtype=None):
+        from .model_summary import summary
+        if input_size is None and self._inputs:
+            input_size = [tuple(i.shape) for i in self._inputs]
+        return summary(self.network, input_size, dtypes=dtype)

@@ -20,8 +20,9 @@ one seed gives the same index order in both packages;
 `WeightedRandomSampler` the same; `random_split` permutes with
 `RandomState(seed)`; `DistributedBatchSampler` with `RandomState(epoch)`
 as in JAX. A worker's `WorkerInfo.seed` is the loader's seed + its id.
-`default_collate_fn` stacks with `np.stack` (the JAX package's native
-parallel-memcpy collate is not ported yet).
+`default_collate_fn` stacks a batch of arrays of 256 KiB or more
+through the native parallel-memcpy collate (`native.collate_batch`,
+`native/collate.cc`), smaller ones with `np.stack`, as JAX does.
 """
 from __future__ import annotations
 
@@ -311,13 +312,17 @@ class DistributedBatchSampler(BatchSampler):
 
 
 def default_collate_fn(batch: List[Any]):
-    """Stack a list of samples: arrays with `np.stack`, numbers into an
-    array, tuples / lists / dicts field by field, recursively (a CPU
-    tensor as its numpy array)."""
+    """Stack a list of samples: arrays with `np.stack` (256 KiB or more
+    through the native collate), numbers into an array, tuples / lists
+    / dicts field by field, recursively (a CPU tensor as its numpy
+    array)."""
     sample = batch[0]
     if isinstance(sample, torch.Tensor):
         return np.stack([s.detach().cpu().numpy() for s in batch])
     if isinstance(sample, np.ndarray):
+        if sample.nbytes * len(batch) >= (1 << 18):
+            from .. import native
+            return native.collate_batch(batch)
         return np.stack(batch)
     if isinstance(sample, (int, float, np.number)):
         return np.asarray(batch)

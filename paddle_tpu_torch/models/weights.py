@@ -12,9 +12,10 @@ taken as they are. An int8 model (PTQ- or QAT-converted) crosses with
 `load_jax_int8_params`: its `raw_buffers()` carry each `Int8Linear`'s
 codes and scales, and the port model's Linears there become
 `Int8Linear`s. Any other port module whose names mirror its JAX model's
-(the ResNet family) crosses with `load_jax_state` (parameters and
-buffers, such as BatchNorm's running statistics), and its train state
-with `from_jax_train_state(tree, model=...)`.
+(the ResNet family, the vision zoo) crosses with `load_jax_state`
+(parameters and buffers, such as BatchNorm's running statistics; a
+converted int8 model's `Int8Linear` / `Int8Conv2D` buffers too), and
+its train state with `from_jax_train_state(tree, model=...)`.
 
 Under a mesh the values are those of the unsharded state: a JAX state
 trained with `Trainer(mesh=)` holds global arrays, whose
@@ -137,17 +138,112 @@ def load_jax_state(model: torch.nn.Module,
     model's device and the tensor's dtype; bf16 carried bit for bit).
     Parameter names and shapes must equal the model's, and so must the
     buffers' when `np_buffers` is given; any mismatch raises before
-    anything is copied."""
-    own = dict(model.named_parameters())
-    _check(np_params, {k: tuple(p.shape) for k, p in own.items()})
-    bufs = dict(model.named_buffers())
+    anything is copied or swapped. A PTQ- or QAT-converted JAX model's
+    buffers name each int8 layer by its `<prefix>.qweight`: the port
+    model's `Linear` / `Conv2D` at that prefix becomes an `Int8Linear` /
+    `Int8Conv2D` (with the Conv2D's stride, padding, dilation, groups
+    and data format) holding those buffers, in their own dtypes, once
+    each is checked against the layer it replaces (`_int8_layers`)."""
+    swap = _int8_layers(model, np_buffers or {})
+    params = {k: tuple(p.shape) for k, p in model.named_parameters()
+              if _owner(k, swap) is None}
+    _check(np_params, params)
     if np_buffers is not None:
-        _check(np_buffers, {k: tuple(b.shape) for k, b in bufs.items()})
+        bufs = {k: tuple(b.shape) for k, b in model.named_buffers()
+                if _owner(k, swap) is None}
+        bufs.update({f"{pre}.{k}": tuple(b.shape) for pre, layer in
+                     swap.items() for k, b in layer.named_buffers()})
+        _check(np_buffers, bufs)
+    _install(model, swap)
+    own = dict(model.named_parameters())
     for k, v in np_params.items():
         own[k].copy_(_to_tensor(k, v))
+    bufs = dict(model.named_buffers())
     for k, v in (np_buffers or {}).items():
-        bufs[k].copy_(_to_tensor(k, v))
+        if _owner(k, swap) is None:
+            bufs[k].copy_(_to_tensor(k, v))
     return model
+
+
+def _owner(name: str, swap: Mapping[str, torch.nn.Module]):
+    """The prefix of `swap` that tensor `name` lies under, or None."""
+    return next((pre for pre in swap if name.startswith(pre + ".")), None)
+
+
+def _int8_layers(model: torch.nn.Module,
+                 np_buffers: Mapping[str, np.ndarray]
+                 ) -> Dict[str, torch.nn.Module]:
+    """{prefix: the Int8Linear / Int8Conv2D that the buffers' `<prefix>.
+    qweight`, `w_scale`, `act_scale` and optional `bias` make of the
+    model's layer there}, built only after every prefix is checked
+    against its layer: a Linear (weight (in, out)) or Conv2D (weight
+    (out, in / groups, kh, kw)), or an int8 layer of the same shape;
+    the qweight of that shape in int8, a w_scale of one per output
+    channel, a scalar act_scale, a bias of one per output channel.
+    Raises KeyError (a name), ValueError (a shape) or TypeError (a
+    dtype) and leaves the model as it was."""
+    from ..quantization import Int8Conv2D, Int8Linear
+    quant = sorted(k[:-len(".qweight")] for k in np_buffers
+                   if k.endswith(".qweight"))
+    names, shapes, dtypes, olds = [], [], [], {}
+    for pre in quant:
+        try:
+            old = model.get_submodule(pre)
+        except AttributeError:
+            names.append(f"{pre}: no such layer")
+            continue
+        kind = type(old).__name__
+        if kind in ("Linear", "Conv2D"):
+            w = tuple(old.weight.shape)
+        elif kind in ("Int8Linear", "Int8Conv2D"):
+            w = tuple(old.qweight.shape)
+        else:
+            names.append(f"{pre}: a {kind}, no Linear or Conv2D")
+            continue
+        olds[pre] = old
+        out = w[1] if kind.endswith("Linear") else w[0]
+        want = {"qweight": w, "w_scale": (out,), "act_scale": ()}
+        if f"{pre}.bias" in np_buffers:
+            want["bias"] = (out,)
+        for t, shape in want.items():
+            k = f"{pre}.{t}"
+            if k not in np_buffers:
+                names.append(f"{k} missing")
+            elif tuple(np.shape(np_buffers[k])) != shape:
+                shapes.append((k, tuple(np.shape(np_buffers[k])), shape))
+        if np.asarray(np_buffers[f"{pre}.qweight"]).dtype != np.int8:
+            dtypes.append(f"{pre}.qweight")
+    if names:
+        raise KeyError(f"int8 buffers that fit no layer: {names[:8]}")
+    if shapes:
+        raise ValueError(f"int8 buffer shapes differ (name, got, "
+                         f"expected): {shapes[:8]}")
+    if dtypes:
+        raise TypeError(f"qweight must be int8: {dtypes[:8]}")
+    dev = next(iter(model.state_dict().values())).device
+    out = {}
+    for pre, old in olds.items():
+        bufs = {t: _to_tensor(f"{pre}.{t}", np_buffers[f"{pre}.{t}"]).to(dev)
+                for t in ("qweight", "w_scale", "act_scale", "bias")
+                if f"{pre}.{t}" in np_buffers}
+        kind = type(old).__name__
+        if kind.endswith("Linear"):
+            out[pre] = Int8Linear(bufs["qweight"], bufs["w_scale"],
+                                  bufs["act_scale"], bufs.get("bias"))
+        else:
+            args = old._conv_args if kind == "Int8Conv2D" else (
+                old.stride, old.padding, old.dilation, old.groups,
+                old.data_format or "NCHW")
+            out[pre] = Int8Conv2D(bufs["qweight"], bufs["w_scale"],
+                                  bufs["act_scale"], bufs.get("bias"), *args)
+    return out
+
+
+def _install(model: torch.nn.Module, swap: Mapping[str, torch.nn.Module]):
+    for pre, layer in swap.items():
+        parent, _, name = pre.rpartition(".")
+        setattr(model.get_submodule(parent) if parent else model, name,
+                layer)
 
 
 def _linear_prefixes(cfg: GPTConfig):
@@ -168,7 +264,6 @@ def load_jax_int8_params(model: GPT, np_params: Mapping[str, np.ndarray],
     the scales' dtype as saved). Names and shapes are checked against
     the model's config, and any mismatch raises before anything is
     copied."""
-    from ..quantization import Int8Linear
     shapes = param_shapes(model.cfg)
     quant = sorted(k[:-len(".qweight")] for k in np_buffers
                    if k.endswith(".qweight"))
@@ -190,19 +285,7 @@ def load_jax_int8_params(model: GPT, np_params: Mapping[str, np.ndarray],
             want_bufs[pre + ".bias"] = (n,)
     _check(np_params, want_params)
     _check(np_buffers, want_bufs)
-    bad = [k for k in quant if np.asarray(np_buffers[k + ".qweight"]).dtype
-           != np.int8]
-    if bad:
-        raise TypeError(f"qweight must be int8: {bad[:8]}")
-    dev = model.device
-    for pre in quant:
-        parent, _, name = pre.rpartition(".")
-        bufs = {t: _to_tensor(f"{pre}.{t}", np_buffers[f"{pre}.{t}"]).to(dev)
-                for t in ("qweight", "w_scale", "act_scale", "bias")
-                if f"{pre}.{t}" in np_buffers}
-        setattr(model.get_submodule(parent) if parent else model, name,
-                Int8Linear(bufs["qweight"], bufs["w_scale"],
-                           bufs["act_scale"], bufs.get("bias")))
+    _install(model, _int8_layers(model, np_buffers))
     return load_jax_params(model, np_params)
 
 

@@ -13,7 +13,8 @@ from .layers_common import (CELU, ELU, GLU, SELU, AlphaDropout, Dropout2D,
                             RReLU, Sequential, Sigmoid, Silu, Softmax,
                             Softplus, Softshrink, Softsign, Swish, Tanh,
                             Tanhshrink, ThresholdedReLU)
-from .layers_conv import Conv1D, Conv2D, Conv3D
+from .layers_conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose,
+                          Conv3D, Conv3DTranspose)
 from .layers_loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
                           CrossEntropyLoss, CTCLoss, GaussianNLLLoss,
                           HingeEmbeddingLoss, HuberLoss, KLDivLoss, L1Loss,
@@ -22,7 +23,11 @@ from .layers_loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
                           SmoothL1Loss, SoftMarginLoss, TripletMarginLoss)
 from .layers_norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                           SyncBatchNorm)
-from .layers_pooling import AdaptiveAvgPool2D, AvgPool2D, MaxPool2D
+from .layers_pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
+                             AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+                             AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+                             AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D,
+                             MaxPool3D)
 from .layers_transformer import (FusedFeedForward, FusedMultiHeadAttention,
                                  FusedTransformerEncoderLayer,
                                  MultiHeadAttention, Transformer,
@@ -38,8 +43,12 @@ __all__ = ["clip", "functional", "initializer", "ranks", "rng", "Linear",
            "Hardtanh", "Hardshrink", "Softshrink", "Tanhshrink", "Softplus",
            "Softsign", "Tanh", "PReLU", "RReLU", "GLU", "Maxout", "Softmax",
            "LogSoftmax", "ThresholdedReLU", "Conv1D", "Conv2D", "Conv3D",
+           "Conv1DTranspose", "Conv2DTranspose", "Conv3DTranspose",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "SyncBatchNorm", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D", "CrossEntropyLoss",
+           "SyncBatchNorm", "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D",
+           "MaxPool2D", "MaxPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
+           "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
+           "AdaptiveMaxPool3D", "CrossEntropyLoss",
            "MSELoss", "L1Loss", "NLLLoss", "BCELoss", "BCEWithLogitsLoss",
            "KLDivLoss", "SmoothL1Loss", "HuberLoss", "MarginRankingLoss",
            "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss",

@@ -27,14 +27,16 @@ as a permuted (`channels_last`) view with no copy, and cast through
 new_var) with JAX's statistics (shifted by the running mean, E[x²] −
 E[x]² in fp32, the biased batch variance into the running one,
 momentum 0.9 meaning new = 0.9·old + 0.1·batch) and normalises in the
-activation dtype; `max_pool2d` / `avg_pool2d` are `reduce_window` over
-the padded input (`ceil_mode` widens the high side, `exclusive` counts
-only the real entries), and so are `max_pool3d` / `avg_pool3d`;
+activation dtype; `max_pool1d/2d/3d` / `avg_pool1d/2d/3d` are
+`reduce_window` over the padded input (`ceil_mode` widens the high
+side, `exclusive` counts only the real entries), with `return_mask`
+(`_pool_argmax`, 2-D NCHW only, as in JAX);
 `conv1d_transpose` / `conv2d_transpose` / `conv3d_transpose` take the
 reference's (in, out / groups, *k) weights, integer padding as the
 gradient of a convolution and "SAME" / "VALID" as `lax.conv_transpose`
 pads them; `label_smooth` and `pixel_shuffle` are the reference's;
-`adaptive_avg_pool2d` means axis by axis;
+the adaptive average and max pools (1-D, 2-D, 3-D) reduce axis by
+axis, and the max pools' masks are JAX's zeros;
 `cross_entropy` has hard and soft labels, `ignore_index`, `weight`,
 `label_smoothing` and `reduction`; the other losses of
 `paddle_tpu/nn/functional.py:1031-1330` (binary cross-entropy with and
@@ -63,8 +65,11 @@ __all__ = ["linear", "layer_norm", "gelu", "relu", "relu_", "relu6",
            "embedding", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "scaled_dot_product_attention", "conv1d", "conv2d", "conv3d",
            "conv1d_transpose", "conv2d_transpose", "conv3d_transpose",
-           "batch_norm", "max_pool2d", "avg_pool2d", "max_pool3d",
-           "avg_pool3d", "adaptive_avg_pool2d", "label_smooth",
+           "batch_norm", "max_pool1d", "max_pool2d", "max_pool3d",
+           "avg_pool1d", "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
+           "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+           "adaptive_max_pool1d", "adaptive_max_pool2d",
+           "adaptive_max_pool3d", "label_smooth",
            "pixel_shuffle",
            "flatten", "cross_entropy", "softmax_with_cross_entropy",
            "binary_cross_entropy", "binary_cross_entropy_with_logits",
@@ -594,7 +599,8 @@ def _pool(x, kind, kernel, stride, padding, ceil_mode, exclusive,
     """`reduce_window` over the padded input, as the JAX `_pool`: max
     pads with -inf; avg sums the window and divides by the count of
     real entries (`exclusive`) or by the window size; `ceil_mode` widens
-    the high side so a last partial window is kept."""
+    the high side so a last partial window is kept. A 1-D pool runs as
+    a 2-D one over an (N, C, 1, L) view."""
     kernel = _tupleize(kernel, nd)
     stride = _tupleize(stride if stride is not None else kernel, nd)
     last = data_format in _CHANNELS_LAST
@@ -607,6 +613,11 @@ def _pool(x, kind, kernel, stride, padding, ceil_mode, exclusive,
             rem = (sizes[i] + lo + hi - kernel[i]) % stride[i]
             if rem:
                 pads[i] = (lo, hi + stride[i] - rem)
+    if nd == 1:
+        out = _pool(x.unsqueeze(2), kind, (1,) + kernel, (1,) + stride,
+                    [(0, 0)] + pads, False, exclusive, "NCHW", 2)
+        out = out.squeeze(2)
+        return _channels_last(out, nd) if last else out
     max_pool = (torch.nn.functional.max_pool2d,
                 torch.nn.functional.max_pool3d)[nd - 2]
     avg_pool = (torch.nn.functional.avg_pool2d,
@@ -634,10 +645,71 @@ def _pool(x, kind, kernel, stride, padding, ceil_mode, exclusive,
     return _channels_last(out, nd) if last else out
 
 
+def _pool_argmax(x, kernel, stride, padding, nd):
+    """`return_mask`, as the JAX `_pool_argmax`: per window the flat
+    index of its first largest entry within the unpadded H x W plane,
+    int32 (JAX's int64 at x64 off). NCHW only and without `ceil_mode`'s
+    widening, as in JAX; padding holds the dtype's lowest finite value
+    (its index -1), and windows are read in float32. Other ranks and
+    string padding raise JAX's errors."""
+    if nd != 2:
+        raise NotImplementedError(
+            "return_mask is implemented for 2-D pooling (NCHW) only")
+    kernel = _tupleize(kernel, nd)
+    stride = _tupleize(stride if stride is not None else kernel, nd)
+    pads = _conv_padding(padding, nd)
+    if isinstance(pads, str):
+        raise NotImplementedError("return_mask with string padding")
+    n, c, h, w = x.shape
+    low = torch.finfo(x.dtype).min if x.is_floating_point() \
+        else torch.iinfo(x.dtype).min
+    xp = _pad_spatial(x, pads, low).float()
+    plane = torch.arange(h * w, dtype=torch.float64, device=x.device)
+    ip = _pad_spatial(plane.reshape(1, 1, h, w), pads, -1.0)
+    oh = (xp.shape[2] - kernel[0]) // stride[0] + 1
+    ow = (xp.shape[3] - kernel[1]) // stride[1] + 1
+    k = kernel[0] * kernel[1]
+    unfold = torch.nn.functional.unfold
+    which = unfold(xp, kernel, stride=stride).reshape(
+        n, c, k, oh, ow).argmax(dim=2)
+    idx = unfold(ip, kernel, stride=stride).reshape(1, 1, k, oh, ow)
+    return torch.gather(idx.expand(n, c, k, oh, ow), 2,
+                        which.unsqueeze(2)).squeeze(2).to(torch.int32)
+
+
+def _max_pool(x, kernel_size, stride, padding, return_mask, ceil_mode,
+              data_format, nd):
+    out = _pool(x, "max", kernel_size, stride, padding, ceil_mode, True,
+                data_format, nd)
+    if not return_mask:
+        return out
+    return out, _pool_argmax(x, kernel_size, stride, padding, nd)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCL"):
+    return _max_pool(x, kernel_size, stride, padding, return_mask,
+                     ceil_mode, data_format, 1)
+
+
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               data_format="NCHW"):
-    return _pool(x, "max", kernel_size, stride, padding, ceil_mode, True,
-                 data_format, 2)
+               data_format="NCHW", return_mask=False):
+    """JAX's `max_pool2d`; `return_mask` comes last here (JAX has it
+    before `ceil_mode`), so a positional `ceil_mode` keeps its place."""
+    return _max_pool(x, kernel_size, stride, padding, return_mask,
+                     ceil_mode, data_format, 2)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCDHW"):
+    return _max_pool(x, kernel_size, stride, padding, return_mask,
+                     ceil_mode, data_format, 3)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCL"):
+    return _pool(x, "avg", kernel_size, stride, padding, ceil_mode,
+                 exclusive, data_format, 1)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
@@ -657,29 +729,23 @@ def _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
     return out
 
 
-def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCDHW"):
-    if return_mask:
-        raise NotImplementedError(
-            "max_pool3d return_mask is not ported yet (ROADMAP Queue 1, "
-            "item 13.1's rest)")
-    return _pool(x, "max", kernel_size, stride, padding, ceil_mode, True,
-                 data_format, 3)
-
-
 def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True, divisor_override=None, data_format="NCDHW"):
     return _avg_pool(x, kernel_size, stride, padding, ceil_mode, exclusive,
                      divisor_override, data_format, 3)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+def _adaptive_pool(x, output_size, nd, kind, channels_last=False):
     """Axis by axis, as the JAX `_adaptive_pool`: a divisible axis as a
-    reshape and a mean, another as the means of the segments [floor(i ·
-    in / out), ceil((i + 1) · in / out))."""
-    nd = 2
+    reshape and a mean (or max), another as the means (maxima) of the
+    segments [floor(i · in / out), ceil((i + 1) · in / out))."""
     output_size = _tupleize(output_size, nd)
-    spatial0 = x.dim() - nd - 1 if data_format == "NHWC" else x.dim() - nd
+    spatial0 = x.dim() - nd - 1 if channels_last else x.dim() - nd
+
+    def reduce(t, dim, keepdim=False):
+        return t.amax(dim=dim, keepdim=keepdim) if kind == "max" \
+            else t.mean(dim=dim, keepdim=keepdim)
+
     out = x
     for i in range(nd):
         axis = spatial0 + i
@@ -687,15 +753,50 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
         if osz is None or osz == isz:
             continue
         if isz % osz == 0:
-            out = out.reshape(out.shape[:axis] + (osz, isz // osz)
-                              + out.shape[axis + 1:]).mean(dim=axis + 1)
+            out = reduce(out.reshape(out.shape[:axis] + (osz, isz // osz)
+                                     + out.shape[axis + 1:]), axis + 1)
         else:
             out = torch.cat([
-                out.narrow(axis, (j * isz) // osz,
-                           ((j + 1) * isz + osz - 1) // osz - (j * isz) // osz
-                           ).mean(dim=axis, keepdim=True)
+                reduce(out.narrow(axis, (j * isz) // osz,
+                                  ((j + 1) * isz + osz - 1) // osz
+                                  - (j * isz) // osz), axis, keepdim=True)
                 for j in range(osz)], dim=axis)
     return out
+
+
+def adaptive_avg_pool1d(x, output_size):
+    return _adaptive_pool(x, output_size, 1, "avg")
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    return _adaptive_pool(x, output_size, 2, "avg",
+                          channels_last=data_format == "NHWC")
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
+    return _adaptive_pool(x, output_size, 3, "avg",
+                          channels_last=data_format == "NDHWC")
+
+
+def _adaptive_max(x, output_size, return_mask, nd):
+    """JAX's adaptive max pools; their mask is all zeros (int32, JAX's
+    int64 at x64 off), the reference's own quirk."""
+    out = _adaptive_pool(x, output_size, nd, "max")
+    if not return_mask:
+        return out
+    return out, torch.zeros(out.shape, dtype=torch.int32, device=out.device)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False):
+    return _adaptive_max(x, output_size, return_mask, 1)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False):
+    return _adaptive_max(x, output_size, return_mask, 2)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False):
+    return _adaptive_max(x, output_size, return_mask, 3)
 
 
 def label_smooth(label, prior_dist=None, epsilon=0.1):

@@ -1,10 +1,14 @@
 """Convolution layers: the counterpart of `paddle_tpu/nn/layers_conv.py`
-(`Conv1D`, `Conv2D`, `Conv3D`).
+(`Conv1D`, `Conv2D`, `Conv3D` and the transposed `Conv1DTranspose`,
+`Conv2DTranspose`, `Conv3DTranspose`).
 
 The weight is (out, in/groups, *k), the reference's layout and torch's
-alike, so a JAX state dict carries over as it is. The default
+alike, so a JAX state dict carries over as it is; a transposed
+convolution's is (in, out/groups, *k), as in JAX, and its `forward`
+takes `output_size=` (passed on and, as in JAX, not read). The default
 initializer of weight and bias is Uniform(±1/sqrt(fan_in)), fan_in =
-in/groups · prod(k); `weight_attr` / `bias_attr` take an
+in/groups · prod(k) (for a transposed one too, as in JAX);
+`weight_attr` / `bias_attr` take an
 `initializer.Initializer`, `bias_attr=False` drops the bias. Random
 initializers draw from the generator `gen`, or from the default
 generator (reproducible under `seed`) when it is None.
@@ -20,7 +24,8 @@ from torch import nn
 from . import functional as F
 from . import initializer as I
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+           "Conv3DTranspose"]
 
 
 def _ntuple(v, n):
@@ -35,7 +40,8 @@ class _ConvNd(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, nd,
                  stride=1, padding=0, dilation=1, groups=1,
                  padding_mode="zeros", weight_attr=None, bias_attr=None,
-                 data_format=None, gen: Optional[torch.Generator] = None):
+                 data_format=None, gen: Optional[torch.Generator] = None,
+                 transpose: bool = False, output_padding=0):
         super().__init__()
         if padding_mode != "zeros":
             raise NotImplementedError(
@@ -48,7 +54,10 @@ class _ConvNd(nn.Module):
         self.dilation = _ntuple(dilation, nd)
         self.groups = groups
         self.data_format = data_format
-        shape = (out_channels, in_channels // groups, *self.kernel_size)
+        self.output_padding = output_padding
+        shape = (in_channels, out_channels // groups, *self.kernel_size) \
+            if transpose else \
+            (out_channels, in_channels // groups, *self.kernel_size)
         fan_in = in_channels // groups * int(np.prod(self.kernel_size))
         bound = 1.0 / np.sqrt(fan_in)
         w_init = weight_attr if isinstance(weight_attr, I.Initializer) \
@@ -106,3 +115,51 @@ class Conv3D(_ConvNd):
         super().__init__(in_channels, out_channels, kernel_size, 3, stride,
                          padding, dilation, groups, padding_mode, weight_attr,
                          bias_attr, data_format, gen)
+
+
+class _ConvTransposeNd(_ConvNd):
+    _fn = None
+
+    def forward(self, x, output_size=None):
+        return type(self)._fn(x, self.weight, self.bias, self.stride,
+                              self.padding, self.output_padding, self.groups,
+                              self.dilation, output_size, self.data_format)
+
+
+class Conv1DTranspose(_ConvTransposeNd):
+    _fn = staticmethod(F.conv1d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 gen=None):
+        super().__init__(in_channels, out_channels, kernel_size, 1, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, gen, transpose=True,
+                         output_padding=output_padding)
+
+
+class Conv2DTranspose(_ConvTransposeNd):
+    _fn = staticmethod(F.conv2d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 gen=None):
+        super().__init__(in_channels, out_channels, kernel_size, 2, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, gen, transpose=True,
+                         output_padding=output_padding)
+
+
+class Conv3DTranspose(_ConvTransposeNd):
+    _fn = staticmethod(F.conv3d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 gen=None):
+        super().__init__(in_channels, out_channels, kernel_size, 3, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, gen, transpose=True,
+                         output_padding=output_padding)

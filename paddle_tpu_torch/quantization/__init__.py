@@ -1,10 +1,14 @@
 """Quantization: symmetric int8 numerics, QAT (fake-quant with a
-straight-through gradient), PTQ calibration and the int8 Linear.
+straight-through gradient), PTQ calibration, and the int8 Linear and
+Conv2D.
 
-The counterpart of `paddle_tpu/quantization/__init__.py` for Linear
-layers (its quantized convolutions, `QuantedConv2D` and `Int8Conv2D`,
-are not ported yet: ROADMAP Queue 1, item 13.1's rest). The rounding
-points are the reference's, because an int8 code is decided at them:
+The counterpart of `paddle_tpu/quantization/__init__.py`. QAT and PTQ
+swap every layer whose type name is in `quantizable_layer_type` and
+that has a weight (`Linear` and `Conv2D` by default) for its fake-quant
+wrapper (`QuantedLinear`, `QuantedConv2D`), and `convert` turns the
+wrappers into `Int8Linear` / `Int8Conv2D`, as the reference's
+`_QAT_MAP` does. The rounding points are the reference's, because an
+int8 code is decided at them:
 
 - the abs-max and the division by 127 run in the INPUT's dtype, so a
   bf16 input gives a bf16-rounded scale (widened later by the caller);
@@ -13,6 +17,14 @@ points are the reference's, because an int8 code is decided at them:
 - the int8 product accumulates exactly in int32, and the epilogue
   rescales in fp32 (`acc * (sx * sw)`, then `+ bias` widened to fp32)
   before one cast to the activation's dtype.
+
+A convolution's weight scales are per output channel (over axes 1, 2,
+3). `int8_conv2d` accumulates the int8 convolution exactly in int32,
+as JAX's `lax.conv` with `preferred_element_type=int32` does: with one
+group as an im2col (`unfold`) and `int_product`; grouped and depthwise
+as a float64 convolution of the codes (exact: |acc| <= 127² · K, far
+under 2^53), with cuDNN off so no transform (FFT, Winograd) rounds.
+There is no inexact route.
 
 `int8_linear` is the one quantized-linear forward. Few-row inputs
 (`_fused_ok`: at most 4 rows, k and n multiples of 128, a scalar
@@ -30,9 +42,9 @@ import torch
 from torch import nn
 
 __all__ = ["QuantConfig", "fake_quant", "quantize_tensor",
-           "dequantize_tensor", "abs_max_scale", "QuantedLinear", "QAT",
-           "PTQ", "Int8Linear", "int_product", "int8_matmul",
-           "int8_linear"]
+           "dequantize_tensor", "abs_max_scale", "QuantedLinear",
+           "QuantedConv2D", "QAT", "PTQ", "Int8Linear", "Int8Conv2D",
+           "int_product", "int8_matmul", "int8_linear", "int8_conv2d"]
 
 
 # --------------------------------------------------------------------------- #
@@ -169,6 +181,41 @@ def int8_linear(x: torch.Tensor, qweight: torch.Tensor, w_scale,
     return out.to(x.dtype)
 
 
+def int8_conv2d(qx: torch.Tensor, qw: torch.Tensor, stride=1, padding=0,
+                dilation=1, groups: int = 1,
+                data_format: str = "NCHW") -> torch.Tensor:
+    """The exact int32 convolution of int8 codes `qx` (NCHW or NHWC) by
+    int8 codes `qw` (out, in / groups, kh, kw), with the reference's
+    padding forms: one group through im2col and `int_product`, more
+    through a float64 convolution of the codes, cast to int32."""
+    from ..nn import functional as F
+    stride = F._tupleize(stride, 2)
+    dilation = F._tupleize(dilation, 2)
+    if data_format == "NHWC":
+        qx = qx.permute(0, 3, 1, 2)
+    window = [(k - 1) * d + 1 for k, d in zip(qw.shape[2:], dilation)]
+    pads = F._resolve_pads(padding, 2, qx.shape[2:], window, stride)
+    n, o = qx.shape[0], qw.shape[0]
+    if groups == 1:
+        xp = F._pad_spatial(qx.float(), pads)
+        oh = (xp.shape[2] - window[0]) // stride[0] + 1
+        ow = (xp.shape[3] - window[1]) // stride[1] + 1
+        cols = torch.nn.functional.unfold(xp, qw.shape[2:], dilation,
+                                          0, stride)      # (n, K, L)
+        cols = cols.transpose(1, 2).reshape(-1, cols.shape[1])
+        acc = int_product(cols.to(torch.int8), qw.reshape(o, -1).t())
+        acc = acc.reshape(n, oh, ow, o).permute(0, 3, 1, 2)
+    else:
+        with torch.backends.cudnn.flags(enabled=False):
+            acc = torch.nn.functional.conv2d(
+                F._pad_spatial(qx.double(), pads), qw.double(), None,
+                stride, 0, dilation, groups)
+        acc = acc.round().to(torch.int32)
+    if data_format == "NHWC":
+        return acc.permute(0, 2, 3, 1).contiguous()
+    return acc.contiguous()
+
+
 # --------------------------------------------------------------------------- #
 # config
 # --------------------------------------------------------------------------- #
@@ -191,15 +238,15 @@ class QuantConfig:
 
 
 # --------------------------------------------------------------------------- #
-# QAT layer
+# QAT layers
 # --------------------------------------------------------------------------- #
 
-class QuantedLinear(nn.Module):
-    """Wraps a float Linear (weight (in, out)); fake-quants the
-    activation (moving-average abs-max buffer `_act_scale`) and the
-    weight (channel-wise abs-max over the out axis, recomputed from the
-    live weight). While `_calibrating` it runs the pure float layer, so
-    PTQ's observers see the float model's activations."""
+class _QuantedBase(nn.Module):
+    """Wraps a float layer; fake-quants the activation (moving-average
+    abs-max buffer `_act_scale`) and the weight (channel-wise abs-max,
+    recomputed from the live weight). While `_calibrating` it runs the
+    pure float layer, so PTQ's observers see the float model's
+    activations."""
 
     def __init__(self, inner: nn.Module, config: QuantConfig):
         super().__init__()
@@ -217,11 +264,6 @@ class QuantedLinear(nn.Module):
     def _b(self):
         return self.inner.bias
 
-    def weight_scale(self, w: torch.Tensor) -> torch.Tensor:
-        if self._per_channel:
-            return abs_max_scale(w, dim=0, keepdim=True)      # (1, out)
-        return abs_max_scale(w)
-
     def act_scale(self) -> torch.Tensor:
         return self._act_scale
 
@@ -238,14 +280,50 @@ class QuantedLinear(nn.Module):
                 self._act_scale = scale
         return fake_quant(x, scale)
 
+    def _op(self, x, w, b):
+        raise NotImplementedError
+
     def forward(self, x):
-        from ..nn import functional as F
         w = self._w()
         if self._calibrating:
-            return F.linear(x, w, self._b())
+            return self._op(x, w, self._b())
         qx, qw = self._quant_act(x), fake_quant(w, self.weight_scale(w))
         dt = _jnp_dtype(qx, qw)
-        return F.linear(qx.to(dt), qw.to(dt), self._b())
+        return self._op(qx.to(dt), qw.to(dt), self._b())
+
+
+class QuantedLinear(_QuantedBase):
+    """A float Linear (weight (in, out)) under fake-quant; the weight's
+    channel axis is out."""
+
+    def weight_scale(self, w: torch.Tensor) -> torch.Tensor:
+        if self._per_channel:
+            return abs_max_scale(w, dim=0, keepdim=True)      # (1, out)
+        return abs_max_scale(w)
+
+    def _op(self, x, w, b):
+        from ..nn import functional as F
+        return F.linear(x, w, b)
+
+
+class QuantedConv2D(_QuantedBase):
+    """A float Conv2D (weight (out, in / groups, kh, kw)) under
+    fake-quant; the weight's channel axis is out."""
+
+    def weight_scale(self, w: torch.Tensor) -> torch.Tensor:
+        if self._per_channel:
+            return abs_max_scale(w, dim=(1, 2, 3), keepdim=True)
+        return abs_max_scale(w)
+
+    def _op(self, x, w, b):
+        from ..nn import functional as F
+        c = self.inner
+        return F.conv2d(x, w, b, stride=c.stride, padding=c.padding,
+                        dilation=c.dilation, groups=c.groups,
+                        data_format=c.data_format or "NCHW")
+
+
+_QAT_MAP = {"Linear": QuantedLinear, "Conv2D": QuantedConv2D}
 
 
 # --------------------------------------------------------------------------- #
@@ -265,9 +343,10 @@ def _swap_layers(model: nn.Module, should, make) -> int:
 
 
 class QAT:
-    """Quantization-aware training: swap each quantizable Linear for a
-    fake-quant `QuantedLinear` in place (`quantize`), and later turn
-    the wrappers into int8 `Int8Linear`s (`convert`)."""
+    """Quantization-aware training: swap each quantizable layer (its
+    type name in `quantizable_layer_type`, with a weight) for its
+    fake-quant wrapper of `_QAT_MAP` in place (`quantize`), and later
+    turn the wrappers into `Int8Linear` / `Int8Conv2D` (`convert`)."""
 
     def __init__(self, config: Optional[QuantConfig] = None):
         self.config = config or QuantConfig()
@@ -276,17 +355,22 @@ class QAT:
         types = self.config.quantizable_layer_type
 
         def should(m):
-            return "Linear" in types and type(m).__name__ == "Linear" \
+            return type(m).__name__ in types \
                 and isinstance(getattr(m, "weight", None), torch.Tensor)
 
-        if _swap_layers(model, should,
-                        lambda m: QuantedLinear(m, self.config)) == 0:
+        def make(m):
+            return _QAT_MAP[type(m).__name__](m, self.config)
+
+        if _swap_layers(model, should, make) == 0:
             raise ValueError("no quantizable layers found")
         return model
 
     def convert(self, model: nn.Module) -> nn.Module:
-        _swap_layers(model, lambda m: isinstance(m, QuantedLinear),
-                     Int8Linear.from_quanted)
+        def make(m):
+            cls = Int8Linear if isinstance(m, QuantedLinear) else Int8Conv2D
+            return cls.from_quanted(m)
+
+        _swap_layers(model, lambda m: isinstance(m, _QuantedBase), make)
         model.eval()
         return model
 
@@ -314,7 +398,7 @@ class PTQ:
         QAT(self.config).quantize(model)
         model.eval()
         for sub in model.modules():
-            if isinstance(sub, QuantedLinear):
+            if isinstance(sub, _QuantedBase):
                 sub._calibrating = True
                 self._observed[id(sub)] = []
                 self._hooks.append(sub.register_forward_pre_hook(
@@ -328,8 +412,8 @@ class PTQ:
 
     @torch.no_grad()
     def sample(self, model: nn.Module, data) -> nn.Module:
-        """Run calibration batches (token ids, or (ids, ...) tuples)
-        through the model on its own device."""
+        """Run calibration batches (token ids or images, or (x, ...)
+        tuples) through the model on its own device."""
         dev = next(model.parameters()).device
         for batch in data:
             xs = batch[0] if isinstance(batch, (tuple, list)) else batch
@@ -338,7 +422,7 @@ class PTQ:
 
     def convert(self, model: nn.Module) -> nn.Module:
         for sub in model.modules():
-            if isinstance(sub, QuantedLinear):
+            if isinstance(sub, _QuantedBase):
                 sub._calibrating = False
                 maxima = self._observed.get(id(sub), [])
                 if maxima:
@@ -357,7 +441,7 @@ class PTQ:
 
 
 # --------------------------------------------------------------------------- #
-# int8 inference layer
+# int8 inference layers
 # --------------------------------------------------------------------------- #
 
 class Int8Linear(nn.Module):
@@ -386,3 +470,53 @@ class Int8Linear(nn.Module):
     def forward(self, x):
         return int8_linear(x, self.qweight, self.w_scale, self.act_scale,
                            self.bias)
+
+
+class Int8Conv2D(nn.Module):
+    """Weights stored as int8 codes (out, in / groups, kh, kw) with
+    per-output-channel scales; the forward quantizes the activation
+    with the calibrated scale, accumulates the exact int32 convolution
+    (`int8_conv2d`), rescales in fp32 (`acc * (sx * ws)`, then `+ bias`)
+    and casts once to x's dtype. For an fp32 input that is JAX's
+    function; for a bf16 one JAX casts the accumulator to bf16 first
+    and returns fp32. Buffers under the reference's names (`qweight`,
+    `w_scale`, `act_scale`, `bias`)."""
+
+    def __init__(self, qweight, w_scale, act_scale, bias, stride, padding,
+                 dilation, groups, data_format):
+        super().__init__()
+        self.register_buffer("qweight", qweight)
+        self.register_buffer("w_scale", torch.as_tensor(w_scale))
+        self.register_buffer("act_scale", torch.as_tensor(act_scale))
+        self.register_buffer("bias", bias)
+        self._conv_args = (stride, padding, dilation, groups, data_format)
+
+    @classmethod
+    @torch.no_grad()
+    def from_quanted(cls, layer: QuantedConv2D) -> "Int8Conv2D":
+        w = layer._w().detach()
+        ws = layer.weight_scale(w)
+        b = layer._b()
+        c = layer.inner
+        return cls(quantize_tensor(w, ws), ws.reshape(-1),
+                   layer.act_scale().detach().clone(),
+                   None if b is None else b.detach().clone(), c.stride,
+                   c.padding, c.dilation, c.groups,
+                   c.data_format or "NCHW")
+
+    def int32_acc(self, x: torch.Tensor) -> torch.Tensor:
+        """The int32 accumulators of x's codes (the product before the
+        rescale)."""
+        stride, padding, dilation, groups, data_format = self._conv_args
+        return int8_conv2d(quantize_tensor(x, self.act_scale), self.qweight,
+                           stride, padding, dilation, groups, data_format)
+
+    def forward(self, x):
+        acc = self.int32_acc(x)
+        shape = (1, -1, 1, 1) if self._conv_args[4] == "NCHW" \
+            else (1, 1, 1, -1)
+        out = acc.float() * (self.act_scale.float()
+                             * self.w_scale.float()).reshape(shape)
+        if self.bias is not None:
+            out = out + self.bias.float().reshape(shape)
+        return out.to(x.dtype)

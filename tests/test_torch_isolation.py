@@ -88,6 +88,10 @@ def test_imports_with_jax_and_reference_blocked():
         "import paddle_tpu_torch.ops.registry\n"
         "import paddle_tpu_torch.autograd, paddle_tpu_torch.nn.layer\n"
         "import paddle_tpu_torch.testing.op_cases\n"
+        "import paddle_tpu_torch.models.vision\n"
+        "import paddle_tpu_torch.models.vision_extra\n"
+        "import paddle_tpu_torch.hapi.model_summary\n"
+        "import paddle_tpu_torch.vision.transforms\n"
         "assert paddle_tpu_torch.ops.registry.coverage()['missing'] == 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
         " for m in sys.modules if sys.modules[m] is not None)\n"
@@ -134,7 +138,43 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
         resnet18(num_classes=10)
     with pytest.raises(RuntimeError, match="cuda"):
         DataLoader(TensorDataset([torch.zeros(2)]), to_device="cuda")
+    from paddle_tpu_torch.models import googlenet, mobilenet_v2
+    with pytest.raises(RuntimeError, match="cuda"):
+        mobilenet_v2(num_classes=102)            # fails before the init
+    with pytest.raises(RuntimeError, match="cuda"):
+        googlenet()
     assert core.resolve_device("cpu").type == "cpu"
+
+
+# each JAX module of the vision zoo and its tools, and its port counterpart
+COUNTERPARTS = [
+    ("models.vision", "models.vision"),
+    ("models.vision_extra", "models.vision_extra"),
+    ("nn.layers_pooling", "nn.layers_pooling"),
+    ("nn.layers_conv", "nn.layers_conv"),
+    ("quantization", "quantization"),
+    ("vision.transforms.transforms", "vision.transforms.transforms"),
+    ("vision.transforms.functional", "vision.transforms.functional"),
+    ("vision.datasets", "vision.datasets"),
+    ("hapi.callbacks", "hapi.callbacks"),
+    ("hapi.model_summary", "hapi.model_summary")]
+
+
+@pytest.mark.parametrize("jax_mod,port_mod", COUNTERPARTS,
+                         ids=[c[0] for c in COUNTERPARTS])
+def test_every_public_name_has_its_port_counterpart(jax_mod, port_mod):
+    """Each public name of the JAX module (its `__all__`, or else its
+    public classes and functions) is a name of the port's module."""
+    import importlib
+    import inspect
+    ref = importlib.import_module(f"paddle_tpu.{jax_mod}")
+    port = importlib.import_module(f"paddle_tpu_torch.{port_mod}")
+    names = getattr(ref, "__all__", None) or [
+        n for n, v in vars(ref).items() if not n.startswith("_")
+        and (inspect.isclass(v) or inspect.isfunction(v))
+        and v.__module__ == ref.__name__]
+    assert names
+    assert sorted(n for n in names if not hasattr(port, n)) == []
 
 
 def test_chip_smoke_fails_without_a_card_or_without_the_repo(tmp_path):

@@ -265,7 +265,10 @@ def test_exposition_families_cover_jax(jax_model, model):
     jeng.close()
 
 
-def test_watchdog_counts_builds(model):
+def test_watchdog_counts_builds(model, monkeypatch):
+    from paddle_tpu_torch.ops_cuda import _build
+    # no host library (the collate, say) this process built enters here
+    monkeypatch.setattr(_build, "BUILDS", {})
     eng = LLMEngine(model, max_slots=2, max_seq=64, seed=10,
                     device="cpu", prefix_block=8)
     eng.generate(_prompts([5, 9, 21], seed=10),

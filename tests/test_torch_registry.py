@@ -87,8 +87,8 @@ def test_every_reference_root_name_has_a_counterpart_or_its_item():
             pending[n] = str(e)
     for n, msg in pending.items():
         assert "item 13." in msg or "ops_cuda" in msg, (n, msg)
-    assert set(pending) == {"summary", "distribution", "sparse",
-                            "incubate", "onnx", "utils", "ops_pallas"}
+    assert set(pending) == {"distribution", "sparse", "incubate", "onnx",
+                            "utils", "ops_pallas"}
 
 
 def test_root_exports_mean_what_they_meant():

@@ -487,5 +487,7 @@ def test_pool_layers():
     assert pnn.AvgPool2D(2, data_format="NHWC")(x).shape == (2, 3, 3, 3)
     assert pnn.AdaptiveAvgPool2D(1, data_format="NHWC")(x).shape == \
         (2, 1, 1, 3)
-    with pytest.raises(NotImplementedError):
-        pnn.MaxPool2D(2, return_mask=True)
+    # return_mask is ported: (values, the flat argmax index), NCHW
+    out, mask = pnn.MaxPool2D(2, return_mask=True)(x.permute(0, 3, 1, 2))
+    assert out.shape == mask.shape == (2, 3, 3, 3)
+    assert mask.dtype == torch.int32
